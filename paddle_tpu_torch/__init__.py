@@ -1,0 +1,23 @@
+"""paddle_tpu_torch — the PyTorch + CUDA port of ``paddle_tpu``.
+
+The package mirrors ``paddle_tpu``'s module paths so each counterpart is
+easy to find (``paddle_tpu.ops.fused`` -> ``paddle_tpu_torch.ops.fused``),
+and is idiomatic PyTorch inside: ``nn.Module``s, plain functions on
+tensors, an explicit ``device`` and explicit ``torch.Generator``s.
+
+It imports neither ``jax`` nor ``paddle_tpu``. Entry points run on
+``"cuda"`` unless the caller passes ``device="cpu"``; asking for CUDA on
+a machine without it raises instead of quietly running on the CPU.
+
+Every Pallas kernel that the served path reaches has a hand-written
+CUDA C++ counterpart under ``csrc/`` (built at first use by
+``ops._build``); each sits beside its plain PyTorch version, which a
+wrapper takes only for tensors that lie on the CPU.
+
+This package covers the serving slice: GPT-2 token serving over a paged
+KV cache (``inference.serving``), the model (``text.models.gpt``), the
+LayerNorm and causal flash-attention forward kernels (``ops``).
+"""
+from .core.place import resolve_device
+
+__all__ = ["resolve_device"]

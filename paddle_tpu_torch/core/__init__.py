@@ -1,0 +1,3 @@
+from .place import resolve_device
+
+__all__ = ["resolve_device"]

@@ -1,0 +1,8 @@
+"""Kernels and attention of the port. Importing this package builds
+nothing: the CUDA library is compiled at the first kernel launch."""
+from .attention import dot_product_attention, paged_attention, xla_attention
+from .flash_tpu import flash_attention_blhd
+from .fused import fused_layer_norm
+
+__all__ = ["dot_product_attention", "paged_attention", "xla_attention",
+           "flash_attention_blhd", "fused_layer_norm"]

@@ -20,6 +20,10 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers",
         "slow: long-running end-to-end tests (tier-1 runs -m 'not slow')")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA card (skips without one; run on the card with "
+        "`python -m pytest -m cuda tests/test_torch_*.py`)")
 
 
 @pytest.fixture

@@ -1,0 +1,72 @@
+"""Port attention (paddle_tpu_torch.ops.attention) against the reference:
+both paged tiers against the reference's `_paged_gather_impl` /
+`_paged_scan_impl` on random pages, tables, positions and lengths (stale
+slots past kv_len, padded rows with kv_len 0), and the dense dispatch
+against `xla_attention`."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from paddle_tpu.ops import attention as jatt
+from paddle_tpu_torch.ops import attention as tatt
+
+TOL = 1e-5
+
+
+def _paged_case(B, T, seed, N=12, bs=4, H=2, D=8, M=5):
+    rng = np.random.RandomState(seed)
+    # every page holds random values: slots past kv_len are stale data the
+    # mask must keep unreadable, never zeros that would hide a leak
+    k_pages = rng.randn(N, bs, H, D).astype(np.float32)
+    v_pages = rng.randn(N, bs, H, D).astype(np.float32)
+    q = rng.randn(B, T, H, D).astype(np.float32)
+    tables = np.zeros((B, M), np.int32)
+    qpos = np.zeros((B, T), np.int32)
+    lens = np.zeros((B,), np.int32)
+    for i in range(B - 1):  # the last row is padding: kv_len 0
+        n = rng.randint(T, M * bs + 1)
+        used = -(-n // bs)
+        tables[i, :used] = rng.choice(np.arange(1, N), used, replace=False)
+        lens[i] = n
+        qpos[i] = n - T + np.arange(T)
+    return q, k_pages, v_pages, tables, qpos, lens
+
+
+@pytest.mark.parametrize("impl", ["_paged_gather_impl", "_paged_scan_impl"])
+@pytest.mark.parametrize("B,T,seed", [(3, 1, 0), (4, 1, 1), (2, 4, 2),
+                                      (3, 6, 3)])
+def test_paged_tier_matches_reference(impl, B, T, seed):
+    case = _paged_case(B, T, seed)
+    ref = np.asarray(getattr(jatt, impl)(*(jnp.asarray(a) for a in case)))
+    got = getattr(tatt, impl)(*(torch.from_numpy(a) for a in case)).numpy()
+    np.testing.assert_allclose(got, ref, atol=TOL, rtol=0)
+
+
+def test_paged_tiers_agree_and_dispatch_follows_heuristic():
+    case = [torch.from_numpy(a) for a in _paged_case(3, 2, seed=9)]
+    gather = tatt._paged_gather_impl(*case)
+    scan = tatt._paged_scan_impl(*case)
+    torch.testing.assert_close(gather, scan, atol=TOL, rtol=0)
+    assert torch.equal(tatt.paged_attention(*case), gather)  # 5·4 <= 4096
+    assert tatt._paged_heuristic(256, 16) == "paged_gather"
+    assert tatt._paged_heuristic(257, 16) == "paged_scan"
+
+
+def test_paged_int8_scales_wait_for_quant():
+    case = [torch.from_numpy(a) for a in _paged_case(2, 1, seed=1)]
+    with pytest.raises(NotImplementedError):
+        tatt.paged_attention(*case, k_scale=torch.ones(1))
+
+
+@pytest.mark.parametrize("layout", ["blhd", "bhld"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_dense_dispatch_matches_xla_attention(layout, causal):
+    rng = np.random.RandomState(4)
+    q, k, v = (rng.randn(2, 24, 3, 16).astype(np.float32) for _ in range(3))
+    ref = np.asarray(jatt.xla_attention(q, k, v, causal=causal,
+                                        layout=layout))
+    got = tatt.dot_product_attention(
+        *(torch.from_numpy(a) for a in (q, k, v)), causal=causal,
+        layout=layout).numpy()
+    np.testing.assert_allclose(got, ref, atol=TOL, rtol=0)

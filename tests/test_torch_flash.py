@@ -1,0 +1,133 @@
+"""Port causal flash-attention forward (paddle_tpu_torch.ops.flash_tpu)
+against the reference: the plain path's (out, lse) against the Pallas
+`_fwd_kernel` run in interpret mode, ragged L against `xla_attention`;
+the CUDA kernel against the plain path on a card (marked `cuda`)."""
+import functools
+import math
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+
+from paddle_tpu.ops import attention as jatt
+from paddle_tpu.ops import flash_tpu as jflash
+from paddle_tpu_torch.ops import flash_tpu as tflash
+
+OUT_TOL = 2e-5   # f32 accumulation in both, different order
+LSE_TOL = 1e-5
+
+
+def _pallas_fwd(q, k, v, block):
+    """The reference's own `_fwd_kernel`, launched as `_fwd_call` launches
+    it, in interpret mode. q/k/v: [b, L, H, d] numpy f32."""
+    b, L, H, d = q.shape
+    r3 = lambda a: a.reshape(b, L, H * d)
+    full = pl.BlockSpec((1, L, H * d), lambda ib, iq: (ib, 0, 0))
+    with jax.enable_x64(False):
+        out, lse = pl.pallas_call(
+            functools.partial(jflash._fwd_kernel, H=H, d=d, bq=block,
+                              bk=block, scale=1.0 / math.sqrt(d)),
+            grid=(b, L // block),
+            in_specs=[pl.BlockSpec((1, block, H * d),
+                                   lambda ib, iq: (ib, iq, 0)), full, full],
+            out_specs=[pl.BlockSpec((1, block, H * d),
+                                    lambda ib, iq: (ib, iq, 0)),
+                       pl.BlockSpec((1, H, block),
+                                    lambda ib, iq: (ib, 0, iq))],
+            out_shape=[jax.ShapeDtypeStruct((b, L, H * d), jnp.float32),
+                       jax.ShapeDtypeStruct((b, H, L), jnp.float32)],
+            interpret=True)(r3(q), r3(k), r3(v))
+    return np.asarray(out).reshape(b, L, H, d), np.asarray(lse)
+
+
+def _qkv(shape, seed):
+    rng = np.random.RandomState(seed)
+    return [rng.randn(*shape).astype(np.float32) for _ in range(3)]
+
+
+def _port(q, k, v):
+    out, lse = tflash.flash_attention_blhd(
+        *(torch.from_numpy(a) for a in (q, k, v)))
+    return out.numpy(), lse.numpy()
+
+
+def _np_lse(q, k):
+    """log-sum-exp of each query row's scaled causal scores, [b, H, L]."""
+    d, L = q.shape[-1], q.shape[1]
+    s = np.einsum("bqhd,bkhd->bhqk", q.astype(np.float64),
+                  k.astype(np.float64)) / math.sqrt(d)
+    s = np.where(np.tril(np.ones((L, L), bool)), s, -np.inf)
+    m = s.max(-1, keepdims=True)
+    return (m + np.log(np.exp(s - m).sum(-1, keepdims=True)))[..., 0]
+
+
+@pytest.mark.parametrize("b,L,H,d,block", [
+    (1, 256, 2, 64, 128), (2, 128, 2, 32, 64), (1, 192, 3, 16, 64)])
+def test_matches_pallas_kernel_in_interpret_mode(b, L, H, d, block):
+    q, k, v = _qkv((b, L, H, d), seed=L + d)
+    ref_out, ref_lse = _pallas_fwd(q, k, v, block)
+    out, lse = _port(q, k, v)
+    np.testing.assert_allclose(out, ref_out, atol=OUT_TOL, rtol=0)
+    np.testing.assert_allclose(lse, ref_lse, atol=LSE_TOL, rtol=0)
+
+
+@pytest.mark.parametrize("b,L,H,d", [(1, 77, 2, 32), (2, 33, 3, 16),
+                                     (1, 1, 2, 8)])
+def test_ragged_length_matches_xla_attention(b, L, H, d):
+    """Lengths the TPU kernel's L % 256 gate refused."""
+    q, k, v = _qkv((b, L, H, d), seed=L)
+    ref = np.asarray(jatt.xla_attention(q, k, v, causal=True, layout="blhd"))
+    out, lse = _port(q, k, v)
+    np.testing.assert_allclose(out, ref, atol=OUT_TOL, rtol=0)
+    np.testing.assert_allclose(lse, _np_lse(q, k), atol=LSE_TOL, rtol=0)
+
+
+def test_strided_views_of_a_fused_projection():
+    """q/k/v as views of one [b, L, 3·H·d] projection — the layout the
+    model hands the kernel — give the same result as contiguous copies."""
+    rng = np.random.RandomState(5)
+    qkv = torch.from_numpy(rng.randn(2, 40, 3 * 4 * 16).astype(np.float32))
+    q, k, v = (t.view(2, 40, 4, 16) for t in qkv.split(64, dim=-1))
+    out, lse = tflash.flash_attention_blhd(q, k, v)
+    ref_out, ref_lse = tflash.flash_attention_blhd(
+        q.contiguous(), k.contiguous(), v.contiguous())
+    assert torch.equal(out, ref_out) and torch.equal(lse, ref_lse)
+
+
+def test_non_causal_is_not_this_kernel():
+    q = torch.zeros(1, 4, 1, 8)
+    with pytest.raises(NotImplementedError):
+        tflash.flash_attention_blhd(q, q, q, causal=False)
+
+
+def test_other_devices_raise_instead_of_falling_back():
+    q = torch.empty(1, 4, 2, 64, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        tflash.flash_attention_blhd(q, q, q)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 1e-2)])
+def test_cuda_kernel_matches_plain(cuda_device, dtype, tol):
+    for shape in ((1, 256, 16, 64), (2, 77, 4, 128), (1, 100, 2, 32)):
+        q, k, v = (torch.from_numpy(a).to(cuda_device, dtype)
+                   for a in _qkv(shape, seed=shape[1]))
+        before = tflash.flash_attention_blhd.launches
+        out, lse = tflash.flash_attention_blhd(q, k, v)
+        torch.cuda.synchronize()
+        assert tflash.flash_attention_blhd.launches == before + 1
+        ref_out, ref_lse = tflash._flash_reference(q, k, v)
+        torch.testing.assert_close(out.float(), ref_out.float(), atol=tol,
+                                   rtol=tol)
+        torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=0)

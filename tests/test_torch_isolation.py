@@ -1,0 +1,99 @@
+"""The port stands alone: importing every module of paddle_tpu_torch
+leaves jax and paddle_tpu out of sys.modules and builds no kernel, no
+source file imports either, and entry points asked for the default
+device on a machine without CUDA raise instead of running on the CPU."""
+import ast
+import os
+import pkgutil
+import subprocess
+import sys
+import textwrap
+
+import pytest
+import torch
+
+import paddle_tpu_torch
+from paddle_tpu_torch.core.place import resolve_device
+from paddle_tpu_torch.inference.serving import (KVCacheConfig, KVCachePool,
+                                                TokenServeConfig,
+                                                TokenServingEngine)
+from paddle_tpu_torch.text.models import gpt as tgpt
+
+_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_PKG = os.path.join(_REPO, "paddle_tpu_torch")
+
+
+def _module_names():
+    return sorted(m.name for m in pkgutil.walk_packages(
+        paddle_tpu_torch.__path__, "paddle_tpu_torch."))
+
+
+def test_package_has_the_slice_modules():
+    names = set(_module_names())
+    for mod in ("core.place", "profiler.telemetry", "ops._build",
+                "ops.fused", "ops.flash_tpu", "ops.attention",
+                "text.models.gpt", "jit.functionalize",
+                "inference.serving.request", "inference.serving.admission",
+                "inference.serving.engine", "inference.serving.kv_cache",
+                "inference.serving.decode", "inference.serving.loadgen"):
+        assert "paddle_tpu_torch." + mod in names
+
+
+def test_importing_every_module_pulls_in_no_jax():
+    code = textwrap.dedent(f"""
+        import importlib, sys
+        sys.path.insert(0, {_REPO!r})
+        for name in {_module_names()!r}:
+            importlib.import_module(name)
+        from paddle_tpu_torch.ops import _build
+        bad = sorted(m for m in sys.modules
+                     if m == "jax" or m.startswith("jax.")
+                     or m == "paddle_tpu" or m.startswith("paddle_tpu."))
+        print("BAD", bad, "BUILT", _build._lib is not None)
+    """)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, cwd=_REPO, env=env)
+    assert out.returncode == 0, out.stderr
+    assert "BAD [] BUILT False" in out.stdout, out.stdout
+
+
+def _imports(path):
+    tree = ast.parse(open(path).read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+@pytest.mark.parametrize("path", sorted(
+    [os.path.join(d, f) for d, _, fs in os.walk(_PKG) for f in fs
+     if f.endswith(".py")] + [os.path.join(_REPO, "chip_smoke.py")]))
+def test_no_source_imports_jax_or_the_reference(path):
+    for name in _imports(path):
+        root = name.split(".")[0]
+        assert root not in ("jax", "jaxlib", "paddle_tpu"), (path, name)
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_default_device_without_cuda_raises(no_cuda):
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device()
+    with pytest.raises(RuntimeError):
+        resolve_device("cuda:0")
+    assert resolve_device("cpu").type == "cpu"
+
+
+def test_entry_points_without_device_raise_on_a_cuda_less_machine(no_cuda):
+    with pytest.raises(RuntimeError):
+        tgpt.GPTForCausalLM(tgpt.gpt2_tiny())
+    with pytest.raises(RuntimeError):
+        KVCachePool(KVCacheConfig(1, 1, 8, num_blocks=2, block_size=4))
+    model = tgpt.GPTForCausalLM(tgpt.gpt2_tiny(), device="cpu")
+    with pytest.raises(RuntimeError):
+        TokenServingEngine(model, TokenServeConfig(kv_blocks=32))
