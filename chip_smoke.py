@@ -28,9 +28,19 @@ failing on the first phase that fails:
    run under ``torch.profiler``, the device busy share and the device
    time by kernel;
 6. in f32 (weights, KV, no TF32), checks that two requests' served
-   tokens equal ``dense_greedy_reference`` over the kernels.
+   tokens equal ``dense_greedy_reference`` over the kernels;
+7. (after 3b, which holds the LayerNorm backward, flash-attention dQ and
+   dK/dV and multi-tensor Adam kernels against their plain versions in
+   bf16 and f32, and times them as phase 3 does) takes one training step
+   of a 2-layer GPT-2 345M in f32 (batch 2 x 1024, TF32 off) through the
+   kernels and one through the plain path, and compares the loss, every
+   gradient and every parameter after the Adam step;
+8. trains GPT-2 345M (24 layers) at batch 8 x 1024 in bf16 with f32
+   master weights through ``ParallelTrainStep``: 3 warm-up and 20 timed
+   steps, tokens/s, p50 step time, peak memory, the loss finite and
+   falling, the launch counts per step, and a 2-step profile.
 
-Every kernel's launch count is set to 0 before each of phases 4-6 and
+Every kernel's launch count is set to 0 before each of phases 4-8 and
 read after it. The last two lines are a ``{"kernels": [...]}`` JSON
 object and ``{"ok": true, "device": {...}}``.
 """
@@ -57,6 +67,30 @@ FLASH_LSE_TOL = {torch.float32: (2e-5, 0.0), torch.bfloat16: (1e-4, 0.0)}
 # dense GPT-2 345M logits in bf16: a few bf16 ulps at |logit| <= 4 after
 # 24 layers of independently rounded activations.
 LOGITS_BF16_ATOL = 0.125
+# LayerNorm backward: dx is one f32 result rounded once; dw/db are f32
+# sums over up to 8192 rows taken in another order (f32: relative error of
+# a few 1e-7 of the sum), or one bf16 rounding of them.
+LN_BWD_TOL = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (1e-2, 1e-2)}
+# flash backward: both sides sum f32 products in f32; bf16 outputs are
+# rounded once (one ulp is 2^-8 relative).
+FLASH_BWD_TOL = {torch.float32: (2e-5, 1e-5), torch.bfloat16: (1e-2, 1e-2)}
+# the plain backward against autograd of the plain forward (f32): one
+# function computed two ways (lse and softmax round differently).
+FLASH_BWD_AUTOGRAD_TOL = (1e-4, 1e-4)
+# Adam: kernel and plain version run the same separately rounded IEEE f32
+# operations in the same order.
+ADAM_TOL = (1e-6, 0.0)
+# phase 7, f32 with TF32 off: the loss to a few f32 ulps, each gradient
+# tensor within 1e-4 of its own largest magnitude (sums of up to 2048
+# tokens in another order).
+LOSS_RTOL = 1e-5
+GRAD_REL_TOL = 1e-4
+TRAIN_LR = 1e-4
+# after one Adam step every element moves by lr·g/(|g| + eps), ~lr: an
+# element whose gradient is within f32 noise of 0 may move up to lr the
+# other way; a real disagreement is a 2·lr move, which the gradient check
+# catches first.
+PARAM_ATOL = TRAIN_LR
 
 # --- the card's peaks (H100 SXM data sheet, dense, at 700 W) ----------------
 HBM_BYTES_PER_S = 3.35e12
@@ -68,6 +102,11 @@ LN_HIDDEN = (1024, 768)
 FLASH_SHAPES = ((1, 1024, 16, 64), (4, 512, 16, 64), (2, 77, 16, 64),
                 (1, 256, 8, 128))
 DTYPES = (torch.float32, torch.bfloat16)
+LN_BWD_ROWS = (1, 8, 1024, 8191, 8192)
+FLASH_BWD_SHAPES = ((8, 1024, 16, 64), (4, 512, 16, 64), (2, 77, 16, 64),
+                    (1, 256, 8, 128))
+ADAM_NUMELS = (1, 1000, 65536, 1024 * 4096, 50304 * 1024)
+TRAIN_SHAPE = (8, 1024)  # batch x tokens of the training phase
 
 
 def log(*a):
@@ -110,6 +149,7 @@ def device_ms(fn, iters=20):
 
 def worst(got, ref, atol, rtol):
     """(max |got - ref|, whether every element is within tolerance)."""
+    got, ref = got.detach(), ref.detach()
     d = (got.float() - ref.float()).abs()
     ok = bool((d <= atol + rtol * ref.float().abs()).all())
     return float(d.max()), ok
@@ -133,18 +173,63 @@ def flash_bound(b, L, H, d, dtype):
         else "operations"
 
 
+def ln_bwd_bound(rows, hidden, dtype):
+    esize = torch.finfo(dtype).bits // 8
+    # x, g read and dx written; w read, dw and db written
+    nbytes = (3 * rows * hidden + 3 * hidden) * esize
+    flops = 15 * rows * hidden  # statistics, x^, two means, dx, dw, db
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_CORE_FLOPS
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops \
+        else "operations"
+
+
+def flash_bwd_bound(b, L, H, d, dtype, kernel):
+    """The least time of one backward kernel's own function: dQ needs the
+    products S, dP and dS·K (3), dK/dV needs S, dP, dSᵀ·Q and Pᵀ·dO (4),
+    each over k <= q. (The whole backward needs 5: S and dP once.)"""
+    esize = torch.finfo(dtype).bits // 8
+    outs, products = (1, 3) if kernel == "dq" else (2, 4)
+    nbytes = (4 + outs) * b * L * H * d * esize + 2 * b * H * L * 4
+    flops = products * 2 * d * b * H * L * (L + 1) // 2
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops \
+        else "operations"
+
+
+def adam_bound(numels, grad_esize, low_esize):
+    # grad read, master/m/v read and written, the bf16 copy written
+    nbytes = sum(numels) * (grad_esize + 24 + low_esize)
+    flops = 20 * sum(numels)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_CORE_FLOPS
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops \
+        else "operations"
+
+
+def gpt_param_shapes(cfg):
+    """Shapes of GPTForCausalLM's parameters (292 for GPT-2 345M)."""
+    h, f = cfg.hidden_size, cfg.intermediate_size
+    layer = [(h,), (h,), (h, 3 * h), (3 * h,), (h, h), (h,), (h,), (h,),
+             (h, f), (f,), (f, h), (h,)]
+    return ([(cfg.vocab_size, h), (cfg.max_position_embeddings, h)]
+            + layer * cfg.num_layers + [(h,), (h,)])
+
+
 @contextlib.contextmanager
 def plain_kernels(gpt_mod, fused, flash_tpu):
-    """Run the model's LayerNorms and attention through the kernels'
-    plain PyTorch versions (the comparison path of phase 4)."""
-    saved = gpt_mod.fused_layer_norm, gpt_mod.dot_product_attention
+    """Run the model's LayerNorms and attention (forward and, through
+    autograd, backward) and the optimizer's Adam through the kernels'
+    plain PyTorch versions (the comparison path of phases 4 and 7)."""
+    saved = (gpt_mod.fused_layer_norm, gpt_mod.dot_product_attention,
+             fused.fused_adam_step)
     gpt_mod.fused_layer_norm = fused._ln_reference
     gpt_mod.dot_product_attention = \
         lambda q, k, v, causal, layout: flash_tpu._flash_reference(q, k, v)[0]
+    fused.fused_adam_step = fused._adam_reference
     try:
         yield
     finally:
-        gpt_mod.fused_layer_norm, gpt_mod.dot_product_attention = saved
+        (gpt_mod.fused_layer_norm, gpt_mod.dot_product_attention,
+         fused.fused_adam_step) = saved
 
 
 def profile_serving(model, serve_cfg, prompts, engine_cls, run_streams):
@@ -178,15 +263,243 @@ def profile_serving(model, serve_cfg, prompts, engine_cls, run_streams):
             f"{e.key[:90]}")
 
 
+def check_backward_kernels(dev, rnd, fused, flash_tpu, err):
+    """Phase 3b: the LayerNorm backward, flash dQ / dK-dV and Adam
+    kernels against their plain versions on the card, in f32 and bf16."""
+    for dtype in DTYPES:
+        tol = LN_BWD_TOL[dtype]
+        for hidden in LN_HIDDEN:
+            for rows in LN_BWD_ROWS:
+                x, g = rnd(rows, hidden, dtype=dtype), rnd(rows, hidden,
+                                                            dtype=dtype)
+                w = rnd(hidden, dtype=dtype)
+                got = fused.layer_norm_bwd(x, w, g)
+                torch.cuda.synchronize()
+                ref = fused._ln_bwd_reference(x, w, g)
+                res = [worst(a, b, *tol) for a, b in zip(got, ref)]
+                err["layer_norm_bwd"] = max(err["layer_norm_bwd"],
+                                            *(e for e, _ in res))
+                log(f"[3b] layer_norm_bwd {str(dtype)[6:]} rows={rows} "
+                    f"hidden={hidden}: dx/dw/db max err "
+                    + "/".join(f"{e:.3g}" for e, _ in res) + f" (tol {tol})")
+                if not all(ok for _, ok in res):
+                    raise AssertionError("layer_norm_bwd kernel disagrees")
+        tol = FLASH_BWD_TOL[dtype]
+        for shape in FLASH_BWD_SHAPES:
+            q, k, v, do = (rnd(*shape, dtype=dtype) for _ in range(4))
+            out, lse = flash_tpu._fwd(q, k, v)
+            delta = flash_tpu._delta(out, do)
+            dq = flash_tpu.flash_bwd_dq(q, k, v, do, lse, delta)
+            dk, dv = flash_tpu.flash_bwd_dkv(q, k, v, do, lse, delta)
+            torch.cuda.synchronize()
+            ref = flash_tpu._flash_bwd_reference(q, k, v, out, lse, do)
+            res = [worst(a, b, *tol) for a, b in zip((dq, dk, dv), ref)]
+            err["flash_attn_bwd_dq"] = max(err["flash_attn_bwd_dq"],
+                                           res[0][0])
+            err["flash_attn_bwd_dkv"] = max(err["flash_attn_bwd_dkv"],
+                                            res[1][0], res[2][0])
+            log(f"[3b] flash_bwd {str(dtype)[6:]} (b,L,H,d)={shape}: "
+                "dq/dk/dv max err "
+                + "/".join(f"{e:.3g}" for e, _ in res) + f" (tol {tol})")
+            if not all(ok for _, ok in res):
+                raise AssertionError("flash backward kernels disagree")
+            del q, k, v, do, out, lse, delta, dq, dk, dv, ref
+    # the plain backward is itself the gradient of the plain forward
+    shape = (2, 256, 4, 64)
+    q, k, v, do = (rnd(*shape, dtype=torch.float32) for _ in range(4))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out, lse = flash_tpu._flash_reference(*leaves)
+    auto = torch.autograd.grad(out, leaves, do)
+    mirror = flash_tpu._flash_bwd_reference(q, k, v, out.detach(), lse, do)
+    res = [worst(a, b, *FLASH_BWD_AUTOGRAD_TOL) for a, b in zip(mirror,
+                                                                auto)]
+    log(f"[3b] plain flash backward vs autograd of the plain forward "
+        f"(f32, {shape}): max err "
+        + "/".join(f"{e:.3g}" for e, _ in res)
+        + f" (tol {FLASH_BWD_AUTOGRAD_TOL})")
+    if not all(ok for _, ok in res):
+        raise AssertionError("the plain flash backward is not the gradient")
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    for master in (True, False):
+        low = torch.bfloat16 if master else torch.float32
+        f32 = [torch.randn(n, device=dev, generator=gen) for n in ADAM_NUMELS]
+        # per-tensor step counts 0..4: each member's own beta powers
+        got = dict(
+            P=[p.to(low) for p in f32],
+            G=[torch.randn(n, device=dev, generator=gen).to(low)
+               for n in ADAM_NUMELS],
+            M=[torch.zeros(n, device=dev) for n in ADAM_NUMELS],
+            V=[torch.zeros(n, device=dev) for n in ADAM_NUMELS],
+            P1=[torch.full((), 0.9 ** i, device=dev)
+                for i in range(len(ADAM_NUMELS))],
+            P2=[torch.full((), 0.999 ** i, device=dev)
+                for i in range(len(ADAM_NUMELS))],
+            MS=[p.clone() for p in f32] if master else None)
+        del f32
+        want = {key: [t.clone() for t in val] if val is not None else None
+                for key, val in got.items()}
+        want["G"] = got["G"]
+        lr = torch.full((), TRAIN_LR, device=dev)
+        for _ in range(3):
+            fused.fused_adam_step(got["P"], got["G"], got["M"], got["V"],
+                                  got["P1"], got["P2"], lr,
+                                  masters=got["MS"])
+            fused._adam_reference(want["P"], want["G"], want["M"],
+                                  want["V"], want["P1"], want["P2"], lr,
+                                  masters=want["MS"])
+        torch.cuda.synchronize()
+        errs = {}
+        for key in ("P", "MS", "M", "V", "P1", "P2"):
+            if got[key] is None:
+                continue
+            res = [worst(a, b, *ADAM_TOL) for a, b in zip(got[key],
+                                                          want[key])]
+            errs[key] = max(e for e, _ in res)
+            if not all(ok for _, ok in res):
+                raise AssertionError(f"adam kernel disagrees on {key}")
+        err["adam"] = max(err["adam"], *errs.values())
+        log(f"[3b] adam {'master (bf16 + f32 master)' if master else 'f32'}"
+            f", numel {ADAM_NUMELS}, 3 steps: max err "
+            + ", ".join(f"{k} {e:.3g}" for k, e in errs.items())
+            + f" (tol {ADAM_TOL})")
+        del got, want
+        torch.cuda.empty_cache()
+
+
+def time_backward_kernels(dev, rnd, fused, flash_tpu, cfg):
+    """Phase 3b timings at the training step's shapes (bf16)."""
+    F = torch.nn.functional
+    timings = []
+    rows, hidden = TRAIN_SHAPE[0] * TRAIN_SHAPE[1], cfg.hidden_size
+    x, g = (rnd(rows, hidden, dtype=torch.bfloat16) for _ in range(2))
+    w, b = (rnd(hidden, dtype=torch.bfloat16) for _ in range(2))
+    leaves = [t.clone().requires_grad_() for t in (x, w, b)]
+    y = F.layer_norm(leaves[0], (hidden,), leaves[1], leaves[2], 1e-5)
+    lib = lambda: torch.autograd.grad(y, leaves, g, retain_graph=True)
+    kern = lambda: fused.layer_norm_bwd(x, w, g)
+    bound, by = ln_bwd_bound(rows, hidden, torch.bfloat16)
+    timings.append({
+        "kernel": "layer_norm_bwd", "shape": [rows, hidden],
+        "dtype": "bfloat16", "ms": time_ms(kern),
+        "plain_ms": time_ms(lambda: fused._ln_bwd_reference(x, w, g)),
+        "library_ms": time_ms(lib), "device_ms": device_ms(kern),
+        "library_device_ms": device_ms(lib), "bound_ms": bound,
+        "bound_by": by})
+    del x, g, leaves, y
+
+    shape = (TRAIN_SHAPE[0], TRAIN_SHAPE[1], cfg.num_heads,
+             cfg.hidden_size // cfg.num_heads)
+    q, k, v, do = (rnd(*shape, dtype=torch.bfloat16) for _ in range(4))
+    out, lse = flash_tpu._fwd(q, k, v)
+    delta = flash_tpu._delta(out, do)
+    lt = [t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v)]
+    ys = F.scaled_dot_product_attention(*lt, is_causal=True)
+    lib = lambda: torch.autograd.grad(ys, lt, do.transpose(1, 2),
+                                      retain_graph=True)
+    plain_ms = time_ms(lambda: flash_tpu._flash_bwd_reference(
+        q, k, v, out, lse, do), iters=5, warmup=1)
+    lib_ms, lib_dev = time_ms(lib, iters=20), device_ms(lib)
+    for name, kern in (
+            ("dq", lambda: flash_tpu.flash_bwd_dq(q, k, v, do, lse, delta)),
+            ("dkv", lambda: flash_tpu.flash_bwd_dkv(q, k, v, do, lse,
+                                                    delta))):
+        bound, by = flash_bwd_bound(*shape, torch.bfloat16, name)
+        timings.append({
+            "kernel": f"flash_attn_bwd_{name}", "shape": list(shape),
+            "dtype": "bfloat16", "ms": time_ms(kern, iters=20),
+            "plain_ms": plain_ms, "library_ms": lib_ms,
+            "device_ms": device_ms(kern), "library_device_ms": lib_dev,
+            "bound_ms": bound, "bound_by": by,
+            "note": "plain and library times are the whole backward "
+                    "(dQ, dK and dV)"})
+    delta_ms = time_ms(lambda: flash_tpu._delta(out, do), iters=20)
+    del q, k, v, do, out, lse, delta, lt, ys
+
+    shapes = gpt_param_shapes(cfg)
+    numels = [int(np.prod(s)) for s in shapes]
+    gen = torch.Generator(device=dev).manual_seed(2)
+    masters = [torch.randn(n, device=dev, generator=gen) for n in numels]
+    params = [m.to(torch.bfloat16) for m in masters]
+    grads = [torch.randn(n, device=dev, generator=gen).to(torch.bfloat16)
+             for n in numels]
+    zeros = lambda: [torch.zeros(n, device=dev) for n in numels]
+    ms_, vs_ = zeros(), zeros()
+    p1 = [torch.ones((), device=dev) for _ in numels]
+    p2 = [torch.ones((), device=dev) for _ in numels]
+    lr = torch.full((), TRAIN_LR, device=dev)
+    args = (params, grads, ms_, vs_, p1, p2, lr)
+    kern = lambda: fused.fused_adam_step(*args, masters=masters)
+    plain = lambda: fused._adam_reference(*args, masters=masters)
+    kern_ms, kern_dev = time_ms(kern, iters=10), device_ms(kern, iters=5)
+    plain_ms = time_ms(plain, iters=3, warmup=1)
+    del params, grads, ms_, vs_, masters
+    torch.cuda.empty_cache()
+    # torch.optim.Adam(fused=True) over f32 params of the same sizes: a
+    # time yardstick only (its eps is bias-corrected, the port's is not)
+    lib_p = [torch.zeros(n, device=dev, requires_grad=True) for n in numels]
+    for p in lib_p:
+        p.grad = torch.randn(p.numel(), device=dev, generator=gen)
+    opt = torch.optim.Adam(lib_p, lr=TRAIN_LR, fused=True)
+    lib_ms, lib_dev = time_ms(opt.step, iters=10), device_ms(opt.step, 5)
+    del lib_p, opt
+    torch.cuda.empty_cache()
+    bound, by = adam_bound(numels, 2, 2)
+    timings.append({
+        "kernel": "adam", "shape": [len(numels), sum(numels)],
+        "dtype": "bf16 params + f32 masters", "ms": kern_ms,
+        "plain_ms": plain_ms, "library_ms": lib_ms, "device_ms": kern_dev,
+        "library_device_ms": lib_dev, "bound_ms": bound, "bound_by": by})
+    for t in timings:
+        log(f"[3b] time {t['kernel']} {t['shape']}: kernel {t['ms']:.4f} ms "
+            f"(device {t['device_ms']:.4f}), plain {t['plain_ms']:.4f} ms, "
+            f"library {t['library_ms']:.4f} ms (device "
+            f"{t['library_device_ms']:.4f}), bound {t['bound_ms']:.5f} ms "
+            f"({t['bound_by']})")
+    log(f"[3b] time delta = rowsum(dO*O) (torch) {delta_ms:.4f} ms")
+    return timings
+
+
+def profile_training(step, ids, labels):
+    """Device busy share of two training steps under ``torch.profiler``,
+    and the device time by kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(2):
+            step((ids, labels), (labels,))
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_us = lambda e: getattr(e, "self_device_time_total", 0.0)
+    busy_us = sum(dev_us(e) for e in kernels)
+    if busy_us <= 0:
+        log("[8] profile: the profiler saw no device time (device busy "
+            "share not measured)")
+        return
+    log(f"[8] profile (2 steps): wall {wall_us / 1e3:.1f} ms, device busy "
+        f"{busy_us / 1e3:.1f} ms, busy share {busy_us / wall_us:.4f}")
+    for e in sorted(kernels, key=dev_us, reverse=True)[:12]:
+        log(f"[8] profile: {dev_us(e) / 1e3:9.3f} ms  x{e.count:<6d} "
+            f"{e.key[:90]}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from paddle_tpu_torch.distributed.fleet.engine import ParallelTrainStep
     from paddle_tpu_torch.inference.serving import (
         TokenServeConfig, TokenServingEngine, dense_greedy_reference,
         run_generation_streams)
+    from paddle_tpu_torch.jit.functionalize import get_params
     from paddle_tpu_torch.ops import _build, flash_tpu, fused
+    from paddle_tpu_torch.optimizer import Adam
     from paddle_tpu_torch.profiler.telemetry import get_telemetry
     from paddle_tpu_torch.text.models import gpt as gpt_mod
 
@@ -194,6 +507,11 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     ln_fn, flash_fn = fused.fused_layer_norm, flash_tpu.flash_attention_blhd
+    counted = {"layer_norm_fwd": ln_fn, "flash_attn_fwd": flash_fn,
+               "layer_norm_bwd": fused.layer_norm_bwd,
+               "flash_attn_bwd_dq": flash_tpu.flash_bwd_dq,
+               "flash_attn_bwd_dkv": flash_tpu.flash_bwd_dkv,
+               "adam": fused.fused_adam_step}
 
     # -- phase 1: the card ---------------------------------------------------
     smi = subprocess.run(
@@ -217,7 +535,7 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(0)
     rnd = lambda *shape, dtype: torch.randn(
         *shape, device=dev, generator=gen).to(dtype)
-    err = {"layer_norm_fwd": 0.0, "flash_attn_fwd": 0.0}
+    err = {name: 0.0 for name in counted}
     for dtype in DTYPES:
         for hidden in LN_HIDDEN:
             for rows in LN_ROWS:
@@ -264,7 +582,7 @@ def main() -> int:
                 lambda: torch.nn.functional.layer_norm(x, (1024,), w, b,
                                                        1e-5)),
             "bound_ms": bound, "bound_by": by})
-    for shape in FLASH_SHAPES:
+    for shape in FLASH_SHAPES + ((8, 1024, 16, 64),):
         q, k, v = (rnd(*shape, dtype=torch.bfloat16) for _ in range(3))
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         bound, by = flash_bound(*shape, torch.bfloat16)
@@ -288,21 +606,27 @@ def main() -> int:
             f"{t['plain_ms']:.4f} ms, library {t['library_ms']:.4f} ms "
             f"(device {t['library_device_ms']:.4f}), bound "
             f"{t['bound_ms']:.5f} ms ({t['bound_by']})")
-    log("timings " + json.dumps(timings))
 
-    launches = {"layer_norm_fwd": {}, "flash_attn_fwd": {}}
+    # -- phase 3b: the backward kernels and Adam -----------------------------
+    cfg = gpt_mod.gpt2_medium()
+    check_backward_kernels(dev, rnd, fused, flash_tpu, err)
+    torch.cuda.empty_cache()
+    timings += time_backward_kernels(dev, rnd, fused, flash_tpu, cfg)
+    log("timings " + json.dumps(timings))
+    torch.cuda.empty_cache()
+
+    launches = {name: {} for name in counted}
 
     def reset_counts():
-        ln_fn.launches = 0
-        flash_fn.launches = 0
+        for fn in counted.values():
+            fn.launches = 0
 
     def read_counts(phase):
-        launches["layer_norm_fwd"][phase] = ln_fn.launches
-        launches["flash_attn_fwd"][phase] = flash_fn.launches
+        for name, fn in counted.items():
+            launches[name][phase] = fn.launches
         return ln_fn.launches, flash_fn.launches
 
     # -- phase 4: dense forward at full width ------------------------------
-    cfg = gpt_mod.gpt2_medium()
     model = gpt_mod.GPTForCausalLM(cfg, dtype=torch.bfloat16, seed=0).eval()
     ids = torch.randint(0, cfg.vocab_size, (1, 1024), device=dev,
                         generator=gen)
@@ -419,20 +743,164 @@ def main() -> int:
         raise AssertionError(f"dense reference launched flash {n_flash} "
                              f"times, expected {2 * 8 * cfg.num_layers}")
     log(f"[6] f32 greedy parity ok; launches LN {n_ln}, flash {n_flash}")
+    del engine, model32
+    torch.cuda.empty_cache()
+
+    # -- phase 7: gradient parity at full width (f32) ------------------------
+    cfg2 = gpt_mod.gpt2_medium(num_layers=2, hidden_dropout=0.0,
+                               attention_dropout=0.0)
+    ids = torch.randint(0, cfg2.vocab_size, (2, 1024), device=dev,
+                        generator=gen)
+    labels = torch.roll(ids, -1, dims=1)
+
+    def one_step(plain):
+        model = gpt_mod.GPTForCausalLM(cfg2, dtype=torch.float32, seed=3)
+        opt = Adam(TRAIN_LR, parameters=model.parameters())
+        grads = {}
+        update = opt.step
+
+        def keep_grads_then_update():
+            grads.update({n: p.grad.clone()
+                          for n, p in model.named_parameters()})
+            update()
+
+        opt.step = keep_grads_then_update
+        step = ParallelTrainStep(model, lambda out, lbl: out, opt)
+        with plain_kernels(gpt_mod, fused, flash_tpu) if plain \
+                else contextlib.nullcontext():
+            loss = float(step((ids, labels), (labels,)))
+        return loss, grads, {n: p.clone()
+                             for n, p in get_params(model).items()}
+
+    reset_counts()
+    loss_k, grads_k, params_k = one_step(plain=False)
+    torch.cuda.synchronize()
+    read_counts("grad_parity")
+    got = {n: launches[n]["grad_parity"] for n in counted}
+    n_ln = 2 * cfg2.num_layers + 1
+    want = {"layer_norm_fwd": n_ln, "layer_norm_bwd": 2 * n_ln,
+            "flash_attn_fwd": cfg2.num_layers,
+            "flash_attn_bwd_dq": cfg2.num_layers,
+            "flash_attn_bwd_dkv": cfg2.num_layers, "adam": 2}
+    loss_p, grads_p, params_p = one_step(plain=True)
+    g_err = max(float((grads_k[n] - grads_p[n]).abs().max())
+                / max(float(grads_p[n].abs().max()), 1e-30)
+                for n in grads_p)
+    p_err = max(float((params_k[n] - params_p[n]).abs().max())
+                for n in params_p)
+    l_err = abs(loss_k - loss_p) / abs(loss_p)
+    log(f"[7] one f32 step of gpt2_medium(num_layers=2) at [2, 1024]: loss "
+        f"{loss_k:.6f} (kernels) vs {loss_p:.6f} (plain), rel err "
+        f"{l_err:.3g} (tol {LOSS_RTOL}); worst grad err / max|grad| "
+        f"{g_err:.3g} over {len(grads_p)} tensors (tol {GRAD_REL_TOL}); "
+        f"params after Adam max err {p_err:.3g} (atol {PARAM_ATOL}); "
+        f"launches {got}")
+    if got != want:
+        raise AssertionError(f"phase 7 launched {got}, expected {want}")
+    if set(grads_k) != set(grads_p) or len(grads_p) != 28:
+        raise AssertionError("phase 7 did not see every gradient")
+    if not (l_err <= LOSS_RTOL and g_err <= GRAD_REL_TOL
+            and p_err <= PARAM_ATOL):
+        raise AssertionError("training step through the kernels disagrees "
+                             "with the plain path")
+    del grads_k, grads_p, params_k, params_p
+    torch.cuda.empty_cache()
+
+    # -- phase 8: training GPT-2 345M at full width --------------------------
+    train_cfg = gpt_mod.gpt2_medium(hidden_dropout=0.0,
+                                    attention_dropout=0.0)
+    model = gpt_mod.GPTForCausalLM(train_cfg, dtype=torch.float32, seed=4)
+    opt = Adam(TRAIN_LR, parameters=model.parameters(),
+               multi_precision=True)
+    step = ParallelTrainStep(model, lambda out, lbl: out, opt,
+                             compute_dtype=torch.bfloat16)
+    ids = torch.randint(0, train_cfg.vocab_size, TRAIN_SHAPE, device=dev,
+                        generator=gen)
+    labels = torch.roll(ids, -1, dims=1)
+    warm = [step((ids, labels), (labels,)) for _ in range(3)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tel.reset()
+    reset_counts()
+    n_steps = 20
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(n_steps + 1)]
+    t0 = time.perf_counter()
+    losses = []
+    for i in range(n_steps):
+        marks[i].record()
+        losses.append(step((ids, labels), (labels,)))
+    marks[-1].record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    read_counts("training")
+    peak = torch.cuda.max_memory_allocated()
+    all_losses = [float(x) for x in torch.stack(warm + losses)]
+    step_ms = sorted(marks[i].elapsed_time(marks[i + 1])
+                     for i in range(n_steps))
+    tokens = TRAIN_SHAPE[0] * TRAIN_SHAPE[1] * n_steps
+    got = {n: launches[n]["training"] for n in counted}
+    n_ln = 2 * train_cfg.num_layers + 1
+    want = {"layer_norm_fwd": n_ln * n_steps,
+            "layer_norm_bwd": 2 * n_ln * n_steps,
+            "flash_attn_fwd": train_cfg.num_layers * n_steps,
+            "flash_attn_bwd_dq": train_cfg.num_layers * n_steps,
+            "flash_attn_bwd_dkv": train_cfg.num_layers * n_steps,
+            "adam": 2 * n_steps}
+    hist = tel.hist_summary("engine/step_ms") or {}
+    training = {
+        "tokens_per_s": tokens / wall, "step_ms_p50": step_ms[n_steps // 2],
+        "step_ms_min": step_ms[0], "step_ms_max": step_ms[-1],
+        "engine_step_ms_p50": hist.get("p50"),
+        "peak_memory_bytes": peak, "losses": all_losses,
+        "engine_steps": tel.counter_value("engine/steps")}
+    log(f"[8] trained gpt2_medium bf16 + f32 masters at {TRAIN_SHAPE}: "
+        f"{training['tokens_per_s']:.1f} tokens/s over {n_steps} steps, "
+        f"step p50 {training['step_ms_p50']:.2f} ms (events; min "
+        f"{step_ms[0]:.2f}, max {step_ms[-1]:.2f}; engine/step_ms p50 "
+        f"{hist.get('p50', float('nan')):.2f}), peak memory "
+        f"{peak / 2**30:.2f} GiB; loss {all_losses[0]:.4f} -> "
+        f"{all_losses[-1]:.4f}; launches {got}")
+    log("training " + json.dumps(training))
+    if not all(np.isfinite(all_losses)):
+        raise AssertionError(f"non-finite loss: {all_losses}")
+    if not all_losses[-1] < all_losses[0]:
+        raise AssertionError(f"the loss did not fall: {all_losses}")
+    if got != want:
+        raise AssertionError(f"training launched {got}, expected {want}")
+    if training["engine_steps"] != n_steps:
+        raise AssertionError("engine/steps does not count the steps")
+    profile_training(step, ids, labels)
+    del step, model, opt
+    torch.cuda.empty_cache()
 
     # -- the kernels line and the result --------------------------------------
-    main_ln = next(t for t in timings if t["kernel"] == "layer_norm_fwd"
-                   and t["shape"] == [1024, 1024])
-    main_fl = next(t for t in timings if t["kernel"] == "flash_attn_fwd"
-                   and t["shape"] == [1, 1024, 16, 64])
+    def timed(kernel, shape):
+        return next(t for t in timings if t["kernel"] == kernel
+                    and t["shape"] == shape)
+
     kernels = []
-    for name, source, replaces, t in (
+    for name, source, replaces, t, main_phase in (
             ("layer_norm_fwd", "paddle_tpu_torch/csrc/layer_norm.cu",
-             "paddle_tpu/ops/fused.py:25", main_ln),
+             "paddle_tpu/ops/fused.py:25",
+             timed("layer_norm_fwd", [1024, 1024]), "dense_forward"),
             ("flash_attn_fwd", "paddle_tpu_torch/csrc/flash_attn_fwd.cu",
-             "paddle_tpu/ops/flash_tpu.py:43", main_fl)):
+             "paddle_tpu/ops/flash_tpu.py:43",
+             timed("flash_attn_fwd", [1, 1024, 16, 64]), "dense_forward"),
+            ("layer_norm_bwd", "paddle_tpu_torch/csrc/layer_norm_bwd.cu",
+             "paddle_tpu/ops/fused.py:34",
+             timed("layer_norm_bwd", [8192, 1024]), "training"),
+            ("flash_attn_bwd_dq", "paddle_tpu_torch/csrc/flash_attn_bwd.cu",
+             "paddle_tpu/ops/flash_tpu.py:83",
+             timed("flash_attn_bwd_dq", [8, 1024, 16, 64]), "training"),
+            ("flash_attn_bwd_dkv", "paddle_tpu_torch/csrc/flash_attn_bwd.cu",
+             "paddle_tpu/ops/flash_tpu.py:118",
+             timed("flash_attn_bwd_dkv", [8, 1024, 16, 64]), "training"),
+            ("adam", "paddle_tpu_torch/csrc/adam.cu",
+             "paddle_tpu/ops/fused.py:172",
+             next(t for t in timings if t["kernel"] == "adam"),
+             "training")):
         by_phase = launches[name]
-        if by_phase["dense_forward"] == 0:
+        if by_phase[main_phase] == 0 or by_phase["training"] == 0:
             raise AssertionError(f"{name} never launched on the main path")
         kernels.append({
             "name": name, "route": "cuda", "source": source,

@@ -14,9 +14,13 @@ CUDA C++ counterpart under ``csrc/`` (built at first use by
 ``ops._build``); each sits beside its plain PyTorch version, which a
 wrapper takes only for tensors that lie on the CPU.
 
-This package covers the serving slice: GPT-2 token serving over a paged
-KV cache (``inference.serving``), the model (``text.models.gpt``), the
-LayerNorm and causal flash-attention forward kernels (``ops``).
+This package covers two slices. Serving: GPT-2 token serving over a
+paged KV cache (``inference.serving``) and the model
+(``text.models.gpt``). Training: the single-device ``ParallelTrainStep``
+(``distributed.fleet.engine``), Adam (``optimizer``) and cross entropy
+(``nn.functional``). Their kernels (``ops``): LayerNorm forward and
+backward, causal flash-attention forward and dQ / dK-dV backward, and a
+multi-tensor Adam.
 """
 from .core.place import resolve_device
 

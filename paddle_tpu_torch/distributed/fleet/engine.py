@@ -1,0 +1,144 @@
+"""The training step — counterpart of
+``paddle_tpu.distributed.fleet.engine.ParallelTrainStep``, on one device.
+
+``ParallelTrainStep(layer, loss_fn, optimizer)(inputs, labels)`` runs the
+layer's forward in train mode, ``loss_fn(out, *labels)``, autograd's
+backward (through the hand-written LayerNorm and flash-attention backward
+kernels on the card) and the optimizer's multi-tensor Adam, and returns
+the f32 0-d loss on the device without waiting for it.
+
+Master-weight mode follows the reference (``master_weights`` defaults to
+the optimizer's ``multi_precision``): with a float ``compute_dtype`` the
+layer's float parameters are cast to it once, at construction, and the
+optimizer keeps their f32 values as masters; each step updates the
+masters and re-casts the resident copies in the same kernel pass.
+``compute_dtype=None`` trains in f32.
+
+Unlike the reference, whose jitted step holds its own copy of the state,
+the step updates the layer's parameters in place: they ARE the step's
+state. ``sync_to_layer()`` puts the f32 masters into the layer (the
+reference's checkpoint contract), and the next step casts them back.
+"""
+from __future__ import annotations
+
+import time
+from typing import Callable, Optional
+
+import torch
+from torch import nn
+
+from ...core.place import resolve_device
+from ...jit.functionalize import functionalize, set_params
+from ...profiler.telemetry import get_telemetry
+
+__all__ = ["ParallelTrainStep"]
+
+
+def _as_tuple(x):
+    return tuple(x) if isinstance(x, (tuple, list)) else (x,)
+
+
+class ParallelTrainStep:
+    """One training step of ``layer`` on one device (default ``"cuda"``).
+
+    Not ported yet, and refused: a mesh and its data-, tensor- and
+    sequence-parallel axes, ZeRO sharding, ``recompute``, and a
+    ``compute_dtype`` without master weights."""
+
+    def __init__(self, layer: nn.Module, loss_fn: Callable, optimizer,
+                 device=None, compute_dtype: Optional[torch.dtype] = None,
+                 master_weights: Optional[bool] = None,
+                 recompute: bool = False, mesh=None, dp_axis=None,
+                 mp_axis=None, sharding_axis=None, zero_stage: int = 0,
+                 sp_axis=None):
+        if mesh is not None or zero_stage or any(
+                a is not None for a in (dp_axis, mp_axis, sharding_axis,
+                                        sp_axis)):
+            raise NotImplementedError(
+                "ParallelTrainStep: meshes, data/tensor/sequence "
+                "parallelism and ZeRO are not ported yet (one device only)")
+        if recompute:
+            raise NotImplementedError(
+                "ParallelTrainStep: recompute is not ported yet")
+        if compute_dtype not in (None, torch.float32, torch.bfloat16):
+            raise NotImplementedError(
+                f"ParallelTrainStep: compute_dtype {compute_dtype} is not "
+                "ported yet (float32 or bfloat16)")
+        if compute_dtype == torch.float32:
+            compute_dtype = None  # f32 training: the params are the masters
+        if master_weights is None:
+            master_weights = optimizer._multi_precision
+        if compute_dtype is not None and not master_weights:
+            raise NotImplementedError(
+                "ParallelTrainStep: compute_dtype without master weights is "
+                "not ported yet (pass master_weights=True or an optimizer "
+                "with multi_precision=True)")
+        dev = resolve_device(device)
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        if any(p.device != dev for p in layer.parameters()):
+            raise ValueError(
+                f"ParallelTrainStep: the layer's parameters must be on "
+                f"{dev} (build the model with device=...), found "
+                f"{sorted({str(p.device) for p in layer.parameters()})}")
+        self._device = dev
+        self._layer = layer
+        self._loss_fn = loss_fn
+        self._optimizer = optimizer
+        self._compute_dtype = compute_dtype
+        self._master = compute_dtype is not None
+        self._apply = functionalize(layer, training=True)
+        if self._master:
+            for p in layer.parameters():
+                if p.is_floating_point():
+                    optimizer.state_for(p, master=p.detach())
+                    p.data = p.data.to(compute_dtype)
+        self._synced = False
+        self._last_step_t: Optional[float] = None
+
+    def __call__(self, inputs, labels) -> torch.Tensor:
+        if self._synced:
+            self._recast_from_masters()
+        dev = self._device
+        inputs = tuple(a.to(dev, non_blocking=True) for a in
+                       _as_tuple(inputs))
+        labels = tuple(a.to(dev, non_blocking=True) for a in
+                       _as_tuple(labels))
+        loss = self._loss_fn(self._apply(*inputs), *labels).float()
+        loss.backward()
+        self._optimizer.step()
+        self._optimizer.clear_grad()
+        self._record_step()
+        return loss.detach()
+
+    def _record_step(self) -> None:
+        """``engine/steps`` and ``engine/step_ms``: the step time is the
+        interval between calls, which in steady state equals the device's
+        step time without a blocking sync (the reference's rule)."""
+        tel = get_telemetry()
+        now = time.perf_counter()
+        tel.counter("engine/steps")
+        if self._last_step_t is not None:
+            tel.observe("engine/step_ms", (now - self._last_step_t) * 1e3)
+        self._last_step_t = now
+
+    def sync_to_layer(self) -> None:
+        """Make the layer hold the trained weights as the reference's
+        checkpoints carry them: the f32 masters in master mode (the
+        parameters are cast back at the next step). The next step interval
+        is not recorded: it would time this pause."""
+        self._last_step_t = None
+        if not self._master:
+            return
+        named = dict(self._layer.named_parameters())
+        set_params(self._layer, {
+            n: self._optimizer.state_for(p)["master"].clone()
+            for n, p in named.items() if p.is_floating_point()})
+        self._synced = True
+
+    def _recast_from_masters(self) -> None:
+        for p in self._layer.parameters():
+            if p.is_floating_point():
+                p.data = self._optimizer.state_for(p)["master"].to(
+                    self._compute_dtype)
+        self._synced = False

@@ -1,3 +1,3 @@
-from .functionalize import get_params, load_jax_params
+from .functionalize import functionalize, get_params, load_jax_params, set_params
 
-__all__ = ["get_params", "load_jax_params"]
+__all__ = ["functionalize", "get_params", "load_jax_params", "set_params"]

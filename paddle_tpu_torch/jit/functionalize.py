@@ -1,27 +1,58 @@
 """Named parameters of a module — counterpart of
-``paddle_tpu.jit.functionalize``, kept to what serving needs.
+``paddle_tpu.jit.functionalize``.
 
 ``get_params`` names parameters exactly as the reference's ``get_params``
 does (``gpt.h.{i}.attn.qkv.weight`` ...), and the port keeps the
 reference's [in, out] ``Linear`` layout, so a reference parameter dict
 maps onto a port model name for name and shape for shape.
-``load_jax_params`` carries weights across.
+``load_jax_params`` carries weights across; ``set_params`` points a
+module's parameters at given tensors; ``functionalize`` runs a module in
+a given train/eval mode.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Callable, Dict, Mapping
 
 import numpy as np
 import torch
 from torch import nn
 
-__all__ = ["get_params", "load_jax_params"]
+__all__ = ["get_params", "set_params", "load_jax_params", "functionalize"]
 
 
 def get_params(model: nn.Module) -> Dict[str, torch.Tensor]:
     """Named parameter dict (detached tensors sharing the model's
     storage)."""
     return {name: p.detach() for name, p in model.named_parameters()}
+
+
+def set_params(model: nn.Module, params: Mapping[str, torch.Tensor]) -> None:
+    """Make each named parameter of ``model`` hold the given tensor (its
+    storage, dtype and device); names must exist in the model."""
+    named = dict(model.named_parameters())
+    unknown = sorted(set(params) - set(named))
+    if unknown:
+        raise KeyError(f"set_params: no parameters named {unknown[:5]}")
+    for name, v in params.items():
+        named[name].data = v.detach()
+
+
+def functionalize(model: nn.Module, training: bool) -> Callable:
+    """``apply(*args, **kwargs)``: ``model``'s forward in train mode
+    (``training=True``) or eval mode (``False``), with the model's own
+    mode restored afterwards. The port's autograd works on the model's
+    parameters in place, so unlike the reference's ``functionalize`` no
+    parameter pytree goes in or out."""
+
+    def apply(*args, **kwargs):
+        prev = model.training
+        model.train(training)
+        try:
+            return model(*args, **kwargs)
+        finally:
+            model.train(prev)
+
+    return apply
 
 
 def load_jax_params(model: nn.Module,

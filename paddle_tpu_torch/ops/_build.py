@@ -31,7 +31,8 @@ __all__ = ["BUILD_DIR", "SOURCES", "build", "library", "check", "stream_of",
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "paddle_tpu_torch"
-SOURCES = ("errors.cu", "layer_norm.cu", "flash_attn_fwd.cu")
+SOURCES = ("errors.cu", "layer_norm.cu", "layer_norm_bwd.cu",
+           "flash_attn_fwd.cu", "flash_attn_bwd.cu", "adam.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # dtype codes of the C entry points
@@ -52,6 +53,16 @@ _SIGNATURES = {
     "ptt_layer_norm_fwd": ([_P, _P, _P, _P, _I, _I, _F, _I, _P], _I),
     "ptt_flash_attn_fwd": ([_P, _P, _P, _P, _P, _I, _I, _I, _I,
                             _LL, _LL, _LL, _LL, _LL, _LL, _F, _I, _P], _I),
+    "ptt_layer_norm_bwd": ([_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F,
+                            _I, _P], _I),
+    "ptt_flash_attn_bwd_dq": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                               _LL, _LL, _LL, _LL, _LL, _LL, _LL, _LL, _F,
+                               _I, _P], _I),
+    "ptt_flash_attn_bwd_dkv": ([_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                _I, _LL, _LL, _LL, _LL, _LL, _LL, _LL, _LL,
+                                _F, _I, _P], _I),
+    "ptt_adam_step": ([_P, _P, _P, _I, _I, _P, _F, _F, _F, _F, _F, _F, _I,
+                       _P], _I),
 }
 
 

@@ -1,12 +1,14 @@
 """Attention — counterpart of ``paddle_tpu.ops.attention``, kept to what
-the serving slice runs:
+the serving and training slices run:
 
 - ``xla_attention``: softmax(QKᵀ/√d)V with the scores materialized, in
   plain PyTorch (the reference's XLA-level tier);
-- ``dot_product_attention``: the dispatch. Causal self-attention on a
-  CUDA tensor goes to the hand-written flash kernel
-  (``flash_tpu.flash_attention_blhd``); a CPU tensor goes to the plain
-  path. Non-causal attention has no kernel in this slice (the
+- ``dot_product_attention``: the dispatch, differentiable on both
+  devices. Causal self-attention on a CUDA tensor goes to the
+  hand-written flash kernels (``flash_tpu.flash_attention_blhd``, whose
+  backward is the dQ and dK/dV kernels); a CPU tensor goes to the plain
+  path, differentiated by autograd. Non-causal attention has no kernel
+  in this slice (the
   reference's non-causal Pallas tier is still to port) and takes
   ``xla_attention`` on either device;
 - ``paged_attention``: attention of a query chunk against the serving

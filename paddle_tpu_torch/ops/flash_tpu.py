@@ -1,18 +1,22 @@
-"""Causal flash-attention forward — counterpart of
+"""Causal flash attention, forward and backward — counterpart of
 ``paddle_tpu.ops.flash_tpu``.
 
-``flash_attention_blhd`` launches the hand-written CUDA kernel
-(``csrc/flash_attn_fwd.cu``, the port of the Pallas ``_fwd_kernel``) for
-tensors on the card and runs the plain PyTorch version,
-``_flash_reference``, for tensors on the CPU. Both return ``(out, lse)``:
-``out`` is [b, L, H, d] in q's dtype, ``lse`` the f32 log-sum-exp of each
-query row's scaled scores, [b, H, L].
+``flash_attention_blhd`` is a ``torch.autograd.Function``. For tensors on
+the card its forward launches ``csrc/flash_attn_fwd.cu`` (the port of the
+Pallas ``_fwd_kernel``) and its backward the two kernels of
+``csrc/flash_attn_bwd.cu`` (the ports of ``_dq_kernel`` and
+``_dkv_kernel``); for tensors on the CPU it runs the plain PyTorch
+versions, ``_flash_reference`` and ``_flash_bwd_reference``. It returns
+``(out, lse)``: ``out`` is [b, L, H, d] in q's dtype, ``lse`` the f32
+log-sum-exp of each query row's scaled scores, [b, H, L] (not
+differentiable).
 
-The kernel reads q, k and v in the projection's native layout: the last
-two axes must be dense ([H, d] with d contiguous), while the row and
-batch strides are free, so q/k/v sliced out of a fused QKV projection
-go in without a copy. The backward kernels (``_dq_kernel``,
-``_dkv_kernel``) come with the training slice.
+The kernels read q, k, v and the output gradient in the projection's
+native layout: the last two axes must be dense ([H, d] with d
+contiguous), while the row and batch strides are free, so q/k/v sliced
+out of a fused QKV projection go in without a copy. The backward's
+``delta = rowsum(dO ⊙ O)`` stays a PyTorch reduction, as it is an XLA
+einsum in the reference.
 """
 from __future__ import annotations
 
@@ -23,10 +27,15 @@ import torch
 
 from . import _build
 
-__all__ = ["flash_attention_blhd"]
+__all__ = ["flash_attention_blhd", "flash_bwd_dq", "flash_bwd_dkv"]
 
 _NEG_INF = -1e30
 _HEAD_DIMS = (32, 64, 128)
+
+
+def _causal_mask(L: int, device) -> torch.Tensor:
+    pos = torch.arange(L, device=device)
+    return pos[None, :] > pos[:, None]  # True above the diagonal
 
 
 def _flash_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
@@ -36,27 +45,48 @@ def _flash_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     lse [b, H, L] f32)."""
     L, d = q.shape[1], q.shape[-1]
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / math.sqrt(d)
-    pos = torch.arange(L, device=q.device)
-    s = s.masked_fill(pos[None, :] > pos[:, None], _NEG_INF)
+    s = s.masked_fill(_causal_mask(L, q.device), _NEG_INF)
     lse = torch.logsumexp(s, dim=-1)
     p = torch.exp(s - lse[..., None])
     out = torch.einsum("bhqk,bkhd->bqhd", p, v.float())
     return out.to(q.dtype), lse
 
 
-def flash_attention_blhd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         causal: bool = True
-                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Causal self-attention over [b, L, H, d] operands; returns
-    ``(out, lse)``. ``causal=False`` is not a tier of this kernel —
-    callers dispatch elsewhere first, as in the reference."""
-    if not causal:
-        raise NotImplementedError(
-            "flash_attention_blhd is the causal kernel; dispatch "
-            "non-causal attention through dot_product_attention")
+def _delta(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
+    """rowsum(dO ⊙ O) per head in f32, [b, H, L] (the reference's
+    ``einsum("blhd,blhd->bhl")``)."""
+    return torch.einsum("blhd,blhd->bhl", dout.float(),
+                        out.float()).contiguous()
+
+
+def _flash_bwd_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         out: torch.Tensor, lse: torch.Tensor,
+                         dout: torch.Tensor
+                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain causal attention backward in f32, mirroring the Pallas
+    ``_dq_kernel``/``_dkv_kernel``: recompute ``P = exp(S − lse)`` from
+    the pre-scaled q, then ``dS = P ⊙ (dO·Vᵀ − delta)``,
+    ``dQ = scale·dS·K``, ``dK = scale·dSᵀ·Q``, ``dV = Pᵀ·dO``. Returns
+    (dq, dk, dv) in q's dtype."""
+    L, d = q.shape[1], q.shape[-1]
+    scale = 1.0 / math.sqrt(d)
+    qs = q.float() * scale
+    kf, vf, dof = k.float(), v.float(), dout.float()
+    s = torch.einsum("bqhd,bkhd->bhqk", qs, kf)
+    p = torch.exp(s - lse[..., None]).masked_fill(
+        _causal_mask(L, q.device), 0.0)
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    ds = p * (dp - _delta(out, dout)[..., None])
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qs)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
+
+
+def _fwd(q, k, v):
     if q.device.type == "cpu":
         return _flash_reference(q, k, v)
-    _check_cuda_args(q, k, v)
+    _check_cuda_args("flash_attention_blhd", q, k, v)
     b, L, H, d = q.shape
     out = torch.empty((b, L, H, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, H, L), dtype=torch.float32, device=q.device)
@@ -75,38 +105,143 @@ def flash_attention_blhd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out, lse
 
 
-flash_attention_blhd.launches = 0  # kernel launches, counted where they happen
+def _bwd_args(q, k, v, dout, delta):
+    b, L, H, d = q.shape
+    return (b, L, H, d, q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+            v.stride(0), v.stride(1), dout.stride(0), dout.stride(1),
+            1.0 / math.sqrt(d), _build.DTYPE_CODES[q.dtype],
+            _build.stream_of(q))
 
 
-def _check_cuda_args(q, k, v):
+def flash_bwd_dq(q, k, v, dout, lse, delta) -> torch.Tensor:
+    """dQ of causal attention on the card (``csrc/flash_attn_bwd.cu``,
+    one launch): q/k/v/dout [b, L, H, d] at any row stride, lse and
+    delta f32 [b, H, L]. Returns a dense [b, L, H, d] dQ."""
+    _check_bwd_args("flash_bwd_dq", q, k, v, dout, lse, delta)
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    if dq.numel() == 0:
+        return dq
+    lib = _build.library()
+    with torch.cuda.device(q.device):
+        err = lib.ptt_flash_attn_bwd_dq(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            *_bwd_args(q, k, v, dout, delta))
+    _build.check(err, "flash_attn_bwd_dq")
+    flash_bwd_dq.launches += 1
+    return dq
+
+
+flash_bwd_dq.launches = 0  # kernel launches, counted where they happen
+
+
+def flash_bwd_dkv(q, k, v, dout, lse, delta
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """dK and dV of causal attention on the card
+    (``csrc/flash_attn_bwd.cu``, one launch); arguments as
+    ``flash_bwd_dq``."""
+    _check_bwd_args("flash_bwd_dkv", q, k, v, dout, lse, delta)
+    dk = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    dv = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    if dk.numel() == 0:
+        return dk, dv
+    lib = _build.library()
+    with torch.cuda.device(q.device):
+        err = lib.ptt_flash_attn_bwd_dkv(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            *_bwd_args(q, k, v, dout, delta))
+    _build.check(err, "flash_attn_bwd_dkv")
+    flash_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_bwd_dkv.launches = 0  # kernel launches, counted where they happen
+
+
+def _bwd(q, k, v, out, lse, dout):
+    if q.device.type == "cpu":
+        return _flash_bwd_reference(q, k, v, out, lse, dout)
+    if not _dense_tail(dout):
+        dout = dout.contiguous()  # only the row/batch strides may be free
+    delta = _delta(out, dout)
+    dq = flash_bwd_dq(q, k, v, dout, lse, delta)
+    dk, dv = flash_bwd_dkv(q, k, v, dout, lse, delta)
+    return dq, dk, dv
+
+
+class _FlashFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v):
+        out, lse = _fwd(q, k, v)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, dout, _dlse):
+        return _bwd(*ctx.saved_tensors, dout)
+
+
+def flash_attention_blhd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         causal: bool = True
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Causal self-attention over [b, L, H, d] operands; returns
+    ``(out, lse)``, differentiable in q, k and v. ``causal=False`` is not
+    a tier of this kernel — callers dispatch elsewhere first, as in the
+    reference."""
+    if not causal:
+        raise NotImplementedError(
+            "flash_attention_blhd is the causal kernel; dispatch "
+            "non-causal attention through dot_product_attention")
+    return _FlashFn.apply(q, k, v)
+
+
+flash_attention_blhd.launches = 0  # forward kernel launches
+
+
+def _dense_tail(t):
+    d = t.shape[-1]
+    return t.stride(3) == 1 and (t.shape[2] <= 1 or t.stride(2) == d)
+
+
+def _check_cuda_args(fn, q, k, v):
     if q.device.type != "cuda":
-        raise ValueError(f"flash_attention_blhd: unsupported device "
-                         f"{q.device}")
+        raise ValueError(f"{fn}: unsupported device {q.device}")
     if q.dtype not in _build.DTYPE_CODES:
-        raise TypeError(f"flash_attention_blhd: dtype {q.dtype} not "
-                        "supported by the CUDA kernel (float32, bfloat16)")
+        raise TypeError(f"{fn}: dtype {q.dtype} not supported by the CUDA "
+                        "kernel (float32, bfloat16)")
     if q.dim() != 4:
-        raise ValueError(f"flash_attention_blhd: q must be [b, L, H, d], "
-                         f"got {tuple(q.shape)}")
+        raise ValueError(f"{fn}: q must be [b, L, H, d], got "
+                         f"{tuple(q.shape)}")
     d = q.shape[-1]
     if d not in _HEAD_DIMS:
-        raise ValueError(f"flash_attention_blhd: head dim {d} not in "
-                         f"{_HEAD_DIMS}")
+        raise ValueError(f"{fn}: head dim {d} not in {_HEAD_DIMS}")
     for name, t in (("k", k), ("v", v)):
         if t.device != q.device or t.dtype != q.dtype:
-            raise TypeError(f"flash_attention_blhd: {name} is {t.dtype} on "
-                            f"{t.device}, q is {q.dtype} on {q.device}")
+            raise TypeError(f"{fn}: {name} is {t.dtype} on {t.device}, q is "
+                            f"{q.dtype} on {q.device}")
         if t.shape != q.shape:
-            raise ValueError(f"flash_attention_blhd: {name} shape "
-                             f"{tuple(t.shape)} != q shape {tuple(q.shape)} "
-                             "(self-attention only)")
+            raise ValueError(f"{fn}: {name} shape {tuple(t.shape)} != q "
+                             f"shape {tuple(q.shape)} (self-attention only)")
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.stride(3) != 1 or (t.shape[2] > 1 and t.stride(2) != d):
-            raise ValueError(f"flash_attention_blhd: {name} needs dense "
-                             f"[H, d] trailing axes, strides {t.stride()}")
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError(
-            "flash_attention_blhd: the CUDA kernel is forward-only; run "
-            "under torch.no_grad() (the backward kernels come with "
-            "training)")
+        if not _dense_tail(t):
+            raise ValueError(f"{fn}: {name} needs dense [H, d] trailing "
+                             f"axes, strides {t.stride()}")
+
+
+def _check_bwd_args(fn, q, k, v, dout, lse, delta):
+    _check_cuda_args(fn, q, k, v)
+    if dout.shape != q.shape or dout.dtype != q.dtype \
+            or dout.device != q.device or not _dense_tail(dout):
+        raise ValueError(f"{fn}: dout is {dout.dtype} {tuple(dout.shape)} "
+                         f"strides {dout.stride()}, q is {q.dtype} "
+                         f"{tuple(q.shape)}; it needs q's shape and dtype "
+                         "and dense [H, d] trailing axes")
+    b, L, H, _ = q.shape
+    for name, t in (("lse", lse), ("delta", delta)):
+        if (t.shape != (b, H, L) or t.dtype != torch.float32
+                or t.device != q.device or not t.is_contiguous()):
+            raise ValueError(f"{fn}: {name} must be a contiguous f32 "
+                             f"[{b}, {H}, {L}] tensor on {q.device}, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")

@@ -1,24 +1,33 @@
-"""Fused LayerNorm forward — counterpart of ``paddle_tpu.ops.fused``.
+"""Fused LayerNorm (forward and backward) and multi-tensor Adam —
+counterpart of ``paddle_tpu.ops.fused``.
 
-``fused_layer_norm`` launches the hand-written CUDA kernel
-(``csrc/layer_norm.cu``, the port of the Pallas ``_ln_kernel``) for a
-tensor on the card and runs the plain PyTorch version, ``_ln_reference``,
-for a tensor on the CPU. There is no fallback between the two: a CUDA
-tensor the kernel cannot take raises.
+Each function launches a hand-written CUDA kernel for tensors on the card
+and runs its plain PyTorch version for tensors on the CPU. There is no
+fallback between the two: a CUDA tensor the kernel cannot take raises.
 
-The backward kernel (``_ln_bwd_kernel``) and the fused Adam step come
-with the training slice; the CUDA path here is forward-only and refuses
-to run where autograd would need a gradient.
+- ``fused_layer_norm`` is a ``torch.autograd.Function``: its forward is
+  ``csrc/layer_norm.cu`` (the port of the Pallas ``_ln_kernel``) or
+  ``_ln_reference``; its backward ``csrc/layer_norm_bwd.cu`` (the port of
+  ``_ln_bwd_kernel``, two launches per call) or ``_ln_bwd_reference``.
+- ``fused_adam_step`` updates many parameters in one pass
+  (``csrc/adam.cu``, the port of ``_adam_kernel``, two launches per call)
+  or through ``_adam_reference``, a per-tensor loop over the reference's
+  ``Adam._update``.
 """
 from __future__ import annotations
+
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 from . import _build
 
-__all__ = ["fused_layer_norm"]
+__all__ = ["fused_layer_norm", "fused_adam_step", "layer_norm_bwd"]
 
 
+# ---------------------------------------------------------------------------
+# LayerNorm
+# ---------------------------------------------------------------------------
 def _ln_reference(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                   eps: float = 1e-5) -> torch.Tensor:
     """Plain LayerNorm over the last axis: two-pass mean/variance in f32,
@@ -30,16 +39,36 @@ def _ln_reference(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     return y.to(x.dtype)
 
 
-def fused_layer_norm(x: torch.Tensor, weight: torch.Tensor,
-                     bias: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    """LayerNorm over the last axis of ``x`` ([..., hidden]); ``weight``
-    and ``bias`` are [hidden] in ``x``'s dtype. CUDA tensors (float32 or
-    bfloat16, contiguous) go through the CUDA kernel, CPU tensors through
-    ``_ln_reference``."""
+def _ln_bwd_reference(x: torch.Tensor, weight: torch.Tensor, g: torch.Tensor,
+                      eps: float = 1e-5
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain LayerNorm backward, line for line the Pallas
+    ``_ln_bwd_kernel``'s math in f32: recompute mean/rstd, then
+    ``dx = rstd·(g·w − mean(g·w) − x̂·mean(g·w·x̂))``, ``dw = Σ g·x̂``,
+    ``db = Σ g`` over every row. ``dx`` is cast to ``x``'s dtype, ``dw``
+    and ``db`` to the weight's."""
+    hidden = x.shape[-1]
+    xf = x.reshape(-1, hidden).float()
+    w = weight.float()
+    gf = g.reshape(-1, hidden).float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = ((xf - mean) ** 2).mean(dim=-1, keepdim=True)
+    rstd = torch.rsqrt(var + eps)
+    xhat = (xf - mean) * rstd
+    gw = gf * w
+    m1 = gw.mean(dim=-1, keepdim=True)
+    m2 = (gw * xhat).mean(dim=-1, keepdim=True)
+    dx = (rstd * (gw - m1 - xhat * m2)).to(x.dtype).reshape(x.shape)
+    dw = (gf * xhat).sum(dim=0).to(weight.dtype)
+    db = gf.sum(dim=0).to(weight.dtype)
+    return dx, dw, db
+
+
+def _ln_fwd(x, weight, bias, eps):
     if x.device.type == "cpu":
         return _ln_reference(x, weight, bias, eps)
     hidden = x.shape[-1]
-    _check_cuda_args(x, weight, bias, hidden)
+    _check_ln_args("fused_layer_norm", x, weight, bias, hidden)
     rows = x.numel() // hidden
     y = torch.empty_like(x)
     if rows == 0:
@@ -55,26 +84,259 @@ def fused_layer_norm(x: torch.Tensor, weight: torch.Tensor,
     return y
 
 
-fused_layer_norm.launches = 0  # kernel launches, counted where they happen
+# blocks of the row pass of the backward: enough to fill the card, few
+# enough that the f32 partials [nblocks, hidden] stay small next to x
+_LN_BWD_BLOCKS = 512
 
 
-def _check_cuda_args(x, weight, bias, hidden):
+def layer_norm_bwd(x: torch.Tensor, weight: torch.Tensor, g: torch.Tensor,
+                   eps: float = 1e-5
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(dx, dw, db)`` of LayerNorm over the last axis of ``x`` for the
+    output gradient ``g``. CUDA tensors go through
+    ``csrc/layer_norm_bwd.cu`` (two launches: the row pass, then a
+    fixed-order reduce of per-block dw/db partials, so the result is
+    deterministic), CPU tensors through ``_ln_bwd_reference``."""
+    if x.device.type == "cpu":
+        return _ln_bwd_reference(x, weight, g, eps)
+    hidden = x.shape[-1]
+    _check_ln_args("layer_norm_bwd", x, weight, weight, hidden)
+    if g.shape != x.shape or g.dtype != x.dtype or g.device != x.device:
+        raise ValueError(f"layer_norm_bwd: g is {g.dtype} {tuple(g.shape)} "
+                         f"on {g.device}, x is {x.dtype} {tuple(x.shape)}")
+    g = g.contiguous()  # autograd may hand in a strided gradient
+    rows = x.numel() // hidden
+    dx = torch.empty_like(x)
+    dw = torch.empty_like(weight)
+    db = torch.empty_like(weight)
+    if rows == 0:
+        return dx, dw.zero_(), db.zero_()
+    rows_per_block = -(-rows // _LN_BWD_BLOCKS)
+    nblocks = -(-rows // rows_per_block)
+    parts = torch.empty((2, nblocks, hidden), dtype=torch.float32,
+                        device=x.device)
+    lib = _build.library()
+    with torch.cuda.device(x.device):
+        err = lib.ptt_layer_norm_bwd(
+            x.data_ptr(), weight.data_ptr(), g.data_ptr(), dx.data_ptr(),
+            parts[0].data_ptr(), parts[1].data_ptr(), dw.data_ptr(),
+            db.data_ptr(), rows, hidden, rows_per_block, float(eps),
+            _build.DTYPE_CODES[x.dtype], _build.stream_of(x))
+    _build.check(err, "layer_norm_bwd")
+    layer_norm_bwd.launches += 2
+    return dx, dw, db
+
+
+layer_norm_bwd.launches = 0  # kernel launches (two per call)
+
+
+class _LayerNormFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps):
+        ctx.eps = eps
+        ctx.save_for_backward(x, weight)
+        return _ln_fwd(x, weight, bias, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, weight = ctx.saved_tensors
+        dx, dw, db = layer_norm_bwd(x, weight, g, ctx.eps)
+        return dx, dw, db, None
+
+
+def fused_layer_norm(x: torch.Tensor, weight: torch.Tensor,
+                     bias: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm over the last axis of ``x`` ([..., hidden]); ``weight``
+    and ``bias`` are [hidden] in ``x``'s dtype. Differentiable: the
+    forward is the CUDA kernel (CUDA tensors, float32 or bfloat16,
+    contiguous) or ``_ln_reference`` (CPU tensors), the backward
+    ``layer_norm_bwd``."""
+    return _LayerNormFn.apply(x, weight, bias, eps)
+
+
+fused_layer_norm.launches = 0  # forward kernel launches
+
+
+def _check_ln_args(fn, x, weight, bias, hidden):
     if x.device.type != "cuda":
-        raise ValueError(f"fused_layer_norm: unsupported device {x.device}")
+        raise ValueError(f"{fn}: unsupported device {x.device}")
     if x.dtype not in _build.DTYPE_CODES:
-        raise TypeError(f"fused_layer_norm: dtype {x.dtype} not supported "
-                        "by the CUDA kernel (float32, bfloat16)")
+        raise TypeError(f"{fn}: dtype {x.dtype} not supported by the CUDA "
+                        "kernel (float32, bfloat16)")
     for name, t in (("weight", weight), ("bias", bias)):
         if t.device != x.device or t.dtype != x.dtype:
-            raise TypeError(f"fused_layer_norm: {name} is {t.dtype} on "
-                            f"{t.device}, x is {x.dtype} on {x.device}")
+            raise TypeError(f"{fn}: {name} is {t.dtype} on {t.device}, x is "
+                            f"{x.dtype} on {x.device}")
         if tuple(t.shape) != (hidden,) or not t.is_contiguous():
-            raise ValueError(f"fused_layer_norm: {name} must be a contiguous "
+            raise ValueError(f"{fn}: {name} must be a contiguous "
                              f"[{hidden}] tensor, got {tuple(t.shape)}")
     if not x.is_contiguous():
-        raise ValueError("fused_layer_norm: x must be contiguous")
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (x, weight, bias)):
-        raise NotImplementedError(
-            "fused_layer_norm: the CUDA kernel is forward-only; run under "
-            "torch.no_grad() (the backward kernel comes with training)")
+        raise ValueError(f"{fn}: x must be contiguous")
+
+
+# ---------------------------------------------------------------------------
+# multi-tensor Adam
+# ---------------------------------------------------------------------------
+def _adam_reference(params: Sequence[torch.Tensor],
+                    grads: Sequence[torch.Tensor],
+                    moment1: Sequence[torch.Tensor],
+                    moment2: Sequence[torch.Tensor],
+                    beta1_pow: Sequence[torch.Tensor],
+                    beta2_pow: Sequence[torch.Tensor], lr: torch.Tensor,
+                    masters: Optional[Sequence[Optional[torch.Tensor]]] = None,
+                    beta1: float = 0.9, beta2: float = 0.999,
+                    eps: float = 1e-8, weight_decay: float = 0.0) -> None:
+    """Plain multi-tensor Adam, in place: for each tensor, exactly
+    ``Adam._update`` of the reference on the f32 master (when one is
+    given; the param is then re-cast from it) or on the param itself,
+    with the L2 ``weight_decay`` folded into the grad first."""
+    masters = masters if masters is not None else [None] * len(params)
+    for p, g, m, v, b1p, b2p, master in zip(params, grads, moment1, moment2,
+                                           beta1_pow, beta2_pow, masters):
+        target = master if master is not None else p
+        g = g.to(target.dtype)
+        if weight_decay:
+            g = g + weight_decay * target
+        new_b1p = b1p * beta1
+        new_b2p = b2p * beta2
+        m1 = beta1 * m + (1 - beta1) * g
+        m2 = beta2 * v + (1 - beta2) * g * g
+        lr_t = lr * torch.sqrt(1 - new_b2p) / (1 - new_b1p)
+        new = target - (lr_t * m1 / (torch.sqrt(m2) + eps)).to(target.dtype)
+        target.copy_(new)
+        if master is not None:
+            p.copy_(new)
+        m.copy_(m1)
+        v.copy_(m2)
+        b1p.copy_(new_b1p)
+        b2p.copy_(new_b2p)
+
+
+# elements of one (tensor, chunk) work item of the CUDA update
+_ADAM_CHUNK = 16384
+_TABLE_COLS = 8  # p, m, v, bf16 copy, beta1_pow, beta2_pow, numel, g dtype
+
+
+def fused_adam_step(params: Sequence[torch.Tensor],
+                    grads: Sequence[torch.Tensor],
+                    moment1: Sequence[torch.Tensor],
+                    moment2: Sequence[torch.Tensor],
+                    beta1_pow: Sequence[torch.Tensor],
+                    beta2_pow: Sequence[torch.Tensor], lr: torch.Tensor,
+                    masters: Optional[Sequence[Optional[torch.Tensor]]] = None,
+                    beta1: float = 0.9, beta2: float = 0.999,
+                    eps: float = 1e-8, weight_decay: float = 0.0) -> None:
+    """One Adam step over many parameters, in place — the multi-tensor
+    counterpart of the reference's ``fused_adam_step`` with the engine's
+    master-weight handling.
+
+    ``params[i]`` is updated through ``masters[i]`` (its f32 master, when
+    given: the param is then the bf16 resident copy, re-cast from the new
+    master in the same pass) or directly (an f32 param). ``moment1``,
+    ``moment2`` are f32 like the master; ``beta1_pow``/``beta2_pow`` are
+    per-tensor 0-d f32 tensors, advanced by one step; ``lr`` is a 0-d f32
+    tensor on the params' device. Nothing is read back to the host.
+
+    CUDA tensors go through ``csrc/adam.cu`` (two launches per call),
+    CPU tensors through ``_adam_reference``.
+    """
+    n = len(params)
+    masters = list(masters) if masters is not None else [None] * n
+    lists = (grads, moment1, moment2, beta1_pow, beta2_pow, masters)
+    if any(len(t) != n for t in lists):
+        raise ValueError("fused_adam_step: the lists differ in length")
+    if n == 0:
+        return
+    dev = params[0].device
+    if dev.type == "cpu":
+        return _adam_reference(params, grads, moment1, moment2, beta1_pow,
+                               beta2_pow, lr, masters, beta1, beta2, eps,
+                               weight_decay)
+    if dev.type != "cuda":
+        raise ValueError(f"fused_adam_step: unsupported device {dev}")
+    if lr.device != dev or lr.dtype != torch.float32 or lr.numel() != 1:
+        raise TypeError("fused_adam_step: lr must be a one-element f32 "
+                        f"tensor on {dev}, got {lr.dtype} on {lr.device}")
+    tab, chunks, ntensors, nchunks = _adam_table(
+        params, grads, moment1, moment2, beta1_pow, beta2_pow, masters)
+    if nchunks == 0:
+        return
+    gptrs = torch.tensor([g.data_ptr() for g in grads if g.numel()],
+                         dtype=torch.int64).pin_memory()
+    gptrs = gptrs.to(dev, non_blocking=True)
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        err = lib.ptt_adam_step(
+            tab.data_ptr(), gptrs.data_ptr(), chunks.data_ptr(), nchunks,
+            ntensors, lr.data_ptr(), beta1, beta2, 1 - beta1, 1 - beta2,
+            eps, float(weight_decay), _ADAM_CHUNK,
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "adam_step")
+    fused_adam_step.launches += 2
+
+
+fused_adam_step.launches = 0  # kernel launches (two per call)
+
+# device tables of the tensors' pointers, keyed by those pointers: the
+# params, masters and moments are updated in place, so a training loop
+# builds its table once
+_TABLES: Dict[tuple, tuple] = {}
+_TABLES_MAX = 8
+
+
+def _adam_table(params, grads, moment1, moment2, beta1_pow, beta2_pow,
+                masters):
+    dev = params[0].device
+    rows: List[tuple] = []
+    for i, (p, g, m, v, b1p, b2p, master) in enumerate(zip(
+            params, grads, moment1, moment2, beta1_pow, beta2_pow,
+            masters)):
+        target = master if master is not None else p
+        for name, t in (("param", p), ("grad", g), ("moment1", m),
+                        ("moment2", v), ("beta1_pow", b1p),
+                        ("beta2_pow", b2p), ("master", target)):
+            if t.device != dev:
+                raise ValueError(f"fused_adam_step: {name} {i} is on "
+                                 f"{t.device}, params[0] on {dev}")
+            if not t.is_contiguous():
+                raise ValueError(f"fused_adam_step: {name} {i} is not "
+                                 "contiguous")
+        if target.dtype != torch.float32:
+            raise NotImplementedError(
+                f"fused_adam_step: param {i} is {p.dtype} without an f32 "
+                "master; the kernel updates f32 values only")
+        for name, t in (("moment1", m), ("moment2", v), ("beta1_pow", b1p),
+                        ("beta2_pow", b2p)):
+            if t.dtype != torch.float32:
+                raise TypeError(f"fused_adam_step: {name} {i} is {t.dtype}, "
+                                "not float32")
+        if b1p.numel() != 1 or b2p.numel() != 1:
+            raise ValueError(f"fused_adam_step: beta powers of {i} must "
+                             "have one element")
+        if master is not None and p.dtype != torch.bfloat16:
+            raise TypeError(f"fused_adam_step: param {i} has a master, so "
+                            f"it must be the bf16 copy, not {p.dtype}")
+        if g.dtype != p.dtype:
+            raise TypeError(f"fused_adam_step: grad {i} is {g.dtype}, "
+                            f"param {p.dtype}")
+        for t in (g, m, v, target):
+            if t.numel() != p.numel():
+                raise ValueError(f"fused_adam_step: tensor {i} sizes differ")
+        if p.numel() == 0:
+            continue
+        rows.append((target.data_ptr(), m.data_ptr(), v.data_ptr(),
+                     p.data_ptr() if master is not None else 0,
+                     b1p.data_ptr(), b2p.data_ptr(), p.numel(),
+                     _build.DTYPE_CODES[g.dtype]))
+    key = (dev, tuple(rows))
+    hit = _TABLES.get(key)
+    if hit is None:
+        chunks = [(t, c) for t, row in enumerate(rows)
+                  for c in range(-(-row[6] // _ADAM_CHUNK))]
+        tab = torch.tensor(rows, dtype=torch.int64).reshape(-1, _TABLE_COLS)
+        ch = torch.tensor(chunks, dtype=torch.int32).reshape(-1, 2)
+        hit = (tab.to(dev), ch.to(dev), len(rows), len(chunks))
+        if len(_TABLES) >= _TABLES_MAX:
+            _TABLES.pop(next(iter(_TABLES)))
+        _TABLES[key] = hit
+    return hit

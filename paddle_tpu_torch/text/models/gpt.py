@@ -1,6 +1,6 @@
-"""GPT family — counterpart of ``paddle_tpu.text.models.gpt``, for
-serving: the eval forward of ``GPTForCausalLM`` and the KV-cached
-``gpt_decode_fns``.
+"""GPT family — counterpart of ``paddle_tpu.text.models.gpt``: the
+forward of ``GPTForCausalLM`` (with the training loss when labels are
+given) and the KV-cached ``gpt_decode_fns`` for serving.
 
 Layout follows the reference so weights cross over unchanged: a
 ``Linear`` keeps its weight as [in, out] and computes ``x @ W + b``, and
@@ -8,7 +8,9 @@ parameters carry the reference's names (``gpt.h.{i}.attn.qkv.weight``,
 ...; see ``jit.functionalize``). The LM head is tied to ``wte``, the MLP
 uses tanh-approximated GELU, every LayerNorm goes through
 ``ops.fused.fused_layer_norm`` and attention through
-``ops.attention.dot_product_attention`` (the flash kernel on the card).
+``ops.attention.dot_product_attention`` (the flash kernel on the card),
+both differentiable. Dropout draws its masks from a ``torch.Generator``
+the model owns, seeded from the constructor's ``seed``.
 
 The reference's TPU tuning knobs (``use_flash_attention``,
 ``manual_layer_norm``, ``fused_head_ce``) select XLA lowerings and the
@@ -25,6 +27,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...core.place import resolve_device
+from ...nn.functional.loss import cross_entropy
 from ...ops.attention import dot_product_attention, paged_attention
 from ...ops.fused import fused_layer_norm
 
@@ -70,6 +73,24 @@ class Linear(nn.Module):
         return _linear(x, self.weight, self.bias)
 
 
+class Dropout(nn.Module):
+    """Inverted dropout whose mask comes from an explicit generator (the
+    model's), never from torch's global RNG. The identity in eval mode
+    or at ``p == 0``."""
+
+    def __init__(self, p: float, generator: torch.Generator):
+        super().__init__()
+        self.p = p
+        self.generator = generator
+
+    def forward(self, x):
+        if not self.training or self.p == 0.0:
+            return x
+        keep = torch.empty(x.shape, device=x.device).bernoulli_(
+            1.0 - self.p, generator=self.generator)
+        return x * keep.to(x.dtype) / (1.0 - self.p)
+
+
 class LayerNorm(nn.Module):
     def __init__(self, hidden: int, eps: float, device=None, dtype=None):
         super().__init__()
@@ -83,14 +104,15 @@ class LayerNorm(nn.Module):
 
 
 class GPTAttention(nn.Module):
-    def __init__(self, config: GPTConfig, device=None, dtype=None):
+    def __init__(self, config: GPTConfig, gen: torch.Generator, device=None,
+                 dtype=None):
         super().__init__()
         h = config.hidden_size
         self.num_heads = config.num_heads
         self.head_dim = h // config.num_heads
         self.qkv = Linear(h, 3 * h, device, dtype)
         self.proj = Linear(h, h, device, dtype)
-        self.dropout = nn.Dropout(config.hidden_dropout)
+        self.dropout = Dropout(config.hidden_dropout, gen)
 
     def forward(self, x):
         b, l, h = x.shape
@@ -103,26 +125,28 @@ class GPTAttention(nn.Module):
 
 
 class GPTMLP(nn.Module):
-    def __init__(self, config: GPTConfig, device=None, dtype=None):
+    def __init__(self, config: GPTConfig, gen: torch.Generator, device=None,
+                 dtype=None):
         super().__init__()
         self.fc = Linear(config.hidden_size, config.intermediate_size,
                          device, dtype)
         self.proj = Linear(config.intermediate_size, config.hidden_size,
                            device, dtype)
-        self.dropout = nn.Dropout(config.hidden_dropout)
+        self.dropout = Dropout(config.hidden_dropout, gen)
 
     def forward(self, x):
         return self.dropout(self.proj(F.gelu(self.fc(x), approximate="tanh")))
 
 
 class GPTBlock(nn.Module):
-    def __init__(self, config: GPTConfig, device=None, dtype=None):
+    def __init__(self, config: GPTConfig, gen: torch.Generator, device=None,
+                 dtype=None):
         super().__init__()
         eps = config.layer_norm_epsilon
         self.ln_1 = LayerNorm(config.hidden_size, eps, device, dtype)
-        self.attn = GPTAttention(config, device, dtype)
+        self.attn = GPTAttention(config, gen, device, dtype)
         self.ln_2 = LayerNorm(config.hidden_size, eps, device, dtype)
-        self.mlp = GPTMLP(config, device, dtype)
+        self.mlp = GPTMLP(config, gen, device, dtype)
 
     def forward(self, x):
         x = x + self.attn(self.ln_1(x))
@@ -130,15 +154,22 @@ class GPTBlock(nn.Module):
 
 
 class GPT(nn.Module):
-    def __init__(self, config: GPTConfig, device=None, dtype=None):
+    """The decoder stack. Its dropout masks come from ``dropout_gen``, a
+    ``torch.Generator`` on ``device`` seeded with ``seed``."""
+
+    def __init__(self, config: GPTConfig, device=None, dtype=None,
+                 seed: int = 0):
         super().__init__()
+        device = resolve_device(device)
         self.config = config
+        self.dropout_gen = torch.Generator(device=device).manual_seed(seed)
+        gen = self.dropout_gen
         kw = dict(device=device, dtype=dtype)
         self.wte = nn.Embedding(config.vocab_size, config.hidden_size, **kw)
         self.wpe = nn.Embedding(config.max_position_embeddings,
                                 config.hidden_size, **kw)
-        self.drop = nn.Dropout(config.hidden_dropout)
-        self.h = nn.ModuleList([GPTBlock(config, device, dtype)
+        self.drop = Dropout(config.hidden_dropout, gen)
+        self.h = nn.ModuleList([GPTBlock(config, gen, device, dtype)
                                 for _ in range(config.num_layers)])
         self.ln_f = LayerNorm(config.hidden_size, config.layer_norm_epsilon,
                               device, dtype)
@@ -156,7 +187,8 @@ class GPTForCausalLM(nn.Module):
     """LM head tied to wte (standard GPT-2 weight tying).
 
     Weights are drawn from ``seed`` with an explicit ``torch.Generator``
-    on ``device`` (default ``"cuda"``): Normal(0, initializer_range) for
+    on ``device`` (default ``"cuda"``), and dropout masks from a second
+    generator with the same seed: Normal(0, initializer_range) for
     embeddings and projections, scaled by 1/sqrt(2·num_layers) for the two
     residual-branch output projections, zero biases, unit LayerNorm
     gains — the reference's initializers. ``jit.functionalize.
@@ -169,7 +201,7 @@ class GPTForCausalLM(nn.Module):
         super().__init__()
         device = resolve_device(device)
         self.config = config
-        self.gpt = GPT(config, device, dtype)
+        self.gpt = GPT(config, device, dtype, seed)
         self._init_weights(torch.Generator(device=device).manual_seed(seed))
 
     @torch.no_grad()
@@ -183,9 +215,17 @@ class GPTForCausalLM(nn.Module):
             elif name.endswith("proj.weight"):
                 p.normal_(0.0, out_std, generator=gen)
 
-    def forward(self, input_ids):
-        h = self.gpt(input_ids)
-        return F.linear(h, self.gpt.wte.weight)
+    def forward(self, input_ids, labels=None):
+        """Logits [b, l, vocab] or, given ``labels`` [b, l], the scalar
+        mean cross entropy (the reference's training forward)."""
+        logits = F.linear(self.gpt(input_ids), self.gpt.wte.weight)
+        if labels is not None:
+            return self.loss_fn(logits, labels)
+        return logits
+
+    def loss_fn(self, logits, labels):
+        return cross_entropy(logits.reshape(-1, self.config.vocab_size),
+                             labels.reshape(-1))
 
 
 def gpt_decode_fns(config: GPTConfig, kv_dtype: str = "float32"):
@@ -256,16 +296,22 @@ def gpt_decode_fns(config: GPTConfig, kv_dtype: str = "float32"):
     return forward_chunk
 
 
+# Each preset's fields can be overridden by keyword (``num_layers=2`` cuts
+# the depth and keeps the widths).
 def gpt2_tiny(**kw):
-    return GPTConfig(vocab_size=1024, hidden_size=128, num_layers=4,
-                     num_heads=4, max_position_embeddings=256,
-                     hidden_dropout=0.0, attention_dropout=0.0, **kw)
+    return GPTConfig(**{**dict(vocab_size=1024, hidden_size=128,
+                               num_layers=4, num_heads=4,
+                               max_position_embeddings=256,
+                               hidden_dropout=0.0, attention_dropout=0.0),
+                        **kw})
 
 
 def gpt2_small(**kw):
-    return GPTConfig(hidden_size=768, num_layers=12, num_heads=12, **kw)
+    return GPTConfig(**{**dict(hidden_size=768, num_layers=12,
+                               num_heads=12), **kw})
 
 
 def gpt2_medium(**kw):
     """GPT-2 345M."""
-    return GPTConfig(hidden_size=1024, num_layers=24, num_heads=16, **kw)
+    return GPTConfig(**{**dict(hidden_size=1024, num_layers=24,
+                               num_heads=16), **kw})

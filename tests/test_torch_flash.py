@@ -1,7 +1,9 @@
-"""Port causal flash-attention forward (paddle_tpu_torch.ops.flash_tpu)
-against the reference: the plain path's (out, lse) against the Pallas
+"""Port causal flash attention (paddle_tpu_torch.ops.flash_tpu) against
+the reference: the plain forward's (out, lse) against the Pallas
 `_fwd_kernel` run in interpret mode, ragged L against `xla_attention`;
-the CUDA kernel against the plain path on a card (marked `cuda`)."""
+the plain backward against `_dq_kernel` + `_dkv_kernel` in interpret
+mode, ragged L against `jax.vjp` of `xla_attention`; the CUDA kernels
+against the plain path on a card (marked `cuda`)."""
 import functools
 import math
 
@@ -14,10 +16,12 @@ from jax.experimental import pallas as pl
 
 from paddle_tpu.ops import attention as jatt
 from paddle_tpu.ops import flash_tpu as jflash
+from paddle_tpu_torch.ops import attention as tatt
 from paddle_tpu_torch.ops import flash_tpu as tflash
 
 OUT_TOL = 2e-5   # f32 accumulation in both, different order
 LSE_TOL = 1e-5
+GRAD_TOL = 2e-5  # f32 on both sides; sums over up to L keys or queries
 
 
 def _pallas_fwd(q, k, v, block):
@@ -109,6 +113,111 @@ def test_other_devices_raise_instead_of_falling_back():
         tflash.flash_attention_blhd(q, q, q)
 
 
+def _pallas_bwd(q, k, v, out, lse, dout, block):
+    """The reference's own `_dq_kernel` and `_dkv_kernel`, launched as
+    `_flash_bwd_rule` launches them (delta as its einsum), in interpret
+    mode. All [b, L, H, d] numpy f32 but lse [b, H, L]."""
+    b, L, H, d = q.shape
+    r3 = lambda a: a.reshape(b, L, H * d)
+    delta = np.einsum("blhd,blhd->bhl", dout, out).astype(np.float32)
+    kw = dict(H=H, d=d, bq=block, bk=block, scale=1.0 / math.sqrt(d))
+    act = pl.BlockSpec((1, block, H * d), lambda ib, i: (ib, i, 0))
+    full = pl.BlockSpec((1, L, H * d), lambda ib, i: (ib, 0, 0))
+    stats_blk = pl.BlockSpec((1, H, block), lambda ib, i: (ib, 0, i))
+    stats_full = pl.BlockSpec((1, H, L), lambda ib, i: (ib, 0, 0))
+    shape = jax.ShapeDtypeStruct((b, L, H * d), jnp.float32)
+    args = (r3(q), r3(k), r3(v), r3(dout), lse, delta)
+    with jax.enable_x64(False):
+        dq = pl.pallas_call(
+            functools.partial(jflash._dq_kernel, **kw), grid=(b, L // block),
+            in_specs=[act, full, full, act, stats_blk, stats_blk],
+            out_specs=act, out_shape=shape, interpret=True)(*args)
+        dk, dv = pl.pallas_call(
+            functools.partial(jflash._dkv_kernel, nq=L // block, **kw),
+            grid=(b, L // block),
+            in_specs=[full, act, act, full, stats_full, stats_full],
+            out_specs=[act, act], out_shape=[shape, shape],
+            interpret=True)(*args)
+    return [np.asarray(t).reshape(b, L, H, d) for t in (dq, dk, dv)]
+
+
+def _port_bwd(q, k, v, dout):
+    """(dq, dk, dv) of the port's plain backward, and its out and lse."""
+    tq, tk, tv, tdo = (torch.from_numpy(a) for a in (q, k, v, dout))
+    out, lse = tflash._flash_reference(tq, tk, tv)
+    grads = tflash._flash_bwd_reference(tq, tk, tv, out, lse, tdo)
+    return [t.numpy() for t in grads], out.numpy(), lse.numpy()
+
+
+@pytest.mark.parametrize("b,L,H,d,block", [(1, 256, 2, 64, 128),
+                                           (2, 128, 2, 32, 64)])
+def test_backward_matches_pallas_kernels_in_interpret_mode(b, L, H, d,
+                                                           block):
+    q, k, v, dout = _qkv((b, L, H, d), seed=L + d) + _qkv((b, L, H, d),
+                                                          seed=1)[:1]
+    grads, out, lse = _port_bwd(q, k, v, dout)
+    ref = _pallas_bwd(q, k, v, out, lse, dout, block)
+    for got, want, name in zip(grads, ref, ("dq", "dk", "dv")):
+        np.testing.assert_allclose(got, want, atol=GRAD_TOL, rtol=0,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("b,L,H,d", [(1, 77, 2, 32), (2, 33, 3, 16)])
+def test_backward_ragged_length_matches_vjp_of_xla_attention(b, L, H, d):
+    """Lengths the TPU kernels' L % 256 gate refused."""
+    q, k, v = _qkv((b, L, H, d), seed=L + 1)
+    dout = _qkv((b, L, H, d), seed=2)[0]
+    _, vjp = jax.vjp(lambda q_, k_, v_: jatt.xla_attention(
+        q_, k_, v_, causal=True, layout="blhd"), q, k, v)
+    ref = vjp(dout)
+    grads, _, _ = _port_bwd(q, k, v, dout)
+    for got, want, name in zip(grads, ref, ("dq", "dk", "dv")):
+        np.testing.assert_allclose(got, np.asarray(want), atol=GRAD_TOL,
+                                   rtol=0, err_msg=name)
+
+
+def test_gradients_through_strided_views_of_a_fused_projection():
+    """Autograd through the Function with q/k/v as views of one
+    [b, L, 3·H·d] projection, against autograd of `xla_attention`."""
+    rng = np.random.RandomState(8)
+    base = rng.randn(2, 40, 3 * 4 * 16).astype(np.float32)
+    g = torch.from_numpy(rng.randn(2, 40, 4, 16).astype(np.float32))
+    grads = []
+    for fn in (lambda q, k, v: tflash.flash_attention_blhd(q, k, v)[0],
+               lambda q, k, v: tatt.xla_attention(q, k, v, causal=True,
+                                                  layout="blhd")):
+        qkv = torch.from_numpy(base).requires_grad_()
+        q, k, v = (t.view(2, 40, 4, 16) for t in qkv.split(64, dim=-1))
+        assert q.stride(1) == 3 * 64
+        grads.append(torch.autograd.grad(fn(q, k, v), qkv, g)[0])
+    torch.testing.assert_close(grads[0], grads[1], atol=GRAD_TOL, rtol=0)
+
+
+def test_lse_is_not_differentiable():
+    q, k, v = (torch.from_numpy(a).requires_grad_()
+               for a in _qkv((1, 8, 1, 8), seed=0))
+    out, lse = tflash.flash_attention_blhd(q, k, v)
+    assert out.requires_grad and not lse.requires_grad
+
+
+def test_cpu_backward_launches_no_kernel():
+    before = (tflash.flash_bwd_dq.launches, tflash.flash_bwd_dkv.launches)
+    q, k, v = (torch.from_numpy(a).requires_grad_()
+               for a in _qkv((1, 16, 2, 8), seed=0))
+    tflash.flash_attention_blhd(q, k, v)[0].sum().backward()
+    assert q.grad is not None
+    assert (tflash.flash_bwd_dq.launches,
+            tflash.flash_bwd_dkv.launches) == before
+
+
+@pytest.mark.parametrize("fn", ["flash_bwd_dq", "flash_bwd_dkv"])
+def test_backward_kernels_on_other_devices_raise(fn):
+    q = torch.empty(1, 4, 2, 64, device="meta")
+    lse = torch.empty(1, 2, 4, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        getattr(tflash, fn)(q, q, q, q, lse, lse)
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -131,3 +240,27 @@ def test_cuda_kernel_matches_plain(cuda_device, dtype, tol):
         torch.testing.assert_close(out.float(), ref_out.float(), atol=tol,
                                    rtol=tol)
         torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+def test_cuda_backward_kernels_match_plain(cuda_device, dtype, tol):
+    for shape in ((1, 256, 16, 64), (2, 77, 4, 128), (1, 100, 2, 32)):
+        q, k, v, dout = (torch.from_numpy(a).to(cuda_device, dtype)
+                         for a in _qkv(shape, seed=shape[1])
+                         + _qkv(shape, seed=1)[:1])
+        out, lse = tflash.flash_attention_blhd(q, k, v)
+        delta = tflash._delta(out, dout)
+        before = (tflash.flash_bwd_dq.launches,
+                  tflash.flash_bwd_dkv.launches)
+        dq = tflash.flash_bwd_dq(q, k, v, dout, lse, delta)
+        dk, dv = tflash.flash_bwd_dkv(q, k, v, dout, lse, delta)
+        torch.cuda.synchronize()
+        assert (tflash.flash_bwd_dq.launches,
+                tflash.flash_bwd_dkv.launches) == (before[0] + 1,
+                                                   before[1] + 1)
+        ref = tflash._flash_bwd_reference(q, k, v, out, lse, dout)
+        for got, want in zip((dq, dk, dv), ref):
+            torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                                       rtol=tol)

@@ -13,10 +13,13 @@ import pytest
 import torch
 
 import paddle_tpu_torch
+from paddle_tpu_torch import bench
 from paddle_tpu_torch.core.place import resolve_device
+from paddle_tpu_torch.distributed.fleet.engine import ParallelTrainStep
 from paddle_tpu_torch.inference.serving import (KVCacheConfig, KVCachePool,
                                                 TokenServeConfig,
                                                 TokenServingEngine)
+from paddle_tpu_torch.optimizer import Adam
 from paddle_tpu_torch.text.models import gpt as tgpt
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -35,7 +38,9 @@ def test_package_has_the_slice_modules():
                 "text.models.gpt", "jit.functionalize",
                 "inference.serving.request", "inference.serving.admission",
                 "inference.serving.engine", "inference.serving.kv_cache",
-                "inference.serving.decode", "inference.serving.loadgen"):
+                "inference.serving.decode", "inference.serving.loadgen",
+                "nn.functional.loss", "optimizer.optimizer",
+                "distributed.fleet.engine", "bench"):
         assert "paddle_tpu_torch." + mod in names
 
 
@@ -97,3 +102,8 @@ def test_entry_points_without_device_raise_on_a_cuda_less_machine(no_cuda):
     model = tgpt.GPTForCausalLM(tgpt.gpt2_tiny(), device="cpu")
     with pytest.raises(RuntimeError):
         TokenServingEngine(model, TokenServeConfig(kv_blocks=32))
+    with pytest.raises(RuntimeError):
+        ParallelTrainStep(model, lambda out, lbl: out,
+                          Adam(parameters=model.parameters()))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bench.main()
