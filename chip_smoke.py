@@ -38,9 +38,23 @@ failing on the first phase that fails:
 8. trains GPT-2 345M (24 layers) at batch 8 x 1024 in bf16 with f32
    master weights through ``ParallelTrainStep``: 3 warm-up and 20 timed
    steps, tokens/s, p50 step time, peak memory, the loss finite and
-   falling, the launch counts per step, and a 2-step profile.
+   falling, the launch counts per step, and a 2-step profile;
+9. (after 3c, which holds the full-attention forward, dQ and dK/dV
+   kernels, the packed dK/dV of the experiment and the AdamW mode of the
+   Adam kernel against their plain versions and times them) takes one
+   f32 AdamW step of a 2-layer BERT-base (batch 4 x 128) through the
+   kernels and one through the plain path, and compares the loss, every
+   gradient and every parameter after the step;
+10. trains BERT-base (12 layers, hidden 768, vocab 30528) at batch
+    32 x 128 in bf16 without master weights, AdamW lr 1e-4 and weight
+    decay 0.01: 3 warm-up and 20 timed steps, samples/s, tokens/s, p50
+    step time, peak memory, the loss finite and falling, the launch counts
+    per step, no attention call off the kernel, and a 2-step profile;
+11. runs the packed dK/dV experiment's own entry point
+    (``paddle_tpu_torch.experiments.dkv_packed.main``) and checks its
+    gradients against autograd.
 
-Every kernel's launch count is set to 0 before each of phases 4-8 and
+Every kernel's launch count is set to 0 before each of phases 4-11 and
 read after it. The last two lines are a ``{"kernels": [...]}`` JSON
 object and ``{"ok": true, "device": {...}}``.
 """
@@ -80,6 +94,11 @@ FLASH_BWD_AUTOGRAD_TOL = (1e-4, 1e-4)
 # Adam: kernel and plain version run the same separately rounded IEEE f32
 # operations in the same order.
 ADAM_TOL = (1e-6, 0.0)
+# packed dK/dV (#8), bf16 with bf16-rounded P and dS: against its plain
+# version (same roundings, other sum order: a rounded P or dS element can
+# flip one bf16 ulp) and against the causal dK/dV kernel (f32 products),
+# max |diff| within 2^-6 of the tensor's largest magnitude
+PACKED_REL_TOL = 2.0 ** -6
 # phase 7, f32 with TF32 off: the loss to a few f32 ulps, each gradient
 # tensor within 1e-4 of its own largest magnitude (sums of up to 2048
 # tokens in another order).
@@ -107,6 +126,12 @@ FLASH_BWD_SHAPES = ((8, 1024, 16, 64), (4, 512, 16, 64), (2, 77, 16, 64),
                     (1, 256, 8, 128))
 ADAM_NUMELS = (1, 1000, 65536, 1024 * 4096, 50304 * 1024)
 TRAIN_SHAPE = (8, 1024)  # batch x tokens of the training phase
+# full attention (#4): BERT's shape, a ragged L, GPT's shape
+BERT_ATTN_SHAPE = (32, 128, 12, 64)
+FULL_SHAPES = (BERT_ATTN_SHAPE, (4, 200, 12, 64), (8, 1024, 16, 64))
+# packed dK/dV (#8), (b, L, H, d): the experiment's shape first
+PACKED_SHAPES = ((8, 1024, 16, 64), (4, 200, 12, 64), BERT_ATTN_SHAPE)
+BERT_SHAPE = (32, 128)  # batch x tokens of the BERT training phase
 
 
 def log(*a):
@@ -196,6 +221,32 @@ def flash_bwd_bound(b, L, H, d, dtype, kernel):
         else "operations"
 
 
+def flash_full_bound(b, L, H, d, dtype, kernel):
+    """The least time of one full-attention kernel's own function over all
+    L x L pairs: the forward's 2 products (QK^T, PV) with out and lse
+    written, dQ's 3 and dK/dV's 4 products (as ``flash_bwd_bound``)."""
+    esize = torch.finfo(dtype).bits // 8
+    products, nbytes = {
+        "fwd": (2, 4 * b * L * H * d * esize + b * H * L * 4),
+        "dq": (3, 5 * b * L * H * d * esize + 2 * b * H * L * 4),
+        "dkv": (4, 6 * b * L * H * d * esize + 2 * b * H * L * 4)}[kernel]
+    flops = products * 2 * d * b * H * L * L
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops \
+        else "operations"
+
+
+def packed_dkv_bound(b, H, L, d):
+    """The packed dK/dV's own function in bf16: q, k, v, dO and the f32
+    lse, delta read, [dV | dK] written; S, dP, dV and dK over k <= q."""
+    nbytes = 4 * b * H * L * d * 2 + 2 * b * H * L * 4 + 2 * b * H * L * d * 2
+    flops = 4 * 2 * d * b * H * L * (L + 1) // 2
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[torch.bfloat16]
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops \
+        else "operations"
+
+
 def adam_bound(numels, grad_esize, low_esize):
     # grad read, master/m/v read and written, the bf16 copy written
     nbytes = sum(numels) * (grad_esize + 24 + low_esize)
@@ -203,6 +254,17 @@ def adam_bound(numels, grad_esize, low_esize):
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_CORE_FLOPS
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops \
         else "operations"
+
+
+def bert_param_shapes(cfg):
+    """Shapes of BertForPretraining's parameters (157 for BERT-base)."""
+    h, f = cfg.hidden_size, cfg.intermediate_size
+    layer = [(h, 3 * h), (3 * h,), (h, h), (h,), (h,), (h,), (h, f), (f,),
+             (f, h), (h,), (h,), (h,)]
+    return ([(cfg.vocab_size, h), (cfg.max_position_embeddings, h),
+             (cfg.type_vocab_size, h), (h,), (h,)]
+            + layer * cfg.num_layers + [(h, h), (h,), (h, h), (h,), (h,),
+                                        (h,), (h, 2), (2,)])
 
 
 def gpt_param_shapes(cfg):
@@ -215,20 +277,33 @@ def gpt_param_shapes(cfg):
 
 
 @contextlib.contextmanager
-def plain_kernels(gpt_mod, fused, flash_tpu):
-    """Run the model's LayerNorms and attention (forward and, through
+def plain_kernels(gpt_mod, fused, flash_tpu, norm_mod, bert_mod, attention):
+    """Run the models' LayerNorms and attention (forward and, through
     autograd, backward) and the optimizer's Adam through the kernels'
-    plain PyTorch versions (the comparison path of phases 4 and 7)."""
-    saved = (gpt_mod.fused_layer_norm, gpt_mod.dot_product_attention,
+    plain PyTorch versions (the comparison path of phases 4, 7 and 9).
+    The LayerNorm layer lives in ``nn.layer.norm``; the GPT decode path
+    calls ``fused_layer_norm`` from the GPT module itself."""
+    saved = (norm_mod.fused_layer_norm, gpt_mod.fused_layer_norm,
+             gpt_mod.dot_product_attention, bert_mod.dot_product_attention,
              fused.fused_adam_step)
+
+    def bert_attention(q, k, v, causal=False, bias=None, use_flash=True,
+                       layout="bhld"):
+        if bias is not None:
+            return attention.xla_attention(q, k, v, causal, bias, layout)
+        return flash_tpu._flash_reference(q, k, v, causal)[0]
+
+    norm_mod.fused_layer_norm = fused._ln_reference
     gpt_mod.fused_layer_norm = fused._ln_reference
     gpt_mod.dot_product_attention = \
         lambda q, k, v, causal, layout: flash_tpu._flash_reference(q, k, v)[0]
+    bert_mod.dot_product_attention = bert_attention
     fused.fused_adam_step = fused._adam_reference
     try:
         yield
     finally:
-        (gpt_mod.fused_layer_norm, gpt_mod.dot_product_attention,
+        (norm_mod.fused_layer_norm, gpt_mod.fused_layer_norm,
+         gpt_mod.dot_product_attention, bert_mod.dot_product_attention,
          fused.fused_adam_step) = saved
 
 
@@ -488,6 +563,264 @@ def profile_training(step, ids, labels):
             f"{e.key[:90]}")
 
 
+def check_bert_kernels(dev, rnd, fused, flash_tpu, dkv_mod, bert_cfg, err):
+    """Phase 3c: the full-attention forward, dQ and dK/dV kernels (#4), the
+    packed dK/dV (#8, also against the causal dK/dV kernel #3) and the
+    AdamW mode of the Adam kernel against their plain versions on the
+    card."""
+    for dtype in DTYPES:
+        out_tol, lse_tol = FLASH_OUT_TOL[dtype], FLASH_LSE_TOL[dtype]
+        bwd_tol = FLASH_BWD_TOL[dtype]
+        for shape in FULL_SHAPES:
+            q, k, v, do = (rnd(*shape, dtype=dtype) for _ in range(4))
+            out, lse = flash_tpu._fwd(q, k, v, causal=False)
+            torch.cuda.synchronize()
+            ref_out, ref_lse = flash_tpu._flash_reference(q, k, v, False)
+            e_o, ok_o = worst(out, ref_out, *out_tol)
+            e_l, ok_l = worst(lse, ref_lse, *lse_tol)
+            delta = flash_tpu._delta(out, do)
+            dq = flash_tpu.flash_bwd_dq_full(q, k, v, do, lse, delta)
+            dk, dv = flash_tpu.flash_bwd_dkv_full(q, k, v, do, lse, delta)
+            torch.cuda.synchronize()
+            ref = flash_tpu._flash_bwd_reference(q, k, v, out, lse, do,
+                                                 causal=False)
+            res = [worst(a, b, *bwd_tol) for a, b in zip((dq, dk, dv), ref)]
+            err["flash_attn_fwd_full"] = max(err["flash_attn_fwd_full"],
+                                             e_o, e_l)
+            err["flash_attn_bwd_dq_full"] = max(
+                err["flash_attn_bwd_dq_full"], res[0][0])
+            err["flash_attn_bwd_dkv_full"] = max(
+                err["flash_attn_bwd_dkv_full"], res[1][0], res[2][0])
+            log(f"[3c] flash full {str(dtype)[6:]} (b,L,H,d)={shape}: out "
+                f"err {e_o:.3g} (tol {out_tol}), lse err {e_l:.3g} (tol "
+                f"{lse_tol}); dq/dk/dv max err "
+                + "/".join(f"{e:.3g}" for e, _ in res) + f" (tol {bwd_tol})")
+            if not (ok_o and ok_l and all(ok for _, ok in res)):
+                raise AssertionError("full-attention kernels disagree")
+            del q, k, v, do, out, lse, delta, dq, dk, dv, ref, ref_out
+    torch.cuda.empty_cache()
+
+    for shape in PACKED_SHAPES:  # (b, L, H, d), bf16
+        q, k, v, do = (rnd(*shape, dtype=torch.bfloat16) for _ in range(4))
+        out, lse = flash_tpu._fwd(q, k, v)
+        delta = flash_tpu._delta(out, do)
+        bhld = lambda t: t.transpose(1, 2).contiguous()
+        args4 = (bhld(q), bhld(k), bhld(v), bhld(do), lse, delta)
+        dk, dv = dkv_mod.dkv_call(*args4)
+        dk3, dv3 = flash_tpu.flash_bwd_dkv(q, k, v, do, lse, delta)
+        torch.cuda.synchronize()
+        ref = dkv_mod._dkv_packed_reference(*args4)
+        res = [packed_worst(a, b) for a, b in zip((dk, dv), ref)]
+        res3 = [packed_worst(a, bhld(b)) for a, b in zip((dk, dv),
+                                                          (dk3, dv3))]
+        err["dkv_packed"] = max(err["dkv_packed"], *(e for e, _ in res))
+        log(f"[3c] dkv_packed bf16 (b,L,H,d)={shape}: dk/dv max err vs plain "
+            + "/".join(f"{e:.3g}" for e, _ in res) + ", vs the causal dK/dV "
+            "kernel (f32 products) "
+            + "/".join(f"{e:.3g}" for e, _ in res3)
+            + f" (tol {PACKED_REL_TOL:.4g} x max|ref|)")
+        if not all(ok for _, ok in res + res3):
+            raise AssertionError("packed dK/dV kernel disagrees")
+        del q, k, v, do, out, lse, delta, args4, dk, dv, dk3, dv3, ref
+    torch.cuda.empty_cache()
+
+    # AdamW over BERT-base's 157 f32 tensors (no masters), decay on the
+    # matrices only, per-tensor step counts 0..4
+    numels = [int(np.prod(s)) for s in bert_param_shapes(bert_cfg)]
+    decay = [0.01 if len(s) == 2 else 0.0 for s in bert_param_shapes(
+        bert_cfg)]
+    gen = torch.Generator(device=dev).manual_seed(3)
+    got = dict(
+        P=[torch.randn(n, device=dev, generator=gen) for n in numels],
+        M=[torch.zeros(n, device=dev) for n in numels],
+        V=[torch.zeros(n, device=dev) for n in numels],
+        P1=[torch.full((), 0.9 ** (i % 5), device=dev)
+            for i in range(len(numels))],
+        P2=[torch.full((), 0.999 ** (i % 5), device=dev)
+            for i in range(len(numels))])
+    want = {key: [t.clone() for t in val] for key, val in got.items()}
+    grads = [torch.randn(n, device=dev, generator=gen) for n in numels]
+    lr = torch.full((), TRAIN_LR, device=dev)
+    for _ in range(3):
+        fused.fused_adam_step(got["P"], grads, got["M"], got["V"],
+                              got["P1"], got["P2"], lr,
+                              decoupled_decay=decay)
+        fused._adam_reference(want["P"], grads, want["M"], want["V"],
+                              want["P1"], want["P2"], lr,
+                              decoupled_decay=decay)
+    torch.cuda.synchronize()
+    errs = {}
+    for key in got:
+        res = [worst(a, b, *ADAM_TOL) for a, b in zip(got[key], want[key])]
+        errs[key] = max(e for e, _ in res)
+        if not all(ok for _, ok in res):
+            raise AssertionError(f"adam kernel (AdamW mode) disagrees on "
+                                 f"{key}")
+    err["adam"] = max(err["adam"], *errs.values())
+    log(f"[3c] adamw f32, {len(numels)} tensors / {sum(numels)} params, 3 "
+        "steps: max err " + ", ".join(f"{k} {e:.3g}" for k, e in
+                                      errs.items()) + f" (tol {ADAM_TOL})")
+    del got, want, grads
+    torch.cuda.empty_cache()
+
+
+def packed_worst(got, ref):
+    """(max |got - ref|, whether it is within PACKED_REL_TOL of max|ref|)."""
+    d = float((got.float() - ref.float()).abs().max())
+    return d, d <= PACKED_REL_TOL * float(ref.float().abs().max())
+
+
+def time_bert_kernels(dev, rnd, fused, flash_tpu, dkv_mod, bert_cfg):
+    """Phase 3c timings (bf16): the full-attention kernels at BERT's shape
+    and at GPT's, the packed dK/dV at its experiment's shape, the AdamW
+    mode at BERT-base's sizes."""
+    F = torch.nn.functional
+    timings = []
+    for shape in (BERT_ATTN_SHAPE, (8, 1024, 16, 64)):
+        q, k, v, do = (rnd(*shape, dtype=torch.bfloat16) for _ in range(4))
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        fwd = lambda: flash_tpu._fwd(q, k, v, causal=False)
+        lib_fwd = lambda: F.scaled_dot_product_attention(qt, kt, vt)
+        bound, by = flash_full_bound(*shape, torch.bfloat16, "fwd")
+        timings.append({
+            "kernel": "flash_attn_fwd_full", "shape": list(shape),
+            "dtype": "bfloat16", "ms": time_ms(fwd, iters=20),
+            "plain_ms": time_ms(lambda: flash_tpu._flash_reference(
+                q, k, v, False), iters=5, warmup=1),
+            "library_ms": time_ms(lib_fwd, iters=20),
+            "device_ms": device_ms(fwd),
+            "library_device_ms": device_ms(lib_fwd),
+            "bound_ms": bound, "bound_by": by})
+        out, lse = fwd()
+        delta = flash_tpu._delta(out, do)
+        lt = [t.detach().requires_grad_() for t in (qt, kt, vt)]
+        ys = F.scaled_dot_product_attention(*lt)
+        lib = lambda: torch.autograd.grad(ys, lt, do.transpose(1, 2),
+                                          retain_graph=True)
+        plain_ms = time_ms(lambda: flash_tpu._flash_bwd_reference(
+            q, k, v, out, lse, do, causal=False), iters=5, warmup=1)
+        lib_ms, lib_dev = time_ms(lib, iters=20), device_ms(lib)
+        for name, kern in (
+                ("dq", lambda: flash_tpu.flash_bwd_dq_full(q, k, v, do, lse,
+                                                           delta)),
+                ("dkv", lambda: flash_tpu.flash_bwd_dkv_full(q, k, v, do,
+                                                             lse, delta))):
+            bound, by = flash_full_bound(*shape, torch.bfloat16, name)
+            timings.append({
+                "kernel": f"flash_attn_bwd_{name}_full", "shape": list(shape),
+                "dtype": "bfloat16", "ms": time_ms(kern, iters=20),
+                "plain_ms": plain_ms, "library_ms": lib_ms,
+                "device_ms": device_ms(kern), "library_device_ms": lib_dev,
+                "bound_ms": bound, "bound_by": by,
+                "note": "plain and library times are the whole backward "
+                        "(dQ, dK and dV)"})
+        del q, k, v, do, qt, kt, vt, out, lse, delta, lt, ys
+
+    b, L, H, d = PACKED_SHAPES[0]
+    q, k, v, do = (rnd(b, L, H, d, dtype=torch.bfloat16) for _ in range(4))
+    out, lse = flash_tpu._fwd(q, k, v)
+    delta = flash_tpu._delta(out, do)
+    bhld = lambda t: t.transpose(1, 2).contiguous()
+    args4 = (bhld(q), bhld(k), bhld(v), bhld(do), lse, delta)
+    lt = [t.detach().requires_grad_() for t in args4[:3]]
+    ys = F.scaled_dot_product_attention(*lt, is_causal=True)
+    lib = lambda: torch.autograd.grad(ys, lt, args4[3], retain_graph=True)
+    kern = lambda: dkv_mod.dkv_call(*args4)
+    bound, by = packed_dkv_bound(b, H, L, d)
+    timings.append({
+        "kernel": "dkv_packed", "shape": [b, L, H, d], "dtype": "bfloat16",
+        "ms": time_ms(kern, iters=20),
+        "plain_ms": time_ms(lambda: dkv_mod._dkv_packed_reference(*args4),
+                            iters=5, warmup=1),
+        "library_ms": time_ms(lib, iters=20), "device_ms": device_ms(kern),
+        "library_device_ms": device_ms(lib), "bound_ms": bound,
+        "bound_by": by,
+        "note": "library time is SDPA's whole causal backward; the causal "
+                "dK/dV kernel's time at this shape is in phase 3b"})
+    del q, k, v, do, out, lse, delta, args4, lt, ys
+
+    numels = [int(np.prod(s)) for s in bert_param_shapes(bert_cfg)]
+    decay = [0.01] * len(numels)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    params = [torch.randn(n, device=dev, generator=gen) for n in numels]
+    grads = [torch.randn(n, device=dev, generator=gen) for n in numels]
+    ms_ = [torch.zeros(n, device=dev) for n in numels]
+    vs_ = [torch.zeros(n, device=dev) for n in numels]
+    p1 = [torch.ones((), device=dev) for _ in numels]
+    p2 = [torch.ones((), device=dev) for _ in numels]
+    lr = torch.full((), TRAIN_LR, device=dev)
+    args = (params, grads, ms_, vs_, p1, p2, lr)
+    kern = lambda: fused.fused_adam_step(*args, decoupled_decay=decay)
+    kern_ms, kern_dev = time_ms(kern, iters=10), device_ms(kern, iters=5)
+    plain_ms = time_ms(lambda: fused._adam_reference(
+        *args, decoupled_decay=decay), iters=3, warmup=1)
+    del params, grads, ms_, vs_
+    torch.cuda.empty_cache()
+    # torch.optim.AdamW(fused=True) over f32 params of the same sizes: a
+    # time yardstick only (its eps is bias-corrected, the port's is not)
+    lib_p = [torch.zeros(n, device=dev, requires_grad=True) for n in numels]
+    for p in lib_p:
+        p.grad = torch.randn(p.numel(), device=dev, generator=gen)
+    opt = torch.optim.AdamW(lib_p, lr=TRAIN_LR, weight_decay=0.01,
+                            fused=True)
+    lib_ms, lib_dev = time_ms(opt.step, iters=10), device_ms(opt.step, 5)
+    del lib_p, opt
+    torch.cuda.empty_cache()
+    bound, by = adam_bound(numels, 4, 0)
+    timings.append({
+        "kernel": "adamw", "shape": [len(numels), sum(numels)],
+        "dtype": "f32 params, no masters", "ms": kern_ms,
+        "plain_ms": plain_ms, "library_ms": lib_ms, "device_ms": kern_dev,
+        "library_device_ms": lib_dev, "bound_ms": bound, "bound_by": by})
+    for t in timings:
+        log(f"[3c] time {t['kernel']} {t['shape']}: kernel {t['ms']:.4f} ms "
+            f"(device {t['device_ms']:.4f}), plain {t['plain_ms']:.4f} ms, "
+            f"library {t['library_ms']:.4f} ms (device "
+            f"{t['library_device_ms']:.4f}), bound {t['bound_ms']:.5f} ms "
+            f"({t['bound_by']})")
+    return timings
+
+
+def bert_batch(cfg, b, L, gen, dev):
+    """ids, MLM labels on 15% of the positions (-100 elsewhere) and NSP
+    labels, as ``bench_all.bench_bert_dp`` makes them, from ``gen``."""
+    ids = torch.randint(0, cfg.vocab_size, (b, L), device=dev, generator=gen)
+    pick = torch.rand(b, L, device=dev, generator=gen) < 0.15
+    mlm = torch.where(pick, ids, torch.full_like(ids, -100))
+    nsp = torch.randint(0, 2, (b,), device=dev, generator=gen)
+    return ids, mlm, nsp
+
+
+def profile_bert_training(step, batch):
+    """Device busy share of two BERT steps under ``torch.profiler`` and the
+    device time by kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    ids, mlm, nsp = batch
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(2):
+            step((ids,), (mlm, nsp))
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_us = lambda e: getattr(e, "self_device_time_total", 0.0)
+    busy_us = sum(dev_us(e) for e in kernels)
+    if busy_us <= 0:
+        log("[10] profile: the profiler saw no device time (device busy "
+            "share not measured)")
+        return None
+    log(f"[10] profile (2 steps): wall {wall_us / 1e3:.1f} ms, device busy "
+        f"{busy_us / 1e3:.1f} ms, busy share {busy_us / wall_us:.4f}")
+    for e in sorted(kernels, key=dev_us, reverse=True)[:14]:
+        log(f"[10] profile: {dev_us(e) / 1e3:9.3f} ms  x{e.count:<6d} "
+            f"{e.key[:90]}")
+    return busy_us / wall_us
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -497,10 +830,13 @@ def main() -> int:
     from paddle_tpu_torch.inference.serving import (
         TokenServeConfig, TokenServingEngine, dense_greedy_reference,
         run_generation_streams)
+    from paddle_tpu_torch.experiments import dkv_packed as dkv_mod
     from paddle_tpu_torch.jit.functionalize import get_params
-    from paddle_tpu_torch.ops import _build, flash_tpu, fused
-    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.nn.layer import norm as norm_mod
+    from paddle_tpu_torch.ops import _build, attention, flash_tpu, fused
+    from paddle_tpu_torch.optimizer import Adam, AdamW
     from paddle_tpu_torch.profiler.telemetry import get_telemetry
+    from paddle_tpu_torch.text.models import bert as bert_mod
     from paddle_tpu_torch.text.models import gpt as gpt_mod
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -511,7 +847,13 @@ def main() -> int:
                "layer_norm_bwd": fused.layer_norm_bwd,
                "flash_attn_bwd_dq": flash_tpu.flash_bwd_dq,
                "flash_attn_bwd_dkv": flash_tpu.flash_bwd_dkv,
-               "adam": fused.fused_adam_step}
+               "adam": fused.fused_adam_step,
+               "flash_attn_fwd_full": flash_tpu.flash_attention_full,
+               "flash_attn_bwd_dq_full": flash_tpu.flash_bwd_dq_full,
+               "flash_attn_bwd_dkv_full": flash_tpu.flash_bwd_dkv_full,
+               "dkv_packed": dkv_mod.dkv_call}
+    plain = lambda: plain_kernels(gpt_mod, fused, flash_tpu, norm_mod,
+                                  bert_mod, attention)
 
     # -- phase 1: the card ---------------------------------------------------
     smi = subprocess.run(
@@ -612,6 +954,13 @@ def main() -> int:
     check_backward_kernels(dev, rnd, fused, flash_tpu, err)
     torch.cuda.empty_cache()
     timings += time_backward_kernels(dev, rnd, fused, flash_tpu, cfg)
+    torch.cuda.empty_cache()
+
+    # -- phase 3c: full attention, the packed dK/dV and AdamW ----------------
+    bert_cfg = bert_mod.bert_base(hidden_dropout=0.0, attention_dropout=0.0)
+    check_bert_kernels(dev, rnd, fused, flash_tpu, dkv_mod, bert_cfg, err)
+    timings += time_bert_kernels(dev, rnd, fused, flash_tpu, dkv_mod,
+                                 bert_cfg)
     log("timings " + json.dumps(timings))
     torch.cuda.empty_cache()
 
@@ -635,7 +984,7 @@ def main() -> int:
         logits = model(ids)
         torch.cuda.synchronize()
         n_ln, n_flash = read_counts("dense_forward")
-        with plain_kernels(gpt_mod, fused, flash_tpu):
+        with plain():
             logits_plain = model(ids)
             plain_fwd_ms = time_ms(lambda: model(ids), iters=5, warmup=1)
         kernel_fwd_ms = time_ms(lambda: model(ids), iters=5, warmup=1)
@@ -753,7 +1102,7 @@ def main() -> int:
                         generator=gen)
     labels = torch.roll(ids, -1, dims=1)
 
-    def one_step(plain):
+    def one_step(use_plain):
         model = gpt_mod.GPTForCausalLM(cfg2, dtype=torch.float32, seed=3)
         opt = Adam(TRAIN_LR, parameters=model.parameters())
         grads = {}
@@ -766,23 +1115,23 @@ def main() -> int:
 
         opt.step = keep_grads_then_update
         step = ParallelTrainStep(model, lambda out, lbl: out, opt)
-        with plain_kernels(gpt_mod, fused, flash_tpu) if plain \
-                else contextlib.nullcontext():
+        with plain() if use_plain else contextlib.nullcontext():
             loss = float(step((ids, labels), (labels,)))
         return loss, grads, {n: p.clone()
                              for n, p in get_params(model).items()}
 
     reset_counts()
-    loss_k, grads_k, params_k = one_step(plain=False)
+    loss_k, grads_k, params_k = one_step(use_plain=False)
     torch.cuda.synchronize()
     read_counts("grad_parity")
     got = {n: launches[n]["grad_parity"] for n in counted}
     n_ln = 2 * cfg2.num_layers + 1
-    want = {"layer_norm_fwd": n_ln, "layer_norm_bwd": 2 * n_ln,
+    want = {**{n: 0 for n in counted},
+            "layer_norm_fwd": n_ln, "layer_norm_bwd": 2 * n_ln,
             "flash_attn_fwd": cfg2.num_layers,
             "flash_attn_bwd_dq": cfg2.num_layers,
             "flash_attn_bwd_dkv": cfg2.num_layers, "adam": 2}
-    loss_p, grads_p, params_p = one_step(plain=True)
+    loss_p, grads_p, params_p = one_step(use_plain=True)
     g_err = max(float((grads_k[n] - grads_p[n]).abs().max())
                 / max(float(grads_p[n].abs().max()), 1e-30)
                 for n in grads_p)
@@ -840,7 +1189,8 @@ def main() -> int:
     tokens = TRAIN_SHAPE[0] * TRAIN_SHAPE[1] * n_steps
     got = {n: launches[n]["training"] for n in counted}
     n_ln = 2 * train_cfg.num_layers + 1
-    want = {"layer_norm_fwd": n_ln * n_steps,
+    want = {**{n: 0 for n in counted},
+            "layer_norm_fwd": n_ln * n_steps,
             "layer_norm_bwd": 2 * n_ln * n_steps,
             "flash_attn_fwd": train_cfg.num_layers * n_steps,
             "flash_attn_bwd_dq": train_cfg.num_layers * n_steps,
@@ -873,35 +1223,195 @@ def main() -> int:
     del step, model, opt
     torch.cuda.empty_cache()
 
+    # -- phase 9: BERT gradient parity at full width (f32) --------------------
+    cfg9 = bert_mod.bert_base(num_layers=2, hidden_dropout=0.0,
+                              attention_dropout=0.0)
+    ids9, mlm9, nsp9 = bert_batch(cfg9, 4, 128, gen, dev)
+
+    def bert_step(use_plain):
+        model = bert_mod.BertForPretraining(cfg9, dtype=torch.float32, seed=5)
+        opt = AdamW(TRAIN_LR, parameters=model.parameters(),
+                    weight_decay=0.01)
+        grads = {}
+        update = opt.step
+
+        def keep_grads_then_update():
+            grads.update({n: p.grad.clone()
+                          for n, p in model.named_parameters()})
+            update()
+
+        opt.step = keep_grads_then_update
+        step = ParallelTrainStep(model, model.loss_fn, opt)
+        with plain() if use_plain else contextlib.nullcontext():
+            loss = float(step((ids9,), (mlm9, nsp9)))
+        return loss, grads, {n: p.clone()
+                             for n, p in get_params(model).items()}
+
+    reset_counts()
+    loss_k, grads_k, params_k = bert_step(use_plain=False)
+    torch.cuda.synchronize()
+    read_counts("bert_grad_parity")
+    got = {n: launches[n]["bert_grad_parity"] for n in counted}
+    n_ln = 2 * cfg9.num_layers + 2
+    want = {**{n: 0 for n in counted},
+            "layer_norm_fwd": n_ln, "layer_norm_bwd": 2 * n_ln,
+            "flash_attn_fwd_full": cfg9.num_layers,
+            "flash_attn_bwd_dq_full": cfg9.num_layers,
+            "flash_attn_bwd_dkv_full": cfg9.num_layers, "adam": 2}
+    loss_p, grads_p, params_p = bert_step(use_plain=True)
+    g_err = max(float((grads_k[n] - grads_p[n]).abs().max())
+                / max(float(grads_p[n].abs().max()), 1e-30)
+                for n in grads_p)
+    p_err = max(float((params_k[n] - params_p[n]).abs().max())
+                for n in params_p)
+    l_err = abs(loss_k - loss_p) / abs(loss_p)
+    n_tensors = 5 + 12 * cfg9.num_layers + 8
+    log(f"[9] one f32 AdamW step of bert_base(num_layers=2) at [4, 128]: "
+        f"loss {loss_k:.6f} (kernels) vs {loss_p:.6f} (plain), rel err "
+        f"{l_err:.3g} (tol {LOSS_RTOL}); worst grad err / max|grad| "
+        f"{g_err:.3g} over {len(grads_p)} tensors (tol {GRAD_REL_TOL}); "
+        f"params after AdamW max err {p_err:.3g} (atol {PARAM_ATOL}); "
+        f"launches {got}")
+    if got != want:
+        raise AssertionError(f"phase 9 launched {got}, expected {want}")
+    if set(grads_k) != set(grads_p) or len(grads_p) != n_tensors:
+        raise AssertionError("phase 9 did not see every gradient")
+    if not (l_err <= LOSS_RTOL and g_err <= GRAD_REL_TOL
+            and p_err <= PARAM_ATOL):
+        raise AssertionError("BERT step through the kernels disagrees with "
+                             "the plain path")
+    del grads_k, grads_p, params_k, params_p
+    torch.cuda.empty_cache()
+
+    # -- phase 10: BERT-base pretraining at full width, depth and batch -------
+    model = bert_mod.BertForPretraining(bert_cfg, dtype=torch.float32, seed=6)
+    opt = AdamW(1e-4, parameters=model.parameters(), weight_decay=0.01)
+    step = ParallelTrainStep(model, loss_fn=model.loss_fn, optimizer=opt,
+                             compute_dtype=torch.bfloat16)
+    ids, mlm, nsp = bert_batch(bert_cfg, *BERT_SHAPE, gen, dev)
+    warm = [step((ids,), (mlm, nsp)) for _ in range(3)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tel.reset()
+    reset_counts()
+    n_steps = 20
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(n_steps + 1)]
+    t0 = time.perf_counter()
+    losses = []
+    for i in range(n_steps):
+        marks[i].record()
+        losses.append(step((ids,), (mlm, nsp)))
+    marks[-1].record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    read_counts("bert_training")
+    peak = torch.cuda.max_memory_allocated()
+    all_losses = [float(x) for x in torch.stack(warm + losses)]
+    step_ms = sorted(marks[i].elapsed_time(marks[i + 1])
+                     for i in range(n_steps))
+    got = {n: launches[n]["bert_training"] for n in counted}
+    n_layers = bert_cfg.num_layers
+    want = {**{n: 0 for n in counted},
+            "layer_norm_fwd": (2 * n_layers + 2) * n_steps,
+            "layer_norm_bwd": 2 * (2 * n_layers + 2) * n_steps,
+            "flash_attn_fwd_full": n_layers * n_steps,
+            "flash_attn_bwd_dq_full": n_layers * n_steps,
+            "flash_attn_bwd_dkv_full": n_layers * n_steps,
+            "adam": 2 * n_steps}
+    fallbacks = tel.counter_value("attn/tier_fallbacks")
+    samples = BERT_SHAPE[0] * n_steps
+    bert_training = {
+        "samples_per_s": samples / wall,
+        "tokens_per_s": samples * BERT_SHAPE[1] / wall,
+        "step_ms_p50": step_ms[n_steps // 2], "step_ms_min": step_ms[0],
+        "step_ms_max": step_ms[-1], "peak_memory_bytes": peak,
+        "losses": all_losses, "attn_tier_fallbacks": fallbacks,
+        "attn_calls": tel.counter_value("attn/calls")}
+    log(f"[10] trained bert_base bf16 (f32 params, no masters) + AdamW at "
+        f"{BERT_SHAPE}: {bert_training['samples_per_s']:.1f} samples/s, "
+        f"{bert_training['tokens_per_s']:.1f} tokens/s over {n_steps} steps,"
+        f" step p50 {step_ms[n_steps // 2]:.2f} ms (events; min "
+        f"{step_ms[0]:.2f}, max {step_ms[-1]:.2f}), peak memory "
+        f"{peak / 2**30:.2f} GiB; loss {all_losses[0]:.4f} -> "
+        f"{all_losses[-1]:.4f}; attn/tier_fallbacks {fallbacks}; launches "
+        f"{got}")
+    busy = profile_bert_training(step, (ids, mlm, nsp))
+    bert_training["busy_share"] = busy
+    log("bert_training " + json.dumps(bert_training))
+    if not all(np.isfinite(all_losses)):
+        raise AssertionError(f"non-finite BERT loss: {all_losses}")
+    if not all_losses[-1] < all_losses[0]:
+        raise AssertionError(f"the BERT loss did not fall: {all_losses}")
+    if got != want:
+        raise AssertionError(f"BERT training launched {got}, expected {want}")
+    if fallbacks != 0:
+        raise AssertionError(f"{fallbacks} attention calls fell back to the "
+                             "plain path")
+    del step, model, opt
+    torch.cuda.empty_cache()
+
+    # -- the packed dK/dV experiment's own path -------------------------------
+    reset_counts()
+    packed = dkv_mod.main()
+    torch.cuda.synchronize()
+    read_counts("packed_dkv")
+    log(f"[11] packed dK/dV experiment (b=8, H=16, L=1024, d=64): {packed}; "
+        f"launches {launches['dkv_packed']['packed_dkv']}")
+    if not (packed["err_dk"] <= PACKED_REL_TOL * packed["scale_dk"]
+            and packed["err_dv"] <= PACKED_REL_TOL * packed["scale_dv"]):
+        raise AssertionError("the packed dK/dV is not the causal gradient")
+
     # -- the kernels line and the result --------------------------------------
     def timed(kernel, shape):
         return next(t for t in timings if t["kernel"] == kernel
                     and t["shape"] == shape)
 
+    bert_attn = list(BERT_ATTN_SHAPE)
     kernels = []
-    for name, source, replaces, t, main_phase in (
+    # each kernel with the phases (main paths) that must have launched it
+    for name, source, replaces, t, paths in (
             ("layer_norm_fwd", "paddle_tpu_torch/csrc/layer_norm.cu",
              "paddle_tpu/ops/fused.py:25",
-             timed("layer_norm_fwd", [1024, 1024]), "dense_forward"),
+             timed("layer_norm_fwd", [1024, 1024]),
+             ("dense_forward", "training", "bert_training")),
             ("flash_attn_fwd", "paddle_tpu_torch/csrc/flash_attn_fwd.cu",
              "paddle_tpu/ops/flash_tpu.py:43",
-             timed("flash_attn_fwd", [1, 1024, 16, 64]), "dense_forward"),
+             timed("flash_attn_fwd", [1, 1024, 16, 64]),
+             ("dense_forward", "training")),
             ("layer_norm_bwd", "paddle_tpu_torch/csrc/layer_norm_bwd.cu",
              "paddle_tpu/ops/fused.py:34",
-             timed("layer_norm_bwd", [8192, 1024]), "training"),
+             timed("layer_norm_bwd", [8192, 1024]),
+             ("training", "bert_training")),
             ("flash_attn_bwd_dq", "paddle_tpu_torch/csrc/flash_attn_bwd.cu",
              "paddle_tpu/ops/flash_tpu.py:83",
-             timed("flash_attn_bwd_dq", [8, 1024, 16, 64]), "training"),
+             timed("flash_attn_bwd_dq", [8, 1024, 16, 64]), ("training",)),
             ("flash_attn_bwd_dkv", "paddle_tpu_torch/csrc/flash_attn_bwd.cu",
              "paddle_tpu/ops/flash_tpu.py:118",
-             timed("flash_attn_bwd_dkv", [8, 1024, 16, 64]), "training"),
+             timed("flash_attn_bwd_dkv", [8, 1024, 16, 64]), ("training",)),
             ("adam", "paddle_tpu_torch/csrc/adam.cu",
              "paddle_tpu/ops/fused.py:172",
              next(t for t in timings if t["kernel"] == "adam"),
-             "training")):
+             ("training", "bert_training")),
+            ("flash_attn_fwd_full", "paddle_tpu_torch/csrc/flash_attn_fwd.cu",
+             "paddle_tpu/ops/attention.py:156",
+             timed("flash_attn_fwd_full", bert_attn), ("bert_training",)),
+            ("flash_attn_bwd_dq_full",
+             "paddle_tpu_torch/csrc/flash_attn_bwd.cu",
+             "paddle_tpu/ops/attention.py:297",
+             timed("flash_attn_bwd_dq_full", bert_attn), ("bert_training",)),
+            ("flash_attn_bwd_dkv_full",
+             "paddle_tpu_torch/csrc/flash_attn_bwd.cu",
+             "paddle_tpu/ops/attention.py:297",
+             timed("flash_attn_bwd_dkv_full", bert_attn),
+             ("bert_training",)),
+            ("dkv_packed", "paddle_tpu_torch/csrc/dkv_packed.cu",
+             "tools/experiments/dkv_packed_kernel.py:43",
+             next(t for t in timings if t["kernel"] == "dkv_packed"),
+             ("packed_dkv",))):
         by_phase = launches[name]
-        if by_phase[main_phase] == 0 or by_phase["training"] == 0:
-            raise AssertionError(f"{name} never launched on the main path")
+        if any(by_phase[phase] == 0 for phase in paths):
+            raise AssertionError(f"{name} never launched on the main path "
+                                 f"({', '.join(paths)}): {by_phase}")
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": sum(by_phase.values()),

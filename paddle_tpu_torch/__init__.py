@@ -14,13 +14,15 @@ CUDA C++ counterpart under ``csrc/`` (built at first use by
 ``ops._build``); each sits beside its plain PyTorch version, which a
 wrapper takes only for tensors that lie on the CPU.
 
-This package covers two slices. Serving: GPT-2 token serving over a
+This package covers three slices. Serving: GPT-2 token serving over a
 paged KV cache (``inference.serving``) and the model
 (``text.models.gpt``). Training: the single-device ``ParallelTrainStep``
-(``distributed.fleet.engine``), Adam (``optimizer``) and cross entropy
-(``nn.functional``). Their kernels (``ops``): LayerNorm forward and
-backward, causal flash-attention forward and dQ / dK-dV backward, and a
-multi-tensor Adam.
+(``distributed.fleet.engine``), Adam and AdamW (``optimizer``) and cross
+entropy (``nn.functional``), for GPT-2 and for BERT pretraining
+(``text.models.bert``, with the layers of ``nn.layer``). Their kernels
+(``ops``): LayerNorm forward and backward, flash-attention forward and
+dQ / dK-dV backward (causal or over every key), and a multi-tensor
+Adam/AdamW; ``experiments`` holds the packed dK/dV experiment.
 """
 from .core.place import resolve_device
 

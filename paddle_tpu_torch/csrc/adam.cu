@@ -2,9 +2,13 @@
 //
 // Replaces: paddle_tpu/ops/fused.py `_adam_kernel` (launched by
 // `pl.pallas_call` in `fused_adam_step`), with the engine's master-weight
-// contract (`master_aware_update`, distributed/fleet/engine.py) folded in.
-// The math is `Adam._update` (optimizer/optimizer.py), per element in f32:
+// contract (`master_aware_update`, distributed/fleet/engine.py) and
+// AdamW's decoupled decay (`apply_optimizer_update`, the same file) folded
+// in. The math is `Adam._update` (optimizer/optimizer.py), per element in
+// f32:
 //   g' = g + wd * p                      (L2 decay folded into the grad)
+//   p = p * (1 - lr * c)                 (AdamW: the tensor's coefficient c,
+//                                         0 where it is not decayed)
 //   b1p = beta1_pow * b1,  b2p = beta2_pow * b2
 //   m = b1 * m + (1 - b1) * g',  v = b2 * v + (1 - b2) * g' * g'
 //   lr_t = lr * sqrt(1 - b2p) / (1 - b1p)
@@ -20,9 +24,10 @@
 // time is ~3.0 ms at 3.35 TB/s; ~20 flops per element are nothing.
 //
 // Design. One launch covers every tensor: a device table holds, per
-// tensor, the pointers of p, m, v, the bf16 copy, its two beta powers and
-// its size; a second array holds each tensor's grad pointer (grads are new
-// tensors every step, the rest is not, so only that array is re-sent).
+// tensor, the pointers of p, m, v, the bf16 copy, its two beta powers,
+// its size and its decoupled-decay coefficient; a second array holds each
+// tensor's grad pointer (grads are new tensors every step, the rest is
+// not, so only that array is re-sent).
 // The grid runs over (tensor, chunk) pairs listed in a third array, so
 // small and large tensors share one launch and every block does at most
 // one chunk. The per-tensor beta powers (device f32; members' step counts
@@ -37,7 +42,8 @@ namespace {
 
 constexpr int kThreads = 256;
 // columns of the tensor table (int64 each)
-enum { kP = 0, kM, kV, kLow, kB1p, kB2p, kN, kGDtype, kCols };
+// (kDecay holds the f32 bits of the tensor's decoupled-decay coefficient)
+enum { kP = 0, kM, kV, kLow, kB1p, kB2p, kN, kGDtype, kDecay, kCols };
 
 __global__ void __launch_bounds__(kThreads)
 adam_update_kernel(const long long* __restrict__ tab,
@@ -58,14 +64,17 @@ adam_update_kernel(const long long* __restrict__ tab,
   const bool g_bf16 = e[kGDtype] == 1;
   const float* gf = reinterpret_cast<const float*>(grads[t]);
   const __nv_bfloat16* gb = reinterpret_cast<const __nv_bfloat16*>(grads[t]);
-  const float lr_t = __fdiv_rn(
-      __fmul_rn(*lr_ptr, __fsqrt_rn(__fsub_rn(1.f, b2p))),
-      __fsub_rn(1.f, b1p));
+  const float lr = *lr_ptr;
+  const float lr_t = __fdiv_rn(__fmul_rn(lr, __fsqrt_rn(__fsub_rn(1.f, b2p))),
+                               __fsub_rn(1.f, b1p));
+  const float coeff = __int_as_float((int)e[kDecay]);
+  const float keep = __fsub_rn(1.f, __fmul_rn(lr, coeff));
   const long long end = start + chunk < n ? start + chunk : n;
   for (long long i = start + threadIdx.x; i < end; i += kThreads) {
     float g = g_bf16 ? __bfloat162float(gb[i]) : gf[i];
-    const float pv = p[i];
+    float pv = p[i];
     if (wd != 0.f) g = __fadd_rn(g, __fmul_rn(wd, pv));
+    if (coeff != 0.f) pv = __fmul_rn(pv, keep);
     const float m1 = __fadd_rn(__fmul_rn(b1, m[i]), __fmul_rn(omb1, g));
     const float m2 =
         __fadd_rn(__fmul_rn(b2, v[i]), __fmul_rn(__fmul_rn(omb2, g), g));
@@ -91,8 +100,9 @@ __global__ void adam_advance_pows_kernel(const long long* __restrict__ tab,
 
 }  // namespace
 
-// tab: device int64 [ntensors, 8] (p, m, v, bf16 copy or 0, beta1_pow,
-// beta2_pow, numel, grad dtype 0 = f32 / 1 = bf16); grads: device int64
+// tab: device int64 [ntensors, 9] (p, m, v, bf16 copy or 0, beta1_pow,
+// beta2_pow, numel, grad dtype 0 = f32 / 1 = bf16, the f32 bits of the
+// decoupled-decay coefficient); grads: device int64
 // [ntensors] grad pointers; chunks: device int32 [nchunks, 2] (tensor,
 // chunk index) with chunk size `chunk`; lr: device f32 scalar. Two
 // launches (the update, then the beta-power advance). Returns a

@@ -1,9 +1,14 @@
-// Causal flash-attention backward for Hopper (sm_90a): dQ, then dK/dV.
+// Flash-attention backward for Hopper (sm_90a), causal or over all keys:
+// dQ, then dK/dV.
 //
 // Replaces: paddle_tpu/ops/flash_tpu.py `_dq_kernel` and `_dkv_kernel`
-// (launched by `pl.pallas_call` in `_flash_bwd_rule`). Same function, from
-// the forward's saved lse and delta = rowsum(dO * O):
-//   S = (scale * Q) K^T (causal, k_pos <= q_pos),  P = exp(S - lse),
+// (launched by `pl.pallas_call` in `_flash_bwd_rule`), the causal mode;
+// and the backward of paddle_tpu/ops/attention.py `flash_attention`
+// (`_flash_bwd_rule`, autodiff through `blockwise_attention`), the full
+// mode: the same math with only the mask changed. Each mode has its own C
+// entries, so their launches are counted apart. Same function, from the
+// forward's saved lse and delta = rowsum(dO * O):
+//   S = (scale * Q) K^T (causal: k_pos <= q_pos),  P = exp(S - lse),
 //   dS = P * (dO V^T - delta),
 //   dQ = scale * dS K,  dK = dS^T (scale * Q),  dV = P^T dO.
 // Q, K, V and dO are read in the projection's native [b, L, H, d] layout
@@ -18,13 +23,15 @@
 // no bf16 rounding of P or dS as the TPU kernels do), so it is limited by
 // shared-memory reads and FMA issue, far from that bound. It also
 // recomputes S and dP in both kernels (7 products instead of 5), as the
-// reference does. Moving the products onto mma/wgmma is later work.
+// reference does. Moving the products onto mma/wgmma is later work. The
+// full mode does each product over all L x L pairs, twice the causal work.
 //
 // Design (the TPU kernels' structure, rethought for an SM):
 //  - two kernels, as the reference, so no float atomics: dQ owns a q tile
-//    and loops over K tiles up to the diagonal; dK/dV owns a k tile and
-//    loops over q tiles from the diagonal to the end. Both are
-//    deterministic. Tiles are launched longest-first;
+//    and loops over K tiles up to the diagonal (full: to the last K
+//    tile); dK/dV owns a k tile and loops over q tiles from the diagonal
+//    (full: from q tile 0) to the end. Both are deterministic. Causal
+//    tiles are launched longest-first;
 //  - 64 x 64 tiles, 128 threads; operands live in shared memory as f32
 //    with one word of padding per row (conflict-free reads); each thread
 //    owns 4 rows (strided by 16) x 8 columns of the 64 x 64 score tile and
@@ -34,7 +41,9 @@
 //  - S is computed with the forward's operand order and FMA sequence, so
 //    exp(S - lse) reproduces the forward's probabilities;
 //  - ragged L is masked (out-of-range keys and queries get P = 0, rows
-//    past L are not stored): no L % block gate.
+//    past L are not stored, lse/delta past L read as 0): no L % block
+//    gate. In full mode no causal mask hides a tile's columns past L, so
+//    these tests are what keep them out.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
@@ -85,7 +94,7 @@ constexpr size_t dkv_smem_bytes() {  // K, V, Q, dO tiles, P, dS, lse, delta
          sizeof(float);
 }
 
-template <typename T, int D>
+template <typename T, int D, bool CAUSAL>
 __global__ void __launch_bounds__(kThreads)
 flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 const T* __restrict__ v, const T* __restrict__ dout,
@@ -107,10 +116,12 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tid = threadIdx.x;
   const int rg = tid >> 3;  // rows rg + 16 * i
   const int cg = tid & 7;   // score cols cg + 8 * c, dQ cols cg + 8 * e
-  const int qt = gridDim.x - 1 - blockIdx.x;  // longest tiles first
+  // causal: longest tiles first; full: every tile does the same work
+  const int qt = CAUSAL ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int q0 = qt * kB;
+  const int nk = CAUSAL ? qt + 1 : (L + kB - 1) / kB;
 
   load_tile<T, D>(Qs, q + b * st.q_sb + (long long)h * D, st.q_sl, q0, L,
                   scale);
@@ -131,7 +142,7 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const T* kb = k + b * st.k_sb + (long long)h * D;
   const T* vb = v + b * st.v_sb + (long long)h * D;
-  for (int kt = 0; kt <= qt; ++kt) {
+  for (int kt = 0; kt < nk; ++kt) {
     const int k0 = kt * kB;
     __syncthreads();  // previous tile's readers of Ks/Vs are done
     load_tile<T, D>(Ks, kb, st.k_sl, k0, L, 1.f);
@@ -173,7 +184,8 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int c = 0; c < 8; ++c) {
         const int kpos = k0 + cg + 8 * c;
-        const bool in = qpos < L && kpos < L && kpos <= qpos;
+        const bool in =
+            qpos < L && kpos < L && (!CAUSAL || kpos <= qpos);
         const float p = in ? expf(s[i][c] - l_i) : 0.f;
         dSs[r * PP + cg + 8 * c] = p * (dp[i][c] - d_i);
       }
@@ -205,7 +217,7 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool CAUSAL>
 __global__ void __launch_bounds__(kThreads)
 flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const T* __restrict__ dout,
@@ -228,7 +240,7 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tid = threadIdx.x;
   const int rg = tid >> 3;  // key rows rg + 16 * i
   const int cg = tid & 7;   // query cols cg + 8 * c, dK/dV cols cg + 8 * e
-  const int kt = blockIdx.x;  // tile 0 loops over every q tile: first
+  const int kt = blockIdx.x;  // causal: tile 0 loops over every q tile
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int k0 = kt * kB;
@@ -248,7 +260,7 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* qb = q + b * st.q_sb + (long long)h * D;
   const T* ob = dout + b * st.o_sb + (long long)h * D;
   const long long stat = ((long long)b * H + h) * L;
-  for (int qt = kt; qt < nq; ++qt) {
+  for (int qt = CAUSAL ? kt : 0; qt < nq; ++qt) {
     const int q0 = qt * kB;
     __syncthreads();  // previous tile's readers of Qs/dOs/stats are done
     load_tile<T, D>(Qs, qb, st.q_sl, q0, L, scale);
@@ -296,7 +308,8 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int c = 0; c < 8; ++c) {
         const int col = cg + 8 * c;
         const int qpos = q0 + col;
-        const bool in = qpos < L && kpos < L && kpos <= qpos;
+        const bool in =
+            qpos < L && kpos < L && (!CAUSAL || kpos <= qpos);
         const float p = in ? expf(s[i][c] - lse_s[col]) : 0.f;
         Ps[r * PP + col] = p;
         dSs[r * PP + col] = p * (dp[i][c] - dl_s[col]);
@@ -339,68 +352,70 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool CAUSAL>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* dout, const float* lse, const float* delta,
                       void* dq, int B, int L, int H, Strides st, float scale,
                       cudaStream_t stream) {
   constexpr size_t smem = dq_smem_bytes<D>();
   cudaError_t e = cudaFuncSetAttribute(
-      flash_dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      flash_dq_kernel<T, D, CAUSAL>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
   dim3 grid((L + kB - 1) / kB, H, B);
-  flash_dq_kernel<T, D><<<grid, kThreads, smem, stream>>>(
+  flash_dq_kernel<T, D, CAUSAL><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
       static_cast<T*>(dq), L, H, st, scale);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, int D, bool CAUSAL>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const void* dout, const float* lse,
                        const float* delta, void* dk, void* dv, int B, int L,
                        int H, Strides st, float scale, cudaStream_t stream) {
   constexpr size_t smem = dkv_smem_bytes<D>();
   cudaError_t e = cudaFuncSetAttribute(
-      flash_dkv_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      flash_dkv_kernel<T, D, CAUSAL>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
   dim3 grid((L + kB - 1) / kB, H, B);
-  flash_dkv_kernel<T, D><<<grid, kThreads, smem, stream>>>(
+  flash_dkv_kernel<T, D, CAUSAL><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
       static_cast<T*>(dk), static_cast<T*>(dv), L, H, st, scale);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool CAUSAL>
 cudaError_t dispatch(bool dkv, int D, const void* q, const void* k,
                      const void* v, const void* dout, const float* lse,
                      const float* delta, void* out0, void* out1, int B,
                      int L, int H, Strides st, float scale, cudaStream_t s) {
   switch (D) {
     case 32:
-      return dkv ? launch_dkv<T, 32>(q, k, v, dout, lse, delta, out0, out1,
-                                     B, L, H, st, scale, s)
-                 : launch_dq<T, 32>(q, k, v, dout, lse, delta, out0, B, L,
-                                    H, st, scale, s);
+      return dkv ? launch_dkv<T, 32, CAUSAL>(q, k, v, dout, lse, delta, out0,
+                                             out1, B, L, H, st, scale, s)
+                 : launch_dq<T, 32, CAUSAL>(q, k, v, dout, lse, delta, out0,
+                                            B, L, H, st, scale, s);
     case 64:
-      return dkv ? launch_dkv<T, 64>(q, k, v, dout, lse, delta, out0, out1,
-                                     B, L, H, st, scale, s)
-                 : launch_dq<T, 64>(q, k, v, dout, lse, delta, out0, B, L,
-                                    H, st, scale, s);
+      return dkv ? launch_dkv<T, 64, CAUSAL>(q, k, v, dout, lse, delta, out0,
+                                             out1, B, L, H, st, scale, s)
+                 : launch_dq<T, 64, CAUSAL>(q, k, v, dout, lse, delta, out0,
+                                            B, L, H, st, scale, s);
     case 128:
-      return dkv ? launch_dkv<T, 128>(q, k, v, dout, lse, delta, out0, out1,
-                                      B, L, H, st, scale, s)
-                 : launch_dq<T, 128>(q, k, v, dout, lse, delta, out0, B, L,
-                                     H, st, scale, s);
+      return dkv ? launch_dkv<T, 128, CAUSAL>(q, k, v, dout, lse, delta,
+                                              out0, out1, B, L, H, st, scale,
+                                              s)
+                 : launch_dq<T, 128, CAUSAL>(q, k, v, dout, lse, delta, out0,
+                                             B, L, H, st, scale, s);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
+template <bool CAUSAL>
 int entry(bool dkv, const void* q, const void* k, const void* v,
           const void* dout, const void* lse, const void* delta, void* out0,
           void* out1, int B, int L, int H, int D, long long q_sb,
@@ -413,12 +428,13 @@ int entry(bool dkv, const void* q, const void* k, const void* v,
   const float* lse_f = static_cast<const float*>(lse);
   const float* delta_f = static_cast<const float*>(delta);
   if (dtype == 0)
-    return (int)dispatch<float>(dkv, D, q, k, v, dout, lse_f, delta_f, out0,
-                                out1, B, L, H, st, scale, s);
-  if (dtype == 1)
-    return (int)dispatch<__nv_bfloat16>(dkv, D, q, k, v, dout, lse_f,
+    return (int)dispatch<float, CAUSAL>(dkv, D, q, k, v, dout, lse_f,
                                         delta_f, out0, out1, B, L, H, st,
                                         scale, s);
+  if (dtype == 1)
+    return (int)dispatch<__nv_bfloat16, CAUSAL>(dkv, D, q, k, v, dout, lse_f,
+                                                delta_f, out0, out1, B, L, H,
+                                                st, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -427,25 +443,23 @@ int entry(bool dkv, const void* q, const void* k, const void* v,
 // Strides are in elements: element (b, l, h, d) of q is at
 // q[b * q_sb + l * q_sl + h * D + d]; `o_*` are dO's. dQ/dK/dV are dense
 // [B, L, H, D]. dtype: 0 = float32, 1 = bfloat16. Each entry makes one
-// launch and returns a cudaError_t (0 = launched).
-extern "C" int ptt_flash_attn_bwd_dq(
-    const void* q, const void* k, const void* v, const void* dout,
-    const void* lse, const void* delta, void* dq, int B, int L, int H,
-    int D, long long q_sb, long long q_sl, long long k_sb, long long k_sl,
-    long long v_sb, long long v_sl, long long o_sb, long long o_sl,
-    float scale, int dtype, void* stream) {
-  return entry(false, q, k, v, dout, lse, delta, dq, nullptr, B, L, H, D,
-               q_sb, q_sl, k_sb, k_sl, v_sb, v_sl, o_sb, o_sl, scale, dtype,
-               stream);
-}
+// launch and returns a cudaError_t (0 = launched). The `_full` entries
+// attend to every key, the others are causal.
+#define PTT_BWD_ENTRY(NAME, CAUSAL, DKV)                                      \
+  extern "C" int NAME(const void* q, const void* k, const void* v,            \
+                      const void* dout, const void* lse, const void* delta,   \
+                      void* out0, void* out1, int B, int L, int H, int D,     \
+                      long long q_sb, long long q_sl, long long k_sb,         \
+                      long long k_sl, long long v_sb, long long v_sl,         \
+                      long long o_sb, long long o_sl, float scale, int dtype, \
+                      void* stream) {                                         \
+    return entry<CAUSAL>(DKV, q, k, v, dout, lse, delta, out0, out1, B, L, H, \
+                         D, q_sb, q_sl, k_sb, k_sl, v_sb, v_sl, o_sb, o_sl,   \
+                         scale, dtype, stream);                               \
+  }
 
-extern "C" int ptt_flash_attn_bwd_dkv(
-    const void* q, const void* k, const void* v, const void* dout,
-    const void* lse, const void* delta, void* dk, void* dv, int B, int L,
-    int H, int D, long long q_sb, long long q_sl, long long k_sb,
-    long long k_sl, long long v_sb, long long v_sl, long long o_sb,
-    long long o_sl, float scale, int dtype, void* stream) {
-  return entry(true, q, k, v, dout, lse, delta, dk, dv, B, L, H, D, q_sb,
-               q_sl, k_sb, k_sl, v_sb, v_sl, o_sb, o_sl, scale, dtype,
-               stream);
-}
+// dQ: out0 = dq (out1 unused, pass 0); dK/dV: out0 = dk, out1 = dv
+PTT_BWD_ENTRY(ptt_flash_attn_bwd_dq, true, false)
+PTT_BWD_ENTRY(ptt_flash_attn_bwd_dkv, true, true)
+PTT_BWD_ENTRY(ptt_flash_attn_bwd_dq_full, false, false)
+PTT_BWD_ENTRY(ptt_flash_attn_bwd_dkv_full, false, true)

@@ -7,12 +7,21 @@ backward (through the hand-written LayerNorm and flash-attention backward
 kernels on the card) and the optimizer's multi-tensor Adam, and returns
 the f32 0-d loss on the device without waiting for it.
 
-Master-weight mode follows the reference (``master_weights`` defaults to
-the optimizer's ``multi_precision``): with a float ``compute_dtype`` the
-layer's float parameters are cast to it once, at construction, and the
-optimizer keeps their f32 values as masters; each step updates the
-masters and re-casts the resident copies in the same kernel pass.
-``compute_dtype=None`` trains in f32.
+A float ``compute_dtype`` runs in one of the reference's two modes
+(``master_weights`` defaults to the optimizer's ``multi_precision``):
+
+- master mode: the layer's float parameters are cast to it once, at
+  construction, and the optimizer keeps their f32 values as masters;
+  each step updates the masters and re-casts the resident copies in the
+  same kernel pass;
+- without masters: the f32 parameters stay resident; each step runs the
+  forward on their casts, made under autograd, so the gradients arrive
+  in f32 and the update is f32 (the reference's per-step cast in
+  ``forward_loss``).
+
+``compute_dtype=None`` trains in f32. The engine hands the optimizer the
+layer's parameter names (``Optimizer.name_parameters``), as the
+reference's engine passes names to ``apply_decay_param_fun``.
 
 Unlike the reference, whose jitted step holds its own copy of the state,
 the step updates the layer's parameters in place: they ARE the step's
@@ -42,8 +51,7 @@ class ParallelTrainStep:
     """One training step of ``layer`` on one device (default ``"cuda"``).
 
     Not ported yet, and refused: a mesh and its data-, tensor- and
-    sequence-parallel axes, ZeRO sharding, ``recompute``, and a
-    ``compute_dtype`` without master weights."""
+    sequence-parallel axes, ZeRO sharding and ``recompute``."""
 
     def __init__(self, layer: nn.Module, loss_fn: Callable, optimizer,
                  device=None, compute_dtype: Optional[torch.dtype] = None,
@@ -68,11 +76,6 @@ class ParallelTrainStep:
             compute_dtype = None  # f32 training: the params are the masters
         if master_weights is None:
             master_weights = optimizer._multi_precision
-        if compute_dtype is not None and not master_weights:
-            raise NotImplementedError(
-                "ParallelTrainStep: compute_dtype without master weights is "
-                "not ported yet (pass master_weights=True or an optimizer "
-                "with multi_precision=True)")
         dev = resolve_device(device)
         if dev.type == "cuda" and dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
@@ -86,8 +89,11 @@ class ParallelTrainStep:
         self._loss_fn = loss_fn
         self._optimizer = optimizer
         self._compute_dtype = compute_dtype
-        self._master = compute_dtype is not None
-        self._apply = functionalize(layer, training=True)
+        self._master = compute_dtype is not None and bool(master_weights)
+        self._apply = functionalize(
+            layer, training=True,
+            compute_dtype=None if self._master else compute_dtype)
+        optimizer.name_parameters(layer.named_parameters())
         if self._master:
             for p in layer.parameters():
                 if p.is_floating_point():

@@ -7,15 +7,16 @@ reference's [in, out] ``Linear`` layout, so a reference parameter dict
 maps onto a port model name for name and shape for shape.
 ``load_jax_params`` carries weights across; ``set_params`` points a
 module's parameters at given tensors; ``functionalize`` runs a module in
-a given train/eval mode.
+a given train/eval mode, optionally on casts of its float parameters.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Mapping
+from typing import Callable, Dict, Mapping, Optional
 
 import numpy as np
 import torch
 from torch import nn
+from torch.func import functional_call
 
 __all__ = ["get_params", "set_params", "load_jax_params", "functionalize"]
 
@@ -37,18 +38,31 @@ def set_params(model: nn.Module, params: Mapping[str, torch.Tensor]) -> None:
         named[name].data = v.detach()
 
 
-def functionalize(model: nn.Module, training: bool) -> Callable:
+def functionalize(model: nn.Module, training: bool,
+                  compute_dtype: Optional[torch.dtype] = None) -> Callable:
     """``apply(*args, **kwargs)``: ``model``'s forward in train mode
     (``training=True``) or eval mode (``False``), with the model's own
     mode restored afterwards. The port's autograd works on the model's
     parameters in place, so unlike the reference's ``functionalize`` no
-    parameter pytree goes in or out."""
+    parameter pytree goes in or out.
+
+    With ``compute_dtype`` the forward runs on its float parameters cast
+    to that dtype, the casts made anew at each call under autograd
+    (``torch.func.functional_call``): gradients reach the parameters in
+    their own dtype, through the casts' backward."""
+
+    def forward(*args, **kwargs):
+        if compute_dtype is None:
+            return model(*args, **kwargs)
+        casts = {n: p.to(compute_dtype) if p.is_floating_point() else p
+                 for n, p in model.named_parameters()}
+        return functional_call(model, casts, args, kwargs)
 
     def apply(*args, **kwargs):
         prev = model.training
         model.train(training)
         try:
-            return model(*args, **kwargs)
+            return forward(*args, **kwargs)
         finally:
             model.train(prev)
 

@@ -32,7 +32,8 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "paddle_tpu_torch"
 SOURCES = ("errors.cu", "layer_norm.cu", "layer_norm_bwd.cu",
-           "flash_attn_fwd.cu", "flash_attn_bwd.cu", "adam.cu")
+           "flash_attn_fwd.cu", "flash_attn_bwd.cu", "adam.cu",
+           "dkv_packed.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # dtype codes of the C entry points
@@ -48,21 +49,24 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _F = ctypes.c_float
+_FLASH_FWD = ([_P, _P, _P, _P, _P, _I, _I, _I, _I,
+               _LL, _LL, _LL, _LL, _LL, _LL, _F, _I, _P], _I)
+_FLASH_BWD = ([_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+               _LL, _LL, _LL, _LL, _LL, _LL, _LL, _LL, _F, _I, _P], _I)
 _SIGNATURES = {
     "ptt_error_string": ([_I], ctypes.c_char_p),
     "ptt_layer_norm_fwd": ([_P, _P, _P, _P, _I, _I, _F, _I, _P], _I),
-    "ptt_flash_attn_fwd": ([_P, _P, _P, _P, _P, _I, _I, _I, _I,
-                            _LL, _LL, _LL, _LL, _LL, _LL, _F, _I, _P], _I),
+    "ptt_flash_attn_fwd": _FLASH_FWD,
+    "ptt_flash_attn_fwd_full": _FLASH_FWD,
     "ptt_layer_norm_bwd": ([_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F,
                             _I, _P], _I),
-    "ptt_flash_attn_bwd_dq": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                               _LL, _LL, _LL, _LL, _LL, _LL, _LL, _LL, _F,
-                               _I, _P], _I),
-    "ptt_flash_attn_bwd_dkv": ([_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                _I, _LL, _LL, _LL, _LL, _LL, _LL, _LL, _LL,
-                                _F, _I, _P], _I),
+    "ptt_flash_attn_bwd_dq": _FLASH_BWD,
+    "ptt_flash_attn_bwd_dkv": _FLASH_BWD,
+    "ptt_flash_attn_bwd_dq_full": _FLASH_BWD,
+    "ptt_flash_attn_bwd_dkv_full": _FLASH_BWD,
     "ptt_adam_step": ([_P, _P, _P, _I, _I, _P, _F, _F, _F, _F, _F, _F, _I,
                        _P], _I),
+    "ptt_dkv_packed": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P], _I),
 }
 
 

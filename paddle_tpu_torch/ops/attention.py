@@ -1,16 +1,27 @@
 """Attention — counterpart of ``paddle_tpu.ops.attention``, kept to what
 the serving and training slices run:
 
-- ``xla_attention``: softmax(QKᵀ/√d)V with the scores materialized, in
-  plain PyTorch (the reference's XLA-level tier);
+- ``xla_attention``: softmax(QKᵀ/√d + bias)V with the scores
+  materialized, in plain PyTorch (the reference's XLA-level tier);
+- ``flash_attention``: the flash kernels as one differentiable call in
+  either layout — causal (``flash_tpu.flash_attention_blhd``) or over
+  every key (``flash_tpu.flash_attention_full``, the port of the Pallas
+  ``_flash_fwd_kernel`` with a kernel backward);
 - ``dot_product_attention``: the dispatch, differentiable on both
-  devices. Causal self-attention on a CUDA tensor goes to the
-  hand-written flash kernels (``flash_tpu.flash_attention_blhd``, whose
-  backward is the dQ and dK/dV kernels); a CPU tensor goes to the plain
-  path, differentiated by autograd. Non-causal attention has no kernel
-  in this slice (the
-  reference's non-causal Pallas tier is still to port) and takes
-  ``xla_attention`` on either device;
+  devices. It follows the reference's off-TPU rule (``_resolve_impl``):
+
+  ====================================================  =================
+  call                                                  route
+  ====================================================  =================
+  on the CPU                                            plain path
+  on the card, unbiased, ``use_flash``                  flash kernel
+  a bias, or ``use_flash=False``                        plain path
+  a kernel call the kernel cannot take (head dim not    plain path,
+  in ``flash_tpu.HEAD_DIMS``, Lq != Lk)                 counted
+  ====================================================  =================
+
+  "counted" is ``attn/tier_fallbacks`` in the telemetry plus one warning
+  per shape, as the reference's ``_count_fallback``;
 - ``paged_attention``: attention of a query chunk against the serving
   KV-cache pool, with the reference's two tiers (``_paged_gather_impl``,
   ``_paged_scan_impl``). They are XLA-level code in the reference, not
@@ -20,21 +31,28 @@ the serving and training slices run:
 """
 from __future__ import annotations
 
+import logging
 import math
 
 import torch
 
 from ..profiler.telemetry import get_telemetry
+from . import flash_tpu
 
-__all__ = ["xla_attention", "dot_product_attention", "paged_attention"]
+__all__ = ["xla_attention", "flash_attention", "dot_product_attention",
+           "paged_attention"]
 
 _NEG_INF = -1e30
+_log = logging.getLogger(__name__)
 
 
 def xla_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  causal: bool = False, layout: str = "bhld") -> torch.Tensor:
+                  causal: bool = False, bias=None,
+                  layout: str = "bhld") -> torch.Tensor:
     """Materialized attention. ``layout='blhd'``: [b, l, h, d] operands,
-    else [b, h, l, d]. The causal mask is top-left aligned
+    else [b, h, l, d]. ``bias`` is added to the scaled scores and must
+    broadcast to [b, h, Lq, Lk] (in either layout), as in the reference's
+    ``_attention_core``. The causal mask is top-left aligned
     (k_pos <= q_pos), as in every tier of the reference. Scores and
     softmax are f32; the output is cast to q's dtype."""
     blhd = layout == "blhd"
@@ -42,6 +60,8 @@ def xla_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
           else ("bhqd,bhkd->bhqk", "bhqk,bhkd->bhqd"))
     d = q.shape[-1]
     s = torch.einsum(eq[0], q.float(), k.float()) / math.sqrt(d)
+    if bias is not None:
+        s = s + bias.float()
     if causal:
         Lq, Lk = s.shape[-2], s.shape[-1]
         qp = torch.arange(Lq, device=q.device)
@@ -51,24 +71,63 @@ def xla_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum(eq[1], p, v.float()).to(q.dtype)
 
 
-def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          causal: bool = False,
-                          layout: str = "bhld") -> torch.Tensor:
-    """Attention dispatch: causal self-attention on the card runs the
-    flash kernel, everything on the CPU the plain path (see the module
-    docstring). ``layout='blhd'`` passes [b, l, h, d] operands straight to
-    the kernel; [b, h, l, d] operands are transposed in and out."""
-    get_telemetry().counter("attn/calls")
-    if q.device.type == "cpu" or not causal:
-        return xla_attention(q, k, v, causal=causal, layout=layout)
-    from .flash_tpu import flash_attention_blhd
-
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = False,
+                    layout: str = "bhld") -> torch.Tensor:
+    """The flash kernels (``ops.flash_tpu``) as one differentiable call,
+    returning only the output, as the reference's ``flash_attention``.
+    ``layout='blhd'`` passes [b, l, h, d] operands (any row stride)
+    straight to the kernels; [b, h, l, d] operands are transposed in and
+    out. CPU tensors run the kernels' plain versions."""
+    fn = (flash_tpu.flash_attention_blhd if causal
+          else flash_tpu.flash_attention_full)
     if layout == "blhd":
-        return flash_attention_blhd(q, k, v, causal=True)[0]
+        return fn(q, k, v)[0]
     tr = lambda t: t.transpose(1, 2)
-    out, _ = flash_attention_blhd(tr(q).contiguous(), tr(k).contiguous(),
-                                  tr(v).contiguous(), causal=True)
+    out, _ = fn(tr(q).contiguous(), tr(k).contiguous(), tr(v).contiguous())
     return tr(out)
+
+
+# one-shot fallback warnings, keyed (shape, reason)
+_fallback_warned: set = set()
+
+
+def _count_fallback(shape, reason: str) -> None:
+    """A kernel call rerouted to the plain path: count it
+    (``attn/tier_fallbacks``) and warn once per shape and reason, as the
+    reference's ``_count_fallback`` does."""
+    get_telemetry().counter("attn/tier_fallbacks")
+    key = (tuple(shape), reason)
+    if key not in _fallback_warned:
+        _fallback_warned.add(key)
+        _log.warning("attention: the flash kernel cannot take shape %s — %s;"
+                     " taking the plain path (counted in "
+                     "attn/tier_fallbacks; warned once per shape)",
+                     tuple(shape), reason)
+
+
+def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          causal: bool = False, bias=None,
+                          use_flash: bool = True,
+                          layout: str = "bhld") -> torch.Tensor:
+    """Attention dispatch by the table in the module docstring.
+    ``layout='blhd'`` passes [b, l, h, d] operands straight to the kernel;
+    [b, h, l, d] operands are transposed in and out."""
+    get_telemetry().counter("attn/calls")
+    if q.device.type == "cpu" or bias is not None or not use_flash:
+        return xla_attention(q, k, v, causal=causal, bias=bias,
+                             layout=layout)
+    d = q.shape[-1]
+    if d not in flash_tpu.HEAD_DIMS:
+        _count_fallback(q.shape, f"head dim {d} not in "
+                                 f"{flash_tpu.HEAD_DIMS}")
+        return xla_attention(q, k, v, causal=causal, layout=layout)
+    if k.shape != q.shape or v.shape != q.shape:
+        _count_fallback(q.shape, f"k/v shapes {tuple(k.shape)}, "
+                                 f"{tuple(v.shape)} differ from q's "
+                                 "(self-attention only)")
+        return xla_attention(q, k, v, causal=causal, layout=layout)
+    return flash_attention(q, k, v, causal=causal, layout=layout)
 
 
 # ---------------------------------------------------------------------------

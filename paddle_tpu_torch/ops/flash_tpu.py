@@ -1,15 +1,19 @@
-"""Causal flash attention, forward and backward — counterpart of
-``paddle_tpu.ops.flash_tpu``.
+"""Flash attention, forward and backward, causal or over all keys —
+counterpart of ``paddle_tpu.ops.flash_tpu`` (causal) and of the Pallas
+tier of ``paddle_tpu.ops.attention.flash_attention`` (causal or full).
 
-``flash_attention_blhd`` is a ``torch.autograd.Function``. For tensors on
-the card its forward launches ``csrc/flash_attn_fwd.cu`` (the port of the
-Pallas ``_fwd_kernel``) and its backward the two kernels of
-``csrc/flash_attn_bwd.cu`` (the ports of ``_dq_kernel`` and
-``_dkv_kernel``); for tensors on the CPU it runs the plain PyTorch
-versions, ``_flash_reference`` and ``_flash_bwd_reference``. It returns
-``(out, lse)``: ``out`` is [b, L, H, d] in q's dtype, ``lse`` the f32
-log-sum-exp of each query row's scaled scores, [b, H, L] (not
-differentiable).
+``flash_attention_blhd`` (causal) and ``flash_attention_full`` (every key
+attends) are ``torch.autograd.Function``s over one pair of kernels with a
+mask flag. For tensors on the card the forward launches
+``csrc/flash_attn_fwd.cu`` (the port of the Pallas ``_fwd_kernel``, and of
+``attention._flash_fwd_kernel`` in full mode) and the backward the dQ and
+dK/dV kernels of ``csrc/flash_attn_bwd.cu`` (the ports of ``_dq_kernel``
+and ``_dkv_kernel``; in full mode the same math with the mask dropped);
+for tensors on the CPU they run the plain PyTorch versions,
+``_flash_reference`` and ``_flash_bwd_reference``. Each mode's kernels
+have their own launch counts. Both return ``(out, lse)``: ``out`` is
+[b, L, H, d] in q's dtype, ``lse`` the f32 log-sum-exp of each query
+row's scaled scores, [b, H, L] (not differentiable).
 
 The kernels read q, k, v and the output gradient in the projection's
 native layout: the last two axes must be dense ([H, d] with d
@@ -27,10 +31,11 @@ import torch
 
 from . import _build
 
-__all__ = ["flash_attention_blhd", "flash_bwd_dq", "flash_bwd_dkv"]
+__all__ = ["flash_attention_blhd", "flash_attention_full", "flash_bwd_dq",
+           "flash_bwd_dkv", "flash_bwd_dq_full", "flash_bwd_dkv_full"]
 
 _NEG_INF = -1e30
-_HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128)
 
 
 def _causal_mask(L: int, device) -> torch.Tensor:
@@ -38,14 +43,16 @@ def _causal_mask(L: int, device) -> torch.Tensor:
     return pos[None, :] > pos[:, None]  # True above the diagonal
 
 
-def _flash_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+def _flash_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     causal: bool = True
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain causal attention over [b, L, H, d] operands, scores
-    materialized in f32: returns (out [b, L, H, d] in q's dtype,
-    lse [b, H, L] f32)."""
+    """Plain attention over [b, L, H, d] operands (causal, or over every
+    key), scores materialized in f32: returns (out [b, L, H, d] in q's
+    dtype, lse [b, H, L] f32)."""
     L, d = q.shape[1], q.shape[-1]
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / math.sqrt(d)
-    s = s.masked_fill(_causal_mask(L, q.device), _NEG_INF)
+    if causal:
+        s = s.masked_fill(_causal_mask(L, q.device), _NEG_INF)
     lse = torch.logsumexp(s, dim=-1)
     p = torch.exp(s - lse[..., None])
     out = torch.einsum("bhqk,bkhd->bqhd", p, v.float())
@@ -61,20 +68,21 @@ def _delta(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
 
 def _flash_bwd_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          out: torch.Tensor, lse: torch.Tensor,
-                         dout: torch.Tensor
+                         dout: torch.Tensor, causal: bool = True
                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain causal attention backward in f32, mirroring the Pallas
+    """Plain attention backward in f32, mirroring the Pallas
     ``_dq_kernel``/``_dkv_kernel``: recompute ``P = exp(S − lse)`` from
     the pre-scaled q, then ``dS = P ⊙ (dO·Vᵀ − delta)``,
-    ``dQ = scale·dS·K``, ``dK = scale·dSᵀ·Q``, ``dV = Pᵀ·dO``. Returns
-    (dq, dk, dv) in q's dtype."""
+    ``dQ = scale·dS·K``, ``dK = scale·dSᵀ·Q``, ``dV = Pᵀ·dO``; causal, or
+    over every key. Returns (dq, dk, dv) in q's dtype."""
     L, d = q.shape[1], q.shape[-1]
     scale = 1.0 / math.sqrt(d)
     qs = q.float() * scale
     kf, vf, dof = k.float(), v.float(), dout.float()
     s = torch.einsum("bqhd,bkhd->bhqk", qs, kf)
-    p = torch.exp(s - lse[..., None]).masked_fill(
-        _causal_mask(L, q.device), 0.0)
+    p = torch.exp(s - lse[..., None])
+    if causal:
+        p = p.masked_fill(_causal_mask(L, q.device), 0.0)
     dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
     ds = p * (dp - _delta(out, dout)[..., None])
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
@@ -83,56 +91,75 @@ def _flash_bwd_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
 
 
-def _fwd(q, k, v):
+def _fwd(q, k, v, causal=True):
     if q.device.type == "cpu":
-        return _flash_reference(q, k, v)
-    _check_cuda_args("flash_attention_blhd", q, k, v)
+        return _flash_reference(q, k, v, causal)
+    fn = "flash_attention_blhd" if causal else "flash_attention_full"
+    _check_cuda_args(fn, q, k, v)
     b, L, H, d = q.shape
     out = torch.empty((b, L, H, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, H, L), dtype=torch.float32, device=q.device)
     if b == 0 or L == 0:
         return out, lse
     lib = _build.library()
+    entry = lib.ptt_flash_attn_fwd if causal else lib.ptt_flash_attn_fwd_full
     with torch.cuda.device(q.device):
-        err = lib.ptt_flash_attn_fwd(
+        err = entry(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr(), b, L, H, d, q.stride(0), q.stride(1),
             k.stride(0), k.stride(1), v.stride(0), v.stride(1),
             1.0 / math.sqrt(d), _build.DTYPE_CODES[q.dtype],
             _build.stream_of(q))
-    _build.check(err, "flash_attn_fwd")
-    flash_attention_blhd.launches += 1
+    _build.check(err, fn)
+    (flash_attention_blhd if causal else flash_attention_full).launches += 1
     return out, lse
 
 
-def _bwd_args(q, k, v, dout, delta):
+def _launch_bwd(fn, entry, q, k, v, dout, lse, delta, out0, out1):
+    """One launch of a backward entry of ``csrc/flash_attn_bwd.cu``."""
+    _check_bwd_args(fn, q, k, v, dout, lse, delta)
+    if out0.numel() == 0:
+        return
     b, L, H, d = q.shape
-    return (b, L, H, d, q.stride(0), q.stride(1), k.stride(0), k.stride(1),
-            v.stride(0), v.stride(1), dout.stride(0), dout.stride(1),
-            1.0 / math.sqrt(d), _build.DTYPE_CODES[q.dtype],
-            _build.stream_of(q))
+    lib = _build.library()
+    with torch.cuda.device(q.device):
+        err = getattr(lib, entry)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), out0.data_ptr(),
+            out1.data_ptr() if out1 is not None else None, b, L, H, d,
+            q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0),
+            v.stride(1), dout.stride(0), dout.stride(1), 1.0 / math.sqrt(d),
+            _build.DTYPE_CODES[q.dtype], _build.stream_of(q))
+    _build.check(err, fn)
+
+
+def _dq(causal, q, k, v, dout, lse, delta) -> torch.Tensor:
+    fn = "flash_bwd_dq" if causal else "flash_bwd_dq_full"
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    _launch_bwd(fn, "ptt_flash_attn_bwd_dq" + ("" if causal else "_full"),
+                q, k, v, dout, lse, delta, dq, None)
+    if dq.numel():
+        (flash_bwd_dq if causal else flash_bwd_dq_full).launches += 1
+    return dq
+
+
+def _dkv(causal, q, k, v, dout, lse, delta
+         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    fn = "flash_bwd_dkv" if causal else "flash_bwd_dkv_full"
+    dk = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    dv = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    _launch_bwd(fn, "ptt_flash_attn_bwd_dkv" + ("" if causal else "_full"),
+                q, k, v, dout, lse, delta, dk, dv)
+    if dk.numel():
+        (flash_bwd_dkv if causal else flash_bwd_dkv_full).launches += 1
+    return dk, dv
 
 
 def flash_bwd_dq(q, k, v, dout, lse, delta) -> torch.Tensor:
     """dQ of causal attention on the card (``csrc/flash_attn_bwd.cu``,
     one launch): q/k/v/dout [b, L, H, d] at any row stride, lse and
     delta f32 [b, H, L]. Returns a dense [b, L, H, d] dQ."""
-    _check_bwd_args("flash_bwd_dq", q, k, v, dout, lse, delta)
-    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    if dq.numel() == 0:
-        return dq
-    lib = _build.library()
-    with torch.cuda.device(q.device):
-        err = lib.ptt_flash_attn_bwd_dq(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            *_bwd_args(q, k, v, dout, delta))
-    _build.check(err, "flash_attn_bwd_dq")
-    flash_bwd_dq.launches += 1
-    return dq
-
-
-flash_bwd_dq.launches = 0  # kernel launches, counted where they happen
+    return _dq(True, q, k, v, dout, lse, delta)
 
 
 def flash_bwd_dkv(q, k, v, dout, lse, delta
@@ -140,47 +167,51 @@ def flash_bwd_dkv(q, k, v, dout, lse, delta
     """dK and dV of causal attention on the card
     (``csrc/flash_attn_bwd.cu``, one launch); arguments as
     ``flash_bwd_dq``."""
-    _check_bwd_args("flash_bwd_dkv", q, k, v, dout, lse, delta)
-    dk = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    dv = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    if dk.numel() == 0:
-        return dk, dv
-    lib = _build.library()
-    with torch.cuda.device(q.device):
-        err = lib.ptt_flash_attn_bwd_dkv(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            *_bwd_args(q, k, v, dout, delta))
-    _build.check(err, "flash_attn_bwd_dkv")
-    flash_bwd_dkv.launches += 1
-    return dk, dv
+    return _dkv(True, q, k, v, dout, lse, delta)
 
 
-flash_bwd_dkv.launches = 0  # kernel launches, counted where they happen
+def flash_bwd_dq_full(q, k, v, dout, lse, delta) -> torch.Tensor:
+    """dQ of attention over every key on the card (one launch);
+    arguments as ``flash_bwd_dq``."""
+    return _dq(False, q, k, v, dout, lse, delta)
 
 
-def _bwd(q, k, v, out, lse, dout):
+def flash_bwd_dkv_full(q, k, v, dout, lse, delta
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """dK and dV of attention over every key on the card (one launch);
+    arguments as ``flash_bwd_dq``."""
+    return _dkv(False, q, k, v, dout, lse, delta)
+
+
+# kernel launches, counted where they happen
+for _fn in (flash_bwd_dq, flash_bwd_dkv, flash_bwd_dq_full,
+            flash_bwd_dkv_full):
+    _fn.launches = 0
+
+
+def _bwd(q, k, v, out, lse, dout, causal):
     if q.device.type == "cpu":
-        return _flash_bwd_reference(q, k, v, out, lse, dout)
+        return _flash_bwd_reference(q, k, v, out, lse, dout, causal)
     if not _dense_tail(dout):
         dout = dout.contiguous()  # only the row/batch strides may be free
     delta = _delta(out, dout)
-    dq = flash_bwd_dq(q, k, v, dout, lse, delta)
-    dk, dv = flash_bwd_dkv(q, k, v, dout, lse, delta)
+    dq = _dq(causal, q, k, v, dout, lse, delta)
+    dk, dv = _dkv(causal, q, k, v, dout, lse, delta)
     return dq, dk, dv
 
 
 class _FlashFn(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v):
-        out, lse = _fwd(q, k, v)
+    def forward(ctx, q, k, v, causal):
+        out, lse = _fwd(q, k, v, causal)
+        ctx.causal = causal
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.mark_non_differentiable(lse)
         return out, lse
 
     @staticmethod
     def backward(ctx, dout, _dlse):
-        return _bwd(*ctx.saved_tensors, dout)
+        return (*_bwd(*ctx.saved_tensors, dout, ctx.causal), None)
 
 
 def flash_attention_blhd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -188,16 +219,24 @@ def flash_attention_blhd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Causal self-attention over [b, L, H, d] operands; returns
     ``(out, lse)``, differentiable in q, k and v. ``causal=False`` is not
-    a tier of this kernel — callers dispatch elsewhere first, as in the
-    reference."""
+    this function's tier — ``flash_attention_full`` is, and callers
+    dispatch through ``attention.dot_product_attention``."""
     if not causal:
         raise NotImplementedError(
             "flash_attention_blhd is the causal kernel; dispatch "
             "non-causal attention through dot_product_attention")
-    return _FlashFn.apply(q, k, v)
+    return _FlashFn.apply(q, k, v, True)
 
 
-flash_attention_blhd.launches = 0  # forward kernel launches
+def flash_attention_full(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Self-attention of every query over every key, [b, L, H, d]
+    operands; returns ``(out, lse)``, differentiable in q, k and v."""
+    return _FlashFn.apply(q, k, v, False)
+
+
+flash_attention_blhd.launches = 0  # forward kernel launches, causal
+flash_attention_full.launches = 0  # forward kernel launches, full
 
 
 def _dense_tail(t):
@@ -215,8 +254,8 @@ def _check_cuda_args(fn, q, k, v):
         raise ValueError(f"{fn}: q must be [b, L, H, d], got "
                          f"{tuple(q.shape)}")
     d = q.shape[-1]
-    if d not in _HEAD_DIMS:
-        raise ValueError(f"{fn}: head dim {d} not in {_HEAD_DIMS}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"{fn}: head dim {d} not in {HEAD_DIMS}")
     for name, t in (("k", k), ("v", v)):
         if t.device != q.device or t.dtype != q.dtype:
             raise TypeError(f"{fn}: {name} is {t.dtype} on {t.device}, q is "

@@ -12,12 +12,13 @@ fallback between the two: a CUDA tensor the kernel cannot take raises.
 - ``fused_adam_step`` updates many parameters in one pass
   (``csrc/adam.cu``, the port of ``_adam_kernel``, two launches per call)
   or through ``_adam_reference``, a per-tensor loop over the reference's
-  ``Adam._update``.
+  ``Adam._update``, with AdamW's decoupled decay per tensor.
 """
 from __future__ import annotations
 
 from typing import Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from . import _build
@@ -185,24 +186,35 @@ def _adam_reference(params: Sequence[torch.Tensor],
                     beta2_pow: Sequence[torch.Tensor], lr: torch.Tensor,
                     masters: Optional[Sequence[Optional[torch.Tensor]]] = None,
                     beta1: float = 0.9, beta2: float = 0.999,
-                    eps: float = 1e-8, weight_decay: float = 0.0) -> None:
+                    eps: float = 1e-8, weight_decay: float = 0.0,
+                    decoupled_decay: Optional[Sequence[float]] = None
+                    ) -> None:
     """Plain multi-tensor Adam, in place: for each tensor, exactly
     ``Adam._update`` of the reference on the f32 master (when one is
     given; the param is then re-cast from it) or on the param itself,
-    with the L2 ``weight_decay`` folded into the grad first."""
-    masters = masters if masters is not None else [None] * len(params)
-    for p, g, m, v, b1p, b2p, master in zip(params, grads, moment1, moment2,
-                                           beta1_pow, beta2_pow, masters):
+    with the L2 ``weight_decay`` folded into the grad first and, for a
+    tensor whose ``decoupled_decay`` coefficient c is not 0, the value
+    scaled by ``1 − lr·c`` before the update (AdamW, in the order of the
+    reference engine's ``apply_optimizer_update``)."""
+    n = len(params)
+    masters = masters if masters is not None else [None] * n
+    decay = decoupled_decay if decoupled_decay is not None else [0.0] * n
+    for p, g, m, v, b1p, b2p, master, c in zip(
+            params, grads, moment1, moment2, beta1_pow, beta2_pow, masters,
+            decay):
         target = master if master is not None else p
         g = g.to(target.dtype)
+        value = target
         if weight_decay:
-            g = g + weight_decay * target
+            g = g + weight_decay * value
+        if c:
+            value = value * (1 - lr * c)
         new_b1p = b1p * beta1
         new_b2p = b2p * beta2
         m1 = beta1 * m + (1 - beta1) * g
         m2 = beta2 * v + (1 - beta2) * g * g
         lr_t = lr * torch.sqrt(1 - new_b2p) / (1 - new_b1p)
-        new = target - (lr_t * m1 / (torch.sqrt(m2) + eps)).to(target.dtype)
+        new = value - (lr_t * m1 / (torch.sqrt(m2) + eps)).to(target.dtype)
         target.copy_(new)
         if master is not None:
             p.copy_(new)
@@ -214,7 +226,8 @@ def _adam_reference(params: Sequence[torch.Tensor],
 
 # elements of one (tensor, chunk) work item of the CUDA update
 _ADAM_CHUNK = 16384
-_TABLE_COLS = 8  # p, m, v, bf16 copy, beta1_pow, beta2_pow, numel, g dtype
+# p, m, v, bf16 copy, beta1_pow, beta2_pow, numel, g dtype, decay bits
+_TABLE_COLS = 9
 
 
 def fused_adam_step(params: Sequence[torch.Tensor],
@@ -225,24 +238,31 @@ def fused_adam_step(params: Sequence[torch.Tensor],
                     beta2_pow: Sequence[torch.Tensor], lr: torch.Tensor,
                     masters: Optional[Sequence[Optional[torch.Tensor]]] = None,
                     beta1: float = 0.9, beta2: float = 0.999,
-                    eps: float = 1e-8, weight_decay: float = 0.0) -> None:
+                    eps: float = 1e-8, weight_decay: float = 0.0,
+                    decoupled_decay: Optional[Sequence[float]] = None
+                    ) -> None:
     """One Adam step over many parameters, in place — the multi-tensor
     counterpart of the reference's ``fused_adam_step`` with the engine's
-    master-weight handling.
+    master-weight handling and AdamW's decoupled decay.
 
     ``params[i]`` is updated through ``masters[i]`` (its f32 master, when
     given: the param is then the bf16 resident copy, re-cast from the new
     master in the same pass) or directly (an f32 param). ``moment1``,
     ``moment2`` are f32 like the master; ``beta1_pow``/``beta2_pow`` are
     per-tensor 0-d f32 tensors, advanced by one step; ``lr`` is a 0-d f32
-    tensor on the params' device. Nothing is read back to the host.
+    tensor on the params' device. ``decoupled_decay`` (AdamW) gives each
+    tensor a coefficient c (0: not decayed): its f32 value is scaled by
+    ``1 − lr·c`` before the Adam update. ``weight_decay`` is Adam's L2
+    term, folded into every gradient. Nothing is read back to the host.
 
     CUDA tensors go through ``csrc/adam.cu`` (two launches per call),
     CPU tensors through ``_adam_reference``.
     """
     n = len(params)
     masters = list(masters) if masters is not None else [None] * n
-    lists = (grads, moment1, moment2, beta1_pow, beta2_pow, masters)
+    decay = (list(decoupled_decay) if decoupled_decay is not None
+             else [0.0] * n)
+    lists = (grads, moment1, moment2, beta1_pow, beta2_pow, masters, decay)
     if any(len(t) != n for t in lists):
         raise ValueError("fused_adam_step: the lists differ in length")
     if n == 0:
@@ -251,14 +271,15 @@ def fused_adam_step(params: Sequence[torch.Tensor],
     if dev.type == "cpu":
         return _adam_reference(params, grads, moment1, moment2, beta1_pow,
                                beta2_pow, lr, masters, beta1, beta2, eps,
-                               weight_decay)
+                               weight_decay, decay)
     if dev.type != "cuda":
         raise ValueError(f"fused_adam_step: unsupported device {dev}")
     if lr.device != dev or lr.dtype != torch.float32 or lr.numel() != 1:
         raise TypeError("fused_adam_step: lr must be a one-element f32 "
                         f"tensor on {dev}, got {lr.dtype} on {lr.device}")
     tab, chunks, ntensors, nchunks = _adam_table(
-        params, grads, moment1, moment2, beta1_pow, beta2_pow, masters)
+        params, grads, moment1, moment2, beta1_pow, beta2_pow, masters,
+        decay)
     if nchunks == 0:
         return
     gptrs = torch.tensor([g.data_ptr() for g in grads if g.numel()],
@@ -285,12 +306,12 @@ _TABLES_MAX = 8
 
 
 def _adam_table(params, grads, moment1, moment2, beta1_pow, beta2_pow,
-                masters):
+                masters, decay):
     dev = params[0].device
     rows: List[tuple] = []
-    for i, (p, g, m, v, b1p, b2p, master) in enumerate(zip(
+    for i, (p, g, m, v, b1p, b2p, master, c) in enumerate(zip(
             params, grads, moment1, moment2, beta1_pow, beta2_pow,
-            masters)):
+            masters, decay)):
         target = master if master is not None else p
         for name, t in (("param", p), ("grad", g), ("moment1", m),
                         ("moment2", v), ("beta1_pow", b1p),
@@ -327,7 +348,8 @@ def _adam_table(params, grads, moment1, moment2, beta1_pow, beta2_pow,
         rows.append((target.data_ptr(), m.data_ptr(), v.data_ptr(),
                      p.data_ptr() if master is not None else 0,
                      b1p.data_ptr(), b2p.data_ptr(), p.numel(),
-                     _build.DTYPE_CODES[g.dtype]))
+                     _build.DTYPE_CODES[g.dtype],
+                     int(np.float32(c).view(np.int32))))
     key = (dev, tuple(rows))
     hit = _TABLES.get(key)
     if hit is None:

@@ -1,3 +1,3 @@
-from .optimizer import Adam, Optimizer
+from .optimizer import Adam, AdamW, Optimizer
 
-__all__ = ["Adam", "Optimizer"]
+__all__ = ["Adam", "AdamW", "Optimizer"]

@@ -1,5 +1,5 @@
 """Optimizers — counterpart of ``paddle_tpu.optimizer.optimizer``, kept
-to the Adam the training slice runs.
+to the Adam and AdamW the training slices run.
 
 The update is the reference's ``Adam._update``, which is not
 ``torch.optim.Adam``: ``lr_t = lr·√(1−β2ᵗ)/(1−β1ᵗ)`` and
@@ -14,17 +14,24 @@ with a gradient to ``ops.fused.fused_adam_step`` in one call: the
 multi-tensor CUDA kernel for parameters on the card, the plain
 ``_adam_reference`` for parameters on the CPU. The learning rate lives on
 the device too, so a step never reads anything back to the host.
+
+``AdamW`` adds the reference's decoupled decay: before its Adam update a
+parameter is scaled by ``1 − lr·weight_decay``, unless
+``apply_decay_param_fun(name)`` says no. The name is the parameter's name
+in the model (``bert.encoder.0.ln1.bias``), as the reference's engine
+passes it; ``ParallelTrainStep`` hands the optimizer those names
+(``name_parameters``).
 """
 from __future__ import annotations
 
-from typing import Dict, Iterable, List, Optional
+from typing import Dict, Iterable, List, Optional, Tuple
 
 import torch
 from torch import nn
 
 from ..ops import fused
 
-__all__ = ["Optimizer", "Adam"]
+__all__ = ["Optimizer", "Adam", "AdamW"]
 
 
 class Optimizer:
@@ -48,7 +55,16 @@ class Optimizer:
         self._multi_precision = bool(multi_precision)
         self._accumulators: Dict[int, dict] = {}
         self._lr_dev: Dict[torch.device, torch.Tensor] = {}
+        self._names: Dict[int, str] = {}
         self._global_step = 0
+
+    def name_parameters(self, named: Iterable[Tuple[str, torch.Tensor]]
+                        ) -> None:
+        """Record each parameter's name in its model (``named`` is
+        ``model.named_parameters()``), for options that select
+        parameters by name."""
+        for name, p in named:
+            self._names[id(p)] = name
 
     # -- lr ---------------------------------------------------------------
     def get_lr(self) -> float:
@@ -124,6 +140,10 @@ class Adam(Optimizer):
                 "moment2": torch.zeros_like(value),
                 "beta1_pow": ones(), "beta2_pow": ones()}
 
+    def _decay_coeff(self, p: torch.Tensor) -> float:
+        """The decoupled-decay coefficient of ``p`` (0 for Adam)."""
+        return 0.0
+
     @torch.no_grad()
     def step(self) -> None:
         """One Adam step over every parameter that has a gradient, in
@@ -144,4 +164,41 @@ class Adam(Optimizer):
                 self.lr_device_scalar(dev),
                 masters=[s.get("master") for s in states],
                 beta1=self._beta1, beta2=self._beta2, eps=self._epsilon,
-                weight_decay=self._weight_decay)
+                weight_decay=self._weight_decay,
+                decoupled_decay=[self._decay_coeff(p) for p in params])
+
+
+class AdamW(Adam):
+    """Adam with decoupled weight decay (the reference's ``AdamW``):
+    each step scales a parameter's f32 value (its master, under
+    ``multi_precision``) by ``1 − lr·weight_decay``, then applies the Adam
+    update — the order of the reference engine's
+    ``apply_optimizer_update``. ``apply_decay_param_fun(name) -> bool``
+    picks the parameters that decay, by their names in the model (see
+    ``Optimizer.name_parameters``). ``lr_ratio`` is not ported: the
+    reference's engine ignores it too."""
+
+    def __init__(self, learning_rate: float = 0.001, beta1: float = 0.9,
+                 beta2: float = 0.999, epsilon: float = 1e-08,
+                 parameters=None, weight_decay: float = 0.01,
+                 lr_ratio=None, apply_decay_param_fun=None, grad_clip=None,
+                 lazy_mode: bool = False, multi_precision: bool = False):
+        if lr_ratio is not None:
+            raise NotImplementedError("AdamW: lr_ratio is not ported yet")
+        super().__init__(learning_rate, beta1, beta2, epsilon, parameters,
+                         None, grad_clip, lazy_mode, multi_precision)
+        self._coeff = float(getattr(weight_decay, "coeff", weight_decay))
+        self._apply_decay_param_fun = apply_decay_param_fun
+
+    def _decay_coeff(self, p: torch.Tensor) -> float:
+        if not self._coeff:
+            return 0.0
+        if self._apply_decay_param_fun is None:
+            return self._coeff
+        name = self._names.get(id(p))
+        if name is None:
+            raise ValueError(
+                "AdamW: apply_decay_param_fun needs the parameters' names; "
+                "train through ParallelTrainStep or call "
+                "name_parameters(model.named_parameters())")
+        return self._coeff if self._apply_decay_param_fun(name) else 0.0

@@ -3,11 +3,12 @@ forward of ``GPTForCausalLM`` (with the training loss when labels are
 given) and the KV-cached ``gpt_decode_fns`` for serving.
 
 Layout follows the reference so weights cross over unchanged: a
-``Linear`` keeps its weight as [in, out] and computes ``x @ W + b``, and
-parameters carry the reference's names (``gpt.h.{i}.attn.qkv.weight``,
-...; see ``jit.functionalize``). The LM head is tied to ``wte``, the MLP
-uses tanh-approximated GELU, every LayerNorm goes through
-``ops.fused.fused_layer_norm`` and attention through
+``Linear`` (``nn.layer.common``) keeps its weight as [in, out] and
+computes ``x @ W + b``, and parameters carry the reference's names
+(``gpt.h.{i}.attn.qkv.weight``, ...; see ``jit.functionalize``). The LM
+head is tied to ``wte``, the MLP uses tanh-approximated GELU, every
+LayerNorm goes through ``ops.fused.fused_layer_norm`` (``nn.layer.norm``)
+and attention through
 ``ops.attention.dot_product_attention`` (the flash kernel on the card),
 both differentiable. Dropout draws its masks from a ``torch.Generator``
 the model owns, seeded from the constructor's ``seed``.
@@ -28,6 +29,9 @@ from torch import nn
 
 from ...core.place import resolve_device
 from ...nn.functional.loss import cross_entropy
+from ...nn.layer.common import Dropout, Embedding, Linear
+from ...nn.layer.common import linear as _linear
+from ...nn.layer.norm import LayerNorm
 from ...ops.attention import dot_product_attention, paged_attention
 from ...ops.fused import fused_layer_norm
 
@@ -51,56 +55,6 @@ class GPTConfig:
     def __post_init__(self):
         if self.intermediate_size == 0:
             self.intermediate_size = 4 * self.hidden_size
-
-
-def _linear(x, weight, bias):
-    """``x @ weight + bias`` with the reference's [in, out] weight."""
-    return F.linear(x, weight.t(), bias)
-
-
-class Linear(nn.Module):
-    """Dense layer in the reference's layout: weight [in, out]."""
-
-    def __init__(self, in_features: int, out_features: int, device=None,
-                 dtype=None):
-        super().__init__()
-        kw = dict(device=device, dtype=dtype)
-        self.weight = nn.Parameter(torch.empty(in_features, out_features,
-                                               **kw))
-        self.bias = nn.Parameter(torch.zeros(out_features, **kw))
-
-    def forward(self, x):
-        return _linear(x, self.weight, self.bias)
-
-
-class Dropout(nn.Module):
-    """Inverted dropout whose mask comes from an explicit generator (the
-    model's), never from torch's global RNG. The identity in eval mode
-    or at ``p == 0``."""
-
-    def __init__(self, p: float, generator: torch.Generator):
-        super().__init__()
-        self.p = p
-        self.generator = generator
-
-    def forward(self, x):
-        if not self.training or self.p == 0.0:
-            return x
-        keep = torch.empty(x.shape, device=x.device).bernoulli_(
-            1.0 - self.p, generator=self.generator)
-        return x * keep.to(x.dtype) / (1.0 - self.p)
-
-
-class LayerNorm(nn.Module):
-    def __init__(self, hidden: int, eps: float, device=None, dtype=None):
-        super().__init__()
-        kw = dict(device=device, dtype=dtype)
-        self.weight = nn.Parameter(torch.ones(hidden, **kw))
-        self.bias = nn.Parameter(torch.zeros(hidden, **kw))
-        self.eps = eps
-
-    def forward(self, x):
-        return fused_layer_norm(x, self.weight, self.bias, self.eps)
 
 
 class GPTAttention(nn.Module):
@@ -165,9 +119,9 @@ class GPT(nn.Module):
         self.dropout_gen = torch.Generator(device=device).manual_seed(seed)
         gen = self.dropout_gen
         kw = dict(device=device, dtype=dtype)
-        self.wte = nn.Embedding(config.vocab_size, config.hidden_size, **kw)
-        self.wpe = nn.Embedding(config.max_position_embeddings,
-                                config.hidden_size, **kw)
+        self.wte = Embedding(config.vocab_size, config.hidden_size, **kw)
+        self.wpe = Embedding(config.max_position_embeddings,
+                             config.hidden_size, **kw)
         self.drop = Dropout(config.hidden_dropout, gen)
         self.h = nn.ModuleList([GPTBlock(config, gen, device, dtype)
                                 for _ in range(config.num_layers)])

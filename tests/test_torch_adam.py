@@ -2,7 +2,8 @@
 its plain version `_adam_reference`) against the reference: the Pallas
 `_adam_kernel` run in interpret mode, three steps of `Adam._update`, and
 the engines' `apply_optimizer_update` in master-weight mode with members
-whose beta powers differ; the CUDA kernel against the plain version on a
+whose beta powers differ, and in AdamW's decoupled-decay mode with a
+tensor excluded by name; the CUDA kernel against the plain version on a
 card (marked `cuda`)."""
 import functools
 import types
@@ -19,6 +20,7 @@ import paddle_tpu as paddle
 from paddle_tpu.distributed.fleet.engine import apply_optimizer_update
 from paddle_tpu.ops import fused as jfused
 from paddle_tpu_torch.ops import fused as tfused
+from paddle_tpu_torch import optimizer as tfused_optimizer
 
 B1, B2, EPS = 0.9, 0.999, 1e-8
 # f32 on both sides; the only difference is where a rounding falls (the
@@ -222,4 +224,141 @@ def test_cuda_kernel_matches_plain(cuda_device, master):
     torch.cuda.synchronize()
     for key in ("P", "M", "V", "P1", "P2", "MS"):
         for a, b in zip(got[key] or [], want[key] or []):
+            torch.testing.assert_close(a, b, atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("master", [False, True])
+def test_adamw_matches_apply_optimizer_update_over_three_steps(master):
+    """The port's AdamW (decoupled decay in `fused_adam_step`'s plain
+    version) against the reference engine's update, f32 or bf16 residents
+    with f32 masters; `apply_decay_param_fun` excludes the bias by its
+    name, which the port learns from `name_parameters`."""
+    lr, wd = 2e-3, 0.1
+    sizes = {"layer.weight": 300, "layer.bias": 7, "emb.weight": 5000}
+    decays = lambda name: not name.endswith("bias")
+    ref_opt = paddle.optimizer.AdamW(
+        learning_rate=lr, beta1=B1, beta2=B2, epsilon=EPS, parameters=[],
+        weight_decay=wd, apply_decay_param_fun=decays,
+        multi_precision=master)
+    rng = np.random.RandomState(3)
+    low = jnp.bfloat16 if master else jnp.float32
+    init = {n: np.array(jnp.asarray(rng.randn(s).astype(np.float32))
+                        .astype(low), np.float32)
+            for n, s in sizes.items()}
+    ref_p = {n: jnp.asarray(v).astype(low) for n, v in init.items()}
+    ref_st = {}
+    for n, v in init.items():
+        st = ref_opt._init_state(jnp.asarray(v))
+        if master:
+            st["master"] = jnp.asarray(v)
+        ref_st[n] = st
+    named = {n: types.SimpleNamespace(regularizer=None) for n in sizes}
+
+    tlow = torch.bfloat16 if master else torch.float32
+    params = [torch.tensor(init[n]).to(tlow) for n in sizes]
+    opt = tfused_optimizer.AdamW(lr, beta1=B1, beta2=B2, epsilon=EPS,
+                                 parameters=params, weight_decay=wd,
+                                 apply_decay_param_fun=decays,
+                                 multi_precision=master)
+    opt.name_parameters(zip(sizes, params))
+    for step in range(3):
+        grads = {n: rng.randn(s).astype(np.float32)
+                 for n, s in sizes.items()}
+        ref_p, ref_st = apply_optimizer_update(
+            ref_opt, named, ref_p,
+            {n: jnp.asarray(g).astype(low) for n, g in grads.items()},
+            ref_st, jnp.asarray(lr, jnp.float32))
+        for p, n in zip(params, sizes):
+            p.grad = torch.from_numpy(grads[n]).to(tlow)
+        opt.step()
+    for p, n in zip(params, sizes):
+        st = opt.state_for(p)
+        want = np.asarray(ref_st[n]["master"] if master else ref_p[n],
+                          np.float32)
+        got = (st["master"] if master else p).numpy()
+        np.testing.assert_allclose(got, want, atol=TOL, rtol=0, err_msg=n)
+        for key in ("moment1", "moment2"):
+            np.testing.assert_allclose(st[key].numpy(),
+                                       np.asarray(ref_st[n][key]), atol=TOL,
+                                       rtol=0, err_msg=f"{n} {key}")
+
+
+def test_adamw_excluding_a_tensor_equals_adam_on_it():
+    """One step of AdamW with the tensor excluded is Adam's step on it;
+    with it included, the value is first scaled by 1 - lr·wd."""
+    lr, wd = 1e-2, 0.5
+    p0, g = _state(64, seed=11)[:2]
+    out = {}
+    for name, fun in (("excluded", lambda n: False),
+                      ("decayed", lambda n: True), ("adam", None)):
+        p = torch.from_numpy(p0.copy())
+        cls = tfused_optimizer.Adam if fun is None else \
+            tfused_optimizer.AdamW
+        kw = {} if fun is None else dict(weight_decay=wd,
+                                         apply_decay_param_fun=fun)
+        opt = cls(lr, parameters=[p], **kw)
+        opt.name_parameters([("w", p)])
+        p.grad = torch.from_numpy(g)
+        opt.step()
+        out[name] = p.numpy()
+    assert np.array_equal(out["excluded"], out["adam"])
+    np.testing.assert_allclose(out["decayed"],
+                               out["adam"] - lr * wd * p0, atol=1e-6)
+
+
+def test_adamw_decay_fun_needs_names_and_lr_ratio_is_refused():
+    p = torch.zeros(3)
+    opt = tfused_optimizer.AdamW(1e-3, parameters=[p],
+                                 apply_decay_param_fun=lambda n: True)
+    p.grad = torch.ones(3)
+    with pytest.raises(ValueError, match="names"):
+        opt.step()
+    with pytest.raises(NotImplementedError):
+        tfused_optimizer.AdamW(1e-3, parameters=[p], lr_ratio=lambda q: 1.0)
+
+
+def test_fused_step_decoupled_decay_is_one_coefficient_per_tensor():
+    """`fused_adam_step`'s plain version: a zero coefficient leaves that
+    tensor's update Adam's, a nonzero one scales the value first."""
+    lr = torch.tensor(0.1)
+    p, g, m, v = (torch.from_numpy(a) for a in _state(16, seed=5))
+    base = [t.clone() for t in (p, p)]
+    for target, c in zip(base, (0.0, 0.25)):
+        tfused.fused_adam_step([target], [g], [m.clone()], [v.clone()],
+                               [torch.tensor(1.0)], [torch.tensor(1.0)], lr,
+                               decoupled_decay=[c])
+    plain = p.clone()
+    tfused.fused_adam_step([plain], [g], [m.clone()], [v.clone()],
+                           [torch.tensor(1.0)], [torch.tensor(1.0)], lr)
+    assert torch.equal(base[0], plain)
+    torch.testing.assert_close(base[1], plain - 0.1 * 0.25 * p, atol=1e-6,
+                               rtol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_adamw_mode_matches_plain(cuda_device):
+    sizes = (1, 1000, 65536, 300000)
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    rnd = lambda n: torch.randn(n, device=cuda_device, generator=gen)
+    p0 = [rnd(n) for n in sizes]
+    grads = [rnd(n) for n in sizes]
+    decay = [0.01, 0.0, 0.01, 0.3]
+    state = lambda: dict(
+        P=[p.clone() for p in p0],
+        M=[torch.zeros(n, device=cuda_device) for n in sizes],
+        V=[torch.zeros(n, device=cuda_device) for n in sizes],
+        P1=[torch.ones((), device=cuda_device) for _ in sizes],
+        P2=[torch.ones((), device=cuda_device) for _ in sizes])
+    got, want = state(), state()
+    lr = torch.full((), 1e-3, device=cuda_device)
+    for _ in range(3):
+        tfused.fused_adam_step(got["P"], grads, got["M"], got["V"],
+                               got["P1"], got["P2"], lr,
+                               decoupled_decay=decay)
+        tfused._adam_reference(want["P"], grads, want["M"], want["V"],
+                               want["P1"], want["P2"], lr,
+                               decoupled_decay=decay)
+    torch.cuda.synchronize()
+    for key in got:
+        for a, b in zip(got[key], want[key]):
             torch.testing.assert_close(a, b, atol=1e-6, rtol=0)

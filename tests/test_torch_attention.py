@@ -2,7 +2,7 @@
 both paged tiers against the reference's `_paged_gather_impl` /
 `_paged_scan_impl` on random pages, tables, positions and lengths (stale
 slots past kv_len, padded rows with kv_len 0), and the dense dispatch
-against `xla_attention`."""
+against `xla_attention`, with and without an additive bias."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -70,3 +70,26 @@ def test_dense_dispatch_matches_xla_attention(layout, causal):
         *(torch.from_numpy(a) for a in (q, k, v)), causal=causal,
         layout=layout).numpy()
     np.testing.assert_allclose(got, ref, atol=TOL, rtol=0)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_biased_attention_matches_reference(causal):
+    """An additive bias broadcast to [b, h, Lq, Lk] (BERT's padding mask)
+    against the reference's `xla_attention` and its dispatch (blockwise
+    off the TPU); the port takes it in either layout."""
+    rng = np.random.RandomState(6)
+    q, k, v = (rng.randn(2, 3, 24, 16).astype(np.float32) for _ in range(3))
+    keep = np.ones((2, 24), np.float32)
+    keep[1, 17:] = 0.0
+    bias = ((1.0 - keep)[:, None, None, :] * -1e9).astype(np.float32)
+    ref = np.asarray(jatt.xla_attention(q, k, v, causal=causal, bias=bias))
+    ref_dispatch = np.asarray(jatt.dot_product_attention(
+        q, k, v, causal=causal, bias=bias))
+    tq, tk, tv, tb = (torch.from_numpy(a) for a in (q, k, v, bias))
+    got = tatt.dot_product_attention(tq, tk, tv, causal=causal, bias=tb)
+    tr = lambda t: t.transpose(1, 2)
+    got_blhd = tatt.xla_attention(tr(tq), tr(tk), tr(tv), causal=causal,
+                                  bias=tb, layout="blhd")
+    np.testing.assert_allclose(got.numpy(), ref, atol=TOL, rtol=0)
+    np.testing.assert_allclose(got.numpy(), ref_dispatch, atol=TOL, rtol=0)
+    np.testing.assert_allclose(tr(got_blhd).numpy(), ref, atol=TOL, rtol=0)

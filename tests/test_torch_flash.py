@@ -1,11 +1,18 @@
-"""Port causal flash attention (paddle_tpu_torch.ops.flash_tpu) against
-the reference: the plain forward's (out, lse) against the Pallas
+"""Port flash attention (paddle_tpu_torch.ops.flash_tpu) against the
+reference. Causal: the plain forward's (out, lse) against the Pallas
 `_fwd_kernel` run in interpret mode, ragged L against `xla_attention`;
 the plain backward against `_dq_kernel` + `_dkv_kernel` in interpret
-mode, ragged L against `jax.vjp` of `xla_attention`; the CUDA kernels
-against the plain path on a card (marked `cuda`)."""
+mode, ragged L against `jax.vjp` of `xla_attention`. Causal or over every
+key: the plain forward against `attention._flash_fwd_kernel` in interpret
+mode, ragged L and the backward against the reference's `flash_attention`
+(blockwise off the TPU) and its `jax.vjp`. The packed dK/dV experiment
+against `tools/experiments/dkv_packed_kernel.py`'s `dkv_kernel` in
+interpret mode. The CUDA kernels against the plain path on a card (marked
+`cuda`)."""
 import functools
+import importlib.util
 import math
+import os
 
 import jax
 import jax.numpy as jnp
@@ -16,6 +23,7 @@ from jax.experimental import pallas as pl
 
 from paddle_tpu.ops import attention as jatt
 from paddle_tpu.ops import flash_tpu as jflash
+from paddle_tpu_torch.experiments import dkv_packed as tdkv
 from paddle_tpu_torch.ops import attention as tatt
 from paddle_tpu_torch.ops import flash_tpu as tflash
 
@@ -264,3 +272,261 @@ def test_cuda_backward_kernels_match_plain(cuda_device, dtype, tol):
         for got, want in zip((dq, dk, dv), ref):
             torch.testing.assert_close(got.float(), want.float(), atol=tol,
                                        rtol=tol)
+
+
+# ---------------------------------------------------------------------------
+# attention over every key (#4: attention._flash_fwd_kernel), and causal
+# through the same entry
+# ---------------------------------------------------------------------------
+def _bhld(*arrays):
+    return [np.ascontiguousarray(a.transpose(0, 2, 1, 3)) for a in arrays]
+
+
+def _pallas_flash_fwd(q, k, v, causal, block):
+    """The reference's `_flash_fwd_kernel`, launched with
+    `_flash_fwd_pallas`'s specs, in interpret mode. q/k/v: [b, h, L, d]
+    numpy f32."""
+    b, h, L, d = q.shape
+    r3 = lambda a: a.reshape(b * h, L, d)
+    with jax.enable_x64(False):
+        out = pl.pallas_call(
+            functools.partial(jatt._flash_fwd_kernel, block_k=block,
+                              causal=causal, sm_scale=1.0 / math.sqrt(d),
+                              seq_len=L),
+            grid=(b * h, L // block),
+            in_specs=[pl.BlockSpec((1, block, d), lambda i, j: (i, j, 0)),
+                      pl.BlockSpec((1, L, d), lambda i, j: (i, 0, 0)),
+                      pl.BlockSpec((1, L, d), lambda i, j: (i, 0, 0))],
+            out_specs=pl.BlockSpec((1, block, d), lambda i, j: (i, j, 0)),
+            out_shape=jax.ShapeDtypeStruct((b * h, L, d), jnp.float32),
+            interpret=True)(r3(q), r3(k), r3(v))
+    return np.asarray(out).reshape(b, h, L, d)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [32, 64])
+def test_flash_attention_matches_flash_fwd_kernel_in_interpret_mode(causal,
+                                                                    d):
+    q, k, v = _bhld(*_qkv((2, 128, 2, d), seed=d + causal))
+    ref = _pallas_flash_fwd(q, k, v, causal, block=64)
+    got = tatt.flash_attention(*(torch.from_numpy(a) for a in (q, k, v)),
+                               causal=causal).numpy()
+    np.testing.assert_allclose(got, ref, atol=OUT_TOL, rtol=0)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("b,L,H,d", [(1, 200, 2, 32), (2, 77, 3, 16)])
+def test_ragged_length_matches_reference_flash_attention(causal, b, L, H, d):
+    """Lengths the Pallas kernel's L % 256 gate refused; off the TPU the
+    reference's `flash_attention` runs the blockwise recurrence."""
+    q, k, v = _bhld(*_qkv((b, L, H, d), seed=L + causal))
+    ref = np.asarray(jatt.flash_attention(q, k, v, causal))
+    got = tatt.flash_attention(*(torch.from_numpy(a) for a in (q, k, v)),
+                               causal=causal).numpy()
+    np.testing.assert_allclose(got, ref, atol=OUT_TOL, rtol=0)
+
+
+def test_full_forward_lse_is_the_log_sum_exp_over_every_key():
+    q, k, v = _qkv((2, 70, 3, 16), seed=3)
+    _, lse = tflash.flash_attention_full(*(torch.from_numpy(a)
+                                           for a in (q, k, v)))
+    s = np.einsum("bqhd,bkhd->bhqk", q.astype(np.float64),
+                  k.astype(np.float64)) / math.sqrt(16)
+    m = s.max(-1, keepdims=True)
+    ref = (m + np.log(np.exp(s - m).sum(-1, keepdims=True)))[..., 0]
+    np.testing.assert_allclose(lse.numpy(), ref, atol=LSE_TOL, rtol=0)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("b,L,H,d", [(1, 128, 2, 64), (2, 200, 2, 32)])
+def test_full_backward_matches_vjp_of_reference_flash_attention(causal, b, L,
+                                                                H, d):
+    q, k, v = _qkv((b, L, H, d), seed=L + 2)
+    dout = _qkv((b, L, H, d), seed=4)[0]
+    _, vjp = jax.vjp(lambda *a: jatt.flash_attention(*a, causal),
+                     *_bhld(q, k, v))
+    ref = [np.asarray(g).transpose(0, 2, 1, 3)
+           for g in vjp(_bhld(dout)[0])]
+    tq, tk, tv, tdo = (torch.from_numpy(a) for a in (q, k, v, dout))
+    out, lse = tflash._flash_reference(tq, tk, tv, causal)
+    grads = tflash._flash_bwd_reference(tq, tk, tv, out, lse, tdo, causal)
+    for got, want, name in zip(grads, ref, ("dq", "dk", "dv")):
+        np.testing.assert_allclose(got.numpy(), want, atol=GRAD_TOL, rtol=0,
+                                   err_msg=name)
+
+
+def test_gradients_of_full_attention_through_strided_views():
+    """Autograd through the full-mode Function with q/k/v as views of one
+    [b, L, 3·H·d] projection (BERT's layout), against autograd of
+    `xla_attention`."""
+    rng = np.random.RandomState(9)
+    base = rng.randn(2, 40, 3 * 4 * 16).astype(np.float32)
+    g = torch.from_numpy(rng.randn(2, 40, 4, 16).astype(np.float32))
+    grads = []
+    for fn in (lambda q, k, v: tflash.flash_attention_full(q, k, v)[0],
+               lambda q, k, v: tatt.xla_attention(q, k, v, layout="blhd")):
+        qkv = torch.from_numpy(base).requires_grad_()
+        q, k, v = (t.view(2, 40, 4, 16) for t in qkv.split(64, dim=-1))
+        grads.append(torch.autograd.grad(fn(q, k, v), qkv, g)[0])
+    torch.testing.assert_close(grads[0], grads[1], atol=GRAD_TOL, rtol=0)
+
+
+@pytest.mark.parametrize("fn", ["flash_bwd_dq_full", "flash_bwd_dkv_full"])
+def test_full_backward_kernels_on_other_devices_raise(fn):
+    q = torch.empty(1, 4, 2, 64, device="meta")
+    lse = torch.empty(1, 2, 4, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        getattr(tflash, fn)(q, q, q, q, lse, lse)
+
+
+def test_cpu_full_attention_launches_no_kernel():
+    counters = (tflash.flash_attention_full, tflash.flash_bwd_dq_full,
+                tflash.flash_bwd_dkv_full)
+    before = [f.launches for f in counters]
+    q, k, v = (torch.from_numpy(a).requires_grad_()
+               for a in _qkv((1, 16, 2, 8), seed=0))
+    tflash.flash_attention_full(q, k, v)[0].sum().backward()
+    assert q.grad is not None
+    assert [f.launches for f in counters] == before
+
+
+# ---------------------------------------------------------------------------
+# the packed dK/dV experiment (#8)
+# ---------------------------------------------------------------------------
+# bf16 on both sides with the same roundings; the sums run in another
+# order, so a rounded P or dS element can flip one bf16 ulp, and the
+# outputs are rounded to bf16 once: 2^-6 of each tensor's largest value
+PACKED_REL_TOL = 2.0 ** -6
+
+
+def _reference_dkv_module():
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "tools", "experiments",
+        "dkv_packed_kernel.py")
+    spec = importlib.util.spec_from_file_location("_ref_dkv_packed", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _packed_inputs(b, H, L, d, seed):
+    """bf16 q/k/v/dO [b, H, L, d] (as numpy f32 holding bf16 values) and
+    the f32 lse/delta of plain causal attention over them."""
+    rng = np.random.RandomState(seed)
+    mk = lambda: np.asarray(jnp.asarray(rng.randn(b, H, L, d) * 0.2,
+                                        jnp.bfloat16), np.float32)
+    q, k, v, do = mk(), mk(), mk(), mk()
+    s = np.einsum("bhqd,bhkd->bhqk", q, k) / math.sqrt(d)
+    s = np.where(np.tril(np.ones((L, L), bool)), s, -1e30)
+    m = s.max(-1, keepdims=True)
+    lse = (m + np.log(np.exp(s - m).sum(-1, keepdims=True)))[..., 0]
+    out = np.einsum("bhqk,bhkd->bhqd", np.exp(s - lse[..., None]), v)
+    delta = np.einsum("bhqd,bhqd->bhq", do, out)
+    return q, k, v, do, lse.astype(np.float32), delta.astype(np.float32)
+
+
+def test_packed_dkv_matches_dkv_kernel_in_interpret_mode():
+    ref_mod = _reference_dkv_module()
+    b, H, L, d, blk = 1, 2, 128, 64, 64
+    q, k, v, do, lse, delta = _packed_inputs(b, H, L, d, seed=0)
+    bh = b * H
+    rs = lambda t: jnp.asarray(t.reshape(bh, L, d), jnp.bfloat16)
+    st = lambda t: jnp.asarray(t.reshape(bh, 1, L))
+    with jax.enable_x64(False):
+        packed = pl.pallas_call(
+            functools.partial(ref_mod.dkv_kernel, bq=blk, bk=blk, nq=L // blk,
+                              d=d, scale=1.0 / np.sqrt(d)),
+            grid=(bh, L // blk),
+            in_specs=[pl.BlockSpec((1, L, d), lambda i, j: (i, 0, 0)),
+                      pl.BlockSpec((1, blk, d), lambda i, j: (i, j, 0)),
+                      pl.BlockSpec((1, blk, d), lambda i, j: (i, j, 0)),
+                      pl.BlockSpec((1, L, d), lambda i, j: (i, 0, 0)),
+                      pl.BlockSpec((1, 1, L), lambda i, j: (i, 0, 0)),
+                      pl.BlockSpec((1, 1, L), lambda i, j: (i, 0, 0))],
+            out_specs=pl.BlockSpec((1, blk, 2 * d), lambda i, j: (i, j, 0)),
+            out_shape=jax.ShapeDtypeStruct((bh, L, 2 * d), jnp.bfloat16),
+            interpret=True)(rs(q), rs(k), rs(v), rs(do), st(lse), st(delta))
+    packed = np.asarray(packed, np.float32).reshape(b, H, L, 2 * d)
+    ref_dv, ref_dk = packed[..., :d], packed[..., d:]
+    tb = lambda a: torch.from_numpy(a).to(torch.bfloat16)
+    dk, dv = tdkv.dkv_call(tb(q), tb(k), tb(v), tb(do),
+                           torch.from_numpy(lse), torch.from_numpy(delta))
+    assert dk.dtype == dv.dtype == torch.bfloat16
+    for got, want, name in ((dk, ref_dk, "dk"), (dv, ref_dv, "dv")):
+        err = float(np.abs(got.float().numpy() - want).max())
+        assert err <= PACKED_REL_TOL * float(np.abs(want).max()), (name, err)
+
+
+def test_packed_dkv_plain_version_is_the_causal_gradient():
+    """Against the f32 causal backward of `flash_tpu` on the same bf16
+    inputs: only the bf16 roundings differ."""
+    b, H, L, d = 2, 2, 96, 32
+    q, k, v, do, lse, delta = _packed_inputs(b, H, L, d, seed=1)
+    tb = lambda a: torch.from_numpy(a).to(torch.bfloat16)
+    dk, dv = tdkv.dkv_call(tb(q), tb(k), tb(v), tb(do),
+                           torch.from_numpy(lse), torch.from_numpy(delta))
+    tl = lambda a: torch.from_numpy(np.ascontiguousarray(
+        a.transpose(0, 2, 1, 3)))
+    out, lse_t = tflash._flash_reference(tl(q), tl(k), tl(v))
+    _, ref_dk, ref_dv = tflash._flash_bwd_reference(tl(q), tl(k), tl(v), out,
+                                                    lse_t, tl(do))
+    for got, want in ((dk, ref_dk), (dv, ref_dv)):
+        want = want.transpose(1, 2).numpy()
+        err = float(np.abs(got.float().numpy() - want).max())
+        assert err <= PACKED_REL_TOL * float(np.abs(want).max())
+
+
+def test_packed_dkv_main_runs_on_the_cpu_at_a_small_size():
+    before = tdkv.dkv_call.launches
+    res = tdkv.main(device="cpu", b=1, H=2, L=64, d=32)
+    assert res["ms"] is None  # no device time from a CPU run
+    assert res["err_dk"] <= PACKED_REL_TOL * res["scale_dk"]
+    assert res["err_dv"] <= PACKED_REL_TOL * res["scale_dv"]
+    assert tdkv.dkv_call.launches == before
+
+
+def test_packed_dkv_on_other_devices_raises():
+    q = torch.empty(1, 2, 4, 64, device="meta", dtype=torch.bfloat16)
+    lse = torch.empty(1, 2, 4, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        tdkv.dkv_call(q, q, q, q, lse, lse)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+def test_cuda_full_kernels_match_plain(cuda_device, dtype, tol):
+    for shape in ((2, 128, 12, 64), (2, 77, 4, 128), (1, 200, 2, 32)):
+        q, k, v, dout = (torch.from_numpy(a).to(cuda_device, dtype)
+                         for a in _qkv(shape, seed=shape[1])
+                         + _qkv(shape, seed=1)[:1])
+        out, lse = tflash.flash_attention_full(q, k, v)
+        ref_out, ref_lse = tflash._flash_reference(q, k, v, causal=False)
+        torch.testing.assert_close(out.float(), ref_out.float(), atol=tol,
+                                   rtol=tol)
+        torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=0)
+        delta = tflash._delta(out, dout)
+        dq = tflash.flash_bwd_dq_full(q, k, v, dout, lse, delta)
+        dk, dv = tflash.flash_bwd_dkv_full(q, k, v, dout, lse, delta)
+        torch.cuda.synchronize()
+        ref = tflash._flash_bwd_reference(q, k, v, out, lse, dout,
+                                          causal=False)
+        for got, want in zip((dq, dk, dv), ref):
+            torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                                       rtol=tol)
+
+
+@pytest.mark.cuda
+def test_cuda_packed_dkv_matches_plain(cuda_device):
+    q, k, v, do, lse, delta = _packed_inputs(2, 4, 200, 64, seed=2)
+    tb = lambda a: torch.from_numpy(a).to(cuda_device, torch.bfloat16)
+    tf = lambda a: torch.from_numpy(a).to(cuda_device)
+    args = (tb(q), tb(k), tb(v), tb(do), tf(lse), tf(delta))
+    before = tdkv.dkv_call.launches
+    dk, dv = tdkv.dkv_call(*args)
+    torch.cuda.synchronize()
+    assert tdkv.dkv_call.launches == before + 1
+    ref = tdkv._dkv_packed_reference(*args)
+    for got, want in zip((dk, dv), ref):
+        err = float((got.float() - want.float()).abs().max())
+        assert err <= PACKED_REL_TOL * float(want.float().abs().max())

@@ -20,6 +20,8 @@ from paddle_tpu_torch.inference.serving import (KVCacheConfig, KVCachePool,
                                                 TokenServeConfig,
                                                 TokenServingEngine)
 from paddle_tpu_torch.optimizer import Adam
+from paddle_tpu_torch.experiments import dkv_packed
+from paddle_tpu_torch.text.models import bert as tbert
 from paddle_tpu_torch.text.models import gpt as tgpt
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -40,7 +42,9 @@ def test_package_has_the_slice_modules():
                 "inference.serving.engine", "inference.serving.kv_cache",
                 "inference.serving.decode", "inference.serving.loadgen",
                 "nn.functional.loss", "optimizer.optimizer",
-                "distributed.fleet.engine", "bench"):
+                "distributed.fleet.engine", "bench", "text.models.bert",
+                "nn.layer.common", "nn.layer.norm",
+                "experiments.dkv_packed"):
         assert "paddle_tpu_torch." + mod in names
 
 
@@ -107,3 +111,9 @@ def test_entry_points_without_device_raise_on_a_cuda_less_machine(no_cuda):
                           Adam(parameters=model.parameters()))
     with pytest.raises(RuntimeError, match="CUDA"):
         bench.main()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bench.main(["bert"])
+    with pytest.raises(RuntimeError):
+        tbert.BertForPretraining(tbert.bert_tiny())
+    with pytest.raises(RuntimeError):
+        dkv_packed.main()

@@ -204,7 +204,6 @@ def test_step_records_steps_and_step_ms():
 @pytest.mark.parametrize("kw", [
     dict(recompute=True), dict(mesh=object()), dict(dp_axis="dp"),
     dict(zero_stage=1), dict(sp_axis="sp"),
-    dict(compute_dtype=torch.bfloat16, master_weights=False),
     dict(compute_dtype=torch.float16)])
 def test_unported_engine_options_raise(kw):
     model = tgpt.GPTForCausalLM(tgpt.gpt2_tiny(), device="cpu")
