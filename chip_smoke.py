@@ -40,8 +40,10 @@ failing on the first phase that fails:
    steps, tokens/s, p50 step time, peak memory, the loss finite and
    falling, the launch counts per step, and a 2-step profile;
 9. (after 3c, which holds the full-attention forward, dQ and dK/dV
-   kernels, the packed dK/dV of the experiment and the AdamW mode of the
-   Adam kernel against their plain versions and times them) takes one
+   kernels (also on q/k/v as the strided views of a fused QKV projection
+   that BERT passes), the packed dK/dV of the experiment and the AdamW
+   mode of the Adam kernel against their plain versions and times them)
+   takes one
    f32 AdamW step of a 2-layer BERT-base (batch 4 x 128) through the
    kernels and one through the plain path, and compares the loss, every
    gradient and every parameter after the step;
@@ -49,7 +51,9 @@ failing on the first phase that fails:
     32 x 128 in bf16 without master weights, AdamW lr 1e-4 and weight
     decay 0.01: 3 warm-up and 20 timed steps, samples/s, tokens/s, p50
     step time, peak memory, the loss finite and falling, the launch counts
-    per step, no attention call off the kernel, and a 2-step profile;
+    per step, every attention call on the kernel, a padding-masked
+    forward refused on the card (no kernel takes the bias), and a 2-step
+    profile;
 11. runs the packed dK/dV experiment's own entry point
     (``paddle_tpu_torch.experiments.dkv_packed.main``) and checks its
     gradients against autograd.
@@ -189,15 +193,6 @@ def ln_bound(rows, hidden, dtype):
         else "operations"
 
 
-def flash_bound(b, L, H, d, dtype):
-    esize = torch.finfo(dtype).bits // 8
-    nbytes = 4 * b * L * H * d * esize + b * H * L * 4
-    flops = 4 * d * b * H * L * (L + 1) // 2  # QK^T and PV over k <= q
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
-    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops \
-        else "operations"
-
-
 def ln_bwd_bound(rows, hidden, dtype):
     esize = torch.finfo(dtype).bits // 8
     # x, g read and dx written; w read, dw and db written
@@ -208,41 +203,20 @@ def ln_bwd_bound(rows, hidden, dtype):
         else "operations"
 
 
-def flash_bwd_bound(b, L, H, d, dtype, kernel):
-    """The least time of one backward kernel's own function: dQ needs the
-    products S, dP and dS·K (3), dK/dV needs S, dP, dSᵀ·Q and Pᵀ·dO (4),
-    each over k <= q. (The whole backward needs 5: S and dP once.)"""
-    esize = torch.finfo(dtype).bits // 8
-    outs, products = (1, 3) if kernel == "dq" else (2, 4)
-    nbytes = (4 + outs) * b * L * H * d * esize + 2 * b * H * L * 4
-    flops = products * 2 * d * b * H * L * (L + 1) // 2
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
-    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops \
-        else "operations"
-
-
-def flash_full_bound(b, L, H, d, dtype, kernel):
-    """The least time of one full-attention kernel's own function over all
-    L x L pairs: the forward's 2 products (QK^T, PV) with out and lse
-    written, dQ's 3 and dK/dV's 4 products (as ``flash_bwd_bound``)."""
+def flash_bound(b, L, H, d, dtype, kernel="fwd", causal=True):
+    """The least time of one attention kernel's own function: the
+    forward's 2 products (QKᵀ, PV) with out and lse written; dQ's 3 (S, dP,
+    dS·K) and dK/dV's 4 (S, dP, dSᵀ·Q, Pᵀ·dO) with q, k, v, dO and the f32
+    lse, delta read. (The whole backward needs 5: S and dP once.) Each
+    product runs over the pairs k <= q (causal) or all L x L."""
     esize = torch.finfo(dtype).bits // 8
     products, nbytes = {
         "fwd": (2, 4 * b * L * H * d * esize + b * H * L * 4),
         "dq": (3, 5 * b * L * H * d * esize + 2 * b * H * L * 4),
         "dkv": (4, 6 * b * L * H * d * esize + 2 * b * H * L * 4)}[kernel]
-    flops = products * 2 * d * b * H * L * L
+    pairs = L * (L + 1) // 2 if causal else L * L
+    flops = products * 2 * d * b * H * pairs
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
-    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops \
-        else "operations"
-
-
-def packed_dkv_bound(b, H, L, d):
-    """The packed dK/dV's own function in bf16: q, k, v, dO and the f32
-    lse, delta read, [dV | dK] written; S, dP, dV and dK over k <= q."""
-    nbytes = 4 * b * H * L * d * 2 + 2 * b * H * L * 4 + 2 * b * H * L * d * 2
-    flops = 4 * 2 * d * b * H * L * (L + 1) // 2
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = flops / PEAK_FLOPS[torch.bfloat16]
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops \
         else "operations"
 
@@ -287,8 +261,7 @@ def plain_kernels(gpt_mod, fused, flash_tpu, norm_mod, bert_mod, attention):
              gpt_mod.dot_product_attention, bert_mod.dot_product_attention,
              fused.fused_adam_step)
 
-    def bert_attention(q, k, v, causal=False, bias=None, use_flash=True,
-                       layout="bhld"):
+    def bert_attention(q, k, v, causal=False, bias=None, layout="bhld"):
         if bias is not None:
             return attention.xla_attention(q, k, v, causal, bias, layout)
         return flash_tpu._flash_reference(q, k, v, causal)[0]
@@ -479,7 +452,7 @@ def time_backward_kernels(dev, rnd, fused, flash_tpu, cfg):
             ("dq", lambda: flash_tpu.flash_bwd_dq(q, k, v, do, lse, delta)),
             ("dkv", lambda: flash_tpu.flash_bwd_dkv(q, k, v, do, lse,
                                                     delta))):
-        bound, by = flash_bwd_bound(*shape, torch.bfloat16, name)
+        bound, by = flash_bound(*shape, torch.bfloat16, name)
         timings.append({
             "kernel": f"flash_attn_bwd_{name}", "shape": list(shape),
             "dtype": "bfloat16", "ms": time_ms(kern, iters=20),
@@ -563,16 +536,32 @@ def profile_training(step, ids, labels):
             f"{e.key[:90]}")
 
 
+def attn_operands(rnd, shape, dtype, fused_qkv=False):
+    """q, k, v and dO of ``shape`` (b, L, H, d). With ``fused_qkv``, q/k/v
+    are the [b, L, H, d] views of one [b, L, 3·H·d] tensor that BERT's
+    fused QKV projection gives the kernels (row stride 3·H·d)."""
+    b, L, H, d = shape
+    if not fused_qkv:
+        return tuple(rnd(*shape, dtype=dtype) for _ in range(4))
+    qkv = rnd(b, L, 3 * H * d, dtype=dtype)
+    q, k, v = (t.view(shape) for t in qkv.split(H * d, dim=-1))
+    return q, k, v, rnd(*shape, dtype=dtype)
+
+
 def check_bert_kernels(dev, rnd, fused, flash_tpu, dkv_mod, bert_cfg, err):
     """Phase 3c: the full-attention forward, dQ and dK/dV kernels (#4), the
     packed dK/dV (#8, also against the causal dK/dV kernel #3) and the
     AdamW mode of the Adam kernel against their plain versions on the
     card."""
+    # the shapes with dense operands, then BERT's with q/k/v as the main
+    # path passes them: strided views of one fused QKV projection
+    cases = [(shape, False) for shape in FULL_SHAPES] + [(BERT_ATTN_SHAPE,
+                                                          True)]
     for dtype in DTYPES:
         out_tol, lse_tol = FLASH_OUT_TOL[dtype], FLASH_LSE_TOL[dtype]
         bwd_tol = FLASH_BWD_TOL[dtype]
-        for shape in FULL_SHAPES:
-            q, k, v, do = (rnd(*shape, dtype=dtype) for _ in range(4))
+        for shape, fused_qkv in cases:
+            q, k, v, do = attn_operands(rnd, shape, dtype, fused_qkv)
             out, lse = flash_tpu._fwd(q, k, v, causal=False)
             torch.cuda.synchronize()
             ref_out, ref_lse = flash_tpu._flash_reference(q, k, v, False)
@@ -591,7 +580,9 @@ def check_bert_kernels(dev, rnd, fused, flash_tpu, dkv_mod, bert_cfg, err):
                 err["flash_attn_bwd_dq_full"], res[0][0])
             err["flash_attn_bwd_dkv_full"] = max(
                 err["flash_attn_bwd_dkv_full"], res[1][0], res[2][0])
-            log(f"[3c] flash full {str(dtype)[6:]} (b,L,H,d)={shape}: out "
+            log(f"[3c] flash full {str(dtype)[6:]} (b,L,H,d)={shape}"
+                + (" as fused-QKV views (row stride "
+                   f"{q.stride(1)})" if fused_qkv else "") + ": out "
                 f"err {e_o:.3g} (tol {out_tol}), lse err {e_l:.3g} (tol "
                 f"{lse_tol}); dq/dk/dv max err "
                 + "/".join(f"{e:.3g}" for e, _ in res) + f" (tol {bwd_tol})")
@@ -681,7 +672,7 @@ def time_bert_kernels(dev, rnd, fused, flash_tpu, dkv_mod, bert_cfg):
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         fwd = lambda: flash_tpu._fwd(q, k, v, causal=False)
         lib_fwd = lambda: F.scaled_dot_product_attention(qt, kt, vt)
-        bound, by = flash_full_bound(*shape, torch.bfloat16, "fwd")
+        bound, by = flash_bound(*shape, torch.bfloat16, causal=False)
         timings.append({
             "kernel": "flash_attn_fwd_full", "shape": list(shape),
             "dtype": "bfloat16", "ms": time_ms(fwd, iters=20),
@@ -705,7 +696,8 @@ def time_bert_kernels(dev, rnd, fused, flash_tpu, dkv_mod, bert_cfg):
                                                            delta)),
                 ("dkv", lambda: flash_tpu.flash_bwd_dkv_full(q, k, v, do,
                                                              lse, delta))):
-            bound, by = flash_full_bound(*shape, torch.bfloat16, name)
+            bound, by = flash_bound(*shape, torch.bfloat16, name,
+                                    causal=False)
             timings.append({
                 "kernel": f"flash_attn_bwd_{name}_full", "shape": list(shape),
                 "dtype": "bfloat16", "ms": time_ms(kern, iters=20),
@@ -726,7 +718,8 @@ def time_bert_kernels(dev, rnd, fused, flash_tpu, dkv_mod, bert_cfg):
     ys = F.scaled_dot_product_attention(*lt, is_causal=True)
     lib = lambda: torch.autograd.grad(ys, lt, args4[3], retain_graph=True)
     kern = lambda: dkv_mod.dkv_call(*args4)
-    bound, by = packed_dkv_bound(b, H, L, d)
+    # the packed [dV | dK] output holds dK's and dV's bytes
+    bound, by = flash_bound(b, L, H, d, torch.bfloat16, "dkv")
     timings.append({
         "kernel": "dkv_packed", "shape": [b, L, H, d], "dtype": "bfloat16",
         "ms": time_ms(kern, iters=20),
@@ -1318,22 +1311,21 @@ def main() -> int:
             "flash_attn_bwd_dq_full": n_layers * n_steps,
             "flash_attn_bwd_dkv_full": n_layers * n_steps,
             "adam": 2 * n_steps}
-    fallbacks = tel.counter_value("attn/tier_fallbacks")
+    attn_calls = tel.counter_value("attn/calls")
     samples = BERT_SHAPE[0] * n_steps
     bert_training = {
         "samples_per_s": samples / wall,
         "tokens_per_s": samples * BERT_SHAPE[1] / wall,
         "step_ms_p50": step_ms[n_steps // 2], "step_ms_min": step_ms[0],
         "step_ms_max": step_ms[-1], "peak_memory_bytes": peak,
-        "losses": all_losses, "attn_tier_fallbacks": fallbacks,
-        "attn_calls": tel.counter_value("attn/calls")}
+        "losses": all_losses, "attn_calls": attn_calls}
     log(f"[10] trained bert_base bf16 (f32 params, no masters) + AdamW at "
         f"{BERT_SHAPE}: {bert_training['samples_per_s']:.1f} samples/s, "
         f"{bert_training['tokens_per_s']:.1f} tokens/s over {n_steps} steps,"
         f" step p50 {step_ms[n_steps // 2]:.2f} ms (events; min "
         f"{step_ms[0]:.2f}, max {step_ms[-1]:.2f}), peak memory "
         f"{peak / 2**30:.2f} GiB; loss {all_losses[0]:.4f} -> "
-        f"{all_losses[-1]:.4f}; attn/tier_fallbacks {fallbacks}; launches "
+        f"{all_losses[-1]:.4f}; attn/calls {attn_calls}; launches "
         f"{got}")
     busy = profile_bert_training(step, (ids, mlm, nsp))
     bert_training["busy_share"] = busy
@@ -1344,9 +1336,20 @@ def main() -> int:
         raise AssertionError(f"the BERT loss did not fall: {all_losses}")
     if got != want:
         raise AssertionError(f"BERT training launched {got}, expected {want}")
-    if fallbacks != 0:
-        raise AssertionError(f"{fallbacks} attention calls fell back to the "
-                             "plain path")
+    if attn_calls != got["flash_attn_fwd_full"]:
+        raise AssertionError(f"{attn_calls} attention calls but "
+                             f"{got['flash_attn_fwd_full']} forward kernel "
+                             "launches")
+    # a padding mask's additive bias has no kernel: the card refuses it
+    # rather than taking the plain path
+    try:
+        with torch.no_grad():
+            model(ids[:1], attention_mask=torch.ones_like(ids[:1]))
+    except NotImplementedError as e:
+        log(f"[10] a padding-masked forward on the card raises: {e}")
+    else:
+        raise AssertionError("a padding-masked BERT forward ran on the card "
+                             "without a kernel")
     del step, model, opt
     torch.cuda.empty_cache()
 

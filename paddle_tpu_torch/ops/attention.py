@@ -8,20 +8,15 @@ the serving and training slices run:
   every key (``flash_tpu.flash_attention_full``, the port of the Pallas
   ``_flash_fwd_kernel`` with a kernel backward);
 - ``dot_product_attention``: the dispatch, differentiable on both
-  devices. It follows the reference's off-TPU rule (``_resolve_impl``):
+  devices. It follows the reference's off-TPU rule (``_resolve_impl``),
+  without its plain-path fallbacks on the card:
 
-  ====================================================  =================
-  call                                                  route
-  ====================================================  =================
-  on the CPU                                            plain path
-  on the card, unbiased, ``use_flash``                  flash kernel
-  a bias, or ``use_flash=False``                        plain path
-  a kernel call the kernel cannot take (head dim not    plain path,
-  in ``flash_tpu.HEAD_DIMS``, Lq != Lk)                 counted
-  ====================================================  =================
-
-  "counted" is ``attn/tier_fallbacks`` in the telemetry plus one warning
-  per shape, as the reference's ``_count_fallback``;
+  - on the CPU: the plain path, with any bias;
+  - on the card, unbiased: the flash kernel, whose wrapper raises on a
+    shape it cannot take (head dim not in ``flash_tpu.HEAD_DIMS``,
+    Lq != Lk);
+  - on the card, with a bias: raises, as no kernel takes an additive
+    bias yet.
 - ``paged_attention``: attention of a query chunk against the serving
   KV-cache pool, with the reference's two tiers (``_paged_gather_impl``,
   ``_paged_scan_impl``). They are XLA-level code in the reference, not
@@ -31,7 +26,6 @@ the serving and training slices run:
 """
 from __future__ import annotations
 
-import logging
 import math
 
 import torch
@@ -43,7 +37,6 @@ __all__ = ["xla_attention", "flash_attention", "dot_product_attention",
            "paged_attention"]
 
 _NEG_INF = -1e30
-_log = logging.getLogger(__name__)
 
 
 def xla_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -88,45 +81,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return tr(out)
 
 
-# one-shot fallback warnings, keyed (shape, reason)
-_fallback_warned: set = set()
-
-
-def _count_fallback(shape, reason: str) -> None:
-    """A kernel call rerouted to the plain path: count it
-    (``attn/tier_fallbacks``) and warn once per shape and reason, as the
-    reference's ``_count_fallback`` does."""
-    get_telemetry().counter("attn/tier_fallbacks")
-    key = (tuple(shape), reason)
-    if key not in _fallback_warned:
-        _fallback_warned.add(key)
-        _log.warning("attention: the flash kernel cannot take shape %s — %s;"
-                     " taking the plain path (counted in "
-                     "attn/tier_fallbacks; warned once per shape)",
-                     tuple(shape), reason)
-
-
 def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           causal: bool = False, bias=None,
-                          use_flash: bool = True,
                           layout: str = "bhld") -> torch.Tensor:
-    """Attention dispatch by the table in the module docstring.
+    """Attention dispatch by the rules in the module docstring.
     ``layout='blhd'`` passes [b, l, h, d] operands straight to the kernel;
     [b, h, l, d] operands are transposed in and out."""
     get_telemetry().counter("attn/calls")
-    if q.device.type == "cpu" or bias is not None or not use_flash:
+    if q.device.type == "cpu":
         return xla_attention(q, k, v, causal=causal, bias=bias,
                              layout=layout)
-    d = q.shape[-1]
-    if d not in flash_tpu.HEAD_DIMS:
-        _count_fallback(q.shape, f"head dim {d} not in "
-                                 f"{flash_tpu.HEAD_DIMS}")
-        return xla_attention(q, k, v, causal=causal, layout=layout)
-    if k.shape != q.shape or v.shape != q.shape:
-        _count_fallback(q.shape, f"k/v shapes {tuple(k.shape)}, "
-                                 f"{tuple(v.shape)} differ from q's "
-                                 "(self-attention only)")
-        return xla_attention(q, k, v, causal=causal, layout=layout)
+    if bias is not None:
+        raise NotImplementedError(
+            "dot_product_attention: an additive bias (e.g. BERT's padding "
+            "mask) has no kernel on the card yet; pass tensors on the CPU "
+            "or call without a bias")
     return flash_attention(q, k, v, causal=causal, layout=layout)
 
 

@@ -245,8 +245,8 @@ def _dense_tail(t):
 
 
 def _check_cuda_args(fn, q, k, v):
-    if q.device.type != "cuda":
-        raise ValueError(f"{fn}: unsupported device {q.device}")
+    # the shapes first: a call the kernel cannot take raises as such on
+    # any device
     if q.dtype not in _build.DTYPE_CODES:
         raise TypeError(f"{fn}: dtype {q.dtype} not supported by the CUDA "
                         "kernel (float32, bfloat16)")
@@ -267,6 +267,8 @@ def _check_cuda_args(fn, q, k, v):
         if not _dense_tail(t):
             raise ValueError(f"{fn}: {name} needs dense [H, d] trailing "
                              f"axes, strides {t.stride()}")
+    if q.device.type != "cuda":
+        raise ValueError(f"{fn}: unsupported device {q.device}")
 
 
 def _check_bwd_args(fn, q, k, v, dout, lse, delta):

@@ -9,9 +9,10 @@ Parameters carry the reference's names (``bert.embeddings.word.weight``,
 across unchanged. Attention is non-causal and goes through
 ``ops.attention.dot_product_attention`` with q/k/v as strided
 [b, l, h, d] views of the fused QKV projection (no transpose copy): the
-flash kernel on the card, the plain path for a padding mask's additive
-bias or on the CPU. ``use_flash_attention`` is the dispatch's
-``use_flash``. Every LayerNorm goes through ``ops.fused``. Dropout masks
+flash kernel on the card, the plain path on the CPU. A padding mask's
+additive bias has no kernel yet, so ``attention_mask`` runs on the CPU
+only. The reference's TPU tuning knob ``use_flash_attention`` has no
+counterpart. Every LayerNorm goes through ``ops.fused``. Dropout masks
 come from a ``torch.Generator`` the model owns, seeded from ``seed``.
 """
 from __future__ import annotations
@@ -47,7 +48,6 @@ class BertConfig:
     attention_dropout: float = 0.1
     initializer_range: float = 0.02
     layer_norm_epsilon: float = 1e-12
-    use_flash_attention: bool = True
 
 
 class BertSelfAttention(nn.Module):
@@ -60,7 +60,6 @@ class BertSelfAttention(nn.Module):
         self.qkv = Linear(h, 3 * h, device, dtype)
         self.proj = Linear(h, h, device, dtype)
         self.dropout = Dropout(config.attention_dropout, gen)
-        self.use_flash = config.use_flash_attention
 
     def forward(self, x, attn_bias=None):
         b, l, h = x.shape
@@ -69,7 +68,7 @@ class BertSelfAttention(nn.Module):
         q, k, v = (t.view(b, l, self.num_heads, self.head_dim)
                    for t in self.qkv(x).split(h, dim=-1))
         o = dot_product_attention(q, k, v, causal=False, bias=attn_bias,
-                                  use_flash=self.use_flash, layout="blhd")
+                                  layout="blhd")
         return self.dropout(self.proj(o.reshape(b, l, h)))
 
 
@@ -146,7 +145,8 @@ class BertModel(nn.Module):
     Weights are drawn from ``seed`` on ``device`` (default ``"cuda"``),
     dropout masks from ``dropout_gen``, a second generator with the same
     seed. ``attention_mask`` ([b, l], 1 = attend, 0 = padding) becomes
-    the reference's additive −1e9 bias on the padded keys."""
+    the reference's additive −1e9 bias on the padded keys; on the card
+    the attention dispatch refuses it (no kernel takes a bias yet)."""
 
     def __init__(self, config: BertConfig,
                  device: Optional[Union[str, torch.device]] = None,

@@ -4,10 +4,9 @@ and NSP logits with and without a padding mask, the pretraining loss, and
 three `ParallelTrainStep` steps with AdamW against the reference engine on
 a 1-device mesh — in f32 (with `apply_decay_param_fun` excluding biases
 and LayerNorms by name) and in bf16 compute without master weights; the
-non-master engine mode; the attention dispatch's fallback count; the
-shared `nn.layer` modules."""
+non-master engine mode; the attention dispatch, which raises off the CPU
+where the kernel cannot take a call; the shared `nn.layer` modules."""
 import importlib
-import logging
 
 import jax
 import jax.numpy as jnp
@@ -25,7 +24,6 @@ from paddle_tpu_torch.jit.functionalize import get_params, load_jax_params
 from paddle_tpu_torch.nn.layer import common, norm
 from paddle_tpu_torch.ops import attention as tatt
 from paddle_tpu_torch.optimizer import AdamW
-from paddle_tpu_torch.profiler.telemetry import get_telemetry
 from paddle_tpu_torch.text.models import bert as tbert
 from paddle_tpu_torch.text.models import gpt as tgpt
 
@@ -44,6 +42,10 @@ LR, WD, STEPS = 1e-3, 0.01, 3
 # parameter by ~lr, and a bf16-rounded gradient can flip its sign
 BF16_LOSS_TOL = 0.04
 BF16_PARAM_TOL = 2 * LR * STEPS
+# bf16 at bert_base's width, loss 10-14: one bf16 ulp of the reference's
+# MLM loss is 2^-4 there (a rounding is up to 0.031), and 4096 tokens'
+# activations are rounded at other places than the port's
+BASE_BF16_LOSS_TOL = 0.1
 
 
 def _no_decay(name):
@@ -268,6 +270,46 @@ def test_bf16_without_masters_keeps_f32_residents_and_no_masters(bf16_runs):
         assert st["moment1"].dtype == torch.float32
 
 
+@pytest.fixture(scope="module")
+def bert_base_bf16_curves():
+    """Three AdamW steps (lr 1e-4, decay 0.01, as `bench_bert_dp`) of
+    bert_base cut to 2 layers, full width, at the bench's batch 32 x 128,
+    bf16 compute without masters: the reference engine's losses and the
+    port's from the same weights and batch."""
+    kw = dict(num_layers=2, hidden_dropout=0.0, attention_dropout=0.0)
+    batch = _batch(b=32, L=128, vocab=30528)
+    paddle.seed(0)
+    jm = jbert.BertForPretraining(jbert.bert_base(**kw))
+    p0 = _np(jfunc.get_params(jm))
+    opt = paddle.optimizer.AdamW(learning_rate=1e-4, weight_decay=0.01,
+                                 parameters=jm.parameters())
+    step = JStep(jm, loss_fn=jm.loss_fn, optimizer=opt,
+                 mesh=Mesh(np.array(jax.devices()[:1]), ("dp",)),
+                 compute_dtype=jnp.bfloat16)
+    ref = [float(np.asarray(step((batch[0],), batch[1:]).numpy()))
+           for _ in range(STEPS)]
+    del jm, opt, step
+    tm = load_jax_params(tbert.BertForPretraining(tbert.bert_base(**kw),
+                                                  device="cpu"), p0)
+    topt = AdamW(1e-4, parameters=tm.parameters(), weight_decay=0.01)
+    tstep = ParallelTrainStep(tm, loss_fn=tm.loss_fn, optimizer=topt,
+                              device="cpu", compute_dtype=torch.bfloat16)
+    ids, mlm, nsp = (torch.from_numpy(a).long() for a in batch)
+    got = [float(tstep((ids,), (mlm, nsp))) for _ in range(STEPS)]
+    print(f"bert_base(num_layers=2) bf16 losses: reference {ref}, port {got}")
+    return ref, got
+
+
+@pytest.mark.parametrize("i", range(STEPS))
+def test_bert_base_bf16_loss_curve_follows_the_reference(
+        bert_base_bf16_curves, i):
+    """At full width the loss rises at the second step before it falls, on
+    both sides: the port follows the reference's curve step by step."""
+    ref, got = bert_base_bf16_curves
+    assert ref[1] > ref[0] and got[1] > got[0]
+    assert abs(got[i] - ref[i]) <= BASE_BF16_LOSS_TOL
+
+
 def test_bf16_without_masters_runs_the_forward_in_bf16():
     model = tbert.BertForPretraining(tbert.bert_tiny(), device="cpu")
     seen = []
@@ -301,32 +343,25 @@ def _meta_qkv(L=16, H=2, d=64, Lk=None):
     return q, k
 
 
-@pytest.mark.parametrize("d,Lk", [(48, None), (64, 24)])
-def test_kernel_shapes_it_cannot_take_are_counted_fallbacks(d, Lk, caplog):
-    """Off the CPU, a call the kernel cannot take goes to the plain path
-    and is counted, with one warning per shape (tensors on the meta
-    device stand in for the card's: no kernel runs)."""
-    tel = get_telemetry()
-    tel.reset()
+@pytest.mark.parametrize("d,Lk,match", [(48, None, "head dim 48"),
+                                        (64, 24, "self-attention only")])
+def test_kernel_shapes_it_cannot_take_raise_off_the_cpu(d, Lk, match):
+    """Off the CPU, a call the kernel cannot take raises: nothing goes to
+    the plain path (tensors on the meta device stand in for the card's: no
+    kernel runs)."""
     q, k = _meta_qkv(d=d, Lk=Lk)
-    with caplog.at_level(logging.WARNING, logger=tatt.__name__):
-        for _ in range(2):
-            out = tatt.dot_product_attention(q, k, k, layout="blhd")
-    assert out.shape == q.shape
-    assert tel.counter_value("attn/tier_fallbacks") == 2
-    assert sum("tier_fallbacks" in r.getMessage()
-               for r in caplog.records) == 1
+    for causal in (False, True):
+        for layout in ("blhd", "bhld"):
+            with pytest.raises(ValueError, match=match):
+                tatt.dot_product_attention(q, k, k, causal=causal,
+                                           layout=layout)
 
 
-def test_biased_or_plain_calls_are_not_fallbacks():
-    tel = get_telemetry()
-    tel.reset()
+def test_biased_calls_raise_off_the_cpu():
     q, _ = _meta_qkv()
     bias = torch.zeros(2, 1, 1, 16, device="meta")
-    tatt.dot_product_attention(q, q, q, bias=bias, layout="blhd")
-    tatt.dot_product_attention(q, q, q, use_flash=False, layout="blhd")
-    assert tel.counter_value("attn/tier_fallbacks") == 0
-    assert tel.counter_value("attn/calls") == 2
+    with pytest.raises(NotImplementedError, match="additive bias"):
+        tatt.dot_product_attention(q, q, q, bias=bias, layout="blhd")
 
 
 def test_unbiased_kernel_calls_off_the_cpu_reach_the_kernel():
