@@ -11,12 +11,14 @@ failing on the first phase that fails:
 1. prints the card's name and power limit (``nvidia-smi``);
 2. builds the kernels and prints the build time and ptxas' register use;
 3. holds each kernel against its plain PyTorch version on the card at the
-   served shapes (tolerances below), and times the kernel, the plain
+   served shapes (tolerances below; bf16 attention runs the tensor-core
+   forward, f32 the exact scalar one), and times the kernel, the plain
    version and one PyTorch library call as a yardstick (CUDA events over
    back-to-back calls, which at small shapes measure the host's launch
    rate; the kernel's and the library call's device time come from
    ``torch.profiler``), beside the least time the card could take (bytes
-   or operations over the H100's peak);
+   or operations over the H100's peak), and prints each attention
+   forward's share of its bound and its ratio to SDPA;
 4. runs the dense forward of GPT-2 345M (24 layers, hidden 1024, 16
    heads, vocab 50304, bf16 weights from a seed) on [1, 1024] tokens
    through the kernels and through the plain path, compares the logits,
@@ -38,22 +40,26 @@ failing on the first phase that fails:
 8. trains GPT-2 345M (24 layers) at batch 8 x 1024 in bf16 with f32
    master weights through ``ParallelTrainStep``: 3 warm-up and 20 timed
    steps, tokens/s, p50 step time, peak memory, the loss finite and
-   falling, the launch counts per step, and a 2-step profile;
+   falling, the launch counts per step, and a 2-step profile (which must
+   show every attention forward on ``flash_fwd_mma_kernel``);
 9. (after 3c, which holds the full-attention forward, dQ and dK/dV
    kernels (also on q/k/v as the strided views of a fused QKV projection
-   that BERT passes), the packed dK/dV of the experiment and the AdamW
-   mode of the Adam kernel against their plain versions and times them)
-   takes one
-   f32 AdamW step of a 2-layer BERT-base (batch 4 x 128) through the
-   kernels and one through the plain path, and compares the loss, every
-   gradient and every parameter after the step;
+   that BERT passes, and with a key-padding bias of random valid lengths),
+   the packed dK/dV of the experiment and the AdamW mode of the Adam
+   kernel against their plain versions and times them) takes one f32
+   AdamW step of a 2-layer BERT-base (batch 4 x 128) through the kernels
+   and one through the plain path, and compares the loss, every gradient
+   and every parameter after the step; then the same on a padded batch
+   (an attention mask of random valid lengths);
 10. trains BERT-base (12 layers, hidden 768, vocab 30528) at batch
     32 x 128 in bf16 without master weights, AdamW lr 1e-4 and weight
     decay 0.01: 3 warm-up and 20 timed steps, samples/s, tokens/s, p50
     step time, peak memory, the loss finite and falling, the launch counts
-    per step, every attention call on the kernel, a padding-masked
-    forward refused on the card (no kernel takes the bias), and a 2-step
-    profile;
+    per step, every attention call on the kernel, and a 2-step profile
+    (every attention forward on ``flash_fwd_mma_kernel``);
+    then padded batches on the card: a bf16 BERT-base forward with an
+    attention mask through the kernels against the plain path, and 3
+    masked AdamW steps with every attention call on the full kernels;
 11. runs the packed dK/dV experiment's own entry point
     (``paddle_tpu_torch.experiments.dkv_packed.main``) and checks its
     gradients against autograd.
@@ -66,6 +72,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import re
 import subprocess
 import sys
 import time
@@ -77,13 +84,19 @@ import torch
 # --- tolerances (max |kernel - plain| <= ATOL + RTOL * |plain|) -------------
 # f32: both sides accumulate in f32, in different orders.
 LN_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1e-2, 1e-2)}
-# bf16 outputs: both sides compute in f32 and round once; a rounding flip
-# is one bf16 ulp (2^-8 relative), covered by rtol 1e-2.
+# f32: the scalar kernel and the plain version both accumulate in f32.
+# bf16 (the tensor-core forward): P is rounded to bf16 as the P·V operand
+# (as the reference's `_fwd_kernel` does; the plain version keeps f32 P),
+# at most 2^-9 relative per element, so at most 2^-9·max|v| on an output
+# element — a sum of roundings of both signs, far less in practice — and
+# each side rounds the output once (2^-9 relative each): bound
+# 2^-9·max|v| + 2^-8·|ref|, within atol 1e-2 + rtol 1e-2 for |v| <= 5.
 FLASH_OUT_TOL = {torch.float32: (2e-5, 0.0), torch.bfloat16: (1e-2, 1e-2)}
 # lse is f32 on both sides, from the same (bf16 or f32) inputs.
 FLASH_LSE_TOL = {torch.float32: (2e-5, 0.0), torch.bfloat16: (1e-4, 0.0)}
-# dense GPT-2 345M logits in bf16: a few bf16 ulps at |logit| <= 4 after
-# 24 layers of independently rounded activations.
+# dense GPT-2 345M logits in bf16 (and BERT-base's masked MLM logits,
+# phase 10): a few bf16 ulps at |logit| <= 4 after 24 (12) layers of
+# independently rounded activations.
 LOGITS_BF16_ATOL = 0.125
 # LayerNorm backward: dx is one f32 result rounded once; dw/db are f32
 # sums over up to 8192 rows taken in another order (f32: relative error of
@@ -130,6 +143,7 @@ FLASH_BWD_SHAPES = ((8, 1024, 16, 64), (4, 512, 16, 64), (2, 77, 16, 64),
                     (1, 256, 8, 128))
 ADAM_NUMELS = (1, 1000, 65536, 1024 * 4096, 50304 * 1024)
 TRAIN_SHAPE = (8, 1024)  # batch x tokens of the training phase
+GPT_ATTN_SHAPE = (8, 1024, 16, 64)  # attention of the training phase
 # full attention (#4): BERT's shape, a ragged L, GPT's shape
 BERT_ATTN_SHAPE = (32, 128, 12, 64)
 FULL_SHAPES = (BERT_ATTN_SHAPE, (4, 200, 12, 64), (8, 1024, 16, 64))
@@ -508,9 +522,26 @@ def time_backward_kernels(dev, rnd, fused, flash_tpu, cfg):
     return timings
 
 
-def profile_training(step, ids, labels):
+def check_forward_in_profile(kernels, phase, want):
+    """The profiled steps' bf16 attention forwards all ran on the
+    tensor-core kernel: ``want`` launches of ``flash_fwd_mma_kernel`` and
+    none of the scalar ``flash_fwd_kernel``, printed by name."""
+    dev_us = lambda e: getattr(e, "self_device_time_total", 0.0)
+    mma = [e for e in kernels if "flash_fwd_mma_kernel" in e.key]
+    scalar = [e for e in kernels if "flash_fwd_kernel<" in e.key]
+    for e in mma + scalar:
+        log(f"[{phase}] profile, forward: {dev_us(e) / 1e3:9.3f} ms  "
+            f"x{e.count:<6d} {e.key[:90]}")
+    n = sum(e.count for e in mma)
+    if n != want or scalar:
+        raise AssertionError(f"phase {phase}'s profile shows {n} tensor-core "
+                             f"forwards (expected {want}) and "
+                             f"{sum(e.count for e in scalar)} scalar ones")
+
+
+def profile_training(step, ids, labels, n_layers):
     """Device busy share of two training steps under ``torch.profiler``,
-    and the device time by kernel."""
+    the device time by kernel, and the forward kernel by name."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -534,6 +565,7 @@ def profile_training(step, ids, labels):
     for e in sorted(kernels, key=dev_us, reverse=True)[:12]:
         log(f"[8] profile: {dev_us(e) / 1e3:9.3f} ms  x{e.count:<6d} "
             f"{e.key[:90]}")
+    check_forward_in_profile(kernels, 8, 2 * n_layers)
 
 
 def attn_operands(rnd, shape, dtype, fused_qkv=False):
@@ -548,31 +580,44 @@ def attn_operands(rnd, shape, dtype, fused_qkv=False):
     return q, k, v, rnd(*shape, dtype=dtype)
 
 
-def check_bert_kernels(dev, rnd, fused, flash_tpu, dkv_mod, bert_cfg, err):
-    """Phase 3c: the full-attention forward, dQ and dK/dV kernels (#4), the
-    packed dK/dV (#8, also against the causal dK/dV kernel #3) and the
-    AdamW mode of the Adam kernel against their plain versions on the
-    card."""
+def padding_bias(b, L, gen, dev):
+    """BERT's key-padding bias for random valid lengths (1..L per
+    sequence): 0 on the kept keys, -1e9 on the padded ones, f32 [b, L]."""
+    lengths = torch.randint(1, L + 1, (b,), device=dev, generator=gen)
+    keep = torch.arange(L, device=dev)[None, :] < lengths[:, None]
+    return torch.where(keep, 0.0, -1e9).float()
+
+
+def check_bert_kernels(dev, rnd, gen, fused, flash_tpu, dkv_mod, bert_cfg,
+                       err):
+    """Phase 3c: the full-attention forward, dQ and dK/dV kernels (#4),
+    without and with a key-padding bias, the packed dK/dV (#8, also
+    against the causal dK/dV kernel #3) and the AdamW mode of the Adam
+    kernel against their plain versions on the card."""
     # the shapes with dense operands, then BERT's with q/k/v as the main
-    # path passes them: strided views of one fused QKV projection
-    cases = [(shape, False) for shape in FULL_SHAPES] + [(BERT_ATTN_SHAPE,
-                                                          True)]
+    # path passes them (strided views of one fused QKV projection), then
+    # padded batches: a key bias of random valid lengths
+    cases = ([(shape, False, False) for shape in FULL_SHAPES]
+             + [(BERT_ATTN_SHAPE, True, False), (BERT_ATTN_SHAPE, True, True),
+                ((4, 200, 12, 64), False, True)])
     for dtype in DTYPES:
         out_tol, lse_tol = FLASH_OUT_TOL[dtype], FLASH_LSE_TOL[dtype]
         bwd_tol = FLASH_BWD_TOL[dtype]
-        for shape, fused_qkv in cases:
+        for shape, fused_qkv, biased in cases:
             q, k, v, do = attn_operands(rnd, shape, dtype, fused_qkv)
-            out, lse = flash_tpu._fwd(q, k, v, causal=False)
+            kb = padding_bias(shape[0], shape[1], gen, dev) if biased \
+                else None
+            out, lse = flash_tpu._fwd(q, k, v, False, kb)
             torch.cuda.synchronize()
-            ref_out, ref_lse = flash_tpu._flash_reference(q, k, v, False)
+            ref_out, ref_lse = flash_tpu._flash_reference(q, k, v, False, kb)
             e_o, ok_o = worst(out, ref_out, *out_tol)
             e_l, ok_l = worst(lse, ref_lse, *lse_tol)
             delta = flash_tpu._delta(out, do)
-            dq = flash_tpu.flash_bwd_dq_full(q, k, v, do, lse, delta)
-            dk, dv = flash_tpu.flash_bwd_dkv_full(q, k, v, do, lse, delta)
+            dq = flash_tpu.flash_bwd_dq_full(q, k, v, do, lse, delta, kb)
+            dk, dv = flash_tpu.flash_bwd_dkv_full(q, k, v, do, lse, delta, kb)
             torch.cuda.synchronize()
             ref = flash_tpu._flash_bwd_reference(q, k, v, out, lse, do,
-                                                 causal=False)
+                                                 False, kb)
             res = [worst(a, b, *bwd_tol) for a, b in zip((dq, dk, dv), ref)]
             err["flash_attn_fwd_full"] = max(err["flash_attn_fwd_full"],
                                              e_o, e_l)
@@ -582,13 +627,16 @@ def check_bert_kernels(dev, rnd, fused, flash_tpu, dkv_mod, bert_cfg, err):
                 err["flash_attn_bwd_dkv_full"], res[1][0], res[2][0])
             log(f"[3c] flash full {str(dtype)[6:]} (b,L,H,d)={shape}"
                 + (" as fused-QKV views (row stride "
-                   f"{q.stride(1)})" if fused_qkv else "") + ": out "
+                   f"{q.stride(1)})" if fused_qkv else "")
+                + (" with a key bias (valid lengths "
+                   f"{(kb == 0).sum(1).tolist()[:8]}...)" if biased else "")
+                + ": out "
                 f"err {e_o:.3g} (tol {out_tol}), lse err {e_l:.3g} (tol "
                 f"{lse_tol}); dq/dk/dv max err "
                 + "/".join(f"{e:.3g}" for e, _ in res) + f" (tol {bwd_tol})")
             if not (ok_o and ok_l and all(ok for _, ok in res)):
                 raise AssertionError("full-attention kernels disagree")
-            del q, k, v, do, out, lse, delta, dq, dk, dv, ref, ref_out
+            del q, k, v, do, kb, out, lse, delta, dq, dk, dv, ref, ref_out
     torch.cuda.empty_cache()
 
     for shape in PACKED_SHAPES:  # (b, L, H, d), bf16
@@ -661,12 +709,32 @@ def packed_worst(got, ref):
     return d, d <= PACKED_REL_TOL * float(ref.float().abs().max())
 
 
-def time_bert_kernels(dev, rnd, fused, flash_tpu, dkv_mod, bert_cfg):
+def time_bert_kernels(dev, rnd, gen, fused, flash_tpu, dkv_mod, bert_cfg):
     """Phase 3c timings (bf16): the full-attention kernels at BERT's shape
-    and at GPT's, the packed dK/dV at its experiment's shape, the AdamW
-    mode at BERT-base's sizes."""
+    (also with a key-padding bias) and at GPT's, the packed dK/dV at its
+    experiment's shape, the AdamW mode at BERT-base's sizes."""
     F = torch.nn.functional
     timings = []
+    # the padded batch's forward: SDPA takes the same bias as its mask
+    q, k, v = (rnd(*BERT_ATTN_SHAPE, dtype=torch.bfloat16) for _ in range(3))
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    kb = padding_bias(*BERT_ATTN_SHAPE[:2], gen, dev)
+    mask = kb[:, None, None, :].to(torch.bfloat16)
+    fwd = lambda: flash_tpu._fwd(q, k, v, False, kb)
+    lib_fwd = lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                     attn_mask=mask)
+    bound, by = flash_bound(*BERT_ATTN_SHAPE, torch.bfloat16, causal=False)
+    timings.append({
+        "kernel": "flash_attn_fwd_full+key_bias",
+        "shape": list(BERT_ATTN_SHAPE), "dtype": "bfloat16",
+        "ms": time_ms(fwd, iters=20),
+        "plain_ms": time_ms(lambda: flash_tpu._flash_reference(
+            q, k, v, False, kb), iters=5, warmup=1),
+        "library_ms": time_ms(lib_fwd, iters=20),
+        "device_ms": device_ms(fwd), "library_device_ms": device_ms(lib_fwd),
+        "bound_ms": bound, "bound_by": by,
+        "note": "the bias's b x L f32 bytes are not in the bound"})
+    del q, k, v, qt, kt, vt, kb, mask
     for shape in (BERT_ATTN_SHAPE, (8, 1024, 16, 64)):
         q, k, v, do = (rnd(*shape, dtype=torch.bfloat16) for _ in range(4))
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
@@ -784,9 +852,9 @@ def bert_batch(cfg, b, L, gen, dev):
     return ids, mlm, nsp
 
 
-def profile_bert_training(step, batch):
-    """Device busy share of two BERT steps under ``torch.profiler`` and the
-    device time by kernel."""
+def profile_bert_training(step, batch, n_layers):
+    """Device busy share of two BERT steps under ``torch.profiler``, the
+    device time by kernel, and the forward kernel by name."""
     from torch.profiler import ProfilerActivity, profile
 
     ids, mlm, nsp = batch
@@ -811,6 +879,7 @@ def profile_bert_training(step, batch):
     for e in sorted(kernels, key=dev_us, reverse=True)[:14]:
         log(f"[10] profile: {dev_us(e) / 1e3:9.3f} ms  x{e.count:<6d} "
             f"{e.key[:90]}")
+    check_forward_in_profile(kernels, 10, 2 * n_layers)
     return busy_us / wall_us
 
 
@@ -862,9 +931,15 @@ def main() -> int:
     log(f"[2] kernels built in {time.perf_counter() - t0:.2f} s "
         f"({_build.build_info['path']})")
     for src, text in _build.build_info.get("log", {}).items():
+        kernel = ""
         for line in text.splitlines():
+            if "Compiling entry function" in line:
+                # e.g. flash_fwd_mma_kernel<Li64ELb1> from the mangled name
+                m = re.search(r"\d([a-z][a-z_]*_kernel)(?:I(\w*?)EE)?", line)
+                kernel = (m.group(1) + (f"<{m.group(2)}>" if m.group(2)
+                                        else "")) if m else ""
             if "registers" in line or "spill" in line:
-                log(f"    {src}: {line.strip()}")
+                log(f"    {src} {kernel}: {line.strip()}")
 
     # -- phase 3: each kernel against its plain version ---------------------
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -886,15 +961,20 @@ def main() -> int:
                     f"(tol {LN_TOL[dtype]})")
                 if not ok:
                     raise AssertionError("layer_norm kernel disagrees")
-        for shape in FLASH_SHAPES:
-            q, k, v = (rnd(*shape, dtype=dtype) for _ in range(3))
+        # the shapes with dense operands, then GPT's training shape with
+        # q/k/v as the main path passes them: views of the fused QKV
+        for shape, fused_qkv in ([(sh, False) for sh in FLASH_SHAPES]
+                                 + [(GPT_ATTN_SHAPE, True)]):
+            q, k, v, _ = attn_operands(rnd, shape, dtype, fused_qkv)
             out, lse = flash_fn(q, k, v)
             torch.cuda.synchronize()
             ref_out, ref_lse = flash_tpu._flash_reference(q, k, v)
             e_o, ok_o = worst(out, ref_out, *FLASH_OUT_TOL[dtype])
             e_l, ok_l = worst(lse, ref_lse, *FLASH_LSE_TOL[dtype])
             err["flash_attn_fwd"] = max(err["flash_attn_fwd"], e_o, e_l)
-            log(f"[3] flash {str(dtype)[6:]} (b,L,H,d)={shape}: out err "
+            log(f"[3] flash {str(dtype)[6:]} (b,L,H,d)={shape}"
+                + (f" as fused-QKV views (row stride {q.stride(1)})"
+                   if fused_qkv else "") + f": out err "
                 f"{e_o:.3g} (tol {FLASH_OUT_TOL[dtype]}), lse err {e_l:.3g} "
                 f"(tol {FLASH_LSE_TOL[dtype]})")
             if not (ok_o and ok_l):
@@ -951,10 +1031,17 @@ def main() -> int:
 
     # -- phase 3c: full attention, the packed dK/dV and AdamW ----------------
     bert_cfg = bert_mod.bert_base(hidden_dropout=0.0, attention_dropout=0.0)
-    check_bert_kernels(dev, rnd, fused, flash_tpu, dkv_mod, bert_cfg, err)
-    timings += time_bert_kernels(dev, rnd, fused, flash_tpu, dkv_mod,
+    check_bert_kernels(dev, rnd, gen, fused, flash_tpu, dkv_mod, bert_cfg,
+                       err)
+    timings += time_bert_kernels(dev, rnd, gen, fused, flash_tpu, dkv_mod,
                                  bert_cfg)
     log("timings " + json.dumps(timings))
+    for t in timings:
+        if t["kernel"].startswith("flash_attn_fwd"):
+            log(f"[3] forward {t['kernel']} {t['shape']}: device "
+                f"{t['device_ms']:.4f} ms, {t['bound_ms'] / t['device_ms']:.3f}"
+                f" of its bound ({t['bound_by']}), {t['device_ms'] / t['library_device_ms']:.2f}x"
+                f" SDPA's device time ({t['library_device_ms']:.4f} ms)")
     torch.cuda.empty_cache()
 
     launches = {name: {} for name in counted}
@@ -1212,7 +1299,7 @@ def main() -> int:
         raise AssertionError(f"training launched {got}, expected {want}")
     if training["engine_steps"] != n_steps:
         raise AssertionError("engine/steps does not count the steps")
-    profile_training(step, ids, labels)
+    profile_training(step, ids, labels, train_cfg.num_layers)
     del step, model, opt
     torch.cuda.empty_cache()
 
@@ -1220,8 +1307,10 @@ def main() -> int:
     cfg9 = bert_mod.bert_base(num_layers=2, hidden_dropout=0.0,
                               attention_dropout=0.0)
     ids9, mlm9, nsp9 = bert_batch(cfg9, 4, 128, gen, dev)
+    # the padded variant: an attention mask of random valid lengths
+    mask9 = (padding_bias(4, 128, gen, dev) == 0).long()
 
-    def bert_step(use_plain):
+    def bert_step(use_plain, padded=False):
         model = bert_mod.BertForPretraining(cfg9, dtype=torch.float32, seed=5)
         opt = AdamW(TRAIN_LR, parameters=model.parameters(),
                     weight_decay=0.01)
@@ -1235,45 +1324,49 @@ def main() -> int:
 
         opt.step = keep_grads_then_update
         step = ParallelTrainStep(model, model.loss_fn, opt)
+        inputs = (ids9, torch.zeros_like(ids9), mask9) if padded else (ids9,)
         with plain() if use_plain else contextlib.nullcontext():
-            loss = float(step((ids9,), (mlm9, nsp9)))
+            loss = float(step(inputs, (mlm9, nsp9)))
         return loss, grads, {n: p.clone()
                              for n, p in get_params(model).items()}
 
-    reset_counts()
-    loss_k, grads_k, params_k = bert_step(use_plain=False)
-    torch.cuda.synchronize()
-    read_counts("bert_grad_parity")
-    got = {n: launches[n]["bert_grad_parity"] for n in counted}
     n_ln = 2 * cfg9.num_layers + 2
     want = {**{n: 0 for n in counted},
             "layer_norm_fwd": n_ln, "layer_norm_bwd": 2 * n_ln,
             "flash_attn_fwd_full": cfg9.num_layers,
             "flash_attn_bwd_dq_full": cfg9.num_layers,
             "flash_attn_bwd_dkv_full": cfg9.num_layers, "adam": 2}
-    loss_p, grads_p, params_p = bert_step(use_plain=True)
-    g_err = max(float((grads_k[n] - grads_p[n]).abs().max())
-                / max(float(grads_p[n].abs().max()), 1e-30)
-                for n in grads_p)
-    p_err = max(float((params_k[n] - params_p[n]).abs().max())
-                for n in params_p)
-    l_err = abs(loss_k - loss_p) / abs(loss_p)
     n_tensors = 5 + 12 * cfg9.num_layers + 8
-    log(f"[9] one f32 AdamW step of bert_base(num_layers=2) at [4, 128]: "
-        f"loss {loss_k:.6f} (kernels) vs {loss_p:.6f} (plain), rel err "
-        f"{l_err:.3g} (tol {LOSS_RTOL}); worst grad err / max|grad| "
-        f"{g_err:.3g} over {len(grads_p)} tensors (tol {GRAD_REL_TOL}); "
-        f"params after AdamW max err {p_err:.3g} (atol {PARAM_ATOL}); "
-        f"launches {got}")
-    if got != want:
-        raise AssertionError(f"phase 9 launched {got}, expected {want}")
-    if set(grads_k) != set(grads_p) or len(grads_p) != n_tensors:
-        raise AssertionError("phase 9 did not see every gradient")
-    if not (l_err <= LOSS_RTOL and g_err <= GRAD_REL_TOL
-            and p_err <= PARAM_ATOL):
-        raise AssertionError("BERT step through the kernels disagrees with "
-                             "the plain path")
-    del grads_k, grads_p, params_k, params_p
+    for phase, padded in (("bert_grad_parity", False),
+                          ("bert_padded_grad_parity", True)):
+        reset_counts()
+        loss_k, grads_k, params_k = bert_step(use_plain=False, padded=padded)
+        torch.cuda.synchronize()
+        read_counts(phase)
+        got = {n: launches[n][phase] for n in counted}
+        loss_p, grads_p, params_p = bert_step(use_plain=True, padded=padded)
+        g_err = max(float((grads_k[n] - grads_p[n]).abs().max())
+                    / max(float(grads_p[n].abs().max()), 1e-30)
+                    for n in grads_p)
+        p_err = max(float((params_k[n] - params_p[n]).abs().max())
+                    for n in params_p)
+        l_err = abs(loss_k - loss_p) / abs(loss_p)
+        log(f"[9] one f32 AdamW step of bert_base(num_layers=2) at [4, 128]"
+            + (f", padded (valid lengths {mask9.sum(1).tolist()})"
+               if padded else "") + f": loss {loss_k:.6f} (kernels) vs "
+            f"{loss_p:.6f} (plain), rel err {l_err:.3g} (tol {LOSS_RTOL}); "
+            f"worst grad err / max|grad| {g_err:.3g} over {len(grads_p)} "
+            f"tensors (tol {GRAD_REL_TOL}); params after AdamW max err "
+            f"{p_err:.3g} (atol {PARAM_ATOL}); launches {got}")
+        if got != want:
+            raise AssertionError(f"phase 9 launched {got}, expected {want}")
+        if set(grads_k) != set(grads_p) or len(grads_p) != n_tensors:
+            raise AssertionError("phase 9 did not see every gradient")
+        if not (l_err <= LOSS_RTOL and g_err <= GRAD_REL_TOL
+                and p_err <= PARAM_ATOL):
+            raise AssertionError("BERT step through the kernels disagrees "
+                                 "with the plain path")
+        del grads_k, grads_p, params_k, params_p
     torch.cuda.empty_cache()
 
     # -- phase 10: BERT-base pretraining at full width, depth and batch -------
@@ -1327,7 +1420,7 @@ def main() -> int:
         f"{peak / 2**30:.2f} GiB; loss {all_losses[0]:.4f} -> "
         f"{all_losses[-1]:.4f}; attn/calls {attn_calls}; launches "
         f"{got}")
-    busy = profile_bert_training(step, (ids, mlm, nsp))
+    busy = profile_bert_training(step, (ids, mlm, nsp), n_layers)
     bert_training["busy_share"] = busy
     log("bert_training " + json.dumps(bert_training))
     if not all(np.isfinite(all_losses)):
@@ -1340,16 +1433,56 @@ def main() -> int:
         raise AssertionError(f"{attn_calls} attention calls but "
                              f"{got['flash_attn_fwd_full']} forward kernel "
                              "launches")
-    # a padding mask's additive bias has no kernel: the card refuses it
-    # rather than taking the plain path
-    try:
-        with torch.no_grad():
-            model(ids[:1], attention_mask=torch.ones_like(ids[:1]))
-    except NotImplementedError as e:
-        log(f"[10] a padding-masked forward on the card raises: {e}")
-    else:
-        raise AssertionError("a padding-masked BERT forward ran on the card "
-                             "without a kernel")
+    # padded batches: the attention mask becomes the full kernels' key
+    # bias. A bf16 forward through the kernels against the plain path,
+    # then masked AdamW steps of the trained model.
+    mask = (padding_bias(*BERT_SHAPE, gen, dev) == 0).long()
+    types = torch.zeros_like(ids)
+    model16 = bert_mod.BertForPretraining(bert_cfg, dtype=torch.bfloat16,
+                                          seed=7).eval()
+    with torch.no_grad():
+        reset_counts()
+        logits_k, nsp_k = model16(ids, types, mask)
+        torch.cuda.synchronize()
+        n_fwd = flash_tpu.flash_attention_full.launches
+        with plain():
+            logits_p, nsp_p = model16(ids, types, mask)
+    e_mlm = float((logits_k.float() - logits_p.float()).abs().max())
+    e_nsp = float((nsp_k.float() - nsp_p.float()).abs().max())
+    log(f"[10] padded bf16 forward of bert_base at {BERT_SHAPE} (valid "
+        f"lengths {mask.sum(1).tolist()}): MLM logits max err {e_mlm:.4g}, "
+        f"NSP {e_nsp:.4g} against the plain path (atol {LOGITS_BF16_ATOL}); "
+        f"{n_fwd} full-forward launches")
+    if tuple(logits_k.shape) != (*BERT_SHAPE, bert_cfg.vocab_size) \
+            or not bool(torch.isfinite(logits_k).all()):
+        raise AssertionError(f"bad padded logits {tuple(logits_k.shape)}")
+    if max(e_mlm, e_nsp) > LOGITS_BF16_ATOL:
+        raise AssertionError("padded BERT logits disagree with the plain "
+                             "path")
+    if n_fwd != n_layers:
+        raise AssertionError(f"the padded forward launched {n_fwd} full "
+                             f"forwards, expected {n_layers}")
+    del model16, logits_k, logits_p
+    tel.reset()
+    reset_counts()
+    n_padded = 3
+    padded_losses = [float(step((ids, types, mask), (mlm, nsp)))
+                     for _ in range(n_padded)]
+    torch.cuda.synchronize()
+    read_counts("bert_padded")
+    got = {n: launches[n]["bert_padded"] for n in counted}
+    want = {n: v // n_steps * n_padded for n, v in want.items()}
+    attn_calls = tel.counter_value("attn/calls")
+    log(f"[10] {n_padded} padded AdamW steps: losses {padded_losses}; "
+        f"attn/calls {attn_calls}; launches {got}")
+    if not all(np.isfinite(padded_losses)):
+        raise AssertionError(f"non-finite padded loss: {padded_losses}")
+    if got != want:
+        raise AssertionError(f"padded steps launched {got}, expected {want}")
+    if attn_calls != got["flash_attn_fwd_full"]:
+        raise AssertionError(f"{attn_calls} padded attention calls but "
+                             f"{got['flash_attn_fwd_full']} forward kernel "
+                             "launches")
     del step, model, opt
     torch.cuda.empty_cache()
 
@@ -1379,7 +1512,7 @@ def main() -> int:
              ("dense_forward", "training", "bert_training")),
             ("flash_attn_fwd", "paddle_tpu_torch/csrc/flash_attn_fwd.cu",
              "paddle_tpu/ops/flash_tpu.py:43",
-             timed("flash_attn_fwd", [1, 1024, 16, 64]),
+             timed("flash_attn_fwd", list(GPT_ATTN_SHAPE)),
              ("dense_forward", "training")),
             ("layer_norm_bwd", "paddle_tpu_torch/csrc/layer_norm_bwd.cu",
              "paddle_tpu/ops/fused.py:34",
@@ -1397,16 +1530,18 @@ def main() -> int:
              ("training", "bert_training")),
             ("flash_attn_fwd_full", "paddle_tpu_torch/csrc/flash_attn_fwd.cu",
              "paddle_tpu/ops/attention.py:156",
-             timed("flash_attn_fwd_full", bert_attn), ("bert_training",)),
+             timed("flash_attn_fwd_full", bert_attn),
+             ("bert_training", "bert_padded")),
             ("flash_attn_bwd_dq_full",
              "paddle_tpu_torch/csrc/flash_attn_bwd.cu",
              "paddle_tpu/ops/attention.py:297",
-             timed("flash_attn_bwd_dq_full", bert_attn), ("bert_training",)),
+             timed("flash_attn_bwd_dq_full", bert_attn),
+             ("bert_training", "bert_padded")),
             ("flash_attn_bwd_dkv_full",
              "paddle_tpu_torch/csrc/flash_attn_bwd.cu",
              "paddle_tpu/ops/attention.py:297",
              timed("flash_attn_bwd_dkv_full", bert_attn),
-             ("bert_training",)),
+             ("bert_training", "bert_padded")),
             ("dkv_packed", "paddle_tpu_torch/csrc/dkv_packed.cu",
              "tools/experiments/dkv_packed_kernel.py:43",
              next(t for t in timings if t["kernel"] == "dkv_packed"),

@@ -8,12 +8,14 @@
 // mode: the same math with only the mask changed. Each mode has its own C
 // entries, so their launches are counted apart. Same function, from the
 // forward's saved lse and delta = rowsum(dO * O):
-//   S = (scale * Q) K^T (causal: k_pos <= q_pos),  P = exp(S - lse),
+//   S = (scale * Q) K^T + bias (causal: k_pos <= q_pos),  P = exp(S - lse),
 //   dS = P * (dO V^T - delta),
 //   dQ = scale * dS K,  dK = dS^T (scale * Q),  dV = P^T dO.
 // Q, K, V and dO are read in the projection's native [b, L, H, d] layout
 // (any row and batch stride, dense [H, d]); dQ, dK, dV are written
-// [b, L, H, d]; lse and delta are f32 [b, H, L].
+// [b, L, H, d]; lse and delta are f32 [b, H, L]. The full mode takes the
+// forward's optional key-padding bias, f32 [b, L] (null: none), and adds
+// it where it recomputes S; the bias itself gets no gradient.
 //
 // What bounds it on this card: the five L x L x d products over k <= q
 // (S, dP, dQ, dK, dV) are ~5 * 2 * d * L^2 / 2 flops per head, ~43 GFLOP
@@ -99,7 +101,8 @@ __global__ void __launch_bounds__(kThreads)
 flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 const T* __restrict__ v, const T* __restrict__ dout,
                 const float* __restrict__ lse,
-                const float* __restrict__ delta, T* __restrict__ dq, int L,
+                const float* __restrict__ delta,
+                const float* __restrict__ key_bias, T* __restrict__ dq, int L,
                 int H, Strides st, float scale) {
   constexpr int DP = D + 1;
   constexpr int PP = kB + 1;
@@ -142,6 +145,7 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const T* kb = k + b * st.k_sb + (long long)h * D;
   const T* vb = v + b * st.v_sb + (long long)h * D;
+  const float* bias = key_bias ? key_bias + (long long)b * L : nullptr;
   for (int kt = 0; kt < nk; ++kt) {
     const int k0 = kt * kB;
     __syncthreads();  // previous tile's readers of Ks/Vs are done
@@ -176,6 +180,12 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
         }
     }
 
+    float kbias[8];
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      const int kpos = k0 + cg + 8 * c;
+      kbias[c] = bias != nullptr && kpos < L ? bias[kpos] : 0.f;
+    }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int r = rg + 16 * i;
@@ -186,7 +196,7 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int kpos = k0 + cg + 8 * c;
         const bool in =
             qpos < L && kpos < L && (!CAUSAL || kpos <= qpos);
-        const float p = in ? expf(s[i][c] - l_i) : 0.f;
+        const float p = in ? expf(s[i][c] + kbias[c] - l_i) : 0.f;
         dSs[r * PP + cg + 8 * c] = p * (dp[i][c] - d_i);
       }
     }
@@ -222,7 +232,8 @@ __global__ void __launch_bounds__(kThreads)
 flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const T* __restrict__ dout,
                  const float* __restrict__ lse,
-                 const float* __restrict__ delta, T* __restrict__ dk,
+                 const float* __restrict__ delta,
+                 const float* __restrict__ key_bias, T* __restrict__ dk,
                  T* __restrict__ dv, int L, int H, Strides st, float scale) {
   constexpr int DP = D + 1;
   constexpr int PP = kB + 1;
@@ -251,11 +262,15 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   load_tile<T, D>(Vs, v + b * st.v_sb + (long long)h * D, st.v_sl, k0, L,
                   1.f);
 
-  float dka[4][DPT], dva[4][DPT];
+  float dka[4][DPT], dva[4][DPT], kbias[4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < 4; ++i) {
 #pragma unroll
     for (int e = 0; e < DPT; ++e) dka[i][e] = dva[i][e] = 0.f;
+    const int kpos = k0 + rg + 16 * i;  // this thread's key rows
+    kbias[i] = key_bias != nullptr && kpos < L
+                   ? key_bias[(long long)b * L + kpos] : 0.f;
+  }
 
   const T* qb = q + b * st.q_sb + (long long)h * D;
   const T* ob = dout + b * st.o_sb + (long long)h * D;
@@ -310,7 +325,7 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int qpos = q0 + col;
         const bool in =
             qpos < L && kpos < L && (!CAUSAL || kpos <= qpos);
-        const float p = in ? expf(s[i][c] - lse_s[col]) : 0.f;
+        const float p = in ? expf(s[i][c] + kbias[i] - lse_s[col]) : 0.f;
         Ps[r * PP + col] = p;
         dSs[r * PP + col] = p * (dp[i][c] - dl_s[col]);
       }
@@ -355,8 +370,8 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int D, bool CAUSAL>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* dout, const float* lse, const float* delta,
-                      void* dq, int B, int L, int H, Strides st, float scale,
-                      cudaStream_t stream) {
+                      const float* key_bias, void* dq, int B, int L, int H,
+                      Strides st, float scale, cudaStream_t stream) {
   constexpr size_t smem = dq_smem_bytes<D>();
   cudaError_t e = cudaFuncSetAttribute(
       flash_dq_kernel<T, D, CAUSAL>,
@@ -366,15 +381,16 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
   flash_dq_kernel<T, D, CAUSAL><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-      static_cast<T*>(dq), L, H, st, scale);
+      key_bias, static_cast<T*>(dq), L, H, st, scale);
   return cudaGetLastError();
 }
 
 template <typename T, int D, bool CAUSAL>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const void* dout, const float* lse,
-                       const float* delta, void* dk, void* dv, int B, int L,
-                       int H, Strides st, float scale, cudaStream_t stream) {
+                       const float* delta, const float* key_bias, void* dk,
+                       void* dv, int B, int L, int H, Strides st, float scale,
+                       cudaStream_t stream) {
   constexpr size_t smem = dkv_smem_bytes<D>();
   cudaError_t e = cudaFuncSetAttribute(
       flash_dkv_kernel<T, D, CAUSAL>,
@@ -384,32 +400,33 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
   flash_dkv_kernel<T, D, CAUSAL><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-      static_cast<T*>(dk), static_cast<T*>(dv), L, H, st, scale);
+      key_bias, static_cast<T*>(dk), static_cast<T*>(dv), L, H, st, scale);
   return cudaGetLastError();
 }
 
 template <typename T, bool CAUSAL>
 cudaError_t dispatch(bool dkv, int D, const void* q, const void* k,
                      const void* v, const void* dout, const float* lse,
-                     const float* delta, void* out0, void* out1, int B,
-                     int L, int H, Strides st, float scale, cudaStream_t s) {
+                     const float* delta, const float* kb, void* out0,
+                     void* out1, int B, int L, int H, Strides st, float scale,
+                     cudaStream_t s) {
   switch (D) {
     case 32:
-      return dkv ? launch_dkv<T, 32, CAUSAL>(q, k, v, dout, lse, delta, out0,
-                                             out1, B, L, H, st, scale, s)
-                 : launch_dq<T, 32, CAUSAL>(q, k, v, dout, lse, delta, out0,
-                                            B, L, H, st, scale, s);
+      return dkv ? launch_dkv<T, 32, CAUSAL>(q, k, v, dout, lse, delta, kb,
+                                             out0, out1, B, L, H, st, scale, s)
+                 : launch_dq<T, 32, CAUSAL>(q, k, v, dout, lse, delta, kb,
+                                            out0, B, L, H, st, scale, s);
     case 64:
-      return dkv ? launch_dkv<T, 64, CAUSAL>(q, k, v, dout, lse, delta, out0,
-                                             out1, B, L, H, st, scale, s)
-                 : launch_dq<T, 64, CAUSAL>(q, k, v, dout, lse, delta, out0,
-                                            B, L, H, st, scale, s);
+      return dkv ? launch_dkv<T, 64, CAUSAL>(q, k, v, dout, lse, delta, kb,
+                                             out0, out1, B, L, H, st, scale, s)
+                 : launch_dq<T, 64, CAUSAL>(q, k, v, dout, lse, delta, kb,
+                                            out0, B, L, H, st, scale, s);
     case 128:
-      return dkv ? launch_dkv<T, 128, CAUSAL>(q, k, v, dout, lse, delta,
+      return dkv ? launch_dkv<T, 128, CAUSAL>(q, k, v, dout, lse, delta, kb,
                                               out0, out1, B, L, H, st, scale,
                                               s)
-                 : launch_dq<T, 128, CAUSAL>(q, k, v, dout, lse, delta, out0,
-                                             B, L, H, st, scale, s);
+                 : launch_dq<T, 128, CAUSAL>(q, k, v, dout, lse, delta, kb,
+                                             out0, B, L, H, st, scale, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -417,24 +434,26 @@ cudaError_t dispatch(bool dkv, int D, const void* q, const void* k,
 
 template <bool CAUSAL>
 int entry(bool dkv, const void* q, const void* k, const void* v,
-          const void* dout, const void* lse, const void* delta, void* out0,
-          void* out1, int B, int L, int H, int D, long long q_sb,
-          long long q_sl, long long k_sb, long long k_sl, long long v_sb,
-          long long v_sl, long long o_sb, long long o_sl, float scale,
-          int dtype, void* stream) {
+          const void* dout, const void* lse, const void* delta,
+          const void* key_bias, void* out0, void* out1, int B, int L, int H,
+          int D, long long q_sb, long long q_sl, long long k_sb,
+          long long k_sl, long long v_sb, long long v_sl, long long o_sb,
+          long long o_sl, float scale, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B <= 0 || L <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
+  if (CAUSAL && key_bias != nullptr) return (int)cudaErrorInvalidValue;
   const Strides st{q_sb, q_sl, k_sb, k_sl, v_sb, v_sl, o_sb, o_sl};
   const float* lse_f = static_cast<const float*>(lse);
   const float* delta_f = static_cast<const float*>(delta);
+  const float* kb = static_cast<const float*>(key_bias);
   if (dtype == 0)
     return (int)dispatch<float, CAUSAL>(dkv, D, q, k, v, dout, lse_f,
-                                        delta_f, out0, out1, B, L, H, st,
+                                        delta_f, kb, out0, out1, B, L, H, st,
                                         scale, s);
   if (dtype == 1)
     return (int)dispatch<__nv_bfloat16, CAUSAL>(dkv, D, q, k, v, dout, lse_f,
-                                                delta_f, out0, out1, B, L, H,
-                                                st, scale, s);
+                                                delta_f, kb, out0, out1, B, L,
+                                                H, st, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -442,20 +461,21 @@ int entry(bool dkv, const void* q, const void* k, const void* v,
 
 // Strides are in elements: element (b, l, h, d) of q is at
 // q[b * q_sb + l * q_sl + h * D + d]; `o_*` are dO's. dQ/dK/dV are dense
-// [B, L, H, D]. dtype: 0 = float32, 1 = bfloat16. Each entry makes one
-// launch and returns a cudaError_t (0 = launched). The `_full` entries
+// [B, L, H, D]. dtype: 0 = float32, 1 = bfloat16. key_bias: null, or the
+// forward's f32 [B, L] key bias (`_full` entries only). Each entry makes
+// one launch and returns a cudaError_t (0 = launched). The `_full` entries
 // attend to every key, the others are causal.
 #define PTT_BWD_ENTRY(NAME, CAUSAL, DKV)                                      \
   extern "C" int NAME(const void* q, const void* k, const void* v,            \
                       const void* dout, const void* lse, const void* delta,   \
-                      void* out0, void* out1, int B, int L, int H, int D,     \
-                      long long q_sb, long long q_sl, long long k_sb,         \
-                      long long k_sl, long long v_sb, long long v_sl,         \
-                      long long o_sb, long long o_sl, float scale, int dtype, \
-                      void* stream) {                                         \
-    return entry<CAUSAL>(DKV, q, k, v, dout, lse, delta, out0, out1, B, L, H, \
-                         D, q_sb, q_sl, k_sb, k_sl, v_sb, v_sl, o_sb, o_sl,   \
-                         scale, dtype, stream);                               \
+                      const void* key_bias, void* out0, void* out1, int B,    \
+                      int L, int H, int D, long long q_sb, long long q_sl,    \
+                      long long k_sb, long long k_sl, long long v_sb,         \
+                      long long v_sl, long long o_sb, long long o_sl,         \
+                      float scale, int dtype, void* stream) {                 \
+    return entry<CAUSAL>(DKV, q, k, v, dout, lse, delta, key_bias, out0,      \
+                         out1, B, L, H, D, q_sb, q_sl, k_sb, k_sl, v_sb,      \
+                         v_sl, o_sb, o_sl, scale, dtype, stream);             \
   }
 
 // dQ: out0 = dq (out1 unused, pass 0); dK/dV: out0 = dk, out1 = dv

@@ -6,80 +6,113 @@
 //  - paddle_tpu/ops/attention.py `_flash_fwd_kernel` (launched in
 //    `_flash_fwd_pallas`, wrapped by `flash_attention`): causal or full.
 //    Its block_q/block_k of 256 and its d % 128 gate are TPU tiling, not
-//    semantics, so one templated kernel serves both; each mode has its own
+//    semantics, so one pair of kernels serves both; each mode has its own
 //    C entry so their launches are counted apart.
-// Same function: O = softmax(Q K^T / sqrt(d)) V over k_pos <= q_pos
+// Same function: O = softmax(Q K^T / sqrt(d) + bias) V over k_pos <= q_pos
 // (causal) or over every key (full), and lse = m + log(l), both from f32
-// accumulators. Q, K and V are read in the projection's native
+// accumulators. The full mode optionally takes a key-padding bias, f32
+// [b, L] (BERT's attention mask as the reference's -1e9 additive bias,
+// which `blockwise_attention` adds to the scaled scores before the
+// k_pos < L mask). Q, K and V are read in the projection's native
 // [b, L, H, d] layout (any row stride, no transpose); O is written
 // [b, L, H, d] and lse [b, H, L] (the full mode's TPU kernel saves no lse;
 // this one writes it for the backward kernels).
 //
 // What bounds it on this card: a head does ~2 * d * L^2 causal flops
 // against 4 * L * d elements moved, L / 4 flops per byte in bf16. At the
-// served L = 1024 that sits right at the H100's ~295 flops/byte ridge, so
-// bytes and tensor-core flops give about the same least time (~2.5 us for
-// 16 heads); in f32 (67 TFLOP/s without tensor cores) operations bound it.
-// The full mode does twice the causal flops, L / 2 per byte: at BERT's
-// L = 128 that is far below the ridge, so bytes bound it there.
-// This first kernel runs both products as scalar f32 FMAs out of shared
-// memory (exact f32 accumulation for both input types, no TF32 rounding),
-// so it is limited by shared-memory reads and FMA issue, far from either
-// bound. Moving the two products onto wgmma is later work.
+// trained L = 1024 that sits right at the H100's ~295 flops/byte ridge,
+// so bytes and tensor-core flops give about the same least time (~0.02
+// ms at (8, 1024, 16, 64)). The full mode does twice the causal flops,
+// L / 2 per byte: at BERT's L = 128 that is far below the ridge, so bytes
+// bound it there. In f32 (67 TFLOP/s without tensor cores) operations
+// bound it.
 //
-// Design (the TPU kernel's structure rethought for an SM):
-//  - one block per (64-query tile, head, batch); the TPU grid's sequential
-//    K loop becomes a loop inside the block, with the online-softmax
-//    recurrence (running max m, running sum l, rescaled accumulator) in
-//    registers, so the L x L scores never reach device memory;
-//  - causal: the loop stops at the diagonal tile (upper-triangle tiles
-//    are never issued) and tiles are launched longest-first to even out
-//    the load; full: every block loops over all K tiles;
-//  - Q (pre-scaled by 1/sqrt(d), in f32), the current K and V tiles and
-//    the P tile live in shared memory as f32 with one word of padding per
-//    row, so every inner-loop read is conflict-free;
-//  - each of 128 threads owns 4 query rows (strided by 16) x 8 key columns
-//    of S and the same 4 rows x d/8 columns of O: the row statistics are
-//    reduced with three warp shuffles, and P is produced and consumed
-//    inside one warp (no block barrier between softmax and P.V);
-//  - ragged L is masked in the kernel (out-of-range keys score -1e30 and
-//    out-of-range rows are not stored), which drops the TPU kernels'
-//    L % 256 == 0 gate. In full mode nothing else hides the last K tile's
-//    columns past L, so the k_pos < L test is what keeps them out.
+// Two kernels, by input type:
+//
+// bf16: `flash_fwd_mma_kernel`, the FlashAttention-2 structure on the
+// tensor cores. The scalar kernel below, which bf16 also ran until this
+// one, took 30x the card's own attention (SDPA) at GPT-2 345M's training
+// shape: f32 FMAs out of f32 shared memory, 2-byte loads, no overlap of
+// loads and products. This one:
+//  - products on `mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32`
+//    (f32 accumulation). Not `wgmma`: its 64-row warpgroup tiles, shared-
+//    memory descriptors and async fences are a larger design than could
+//    be checked without a profiler on the card; mma.sync already brings
+//    the causal forward to ~1.3x SDPA, and `wgmma` is the next step;
+//  - a block of 4 warps per (q tile, head, batch). At d <= 64 each warp
+//    owns two 16-row slices (128 query rows a block), so every K and V
+//    fragment read from shared memory feeds two mma: with one slice,
+//    shared-memory reads bound it. At d = 128 one slice (64 rows): two
+//    slices' accumulators do not fit in registers;
+//  - the TPU grid's sequential K loop is a loop inside the block over
+//    64-key tiles, with the online softmax (running max m, sum l,
+//    rescaled accumulator) in registers on the mma accumulator
+//    fragments; a row's max and sum are reduced over its quad of lanes
+//    with two shuffles;
+//  - Q, K and V stay bf16 in shared memory (no f32 widening), rows padded
+//    by 16 bytes so each 8-row `ldmatrix` (`.trans` for V) touches every
+//    bank once; Q's fragments are loaded to registers once per block;
+//  - K/V tiles are copied with 16-byte `cp.async` into a double buffer:
+//    tile j + 1 is in flight while tile j is multiplied, with one barrier
+//    per tile. Rows at or past L are zero-filled (src-size 0);
+//  - P goes from the S accumulator straight into the A operand of P.V in
+//    registers (the m16n8 C-fragment layout is the m16n8k16 A-fragment
+//    layout): it never touches shared memory;
+//  - the softmax spends as few instructions per score as it can, since
+//    they issue between the mma: the scale (with log2 e) is applied
+//    inside the exponent's FMA, p = 2^(s * c - m * c), 2^x is one
+//    `ex2.approx.ftz`, and masks run only on a tile that needs them;
+//  - numerics as the reference's `_fwd_kernel`: S accumulates the
+//    products of the unscaled bf16 q and k in f32; the scale is applied
+//    to that f32 value (with a bias: the bias is added to the scaled
+//    score); l sums the unrounded f32 p; p is rounded to bf16 only as the
+//    P.V operand (`flash_tpu.py:66-67` feeds the MXU bf16 P); the output
+//    is rounded once and lse is the natural-log f32 value the backward
+//    reads. q is never rounded after scaling, so the backward's S, which
+//    it recomputes from the f32 q * scale, matches this lse;
+//  - causal: the q tile is the slowest grid axis and runs longest first,
+//    so the longest blocks start first over all heads; the loop stops at
+//    the tile holding the block's last row (tiles above the diagonal are
+//    never issued), a warp skips a tile whose keys all follow its rows,
+//    and the mask runs on the diagonal tiles only. Full: every block
+//    loops over all K tiles and only a ragged last tile tests k_pos < L,
+//    which is what hides its columns past L. Rows past L are not stored.
+//  cp.async needs 16-byte aligned rows: the wrapper raises on a q, k or v
+//  whose pointer or row/batch stride is not a multiple of 16 bytes.
+//
+// f32: `flash_fwd_kernel`, the original scalar kernel: both products as
+// scalar f32 FMAs out of padded f32 shared memory, exact f32 accumulation
+// with no TF32 rounding. f32 is the checking path (the served tokens' equality
+// with the dense reference, the f32 gradient parity runs), so it keeps
+// exact arithmetic rather than speed.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <stdint.h>
 
 namespace {
 
+constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+// ---------------------------------------------------------------------------
+// f32: scalar kernel
+// ---------------------------------------------------------------------------
 constexpr int kBQ = 64;       // query rows per block
 constexpr int kBK = 64;       // keys per tile (== kBQ: diagonal tile == qt)
 constexpr int kThreads = 128;
-constexpr float kNegInf = -1e30f;
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) {
-  return v;
-}
-template <> __device__ __forceinline__ __nv_bfloat16
-from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
 
 template <int D>
 constexpr size_t smem_bytes() {
   return (size_t)(3 * kBQ * (D + 1) + kBQ * (kBK + 1)) * sizeof(float);
 }
 
-template <typename T, int D, bool CAUSAL>
+template <int D, bool CAUSAL>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
-                 float* __restrict__ lse, int L, int H,
-                 long long q_sb, long long q_sl, long long k_sb,
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o,
+                 float* __restrict__ lse, const float* __restrict__ key_bias,
+                 int L, int H, long long q_sb, long long q_sl, long long k_sb,
                  long long k_sl, long long v_sb, long long v_sl,
                  float scale) {
   constexpr int DP = D + 1;      // padded row of Q/K/V tiles
@@ -101,14 +134,15 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q0 = qt * kBQ;
   const int nk = CAUSAL ? qt + 1 : (L + kBK - 1) / kBK;
 
-  const T* qb = q + b * q_sb + (long long)h * D;
-  const T* kb = k + b * k_sb + (long long)h * D;
-  const T* vb = v + b * v_sb + (long long)h * D;
+  const float* qb = q + b * q_sb + (long long)h * D;
+  const float* kb = k + b * k_sb + (long long)h * D;
+  const float* vb = v + b * v_sb + (long long)h * D;
+  const float* bias = key_bias ? key_bias + (long long)b * L : nullptr;
 
   for (int idx = tid; idx < kBQ * D; idx += kThreads) {
     const int r = idx / D, dd = idx % D;
     const int l = q0 + r;
-    Qs[r * DP + dd] = l < L ? to_f32(qb[l * q_sl + dd]) * scale : 0.f;
+    Qs[r * DP + dd] = l < L ? qb[l * q_sl + dd] * scale : 0.f;
   }
 
   float m[4], lsum[4], acc[4][DPT];
@@ -127,8 +161,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int j = idx / D, dd = idx % D;
       const int l = k0 + j;
       const bool in = l < L;
-      Ks[j * DP + dd] = in ? to_f32(kb[l * k_sl + dd]) : 0.f;
-      Vs[j * DP + dd] = in ? to_f32(vb[l * v_sl + dd]) : 0.f;
+      Ks[j * DP + dd] = in ? kb[l * k_sl + dd] : 0.f;
+      Vs[j * DP + dd] = in ? vb[l * v_sl + dd] : 0.f;
     }
     __syncthreads();
 
@@ -149,6 +183,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
         for (int c = 0; c < 8; ++c) s[i][c] = fmaf(qv[i], kv[c], s[i][c]);
     }
+    float kbias[8];
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      const int kpos = k0 + cg + 8 * c;
+      kbias[c] = bias != nullptr && kpos < L ? bias[kpos] : 0.f;
+    }
 
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -157,6 +197,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int c = 0; c < 8; ++c) {
         const int kpos = k0 + cg + 8 * c;
+        s[i][c] += kbias[c];
         if (kpos >= L || (CAUSAL && kpos > qpos)) s[i][c] = kNegInf;
         mx = fmaxf(mx, s[i][c]);
       }
@@ -204,97 +245,438 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (row >= L) continue;
     const float l = fmaxf(lsum[i], 1e-30f);
     const float inv = 1.f / l;
-    T* orow = o + (((long long)b * L + row) * H + h) * D;
+    float* orow = o + (((long long)b * L + row) * H + h) * D;
 #pragma unroll
-    for (int e = 0; e < DPT; ++e)
-      orow[cg + 8 * e] = from_f32<T>(acc[i][e] * inv);
+    for (int e = 0; e < DPT; ++e) orow[cg + 8 * e] = acc[i][e] * inv;
     if (cg == 0) lse[((long long)b * H + h) * L + row] = m[i] + logf(l);
   }
 }
 
-template <typename T, int D, bool CAUSAL>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   float* lse, int B, int L, int H, long long q_sb,
-                   long long q_sl, long long k_sb, long long k_sl,
-                   long long v_sb, long long v_sl, float scale,
-                   cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D>();
-  cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, D, CAUSAL>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return e;
-  dim3 grid((L + kBQ - 1) / kBQ, H, B);
-  flash_fwd_kernel<T, D, CAUSAL><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lse, L, H, q_sb, q_sl,
-      k_sb, k_sl, v_sb, v_sl, scale);
-  return cudaGetLastError();
+// ---------------------------------------------------------------------------
+// bf16: tensor-core kernel
+// ---------------------------------------------------------------------------
+constexpr int kMmaBN = 64;  // keys per tile
+constexpr int kMmaThreads = 128;
+
+// 16-row slices each warp owns: two at d <= 64, so every K/V fragment
+// read from shared memory feeds two mma (one slice reads a fragment per
+// mma, and shared-memory bandwidth, not the tensor cores, bounds it); one
+// at d = 128, where two slices' accumulators would not fit in registers
+template <int D>
+__host__ __device__ constexpr int mma_slices() { return D <= 64 ? 2 : 1; }
+
+template <int D>  // query rows per block: 4 warps x 16 x slices
+__host__ __device__ constexpr int mma_rows() { return 64 * mma_slices<D>(); }
+
+// bf16 elements per shared row: D plus 16 bytes, so the 8 rows one
+// ldmatrix phase reads start in 8 different 16-byte bank groups
+template <int D>
+__host__ __device__ constexpr int mma_stride() { return D + 8; }
+
+template <int D>
+constexpr size_t mma_smem_bytes() {  // Q, then K and V double-buffered
+  return (size_t)(mma_rows<D>() + 4 * kMmaBN) * mma_stride<D>() *
+         sizeof(__nv_bfloat16);
 }
 
-template <typename T, bool CAUSAL>
-cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v,
-                       void* o, float* lse, int B, int L, int H,
-                       long long q_sb, long long q_sl, long long k_sb,
-                       long long k_sl, long long v_sb, long long v_sl,
-                       float scale, cudaStream_t s) {
-  switch (D) {
-    case 32: return launch<T, 32, CAUSAL>(q, k, v, o, lse, B, L, H, q_sb,
-                                          q_sl, k_sb, k_sl, v_sb, v_sl,
-                                          scale, s);
-    case 64: return launch<T, 64, CAUSAL>(q, k, v, o, lse, B, L, H, q_sb,
-                                          q_sl, k_sb, k_sl, v_sb, v_sl,
-                                          scale, s);
-    case 128: return launch<T, 128, CAUSAL>(q, k, v, o, lse, B, L, H, q_sb,
-                                            q_sl, k_sb, k_sl, v_sb, v_sl,
-                                            scale, s);
-    default: return cudaErrorInvalidValue;
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte async copy; src-size 0 (in == false) fills the 16 bytes with 0
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(in ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// c[16x8] += a[16x16] * b[16x8], bf16 operands, f32 accumulators
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 2^x in one MUFU instruction (inputs below -126 give 0, as any p that
+// small is to the softmax)
+__device__ __forceinline__ float ex2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Starts the copy of rows [r0, r0 + ROWS) of one head of a [b, L, H, D]
+// operand (row stride sl) into a padded shared tile; rows past L read 0.
+template <int D, int ROWS>
+__device__ __forceinline__ void load_tile_async(__nv_bfloat16* dst,
+                                                const __nv_bfloat16* src,
+                                                long long sl, int r0, int L) {
+  constexpr int CPR = D / 8;  // 16-byte chunks per row
+  constexpr int S = mma_stride<D>();
+#pragma unroll
+  for (int i = 0; i < ROWS * CPR / kMmaThreads; ++i) {
+    const int idx = threadIdx.x + i * kMmaThreads;
+    const int r = idx / CPR, c = idx % CPR;
+    const int l = r0 + r;
+    const bool in = l < L;
+    cp_async16(smem_addr(dst + r * S + c * 8),
+               src + (in ? l : 0) * sl + c * 8, in);
   }
 }
 
+template <int D, bool CAUSAL>
+__global__ void __launch_bounds__(kMmaThreads)
+flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                     const __nv_bfloat16* __restrict__ k,
+                     const __nv_bfloat16* __restrict__ v,
+                     __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                     const float* __restrict__ key_bias, int L, int H,
+                     long long q_sb, long long q_sl, long long k_sb,
+                     long long k_sl, long long v_sb, long long v_sl,
+                     float scale) {
+  constexpr int MT = mma_slices<D>();
+  constexpr int BM = mma_rows<D>();
+  constexpr int S = mma_stride<D>();
+  constexpr int T = kMmaBN * S;   // elements of one K or V tile
+  constexpr int KC = D / 16;      // 16-deep steps of Q.K^T
+  constexpr int NB = kMmaBN / 8;  // 8-key column blocks of S
+  constexpr int OB = D / 8;       // 8-wide column blocks of O
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* Ks = Qs + BM * S;  // buffers Ks, Ks + T
+  __nv_bfloat16* Vs = Ks + 2 * T;   // buffers Vs, Vs + T
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tig = lane & 3;  // fragment row / column pair
+  // the q tile is the slowest grid axis, so blocks start in q-tile order
+  // over all heads: causal, longest tiles first
+  const int qt = CAUSAL ? gridDim.z - 1 - blockIdx.z : blockIdx.z;
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int q0 = qt * BM;
+  // causal: up to the tile holding the block's last row
+  const int nk = ((CAUSAL ? min(q0 + BM, L) : L) + kMmaBN - 1) / kMmaBN;
+
+  const __nv_bfloat16* qb = q + b * q_sb + (long long)h * D;
+  const __nv_bfloat16* kb = k + b * k_sb + (long long)h * D;
+  const __nv_bfloat16* vb = v + b * v_sb + (long long)h * D;
+  const float* bias = key_bias ? key_bias + (long long)b * L : nullptr;
+
+  load_tile_async<D, BM>(Qs, qb, q_sl, q0, L);
+  load_tile_async<D, kMmaBN>(Ks, kb, k_sl, 0, L);
+  load_tile_async<D, kMmaBN>(Vs, vb, v_sl, 0, L);
+  cp_async_commit();
+
+  // this lane's rows: slice t holds r0 + 16 * t + g and r0 + 16 * t + g + 8
+  const int r0 = q0 + warp * 16 * MT;
+  float acc[MT][OB][4];
+#pragma unroll
+  for (int t = 0; t < MT; ++t)
+#pragma unroll
+    for (int j = 0; j < OB; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[t][j][e] = 0.f;
+  float m[MT][2], l[MT][2];  // running max of x; this lane's part of l
+#pragma unroll
+  for (int t = 0; t < MT; ++t)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      m[t][i] = kNegInf;
+      l[t][i] = 0.f;
+    }
+  uint32_t qf[MT][KC][4];  // Q's A fragments, loaded once per block
+  // x, the score the softmax works on: without a bias the raw f32 Q.K^T
+  // (the scale is applied inside the exponent, p = 2^(x*mul - m*mul));
+  // with one, the scaled score plus the bias, in log2 units (mul = 1)
+  const float scale2 = scale * kLog2e;
+  const float mul = bias != nullptr ? 1.f : scale2;
+  // ldmatrix row addresses: lane supplies row (lane % 8) of matrix lane / 8
+  const int lrow = lane & 7, lmat = lane >> 3;
+
+  for (int kt = 0; kt < nk; ++kt) {
+    const int buf = kt & 1;
+    cp_async_wait<0>();
+    // tile kt has landed for every thread, and every warp is done with
+    // tile kt - 1, whose buffer now takes tile kt + 1
+    __syncthreads();
+    if (kt + 1 < nk) {  // tile kt + 1 streams in while tile kt is used
+      load_tile_async<D, kMmaBN>(Ks + (buf ^ 1) * T, kb, k_sl,
+                                 (kt + 1) * kMmaBN, L);
+      load_tile_async<D, kMmaBN>(Vs + (buf ^ 1) * T, vb, v_sl,
+                                 (kt + 1) * kMmaBN, L);
+      cp_async_commit();
+    }
+    if (kt == 0) {
+#pragma unroll
+      for (int t = 0; t < MT; ++t)
+#pragma unroll
+        for (int kc = 0; kc < KC; ++kc)
+          ldmatrix_x4(qf[t][kc],
+                      smem_addr(Qs + (warp * 16 * MT + 16 * t + lrow +
+                                      (lmat & 1) * 8) * S +
+                                kc * 16 + (lmat >> 1) * 8));
+    }
+    const __nv_bfloat16* Kt = Ks + buf * T;
+    const __nv_bfloat16* Vt = Vs + buf * T;
+    const int k0 = kt * kMmaBN;
+    // causal: a warp whose rows all precede the tile's first key skips it
+    if (CAUSAL && k0 > r0 + 16 * MT - 1) continue;
+
+    // S = Q K^T: 16 * MT rows x kMmaBN keys per warp
+    float x[MT][NB][4];
+#pragma unroll
+    for (int t = 0; t < MT; ++t)
+#pragma unroll
+      for (int j = 0; j < NB; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) x[t][j][e] = 0.f;
+#pragma unroll
+    for (int kc = 0; kc < KC; ++kc) {
+#pragma unroll
+      for (int np = 0; np < NB / 2; ++np) {
+        uint32_t kf[4];
+        ldmatrix_x4(kf, smem_addr(Kt + (np * 16 + lrow + (lmat >> 1) * 8) * S
+                                  + kc * 16 + (lmat & 1) * 8));
+#pragma unroll
+        for (int t = 0; t < MT; ++t) {
+          mma_bf16(x[t][2 * np], qf[t][kc], kf[0], kf[1]);
+          mma_bf16(x[t][2 * np + 1], qf[t][kc], kf[2], kf[3]);
+        }
+      }
+    }
+
+    // x[t][j][e] is row r0 + 16 * t + g + 8 * (e >> 1), key
+    // k0 + 8 * j + 2 * tig + (e & 1). The bias goes onto the scaled score;
+    // only a tile that reaches past L, or (causal) past the block's first
+    // row, is masked.
+    if (bias != nullptr) {
+#pragma unroll
+      for (int j = 0; j < NB; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int kpos = k0 + 8 * j + 2 * tig + c;
+          const float bl = kpos < L ? __ldg(bias + kpos) * kLog2e : 0.f;
+#pragma unroll
+          for (int t = 0; t < MT; ++t) {
+            x[t][j][c] = fmaf(x[t][j][c], scale2, bl);
+            x[t][j][2 + c] = fmaf(x[t][j][2 + c], scale2, bl);
+          }
+        }
+    }
+    if (k0 + kMmaBN > L || (CAUSAL && k0 + kMmaBN > q0 + 1)) {
+#pragma unroll
+      for (int t = 0; t < MT; ++t)
+#pragma unroll
+        for (int j = 0; j < NB; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int kpos = k0 + 8 * j + 2 * tig + (e & 1);
+            const int row = r0 + 16 * t + g + 8 * (e >> 1);
+            if (kpos >= L || (CAUSAL && kpos > row)) x[t][j][e] = kNegInf;
+          }
+    }
+
+    // online softmax on the fragments; a row lives in one quad of lanes
+#pragma unroll
+    for (int t = 0; t < MT; ++t) {
+      float mx[2] = {m[t][0], m[t][1]};
+#pragma unroll
+      for (int j = 0; j < NB; ++j) {
+        mx[0] = fmaxf(mx[0], fmaxf(x[t][j][0], x[t][j][1]));
+        mx[1] = fmaxf(mx[1], fmaxf(x[t][j][2], x[t][j][3]));
+      }
+      float corr[2], off[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+        corr[i] = ex2_ftz((m[t][i] - mx[i]) * mul);
+        m[t][i] = mx[i];
+        off[i] = -mx[i] * mul;
+        l[t][i] *= corr[i];
+      }
+#pragma unroll
+      for (int j = 0; j < NB; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          x[t][j][e] = ex2_ftz(fmaf(x[t][j][e], mul, off[e >> 1]));
+          l[t][e >> 1] += x[t][j][e];
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < OB; ++j) {
+        acc[t][j][0] *= corr[0];
+        acc[t][j][1] *= corr[0];
+        acc[t][j][2] *= corr[1];
+        acc[t][j][3] *= corr[1];
+      }
+    }
+
+    // O += P V: P, rounded to bf16, is the A operand straight from S
+#pragma unroll
+    for (int kk = 0; kk < NB / 2; ++kk) {
+      uint32_t pa[MT][4];
+#pragma unroll
+      for (int t = 0; t < MT; ++t) {
+        pa[t][0] = pack_bf16(x[t][2 * kk][0], x[t][2 * kk][1]);
+        pa[t][1] = pack_bf16(x[t][2 * kk][2], x[t][2 * kk][3]);
+        pa[t][2] = pack_bf16(x[t][2 * kk + 1][0], x[t][2 * kk + 1][1]);
+        pa[t][3] = pack_bf16(x[t][2 * kk + 1][2], x[t][2 * kk + 1][3]);
+      }
+#pragma unroll
+      for (int dp = 0; dp < D / 16; ++dp) {
+        uint32_t vf[4];
+        ldmatrix_x4_trans(vf, smem_addr(Vt + (kk * 16 + lrow + (lmat & 1) * 8)
+                                        * S + dp * 16 + (lmat >> 1) * 8));
+#pragma unroll
+        for (int t = 0; t < MT; ++t) {
+          mma_bf16(acc[t][2 * dp], pa[t], vf[0], vf[1]);
+          mma_bf16(acc[t][2 * dp + 1], pa[t], vf[2], vf[3]);
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int t = 0; t < MT; ++t) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float lv = l[t][i];
+      lv += __shfl_xor_sync(0xffffffffu, lv, 1);
+      lv += __shfl_xor_sync(0xffffffffu, lv, 2);
+      const int row = r0 + 16 * t + g + 8 * i;
+      if (row >= L) continue;
+      lv = fmaxf(lv, 1e-30f);
+      const float inv = 1.f / lv;
+      __nv_bfloat16* orow = o + (((long long)b * L + row) * H + h) * D;
+#pragma unroll
+      for (int j = 0; j < OB; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + 2 * tig) =
+            __floats2bfloat162_rn(acc[t][j][2 * i] * inv,
+                                  acc[t][j][2 * i + 1] * inv);
+      if (tig == 0)
+        lse[((long long)b * H + h) * L + row] =
+            (m[t][i] * mul + log2f(lv)) * kLn2;
+    }
+  }
+}
+
+struct Args {
+  const void *q, *k, *v;
+  void* o;
+  float* lse;
+  const float* key_bias;
+  int B, L, H;
+  long long q_sb, q_sl, k_sb, k_sl, v_sb, v_sl;
+  float scale;
+};
+
+template <int D, bool CAUSAL>
+cudaError_t launch_f32(const Args& a, cudaStream_t stream) {
+  constexpr size_t smem = smem_bytes<D>();
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_fwd_kernel<D, CAUSAL>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  dim3 grid((a.L + kBQ - 1) / kBQ, a.H, a.B);
+  flash_fwd_kernel<D, CAUSAL><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<float*>(a.o), a.lse,
+      a.key_bias, a.L, a.H, a.q_sb, a.q_sl, a.k_sb, a.k_sl, a.v_sb, a.v_sl,
+      a.scale);
+  return cudaGetLastError();
+}
+
+template <int D, bool CAUSAL>
+cudaError_t launch_bf16(const Args& a, cudaStream_t stream) {
+  constexpr size_t smem = mma_smem_bytes<D>();
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_fwd_mma_kernel<D, CAUSAL>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  dim3 grid(a.H, a.B, (a.L + mma_rows<D>() - 1) / mma_rows<D>());
+  flash_fwd_mma_kernel<D, CAUSAL><<<grid, kMmaThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(a.q),
+      static_cast<const __nv_bfloat16*>(a.k),
+      static_cast<const __nv_bfloat16*>(a.v),
+      static_cast<__nv_bfloat16*>(a.o), a.lse, a.key_bias, a.L, a.H, a.q_sb,
+      a.q_sl, a.k_sb, a.k_sl, a.v_sb, a.v_sl, a.scale);
+  return cudaGetLastError();
+}
+
+template <int D, bool CAUSAL>
+cudaError_t launch(const Args& a, int dtype, cudaStream_t s) {
+  if (dtype == 0) return launch_f32<D, CAUSAL>(a, s);
+  if (dtype == 1) return launch_bf16<D, CAUSAL>(a, s);
+  return cudaErrorInvalidValue;
+}
+
 template <bool CAUSAL>
-int entry(const void* q, const void* k, const void* v, void* o, void* lse,
-          int B, int L, int H, int D, long long q_sb, long long q_sl,
-          long long k_sb, long long k_sl, long long v_sb, long long v_sl,
-          float scale, int dtype, void* stream) {
+int entry(const Args& a, int D, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* lse_f = static_cast<float*>(lse);
-  if (B <= 0 || L <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
-  if (dtype == 0)
-    return (int)dispatch_d<float, CAUSAL>(D, q, k, v, o, lse_f, B, L, H,
-                                          q_sb, q_sl, k_sb, k_sl, v_sb, v_sl,
-                                          scale, s);
-  if (dtype == 1)
-    return (int)dispatch_d<__nv_bfloat16, CAUSAL>(D, q, k, v, o, lse_f, B, L,
-                                                  H, q_sb, q_sl, k_sb, k_sl,
-                                                  v_sb, v_sl, scale, s);
-  return (int)cudaErrorInvalidValue;
+  if (a.B <= 0 || a.L <= 0 || a.H <= 0) return (int)cudaErrorInvalidValue;
+  if (CAUSAL && a.key_bias != nullptr) return (int)cudaErrorInvalidValue;
+  switch (D) {
+    case 32: return (int)launch<32, CAUSAL>(a, dtype, s);
+    case 64: return (int)launch<64, CAUSAL>(a, dtype, s);
+    case 128: return (int)launch<128, CAUSAL>(a, dtype, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 // Strides are in elements: element (b, l, h, d) of q is at
-// q[b * q_sb + l * q_sl + h * D + d]. dtype: 0 = float32, 1 = bfloat16.
+// q[b * q_sb + l * q_sl + h * D + d]. dtype: 0 = float32 (scalar kernel),
+// 1 = bfloat16 (tensor-core kernel; q, k, v 16-byte aligned). key_bias:
+// null, or f32 [B, L] added to the scaled scores (full mode only).
 // Returns a cudaError_t (0 = launched). `ptt_flash_attn_fwd` is causal,
 // `ptt_flash_attn_fwd_full` attends to every key.
-extern "C" int ptt_flash_attn_fwd(const void* q, const void* k,
-                                  const void* v, void* o, void* lse, int B,
-                                  int L, int H, int D, long long q_sb,
-                                  long long q_sl, long long k_sb,
-                                  long long k_sl, long long v_sb,
-                                  long long v_sl, float scale, int dtype,
-                                  void* stream) {
-  return entry<true>(q, k, v, o, lse, B, L, H, D, q_sb, q_sl, k_sb, k_sl,
-                     v_sb, v_sl, scale, dtype, stream);
-}
+#define PTT_FWD_ENTRY(NAME, CAUSAL)                                           \
+  extern "C" int NAME(const void* q, const void* k, const void* v, void* o,  \
+                      void* lse, const void* key_bias, int B, int L, int H,   \
+                      int D, long long q_sb, long long q_sl, long long k_sb,  \
+                      long long k_sl, long long v_sb, long long v_sl,         \
+                      float scale, int dtype, void* stream) {                 \
+    const Args a{q,    k,    v,    o,    static_cast<float*>(lse),            \
+                 static_cast<const float*>(key_bias), B, L, H, q_sb, q_sl,    \
+                 k_sb, k_sl, v_sb, v_sl, scale};                              \
+    return entry<CAUSAL>(a, D, dtype, stream);                                \
+  }
 
-extern "C" int ptt_flash_attn_fwd_full(const void* q, const void* k,
-                                       const void* v, void* o, void* lse,
-                                       int B, int L, int H, int D,
-                                       long long q_sb, long long q_sl,
-                                       long long k_sb, long long k_sl,
-                                       long long v_sb, long long v_sl,
-                                       float scale, int dtype,
-                                       void* stream) {
-  return entry<false>(q, k, v, o, lse, B, L, H, D, q_sb, q_sl, k_sb, k_sl,
-                      v_sb, v_sl, scale, dtype, stream);
-}
+PTT_FWD_ENTRY(ptt_flash_attn_fwd, true)
+PTT_FWD_ENTRY(ptt_flash_attn_fwd_full, false)

@@ -49,9 +49,13 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _F = ctypes.c_float
-_FLASH_FWD = ([_P, _P, _P, _P, _P, _I, _I, _I, _I,
+# q, k, v, o, lse, key_bias (null: none), B, L, H, D, strides, scale,
+# dtype, stream
+_FLASH_FWD = ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                _LL, _LL, _LL, _LL, _LL, _LL, _F, _I, _P], _I)
-_FLASH_BWD = ([_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+# q, k, v, dout, lse, delta, key_bias, out0, out1, B, L, H, D, strides,
+# scale, dtype, stream
+_FLASH_BWD = ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                _LL, _LL, _LL, _LL, _LL, _LL, _LL, _LL, _F, _I, _P], _I)
 _SIGNATURES = {
     "ptt_error_string": ([_I], ctypes.c_char_p),

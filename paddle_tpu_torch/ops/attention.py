@@ -6,7 +6,8 @@ the serving and training slices run:
 - ``flash_attention``: the flash kernels as one differentiable call in
   either layout — causal (``flash_tpu.flash_attention_blhd``) or over
   every key (``flash_tpu.flash_attention_full``, the port of the Pallas
-  ``_flash_fwd_kernel`` with a kernel backward);
+  ``_flash_fwd_kernel`` with a kernel backward, and an optional
+  key-padding bias);
 - ``dot_product_attention``: the dispatch, differentiable on both
   devices. It follows the reference's off-TPU rule (``_resolve_impl``),
   without its plain-path fallbacks on the card:
@@ -14,9 +15,14 @@ the serving and training slices run:
   - on the CPU: the plain path, with any bias;
   - on the card, unbiased: the flash kernel, whose wrapper raises on a
     shape it cannot take (head dim not in ``flash_tpu.HEAD_DIMS``,
-    Lq != Lk);
-  - on the card, with a bias: raises, as no kernel takes an additive
-    bias yet.
+    Lq != Lk, a bf16 operand whose rows are not 16-byte aligned);
+  - on the card, with a bias that broadcasts as [b, 1, 1, Lk] (a key
+    padding mask, as BERT's ``attention_mask`` builds it) and
+    ``causal=False``: the full-attention kernels, which add it to the
+    scaled scores as an f32 [b, Lk] key bias (no gradient for it: one
+    that requires a gradient raises);
+  - on the card, any other bias (per head or per query), or a bias with
+    ``causal=True``: raises ``NotImplementedError``; no kernel takes it.
 - ``paged_attention``: attention of a query chunk against the serving
   KV-cache pool, with the reference's two tiers (``_paged_gather_impl``,
   ``_paged_scan_impl``). They are XLA-level code in the reference, not
@@ -65,20 +71,43 @@ def xla_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = False,
-                    layout: str = "bhld") -> torch.Tensor:
+                    causal: bool = False, layout: str = "bhld",
+                    key_bias=None) -> torch.Tensor:
     """The flash kernels (``ops.flash_tpu``) as one differentiable call,
     returning only the output, as the reference's ``flash_attention``.
     ``layout='blhd'`` passes [b, l, h, d] operands (any row stride)
     straight to the kernels; [b, h, l, d] operands are transposed in and
-    out. CPU tensors run the kernels' plain versions."""
-    fn = (flash_tpu.flash_attention_blhd if causal
-          else flash_tpu.flash_attention_full)
+    out. ``key_bias`` (f32 [b, Lk], full attention only) is added to the
+    scaled scores. CPU tensors run the kernels' plain versions."""
+    if causal:
+        if key_bias is not None:
+            raise NotImplementedError("flash_attention: the causal kernels "
+                                      "take no key bias; only attention "
+                                      "over every key does")
+        fn = flash_tpu.flash_attention_blhd
+    else:
+        fn = lambda q_, k_, v_: flash_tpu.flash_attention_full(q_, k_, v_,
+                                                               key_bias)
     if layout == "blhd":
         return fn(q, k, v)[0]
     tr = lambda t: t.transpose(1, 2)
     out, _ = fn(tr(q).contiguous(), tr(k).contiguous(), tr(v).contiguous())
     return tr(out)
+
+
+def _key_bias(bias: torch.Tensor, batch: int, Lk: int) -> torch.Tensor:
+    """A bias that broadcasts as [b, 1, 1, Lk] as the kernels take it, a
+    contiguous f32 [b, Lk] tensor; any other bias raises."""
+    shape = (1,) * (4 - bias.dim()) + tuple(bias.shape)
+    if (len(shape) != 4 or shape[1] != 1 or shape[2] != 1
+            or shape[0] not in (1, batch) or shape[3] not in (1, Lk)):
+        raise NotImplementedError(
+            f"dot_product_attention: an additive bias of shape "
+            f"{tuple(bias.shape)} has no kernel on the card; the kernels "
+            f"take a key-padding bias that broadcasts as [{batch}, 1, 1, "
+            f"{Lk}]")
+    return bias.reshape(shape[0], shape[3]).expand(batch, Lk).float() \
+        .contiguous()
 
 
 def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -91,12 +120,11 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return xla_attention(q, k, v, causal=causal, bias=bias,
                              layout=layout)
-    if bias is not None:
-        raise NotImplementedError(
-            "dot_product_attention: an additive bias (e.g. BERT's padding "
-            "mask) has no kernel on the card yet; pass tensors on the CPU "
-            "or call without a bias")
-    return flash_attention(q, k, v, causal=causal, layout=layout)
+    if bias is None:
+        return flash_attention(q, k, v, causal=causal, layout=layout)
+    Lk = k.shape[1] if layout == "blhd" else k.shape[2]
+    return flash_attention(q, k, v, causal=causal, layout=layout,
+                           key_bias=_key_bias(bias, q.shape[0], Lk))
 
 
 # ---------------------------------------------------------------------------

@@ -3,7 +3,7 @@ counterpart of ``paddle_tpu.ops.flash_tpu`` (causal) and of the Pallas
 tier of ``paddle_tpu.ops.attention.flash_attention`` (causal or full).
 
 ``flash_attention_blhd`` (causal) and ``flash_attention_full`` (every key
-attends) are ``torch.autograd.Function``s over one pair of kernels with a
+attends) are ``torch.autograd.Function``s over one set of kernels with a
 mask flag. For tensors on the card the forward launches
 ``csrc/flash_attn_fwd.cu`` (the port of the Pallas ``_fwd_kernel``, and of
 ``attention._flash_fwd_kernel`` in full mode) and the backward the dQ and
@@ -15,12 +15,28 @@ have their own launch counts. Both return ``(out, lse)``: ``out`` is
 [b, L, H, d] in q's dtype, ``lse`` the f32 log-sum-exp of each query
 row's scaled scores, [b, H, L] (not differentiable).
 
+Which forward kernel runs: bf16 operands go to ``flash_fwd_mma_kernel``,
+on the tensor cores (``mma.sync`` with f32 accumulation; P is rounded to
+bf16 as the P·V operand, as the reference's ``_fwd_kernel`` feeds the
+MXU); f32 operands go to ``flash_fwd_kernel``, exact scalar f32
+arithmetic with no TF32 rounding — the checking path. The backward
+kernels compute in f32 for both types.
+
+``flash_attention_full`` takes an optional key-padding bias, an f32
+[b, L] tensor added to every query row's scaled scores before the
+``k_pos < L`` mask (BERT's ``attention_mask`` as the reference's −1e9
+bias; ``attention.dot_product_attention`` builds it from a bias that
+broadcasts as [b, 1, 1, Lk]). The forward and both backward kernels
+read it; it gets no gradient, and one that requires a gradient raises.
+
 The kernels read q, k, v and the output gradient in the projection's
 native layout: the last two axes must be dense ([H, d] with d
 contiguous), while the row and batch strides are free, so q/k/v sliced
-out of a fused QKV projection go in without a copy. The backward's
-``delta = rowsum(dO ⊙ O)`` stays a PyTorch reduction, as it is an XLA
-einsum in the reference.
+out of a fused QKV projection go in without a copy. The bf16 forward
+copies rows with 16-byte ``cp.async``: a bf16 q, k or v whose pointer or
+row or batch stride is not a multiple of 16 bytes raises (nothing falls
+back). The backward's ``delta = rowsum(dO ⊙ O)`` stays a PyTorch
+reduction, as it is an XLA einsum in the reference.
 """
 from __future__ import annotations
 
@@ -43,14 +59,23 @@ def _causal_mask(L: int, device) -> torch.Tensor:
     return pos[None, :] > pos[:, None]  # True above the diagonal
 
 
+def _add_key_bias(s: torch.Tensor, key_bias) -> torch.Tensor:
+    """Scores [b, H, Lq, Lk] plus an f32 [b, Lk] key bias (or as they are)."""
+    if key_bias is None:
+        return s
+    return s + key_bias.float()[:, None, None, :]
+
+
 def _flash_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     causal: bool = True
+                     causal: bool = True, key_bias=None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain attention over [b, L, H, d] operands (causal, or over every
-    key), scores materialized in f32: returns (out [b, L, H, d] in q's
-    dtype, lse [b, H, L] f32)."""
+    key), scores materialized in f32, ``key_bias`` ([b, L]) added to the
+    scaled scores: returns (out [b, L, H, d] in q's dtype, lse [b, H, L]
+    f32)."""
     L, d = q.shape[1], q.shape[-1]
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / math.sqrt(d)
+    s = _add_key_bias(s, key_bias)
     if causal:
         s = s.masked_fill(_causal_mask(L, q.device), _NEG_INF)
     lse = torch.logsumexp(s, dim=-1)
@@ -68,18 +93,20 @@ def _delta(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
 
 def _flash_bwd_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          out: torch.Tensor, lse: torch.Tensor,
-                         dout: torch.Tensor, causal: bool = True
+                         dout: torch.Tensor, causal: bool = True,
+                         key_bias=None
                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain attention backward in f32, mirroring the Pallas
     ``_dq_kernel``/``_dkv_kernel``: recompute ``P = exp(S − lse)`` from
-    the pre-scaled q, then ``dS = P ⊙ (dO·Vᵀ − delta)``,
-    ``dQ = scale·dS·K``, ``dK = scale·dSᵀ·Q``, ``dV = Pᵀ·dO``; causal, or
-    over every key. Returns (dq, dk, dv) in q's dtype."""
+    the pre-scaled q (plus ``key_bias``, [b, L], which gets no gradient),
+    then ``dS = P ⊙ (dO·Vᵀ − delta)``, ``dQ = scale·dS·K``,
+    ``dK = scale·dSᵀ·Q``, ``dV = Pᵀ·dO``; causal, or over every key.
+    Returns (dq, dk, dv) in q's dtype."""
     L, d = q.shape[1], q.shape[-1]
     scale = 1.0 / math.sqrt(d)
     qs = q.float() * scale
     kf, vf, dof = k.float(), v.float(), dout.float()
-    s = torch.einsum("bqhd,bkhd->bhqk", qs, kf)
+    s = _add_key_bias(torch.einsum("bqhd,bkhd->bhqk", qs, kf), key_bias)
     p = torch.exp(s - lse[..., None])
     if causal:
         p = p.masked_fill(_causal_mask(L, q.device), 0.0)
@@ -91,11 +118,12 @@ def _flash_bwd_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
 
 
-def _fwd(q, k, v, causal=True):
+def _fwd(q, k, v, causal=True, key_bias=None):
     if q.device.type == "cpu":
-        return _flash_reference(q, k, v, causal)
+        return _flash_reference(q, k, v, causal, key_bias)
     fn = "flash_attention_blhd" if causal else "flash_attention_full"
     _check_cuda_args(fn, q, k, v)
+    _check_key_bias(fn, q, key_bias)
     b, L, H, d = q.shape
     out = torch.empty((b, L, H, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, H, L), dtype=torch.float32, device=q.device)
@@ -106,8 +134,8 @@ def _fwd(q, k, v, causal=True):
     with torch.cuda.device(q.device):
         err = entry(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), b, L, H, d, q.stride(0), q.stride(1),
-            k.stride(0), k.stride(1), v.stride(0), v.stride(1),
+            lse.data_ptr(), _ptr(key_bias), b, L, H, d, q.stride(0),
+            q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
             1.0 / math.sqrt(d), _build.DTYPE_CODES[q.dtype],
             _build.stream_of(q))
     _build.check(err, fn)
@@ -115,9 +143,14 @@ def _fwd(q, k, v, causal=True):
     return out, lse
 
 
-def _launch_bwd(fn, entry, q, k, v, dout, lse, delta, out0, out1):
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _launch_bwd(fn, entry, q, k, v, dout, lse, delta, key_bias, out0, out1):
     """One launch of a backward entry of ``csrc/flash_attn_bwd.cu``."""
     _check_bwd_args(fn, q, k, v, dout, lse, delta)
+    _check_key_bias(fn, q, key_bias)
     if out0.numel() == 0:
         return
     b, L, H, d = q.shape
@@ -125,31 +158,31 @@ def _launch_bwd(fn, entry, q, k, v, dout, lse, delta, out0, out1):
     with torch.cuda.device(q.device):
         err = getattr(lib, entry)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), out0.data_ptr(),
-            out1.data_ptr() if out1 is not None else None, b, L, H, d,
+            lse.data_ptr(), delta.data_ptr(), _ptr(key_bias),
+            out0.data_ptr(), _ptr(out1), b, L, H, d,
             q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0),
             v.stride(1), dout.stride(0), dout.stride(1), 1.0 / math.sqrt(d),
             _build.DTYPE_CODES[q.dtype], _build.stream_of(q))
     _build.check(err, fn)
 
 
-def _dq(causal, q, k, v, dout, lse, delta) -> torch.Tensor:
+def _dq(causal, q, k, v, dout, lse, delta, key_bias=None) -> torch.Tensor:
     fn = "flash_bwd_dq" if causal else "flash_bwd_dq_full"
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     _launch_bwd(fn, "ptt_flash_attn_bwd_dq" + ("" if causal else "_full"),
-                q, k, v, dout, lse, delta, dq, None)
+                q, k, v, dout, lse, delta, key_bias, dq, None)
     if dq.numel():
         (flash_bwd_dq if causal else flash_bwd_dq_full).launches += 1
     return dq
 
 
-def _dkv(causal, q, k, v, dout, lse, delta
+def _dkv(causal, q, k, v, dout, lse, delta, key_bias=None
          ) -> Tuple[torch.Tensor, torch.Tensor]:
     fn = "flash_bwd_dkv" if causal else "flash_bwd_dkv_full"
     dk = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     dv = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     _launch_bwd(fn, "ptt_flash_attn_bwd_dkv" + ("" if causal else "_full"),
-                q, k, v, dout, lse, delta, dk, dv)
+                q, k, v, dout, lse, delta, key_bias, dk, dv)
     if dk.numel():
         (flash_bwd_dkv if causal else flash_bwd_dkv_full).launches += 1
     return dk, dv
@@ -170,17 +203,19 @@ def flash_bwd_dkv(q, k, v, dout, lse, delta
     return _dkv(True, q, k, v, dout, lse, delta)
 
 
-def flash_bwd_dq_full(q, k, v, dout, lse, delta) -> torch.Tensor:
+def flash_bwd_dq_full(q, k, v, dout, lse, delta, key_bias=None
+                      ) -> torch.Tensor:
     """dQ of attention over every key on the card (one launch);
-    arguments as ``flash_bwd_dq``."""
-    return _dq(False, q, k, v, dout, lse, delta)
+    arguments as ``flash_bwd_dq``, plus the forward's f32 [b, L]
+    ``key_bias`` (or None)."""
+    return _dq(False, q, k, v, dout, lse, delta, key_bias)
 
 
-def flash_bwd_dkv_full(q, k, v, dout, lse, delta
+def flash_bwd_dkv_full(q, k, v, dout, lse, delta, key_bias=None
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """dK and dV of attention over every key on the card (one launch);
-    arguments as ``flash_bwd_dq``."""
-    return _dkv(False, q, k, v, dout, lse, delta)
+    arguments as ``flash_bwd_dq_full``."""
+    return _dkv(False, q, k, v, dout, lse, delta, key_bias)
 
 
 # kernel launches, counted where they happen
@@ -189,29 +224,34 @@ for _fn in (flash_bwd_dq, flash_bwd_dkv, flash_bwd_dq_full,
     _fn.launches = 0
 
 
-def _bwd(q, k, v, out, lse, dout, causal):
+def _bwd(q, k, v, out, lse, key_bias, dout, causal):
     if q.device.type == "cpu":
-        return _flash_bwd_reference(q, k, v, out, lse, dout, causal)
+        return _flash_bwd_reference(q, k, v, out, lse, dout, causal,
+                                    key_bias)
     if not _dense_tail(dout):
         dout = dout.contiguous()  # only the row/batch strides may be free
     delta = _delta(out, dout)
-    dq = _dq(causal, q, k, v, dout, lse, delta)
-    dk, dv = _dkv(causal, q, k, v, dout, lse, delta)
+    dq = _dq(causal, q, k, v, dout, lse, delta, key_bias)
+    dk, dv = _dkv(causal, q, k, v, dout, lse, delta, key_bias)
     return dq, dk, dv
 
 
 class _FlashFn(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, causal):
-        out, lse = _fwd(q, k, v, causal)
+    def forward(ctx, q, k, v, causal, key_bias):
+        if key_bias is not None and key_bias.requires_grad:
+            raise NotImplementedError(
+                "flash attention gives the key bias no gradient; pass one "
+                "that does not require it (e.g. bias.detach())")
+        out, lse = _fwd(q, k, v, causal, key_bias)
         ctx.causal = causal
-        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.save_for_backward(q, k, v, out, lse, key_bias)
         ctx.mark_non_differentiable(lse)
         return out, lse
 
     @staticmethod
     def backward(ctx, dout, _dlse):
-        return (*_bwd(*ctx.saved_tensors, dout, ctx.causal), None)
+        return (*_bwd(*ctx.saved_tensors, dout, ctx.causal), None, None)
 
 
 def flash_attention_blhd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -225,14 +265,17 @@ def flash_attention_blhd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise NotImplementedError(
             "flash_attention_blhd is the causal kernel; dispatch "
             "non-causal attention through dot_product_attention")
-    return _FlashFn.apply(q, k, v, True)
+    return _FlashFn.apply(q, k, v, True, None)
 
 
-def flash_attention_full(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+def flash_attention_full(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         key_bias=None
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Self-attention of every query over every key, [b, L, H, d]
-    operands; returns ``(out, lse)``, differentiable in q, k and v."""
-    return _FlashFn.apply(q, k, v, False)
+    operands, with an optional f32 [b, L] ``key_bias`` added to the scaled
+    scores; returns ``(out, lse)``, differentiable in q, k and v (not in
+    the bias)."""
+    return _FlashFn.apply(q, k, v, False, key_bias)
 
 
 flash_attention_blhd.launches = 0  # forward kernel launches, causal
@@ -267,8 +310,36 @@ def _check_cuda_args(fn, q, k, v):
         if not _dense_tail(t):
             raise ValueError(f"{fn}: {name} needs dense [H, d] trailing "
                              f"axes, strides {t.stride()}")
+        if q.dtype == torch.bfloat16 and not _aligned_rows(t):
+            raise ValueError(
+                f"{fn}: bf16 {name} needs its row and batch strides in "
+                f"multiples of 16 bytes for cp.async, strides {t.stride()}")
     if q.device.type != "cuda":
         raise ValueError(f"{fn}: unsupported device {q.device}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if q.dtype == torch.bfloat16 and t.data_ptr() % 16:
+            raise ValueError(f"{fn}: bf16 {name} must start on a 16-byte "
+                             f"boundary for cp.async (address "
+                             f"{t.data_ptr():#x})")
+
+
+def _aligned_rows(t):
+    """Whether the row and batch strides of a [b, L, H, d] operand are
+    multiples of 16 bytes (an axis of extent 1 is never stepped)."""
+    return all(t.shape[i] <= 1 or t.stride(i) * t.element_size() % 16 == 0
+               for i in (0, 1))
+
+
+def _check_key_bias(fn, q, key_bias):
+    if key_bias is None:
+        return
+    b, L = q.shape[0], q.shape[1]
+    if (tuple(key_bias.shape) != (b, L) or key_bias.dtype != torch.float32
+            or key_bias.device != q.device
+            or not key_bias.is_contiguous()):
+        raise ValueError(f"{fn}: key_bias must be a contiguous f32 [{b}, "
+                         f"{L}] tensor on {q.device}, got {key_bias.dtype} "
+                         f"{tuple(key_bias.shape)} on {key_bias.device}")
 
 
 def _check_bwd_args(fn, q, k, v, dout, lse, delta):

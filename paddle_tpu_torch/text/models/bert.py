@@ -9,9 +9,11 @@ Parameters carry the reference's names (``bert.embeddings.word.weight``,
 across unchanged. Attention is non-causal and goes through
 ``ops.attention.dot_product_attention`` with q/k/v as strided
 [b, l, h, d] views of the fused QKV projection (no transpose copy): the
-flash kernel on the card, the plain path on the CPU. A padding mask's
-additive bias has no kernel yet, so ``attention_mask`` runs on the CPU
-only. The reference's TPU tuning knob ``use_flash_attention`` has no
+flash kernel on the card, the plain path on the CPU. A padding mask
+(``attention_mask``) becomes the reference's additive bias on the padded
+keys, which the full-attention kernels take on the card as a key bias
+(forward, dQ and dK/dV). The reference's TPU tuning knob
+``use_flash_attention`` has no
 counterpart. Every LayerNorm goes through ``ops.fused``. Dropout masks
 come from a ``torch.Generator`` the model owns, seeded from ``seed``.
 """
@@ -146,7 +148,7 @@ class BertModel(nn.Module):
     dropout masks from ``dropout_gen``, a second generator with the same
     seed. ``attention_mask`` ([b, l], 1 = attend, 0 = padding) becomes
     the reference's additive −1e9 bias on the padded keys; on the card
-    the attention dispatch refuses it (no kernel takes a bias yet)."""
+    the attention kernels read it as a key bias."""
 
     def __init__(self, config: BertConfig,
                  device: Optional[Union[str, torch.device]] = None,

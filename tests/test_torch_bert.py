@@ -5,7 +5,8 @@ three `ParallelTrainStep` steps with AdamW against the reference engine on
 a 1-device mesh — in f32 (with `apply_decay_param_fun` excluding biases
 and LayerNorms by name) and in bf16 compute without master weights; the
 non-master engine mode; the attention dispatch, which raises off the CPU
-where the kernel cannot take a call; the shared `nn.layer` modules."""
+where the kernel cannot take a call and hands a key-padding bias to the
+full-attention kernels; the shared `nn.layer` modules."""
 import importlib
 
 import jax
@@ -357,11 +358,74 @@ def test_kernel_shapes_it_cannot_take_raise_off_the_cpu(d, Lk, match):
                                            layout=layout)
 
 
-def test_biased_calls_raise_off_the_cpu():
+@pytest.mark.parametrize("shape,causal", [
+    ((2, 2, 16, 16), False),   # per head and per query
+    ((2, 1, 16, 16), False),   # per query
+    ((2, 2, 1, 16), False),    # per head
+    ((3, 1, 1, 16), False),    # another batch
+    ((2, 1, 1, 16), True)])    # a key-padding bias, but causal
+def test_biased_calls_raise_off_the_cpu(shape, causal):
+    """Off the CPU only a key-padding bias ([b, 1, 1, Lk]) of full
+    attention has a kernel; every other bias raises rather than taking the
+    plain path."""
     q, _ = _meta_qkv()
-    bias = torch.zeros(2, 1, 1, 16, device="meta")
-    with pytest.raises(NotImplementedError, match="additive bias"):
+    bias = torch.zeros(*shape, device="meta")
+    for layout, x in (("blhd", q), ("bhld", q.transpose(1, 2))):
+        with pytest.raises(NotImplementedError, match="bias"):
+            tatt.dot_product_attention(x, x, x, causal=causal, bias=bias,
+                                       layout=layout)
+
+
+@pytest.mark.parametrize("shape", [(2, 1, 1, 16), (1, 1, 1, 16), (2, 16),
+                                   (16,)])
+def test_key_padding_bias_off_the_cpu_reaches_the_kernel(shape):
+    """A bias that broadcasts as [b, 1, 1, Lk] goes to the full-attention
+    kernel's wrapper (which raises on the meta device, as no kernel runs
+    there) in either layout."""
+    q, _ = _meta_qkv()
+    bias = torch.zeros(*shape, device="meta")
+    if len(shape) == 2:
+        bias = bias[:, None, None, :]
+    for layout, x in (("blhd", q), ("bhld", q.transpose(1, 2))):
+        with pytest.raises(ValueError, match="unsupported device"):
+            tatt.dot_product_attention(x, x, x, bias=bias, layout=layout)
+
+
+def test_key_padding_bias_that_requires_grad_raises():
+    """The kernels give the bias no gradient, so one that asks for it
+    raises (on the CPU the plain path differentiates it)."""
+    q, _ = _meta_qkv()
+    bias = torch.zeros(2, 1, 1, 16, device="meta", requires_grad=True)
+    with pytest.raises(NotImplementedError, match="no gradient"):
         tatt.dot_product_attention(q, q, q, bias=bias, layout="blhd")
+
+
+def test_masked_bert_dispatches_the_mask_as_a_key_bias(monkeypatch):
+    """BertModel's attention_mask reaches the full-attention kernels as the
+    reference's -1e9 bias on the padded keys, f32 [b, L]: the bias the
+    dispatch builds, run through the kernels' plain version on the CPU,
+    gives the masked model's logits."""
+    model = tbert.BertModel(tbert.bert_tiny(), device="cpu").eval()
+    ids = torch.from_numpy(_batch(b=2, L=24)[0]).long()
+    mask = torch.ones(2, 24)
+    mask[1, 9:] = 0.0
+    seen = []
+
+    def through_kernel_path(q, k, v, causal=False, bias=None, layout="bhld"):
+        kb = tatt._key_bias(bias, q.shape[0], k.shape[1])
+        seen.append(kb)
+        return tatt.flash_attention(q, k, v, causal, layout, key_bias=kb)
+
+    with torch.no_grad():
+        want, _ = model(ids, None, mask)
+        monkeypatch.setattr(tbert, "dot_product_attention",
+                            through_kernel_path)
+        got, _ = model(ids, None, mask)
+    assert len(seen) == model.config.num_layers
+    assert seen[0].dtype == torch.float32 and seen[0].shape == (2, 24)
+    assert torch.equal(seen[0][1, 9:], torch.full((15,), -1e9))
+    assert torch.equal(seen[0][0], torch.zeros(24))
+    torch.testing.assert_close(got, want, atol=LOGITS_TOL, rtol=0)
 
 
 def test_unbiased_kernel_calls_off_the_cpu_reach_the_kernel():

@@ -5,10 +5,13 @@ the plain backward against `_dq_kernel` + `_dkv_kernel` in interpret
 mode, ragged L against `jax.vjp` of `xla_attention`. Causal or over every
 key: the plain forward against `attention._flash_fwd_kernel` in interpret
 mode, ragged L and the backward against the reference's `flash_attention`
-(blockwise off the TPU) and its `jax.vjp`. The packed dK/dV experiment
-against `tools/experiments/dkv_packed_kernel.py`'s `dkv_kernel` in
-interpret mode. The CUDA kernels against the plain path on a card (marked
-`cuda`)."""
+(blockwise off the TPU) and its `jax.vjp`; with a key-padding bias, the
+plain forward and backward against `blockwise_attention(..., bias=)` and
+its `jax.vjp`. The packed dK/dV experiment against
+`tools/experiments/dkv_packed_kernel.py`'s `dkv_kernel` in interpret
+mode. The CUDA kernels against the plain path on a card (marked `cuda`):
+the bf16 tensor-core forward at GPT's and BERT's shapes, with and without
+a key bias, and its refusal of rows that are not 16-byte aligned."""
 import functools
 import importlib.util
 import math
@@ -371,6 +374,112 @@ def test_gradients_of_full_attention_through_strided_views():
     torch.testing.assert_close(grads[0], grads[1], atol=GRAD_TOL, rtol=0)
 
 
+def _key_bias(b, L, seed):
+    """BERT's padding bias for random valid lengths (at least one key per
+    sequence): 0 on the kept keys, -1e9 on the padded ones, f32 [b, L]."""
+    lengths = np.random.RandomState(seed).randint(1, L + 1, b)
+    keep = np.arange(L)[None, :] < lengths[:, None]
+    return np.where(keep, 0.0, -1e9).astype(np.float32)
+
+
+@pytest.mark.parametrize("b,L,H,d", [(2, 77, 3, 32), (2, 128, 4, 64)])
+def test_key_bias_forward_matches_blockwise_attention(b, L, H, d):
+    """The plain forward with a key bias against the reference's
+    `blockwise_attention` with the same bias as [b, 1, 1, L] (f32; the
+    blockwise recurrence sums in another order)."""
+    q, k, v = _qkv((b, L, H, d), seed=L + 5)
+    bias = _key_bias(b, L, seed=L)
+    ref = np.asarray(jatt.blockwise_attention(
+        *_bhld(q, k, v), causal=False, bias=bias[:, None, None, :]))
+    out, lse = tflash._flash_reference(
+        *(torch.from_numpy(a) for a in (q, k, v)), causal=False,
+        key_bias=torch.from_numpy(bias))
+    np.testing.assert_allclose(out.numpy().transpose(0, 2, 1, 3), ref,
+                               atol=OUT_TOL, rtol=0)
+    # the lse of the kept keys alone: the padded ones add exp(-1e9) = 0
+    s = np.einsum("bqhd,bkhd->bhqk", q.astype(np.float64),
+                  k.astype(np.float64)) / math.sqrt(d)
+    s = np.where(bias[:, None, None, :] < 0, -np.inf, s)
+    m = s.max(-1, keepdims=True)
+    want = (m + np.log(np.exp(s - m).sum(-1, keepdims=True)))[..., 0]
+    np.testing.assert_allclose(lse.numpy(), want, atol=LSE_TOL, rtol=0)
+
+
+@pytest.mark.parametrize("b,L,H,d", [(2, 77, 3, 32), (2, 128, 4, 64)])
+def test_key_bias_backward_matches_vjp_of_blockwise_attention(b, L, H, d):
+    q, k, v = _qkv((b, L, H, d), seed=L + 6)
+    dout = _qkv((b, L, H, d), seed=7)[0]
+    bias = _key_bias(b, L, seed=L + 1)
+    _, vjp = jax.vjp(lambda *a: jatt.blockwise_attention(
+        *a, causal=False, bias=bias[:, None, None, :]), *_bhld(q, k, v))
+    ref = [np.asarray(g).transpose(0, 2, 1, 3)
+           for g in vjp(_bhld(dout)[0])]
+    tq, tk, tv, tdo, tb = (torch.from_numpy(a)
+                           for a in (q, k, v, dout, bias))
+    out, lse = tflash._flash_reference(tq, tk, tv, False, tb)
+    grads = tflash._flash_bwd_reference(tq, tk, tv, out, lse, tdo, False, tb)
+    for got, want, name in zip(grads, ref, ("dq", "dk", "dv")):
+        np.testing.assert_allclose(got.numpy(), want, atol=GRAD_TOL, rtol=0,
+                                   err_msg=name)
+
+
+def test_key_bias_gradients_through_the_function_match_xla_attention():
+    """Autograd through the full-mode Function with a key bias (on the
+    CPU: the plain versions) against autograd of `xla_attention` with the
+    bias as [b, 1, 1, L]; the bias itself gets no gradient."""
+    rng = np.random.RandomState(10)
+    q, k, v = _qkv((2, 50, 2, 16), seed=11)
+    g = torch.from_numpy(rng.randn(2, 50, 2, 16).astype(np.float32))
+    bias = torch.from_numpy(_key_bias(2, 50, seed=12))
+    grads = []
+    for fn in (lambda *a: tflash.flash_attention_full(*a, key_bias=bias)[0],
+               lambda *a: tatt.xla_attention(*a, bias=bias[:, None, None, :],
+                                             layout="blhd")):
+        leaves = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+        grads.append(torch.autograd.grad(fn(*leaves), leaves, g))
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, atol=GRAD_TOL, rtol=0)
+
+
+def test_key_bias_that_requires_grad_raises():
+    q = torch.zeros(1, 4, 1, 8)
+    bias = torch.zeros(1, 4, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="no gradient"):
+        tflash.flash_attention_full(q, q, q, key_bias=bias)
+
+
+def test_key_bias_reaches_the_full_kernels_off_the_cpu():
+    q = torch.empty(2, 16, 2, 64, device="meta")
+    lse = torch.empty(2, 2, 16, device="meta")
+    bias = torch.empty(2, 16, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        tflash.flash_attention_full(q, q, q, key_bias=bias)
+    for fn in (tflash.flash_bwd_dq_full, tflash.flash_bwd_dkv_full):
+        with pytest.raises(ValueError, match="unsupported device"):
+            fn(q, q, q, q, lse, lse, key_bias=bias)
+
+
+@pytest.mark.parametrize("row_stride", [3 * 2 * 64 + 4, 2 * 64 + 1])
+def test_bf16_rows_off_16_bytes_raise(row_stride):
+    """The bf16 forward copies rows with 16-byte cp.async: a row stride
+    that is not a multiple of 8 bf16 elements raises before any launch
+    (meta tensors stand in for the card's)."""
+    base = torch.empty(2, 16, row_stride, device="meta", dtype=torch.bfloat16)
+    q = base[..., :128].view(2, 16, 2, 64)
+    with pytest.raises(ValueError, match="16 bytes"):
+        tflash.flash_attention_blhd(q, q, q)
+    with pytest.raises(ValueError, match="16 bytes"):
+        tflash.flash_attention_full(q, q, q)
+
+
+def test_f32_rows_need_no_alignment():
+    """The f32 forward is the scalar kernel, which reads any row stride."""
+    base = torch.empty(2, 16, 2 * 64 + 1, device="meta")
+    q = base[..., :128].view(2, 16, 2, 64)
+    with pytest.raises(ValueError, match="unsupported device"):
+        tflash.flash_attention_blhd(q, q, q)
+
+
 @pytest.mark.parametrize("fn", ["flash_bwd_dq_full", "flash_bwd_dkv_full"])
 def test_full_backward_kernels_on_other_devices_raise(fn):
     q = torch.empty(1, 4, 2, 64, device="meta")
@@ -530,3 +639,90 @@ def test_cuda_packed_dkv_matches_plain(cuda_device):
     for got, want in zip((dk, dv), ref):
         err = float((got.float() - want.float()).abs().max())
         assert err <= PACKED_REL_TOL * float(want.float().abs().max())
+
+
+# bf16 tensor-core forward against the plain version: P is rounded to bf16
+# as the P·V operand (at most 2^-9 relative per element, so at most
+# 2^-9·max|v| on a row, a sum of roundings of both signs in practice) and
+# the output is rounded once on each side (2^-9 relative): 1e-2 + 1e-2·|ref|
+BF16_OUT_TOL = 1e-2
+
+
+def _cuda_bf16_operands(shape, seed, fused_qkv):
+    """bf16 q, k, v on the card; with ``fused_qkv`` the [b, L, H, d] views
+    of one [b, L, 3·H·d] projection, as GPT and BERT pass them."""
+    b, L, H, d = shape
+    if not fused_qkv:
+        return [torch.from_numpy(a).to("cuda", torch.bfloat16)
+                for a in _qkv(shape, seed)]
+    rng = np.random.RandomState(seed)
+    qkv = torch.from_numpy(rng.randn(b, L, 3 * H * d).astype(np.float32)) \
+        .to("cuda", torch.bfloat16)
+    return [t.view(shape) for t in qkv.split(H * d, dim=-1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,causal,fused_qkv,biased", [
+    ((8, 1024, 16, 64), True, True, False),    # GPT-2 345M training
+    ((32, 128, 12, 64), False, True, False),   # BERT-base
+    ((32, 128, 12, 64), False, True, True),    # BERT-base, padded batch
+    ((4, 200, 12, 64), False, False, True),    # ragged L, padded
+    ((2, 77, 4, 128), False, False, True),
+    ((2, 77, 4, 128), True, False, False),
+    ((1, 100, 2, 32), True, False, False)])
+def test_cuda_bf16_forward_matches_plain(cuda_device, shape, causal,
+                                         fused_qkv, biased):
+    q, k, v = _cuda_bf16_operands(shape, shape[1], fused_qkv)
+    bias = (torch.from_numpy(_key_bias(shape[0], shape[1], seed=3))
+            .to(cuda_device) if biased else None)
+    counter = (tflash.flash_attention_blhd if causal
+               else tflash.flash_attention_full)
+    before = counter.launches
+    if causal:
+        out, lse = tflash.flash_attention_blhd(q, k, v)
+    else:
+        out, lse = tflash.flash_attention_full(q, k, v, key_bias=bias)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    ref_out, ref_lse = tflash._flash_reference(q, k, v, causal, bias)
+    torch.testing.assert_close(out.float(), ref_out.float(),
+                               atol=BF16_OUT_TOL, rtol=BF16_OUT_TOL)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+def test_cuda_key_bias_backward_kernels_match_plain(cuda_device, dtype, tol):
+    for shape in ((2, 128, 12, 64), (2, 77, 4, 128)):
+        q, k, v, dout = (torch.from_numpy(a).to(cuda_device, dtype)
+                         for a in _qkv(shape, seed=shape[1])
+                         + _qkv(shape, seed=1)[:1])
+        bias = torch.from_numpy(_key_bias(shape[0], shape[1], seed=4)).to(
+            cuda_device)
+        out, lse = tflash.flash_attention_full(q, k, v, key_bias=bias)
+        ref_out, _ = tflash._flash_reference(q, k, v, False, bias)
+        torch.testing.assert_close(out.float(), ref_out.float(), atol=tol,
+                                   rtol=tol)
+        delta = tflash._delta(out, dout)
+        dq = tflash.flash_bwd_dq_full(q, k, v, dout, lse, delta, bias)
+        dk, dv = tflash.flash_bwd_dkv_full(q, k, v, dout, lse, delta, bias)
+        torch.cuda.synchronize()
+        ref = tflash._flash_bwd_reference(q, k, v, out, lse, dout, False,
+                                          bias)
+        for got, want in zip((dq, dk, dv), ref):
+            torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                                       rtol=tol)
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_misaligned_view_raises(cuda_device):
+    """A bf16 q/k/v view that starts off a 16-byte boundary raises; it is
+    never copied or sent to another kernel."""
+    base = torch.zeros(2, 16, 3 * 128 + 8, device=cuda_device,
+                       dtype=torch.bfloat16)
+    q = base[..., 1:129].view(2, 16, 2, 64)  # 2 bytes past the boundary
+    before = tflash.flash_attention_full.launches
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        tflash.flash_attention_full(q, q, q)
+    assert tflash.flash_attention_full.launches == before
