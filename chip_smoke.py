@@ -31,17 +31,23 @@ failing on the first phase that fails:
    time by kernel;
 6. in f32 (weights, KV, no TF32), checks that two requests' served
    tokens equal ``dense_greedy_reference`` over the kernels;
-7. (after 3b, which holds the LayerNorm backward, flash-attention dQ and
-   dK/dV and multi-tensor Adam kernels against their plain versions in
-   bf16 and f32, and times them as phase 3 does) takes one training step
-   of a 2-layer GPT-2 345M in f32 (batch 2 x 1024, TF32 off) through the
-   kernels and one through the plain path, and compares the loss, every
-   gradient and every parameter after the Adam step;
+7. (after 3b, which holds the LayerNorm backward, flash-attention dQ
+   (with delta) and dK/dV and multi-tensor Adam kernels against their
+   plain versions in bf16 and f32 — the bf16 backward against the plain
+   version with bf16-rounded P and dS and against the f32 one — times
+   them as phase 3 does, and prints each backward kernel's share of its
+   bound and the pair's ratio to SDPA's backward) takes one training
+   step of a 2-layer GPT-2 345M in f32 (batch 2 x 1024, TF32 off)
+   through the kernels and one through the plain path, and compares the
+   loss, every gradient and every parameter after the Adam step; then
+   the same step in bf16 with f32 masters (loss and gradients);
 8. trains GPT-2 345M (24 layers) at batch 8 x 1024 in bf16 with f32
    master weights through ``ParallelTrainStep``: 3 warm-up and 20 timed
    steps, tokens/s, p50 step time, peak memory, the loss finite and
    falling, the launch counts per step, and a 2-step profile (which must
-   show every attention forward on ``flash_fwd_mma_kernel``);
+   show every attention forward on ``flash_fwd_mma_kernel`` and every
+   backward on ``flash_dq_mma_kernel`` and ``flash_dkv_mma_kernel``, none
+   on the scalar kernels; it prints the ``gemv`` launches per step);
 9. (after 3c, which holds the full-attention forward, dQ and dK/dV
    kernels (also on q/k/v as the strided views of a fused QKV projection
    that BERT passes, and with a key-padding bias of random valid lengths),
@@ -56,7 +62,7 @@ failing on the first phase that fails:
     decay 0.01: 3 warm-up and 20 timed steps, samples/s, tokens/s, p50
     step time, peak memory, the loss finite and falling, the launch counts
     per step, every attention call on the kernel, and a 2-step profile
-    (every attention forward on ``flash_fwd_mma_kernel``);
+    (every attention forward and backward on the tensor-core kernels);
     then padded batches on the card: a bf16 BERT-base forward with an
     attention mask through the kernels against the plain path, and 3
     masked AdamW steps with every attention call on the full kernels;
@@ -102,9 +108,20 @@ LOGITS_BF16_ATOL = 0.125
 # sums over up to 8192 rows taken in another order (f32: relative error of
 # a few 1e-7 of the sum), or one bf16 rounding of them.
 LN_BWD_TOL = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (1e-2, 1e-2)}
-# flash backward: both sides sum f32 products in f32; bf16 outputs are
-# rounded once (one ulp is 2^-8 relative).
-FLASH_BWD_TOL = {torch.float32: (2e-5, 1e-5), torch.bfloat16: (1e-2, 1e-2)}
+# flash backward, f32 (the scalar kernels): both sides sum f32 products in
+# f32.
+FLASH_BWD_TOL = (2e-5, 1e-5)
+# bf16 (the tensor-core kernels) against the plain version with
+# bf16-rounded P and dS: each side rounds its outputs to bf16 once (one
+# ulp apart at most, 2^-7 of |ref|), and a few rounded P or dS elements
+# flip one bf16 ulp between the two sum orders (mma against einsum, ex2 on
+# the folded scale against exp), each moving one term by 2^-8 of itself:
+# |err| <= 2^-7 |ref| + 2^-9 max|ref| per tensor (rtol, share of max).
+FLASH_BWD_BF16_TOL = (2.0 ** -7, 2.0 ** -9)
+# ... and against the f32 plain version of the same bf16 inputs: the
+# roundings of P, dS and the outputs, 2^-6 of the tensor's largest
+# magnitude (as #8's check).
+BF16_VS_F32_REL_TOL = 2.0 ** -6
 # the plain backward against autograd of the plain forward (f32): one
 # function computed two ways (lse and softmax round differently).
 FLASH_BWD_AUTOGRAD_TOL = (1e-4, 1e-4)
@@ -121,6 +138,13 @@ PACKED_REL_TOL = 2.0 ** -6
 # tokens in another order).
 LOSS_RTOL = 1e-5
 GRAD_REL_TOL = 1e-4
+# phase 7's bf16 pass: the kernels round P (forward and backward) and dS
+# to bf16 where the plain path keeps f32, and every bf16 activation after
+# them is rounded from slightly different values: the loss within 1e-2
+# relative, each gradient tensor within 2^-5 of its own largest magnitude
+# (a few bf16 roundings of 2^-9 compounded over 2 layers).
+LOSS_BF16_RTOL = 1e-2
+GRAD_BF16_REL_TOL = 2.0 ** -5
 TRAIN_LR = 1e-4
 # after one Adam step every element moves by lr·g/(|g| + eps), ~lr: an
 # element whose gradient is within f32 noise of 0 may move up to lr the
@@ -198,6 +222,63 @@ def worst(got, ref, atol, rtol):
     return float(d.max()), ok
 
 
+def bwd_report(res, res32, res_d):
+    """The log text of ``check_flash_backward``'s results."""
+    if res32:
+        rtol, share = FLASH_BWD_BF16_TOL
+        tol = (f"tol {rtol:.4g}|ref| + {share:.4g} max|ref|); vs f32 plain "
+               + "/".join(f"{e:.3g}" for e, _ in res32)
+               + f" (tol {BF16_VS_F32_REL_TOL:.4g} max|ref|)")
+    else:
+        tol = f"tol {FLASH_BWD_TOL})"
+    return ("dq/dk/dv max err " + "/".join(f"{e:.3g}" for e, _ in res)
+            + f" ({tol}; delta err {res_d[0]:.3g} (tol d 2^-23 sum|dO O|)")
+
+
+def share_worst(got, ref, share):
+    """(max |got - ref|, whether it is within ``share`` of max|ref|)."""
+    d = float((got.float() - ref.float()).abs().max())
+    return d, d <= share * float(ref.float().abs().max())
+
+
+def check_flash_backward(flash_tpu, q, k, v, do, out, lse, causal, kb):
+    """One dQ (with delta) and one dK/dV launch against the plain
+    versions: f32 within FLASH_BWD_TOL; bf16 within FLASH_BWD_BF16_TOL of
+    the plain version with bf16-rounded P and dS and within
+    BF16_VS_F32_REL_TOL of the f32 one; delta within f32 sum-order error
+    (d·2^-23·Σ|dO·O|) of ``_delta``. Returns (per-tensor (err, ok) for
+    dq/dk/dv, the f32 comparison's (bf16 only, else []), delta's (err,
+    ok))."""
+    if causal:
+        dq, delta = flash_tpu.flash_bwd_dq(q, k, v, do, lse, out)
+        dk, dv = flash_tpu.flash_bwd_dkv(q, k, v, do, lse, delta)
+    else:
+        dq, delta = flash_tpu.flash_bwd_dq_full(q, k, v, do, lse, out, kb)
+        dk, dv = flash_tpu.flash_bwd_dkv_full(q, k, v, do, lse, delta, kb)
+    torch.cuda.synchronize()
+    got = (dq, dk, dv)
+    ddiff = (delta - flash_tpu._delta(out, do)).abs()
+    bound = q.shape[-1] * 2.0 ** -23 * torch.einsum(
+        "blhd,blhd->bhl", do.float().abs(), out.float().abs())
+    res_d = (float(ddiff.max()), bool((ddiff <= bound).all()))
+    if q.dtype == torch.float32:
+        ref = flash_tpu._flash_bwd_reference(q, k, v, out, lse, do, causal,
+                                             kb)
+        return [worst(a, b, *FLASH_BWD_TOL) for a, b in zip(got, ref)], \
+            [], res_d
+    ref = flash_tpu._flash_bwd_reference(q, k, v, out, lse, do, causal, kb,
+                                         bf16_operands=True)
+    rtol, share = FLASH_BWD_BF16_TOL
+    res = [worst(a, b, share * float(b.float().abs().max()), rtol)
+           for a, b in zip(got, ref)]
+    del ref
+    ref32 = flash_tpu._flash_bwd_reference(
+        *(t.float() for t in (q, k, v, out)), lse, do.float(), causal, kb)
+    res32 = [share_worst(a, b, BF16_VS_F32_REL_TOL)
+             for a, b in zip(got, ref32)]
+    return res, res32, res_d
+
+
 def ln_bound(rows, hidden, dtype):
     esize = torch.finfo(dtype).bits // 8
     nbytes = (2 * rows * hidden + 2 * hidden) * esize
@@ -220,13 +301,14 @@ def ln_bwd_bound(rows, hidden, dtype):
 def flash_bound(b, L, H, d, dtype, kernel="fwd", causal=True):
     """The least time of one attention kernel's own function: the
     forward's 2 products (QKᵀ, PV) with out and lse written; dQ's 3 (S, dP,
-    dS·K) and dK/dV's 4 (S, dP, dSᵀ·Q, Pᵀ·dO) with q, k, v, dO and the f32
-    lse, delta read. (The whole backward needs 5: S and dP once.) Each
+    dS·K) with q, k, v, O, dO and lse read, dQ and delta written; dK/dV's 4
+    (S, dP, dSᵀ·Q, Pᵀ·dO) with q, k, v, dO and the f32 lse, delta read and
+    dK, dV written. (The whole backward needs 5: S and dP once.) Each
     product runs over the pairs k <= q (causal) or all L x L."""
     esize = torch.finfo(dtype).bits // 8
     products, nbytes = {
         "fwd": (2, 4 * b * L * H * d * esize + b * H * L * 4),
-        "dq": (3, 5 * b * L * H * d * esize + 2 * b * H * L * 4),
+        "dq": (3, 6 * b * L * H * d * esize + 2 * b * H * L * 4),
         "dkv": (4, 6 * b * L * H * d * esize + 2 * b * H * L * 4)}[kernel]
     pairs = L * (L + 1) // 2 if causal else L * L
     flops = products * 2 * d * b * H * pairs
@@ -326,8 +408,10 @@ def profile_serving(model, serve_cfg, prompts, engine_cls, run_streams):
 
 
 def check_backward_kernels(dev, rnd, fused, flash_tpu, err):
-    """Phase 3b: the LayerNorm backward, flash dQ / dK-dV and Adam
-    kernels against their plain versions on the card, in f32 and bf16."""
+    """Phase 3b: the LayerNorm backward, flash dQ (with delta) / dK-dV and
+    Adam kernels against their plain versions on the card, in f32 and
+    bf16 (the flash backward also on q/k/v as views of GPT's fused QKV
+    projection)."""
     for dtype in DTYPES:
         tol = LN_BWD_TOL[dtype]
         for hidden in LN_HIDDEN:
@@ -346,26 +430,23 @@ def check_backward_kernels(dev, rnd, fused, flash_tpu, err):
                     + "/".join(f"{e:.3g}" for e, _ in res) + f" (tol {tol})")
                 if not all(ok for _, ok in res):
                     raise AssertionError("layer_norm_bwd kernel disagrees")
-        tol = FLASH_BWD_TOL[dtype]
-        for shape in FLASH_BWD_SHAPES:
-            q, k, v, do = (rnd(*shape, dtype=dtype) for _ in range(4))
+        for shape, fused_qkv in ([(sh, False) for sh in FLASH_BWD_SHAPES]
+                                 + [(GPT_ATTN_SHAPE, True)]):
+            q, k, v, do = attn_operands(rnd, shape, dtype, fused_qkv)
             out, lse = flash_tpu._fwd(q, k, v)
-            delta = flash_tpu._delta(out, do)
-            dq = flash_tpu.flash_bwd_dq(q, k, v, do, lse, delta)
-            dk, dv = flash_tpu.flash_bwd_dkv(q, k, v, do, lse, delta)
-            torch.cuda.synchronize()
-            ref = flash_tpu._flash_bwd_reference(q, k, v, out, lse, do)
-            res = [worst(a, b, *tol) for a, b in zip((dq, dk, dv), ref)]
+            res, res32, res_d = check_flash_backward(flash_tpu, q, k, v, do,
+                                                     out, lse, True, None)
             err["flash_attn_bwd_dq"] = max(err["flash_attn_bwd_dq"],
                                            res[0][0])
             err["flash_attn_bwd_dkv"] = max(err["flash_attn_bwd_dkv"],
                                             res[1][0], res[2][0])
-            log(f"[3b] flash_bwd {str(dtype)[6:]} (b,L,H,d)={shape}: "
-                "dq/dk/dv max err "
-                + "/".join(f"{e:.3g}" for e, _ in res) + f" (tol {tol})")
-            if not all(ok for _, ok in res):
+            log(f"[3b] flash_bwd {str(dtype)[6:]} (b,L,H,d)={shape}"
+                + (f" as fused-QKV views (row stride {q.stride(1)})"
+                   if fused_qkv else "") + ": " + bwd_report(res, res32,
+                                                             res_d))
+            if not all(ok for _, ok in res + res32 + [res_d]):
                 raise AssertionError("flash backward kernels disagree")
-            del q, k, v, do, out, lse, delta, dq, dk, dv, ref
+            del q, k, v, do, out, lse
     # the plain backward is itself the gradient of the plain forward
     shape = (2, 256, 4, 64)
     q, k, v, do = (rnd(*shape, dtype=torch.float32) for _ in range(4))
@@ -454,16 +535,16 @@ def time_backward_kernels(dev, rnd, fused, flash_tpu, cfg):
              cfg.hidden_size // cfg.num_heads)
     q, k, v, do = (rnd(*shape, dtype=torch.bfloat16) for _ in range(4))
     out, lse = flash_tpu._fwd(q, k, v)
-    delta = flash_tpu._delta(out, do)
+    _, delta = flash_tpu.flash_bwd_dq(q, k, v, do, lse, out)
     lt = [t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v)]
     ys = F.scaled_dot_product_attention(*lt, is_causal=True)
     lib = lambda: torch.autograd.grad(ys, lt, do.transpose(1, 2),
                                       retain_graph=True)
     plain_ms = time_ms(lambda: flash_tpu._flash_bwd_reference(
-        q, k, v, out, lse, do), iters=5, warmup=1)
+        q, k, v, out, lse, do, bf16_operands=True), iters=5, warmup=1)
     lib_ms, lib_dev = time_ms(lib, iters=20), device_ms(lib)
     for name, kern in (
-            ("dq", lambda: flash_tpu.flash_bwd_dq(q, k, v, do, lse, delta)),
+            ("dq", lambda: flash_tpu.flash_bwd_dq(q, k, v, do, lse, out)),
             ("dkv", lambda: flash_tpu.flash_bwd_dkv(q, k, v, do, lse,
                                                     delta))):
         bound, by = flash_bound(*shape, torch.bfloat16, name)
@@ -475,7 +556,6 @@ def time_backward_kernels(dev, rnd, fused, flash_tpu, cfg):
             "bound_ms": bound, "bound_by": by,
             "note": "plain and library times are the whole backward "
                     "(dQ, dK and dV)"})
-    delta_ms = time_ms(lambda: flash_tpu._delta(out, do), iters=20)
     del q, k, v, do, out, lse, delta, lt, ys
 
     shapes = gpt_param_shapes(cfg)
@@ -518,25 +598,33 @@ def time_backward_kernels(dev, rnd, fused, flash_tpu, cfg):
             f"library {t['library_ms']:.4f} ms (device "
             f"{t['library_device_ms']:.4f}), bound {t['bound_ms']:.5f} ms "
             f"({t['bound_by']})")
-    log(f"[3b] time delta = rowsum(dO*O) (torch) {delta_ms:.4f} ms")
     return timings
 
 
-def check_forward_in_profile(kernels, phase, want):
-    """The profiled steps' bf16 attention forwards all ran on the
-    tensor-core kernel: ``want`` launches of ``flash_fwd_mma_kernel`` and
-    none of the scalar ``flash_fwd_kernel``, printed by name."""
+def check_attention_in_profile(kernels, phase, want, n_steps=2):
+    """The profiled steps' bf16 attention ran on the tensor-core kernels
+    only: ``want`` launches each of ``flash_fwd_mma_kernel``,
+    ``flash_dq_mma_kernel`` and ``flash_dkv_mma_kernel`` and none of the
+    scalar ``flash_fwd_kernel``, ``flash_dq_kernel`` and
+    ``flash_dkv_kernel``, printed by name; also prints the ``gemv``
+    launches per step."""
     dev_us = lambda e: getattr(e, "self_device_time_total", 0.0)
-    mma = [e for e in kernels if "flash_fwd_mma_kernel" in e.key]
-    scalar = [e for e in kernels if "flash_fwd_kernel<" in e.key]
-    for e in mma + scalar:
-        log(f"[{phase}] profile, forward: {dev_us(e) / 1e3:9.3f} ms  "
-            f"x{e.count:<6d} {e.key[:90]}")
-    n = sum(e.count for e in mma)
-    if n != want or scalar:
-        raise AssertionError(f"phase {phase}'s profile shows {n} tensor-core "
-                             f"forwards (expected {want}) and "
-                             f"{sum(e.count for e in scalar)} scalar ones")
+    for what in ("fwd", "dq", "dkv"):
+        mma = [e for e in kernels if f"flash_{what}_mma_kernel" in e.key]
+        scalar = [e for e in kernels if f"flash_{what}_kernel<" in e.key]
+        for e in mma + scalar:
+            log(f"[{phase}] profile, attention {what}: {dev_us(e) / 1e3:9.3f}"
+                f" ms  x{e.count:<6d} {e.key[:90]}")
+        n = sum(e.count for e in mma)
+        if n != want or scalar:
+            raise AssertionError(
+                f"phase {phase}'s profile shows {n} tensor-core attention "
+                f"{what} launches (expected {want}) and "
+                f"{sum(e.count for e in scalar)} scalar ones")
+    gemv = [e for e in kernels if "gemv" in e.key]
+    log(f"[{phase}] profile: {sum(e.count for e in gemv) / n_steps:g} gemv "
+        f"launches per step ({sum(dev_us(e) for e in gemv) / n_steps / 1e3:.3f}"
+        " ms)")
 
 
 def profile_training(step, ids, labels, n_layers):
@@ -565,7 +653,7 @@ def profile_training(step, ids, labels, n_layers):
     for e in sorted(kernels, key=dev_us, reverse=True)[:12]:
         log(f"[8] profile: {dev_us(e) / 1e3:9.3f} ms  x{e.count:<6d} "
             f"{e.key[:90]}")
-    check_forward_in_profile(kernels, 8, 2 * n_layers)
+    check_attention_in_profile(kernels, 8, 2 * n_layers)
 
 
 def attn_operands(rnd, shape, dtype, fused_qkv=False):
@@ -590,10 +678,10 @@ def padding_bias(b, L, gen, dev):
 
 def check_bert_kernels(dev, rnd, gen, fused, flash_tpu, dkv_mod, bert_cfg,
                        err):
-    """Phase 3c: the full-attention forward, dQ and dK/dV kernels (#4),
-    without and with a key-padding bias, the packed dK/dV (#8, also
-    against the causal dK/dV kernel #3) and the AdamW mode of the Adam
-    kernel against their plain versions on the card."""
+    """Phase 3c: the full-attention forward, dQ (with delta) and dK/dV
+    kernels (#4), without and with a key-padding bias, the packed dK/dV
+    (#8, also against the causal dK/dV kernel #3) and the AdamW mode of
+    the Adam kernel against their plain versions on the card."""
     # the shapes with dense operands, then BERT's with q/k/v as the main
     # path passes them (strided views of one fused QKV projection), then
     # padded batches: a key bias of random valid lengths
@@ -602,7 +690,6 @@ def check_bert_kernels(dev, rnd, gen, fused, flash_tpu, dkv_mod, bert_cfg,
                 ((4, 200, 12, 64), False, True)])
     for dtype in DTYPES:
         out_tol, lse_tol = FLASH_OUT_TOL[dtype], FLASH_LSE_TOL[dtype]
-        bwd_tol = FLASH_BWD_TOL[dtype]
         for shape, fused_qkv, biased in cases:
             q, k, v, do = attn_operands(rnd, shape, dtype, fused_qkv)
             kb = padding_bias(shape[0], shape[1], gen, dev) if biased \
@@ -612,13 +699,9 @@ def check_bert_kernels(dev, rnd, gen, fused, flash_tpu, dkv_mod, bert_cfg,
             ref_out, ref_lse = flash_tpu._flash_reference(q, k, v, False, kb)
             e_o, ok_o = worst(out, ref_out, *out_tol)
             e_l, ok_l = worst(lse, ref_lse, *lse_tol)
-            delta = flash_tpu._delta(out, do)
-            dq = flash_tpu.flash_bwd_dq_full(q, k, v, do, lse, delta, kb)
-            dk, dv = flash_tpu.flash_bwd_dkv_full(q, k, v, do, lse, delta, kb)
-            torch.cuda.synchronize()
-            ref = flash_tpu._flash_bwd_reference(q, k, v, out, lse, do,
-                                                 False, kb)
-            res = [worst(a, b, *bwd_tol) for a, b in zip((dq, dk, dv), ref)]
+            del ref_out, ref_lse
+            res, res32, res_d = check_flash_backward(flash_tpu, q, k, v, do,
+                                                     out, lse, False, kb)
             err["flash_attn_fwd_full"] = max(err["flash_attn_fwd_full"],
                                              e_o, e_l)
             err["flash_attn_bwd_dq_full"] = max(
@@ -632,11 +715,11 @@ def check_bert_kernels(dev, rnd, gen, fused, flash_tpu, dkv_mod, bert_cfg,
                    f"{(kb == 0).sum(1).tolist()[:8]}...)" if biased else "")
                 + ": out "
                 f"err {e_o:.3g} (tol {out_tol}), lse err {e_l:.3g} (tol "
-                f"{lse_tol}); dq/dk/dv max err "
-                + "/".join(f"{e:.3g}" for e, _ in res) + f" (tol {bwd_tol})")
-            if not (ok_o and ok_l and all(ok for _, ok in res)):
+                f"{lse_tol}); " + bwd_report(res, res32, res_d))
+            if not (ok_o and ok_l
+                    and all(ok for _, ok in res + res32 + [res_d])):
                 raise AssertionError("full-attention kernels disagree")
-            del q, k, v, do, kb, out, lse, delta, dq, dk, dv, ref, ref_out
+            del q, k, v, do, kb, out, lse
     torch.cuda.empty_cache()
 
     for shape in PACKED_SHAPES:  # (b, L, H, d), bf16
@@ -655,7 +738,7 @@ def check_bert_kernels(dev, rnd, gen, fused, flash_tpu, dkv_mod, bert_cfg,
         err["dkv_packed"] = max(err["dkv_packed"], *(e for e, _ in res))
         log(f"[3c] dkv_packed bf16 (b,L,H,d)={shape}: dk/dv max err vs plain "
             + "/".join(f"{e:.3g}" for e, _ in res) + ", vs the causal dK/dV "
-            "kernel (f32 products) "
+            "kernel (#3, tensor cores) "
             + "/".join(f"{e:.3g}" for e, _ in res3)
             + f" (tol {PACKED_REL_TOL:.4g} x max|ref|)")
         if not all(ok for _, ok in res + res3):
@@ -751,17 +834,18 @@ def time_bert_kernels(dev, rnd, gen, fused, flash_tpu, dkv_mod, bert_cfg):
             "library_device_ms": device_ms(lib_fwd),
             "bound_ms": bound, "bound_by": by})
         out, lse = fwd()
-        delta = flash_tpu._delta(out, do)
+        _, delta = flash_tpu.flash_bwd_dq_full(q, k, v, do, lse, out)
         lt = [t.detach().requires_grad_() for t in (qt, kt, vt)]
         ys = F.scaled_dot_product_attention(*lt)
         lib = lambda: torch.autograd.grad(ys, lt, do.transpose(1, 2),
                                           retain_graph=True)
         plain_ms = time_ms(lambda: flash_tpu._flash_bwd_reference(
-            q, k, v, out, lse, do, causal=False), iters=5, warmup=1)
+            q, k, v, out, lse, do, causal=False, bf16_operands=True),
+            iters=5, warmup=1)
         lib_ms, lib_dev = time_ms(lib, iters=20), device_ms(lib)
         for name, kern in (
                 ("dq", lambda: flash_tpu.flash_bwd_dq_full(q, k, v, do, lse,
-                                                           delta)),
+                                                           out)),
                 ("dkv", lambda: flash_tpu.flash_bwd_dkv_full(q, k, v, do,
                                                              lse, delta))):
             bound, by = flash_bound(*shape, torch.bfloat16, name,
@@ -879,7 +963,7 @@ def profile_bert_training(step, batch, n_layers):
     for e in sorted(kernels, key=dev_us, reverse=True)[:14]:
         log(f"[10] profile: {dev_us(e) / 1e3:9.3f} ms  x{e.count:<6d} "
             f"{e.key[:90]}")
-    check_forward_in_profile(kernels, 10, 2 * n_layers)
+    check_attention_in_profile(kernels, 10, 2 * n_layers)
     return busy_us / wall_us
 
 
@@ -1042,6 +1126,20 @@ def main() -> int:
                 f"{t['device_ms']:.4f} ms, {t['bound_ms'] / t['device_ms']:.3f}"
                 f" of its bound ({t['bound_by']}), {t['device_ms'] / t['library_device_ms']:.2f}x"
                 f" SDPA's device time ({t['library_device_ms']:.4f} ms)")
+    for full in ("", "_full"):
+        for t in timings:
+            if t["kernel"] != f"flash_attn_bwd_dq{full}":
+                continue
+            t2 = next(u for u in timings if u["shape"] == t["shape"]
+                      and u["kernel"] == f"flash_attn_bwd_dkv{full}")
+            both = t["device_ms"] + t2["device_ms"]
+            log(f"[3b] backward{full or ' (causal)'} {t['shape']}: dQ "
+                f"{t['device_ms']:.4f} ms ({t['bound_ms'] / t['device_ms']:.3f}"
+                f" of its bound, {t['bound_by']}) + dK/dV "
+                f"{t2['device_ms']:.4f} ms ({t2['bound_ms'] / t2['device_ms']:.3f}"
+                f" of its bound, {t2['bound_by']}) = {both:.4f} ms, "
+                f"{both / t['library_device_ms']:.2f}x SDPA's whole backward "
+                f"({t['library_device_ms']:.4f} ms)")
     torch.cuda.empty_cache()
 
     launches = {name: {} for name in counted}
@@ -1182,9 +1280,12 @@ def main() -> int:
                         generator=gen)
     labels = torch.roll(ids, -1, dims=1)
 
-    def one_step(use_plain):
+    def one_step(use_plain, bf16=False):
+        """One Adam step; ``bf16``: bf16 compute with f32 masters, as
+        phase 8 trains (the gradients are the bf16 ones)."""
         model = gpt_mod.GPTForCausalLM(cfg2, dtype=torch.float32, seed=3)
-        opt = Adam(TRAIN_LR, parameters=model.parameters())
+        opt = Adam(TRAIN_LR, parameters=model.parameters(),
+                   multi_precision=bf16)
         grads = {}
         update = opt.step
 
@@ -1194,7 +1295,9 @@ def main() -> int:
             update()
 
         opt.step = keep_grads_then_update
-        step = ParallelTrainStep(model, lambda out, lbl: out, opt)
+        step = ParallelTrainStep(
+            model, lambda out, lbl: out, opt,
+            compute_dtype=torch.bfloat16 if bf16 else None)
         with plain() if use_plain else contextlib.nullcontext():
             loss = float(step((ids, labels), (labels,)))
         return loss, grads, {n: p.clone()
@@ -1233,6 +1336,37 @@ def main() -> int:
         raise AssertionError("training step through the kernels disagrees "
                              "with the plain path")
     del grads_k, grads_p, params_k, params_p
+    torch.cuda.empty_cache()
+    # the same step in bf16 with f32 masters: every bf16 kernel (the
+    # tensor-core attention forward and backward among them) against the
+    # plain path on the loss and each bf16 gradient tensor
+    reset_counts()
+    loss_k, grads_k, _ = one_step(use_plain=False, bf16=True)
+    torch.cuda.synchronize()
+    read_counts("grad_parity_bf16")
+    got = {n: launches[n]["grad_parity_bf16"] for n in counted}
+    loss_p, grads_p, _ = one_step(use_plain=True, bf16=True)
+    g_errs = {n: float((grads_k[n].float() - grads_p[n].float()).abs().max())
+              / max(float(grads_p[n].float().abs().max()), 1e-30)
+              for n in grads_p}
+    g_name = max(g_errs, key=g_errs.get)
+    l_err = abs(loss_k - loss_p) / abs(loss_p)
+    log(f"[7] one bf16 step (f32 masters) of gpt2_medium(num_layers=2) at "
+        f"[2, 1024]: loss {loss_k:.6f} (kernels) vs {loss_p:.6f} (plain), "
+        f"rel err {l_err:.3g} (tol {LOSS_BF16_RTOL}); worst grad err / "
+        f"max|grad| {g_errs[g_name]:.3g} ({g_name}) over {len(grads_p)} "
+        f"tensors (tol {GRAD_BF16_REL_TOL:.4g}); grad dtype "
+        f"{next(iter(grads_k.values())).dtype}; launches {got}")
+    if got != want:
+        raise AssertionError(f"phase 7 (bf16) launched {got}, expected "
+                             f"{want}")
+    if set(grads_k) != set(grads_p) or len(grads_p) != 28:
+        raise AssertionError("phase 7 (bf16) did not see every gradient")
+    if not (l_err <= LOSS_BF16_RTOL
+            and max(g_errs.values()) <= GRAD_BF16_REL_TOL):
+        raise AssertionError("bf16 training step through the kernels "
+                             "disagrees with the plain path")
+    del grads_k, grads_p
     torch.cuda.empty_cache()
 
     # -- phase 8: training GPT-2 345M at full width --------------------------

@@ -1,5 +1,5 @@
 // Flash-attention backward for Hopper (sm_90a), causal or over all keys:
-// dQ, then dK/dV.
+// dQ (with delta), then dK/dV.
 //
 // Replaces: paddle_tpu/ops/flash_tpu.py `_dq_kernel` and `_dkv_kernel`
 // (launched by `pl.pallas_call` in `_flash_bwd_rule`), the causal mode;
@@ -7,81 +7,119 @@
 // (`_flash_bwd_rule`, autodiff through `blockwise_attention`), the full
 // mode: the same math with only the mask changed. Each mode has its own C
 // entries, so their launches are counted apart. Same function, from the
-// forward's saved lse and delta = rowsum(dO * O):
-//   S = (scale * Q) K^T + bias (causal: k_pos <= q_pos),  P = exp(S - lse),
+// forward's saved out and lse:
+//   delta = rowsum(dO * O),
+//   S = scale * Q K^T + bias (causal: k_pos <= q_pos),  P = exp(S - lse),
 //   dS = P * (dO V^T - delta),
-//   dQ = scale * dS K,  dK = dS^T (scale * Q),  dV = P^T dO.
-// Q, K, V and dO are read in the projection's native [b, L, H, d] layout
-// (any row and batch stride, dense [H, d]); dQ, dK, dV are written
+//   dQ = scale * dS K,  dK = scale * dS^T Q,  dV = P^T dO.
+// Q, K, V, O and dO are read in the projection's native [b, L, H, d]
+// layout (any row and batch stride, dense [H, d]); dQ, dK, dV are written
 // [b, L, H, d]; lse and delta are f32 [b, H, L]. The full mode takes the
 // forward's optional key-padding bias, f32 [b, L] (null: none), and adds
 // it where it recomputes S; the bias itself gets no gradient.
 //
-// What bounds it on this card: the five L x L x d products over k <= q
-// (S, dP, dQ, dK, dV) are ~5 * 2 * d * L^2 / 2 flops per head, ~43 GFLOP
-// at (8, 1024, 16, 64): 0.044 ms at 989 TFLOP/s in bf16, more than the
-// ~0.01 ms the bytes take. This first kernel pair runs every product as
-// scalar f32 FMAs out of shared memory (exact f32 for both input types,
-// no bf16 rounding of P or dS as the TPU kernels do), so it is limited by
-// shared-memory reads and FMA issue, far from that bound. It also
-// recomputes S and dP in both kernels (7 products instead of 5), as the
-// reference does. Moving the products onto mma/wgmma is later work. The
-// full mode does each product over all L x L pairs, twice the causal work.
+// What bounds it on this card: the split recomputes S and dP in both
+// kernels, so it does 7 L x L x d products over the pairs k <= q (S, dP,
+// dS.K in dQ; S, dP, dS^T.Q, P^T.dO in dK/dV): 7 * 2 * d * L^2 / 2 flops
+// per head, ~60 GFLOP at (8, 1024, 16, 64), 0.061 ms at 989 TFLOP/s in
+// bf16, against ~0.02 ms for the bytes. Operations bound it (the full
+// mode does each product over all L x L pairs, twice the causal work; at
+// BERT's L = 128 the bytes come close).
 //
-// Design (the TPU kernels' structure, rethought for an SM):
-//  - two kernels, as the reference, so no float atomics: dQ owns a q tile
-//    and loops over K tiles up to the diagonal (full: to the last K
-//    tile); dK/dV owns a k tile and loops over q tiles from the diagonal
-//    (full: from q tile 0) to the end. Both are deterministic. Causal
-//    tiles are launched longest-first;
-//  - 64 x 64 tiles, 128 threads; operands live in shared memory as f32
-//    with one word of padding per row (conflict-free reads); each thread
-//    owns 4 rows (strided by 16) x 8 columns of the 64 x 64 score tile and
-//    the same 4 rows x d/8 columns of its accumulators, as in the forward
-//    kernel. The P and dS rows a warp writes are the rows it consumes, so
-//    only __syncwarp() separates producing them from the products;
-//  - S is computed with the forward's operand order and FMA sequence, so
-//    exp(S - lse) reproduces the forward's probabilities;
-//  - ragged L is masked (out-of-range keys and queries get P = 0, rows
-//    past L are not stored, lse/delta past L read as 0): no L % block
-//    gate. In full mode no causal mask hides a tile's columns past L, so
-//    these tests are what keep them out.
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
+// Why two kernels and not FlashAttention-2's one: FA2 runs one block per
+// k tile that also adds its dS.K into dQ with f32 atomics, so dQ's sums
+// land in a different order on every run. The split keeps the
+// reference's deterministic structure (dQ owns a q tile, dK/dV a k tile,
+// no atomics, bit-identical reruns) for the price of S and dP computed
+// twice (7 products, not 5).
+//
+// Two kernel pairs, by input type:
+//
+// bf16: `flash_dq_mma_kernel` and `flash_dkv_mma_kernel`, on the tensor
+// cores, as the forward's `flash_fwd_mma_kernel` (helpers in
+// mma_sm90.cuh):
+//  - every product is `mma.sync` m16n8k16, bf16 operands, f32
+//    accumulators. Operands stay bf16 in padded shared memory (rows of
+//    D + 8 elements, conflict-free `ldmatrix`), copied with 16-byte
+//    `cp.async` into a double buffer: the next K/V (dQ) or Q/dO/lse/delta
+//    (dK/dV) tile is in flight while this one is multiplied, one barrier
+//    per tile. Rows past L read 0 (src-size 0);
+//  - dQ: a block of 4 warps per (q tile, head, batch); each warp owns two
+//    16-row slices at d <= 64 (128 query rows a block), so each K/V
+//    fragment read from shared memory feeds two mma, and one at d = 128
+//    (registers). Its Q and dO rows are loaded into A fragments once. The
+//    K/V loop is cut into 16-key chunks: S = Q K^T and dP = dO V^T (K and
+//    V via `ldmatrix`), then P and dS in registers, then dQ += dS K (K via
+//    `ldmatrix.trans`), with dS packed from the C fragments straight into
+//    the A operand. Only the chunk's scores are live, which leaves the
+//    registers for the second slice;
+//  - delta is computed in the dQ kernel: before the loop each lane sums
+//    f32(dO) * f32(O) over its part of its rows (dO from its A fragments,
+//    O read from device memory once), two shuffles finish each row, and
+//    the f32 result is used and written to `delta` [b, H, L] for the
+//    dK/dV kernel, launched after it on the same stream;
+//  - dK/dV: a block of 4 warps per (k tile, head, batch); each warp owns
+//    16 keys, whose K (and, at d <= 64, V) rows are A fragments in
+//    registers (at d = 128 dK's and dV's accumulators take 128 registers,
+//    so V's fragments are re-read from shared memory per use). The q loop
+//    is cut into 16-query chunks of the transposed scores: S^T = K Q^T
+//    and dP^T = V dO^T (Q, dO via `ldmatrix`), P^T and dS^T in registers
+//    with lse and delta read per query column from shared memory, then
+//    dV += P^T dO and dK += dS^T Q (dO, Q via `ldmatrix.trans`), both A
+//    operands straight from registers;
+//  - numerics as the reference's `_dq_kernel` / `_dkv_kernel`: S is the
+//    unscaled bf16 Q K^T accumulated in f32 and scaled in f32 (the
+//    forward's convention, so exp(S - lse) matches its lse); P is rounded
+//    to bf16 only as the P^T.dO operand (`flash_tpu.py:141`), dS only as
+//    the dS.K and dS^T.Q operand (`:107`, `:146`); scale multiplies dQ
+//    and dK in f32 at the end. (The reference also rounds q * scale to
+//    bf16, which is exact at d = 64.) P = 2^(S * c + bias * log2 e -
+//    lse * log2 e) is one FMA and one `ex2.approx.ftz`;
+//  - causal: the q (dQ) or k (dK/dV) tile is the slowest grid axis,
+//    longest blocks first (dQ: the last q tile; dK/dV: k tile 0). dQ stops
+//    at the tile holding its last row and a warp skips chunks of keys
+//    that all follow its rows; dK/dV starts at the diagonal tile and a
+//    warp skips chunks of queries that all precede its keys. Only chunks
+//    that cross the diagonal or reach past L are masked. Full: every
+//    tile, and only a ragged last chunk is masked (k_pos < L, q_pos < L),
+//    after the key bias is added. Rows past L are not stored.
+//  cp.async needs 16-byte aligned rows: the wrapper raises on a q, k, v,
+//  out or dout whose pointer or row/batch stride is not a multiple of 16
+//  bytes.
+//
+// f32: `flash_dq_kernel` and `flash_dkv_kernel`, the original scalar
+// kernels: every product as scalar f32 FMAs out of padded f32 shared
+// memory, exact f32 with no TF32 or bf16 rounding, bit-identical to the
+// plain version. They are the checking path (the f32 gradient parity
+// runs), so they keep exact arithmetic rather than speed. They take delta
+// as an input: for f32 the wrapper computes it (`_delta`) and passes it
+// to both kernels.
+#include "mma_sm90.cuh"
 
 namespace {
 
-constexpr int kB = 64;  // rows of a q tile == rows of a k tile
-constexpr int kThreads = 128;
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) {
-  return v;
-}
-template <> __device__ __forceinline__ __nv_bfloat16
-from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
+using namespace ptt_mma;
 
 struct Strides {  // element strides of the batch and row axes
-  long long q_sb, q_sl, k_sb, k_sl, v_sb, v_sl, o_sb, o_sl;
+  long long q_sb, q_sl, k_sb, k_sl, v_sb, v_sl, do_sb, do_sl, o_sb, o_sl;
 };
+
+// ---------------------------------------------------------------------------
+// f32: scalar kernels
+// ---------------------------------------------------------------------------
+constexpr int kB = 64;  // rows of a q tile == rows of a k tile
 
 // Loads rows [r0, r0 + kB) of head h of a [b, L, H, D] operand into a
 // padded f32 tile, times `mul`; rows past L are zero.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, const T* src,
+template <int D>
+__device__ __forceinline__ void load_tile(float* dst, const float* src,
                                           long long sl, int r0, int L,
                                           float mul) {
   constexpr int DP = D + 1;
   for (int idx = threadIdx.x; idx < kB * D; idx += kThreads) {
     const int r = idx / D, dd = idx % D;
     const int l = r0 + r;
-    dst[r * DP + dd] = l < L ? to_f32(src[l * sl + dd]) * mul : 0.f;
+    dst[r * DP + dd] = l < L ? src[l * sl + dd] * mul : 0.f;
   }
 }
 
@@ -96,14 +134,14 @@ constexpr size_t dkv_smem_bytes() {  // K, V, Q, dO tiles, P, dS, lse, delta
          sizeof(float);
 }
 
-template <typename T, int D, bool CAUSAL>
+template <int D, bool CAUSAL>
 __global__ void __launch_bounds__(kThreads)
-flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                const T* __restrict__ v, const T* __restrict__ dout,
+flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                const float* __restrict__ v, const float* __restrict__ dout,
                 const float* __restrict__ lse,
                 const float* __restrict__ delta,
-                const float* __restrict__ key_bias, T* __restrict__ dq, int L,
-                int H, Strides st, float scale) {
+                const float* __restrict__ key_bias, float* __restrict__ dq,
+                int L, int H, Strides st, float scale) {
   constexpr int DP = D + 1;
   constexpr int PP = kB + 1;
   constexpr int DPT = D / 8;
@@ -126,10 +164,10 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q0 = qt * kB;
   const int nk = CAUSAL ? qt + 1 : (L + kB - 1) / kB;
 
-  load_tile<T, D>(Qs, q + b * st.q_sb + (long long)h * D, st.q_sl, q0, L,
-                  scale);
-  load_tile<T, D>(dOs, dout + b * st.o_sb + (long long)h * D, st.o_sl, q0,
-                  L, 1.f);
+  load_tile<D>(Qs, q + b * st.q_sb + (long long)h * D, st.q_sl, q0, L,
+               scale);
+  load_tile<D>(dOs, dout + b * st.do_sb + (long long)h * D, st.do_sl, q0,
+               L, 1.f);
   const long long stat = ((long long)b * H + h) * L;
   for (int r = tid; r < kB; r += kThreads) {
     const int l = q0 + r;
@@ -143,14 +181,14 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int e = 0; e < DPT; ++e) acc[i][e] = 0.f;
 
-  const T* kb = k + b * st.k_sb + (long long)h * D;
-  const T* vb = v + b * st.v_sb + (long long)h * D;
+  const float* kb = k + b * st.k_sb + (long long)h * D;
+  const float* vb = v + b * st.v_sb + (long long)h * D;
   const float* bias = key_bias ? key_bias + (long long)b * L : nullptr;
   for (int kt = 0; kt < nk; ++kt) {
     const int k0 = kt * kB;
     __syncthreads();  // previous tile's readers of Ks/Vs are done
-    load_tile<T, D>(Ks, kb, st.k_sl, k0, L, 1.f);
-    load_tile<T, D>(Vs, vb, st.v_sl, k0, L, 1.f);
+    load_tile<D>(Ks, kb, st.k_sl, k0, L, 1.f);
+    load_tile<D>(Vs, vb, st.v_sl, k0, L, 1.f);
     __syncthreads();
 
     float s[4][8], dp[4][8];
@@ -221,20 +259,21 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + rg + 16 * i;
     if (row >= L) continue;
-    T* out = dq + (((long long)b * L + row) * H + h) * D;
+    float* out = dq + (((long long)b * L + row) * H + h) * D;
 #pragma unroll
-    for (int e = 0; e < DPT; ++e) out[cg + 8 * e] = from_f32<T>(acc[i][e] * scale);
+    for (int e = 0; e < DPT; ++e) out[cg + 8 * e] = acc[i][e] * scale;
   }
 }
 
-template <typename T, int D, bool CAUSAL>
+template <int D, bool CAUSAL>
 __global__ void __launch_bounds__(kThreads)
-flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const T* __restrict__ dout,
+flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, const float* __restrict__ dout,
                  const float* __restrict__ lse,
                  const float* __restrict__ delta,
-                 const float* __restrict__ key_bias, T* __restrict__ dk,
-                 T* __restrict__ dv, int L, int H, Strides st, float scale) {
+                 const float* __restrict__ key_bias, float* __restrict__ dk,
+                 float* __restrict__ dv, int L, int H, Strides st,
+                 float scale) {
   constexpr int DP = D + 1;
   constexpr int PP = kB + 1;
   constexpr int DPT = D / 8;
@@ -257,10 +296,8 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int k0 = kt * kB;
   const int nq = (L + kB - 1) / kB;
 
-  load_tile<T, D>(Ks, k + b * st.k_sb + (long long)h * D, st.k_sl, k0, L,
-                  1.f);
-  load_tile<T, D>(Vs, v + b * st.v_sb + (long long)h * D, st.v_sl, k0, L,
-                  1.f);
+  load_tile<D>(Ks, k + b * st.k_sb + (long long)h * D, st.k_sl, k0, L, 1.f);
+  load_tile<D>(Vs, v + b * st.v_sb + (long long)h * D, st.v_sl, k0, L, 1.f);
 
   float dka[4][DPT], dva[4][DPT], kbias[4];
 #pragma unroll
@@ -272,14 +309,14 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                    ? key_bias[(long long)b * L + kpos] : 0.f;
   }
 
-  const T* qb = q + b * st.q_sb + (long long)h * D;
-  const T* ob = dout + b * st.o_sb + (long long)h * D;
+  const float* qb = q + b * st.q_sb + (long long)h * D;
+  const float* ob = dout + b * st.do_sb + (long long)h * D;
   const long long stat = ((long long)b * H + h) * L;
   for (int qt = CAUSAL ? kt : 0; qt < nq; ++qt) {
     const int q0 = qt * kB;
     __syncthreads();  // previous tile's readers of Qs/dOs/stats are done
-    load_tile<T, D>(Qs, qb, st.q_sl, q0, L, scale);
-    load_tile<T, D>(dOs, ob, st.o_sl, q0, L, 1.f);
+    load_tile<D>(Qs, qb, st.q_sl, q0, L, scale);
+    load_tile<D>(dOs, ob, st.do_sl, q0, L, 1.f);
     for (int r = tid; r < kB; r += kThreads) {
       const int l = q0 + r;
       lse_s[r] = l < L ? lse[stat + l] : 0.f;
@@ -361,121 +398,561 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const long long off = (((long long)b * L + row) * H + h) * D;
 #pragma unroll
     for (int e = 0; e < DPT; ++e) {
-      dk[off + cg + 8 * e] = from_f32<T>(dka[i][e]);
-      dv[off + cg + 8 * e] = from_f32<T>(dva[i][e]);
+      dk[off + cg + 8 * e] = dka[i][e];
+      dv[off + cg + 8 * e] = dva[i][e];
     }
   }
 }
 
-template <typename T, int D, bool CAUSAL>
-cudaError_t launch_dq(const void* q, const void* k, const void* v,
-                      const void* dout, const float* lse, const float* delta,
-                      const float* key_bias, void* dq, int B, int L, int H,
-                      Strides st, float scale, cudaStream_t stream) {
-  constexpr size_t smem = dq_smem_bytes<D>();
-  cudaError_t e = cudaFuncSetAttribute(
-      flash_dq_kernel<T, D, CAUSAL>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return e;
-  dim3 grid((L + kB - 1) / kB, H, B);
-  flash_dq_kernel<T, D, CAUSAL><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-      key_bias, static_cast<T*>(dq), L, H, st, scale);
-  return cudaGetLastError();
+// ---------------------------------------------------------------------------
+// bf16: tensor-core kernels
+// ---------------------------------------------------------------------------
+using bf16 = __nv_bfloat16;
+using bf162 = __nv_bfloat162;
+
+constexpr int kBN = 64;  // keys per K tile (dQ), queries per q tile (dK/dV)
+
+// dQ's 16-row slices per warp: two at d <= 64, one at d = 128
+template <int D>
+__host__ __device__ constexpr int dq_slices() { return D <= 64 ? 2 : 1; }
+
+template <int D>  // query rows per dQ block: 4 warps x 16 x slices
+__host__ __device__ constexpr int dq_rows() { return 64 * dq_slices<D>(); }
+
+template <int D>
+constexpr size_t dq_mma_smem_bytes() {  // Q, dO, then K and V double-buffered
+  return (size_t)(2 * dq_rows<D>() + 4 * kBN) * smem_stride<D>() *
+         sizeof(bf16);
 }
 
-template <typename T, int D, bool CAUSAL>
-cudaError_t launch_dkv(const void* q, const void* k, const void* v,
-                       const void* dout, const float* lse,
-                       const float* delta, const float* key_bias, void* dk,
-                       void* dv, int B, int L, int H, Strides st, float scale,
-                       cudaStream_t stream) {
-  constexpr size_t smem = dkv_smem_bytes<D>();
-  cudaError_t e = cudaFuncSetAttribute(
-      flash_dkv_kernel<T, D, CAUSAL>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return e;
-  dim3 grid((L + kB - 1) / kB, H, B);
-  flash_dkv_kernel<T, D, CAUSAL><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-      key_bias, static_cast<T*>(dk), static_cast<T*>(dv), L, H, st, scale);
-  return cudaGetLastError();
+template <int D>
+constexpr size_t dkv_mma_smem_bytes() {
+  // K, V, then Q and dO double-buffered; lse and delta double-buffered
+  return (size_t)6 * kBN * smem_stride<D>() * sizeof(bf16) +
+         4 * kBN * sizeof(float);
 }
 
-template <typename T, bool CAUSAL>
-cudaError_t dispatch(bool dkv, int D, const void* q, const void* k,
-                     const void* v, const void* dout, const float* lse,
-                     const float* delta, const float* kb, void* out0,
-                     void* out1, int B, int L, int H, Strides st, float scale,
-                     cudaStream_t s) {
-  switch (D) {
-    case 32:
-      return dkv ? launch_dkv<T, 32, CAUSAL>(q, k, v, dout, lse, delta, kb,
-                                             out0, out1, B, L, H, st, scale, s)
-                 : launch_dq<T, 32, CAUSAL>(q, k, v, dout, lse, delta, kb,
-                                            out0, B, L, H, st, scale, s);
-    case 64:
-      return dkv ? launch_dkv<T, 64, CAUSAL>(q, k, v, dout, lse, delta, kb,
-                                             out0, out1, B, L, H, st, scale, s)
-                 : launch_dq<T, 64, CAUSAL>(q, k, v, dout, lse, delta, kb,
-                                            out0, B, L, H, st, scale, s);
-    case 128:
-      return dkv ? launch_dkv<T, 128, CAUSAL>(q, k, v, dout, lse, delta, kb,
-                                              out0, out1, B, L, H, st, scale,
-                                              s)
-                 : launch_dq<T, 128, CAUSAL>(q, k, v, dout, lse, delta, kb,
-                                             out0, B, L, H, st, scale, s);
-    default:
-      return cudaErrorInvalidValue;
+template <int D, bool CAUSAL>
+__global__ void __launch_bounds__(kThreads)
+flash_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, const bf16* __restrict__ o,
+                    const bf16* __restrict__ dout,
+                    const float* __restrict__ lse, float* __restrict__ delta,
+                    const float* __restrict__ key_bias,
+                    bf16* __restrict__ dq, int L, int H, Strides st,
+                    float scale) {
+  constexpr int MT = dq_slices<D>();
+  constexpr int BM = dq_rows<D>();
+  constexpr int S = smem_stride<D>();
+  constexpr int T = kBN * S;  // elements of one K or V tile
+  constexpr int KC = D / 16;  // 16-deep steps over the head dim
+  constexpr int OB = D / 8;   // 8-wide column blocks of dQ
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* dOs = Qs + BM * S;
+  bf16* Ks = dOs + BM * S;  // buffers Ks, Ks + T
+  bf16* Vs = Ks + 2 * T;    // buffers Vs, Vs + T
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tig = lane & 3;  // fragment row / column pair
+  // the q tile is the slowest grid axis; causal: longest tiles first
+  const int qt = CAUSAL ? gridDim.z - 1 - blockIdx.z : blockIdx.z;
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int q0 = qt * BM;
+  // causal: up to the tile holding the block's last row
+  const int nk = ((CAUSAL ? min(q0 + BM, L) : L) + kBN - 1) / kBN;
+
+  const bf16* qb = q + b * st.q_sb + (long long)h * D;
+  const bf16* kb = k + b * st.k_sb + (long long)h * D;
+  const bf16* vb = v + b * st.v_sb + (long long)h * D;
+  const bf16* ob = o + b * st.o_sb + (long long)h * D;
+  const bf16* gb = dout + b * st.do_sb + (long long)h * D;
+  const float* bias = key_bias ? key_bias + (long long)b * L : nullptr;
+  const long long stat = ((long long)b * H + h) * L;
+
+  load_tile_async<D, BM>(Qs, qb, st.q_sl, q0, L);
+  load_tile_async<D, BM>(dOs, gb, st.do_sl, q0, L);
+  load_tile_async<D, kBN>(Ks, kb, st.k_sl, 0, L);
+  load_tile_async<D, kBN>(Vs, vb, st.v_sl, 0, L);
+  cp_async_commit();
+
+  // this lane's rows: slice t holds r0 + 16 * t + g and r0 + 16 * t + g + 8
+  const int r0 = q0 + warp * 16 * MT;
+  const int rlast = r0 + 16 * MT - 1;
+  float acc[MT][OB][4];
+#pragma unroll
+  for (int t = 0; t < MT; ++t)
+#pragma unroll
+    for (int j = 0; j < OB; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[t][j][e] = 0.f;
+  // lse * log2 e and delta of this lane's rows
+  float lse2[MT][2], dl[MT][2];
+#pragma unroll
+  for (int t = 0; t < MT; ++t)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = r0 + 16 * t + g + 8 * i;
+      lse2[t][i] = row < L ? __ldg(lse + stat + row) * kLog2e : 0.f;
+    }
+  uint32_t qf[MT][KC][4], df[MT][KC][4];  // Q's and dO's A fragments
+  const float c2 = scale * kLog2e;
+
+  for (int kt = 0; kt < nk; ++kt) {
+    const int buf = kt & 1;
+    cp_async_wait<0>();
+    // tile kt has landed for every thread, and every warp is done with
+    // tile kt - 1, whose buffer now takes tile kt + 1
+    __syncthreads();
+    if (kt + 1 < nk) {
+      load_tile_async<D, kBN>(Ks + (buf ^ 1) * T, kb, st.k_sl,
+                              (kt + 1) * kBN, L);
+      load_tile_async<D, kBN>(Vs + (buf ^ 1) * T, vb, st.v_sl,
+                              (kt + 1) * kBN, L);
+      cp_async_commit();
+    }
+    if (kt == 0) {
+#pragma unroll
+      for (int t = 0; t < MT; ++t)
+#pragma unroll
+        for (int kc = 0; kc < KC; ++kc) {
+          ldmatrix_x4(qf[t][kc],
+                      a_addr<S>(Qs, warp * 16 * MT + 16 * t, kc * 16, lane));
+          ldmatrix_x4(df[t][kc],
+                      a_addr<S>(dOs, warp * 16 * MT + 16 * t, kc * 16, lane));
+        }
+      // delta = rowsum(dO * O) in f32: dO from this lane's fragments (row
+      // g + 8i: registers i and 2 + i), O's same columns from memory
+#pragma unroll
+      for (int t = 0; t < MT; ++t)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int row = r0 + 16 * t + g + 8 * i;
+          float sum = 0.f;
+          if (row < L) {
+            const bf16* orow = ob + row * st.o_sl;
+#pragma unroll
+            for (int kc = 0; kc < KC; ++kc) {
+              const float2 o0 = __bfloat1622float2(*reinterpret_cast<
+                  const bf162*>(orow + kc * 16 + 2 * tig));
+              const float2 o1 = __bfloat1622float2(*reinterpret_cast<
+                  const bf162*>(orow + kc * 16 + 8 + 2 * tig));
+              const float2 d0 = unpack_bf16(df[t][kc][i]);
+              const float2 d1 = unpack_bf16(df[t][kc][2 + i]);
+              sum = fmaf(d0.x, o0.x, sum);
+              sum = fmaf(d0.y, o0.y, sum);
+              sum = fmaf(d1.x, o1.x, sum);
+              sum = fmaf(d1.y, o1.y, sum);
+            }
+          }
+          sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+          sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+          dl[t][i] = sum;
+          if (tig == 0 && row < L) delta[stat + row] = sum;
+        }
+    }
+    const bf16* Kt = Ks + buf * T;
+    const bf16* Vt = Vs + buf * T;
+    const int k0 = kt * kBN;
+    // causal: a warp whose rows all precede the tile's first key skips it
+    if (CAUSAL && k0 > rlast) continue;
+
+#pragma unroll
+    for (int kk = 0; kk < kBN / 16; ++kk) {
+      const int kc0 = k0 + 16 * kk;  // the chunk's first key
+      if ((CAUSAL && kc0 > rlast) || kc0 >= L) break;
+      // S = Q K^T and dP = dO V^T on 16 keys: s[t][j][e] is row
+      // r0 + 16t + g + 8(e >> 1), key kc0 + 8j + 2tig + (e & 1)
+      float s[MT][2][4], dp[MT][2][4];
+#pragma unroll
+      for (int t = 0; t < MT; ++t)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[t][j][e] = dp[t][j][e] = 0.f;
+#pragma unroll
+      for (int kc = 0; kc < KC; ++kc) {
+        uint32_t kf[4], vf[4];
+        ldmatrix_x4(kf, b_addr<S>(Kt, 16 * kk, kc * 16, lane));
+        ldmatrix_x4(vf, b_addr<S>(Vt, 16 * kk, kc * 16, lane));
+#pragma unroll
+        for (int t = 0; t < MT; ++t) {
+          mma_bf16(s[t][0], qf[t][kc], kf[0], kf[1]);
+          mma_bf16(s[t][1], qf[t][kc], kf[2], kf[3]);
+          mma_bf16(dp[t][0], df[t][kc], vf[0], vf[1]);
+          mma_bf16(dp[t][1], df[t][kc], vf[2], vf[3]);
+        }
+      }
+      // P = 2^(S c + bias log2e - lse log2e), dS = P (dP - delta); only a
+      // chunk that crosses the diagonal or reaches past L is masked
+      float bl[2][2];
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int kpos = kc0 + 8 * j + 2 * tig + c;
+          bl[j][c] = bias != nullptr && kpos < L
+                         ? __ldg(bias + kpos) * kLog2e : 0.f;
+        }
+      const bool edge = kc0 + 16 > L || (CAUSAL && kc0 + 15 > r0);
+      uint32_t da[MT][4];
+#pragma unroll
+      for (int t = 0; t < MT; ++t) {
+        float ds[2][4];
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float p = ex2_ftz(fmaf(s[t][j][e], c2,
+                                   bl[j][e & 1] - lse2[t][e >> 1]));
+            if (edge) {
+              const int kpos = kc0 + 8 * j + 2 * tig + (e & 1);
+              const int row = r0 + 16 * t + g + 8 * (e >> 1);
+              if (kpos >= L || (CAUSAL && kpos > row)) p = 0.f;
+            }
+            ds[j][e] = p * (dp[t][j][e] - dl[t][e >> 1]);
+          }
+        c_to_a(da[t], ds[0], ds[1]);  // dS rounded to bf16
+      }
+      // dQ += dS K: K's 16 keys x 16 columns as the B operand, transposed
+#pragma unroll
+      for (int dc = 0; dc < KC; ++dc) {
+        uint32_t kf[4];
+        ldmatrix_x4_trans(kf, a_addr<S>(Kt, 16 * kk, dc * 16, lane));
+#pragma unroll
+        for (int t = 0; t < MT; ++t) {
+          mma_bf16(acc[t][2 * dc], da[t], kf[0], kf[1]);
+          mma_bf16(acc[t][2 * dc + 1], da[t], kf[2], kf[3]);
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int t = 0; t < MT; ++t)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = r0 + 16 * t + g + 8 * i;
+      if (row >= L) continue;
+      bf16* orow = dq + (((long long)b * L + row) * H + h) * D;
+#pragma unroll
+      for (int j = 0; j < OB; ++j)
+        *reinterpret_cast<bf162*>(orow + 8 * j + 2 * tig) =
+            __floats2bfloat162_rn(acc[t][j][2 * i] * scale,
+                                  acc[t][j][2 * i + 1] * scale);
+    }
+}
+
+template <int D, bool CAUSAL>
+__global__ void __launch_bounds__(kThreads)
+flash_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v,
+                     const bf16* __restrict__ dout,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta,
+                     const float* __restrict__ key_bias,
+                     bf16* __restrict__ dk, bf16* __restrict__ dv, int L,
+                     int H, Strides st, float scale) {
+  constexpr int S = smem_stride<D>();
+  constexpr int T = kBN * S;  // elements of one 64-row tile
+  constexpr int KC = D / 16;
+  constexpr int OB = D / 8;
+  // V's A fragments stay in registers at d <= 64; at d = 128 the two
+  // accumulators take 128 registers and V's fragments are re-read
+  constexpr bool VREG = D <= 64;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
+  bf16* Vs = Ks + T;
+  bf16* Qs = Vs + T;       // buffers Qs, Qs + T
+  bf16* dOs = Qs + 2 * T;  // buffers dOs, dOs + T
+  float* lse_s = reinterpret_cast<float*>(dOs + 2 * T);  // 2 x kBN
+  float* dl_s = lse_s + 2 * kBN;                          // 2 x kBN
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tig = lane & 3;
+  // the k tile is the slowest grid axis; causal: tile 0, which loops over
+  // every q tile, first
+  const int kt = blockIdx.z;
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int k0 = kt * kBN;
+  const int kw = k0 + 16 * warp;  // this warp's first key
+  const int nq = (L + kBN - 1) / kBN;
+  const int qt0 = CAUSAL ? kt : 0;
+
+  const bf16* qb = q + b * st.q_sb + (long long)h * D;
+  const bf16* gb = dout + b * st.do_sb + (long long)h * D;
+  const long long stat = ((long long)b * H + h) * L;
+
+  // starts the copy of q tile qt's Q, dO, lse and delta into buffer buf
+  auto load_q_tile = [&](int qt, int buf) {
+    load_tile_async<D, kBN>(Qs + buf * T, qb, st.q_sl, qt * kBN, L);
+    load_tile_async<D, kBN>(dOs + buf * T, gb, st.do_sl, qt * kBN, L);
+    if (tid < kBN) {
+      const int l = qt * kBN + tid;
+      const bool in = l < L;
+      cp_async4(smem_addr(lse_s + buf * kBN + tid), lse + stat + (in ? l : 0),
+                in);
+      cp_async4(smem_addr(dl_s + buf * kBN + tid),
+                delta + stat + (in ? l : 0), in);
+    }
+  };
+  load_tile_async<D, kBN>(Ks, k + b * st.k_sb + (long long)h * D, st.k_sl,
+                          k0, L);
+  load_tile_async<D, kBN>(Vs, v + b * st.v_sb + (long long)h * D, st.v_sl,
+                          k0, L);
+  load_q_tile(qt0, 0);
+  cp_async_commit();
+
+  float dka[OB][4], dva[OB][4];
+#pragma unroll
+  for (int j = 0; j < OB; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[j][e] = dva[j][e] = 0.f;
+  float kb2[2];  // key bias * log2 e of keys kw + g and kw + g + 8
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int kpos = kw + g + 8 * i;
+    kb2[i] = key_bias != nullptr && kpos < L
+                 ? __ldg(key_bias + (long long)b * L + kpos) * kLog2e : 0.f;
+  }
+  uint32_t kf[KC][4], vf[VREG ? KC : 1][4];  // K's and V's A fragments
+  const float c2 = scale * kLog2e;
+
+  for (int qt = qt0; qt < nq; ++qt) {
+    const int buf = (qt - qt0) & 1;
+    cp_async_wait<0>();
+    __syncthreads();
+    if (qt + 1 < nq) {
+      load_q_tile(qt + 1, buf ^ 1);
+      cp_async_commit();
+    }
+    if (qt == qt0) {
+#pragma unroll
+      for (int kc = 0; kc < KC; ++kc) {
+        ldmatrix_x4(kf[kc], a_addr<S>(Ks, 16 * warp, kc * 16, lane));
+        if constexpr (VREG)
+          ldmatrix_x4(vf[kc], a_addr<S>(Vs, 16 * warp, kc * 16, lane));
+      }
+    }
+    const bf16* Qt = Qs + buf * T;
+    const bf16* dOt = dOs + buf * T;
+    const float* lt = lse_s + buf * kBN;
+    const float* dt = dl_s + buf * kBN;
+    const int q0 = qt * kBN;
+
+#pragma unroll
+    for (int c = 0; c < kBN / 16; ++c) {
+      const int qc0 = q0 + 16 * c;  // the chunk's first query
+      if (qc0 >= L) break;
+      // causal: every query of the chunk precedes this warp's keys
+      if (CAUSAL && qc0 + 15 < kw) continue;
+      // S^T = K Q^T and dP^T = V dO^T on 16 queries: st[j][e] is key
+      // kw + g + 8(e >> 1), query qc0 + 8j + 2tig + (e & 1)
+      float sT[2][4], dpT[2][4];
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sT[j][e] = dpT[j][e] = 0.f;
+#pragma unroll
+      for (int kc = 0; kc < KC; ++kc) {
+        uint32_t qfr[4], ofr[4];
+        ldmatrix_x4(qfr, b_addr<S>(Qt, 16 * c, kc * 16, lane));
+        ldmatrix_x4(ofr, b_addr<S>(dOt, 16 * c, kc * 16, lane));
+        mma_bf16(sT[0], kf[kc], qfr[0], qfr[1]);
+        mma_bf16(sT[1], kf[kc], qfr[2], qfr[3]);
+        if constexpr (VREG) {
+          mma_bf16(dpT[0], vf[kc], ofr[0], ofr[1]);
+          mma_bf16(dpT[1], vf[kc], ofr[2], ofr[3]);
+        } else {
+          uint32_t va[4];
+          ldmatrix_x4(va, a_addr<S>(Vs, 16 * warp, kc * 16, lane));
+          mma_bf16(dpT[0], va, ofr[0], ofr[1]);
+          mma_bf16(dpT[1], va, ofr[2], ofr[3]);
+        }
+      }
+      // P^T and dS^T with lse and delta per query column
+      const bool edge = qc0 + 16 > L || (CAUSAL && qc0 < kw + 15);
+      float pT[2][4], dsT[2][4];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int col = 16 * c + 8 * j + 2 * tig;
+        const float2 l2 = *reinterpret_cast<const float2*>(lt + col);
+        const float2 d2 = *reinterpret_cast<const float2*>(dt + col);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float lq = (e & 1) ? l2.y : l2.x;
+          const float dq_ = (e & 1) ? d2.y : d2.x;
+          float p = ex2_ftz(fmaf(sT[j][e], c2, kb2[e >> 1] - lq * kLog2e));
+          if (edge) {
+            const int qpos = q0 + col + (e & 1);
+            const int kpos = kw + g + 8 * (e >> 1);
+            if (qpos >= L || (CAUSAL && kpos > qpos)) p = 0.f;
+          }
+          pT[j][e] = p;
+          dsT[j][e] = p * (dpT[j][e] - dq_);
+        }
+      }
+      uint32_t pa[4], sa[4];  // rounded to bf16 as A operands
+      c_to_a(pa, pT[0], pT[1]);
+      c_to_a(sa, dsT[0], dsT[1]);
+      // dV += P^T dO, dK += dS^T Q: dO's and Q's 16 queries x 16 columns
+      // as B operands, transposed
+#pragma unroll
+      for (int dc = 0; dc < KC; ++dc) {
+        uint32_t ofr[4], qfr[4];
+        ldmatrix_x4_trans(ofr, a_addr<S>(dOt, 16 * c, dc * 16, lane));
+        ldmatrix_x4_trans(qfr, a_addr<S>(Qt, 16 * c, dc * 16, lane));
+        mma_bf16(dva[2 * dc], pa, ofr[0], ofr[1]);
+        mma_bf16(dva[2 * dc + 1], pa, ofr[2], ofr[3]);
+        mma_bf16(dka[2 * dc], sa, qfr[0], qfr[1]);
+        mma_bf16(dka[2 * dc + 1], sa, qfr[2], qfr[3]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = kw + g + 8 * i;
+    if (row >= L) continue;
+    const long long off = (((long long)b * L + row) * H + h) * D;
+#pragma unroll
+    for (int j = 0; j < OB; ++j) {
+      *reinterpret_cast<bf162*>(dk + off + 8 * j + 2 * tig) =
+          __floats2bfloat162_rn(dka[j][2 * i] * scale,
+                                dka[j][2 * i + 1] * scale);
+      *reinterpret_cast<bf162*>(dv + off + 8 * j + 2 * tig) =
+          __floats2bfloat162_rn(dva[j][2 * i], dva[j][2 * i + 1]);
+    }
   }
 }
 
+// ---------------------------------------------------------------------------
+// launches
+// ---------------------------------------------------------------------------
+struct Args {
+  const void *q, *k, *v, *o, *dout;
+  const float* lse;
+  float* delta;  // bf16 dQ writes it; the f32 kernels and dK/dV read it
+  const float* key_bias;
+  void *out0, *out1;
+  int B, L, H;
+  Strides st;
+  float scale;
+};
+
+template <typename K>
+cudaError_t set_smem(K kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)bytes);
+}
+
+template <int D, bool CAUSAL>
+cudaError_t launch_f32(bool dkv, const Args& a, cudaStream_t s) {
+  const dim3 grid((a.L + kB - 1) / kB, a.H, a.B);
+  const float* q = static_cast<const float*>(a.q);
+  const float* k = static_cast<const float*>(a.k);
+  const float* v = static_cast<const float*>(a.v);
+  const float* dout = static_cast<const float*>(a.dout);
+  cudaError_t e;
+  if (dkv) {
+    constexpr size_t smem = dkv_smem_bytes<D>();
+    if ((e = set_smem(flash_dkv_kernel<D, CAUSAL>, smem)) != cudaSuccess)
+      return e;
+    flash_dkv_kernel<D, CAUSAL><<<grid, kThreads, smem, s>>>(
+        q, k, v, dout, a.lse, a.delta, a.key_bias,
+        static_cast<float*>(a.out0), static_cast<float*>(a.out1), a.L, a.H,
+        a.st, a.scale);
+  } else {
+    constexpr size_t smem = dq_smem_bytes<D>();
+    if ((e = set_smem(flash_dq_kernel<D, CAUSAL>, smem)) != cudaSuccess)
+      return e;
+    flash_dq_kernel<D, CAUSAL><<<grid, kThreads, smem, s>>>(
+        q, k, v, dout, a.lse, a.delta, a.key_bias,
+        static_cast<float*>(a.out0), a.L, a.H, a.st, a.scale);
+  }
+  return cudaGetLastError();
+}
+
+template <int D, bool CAUSAL>
+cudaError_t launch_bf16(bool dkv, const Args& a, cudaStream_t s) {
+  const bf16* q = static_cast<const bf16*>(a.q);
+  const bf16* k = static_cast<const bf16*>(a.k);
+  const bf16* v = static_cast<const bf16*>(a.v);
+  const bf16* dout = static_cast<const bf16*>(a.dout);
+  cudaError_t e;
+  if (dkv) {
+    constexpr size_t smem = dkv_mma_smem_bytes<D>();
+    if ((e = set_smem(flash_dkv_mma_kernel<D, CAUSAL>, smem)) != cudaSuccess)
+      return e;
+    const dim3 grid(a.H, a.B, (a.L + kBN - 1) / kBN);
+    flash_dkv_mma_kernel<D, CAUSAL><<<grid, kThreads, smem, s>>>(
+        q, k, v, dout, a.lse, a.delta, a.key_bias,
+        static_cast<bf16*>(a.out0), static_cast<bf16*>(a.out1), a.L, a.H,
+        a.st, a.scale);
+  } else {
+    constexpr size_t smem = dq_mma_smem_bytes<D>();
+    if ((e = set_smem(flash_dq_mma_kernel<D, CAUSAL>, smem)) != cudaSuccess)
+      return e;
+    const dim3 grid(a.H, a.B, (a.L + dq_rows<D>() - 1) / dq_rows<D>());
+    flash_dq_mma_kernel<D, CAUSAL><<<grid, kThreads, smem, s>>>(
+        q, k, v, static_cast<const bf16*>(a.o), dout, a.lse, a.delta,
+        a.key_bias, static_cast<bf16*>(a.out0), a.L, a.H, a.st, a.scale);
+  }
+  return cudaGetLastError();
+}
+
+template <int D, bool CAUSAL>
+cudaError_t launch(bool dkv, const Args& a, int dtype, cudaStream_t s) {
+  if (dtype == 0) return launch_f32<D, CAUSAL>(dkv, a, s);
+  if (dtype == 1) return launch_bf16<D, CAUSAL>(dkv, a, s);
+  return cudaErrorInvalidValue;
+}
+
 template <bool CAUSAL>
-int entry(bool dkv, const void* q, const void* k, const void* v,
-          const void* dout, const void* lse, const void* delta,
-          const void* key_bias, void* out0, void* out1, int B, int L, int H,
-          int D, long long q_sb, long long q_sl, long long k_sb,
-          long long k_sl, long long v_sb, long long v_sl, long long o_sb,
-          long long o_sl, float scale, int dtype, void* stream) {
+int entry(bool dkv, const Args& a, int D, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (B <= 0 || L <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
-  if (CAUSAL && key_bias != nullptr) return (int)cudaErrorInvalidValue;
-  const Strides st{q_sb, q_sl, k_sb, k_sl, v_sb, v_sl, o_sb, o_sl};
-  const float* lse_f = static_cast<const float*>(lse);
-  const float* delta_f = static_cast<const float*>(delta);
-  const float* kb = static_cast<const float*>(key_bias);
-  if (dtype == 0)
-    return (int)dispatch<float, CAUSAL>(dkv, D, q, k, v, dout, lse_f,
-                                        delta_f, kb, out0, out1, B, L, H, st,
-                                        scale, s);
-  if (dtype == 1)
-    return (int)dispatch<__nv_bfloat16, CAUSAL>(dkv, D, q, k, v, dout, lse_f,
-                                                delta_f, kb, out0, out1, B, L,
-                                                H, st, scale, s);
-  return (int)cudaErrorInvalidValue;
+  if (a.B <= 0 || a.L <= 0 || a.H <= 0) return (int)cudaErrorInvalidValue;
+  if (CAUSAL && a.key_bias != nullptr) return (int)cudaErrorInvalidValue;
+  switch (D) {
+    case 32: return (int)launch<32, CAUSAL>(dkv, a, dtype, s);
+    case 64: return (int)launch<64, CAUSAL>(dkv, a, dtype, s);
+    case 128: return (int)launch<128, CAUSAL>(dkv, a, dtype, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 // Strides are in elements: element (b, l, h, d) of q is at
-// q[b * q_sb + l * q_sl + h * D + d]; `o_*` are dO's. dQ/dK/dV are dense
-// [B, L, H, D]. dtype: 0 = float32, 1 = bfloat16. key_bias: null, or the
-// forward's f32 [B, L] key bias (`_full` entries only). Each entry makes
-// one launch and returns a cudaError_t (0 = launched). The `_full` entries
-// attend to every key, the others are causal.
+// q[b * q_sb + l * q_sl + h * D + d]; `do_*` are dout's, `o_*` out's.
+// dQ/dK/dV are dense [B, L, H, D]. dtype: 0 = float32 (scalar kernels:
+// dQ reads delta, out is unused), 1 = bfloat16 (tensor-core kernels, every
+// operand 16-byte aligned: dQ computes delta from out and dout and writes
+// it). dK/dV reads delta in both (out unused, pass 0). key_bias: null, or
+// the forward's f32 [B, L] key bias (`_full` entries only). Each entry
+// makes one launch and returns a cudaError_t (0 = launched). The `_full`
+// entries attend to every key, the others are causal.
 #define PTT_BWD_ENTRY(NAME, CAUSAL, DKV)                                      \
   extern "C" int NAME(const void* q, const void* k, const void* v,            \
-                      const void* dout, const void* lse, const void* delta,   \
-                      const void* key_bias, void* out0, void* out1, int B,    \
-                      int L, int H, int D, long long q_sb, long long q_sl,    \
-                      long long k_sb, long long k_sl, long long v_sb,         \
-                      long long v_sl, long long o_sb, long long o_sl,         \
+                      const void* o, const void* dout, const void* lse,       \
+                      void* delta, const void* key_bias, void* out0,          \
+                      void* out1, int B, int L, int H, int D, long long q_sb, \
+                      long long q_sl, long long k_sb, long long k_sl,         \
+                      long long v_sb, long long v_sl, long long do_sb,        \
+                      long long do_sl, long long o_sb, long long o_sl,        \
                       float scale, int dtype, void* stream) {                 \
-    return entry<CAUSAL>(DKV, q, k, v, dout, lse, delta, key_bias, out0,      \
-                         out1, B, L, H, D, q_sb, q_sl, k_sb, k_sl, v_sb,      \
-                         v_sl, o_sb, o_sl, scale, dtype, stream);             \
+    const Args a{q, k, v, o, dout, static_cast<const float*>(lse),            \
+                 static_cast<float*>(delta),                                  \
+                 static_cast<const float*>(key_bias), out0, out1, B, L, H,    \
+                 Strides{q_sb, q_sl, k_sb, k_sl, v_sb, v_sl, do_sb, do_sl,    \
+                         o_sb, o_sl},                                         \
+                 scale};                                                      \
+    return entry<CAUSAL>(DKV, a, D, dtype, stream);                           \
   }
 
 // dQ: out0 = dq (out1 unused, pass 0); dK/dV: out0 = dk, out1 = dv

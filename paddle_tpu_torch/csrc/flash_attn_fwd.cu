@@ -85,22 +85,19 @@
 // with no TF32 rounding. f32 is the checking path (the served tokens' equality
 // with the dense reference, the f32 gradient parity runs), so it keeps
 // exact arithmetic rather than speed.
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include "mma_sm90.cuh"
 
 namespace {
 
+using namespace ptt_mma;
+
 constexpr float kNegInf = -1e30f;
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
 
 // ---------------------------------------------------------------------------
 // f32: scalar kernel
 // ---------------------------------------------------------------------------
 constexpr int kBQ = 64;       // query rows per block
 constexpr int kBK = 64;       // keys per tile (== kBQ: diagonal tile == qt)
-constexpr int kThreads = 128;
 
 template <int D>
 constexpr size_t smem_bytes() {
@@ -256,7 +253,6 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // bf16: tensor-core kernel
 // ---------------------------------------------------------------------------
 constexpr int kMmaBN = 64;  // keys per tile
-constexpr int kMmaThreads = 128;
 
 // 16-row slices each warp owns: two at d <= 64, so every K/V fragment
 // read from shared memory feeds two mma (one slice reads a fragment per
@@ -268,97 +264,14 @@ __host__ __device__ constexpr int mma_slices() { return D <= 64 ? 2 : 1; }
 template <int D>  // query rows per block: 4 warps x 16 x slices
 __host__ __device__ constexpr int mma_rows() { return 64 * mma_slices<D>(); }
 
-// bf16 elements per shared row: D plus 16 bytes, so the 8 rows one
-// ldmatrix phase reads start in 8 different 16-byte bank groups
-template <int D>
-__host__ __device__ constexpr int mma_stride() { return D + 8; }
-
 template <int D>
 constexpr size_t mma_smem_bytes() {  // Q, then K and V double-buffered
-  return (size_t)(mma_rows<D>() + 4 * kMmaBN) * mma_stride<D>() *
+  return (size_t)(mma_rows<D>() + 4 * kMmaBN) * smem_stride<D>() *
          sizeof(__nv_bfloat16);
 }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte async copy; src-size 0 (in == false) fills the 16 bytes with 0
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool in) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(in ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// c[16x8] += a[16x16] * b[16x8], bf16 operands, f32 accumulators
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// 2^x in one MUFU instruction (inputs below -126 give 0, as any p that
-// small is to the softmax)
-__device__ __forceinline__ float ex2_ftz(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Starts the copy of rows [r0, r0 + ROWS) of one head of a [b, L, H, D]
-// operand (row stride sl) into a padded shared tile; rows past L read 0.
-template <int D, int ROWS>
-__device__ __forceinline__ void load_tile_async(__nv_bfloat16* dst,
-                                                const __nv_bfloat16* src,
-                                                long long sl, int r0, int L) {
-  constexpr int CPR = D / 8;  // 16-byte chunks per row
-  constexpr int S = mma_stride<D>();
-#pragma unroll
-  for (int i = 0; i < ROWS * CPR / kMmaThreads; ++i) {
-    const int idx = threadIdx.x + i * kMmaThreads;
-    const int r = idx / CPR, c = idx % CPR;
-    const int l = r0 + r;
-    const bool in = l < L;
-    cp_async16(smem_addr(dst + r * S + c * 8),
-               src + (in ? l : 0) * sl + c * 8, in);
-  }
-}
-
 template <int D, bool CAUSAL>
-__global__ void __launch_bounds__(kMmaThreads)
+__global__ void __launch_bounds__(kThreads)
 flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
                      const __nv_bfloat16* __restrict__ k,
                      const __nv_bfloat16* __restrict__ v,
@@ -369,7 +282,7 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
                      float scale) {
   constexpr int MT = mma_slices<D>();
   constexpr int BM = mma_rows<D>();
-  constexpr int S = mma_stride<D>();
+  constexpr int S = smem_stride<D>();
   constexpr int T = kMmaBN * S;   // elements of one K or V tile
   constexpr int KC = D / 16;      // 16-deep steps of Q.K^T
   constexpr int NB = kMmaBN / 8;  // 8-key column blocks of S
@@ -424,8 +337,6 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
   // with one, the scaled score plus the bias, in log2 units (mul = 1)
   const float scale2 = scale * kLog2e;
   const float mul = bias != nullptr ? 1.f : scale2;
-  // ldmatrix row addresses: lane supplies row (lane % 8) of matrix lane / 8
-  const int lrow = lane & 7, lmat = lane >> 3;
 
   for (int kt = 0; kt < nk; ++kt) {
     const int buf = kt & 1;
@@ -446,9 +357,7 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
         for (int kc = 0; kc < KC; ++kc)
           ldmatrix_x4(qf[t][kc],
-                      smem_addr(Qs + (warp * 16 * MT + 16 * t + lrow +
-                                      (lmat & 1) * 8) * S +
-                                kc * 16 + (lmat >> 1) * 8));
+                      a_addr<S>(Qs, warp * 16 * MT + 16 * t, kc * 16, lane));
     }
     const __nv_bfloat16* Kt = Ks + buf * T;
     const __nv_bfloat16* Vt = Vs + buf * T;
@@ -469,8 +378,7 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
       for (int np = 0; np < NB / 2; ++np) {
         uint32_t kf[4];
-        ldmatrix_x4(kf, smem_addr(Kt + (np * 16 + lrow + (lmat >> 1) * 8) * S
-                                  + kc * 16 + (lmat & 1) * 8));
+        ldmatrix_x4(kf, b_addr<S>(Kt, np * 16, kc * 16, lane));
 #pragma unroll
         for (int t = 0; t < MT; ++t) {
           mma_bf16(x[t][2 * np], qf[t][kc], kf[0], kf[1]);
@@ -551,17 +459,12 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
     for (int kk = 0; kk < NB / 2; ++kk) {
       uint32_t pa[MT][4];
 #pragma unroll
-      for (int t = 0; t < MT; ++t) {
-        pa[t][0] = pack_bf16(x[t][2 * kk][0], x[t][2 * kk][1]);
-        pa[t][1] = pack_bf16(x[t][2 * kk][2], x[t][2 * kk][3]);
-        pa[t][2] = pack_bf16(x[t][2 * kk + 1][0], x[t][2 * kk + 1][1]);
-        pa[t][3] = pack_bf16(x[t][2 * kk + 1][2], x[t][2 * kk + 1][3]);
-      }
+      for (int t = 0; t < MT; ++t)
+        c_to_a(pa[t], x[t][2 * kk], x[t][2 * kk + 1]);
 #pragma unroll
       for (int dp = 0; dp < D / 16; ++dp) {
         uint32_t vf[4];
-        ldmatrix_x4_trans(vf, smem_addr(Vt + (kk * 16 + lrow + (lmat & 1) * 8)
-                                        * S + dp * 16 + (lmat >> 1) * 8));
+        ldmatrix_x4_trans(vf, a_addr<S>(Vt, kk * 16, dp * 16, lane));
 #pragma unroll
         for (int t = 0; t < MT; ++t) {
           mma_bf16(acc[t][2 * dp], pa[t], vf[0], vf[1]);
@@ -629,7 +532,7 @@ cudaError_t launch_bf16(const Args& a, cudaStream_t stream) {
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
   dim3 grid(a.H, a.B, (a.L + mma_rows<D>() - 1) / mma_rows<D>());
-  flash_fwd_mma_kernel<D, CAUSAL><<<grid, kMmaThreads, smem, stream>>>(
+  flash_fwd_mma_kernel<D, CAUSAL><<<grid, kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(a.q),
       static_cast<const __nv_bfloat16*>(a.k),
       static_cast<const __nv_bfloat16*>(a.v),

@@ -5,7 +5,8 @@ Every ``csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a`` — one
 linked into one shared library with a plain C interface, loaded with
 ``ctypes``. The build runs at first use (never at import), into
 ``build/paddle_tpu_torch/`` beside the package, and is keyed by a digest
-of the sources and flags so an edited source rebuilds.
+of the flags and of every ``csrc/`` file (sources and the ``*.cuh``
+headers they include) so an edited source or header rebuilds.
 
 Each C entry point returns ``cudaGetLastError()`` after its launch;
 ``check`` raises with CUDA's message when it is not 0.
@@ -53,10 +54,9 @@ _F = ctypes.c_float
 # dtype, stream
 _FLASH_FWD = ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                _LL, _LL, _LL, _LL, _LL, _LL, _F, _I, _P], _I)
-# q, k, v, dout, lse, delta, key_bias, out0, out1, B, L, H, D, strides,
-# scale, dtype, stream
-_FLASH_BWD = ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-               _LL, _LL, _LL, _LL, _LL, _LL, _LL, _LL, _F, _I, _P], _I)
+# q, k, v, out, dout, lse, delta, key_bias, out0, out1, B, L, H, D,
+# strides (q, k, v, dout, out), scale, dtype, stream
+_FLASH_BWD = ([_P] * 10 + [_I] * 4 + [_LL] * 10 + [_F, _I, _P], _I)
 _SIGNATURES = {
     "ptt_error_string": ([_I], ctypes.c_char_p),
     "ptt_layer_norm_fwd": ([_P, _P, _P, _P, _I, _I, _F, _I, _P], _I),
@@ -89,10 +89,12 @@ def _nvcc() -> str:
 
 
 def _digest() -> str:
+    """Hash of the flags and of every source and header under ``CSRC``
+    (a header is compiled into each source that includes it)."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
-        h.update(name.encode())
-        h.update((CSRC / name).read_bytes())
+    for path in sorted([*CSRC.glob("*.cu"), *CSRC.glob("*.cuh")]):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
     return h.hexdigest()[:16]
 
 

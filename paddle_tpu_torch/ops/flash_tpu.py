@@ -15,12 +15,16 @@ have their own launch counts. Both return ``(out, lse)``: ``out`` is
 [b, L, H, d] in q's dtype, ``lse`` the f32 log-sum-exp of each query
 row's scaled scores, [b, H, L] (not differentiable).
 
-Which forward kernel runs: bf16 operands go to ``flash_fwd_mma_kernel``,
-on the tensor cores (``mma.sync`` with f32 accumulation; P is rounded to
-bf16 as the P·V operand, as the reference's ``_fwd_kernel`` feeds the
-MXU); f32 operands go to ``flash_fwd_kernel``, exact scalar f32
-arithmetic with no TF32 rounding — the checking path. The backward
-kernels compute in f32 for both types.
+Which kernels run: bf16 operands go to the tensor-core kernels
+(``mma.sync`` with f32 accumulation): ``flash_fwd_mma_kernel``, where P is
+rounded to bf16 as the P·V operand, as the reference's ``_fwd_kernel``
+feeds the MXU; ``flash_dq_mma_kernel`` and ``flash_dkv_mma_kernel``, where
+P is rounded to bf16 as the Pᵀ·dO operand and dS as the dS·K and dSᵀ·Q
+operand, as in the reference's ``_dq_kernel``/``_dkv_kernel``
+(``_flash_bwd_reference(..., bf16_operands=True)`` is their plain
+version). f32 operands go to the scalar ``flash_fwd_kernel``,
+``flash_dq_kernel`` and ``flash_dkv_kernel``, exact f32 arithmetic with
+no TF32 rounding — the checking path.
 
 ``flash_attention_full`` takes an optional key-padding bias, an f32
 [b, L] tensor added to every query row's scaled scores before the
@@ -33,10 +37,16 @@ The kernels read q, k, v and the output gradient in the projection's
 native layout: the last two axes must be dense ([H, d] with d
 contiguous), while the row and batch strides are free, so q/k/v sliced
 out of a fused QKV projection go in without a copy. The bf16 forward
-copies rows with 16-byte ``cp.async``: a bf16 q, k or v whose pointer or
-row or batch stride is not a multiple of 16 bytes raises (nothing falls
-back). The backward's ``delta = rowsum(dO ⊙ O)`` stays a PyTorch
-reduction, as it is an XLA einsum in the reference.
+and backward copy rows with 16-byte ``cp.async``: a bf16 q, k, v, out or
+dout whose pointer or row or batch stride is not a multiple of 16 bytes
+raises (nothing falls back).
+
+The backward's ``delta = rowsum(dO ⊙ O)`` (an XLA einsum in the
+reference) is computed for bf16 inside the dQ kernel, which writes it for
+the dK/dV kernel: ``flash_bwd_dq(q, k, v, dout, lse, out)`` returns
+``(dq, delta)`` and ``flash_bwd_dkv(q, k, v, dout, lse, delta)`` takes it.
+For f32 the wrapper computes it with ``_delta`` and passes it to both
+scalar kernels.
 """
 from __future__ import annotations
 
@@ -94,14 +104,25 @@ def _delta(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
 def _flash_bwd_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          out: torch.Tensor, lse: torch.Tensor,
                          dout: torch.Tensor, causal: bool = True,
-                         key_bias=None
+                         key_bias=None, bf16_operands: bool = False
                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain attention backward in f32, mirroring the Pallas
-    ``_dq_kernel``/``_dkv_kernel``: recompute ``P = exp(S − lse)`` from
-    the pre-scaled q (plus ``key_bias``, [b, L], which gets no gradient),
-    then ``dS = P ⊙ (dO·Vᵀ − delta)``, ``dQ = scale·dS·K``,
-    ``dK = scale·dSᵀ·Q``, ``dV = Pᵀ·dO``; causal, or over every key.
-    Returns (dq, dk, dv) in q's dtype."""
+    ``_dq_kernel``/``_dkv_kernel``: ``delta = rowsum(dO ⊙ O)``, recompute
+    ``P = exp(S − lse)`` from the pre-scaled q (plus ``key_bias``, [b, L],
+    which gets no gradient), then ``dS = P ⊙ (dO·Vᵀ − delta)``,
+    ``dQ = scale·dS·K``, ``dK = scale·dSᵀ·Q``, ``dV = Pᵀ·dO``; causal, or
+    over every key. With ``bf16_operands`` P is rounded to bf16 as the
+    Pᵀ·dO operand and dS as the dS·K and dSᵀ·Q operand, where the
+    reference's kernels (``flash_tpu.py:107, 141, 146``) and the bf16
+    tensor-core kernels round them; q·scale is not rounded. Returns
+    (dq, dk, dv) in q's dtype."""
+    return _bwd_plain(q, k, v, dout, lse, _delta(out, dout), causal,
+                      key_bias, bf16_operands)
+
+
+def _bwd_plain(q, k, v, dout, lse, delta, causal=True, key_bias=None,
+               bf16_operands=False):
+    """``_flash_bwd_reference`` from a given delta ([b, H, L] f32)."""
     L, d = q.shape[1], q.shape[-1]
     scale = 1.0 / math.sqrt(d)
     qs = q.float() * scale
@@ -111,7 +132,9 @@ def _flash_bwd_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if causal:
         p = p.masked_fill(_causal_mask(L, q.device), 0.0)
     dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
-    ds = p * (dp - _delta(out, dout)[..., None])
+    ds = p * (dp - delta[..., None])
+    if bf16_operands:
+        p, ds = (t.to(torch.bfloat16).float() for t in (p, ds))
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, qs)
     dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
@@ -147,74 +170,93 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _launch_bwd(fn, entry, q, k, v, dout, lse, delta, key_bias, out0, out1):
-    """One launch of a backward entry of ``csrc/flash_attn_bwd.cu``."""
-    _check_bwd_args(fn, q, k, v, dout, lse, delta)
-    _check_key_bias(fn, q, key_bias)
+def _launch_bwd(fn, entry, q, k, v, out, dout, lse, delta, key_bias, out0,
+                out1):
+    """One launch of a backward entry of ``csrc/flash_attn_bwd.cu`` (the
+    caller has checked the operands)."""
     if out0.numel() == 0:
         return
     b, L, H, d = q.shape
     lib = _build.library()
     with torch.cuda.device(q.device):
         err = getattr(lib, entry)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), _ptr(key_bias),
-            out0.data_ptr(), _ptr(out1), b, L, H, d,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(out),
+            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            _ptr(key_bias), out0.data_ptr(), _ptr(out1), b, L, H, d,
             q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0),
-            v.stride(1), dout.stride(0), dout.stride(1), 1.0 / math.sqrt(d),
-            _build.DTYPE_CODES[q.dtype], _build.stream_of(q))
+            v.stride(1), dout.stride(0), dout.stride(1),
+            *((out.stride(0), out.stride(1)) if out is not None else (0, 0)),
+            1.0 / math.sqrt(d), _build.DTYPE_CODES[q.dtype],
+            _build.stream_of(q))
     _build.check(err, fn)
 
 
-def _dq(causal, q, k, v, dout, lse, delta, key_bias=None) -> torch.Tensor:
+def _dq(causal, q, k, v, dout, lse, out, key_bias=None
+        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    if q.device.type == "cpu":
+        delta = _delta(out, dout)
+        return _bwd_plain(q, k, v, dout, lse, delta, causal,
+                          key_bias)[0], delta
     fn = "flash_bwd_dq" if causal else "flash_bwd_dq_full"
+    _check_bwd_args(fn, q, k, v, dout, lse, None, out, key_bias)
+    b, L, H, _ = q.shape
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    if q.dtype == torch.bfloat16:  # the kernel computes and writes delta
+        delta = torch.empty((b, H, L), dtype=torch.float32, device=q.device)
+    else:  # the scalar kernels read it
+        delta = _delta(out, dout)
     _launch_bwd(fn, "ptt_flash_attn_bwd_dq" + ("" if causal else "_full"),
-                q, k, v, dout, lse, delta, key_bias, dq, None)
+                q, k, v, out, dout, lse, delta, key_bias, dq, None)
     if dq.numel():
         (flash_bwd_dq if causal else flash_bwd_dq_full).launches += 1
-    return dq
+    return dq, delta
 
 
 def _dkv(causal, q, k, v, dout, lse, delta, key_bias=None
          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    if q.device.type == "cpu":
+        return _bwd_plain(q, k, v, dout, lse, delta, causal, key_bias)[1:]
     fn = "flash_bwd_dkv" if causal else "flash_bwd_dkv_full"
+    _check_bwd_args(fn, q, k, v, dout, lse, delta, None, key_bias)
     dk = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     dv = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     _launch_bwd(fn, "ptt_flash_attn_bwd_dkv" + ("" if causal else "_full"),
-                q, k, v, dout, lse, delta, key_bias, dk, dv)
+                q, k, v, None, dout, lse, delta, key_bias, dk, dv)
     if dk.numel():
         (flash_bwd_dkv if causal else flash_bwd_dkv_full).launches += 1
     return dk, dv
 
 
-def flash_bwd_dq(q, k, v, dout, lse, delta) -> torch.Tensor:
-    """dQ of causal attention on the card (``csrc/flash_attn_bwd.cu``,
-    one launch): q/k/v/dout [b, L, H, d] at any row stride, lse and
-    delta f32 [b, H, L]. Returns a dense [b, L, H, d] dQ."""
-    return _dq(True, q, k, v, dout, lse, delta)
+def flash_bwd_dq(q, k, v, dout, lse, out
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """dQ of causal attention and ``delta = rowsum(dO ⊙ O)`` (one launch
+    of ``csrc/flash_attn_bwd.cu``; bf16: the kernel computes delta, f32:
+    ``_delta``): q/k/v/dout/out [b, L, H, d] at any row stride, lse f32
+    [b, H, L]. Returns a dense [b, L, H, d] dQ and delta, f32 [b, H, L],
+    which ``flash_bwd_dkv`` takes. On the CPU: the plain versions."""
+    return _dq(True, q, k, v, dout, lse, out)
 
 
 def flash_bwd_dkv(q, k, v, dout, lse, delta
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """dK and dV of causal attention on the card
-    (``csrc/flash_attn_bwd.cu``, one launch); arguments as
-    ``flash_bwd_dq``."""
+    """dK and dV of causal attention (one launch of
+    ``csrc/flash_attn_bwd.cu``) from ``flash_bwd_dq``'s delta; the other
+    arguments as ``flash_bwd_dq``. On the CPU: the plain version."""
     return _dkv(True, q, k, v, dout, lse, delta)
 
 
-def flash_bwd_dq_full(q, k, v, dout, lse, delta, key_bias=None
-                      ) -> torch.Tensor:
-    """dQ of attention over every key on the card (one launch);
-    arguments as ``flash_bwd_dq``, plus the forward's f32 [b, L]
-    ``key_bias`` (or None)."""
-    return _dq(False, q, k, v, dout, lse, delta, key_bias)
+def flash_bwd_dq_full(q, k, v, dout, lse, out, key_bias=None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """dQ and delta of attention over every key (one launch); arguments
+    as ``flash_bwd_dq``, plus the forward's f32 [b, L] ``key_bias`` (or
+    None)."""
+    return _dq(False, q, k, v, dout, lse, out, key_bias)
 
 
 def flash_bwd_dkv_full(q, k, v, dout, lse, delta, key_bias=None
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """dK and dV of attention over every key on the card (one launch);
-    arguments as ``flash_bwd_dq_full``."""
+    """dK and dV of attention over every key (one launch); arguments as
+    ``flash_bwd_dkv``, plus the forward's ``key_bias`` (or None)."""
     return _dkv(False, q, k, v, dout, lse, delta, key_bias)
 
 
@@ -228,10 +270,10 @@ def _bwd(q, k, v, out, lse, key_bias, dout, causal):
     if q.device.type == "cpu":
         return _flash_bwd_reference(q, k, v, out, lse, dout, causal,
                                     key_bias)
-    if not _dense_tail(dout):
-        dout = dout.contiguous()  # only the row/batch strides may be free
-    delta = _delta(out, dout)
-    dq = _dq(causal, q, k, v, dout, lse, delta, key_bias)
+    if not _dense_tail(dout) or (dout.dtype == torch.bfloat16
+                                 and not _aligned_rows(dout)):
+        dout = dout.contiguous()  # only 16-byte row/batch strides may vary
+    dq, delta = _dq(causal, q, k, v, dout, lse, out, key_bias)
     dk, dv = _dkv(causal, q, k, v, dout, lse, delta, key_bias)
     return dq, dk, dv
 
@@ -287,7 +329,9 @@ def _dense_tail(t):
     return t.stride(3) == 1 and (t.shape[2] <= 1 or t.stride(2) == d)
 
 
-def _check_cuda_args(fn, q, k, v):
+def _check_cuda_args(fn, q, k, v, **more):
+    """q, k, v (and the ``more`` operands that are not None: the
+    backward's dout and out) as the kernels take them."""
     # the shapes first: a call the kernel cannot take raises as such on
     # any device
     if q.dtype not in _build.DTYPE_CODES:
@@ -299,14 +343,18 @@ def _check_cuda_args(fn, q, k, v):
     d = q.shape[-1]
     if d not in HEAD_DIMS:
         raise ValueError(f"{fn}: head dim {d} not in {HEAD_DIMS}")
-    for name, t in (("k", k), ("v", v)):
+    operands = {"q": q, "k": k, "v": v,
+                **{n: t for n, t in more.items() if t is not None}}
+    for name, t in operands.items():
         if t.device != q.device or t.dtype != q.dtype:
             raise TypeError(f"{fn}: {name} is {t.dtype} on {t.device}, q is "
                             f"{q.dtype} on {q.device}")
         if t.shape != q.shape:
             raise ValueError(f"{fn}: {name} shape {tuple(t.shape)} != q "
-                             f"shape {tuple(q.shape)} (self-attention only)")
-    for name, t in (("q", q), ("k", k), ("v", v)):
+                             f"shape {tuple(q.shape)}"
+                             + (" (self-attention only)"
+                                if name in ("k", "v") else ""))
+    for name, t in operands.items():
         if not _dense_tail(t):
             raise ValueError(f"{fn}: {name} needs dense [H, d] trailing "
                              f"axes, strides {t.stride()}")
@@ -316,7 +364,7 @@ def _check_cuda_args(fn, q, k, v):
                 f"multiples of 16 bytes for cp.async, strides {t.stride()}")
     if q.device.type != "cuda":
         raise ValueError(f"{fn}: unsupported device {q.device}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
+    for name, t in operands.items():
         if q.dtype == torch.bfloat16 and t.data_ptr() % 16:
             raise ValueError(f"{fn}: bf16 {name} must start on a 16-byte "
                              f"boundary for cp.async (address "
@@ -342,16 +390,15 @@ def _check_key_bias(fn, q, key_bias):
                          f"{tuple(key_bias.shape)} on {key_bias.device}")
 
 
-def _check_bwd_args(fn, q, k, v, dout, lse, delta):
-    _check_cuda_args(fn, q, k, v)
-    if dout.shape != q.shape or dout.dtype != q.dtype \
-            or dout.device != q.device or not _dense_tail(dout):
-        raise ValueError(f"{fn}: dout is {dout.dtype} {tuple(dout.shape)} "
-                         f"strides {dout.stride()}, q is {q.dtype} "
-                         f"{tuple(q.shape)}; it needs q's shape and dtype "
-                         "and dense [H, d] trailing axes")
+def _check_bwd_args(fn, q, k, v, dout, lse, delta, out, key_bias):
+    """The backward's operands; ``delta`` or ``out`` may be None (not
+    read by this launch)."""
+    _check_cuda_args(fn, q, k, v, dout=dout, out=out)
+    _check_key_bias(fn, q, key_bias)
     b, L, H, _ = q.shape
     for name, t in (("lse", lse), ("delta", delta)):
+        if t is None:
+            continue
         if (t.shape != (b, H, L) or t.dtype != torch.float32
                 or t.device != q.device or not t.is_contiguous()):
             raise ValueError(f"{fn}: {name} must be a contiguous f32 "

@@ -7,11 +7,16 @@ key: the plain forward against `attention._flash_fwd_kernel` in interpret
 mode, ragged L and the backward against the reference's `flash_attention`
 (blockwise off the TPU) and its `jax.vjp`; with a key-padding bias, the
 plain forward and backward against `blockwise_attention(..., bias=)` and
-its `jax.vjp`. The packed dK/dV experiment against
+its `jax.vjp`. The plain backward with bf16-rounded P and dS
+(`bf16_operands=True`, the bf16 kernels' plain version) on bf16 inputs
+against `_dq_kernel` + `_dkv_kernel` run in interpret mode on bf16
+operands, and at a ragged L against `jax.vjp` of `xla_attention`; the
+`flash_bwd_dq` entry's (dq, delta). The packed dK/dV experiment against
 `tools/experiments/dkv_packed_kernel.py`'s `dkv_kernel` in interpret
 mode. The CUDA kernels against the plain path on a card (marked `cuda`):
-the bf16 tensor-core forward at GPT's and BERT's shapes, with and without
-a key bias, and its refusal of rows that are not 16-byte aligned."""
+the bf16 tensor-core forward and backward at GPT's and BERT's shapes,
+with and without a key bias, the backward's delta, and the refusal of
+rows that are not 16-byte aligned."""
 import functools
 import importlib.util
 import math
@@ -124,19 +129,20 @@ def test_other_devices_raise_instead_of_falling_back():
         tflash.flash_attention_blhd(q, q, q)
 
 
-def _pallas_bwd(q, k, v, out, lse, dout, block):
+def _pallas_bwd(q, k, v, out, lse, dout, block, dtype=jnp.float32):
     """The reference's own `_dq_kernel` and `_dkv_kernel`, launched as
     `_flash_bwd_rule` launches them (delta as its einsum), in interpret
-    mode. All [b, L, H, d] numpy f32 but lse [b, H, L]."""
+    mode, on operands of ``dtype``. All [b, L, H, d] numpy f32 (values of
+    ``dtype``) but lse [b, H, L]; returns f32 numpy gradients."""
     b, L, H, d = q.shape
-    r3 = lambda a: a.reshape(b, L, H * d)
+    r3 = lambda a: jnp.asarray(a.reshape(b, L, H * d), dtype)
     delta = np.einsum("blhd,blhd->bhl", dout, out).astype(np.float32)
     kw = dict(H=H, d=d, bq=block, bk=block, scale=1.0 / math.sqrt(d))
     act = pl.BlockSpec((1, block, H * d), lambda ib, i: (ib, i, 0))
     full = pl.BlockSpec((1, L, H * d), lambda ib, i: (ib, 0, 0))
     stats_blk = pl.BlockSpec((1, H, block), lambda ib, i: (ib, 0, i))
     stats_full = pl.BlockSpec((1, H, L), lambda ib, i: (ib, 0, 0))
-    shape = jax.ShapeDtypeStruct((b, L, H * d), jnp.float32)
+    shape = jax.ShapeDtypeStruct((b, L, H * d), dtype)
     args = (r3(q), r3(k), r3(v), r3(dout), lse, delta)
     with jax.enable_x64(False):
         dq = pl.pallas_call(
@@ -149,7 +155,8 @@ def _pallas_bwd(q, k, v, out, lse, dout, block):
             in_specs=[full, act, act, full, stats_full, stats_full],
             out_specs=[act, act], out_shape=[shape, shape],
             interpret=True)(*args)
-    return [np.asarray(t).reshape(b, L, H, d) for t in (dq, dk, dv)]
+    return [np.asarray(t, np.float32).reshape(b, L, H, d)
+            for t in (dq, dk, dv)]
 
 
 def _port_bwd(q, k, v, dout):
@@ -225,7 +232,124 @@ def test_cpu_backward_launches_no_kernel():
 def test_backward_kernels_on_other_devices_raise(fn):
     q = torch.empty(1, 4, 2, 64, device="meta")
     lse = torch.empty(1, 2, 4, device="meta")
+    last = q if fn == "flash_bwd_dq" else lse  # out, or delta
     with pytest.raises(ValueError, match="unsupported device"):
+        getattr(tflash, fn)(q, q, q, q, lse, last)
+
+
+# ---------------------------------------------------------------------------
+# bf16 operands: the plain version of the bf16 tensor-core backward
+# ---------------------------------------------------------------------------
+# Against the reference's kernels in interpret mode, the same bf16 inputs
+# and roundings: each side rounds its outputs to bf16 once (one ulp apart
+# at most, 2^-7 of |ref|), and a rounded P or dS element may flip one bf16
+# ulp between the two sum orders, which moves one term of a sum by 2^-8 of
+# itself: 2^-12 of the tensor's largest magnitude covers a few flips (the
+# default f32 P and dS miss it by 3x or more).
+BF16_OPS_RTOL, BF16_OPS_REL_ATOL = 2.0 ** -7, 2.0 ** -12
+# Against the exact f32 gradient of the same bf16 inputs: the roundings of
+# P and dS themselves (2^-9 relative each, summed with both signs) and of
+# the outputs: 2^-6 of the tensor's largest magnitude, as #8's check.
+BF16_VS_F32_REL_TOL = 2.0 ** -6
+
+
+def _bf16_inputs(shape, seed):
+    """q, k, v, dO as bf16 tensors, from a numpy seed."""
+    rng = np.random.RandomState(seed)
+    return [torch.from_numpy(rng.randn(*shape).astype(np.float32))
+            .to(torch.bfloat16) for _ in range(4)]
+
+
+@pytest.mark.parametrize("b,L,H,d,block", [(1, 256, 2, 64, 128),
+                                           (2, 128, 2, 64, 64)])
+def test_bf16_operands_backward_matches_pallas_kernels_in_interpret_mode(
+        b, L, H, d, block):
+    tq, tk, tv, tdo = _bf16_inputs((b, L, H, d), seed=L + d)
+    out, lse = tflash._flash_reference(tq, tk, tv)
+    grads = tflash._flash_bwd_reference(tq, tk, tv, out, lse, tdo,
+                                        bf16_operands=True)
+    f = lambda t: t.float().numpy()
+    ref = _pallas_bwd(f(tq), f(tk), f(tv), f(out), lse.numpy(), f(tdo),
+                      block, jnp.bfloat16)
+    for got, want, name in zip(grads, ref, ("dq", "dk", "dv")):
+        assert got.dtype == torch.bfloat16
+        np.testing.assert_allclose(
+            f(got), want, rtol=BF16_OPS_RTOL,
+            atol=BF16_OPS_REL_ATOL * float(np.abs(want).max()), err_msg=name)
+
+
+@pytest.mark.parametrize("b,L,H,d", [(1, 77, 2, 64), (2, 200, 2, 32)])
+def test_bf16_operands_backward_ragged_length_matches_vjp_of_xla_attention(
+        b, L, H, d):
+    """Lengths the TPU kernels' L % 256 gate refused, against the exact
+    f32 gradient of the same bf16 values."""
+    tq, tk, tv, tdo = _bf16_inputs((b, L, H, d), seed=L + 1)
+    out, lse = tflash._flash_reference(tq, tk, tv)
+    grads = tflash._flash_bwd_reference(tq, tk, tv, out, lse, tdo,
+                                        bf16_operands=True)
+    q, k, v, dout = (t.float().numpy() for t in (tq, tk, tv, tdo))
+    _, vjp = jax.vjp(lambda q_, k_, v_: jatt.xla_attention(
+        q_, k_, v_, causal=True, layout="blhd"), q, k, v)
+    for got, want, name in zip(grads, vjp(dout), ("dq", "dk", "dv")):
+        want = np.asarray(want)
+        err = float(np.abs(got.float().numpy() - want).max())
+        assert err <= BF16_VS_F32_REL_TOL * float(np.abs(want).max()), \
+            (name, err)
+
+
+def test_bf16_operands_off_leaves_the_plain_backward_as_it_was():
+    """The keyword's default computes P and dS in f32 throughout: on f32
+    inputs it is the unrounded backward, and rounding them moves it."""
+    q, k, v, dout = (torch.from_numpy(a) for a in
+                     _qkv((1, 40, 2, 16), seed=3) + _qkv((1, 40, 2, 16),
+                                                         seed=4)[:1])
+    out, lse = tflash._flash_reference(q, k, v)
+    plain = tflash._flash_bwd_reference(q, k, v, out, lse, dout)
+    off = tflash._flash_bwd_reference(q, k, v, out, lse, dout,
+                                      bf16_operands=False)
+    on = tflash._flash_bwd_reference(q, k, v, out, lse, dout,
+                                     bf16_operands=True)
+    for a, b_, c in zip(plain, off, on):
+        assert torch.equal(a, b_) and not torch.equal(a, c)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_dq_returns_delta_on_the_cpu(causal, dtype):
+    """`flash_bwd_dq(q, k, v, dout, lse, out)` gives (dq, delta): on the
+    CPU the plain dQ and `_delta`; `flash_bwd_dkv` takes that delta, and
+    the two together are the plain backward."""
+    b, L, H, d = 2, 33, 2, 32
+    q, k, v, dout = (torch.from_numpy(a).to(dtype) for a in
+                     _qkv((b, L, H, d), seed=5) + _qkv((b, L, H, d),
+                                                       seed=6)[:1])
+    bias = None if causal else torch.from_numpy(_key_bias(b, L, seed=7))
+    out, lse = tflash._flash_reference(q, k, v, causal, bias)
+    dq_fn = tflash.flash_bwd_dq if causal else functools.partial(
+        tflash.flash_bwd_dq_full, key_bias=bias)
+    dkv_fn = tflash.flash_bwd_dkv if causal else functools.partial(
+        tflash.flash_bwd_dkv_full, key_bias=bias)
+    counters = (tflash.flash_bwd_dq, tflash.flash_bwd_dkv,
+                tflash.flash_bwd_dq_full, tflash.flash_bwd_dkv_full)
+    before = [f.launches for f in counters]
+    dq, delta = dq_fn(q, k, v, dout, lse, out)
+    dk, dv = dkv_fn(q, k, v, dout, lse, delta)
+    assert delta.dtype == torch.float32 and delta.shape == (b, H, L)
+    assert torch.equal(delta, tflash._delta(out, dout))
+    ref = tflash._flash_bwd_reference(q, k, v, out, lse, dout, causal, bias)
+    for got, want in zip((dq, dk, dv), ref):
+        assert got.dtype == dtype and torch.equal(got, want)
+    assert [f.launches for f in counters] == before  # no kernel ran
+
+
+@pytest.mark.parametrize("fn", ["flash_bwd_dq", "flash_bwd_dq_full"])
+def test_flash_bwd_dq_takes_out_not_delta(fn):
+    """The dQ entry's last operand is the forward's out ([b, L, H, d]),
+    checked like dout before any launch (meta tensors stand in for the
+    card's)."""
+    q = torch.empty(1, 4, 2, 64, device="meta")
+    lse = torch.empty(1, 2, 4, device="meta")
+    with pytest.raises(ValueError, match="out shape"):
         getattr(tflash, fn)(q, q, q, q, lse, lse)
 
 
@@ -253,28 +377,72 @@ def test_cuda_kernel_matches_plain(cuda_device, dtype, tol):
         torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=0)
 
 
+# The backward kernels against the plain path on the card. f32 (the
+# scalar kernels): the same f32 FMAs, elementwise 1e-4. bf16 (the tensor-
+# core kernels): against the plain version with bf16-rounded P and dS, the
+# outputs one bf16 ulp apart at most (2^-7 of |ref|) and a few rounded P or
+# dS elements flipped between the two sum orders (mma against einsum,
+# ex2 on the folded scale against exp), each moving a term by 2^-8 of
+# itself: 2^-9 of the tensor's largest magnitude; and against the f32
+# plain version of the same bf16 inputs within 2^-6 of it (the roundings
+# themselves). delta: f32 sums of d products in another order, within
+# d·2^-23·Σ|dO·O| of `_delta`.
+F32_BWD_TOL = 1e-4
+CUDA_BF16_OPS_RTOL, CUDA_BF16_OPS_REL_ATOL = 2.0 ** -7, 2.0 ** -9
+
+
+def _check_cuda_backward(q, k, v, dout, causal, bias=None):
+    """One dQ (with delta) and one dK/dV launch against the plain
+    versions, as the comment above states."""
+    if causal:
+        out, lse = tflash.flash_attention_blhd(q, k, v)
+        dq_fn, dkv_fn = tflash.flash_bwd_dq, tflash.flash_bwd_dkv
+        extra = {}
+    else:
+        out, lse = tflash.flash_attention_full(q, k, v, key_bias=bias)
+        dq_fn, dkv_fn = tflash.flash_bwd_dq_full, tflash.flash_bwd_dkv_full
+        extra = {"key_bias": bias}
+    before = (dq_fn.launches, dkv_fn.launches)
+    dq, delta = dq_fn(q, k, v, dout, lse, out, **extra)
+    dk, dv = dkv_fn(q, k, v, dout, lse, delta, **extra)
+    torch.cuda.synchronize()
+    assert (dq_fn.launches, dkv_fn.launches) == (before[0] + 1,
+                                                 before[1] + 1)
+    d = q.shape[-1]
+    bound = d * 2.0 ** -23 * torch.einsum(
+        "blhd,blhd->bhl", dout.float().abs(), out.float().abs())
+    assert bool(((delta - tflash._delta(out, dout)).abs() <= bound).all())
+    got = (dq, dk, dv)
+    if q.dtype == torch.float32:
+        ref = tflash._flash_bwd_reference(q, k, v, out, lse, dout, causal,
+                                          bias)
+        for g, want in zip(got, ref):
+            torch.testing.assert_close(g, want, atol=F32_BWD_TOL,
+                                       rtol=F32_BWD_TOL)
+        return
+    ref = tflash._flash_bwd_reference(q, k, v, out, lse, dout, causal, bias,
+                                      bf16_operands=True)
+    ref32 = tflash._flash_bwd_reference(
+        *(t.float() for t in (q, k, v, out)), lse, dout.float(), causal,
+        bias)
+    for g, want, want32, name in zip(got, ref, ref32, ("dq", "dk", "dv")):
+        g, want = g.float(), want.float()
+        top = float(want.abs().max())
+        assert bool(((g - want).abs() <= CUDA_BF16_OPS_RTOL * want.abs()
+                     + CUDA_BF16_OPS_REL_ATOL * top).all()), name
+        err32 = float((g - want32).abs().max())
+        assert err32 <= BF16_VS_F32_REL_TOL * float(want32.abs().max()), \
+            (name, err32)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
-                                       (torch.bfloat16, 2e-2)])
-def test_cuda_backward_kernels_match_plain(cuda_device, dtype, tol):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_backward_kernels_match_plain(cuda_device, dtype):
     for shape in ((1, 256, 16, 64), (2, 77, 4, 128), (1, 100, 2, 32)):
         q, k, v, dout = (torch.from_numpy(a).to(cuda_device, dtype)
                          for a in _qkv(shape, seed=shape[1])
                          + _qkv(shape, seed=1)[:1])
-        out, lse = tflash.flash_attention_blhd(q, k, v)
-        delta = tflash._delta(out, dout)
-        before = (tflash.flash_bwd_dq.launches,
-                  tflash.flash_bwd_dkv.launches)
-        dq = tflash.flash_bwd_dq(q, k, v, dout, lse, delta)
-        dk, dv = tflash.flash_bwd_dkv(q, k, v, dout, lse, delta)
-        torch.cuda.synchronize()
-        assert (tflash.flash_bwd_dq.launches,
-                tflash.flash_bwd_dkv.launches) == (before[0] + 1,
-                                                   before[1] + 1)
-        ref = tflash._flash_bwd_reference(q, k, v, out, lse, dout)
-        for got, want in zip((dq, dk, dv), ref):
-            torch.testing.assert_close(got.float(), want.float(), atol=tol,
-                                       rtol=tol)
+        _check_cuda_backward(q, k, v, dout, causal=True)
 
 
 # ---------------------------------------------------------------------------
@@ -454,9 +622,10 @@ def test_key_bias_reaches_the_full_kernels_off_the_cpu():
     bias = torch.empty(2, 16, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         tflash.flash_attention_full(q, q, q, key_bias=bias)
-    for fn in (tflash.flash_bwd_dq_full, tflash.flash_bwd_dkv_full):
+    for fn, last in ((tflash.flash_bwd_dq_full, q),
+                     (tflash.flash_bwd_dkv_full, lse)):
         with pytest.raises(ValueError, match="unsupported device"):
-            fn(q, q, q, q, lse, lse, key_bias=bias)
+            fn(q, q, q, q, lse, last, key_bias=bias)
 
 
 @pytest.mark.parametrize("row_stride", [3 * 2 * 64 + 4, 2 * 64 + 1])
@@ -484,8 +653,9 @@ def test_f32_rows_need_no_alignment():
 def test_full_backward_kernels_on_other_devices_raise(fn):
     q = torch.empty(1, 4, 2, 64, device="meta")
     lse = torch.empty(1, 2, 4, device="meta")
+    last = q if fn == "flash_bwd_dq_full" else lse  # out, or delta
     with pytest.raises(ValueError, match="unsupported device"):
-        getattr(tflash, fn)(q, q, q, q, lse, lse)
+        getattr(tflash, fn)(q, q, q, q, lse, last)
 
 
 def test_cpu_full_attention_launches_no_kernel():
@@ -614,15 +784,7 @@ def test_cuda_full_kernels_match_plain(cuda_device, dtype, tol):
         torch.testing.assert_close(out.float(), ref_out.float(), atol=tol,
                                    rtol=tol)
         torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=0)
-        delta = tflash._delta(out, dout)
-        dq = tflash.flash_bwd_dq_full(q, k, v, dout, lse, delta)
-        dk, dv = tflash.flash_bwd_dkv_full(q, k, v, dout, lse, delta)
-        torch.cuda.synchronize()
-        ref = tflash._flash_bwd_reference(q, k, v, out, lse, dout,
-                                          causal=False)
-        for got, want in zip((dq, dk, dv), ref):
-            torch.testing.assert_close(got.float(), want.float(), atol=tol,
-                                       rtol=tol)
+        _check_cuda_backward(q, k, v, dout, causal=False)
 
 
 @pytest.mark.cuda
@@ -694,7 +856,7 @@ def test_cuda_bf16_forward_matches_plain(cuda_device, shape, causal,
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 2e-2)])
 def test_cuda_key_bias_backward_kernels_match_plain(cuda_device, dtype, tol):
-    for shape in ((2, 128, 12, 64), (2, 77, 4, 128)):
+    for shape in ((2, 128, 12, 64), (2, 77, 4, 128), (1, 200, 2, 32)):
         q, k, v, dout = (torch.from_numpy(a).to(cuda_device, dtype)
                          for a in _qkv(shape, seed=shape[1])
                          + _qkv(shape, seed=1)[:1])
@@ -704,15 +866,35 @@ def test_cuda_key_bias_backward_kernels_match_plain(cuda_device, dtype, tol):
         ref_out, _ = tflash._flash_reference(q, k, v, False, bias)
         torch.testing.assert_close(out.float(), ref_out.float(), atol=tol,
                                    rtol=tol)
-        delta = tflash._delta(out, dout)
-        dq = tflash.flash_bwd_dq_full(q, k, v, dout, lse, delta, bias)
-        dk, dv = tflash.flash_bwd_dkv_full(q, k, v, dout, lse, delta, bias)
-        torch.cuda.synchronize()
-        ref = tflash._flash_bwd_reference(q, k, v, out, lse, dout, False,
-                                          bias)
-        for got, want in zip((dq, dk, dv), ref):
-            torch.testing.assert_close(got.float(), want.float(), atol=tol,
-                                       rtol=tol)
+        _check_cuda_backward(q, k, v, dout, causal=False, bias=bias)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,causal", [
+    ((8, 1024, 16, 64), True),    # GPT-2 345M training
+    ((32, 128, 12, 64), False)])  # BERT-base
+def test_cuda_bf16_backward_on_fused_qkv_views(cuda_device, shape, causal):
+    """The bf16 backward kernels on q/k/v as the views of one fused QKV
+    projection (row strides 3072 and 2304), as the models pass them."""
+    q, k, v = _cuda_bf16_operands(shape, shape[1], fused_qkv=True)
+    dout = torch.from_numpy(_qkv(shape, seed=2)[0]).to(cuda_device,
+                                                       torch.bfloat16)
+    _check_cuda_backward(q, k, v, dout, causal)
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_backward_raises_on_misaligned_out(cuda_device):
+    """out and dout are copied with 16-byte cp.async too: a view that
+    starts off a 16-byte boundary raises before any launch."""
+    q = torch.zeros(2, 16, 2, 64, device=cuda_device, dtype=torch.bfloat16)
+    lse = torch.zeros(2, 2, 16, device=cuda_device)
+    base = torch.zeros(2, 16, 2 * 64 + 8, device=cuda_device,
+                       dtype=torch.bfloat16)
+    out = base[..., 1:129].view(2, 16, 2, 64)
+    before = tflash.flash_bwd_dq.launches
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        tflash.flash_bwd_dq(q, q, q, q, lse, out)
+    assert tflash.flash_bwd_dq.launches == before
 
 
 @pytest.mark.cuda
