@@ -9,15 +9,24 @@ It builds the port's CUDA kernels from ``paddle_tpu_torch/csrc`` and then,
 failing on the first phase that fails:
 
 1. prints the card's name and power limit (``nvidia-smi``);
-2. builds the kernels and prints the build time and ptxas' register use;
+2. builds the kernels and prints the build time and ptxas' register use
+   (and fails if a warp-per-row LayerNorm kernel spills);
 3. holds each kernel against its plain PyTorch version on the card at the
    served shapes (tolerances below; bf16 attention runs the tensor-core
-   forward, f32 the exact scalar one), and times the kernel, the plain
+   forward, f32 the exact scalar one; LayerNorm both of its kernels: the
+   warp-per-row one at the models' widths and a predicated tail, the
+   block-per-row one at a width that is no multiple of the 16-byte vector
+   and on misaligned views), and times the kernel, the plain
    version and one PyTorch library call as a yardstick (CUDA events over
    back-to-back calls, which at small shapes measure the host's launch
    rate; the kernel's and the library call's device time come from
-   ``torch.profiler``), beside the least time the card could take (bytes
-   or operations over the H100's peak), and prints each attention
+   ``torch.profiler``; a window in which it records no kernel is taken
+   again, and a third such window fails the run), beside the least time
+   the card could take (bytes or operations over the H100's peak); at the
+   training shapes the LayerNorms are timed on copies of their inputs in
+   turn, so that each call reads them from HBM as a step does, and the
+   time with the inputs in the 50 MB L2 is kept beside it; it prints
+   each attention
    forward's share of its bound and its ratio to SDPA;
 4. runs the dense forward of GPT-2 345M (24 layers, hidden 1024, 16
    heads, vocab 50304, bf16 weights from a seed) on [1, 1024] tokens
@@ -31,9 +40,10 @@ failing on the first phase that fails:
    time by kernel;
 6. in f32 (weights, KV, no TF32), checks that two requests' served
    tokens equal ``dense_greedy_reference`` over the kernels;
-7. (after 3b, which holds the LayerNorm backward, flash-attention dQ
-   (with delta) and dK/dV and multi-tensor Adam kernels against their
-   plain versions in bf16 and f32 — the bf16 backward against the plain
+7. (after 3b, which holds the LayerNorm backward (and its dw/db bit for
+   bit over two calls), flash-attention dQ (with delta) and dK/dV and
+   multi-tensor Adam kernels against their plain versions in bf16 and
+   f32 — the bf16 backward against the plain
    version with bf16-rounded P and dS and against the f32 one — times
    them as phase 3 does, and prints each backward kernel's share of its
    bound and the pair's ratio to SDPA's backward) takes one training
@@ -47,7 +57,9 @@ failing on the first phase that fails:
    falling, the launch counts per step, and a 2-step profile (which must
    show every attention forward on ``flash_fwd_mma_kernel`` and every
    backward on ``flash_dq_mma_kernel`` and ``flash_dkv_mma_kernel``, none
-   on the scalar kernels; it prints the ``gemv`` launches per step);
+   on the scalar kernels, and every LayerNorm on ``ln_fwd_warp_kernel``
+   and ``ln_bwd_warp_kernel``, none on the block kernels; it prints the
+   ``gemv`` launches per step);
 9. (after 3c, which holds the full-attention forward, dQ and dK/dV
    kernels (also on q/k/v as the strided views of a fused QKV projection
    that BERT passes, and with a key-padding bias of random valid lengths),
@@ -62,7 +74,8 @@ failing on the first phase that fails:
     decay 0.01: 3 warm-up and 20 timed steps, samples/s, tokens/s, p50
     step time, peak memory, the loss finite and falling, the launch counts
     per step, every attention call on the kernel, and a 2-step profile
-    (every attention forward and backward on the tensor-core kernels);
+    (every attention forward and backward on the tensor-core kernels,
+    every LayerNorm on the warp-per-row kernels);
     then padded batches on the card: a bf16 BERT-base forward with an
     attention mask through the kernels against the plain path, and 3
     masked AdamW steps with every attention call on the full kernels;
@@ -77,6 +90,7 @@ object and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import contextlib
+import itertools
 import json
 import re
 import subprocess
@@ -158,7 +172,17 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 F32_CORE_FLOPS = 67e12  # f32 arithmetic outside the tensor cores
 
 LN_ROWS = (1, 2, 4, 8, 128, 1024, 8192)  # decode buckets, chunk, dense
-LN_HIDDEN = (1024, 768)
+# (hidden, the kernels ``_ln_plan`` must pick): GPT-2 345M, BERT-base, a
+# predicated tail (125 bf16 vectors) and a width that is no multiple of the
+# 16-byte vector
+LN_HIDDEN = ((1024, "warp"), (768, "warp"), (1000, "warp"), (1022, "block"))
+# widths also checked on a misaligned view (one element past an
+# allocation's start), which must go to the block kernels
+LN_MISALIGNED_HIDDEN = (1024, 768)
+LN_TIMED = ((8192, 1024), (4096, 768))  # GPT's and BERT's training shapes
+# copies of the inputs the LayerNorms are also timed on in turn, so that a
+# call finds its inputs out of the 50 MB L2 (6 x 16 MB of x at GPT's shape)
+LN_COPIES = 6
 FLASH_SHAPES = ((1, 1024, 16, 64), (4, 512, 16, 64), (2, 77, 16, 64),
                 (1, 256, 8, 128))
 DTYPES = (torch.float32, torch.bfloat16)
@@ -196,22 +220,37 @@ def time_ms(fn, iters=50, warmup=5):
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters=20):
+def device_ms(fn, what, iters=20, attempts=3):
     """Device time of one call of ``fn``: the summed duration of the
     kernels it launches (``torch.profiler``), without the host's launch
-    gaps that CUDA events over back-to-back calls also count."""
+    gaps that CUDA events over back-to-back calls also count. Now and then
+    the profiler records no kernel of a window: such a window is taken
+    again, up to ``attempts`` windows; then the run fails, naming ``what``
+    was timed."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    return sum(getattr(e, "self_device_time_total", 0.0)
-               for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               ) / iters / 1e3
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(getattr(e, "self_device_time_total", 0.0)
+                    for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA)
+        if total > 0:
+            return total / iters / 1e3
+    raise RuntimeError(f"device time of {what}: the profiler recorded no "
+                       f"kernel in {attempts} windows of {iters} calls")
+
+
+def in_turn(fns):
+    """One callable that runs ``fns`` in turn, a call each. Given the same
+    call on distinct copies of its inputs, which together are well over the
+    50 MB L2, each call finds its inputs in HBM, as a training step does."""
+    turn = itertools.cycle(fns)
+    return lambda: next(turn)()
 
 
 def worst(got, ref, atol, rtol):
@@ -414,22 +453,31 @@ def check_backward_kernels(dev, rnd, fused, flash_tpu, err):
     projection)."""
     for dtype in DTYPES:
         tol = LN_BWD_TOL[dtype]
-        for hidden in LN_HIDDEN:
-            for rows in LN_BWD_ROWS:
-                x, g = rnd(rows, hidden, dtype=dtype), rnd(rows, hidden,
-                                                            dtype=dtype)
-                w = rnd(hidden, dtype=dtype)
-                got = fused.layer_norm_bwd(x, w, g)
-                torch.cuda.synchronize()
-                ref = fused._ln_bwd_reference(x, w, g)
-                res = [worst(a, b, *tol) for a, b in zip(got, ref)]
-                err["layer_norm_bwd"] = max(err["layer_norm_bwd"],
-                                            *(e for e, _ in res))
-                log(f"[3b] layer_norm_bwd {str(dtype)[6:]} rows={rows} "
-                    f"hidden={hidden}: dx/dw/db max err "
-                    + "/".join(f"{e:.3g}" for e, _ in res) + f" (tol {tol})")
-                if not all(ok for _, ok in res):
-                    raise AssertionError("layer_norm_bwd kernel disagrees")
+        for rows, hidden, off, want in ln_cases(LN_BWD_ROWS):
+            x, g = rnd(rows, hidden, dtype=dtype), rnd(rows, hidden,
+                                                        dtype=dtype)
+            x = misaligned(x) if off else x
+            w = rnd(hidden, dtype=dtype)
+            got = fused.layer_norm_bwd(x, w, g)
+            again = fused.layer_norm_bwd(x, w, g)
+            torch.cuda.synchronize()
+            ref = fused._ln_bwd_reference(x, w, g)
+            res = [worst(a, b, *tol) for a, b in zip(got, ref)]
+            err["layer_norm_bwd"] = max(err["layer_norm_bwd"],
+                                        *(e for e, _ in res))
+            # dw/db: partials summed in a fixed order, the same bits twice
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            log(f"[3b] layer_norm_bwd {str(dtype)[6:]} rows={rows} "
+                f"hidden={hidden}{' misaligned' if off else ''} "
+                f"({ln_variant(fused, want, x, w, g, got[0], backward=True)})"
+                ": "
+                f"dx/dw/db max err "
+                + "/".join(f"{e:.3g}" for e, _ in res) + f" (tol {tol}); "
+                f"bitwise equal over two calls: {same}")
+            if not all(ok for _, ok in res):
+                raise AssertionError("layer_norm_bwd kernel disagrees")
+            if not same:
+                raise AssertionError("layer_norm_bwd is not deterministic")
         for shape, fused_qkv in ([(sh, False) for sh in FLASH_BWD_SHAPES]
                                  + [(GPT_ATTN_SHAPE, True)]):
             q, k, v, do = attn_operands(rnd, shape, dtype, fused_qkv)
@@ -514,22 +562,45 @@ def time_backward_kernels(dev, rnd, fused, flash_tpu, cfg):
     """Phase 3b timings at the training step's shapes (bf16)."""
     F = torch.nn.functional
     timings = []
-    rows, hidden = TRAIN_SHAPE[0] * TRAIN_SHAPE[1], cfg.hidden_size
-    x, g = (rnd(rows, hidden, dtype=torch.bfloat16) for _ in range(2))
-    w, b = (rnd(hidden, dtype=torch.bfloat16) for _ in range(2))
-    leaves = [t.clone().requires_grad_() for t in (x, w, b)]
-    y = F.layer_norm(leaves[0], (hidden,), leaves[1], leaves[2], 1e-5)
-    lib = lambda: torch.autograd.grad(y, leaves, g, retain_graph=True)
-    kern = lambda: fused.layer_norm_bwd(x, w, g)
-    bound, by = ln_bwd_bound(rows, hidden, torch.bfloat16)
-    timings.append({
-        "kernel": "layer_norm_bwd", "shape": [rows, hidden],
-        "dtype": "bfloat16", "ms": time_ms(kern),
-        "plain_ms": time_ms(lambda: fused._ln_bwd_reference(x, w, g)),
-        "library_ms": time_ms(lib), "device_ms": device_ms(kern),
-        "library_device_ms": device_ms(lib), "bound_ms": bound,
-        "bound_by": by})
-    del x, g, leaves, y
+    # GPT's and BERT's shapes, and at GPT's the block kernels (on a
+    # misaligned view), the kernels before the warp kernels
+    for (rows, hidden), kernel in ([(sh, "layer_norm_bwd") for sh in LN_TIMED]
+                                   + [(LN_TIMED[0], "layer_norm_bwd_block")]):
+        w, b = (rnd(hidden, dtype=torch.bfloat16) for _ in range(2))
+        # LN_COPIES of (x, g) and of F.layer_norm's graph, for the time
+        # with the inputs out of the L2
+        copies = []
+        for _ in range(LN_COPIES):
+            x, g = (rnd(rows, hidden, dtype=torch.bfloat16) for _ in range(2))
+            x = misaligned(x) if kernel.endswith("block") else x
+            leaves = [t.clone().requires_grad_() for t in (x, w, b)]
+            y = F.layer_norm(leaves[0], (hidden,), leaves[1], leaves[2], 1e-5)
+            copies.append((x, g, leaves, y))
+        kerns = [lambda x=x, g=g: fused.layer_norm_bwd(x, w, g)
+                 for x, g, _, _ in copies]
+        libs = [lambda g=g, leaves=leaves, y=y: torch.autograd.grad(
+                    y, leaves, g, retain_graph=True)
+                for _, g, leaves, y in copies]
+        kern, lib = in_turn(kerns), in_turn(libs)
+        x, g = copies[0][:2]
+        what = f"{kernel} {[rows, hidden]}"
+        bound, by = ln_bwd_bound(rows, hidden, torch.bfloat16)
+        timings.append({
+            "kernel": kernel, "shape": [rows, hidden],
+            "dtype": "bfloat16", "ms": time_ms(kern),
+            "plain_ms": time_ms(lambda: fused._ln_bwd_reference(x, w, g)),
+            "library_ms": time_ms(lib),
+            "device_ms": device_ms(kern, what, iters=4 * LN_COPIES),
+            "library_device_ms": device_ms(lib, f"autograd of F.layer_norm "
+                                           f"{[rows, hidden]}",
+                                           iters=4 * LN_COPIES),
+            # one copy, called again and again: its inputs stay in the L2
+            "device_l2_ms": device_ms(kerns[0], what + " in the L2"),
+            "library_device_l2_ms": device_ms(
+                libs[0], f"autograd of F.layer_norm {[rows, hidden]} in the "
+                "L2"),
+            "bound_ms": bound, "bound_by": by})
+        del copies, kerns, libs, kern, lib, x, g
 
     shape = (TRAIN_SHAPE[0], TRAIN_SHAPE[1], cfg.num_heads,
              cfg.hidden_size // cfg.num_heads)
@@ -542,7 +613,8 @@ def time_backward_kernels(dev, rnd, fused, flash_tpu, cfg):
                                       retain_graph=True)
     plain_ms = time_ms(lambda: flash_tpu._flash_bwd_reference(
         q, k, v, out, lse, do, bf16_operands=True), iters=5, warmup=1)
-    lib_ms, lib_dev = time_ms(lib, iters=20), device_ms(lib)
+    lib_ms, lib_dev = time_ms(lib, iters=20), device_ms(
+        lib, f"SDPA's causal backward {list(shape)}")
     for name, kern in (
             ("dq", lambda: flash_tpu.flash_bwd_dq(q, k, v, do, lse, out)),
             ("dkv", lambda: flash_tpu.flash_bwd_dkv(q, k, v, do, lse,
@@ -552,8 +624,8 @@ def time_backward_kernels(dev, rnd, fused, flash_tpu, cfg):
             "kernel": f"flash_attn_bwd_{name}", "shape": list(shape),
             "dtype": "bfloat16", "ms": time_ms(kern, iters=20),
             "plain_ms": plain_ms, "library_ms": lib_ms,
-            "device_ms": device_ms(kern), "library_device_ms": lib_dev,
-            "bound_ms": bound, "bound_by": by,
+            "device_ms": device_ms(kern, f"flash_attn_bwd_{name} {shape}"),
+            "library_device_ms": lib_dev, "bound_ms": bound, "bound_by": by,
             "note": "plain and library times are the whole backward "
                     "(dQ, dK and dV)"})
     del q, k, v, do, out, lse, delta, lt, ys
@@ -573,7 +645,8 @@ def time_backward_kernels(dev, rnd, fused, flash_tpu, cfg):
     args = (params, grads, ms_, vs_, p1, p2, lr)
     kern = lambda: fused.fused_adam_step(*args, masters=masters)
     plain = lambda: fused._adam_reference(*args, masters=masters)
-    kern_ms, kern_dev = time_ms(kern, iters=10), device_ms(kern, iters=5)
+    kern_ms = time_ms(kern, iters=10)
+    kern_dev = device_ms(kern, f"adam over {len(numels)} tensors", iters=5)
     plain_ms = time_ms(plain, iters=3, warmup=1)
     del params, grads, ms_, vs_, masters
     torch.cuda.empty_cache()
@@ -583,7 +656,8 @@ def time_backward_kernels(dev, rnd, fused, flash_tpu, cfg):
     for p in lib_p:
         p.grad = torch.randn(p.numel(), device=dev, generator=gen)
     opt = torch.optim.Adam(lib_p, lr=TRAIN_LR, fused=True)
-    lib_ms, lib_dev = time_ms(opt.step, iters=10), device_ms(opt.step, 5)
+    lib_ms = time_ms(opt.step, iters=10)
+    lib_dev = device_ms(opt.step, "torch.optim.Adam(fused=True)", iters=5)
     del lib_p, opt
     torch.cuda.empty_cache()
     bound, by = adam_bound(numels, 2, 2)
@@ -627,6 +701,31 @@ def check_attention_in_profile(kernels, phase, want, n_steps=2):
         " ms)")
 
 
+def check_layer_norm_in_profile(kernels, phase, want, n_steps=2):
+    """Every LayerNorm launch of the profiled steps ran the warp-per-row
+    kernels: ``want`` launches each of ``ln_fwd_warp_kernel``,
+    ``ln_bwd_warp_kernel`` and ``ln_bwd_reduce_kernel`` and none of the
+    block kernels ``ln_fwd_kernel`` and ``ln_bwd_rows_kernel``; prints
+    them by name with their device time per step."""
+    dev_us = lambda e: getattr(e, "self_device_time_total", 0.0)
+    counts = {}
+    for name in ("ln_fwd_warp_kernel<", "ln_bwd_warp_kernel<",
+                 "ln_bwd_reduce_kernel<", "ln_fwd_kernel<",
+                 "ln_bwd_rows_kernel<"):
+        found = [e for e in kernels if name in e.key]
+        for e in found:
+            log(f"[{phase}] profile, layer norm: "
+                f"{dev_us(e) / n_steps / 1e3:9.3f} ms per step  "
+                f"x{e.count:<6d} {e.key[:90]}")
+        counts[name] = sum(e.count for e in found)
+    if [counts[n] for n in list(counts)[:3]] != [want] * 3 \
+            or counts["ln_fwd_kernel<"] or counts["ln_bwd_rows_kernel<"]:
+        raise AssertionError(f"phase {phase}'s profile shows LayerNorm "
+                             f"launches {counts} (expected {want} of each "
+                             "warp kernel and the reduce, none of the block "
+                             "kernels)")
+
+
 def profile_training(step, ids, labels, n_layers):
     """Device busy share of two training steps under ``torch.profiler``,
     the device time by kernel, and the forward kernel by name."""
@@ -654,6 +753,7 @@ def profile_training(step, ids, labels, n_layers):
         log(f"[8] profile: {dev_us(e) / 1e3:9.3f} ms  x{e.count:<6d} "
             f"{e.key[:90]}")
     check_attention_in_profile(kernels, 8, 2 * n_layers)
+    check_layer_norm_in_profile(kernels, 8, 2 * (2 * n_layers + 1))
 
 
 def attn_operands(rnd, shape, dtype, fused_qkv=False):
@@ -666,6 +766,33 @@ def attn_operands(rnd, shape, dtype, fused_qkv=False):
     qkv = rnd(b, L, 3 * H * d, dtype=dtype)
     q, k, v = (t.view(shape) for t in qkv.split(H * d, dim=-1))
     return q, k, v, rnd(*shape, dtype=dtype)
+
+
+def ln_cases(rows_list):
+    """(rows, hidden, misaligned, kernels) of the LayerNorm checks."""
+    return ([(r, h, False, want) for h, want in LN_HIDDEN for r in rows_list]
+            + [(r, h, True, "block") for h in LN_MISALIGNED_HIDDEN
+               for r in rows_list])
+
+
+def misaligned(t):
+    """A contiguous copy of ``t`` whose data pointer is one element past an
+    allocation's start (not 16-byte aligned)."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def ln_variant(fused, want, x, *others, backward=False):
+    """The kernels ``_ln_plan`` gives this call, which must be ``want``."""
+    rows, hidden = x.numel() // x.shape[-1], x.shape[-1]
+    plan = fused._ln_plan(rows, hidden, x.dtype,
+                          fused._alignment(x, *others), backward)
+    if plan.variant != want:
+        raise AssertionError(f"LayerNorm plan {plan} for {tuple(x.shape)} "
+                             f"{x.dtype}, expected {want}")
+    return plan.variant
 
 
 def padding_bias(b, L, gen, dev):
@@ -814,7 +941,8 @@ def time_bert_kernels(dev, rnd, gen, fused, flash_tpu, dkv_mod, bert_cfg):
         "plain_ms": time_ms(lambda: flash_tpu._flash_reference(
             q, k, v, False, kb), iters=5, warmup=1),
         "library_ms": time_ms(lib_fwd, iters=20),
-        "device_ms": device_ms(fwd), "library_device_ms": device_ms(lib_fwd),
+        "device_ms": device_ms(fwd, "flash_attn_fwd_full+key_bias"),
+        "library_device_ms": device_ms(lib_fwd, "SDPA with a padding mask"),
         "bound_ms": bound, "bound_by": by,
         "note": "the bias's b x L f32 bytes are not in the bound"})
     del q, k, v, qt, kt, vt, kb, mask
@@ -830,8 +958,8 @@ def time_bert_kernels(dev, rnd, gen, fused, flash_tpu, dkv_mod, bert_cfg):
             "plain_ms": time_ms(lambda: flash_tpu._flash_reference(
                 q, k, v, False), iters=5, warmup=1),
             "library_ms": time_ms(lib_fwd, iters=20),
-            "device_ms": device_ms(fwd),
-            "library_device_ms": device_ms(lib_fwd),
+            "device_ms": device_ms(fwd, f"flash_attn_fwd_full {shape}"),
+            "library_device_ms": device_ms(lib_fwd, f"SDPA {shape}"),
             "bound_ms": bound, "bound_by": by})
         out, lse = fwd()
         _, delta = flash_tpu.flash_bwd_dq_full(q, k, v, do, lse, out)
@@ -842,7 +970,8 @@ def time_bert_kernels(dev, rnd, gen, fused, flash_tpu, dkv_mod, bert_cfg):
         plain_ms = time_ms(lambda: flash_tpu._flash_bwd_reference(
             q, k, v, out, lse, do, causal=False, bf16_operands=True),
             iters=5, warmup=1)
-        lib_ms, lib_dev = time_ms(lib, iters=20), device_ms(lib)
+        lib_ms, lib_dev = time_ms(lib, iters=20), device_ms(
+            lib, f"SDPA's backward {shape}")
         for name, kern in (
                 ("dq", lambda: flash_tpu.flash_bwd_dq_full(q, k, v, do, lse,
                                                            out)),
@@ -854,8 +983,10 @@ def time_bert_kernels(dev, rnd, gen, fused, flash_tpu, dkv_mod, bert_cfg):
                 "kernel": f"flash_attn_bwd_{name}_full", "shape": list(shape),
                 "dtype": "bfloat16", "ms": time_ms(kern, iters=20),
                 "plain_ms": plain_ms, "library_ms": lib_ms,
-                "device_ms": device_ms(kern), "library_device_ms": lib_dev,
-                "bound_ms": bound, "bound_by": by,
+                "device_ms": device_ms(
+                    kern, f"flash_attn_bwd_{name}_full {shape}"),
+                "library_device_ms": lib_dev, "bound_ms": bound,
+                "bound_by": by,
                 "note": "plain and library times are the whole backward "
                         "(dQ, dK and dV)"})
         del q, k, v, do, qt, kt, vt, out, lse, delta, lt, ys
@@ -877,8 +1008,10 @@ def time_bert_kernels(dev, rnd, gen, fused, flash_tpu, dkv_mod, bert_cfg):
         "ms": time_ms(kern, iters=20),
         "plain_ms": time_ms(lambda: dkv_mod._dkv_packed_reference(*args4),
                             iters=5, warmup=1),
-        "library_ms": time_ms(lib, iters=20), "device_ms": device_ms(kern),
-        "library_device_ms": device_ms(lib), "bound_ms": bound,
+        "library_ms": time_ms(lib, iters=20),
+        "device_ms": device_ms(kern, f"dkv_packed {[b, L, H, d]}"),
+        "library_device_ms": device_ms(lib, "SDPA's causal backward"),
+        "bound_ms": bound,
         "bound_by": by,
         "note": "library time is SDPA's whole causal backward; the causal "
                 "dK/dV kernel's time at this shape is in phase 3b"})
@@ -896,7 +1029,8 @@ def time_bert_kernels(dev, rnd, gen, fused, flash_tpu, dkv_mod, bert_cfg):
     lr = torch.full((), TRAIN_LR, device=dev)
     args = (params, grads, ms_, vs_, p1, p2, lr)
     kern = lambda: fused.fused_adam_step(*args, decoupled_decay=decay)
-    kern_ms, kern_dev = time_ms(kern, iters=10), device_ms(kern, iters=5)
+    kern_ms = time_ms(kern, iters=10)
+    kern_dev = device_ms(kern, f"adamw over {len(numels)} tensors", iters=5)
     plain_ms = time_ms(lambda: fused._adam_reference(
         *args, decoupled_decay=decay), iters=3, warmup=1)
     del params, grads, ms_, vs_
@@ -908,7 +1042,8 @@ def time_bert_kernels(dev, rnd, gen, fused, flash_tpu, dkv_mod, bert_cfg):
         p.grad = torch.randn(p.numel(), device=dev, generator=gen)
     opt = torch.optim.AdamW(lib_p, lr=TRAIN_LR, weight_decay=0.01,
                             fused=True)
-    lib_ms, lib_dev = time_ms(opt.step, iters=10), device_ms(opt.step, 5)
+    lib_ms = time_ms(opt.step, iters=10)
+    lib_dev = device_ms(opt.step, "torch.optim.AdamW(fused=True)", iters=5)
     del lib_p, opt
     torch.cuda.empty_cache()
     bound, by = adam_bound(numels, 4, 0)
@@ -964,6 +1099,7 @@ def profile_bert_training(step, batch, n_layers):
         log(f"[10] profile: {dev_us(e) / 1e3:9.3f} ms  x{e.count:<6d} "
             f"{e.key[:90]}")
     check_attention_in_profile(kernels, 10, 2 * n_layers)
+    check_layer_norm_in_profile(kernels, 10, 2 * (2 * n_layers + 2))
     return busy_us / wall_us
 
 
@@ -1024,6 +1160,11 @@ def main() -> int:
                                         else "")) if m else ""
             if "registers" in line or "spill" in line:
                 log(f"    {src} {kernel}: {line.strip()}")
+            # the warp-per-row LayerNorms keep their rows and sums in
+            # registers: a spill would put them in local memory
+            if "_warp_kernel" in kernel and "spill" in line and \
+                    re.search(r"[1-9]\d* bytes spill", line):
+                raise AssertionError(f"{src} {kernel} spills: {line}")
 
     # -- phase 3: each kernel against its plain version ---------------------
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -1031,20 +1172,20 @@ def main() -> int:
         *shape, device=dev, generator=gen).to(dtype)
     err = {name: 0.0 for name in counted}
     for dtype in DTYPES:
-        for hidden in LN_HIDDEN:
-            for rows in LN_ROWS:
-                x = rnd(rows, hidden, dtype=dtype)
-                w, b = rnd(hidden, dtype=dtype), rnd(hidden, dtype=dtype)
-                y = ln_fn(x, w, b)
-                torch.cuda.synchronize()
-                e, ok = worst(y, fused._ln_reference(x, w, b),
-                              *LN_TOL[dtype])
-                err["layer_norm_fwd"] = max(err["layer_norm_fwd"], e)
-                log(f"[3] layer_norm {str(dtype)[6:]} rows={rows} "
-                    f"hidden={hidden}: max err {e:.3g} "
-                    f"(tol {LN_TOL[dtype]})")
-                if not ok:
-                    raise AssertionError("layer_norm kernel disagrees")
+        for rows, hidden, off, want in ln_cases(LN_ROWS):
+            x = rnd(rows, hidden, dtype=dtype)
+            x = misaligned(x) if off else x
+            w, b = rnd(hidden, dtype=dtype), rnd(hidden, dtype=dtype)
+            y = ln_fn(x, w, b)
+            torch.cuda.synchronize()
+            e, ok = worst(y, fused._ln_reference(x, w, b), *LN_TOL[dtype])
+            err["layer_norm_fwd"] = max(err["layer_norm_fwd"], e)
+            log(f"[3] layer_norm {str(dtype)[6:]} rows={rows} "
+                f"hidden={hidden}{' misaligned' if off else ''} "
+                f"({ln_variant(fused, want, x, w, b, y)}): max err {e:.3g} "
+                f"(tol {LN_TOL[dtype]})")
+            if not ok:
+                raise AssertionError("layer_norm kernel disagrees")
         # the shapes with dense operands, then GPT's training shape with
         # q/k/v as the main path passes them: views of the fused QKV
         for shape, fused_qkv in ([(sh, False) for sh in FLASH_SHAPES]
@@ -1065,22 +1206,45 @@ def main() -> int:
                 raise AssertionError("flash kernel disagrees")
 
     timings = []
-    for rows in (1, 8, 128, 1024, 8192):
-        x = rnd(rows, 1024, dtype=torch.bfloat16)
-        w, b = (rnd(1024, dtype=torch.bfloat16) for _ in range(2))
-        bound, by = ln_bound(rows, 1024, torch.bfloat16)
+    # decode buckets, a prefill chunk and the training shapes; at GPT's the
+    # block kernel too (on a misaligned view), the kernel before the warp
+    # kernels
+    for rows, hidden, kernel in (
+            [(r, 1024, "layer_norm_fwd") for r in (1, 8, 128, 1024)]
+            + [(r, h, "layer_norm_fwd") for r, h in LN_TIMED]
+            + [(*LN_TIMED[0], "layer_norm_fwd_block")]):
+        xs = [rnd(rows, hidden, dtype=torch.bfloat16)
+              for _ in range(LN_COPIES if rows >= 4096 else 1)]
+        if kernel.endswith("block"):
+            xs = [misaligned(x) for x in xs]
+        x = xs[0]
+        w, b = (rnd(hidden, dtype=torch.bfloat16) for _ in range(2))
+        bound, by = ln_bound(rows, hidden, torch.bfloat16)
+        lib = lambda x=x: torch.nn.functional.layer_norm(x, (hidden,), w, b,
+                                                         1e-5)
+        # the training shapes take their inputs from HBM, as in a step (one
+        # copy after another); the decode and prefill shapes stay in the L2
+        kern = in_turn([lambda x=x: ln_fn(x, w, b) for x in xs])
+        lib_turn = in_turn([lambda x=x: lib(x) for x in xs])
+        what = f"{kernel} {[rows, hidden]}"
         timings.append({
-            "kernel": "layer_norm_fwd", "shape": [rows, 1024],
-            "dtype": "bfloat16",
-            "ms": time_ms(lambda: ln_fn(x, w, b)),
+            "kernel": kernel, "shape": [rows, hidden], "dtype": "bfloat16",
+            "ms": time_ms(kern),
             "plain_ms": time_ms(lambda: fused._ln_reference(x, w, b)),
-            "library_ms": time_ms(lambda: torch.nn.functional.layer_norm(
-                x, (1024,), w, b, 1e-5)),
-            "device_ms": device_ms(lambda: ln_fn(x, w, b)),
-            "library_device_ms": device_ms(
-                lambda: torch.nn.functional.layer_norm(x, (1024,), w, b,
-                                                       1e-5)),
+            "library_ms": time_ms(lib_turn),
+            "device_ms": device_ms(kern, what, iters=4 * LN_COPIES),
+            "library_device_ms": device_ms(lib_turn,
+                                           f"F.layer_norm {[rows, hidden]}",
+                                           iters=4 * LN_COPIES),
             "bound_ms": bound, "bound_by": by})
+        if len(xs) > 1:  # also with one copy, whose x stays in the L2
+            timings[-1].update(
+                device_l2_ms=device_ms(lambda: ln_fn(x, w, b),
+                                       what + " in the L2"),
+                library_device_l2_ms=device_ms(
+                    lib, f"F.layer_norm {[rows, hidden]} in the L2"))
+        del kern, lib_turn
+        del xs, x
     for shape in FLASH_SHAPES + ((8, 1024, 16, 64),):
         q, k, v = (rnd(*shape, dtype=torch.bfloat16) for _ in range(3))
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
@@ -1094,10 +1258,11 @@ def main() -> int:
             "library_ms": time_ms(
                 lambda: torch.nn.functional.scaled_dot_product_attention(
                     qt, kt, vt, is_causal=True), iters=20),
-            "device_ms": device_ms(lambda: flash_fn(q, k, v)),
+            "device_ms": device_ms(lambda: flash_fn(q, k, v),
+                                   f"flash_attn_fwd {shape}"),
             "library_device_ms": device_ms(
                 lambda: torch.nn.functional.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=True)),
+                    qt, kt, vt, is_causal=True), f"SDPA {shape}"),
             "bound_ms": bound, "bound_by": by})
     for t in timings:
         log(f"[3] time {t['kernel']} {t['shape']} bf16: kernel "
@@ -1123,9 +1288,21 @@ def main() -> int:
     for t in timings:
         if t["kernel"].startswith("flash_attn_fwd"):
             log(f"[3] forward {t['kernel']} {t['shape']}: device "
-                f"{t['device_ms']:.4f} ms, {t['bound_ms'] / t['device_ms']:.3f}"
-                f" of its bound ({t['bound_by']}), {t['device_ms'] / t['library_device_ms']:.2f}x"
-                f" SDPA's device time ({t['library_device_ms']:.4f} ms)")
+                f"{t['device_ms']:.4f} ms, "
+                f"{t['bound_ms'] / t['device_ms']:.3f} of its bound "
+                f"({t['bound_by']}), "
+                f"{t['device_ms'] / t['library_device_ms']:.2f}x SDPA's "
+                f"device time ({t['library_device_ms']:.4f} ms)")
+    for t in timings:
+        if "device_l2_ms" in t:
+            kern, lib = t["device_ms"], t["library_device_ms"]
+            log(f"[3] {t['kernel']} {t['shape']}: device {kern:.4f} ms with "
+                f"its inputs out of the L2 ({t['device_l2_ms']:.4f} in it), "
+                f"{t['bound_ms'] / kern:.3f} of its bound "
+                f"({t['bound_by']}), {kern / lib:.2f}x F.layer_norm"
+                + (" autograd" if "bwd" in t["kernel"] else "")
+                + f"'s device time ({lib:.4f} ms; "
+                f"{t['library_device_l2_ms']:.4f} in the L2)")
     for full in ("", "_full"):
         for t in timings:
             if t["kernel"] != f"flash_attn_bwd_dq{full}":
@@ -1134,11 +1311,13 @@ def main() -> int:
                       and u["kernel"] == f"flash_attn_bwd_dkv{full}")
             both = t["device_ms"] + t2["device_ms"]
             log(f"[3b] backward{full or ' (causal)'} {t['shape']}: dQ "
-                f"{t['device_ms']:.4f} ms ({t['bound_ms'] / t['device_ms']:.3f}"
-                f" of its bound, {t['bound_by']}) + dK/dV "
-                f"{t2['device_ms']:.4f} ms ({t2['bound_ms'] / t2['device_ms']:.3f}"
-                f" of its bound, {t2['bound_by']}) = {both:.4f} ms, "
-                f"{both / t['library_device_ms']:.2f}x SDPA's whole backward "
+                f"{t['device_ms']:.4f} ms "
+                f"({t['bound_ms'] / t['device_ms']:.3f} of its bound, "
+                f"{t['bound_by']}) + dK/dV {t2['device_ms']:.4f} ms "
+                f"({t2['bound_ms'] / t2['device_ms']:.3f} of its bound, "
+                f"{t2['bound_by']}) = {both:.4f} ms, "
+                f"{both / t['library_device_ms']:.2f}x SDPA's whole "
+                "backward "
                 f"({t['library_device_ms']:.4f} ms)")
     torch.cuda.empty_cache()
 
@@ -1642,7 +1821,7 @@ def main() -> int:
     for name, source, replaces, t, paths in (
             ("layer_norm_fwd", "paddle_tpu_torch/csrc/layer_norm.cu",
              "paddle_tpu/ops/fused.py:25",
-             timed("layer_norm_fwd", [1024, 1024]),
+             timed("layer_norm_fwd", list(LN_TIMED[0])),
              ("dense_forward", "training", "bert_training")),
             ("flash_attn_fwd", "paddle_tpu_torch/csrc/flash_attn_fwd.cu",
              "paddle_tpu/ops/flash_tpu.py:43",
@@ -1650,7 +1829,7 @@ def main() -> int:
              ("dense_forward", "training")),
             ("layer_norm_bwd", "paddle_tpu_torch/csrc/layer_norm_bwd.cu",
              "paddle_tpu/ops/fused.py:34",
-             timed("layer_norm_bwd", [8192, 1024]),
+             timed("layer_norm_bwd", list(LN_TIMED[0])),
              ("training", "bert_training")),
             ("flash_attn_bwd_dq", "paddle_tpu_torch/csrc/flash_attn_bwd.cu",
              "paddle_tpu/ops/flash_tpu.py:83",
@@ -1691,7 +1870,8 @@ def main() -> int:
             "max_abs_err": err[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-            "device_ms": t["device_ms"], "shape": t["shape"],
+            "device_ms": t["device_ms"],
+            "device_l2_ms": t.get("device_l2_ms"), "shape": t["shape"],
             "dtype": t["dtype"]})
     log(f"card: {smi}")
     print(json.dumps({"kernels": kernels}))

@@ -3,7 +3,7 @@
 // Replaces: paddle_tpu/ops/fused.py `_ln_kernel` (launched by
 // `pl.pallas_call` in `_fused_ln_fwd_impl`). Same math: per row,
 //   y = (x - mean) * rsqrt(var + eps) * w + b,
-// mean and var two-pass in f32, y cast back to x's dtype.
+// mean and var two-pass in f32, y rounded once to x's dtype.
 //
 // What bounds it on this card: bytes. Each element is read once and
 // written once and costs ~8 flops, far below the H100's ~295
@@ -11,42 +11,73 @@
 // * sizeof(T) / 3.35 TB/s. On the serving path the rows are 1-8 (decode)
 // or one prefill chunk, so most launches are latency-bound instead.
 //
-// Design: one block per row. The row is read from device memory ONCE
-// into shared memory (as f32), both statistics and the output are
-// computed from that copy, so device traffic is exactly one read and one
-// write per element. Reductions are warp shuffles plus one word per warp
-// in shared memory. Any row count works (the TPU kernel's
-// `rows % 256 == 0 and hidden % 128 == 0` gate is gone); hidden is bounded
-// only by shared memory (up to ~58k f32 values after the opt-in below).
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
+// Two kernels; ops/fused.py `_ln_plan` picks one from the shape before the
+// launch (variant 0 or 1 of the C entry):
+//  0. `ln_fwd_warp_kernel`, the one the models run: a warp per row, 8 rows
+//     to a block (fewer rows, one smaller block: decode's 1-8 rows are one
+//     block). The row goes from 16-byte loads into registers
+//     (layer_norm_common.cuh) and stays there: both statistics by warp
+//     shuffles alone, no shared memory, no barrier; gamma and beta are read
+//     once per warp as vectors and y is written as vectors. What it does
+//     about the bound: every load is a full 512-byte warp segment, and each
+//     warp keeps its whole row (2 KB at hidden 1024 bf16) in flight at once
+//     with no block-wide barrier between the load and the store. It takes
+//     a hidden that is a multiple of the vector up to 2048 with every
+//     pointer 16-byte aligned.
+//  1. `ln_fwd_kernel`, for every other call (a ragged hidden, a misaligned
+//     view, a wider row): one block per row, the row staged once as f32 in
+//     shared memory, block reductions; hidden bounded by shared memory
+//     (~58k values after the opt-in below).
+#include "layer_norm_common.cuh"
 
 namespace {
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) {
-  return v;
-}
-template <> __device__ __forceinline__ __nv_bfloat16
-from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);  // round to nearest even, as torch's cast
+using namespace ptt_ln;
+
+template <typename T, int E>
+__global__ void __launch_bounds__(256)
+ln_fwd_warp_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                   const T* __restrict__ b, T* __restrict__ y, int rows,
+                   int hidden, float eps) {
+  constexpr int N = kVec<T>;
+  const int lane = threadIdx.x & 31;
+  const long long row =
+      (long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (row >= rows) return;  // the whole warp: no barrier follows
+  const int nvec = hidden / N;
+  uint4 v[E / N];
+  load_row<T, E>(x + row * hidden, nvec, lane, v);
+  const float2 st = row_stats<T, E>([&](int i) { return v[i]; }, nvec, lane,
+                                    hidden, eps);
+  const uint4* wv = reinterpret_cast<const uint4*>(w);
+  const uint4* bv = reinterpret_cast<const uint4*>(b);
+  uint4* yv = reinterpret_cast<uint4*>(y + row * hidden);
+#pragma unroll
+  for (int i = 0; i < E / N; ++i) {
+    const int j = lane + 32 * i;
+    if (j < nvec) {
+      float xf[N], wf[N], bf[N];
+      unpack<T>(v[i], xf);
+      unpack<T>(wv[j], wf);
+      unpack<T>(bv[j], bf);
+#pragma unroll
+      for (int k = 0; k < N; ++k)
+        xf[k] = (xf[k] - st.x) * st.y * wf[k] + bf[k];
+      yv[j] = pack<T>(xf);
+    }
+  }
 }
 
 // Sum over the block; every thread gets the result. `red` holds 32 floats.
 __device__ __forceinline__ float block_sum(float v, float* red) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  v = warp_sum(v);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int nwarps = (blockDim.x + 31) >> 5;
   __syncthreads();  // `red` may still be read from the previous call
   if (lane == 0) red[warp] = v;
   __syncthreads();
   v = lane < nwarps ? red[lane] : 0.f;
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+  return warp_sum(v);
 }
 
 template <typename T>
@@ -79,8 +110,26 @@ __global__ void ln_fwd_kernel(const T* __restrict__ x,
 }
 
 template <typename T>
-cudaError_t launch(const void* x, const void* w, const void* b, void* y,
-                   int rows, int hidden, float eps, cudaStream_t stream) {
+cudaError_t launch_warp(const void* x, const void* w, const void* b, void* y,
+                        int rows, int hidden, int rows_per_block, int grid,
+                        float eps, cudaStream_t stream) {
+  const void* ptrs[] = {x, w, b, y};
+  if (!rows_aligned<T>(hidden, ptrs, 4) ||
+      (long long)grid * rows_per_block < rows)
+    return cudaErrorInvalidValue;
+  return with_lane_values(hidden, [&](auto e) {
+    ln_fwd_warp_kernel<T, decltype(e)::value>
+        <<<grid, 32 * rows_per_block, 0, stream>>>(
+            static_cast<const T*>(x), static_cast<const T*>(w),
+            static_cast<const T*>(b), static_cast<T*>(y), rows, hidden, eps);
+    return cudaGetLastError();
+  });
+}
+
+template <typename T>
+cudaError_t launch_block(const void* x, const void* w, const void* b,
+                         void* y, int rows, int hidden, float eps,
+                         cudaStream_t stream) {
   int threads = (hidden + 3) / 4;  // ~4 elements per thread
   threads = ((threads + 31) / 32) * 32;
   threads = threads < 32 ? 32 : (threads > 1024 ? 1024 : threads);
@@ -97,17 +146,37 @@ cudaError_t launch(const void* x, const void* w, const void* b, void* y,
   return cudaGetLastError();
 }
 
+template <typename T>
+cudaError_t launch(const void* x, const void* w, const void* b, void* y,
+                   int rows, int hidden, int rows_per_block, int grid,
+                   float eps, int variant, cudaStream_t stream) {
+  if (variant == 0)
+    return launch_warp<T>(x, w, b, y, rows, hidden, rows_per_block, grid,
+                          eps, stream);
+  if (variant == 1 && rows_per_block == 1 && grid == rows)
+    return launch_block<T>(x, w, b, y, rows, hidden, eps, stream);
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t (0 = launched).
+// variant: 0 = a warp per row (`rows_per_block` warps to a block, `grid`
+// blocks), 1 = a block per row (rows_per_block 1, grid = rows), as
+// ops/fused.py `_ln_plan` gives them. dtype: 0 = float32, 1 = bfloat16.
+// Returns a cudaError_t (0 = launched).
 extern "C" int ptt_layer_norm_fwd(const void* x, const void* w,
                                   const void* b, void* y, int rows,
-                                  int hidden, float eps, int dtype,
+                                  int hidden, int rows_per_block, int grid,
+                                  float eps, int dtype, int variant,
                                   void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (rows <= 0 || hidden <= 0) return (int)cudaErrorInvalidValue;
-  if (dtype == 0) return (int)launch<float>(x, w, b, y, rows, hidden, eps, s);
+  if (rows <= 0 || hidden <= 0 || rows_per_block <= 0 || grid <= 0)
+    return (int)cudaErrorInvalidValue;
+  if (dtype == 0)
+    return (int)launch<float>(x, w, b, y, rows, hidden, rows_per_block,
+                              grid, eps, variant, s);
   if (dtype == 1)
-    return (int)launch<__nv_bfloat16>(x, w, b, y, rows, hidden, eps, s);
+    return (int)launch<__nv_bfloat16>(x, w, b, y, rows, hidden,
+                                      rows_per_block, grid, eps, variant, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -59,11 +59,14 @@ _FLASH_FWD = ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
 _FLASH_BWD = ([_P] * 10 + [_I] * 4 + [_LL] * 10 + [_F, _I, _P], _I)
 _SIGNATURES = {
     "ptt_error_string": ([_I], ctypes.c_char_p),
-    "ptt_layer_norm_fwd": ([_P, _P, _P, _P, _I, _I, _F, _I, _P], _I),
+    # x, w, b, y, rows, hidden, rows_per_block, grid, eps, dtype, variant,
+    # stream
+    "ptt_layer_norm_fwd": ([_P] * 4 + [_I] * 4 + [_F, _I, _I, _P], _I),
     "ptt_flash_attn_fwd": _FLASH_FWD,
     "ptt_flash_attn_fwd_full": _FLASH_FWD,
-    "ptt_layer_norm_bwd": ([_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F,
-                            _I, _P], _I),
+    # x, w, g, dx, dw_part, db_part, dw, db, rows, hidden, rows_per_block,
+    # grid, eps, dtype, variant, stream
+    "ptt_layer_norm_bwd": ([_P] * 8 + [_I] * 4 + [_F, _I, _I, _P], _I),
     "ptt_flash_attn_bwd_dq": _FLASH_BWD,
     "ptt_flash_attn_bwd_dkv": _FLASH_BWD,
     "ptt_flash_attn_bwd_dq_full": _FLASH_BWD,

@@ -9,6 +9,8 @@ fallback between the two: a CUDA tensor the kernel cannot take raises.
   ``csrc/layer_norm.cu`` (the port of the Pallas ``_ln_kernel``) or
   ``_ln_reference``; its backward ``csrc/layer_norm_bwd.cu`` (the port of
   ``_ln_bwd_kernel``, two launches per call) or ``_ln_bwd_reference``.
+  Each source holds two kernels, a warp per row (the models' widths) and a
+  block per row (any other call); ``_ln_plan`` picks one from the shape.
 - ``fused_adam_step`` updates many parameters in one pass
   (``csrc/adam.cu``, the port of ``_adam_kernel``, two launches per call)
   or through ``_adam_reference``, a per-tensor loop over the reference's
@@ -16,7 +18,8 @@ fallback between the two: a CUDA tensor the kernel cannot take raises.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence, Tuple
+import math
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -65,6 +68,63 @@ def _ln_bwd_reference(x: torch.Tensor, weight: torch.Tensor, g: torch.Tensor,
     return dx, dw, db
 
 
+# rows (one warp each) to a block of the warp-per-row kernels
+_LN_WARP_ROWS = 8
+# the widest row of the warp-per-row kernels: 64 values a lane, whose
+# dγ/dβ sums the backward keeps in registers (`layer_norm_bwd.cu`)
+_LN_WARP_MAX_HIDDEN = 64 * 32
+# blocks of the warp-per-row backward: 2 per SM of an H100 (132 SMs), as
+# many as its 128 registers a thread at hidden 1024 bf16 (ptxas) let an SM
+# hold; each block writes one row of f32 partials
+_LN_BWD_WARP_GRID = 2 * 132
+# blocks of the block-per-row backward: enough to fill the card, few
+# enough that the f32 partials [grid, hidden] stay small next to x
+_LN_BWD_BLOCKS = 512
+_LN_VARIANT_CODES = {"warp": 0, "block": 1}  # the C entries' `variant`
+
+
+class _LnPlan(NamedTuple):
+    variant: str         # "warp" or "block"
+    rows_per_block: int  # warp: warps (one row at a time each) to a block;
+    #                      block: rows to a block (the forward's: 1)
+    grid: int            # blocks
+    partials: Optional[Tuple[int, int]]  # backward: f32 dγ/dβ partials
+
+
+def _ln_plan(rows: int, hidden: int, dtype: torch.dtype,
+             ptr_alignment: int, backward: bool = False) -> _LnPlan:
+    """The kernel and launch shape of one LayerNorm call over ``rows`` rows
+    of ``hidden`` values, decided from the shape before the launch.
+
+    ``"warp"`` (a warp per row, 16-byte vectors) takes a ``hidden`` that is
+    a multiple of the 16-byte vector (8 bf16, 4 f32) up to
+    ``_LN_WARP_MAX_HIDDEN`` when every pointer of the call is 16-byte
+    aligned (``ptr_alignment``: the largest power of two up to 16 that
+    divides them all); ``"block"`` takes every other call. The forward
+    gives each warp one row, ``_LN_WARP_ROWS`` to a block; the backward's
+    warps stride over the rows of at most ``_LN_BWD_WARP_GRID`` blocks and
+    each block writes one row of the ``partials``."""
+    vec = 16 // dtype.itemsize
+    if (hidden % vec == 0 and hidden <= _LN_WARP_MAX_HIDDEN
+            and ptr_alignment % 16 == 0):
+        variant, rows_per_block = "warp", min(_LN_WARP_ROWS, rows)
+        grid = -(-rows // rows_per_block)
+        if backward:
+            grid = min(grid, _LN_BWD_WARP_GRID)
+    elif backward:
+        variant, rows_per_block = "block", -(-rows // _LN_BWD_BLOCKS)
+        grid = -(-rows // rows_per_block)
+    else:
+        variant, rows_per_block, grid = "block", 1, rows
+    return _LnPlan(variant, rows_per_block, grid,
+                   (grid, hidden) if backward else None)
+
+
+def _alignment(*tensors: torch.Tensor) -> int:
+    """The largest power of two up to 16 that divides every data pointer."""
+    return math.gcd(16, *(t.data_ptr() for t in tensors))
+
+
 def _ln_fwd(x, weight, bias, eps):
     if x.device.type == "cpu":
         return _ln_reference(x, weight, bias, eps)
@@ -74,20 +134,17 @@ def _ln_fwd(x, weight, bias, eps):
     y = torch.empty_like(x)
     if rows == 0:
         return y
+    plan = _ln_plan(rows, hidden, x.dtype, _alignment(x, weight, bias, y))
     lib = _build.library()
     with torch.cuda.device(x.device):
         err = lib.ptt_layer_norm_fwd(
             x.data_ptr(), weight.data_ptr(), bias.data_ptr(), y.data_ptr(),
-            rows, hidden, float(eps), _build.DTYPE_CODES[x.dtype],
+            rows, hidden, plan.rows_per_block, plan.grid, float(eps),
+            _build.DTYPE_CODES[x.dtype], _LN_VARIANT_CODES[plan.variant],
             _build.stream_of(x))
     _build.check(err, "layer_norm_fwd")
     fused_layer_norm.launches += 1
     return y
-
-
-# blocks of the row pass of the backward: enough to fill the card, few
-# enough that the f32 partials [nblocks, hidden] stay small next to x
-_LN_BWD_BLOCKS = 512
 
 
 def layer_norm_bwd(x: torch.Tensor, weight: torch.Tensor, g: torch.Tensor,
@@ -112,17 +169,19 @@ def layer_norm_bwd(x: torch.Tensor, weight: torch.Tensor, g: torch.Tensor,
     db = torch.empty_like(weight)
     if rows == 0:
         return dx, dw.zero_(), db.zero_()
-    rows_per_block = -(-rows // _LN_BWD_BLOCKS)
-    nblocks = -(-rows // rows_per_block)
-    parts = torch.empty((2, nblocks, hidden), dtype=torch.float32,
+    # the partials' rows are 16-byte aligned when hidden is a multiple of 4
+    plan = _ln_plan(rows, hidden, x.dtype, _alignment(x, weight, g, dx),
+                    backward=True)
+    parts = torch.empty((2, *plan.partials), dtype=torch.float32,
                         device=x.device)
     lib = _build.library()
     with torch.cuda.device(x.device):
         err = lib.ptt_layer_norm_bwd(
             x.data_ptr(), weight.data_ptr(), g.data_ptr(), dx.data_ptr(),
             parts[0].data_ptr(), parts[1].data_ptr(), dw.data_ptr(),
-            db.data_ptr(), rows, hidden, rows_per_block, float(eps),
-            _build.DTYPE_CODES[x.dtype], _build.stream_of(x))
+            db.data_ptr(), rows, hidden, plan.rows_per_block, plan.grid,
+            float(eps), _build.DTYPE_CODES[x.dtype],
+            _LN_VARIANT_CODES[plan.variant], _build.stream_of(x))
     _build.check(err, "layer_norm_bwd")
     layer_norm_bwd.launches += 2
     return dx, dw, db

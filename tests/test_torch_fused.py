@@ -5,6 +5,7 @@ in interpret mode, against `jax.vjp` of `_ln_reference` and of the GPT
 model's `_ln_manual`; the CUDA kernels against the plain path on a card
 (marked `cuda`)."""
 import functools
+import math
 
 import jax
 import jax.numpy as jnp
@@ -197,6 +198,91 @@ def test_backward_on_other_devices_raises():
         tfused.layer_norm_bwd(x, w, x)
 
 
+# every width of the port's model configurations: gpt2_tiny / bert_tiny,
+# BERT-base and GPT-2 small, GPT-2 345M and BERT-large, ERNIE 1.5B
+CONFIG_WIDTHS = (128, 768, 1024, 2048)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hidden", CONFIG_WIDTHS)
+@pytest.mark.parametrize("backward", [False, True])
+def test_plan_takes_every_config_width_to_the_warp_kernels(hidden, dtype,
+                                                            backward):
+    plan = tfused._ln_plan(8192, hidden, dtype, 16, backward)
+    assert plan.variant == "warp"
+    assert plan.rows_per_block == tfused._LN_WARP_ROWS
+
+
+@pytest.mark.parametrize("hidden,dtype,alignment,why", [
+    (1020, torch.bfloat16, 16, "not a multiple of 8 bf16"),
+    (1022, torch.float32, 16, "not a multiple of 4 f32"),
+    (77, torch.float32, 16, "not a multiple of 4 f32"),
+    (4096, torch.bfloat16, 16, "over 64 values a lane"),
+    (2052, torch.float32, 16, "over 64 values a lane"),
+    (1024, torch.bfloat16, 2, "a pointer 2 bytes off"),
+    (768, torch.float32, 4, "a pointer 4 bytes off"),
+    (1024, torch.float32, 8, "a pointer 8 bytes off")])
+@pytest.mark.parametrize("backward", [False, True])
+def test_plan_sends_other_calls_to_the_block_kernels(hidden, dtype,
+                                                     alignment, why,
+                                                     backward):
+    assert tfused._ln_plan(4096, hidden, dtype, alignment,
+                           backward).variant == "block", why
+
+
+def test_plan_takes_a_predicated_tail_to_the_warp_kernels():
+    """1000 is 125 bf16 vectors (250 f32): not a multiple of 32 vectors,
+    so the last vectors of some lanes are predicated off."""
+    for dtype in (torch.float32, torch.bfloat16):
+        assert tfused._ln_plan(64, 1000, dtype, 16).variant == "warp"
+
+
+def _rows_of_plan(plan, rows):
+    """The rows each block of ``plan`` takes, as the kernels walk them."""
+    if plan.variant == "block":
+        return [list(range(i * plan.rows_per_block,
+                           min(rows, (i + 1) * plan.rows_per_block)))
+                for i in range(plan.grid)]
+    warps = plan.grid * plan.rows_per_block  # each warp strides over rows
+    return [[r for w in range(i * plan.rows_per_block,
+                              (i + 1) * plan.rows_per_block)
+             for r in range(w, rows, warps)] for i in range(plan.grid)]
+
+
+@pytest.mark.parametrize("rows", [1, 7, 8, 4096, 8191, 8192])
+@pytest.mark.parametrize("hidden,alignment", [(1024, 16), (768, 16),
+                                              (1020, 16), (1024, 2)])
+@pytest.mark.parametrize("backward", [False, True])
+def test_plan_grid_covers_every_row_once(rows, hidden, alignment, backward):
+    plan = tfused._ln_plan(rows, hidden, torch.bfloat16, alignment, backward)
+    blocks = _rows_of_plan(plan, rows)
+    assert sorted(r for b in blocks for r in b) == list(range(rows))
+    assert all(blocks), "a block without rows"
+    if plan.variant == "warp":
+        assert plan.rows_per_block == min(tfused._LN_WARP_ROWS, rows)
+        if backward:
+            assert plan.grid <= tfused._LN_BWD_WARP_GRID
+    if backward:
+        assert plan.partials == (plan.grid, hidden)
+    else:
+        assert plan.partials is None
+
+
+def test_plan_decode_rows_are_one_small_block():
+    for rows in range(1, 9):
+        plan = tfused._ln_plan(rows, 1024, torch.bfloat16, 16)
+        assert (plan.variant, plan.rows_per_block, plan.grid) == \
+            ("warp", rows, 1)
+
+
+def test_alignment_is_the_largest_power_of_two_dividing_every_pointer():
+    buf = torch.zeros(64, dtype=torch.bfloat16)  # 64-byte aligned
+    assert buf.data_ptr() % 16 == 0
+    assert tfused._alignment(buf) == tfused._alignment(buf[8:]) == 16
+    assert tfused._alignment(buf[4:]) == 8
+    assert tfused._alignment(buf, buf[1:]) == 2
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -204,34 +290,109 @@ def cuda_device():
     return torch.device("cuda")
 
 
+# the kernels' tolerances of chip_smoke.py (LN_TOL, LN_BWD_TOL)
+LN_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+LN_BWD_TOL = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (1e-2, 1e-2)}
+CUDA_ROWS = (1, 8, 4096, 8191, 8192)
+CUDA_HIDDEN = (768, 1024, 1000)
+
+
+def _on_card(a, dev, dtype, misaligned):
+    """``a`` on the card; ``misaligned``: a contiguous view whose data
+    pointer is one element past an allocation's start, so the plan takes
+    the block kernels."""
+    t = torch.from_numpy(a).to(dev, dtype)
+    if not misaligned:
+        return t
+    buf = torch.empty(t.numel() + 1, dtype=dtype, device=dev)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
-                                       (torch.bfloat16, 1e-2)])
-def test_cuda_kernel_matches_plain(cuda_device, dtype, tol):
-    for rows, hidden in ((1, 1024), (8, 768), (300, 1024)):
-        x, w, b = (torch.from_numpy(a).to(cuda_device, dtype)
-                   for a in _inputs((rows, hidden), seed=rows))
+@pytest.mark.parametrize("variant", ["warp", "block"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_kernel_matches_plain(cuda_device, dtype, variant):
+    tol = LN_TOL[dtype]
+    shapes = [(r, h) for r in CUDA_ROWS for h in CUDA_HIDDEN] + [(300, 1024)]
+    for rows, hidden in shapes:
+        x, w, b = _inputs((rows, hidden), seed=rows)
+        x = _on_card(x, cuda_device, dtype, variant == "block")
+        w, b = (_on_card(a, cuda_device, dtype, False) for a in (w, b))
+        plan = tfused._ln_plan(rows, hidden, dtype,
+                               tfused._alignment(x, w, b))
+        assert plan.variant == variant
         before = tfused.fused_layer_norm.launches
         got = tfused.fused_layer_norm(x, w, b)
         torch.cuda.synchronize()
         assert tfused.fused_layer_norm.launches == before + 1
         ref = tfused._ln_reference(x, w, b)
         torch.testing.assert_close(got.float(), ref.float(), atol=tol,
-                                   rtol=tol)
+                                   rtol=tol, msg=f"{rows} x {hidden}")
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
-                                       (torch.bfloat16, 2e-2)])
-def test_cuda_backward_kernel_matches_plain(cuda_device, dtype, tol):
-    for rows, hidden in ((1, 1024), (8, 768), (1000, 1024), (3, 4096)):
-        x, w, _ = (torch.from_numpy(a).to(cuda_device, dtype)
-                   for a in _inputs((rows, hidden), seed=rows))
+@pytest.mark.parametrize("variant", ["warp", "block"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_backward_kernel_matches_plain(cuda_device, dtype, variant):
+    atol, rtol = LN_BWD_TOL[dtype]
+    shapes = ([(r, h) for r in CUDA_ROWS for h in CUDA_HIDDEN]
+              + [(1000, 1024), (3, 4096)])
+    for rows, hidden in shapes:
+        x, w, _ = _inputs((rows, hidden), seed=rows)
+        x = _on_card(x, cuda_device, dtype, variant == "block")
+        w = _on_card(w, cuda_device, dtype, False)
         g = torch.randn(rows, hidden, device=cuda_device).to(dtype)
+        plan = tfused._ln_plan(rows, hidden, dtype,
+                               tfused._alignment(x, w, g), backward=True)
+        assert plan.variant == ("block" if hidden > 2048 else variant)
         before = tfused.layer_norm_bwd.launches
         got = tfused.layer_norm_bwd(x, w, g)
         torch.cuda.synchronize()
         assert tfused.layer_norm_bwd.launches == before + 2
-        for a, ref in zip(got, tfused._ln_bwd_reference(x, w, g)):
-            torch.testing.assert_close(a.float(), ref.float(), atol=tol,
-                                       rtol=tol)
+        for a, ref, name in zip(got, tfused._ln_bwd_reference(x, w, g),
+                                ("dx", "dw", "db")):
+            torch.testing.assert_close(a.float(), ref.float(), atol=atol,
+                                       rtol=rtol,
+                                       msg=f"{name} {rows} x {hidden}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["warp", "block"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_backward_sums_are_deterministic(cuda_device, dtype, variant):
+    """dγ and dβ come from per-block partials summed in a fixed order, so
+    two calls on the same inputs agree bit for bit."""
+    x, w, _ = _inputs((8192, 1024), seed=9)
+    x = _on_card(x, cuda_device, dtype, variant == "block")
+    w = _on_card(w, cuda_device, dtype, False)
+    g = torch.randn(8192, 1024, device=cuda_device).to(dtype)
+    first = tfused.layer_norm_bwd(x, w, g)
+    second = tfused.layer_norm_bwd(x, w, g)
+    torch.cuda.synchronize()
+    for a, b, name in zip(first, second, ("dx", "dw", "db")):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_warp_kernels_take_every_config_width(cuda_device, dtype):
+    """The widest row (2048: x and g in shared memory) and the narrowest
+    (128: half the lanes idle) through both warp kernels, and 1536 (48
+    values a lane in the 64-value kernels)."""
+    for hidden in CONFIG_WIDTHS + (1536,):
+        x, w, b = (torch.from_numpy(a).to(cuda_device, dtype)
+                   for a in _inputs((257, hidden), seed=hidden))
+        g = torch.randn(257, hidden, device=cuda_device).to(dtype)
+        assert tfused._ln_plan(257, hidden, dtype,
+                               tfused._alignment(x, w, b, g)).variant == "warp"
+        torch.testing.assert_close(
+            tfused.fused_layer_norm(x, w, b).float(),
+            tfused._ln_reference(x, w, b).float(), atol=LN_TOL[dtype],
+            rtol=LN_TOL[dtype])
+        atol, rtol = LN_BWD_TOL[dtype]
+        for a, ref in zip(tfused.layer_norm_bwd(x, w, g),
+                          tfused._ln_bwd_reference(x, w, g)):
+            torch.testing.assert_close(a.float(), ref.float(), atol=atol,
+                                       rtol=rtol, msg=f"hidden {hidden}")
