@@ -10,7 +10,8 @@ failing on the first phase that fails:
 
 1. prints the card's name and power limit (``nvidia-smi``);
 2. builds the kernels and prints the build time and ptxas' register use
-   (and fails if a warp-per-row LayerNorm kernel spills);
+   (and fails if a warp-per-row LayerNorm kernel, or the packed dK/dV
+   kernel at d <= 64, spills);
 3. holds each kernel against its plain PyTorch version on the card at the
    served shapes (tolerances below; bf16 attention runs the tensor-core
    forward, f32 the exact scalar one; LayerNorm both of its kernels: the
@@ -63,7 +64,10 @@ failing on the first phase that fails:
 9. (after 3c, which holds the full-attention forward, dQ and dK/dV
    kernels (also on q/k/v as the strided views of a fused QKV projection
    that BERT passes, and with a key-padding bias of random valid lengths),
-   the packed dK/dV of the experiment and the AdamW mode of the Adam
+   the packed dK/dV of the experiment (at d = 32, 64 and 128, also against
+   the causal dK/dV kernel, whose bits it must give at d = 64, the same
+   bits over two calls, every launch on the tensor-core kernel in a
+   profile) and the AdamW mode of the Adam
    kernel against their plain versions and times them) takes one f32
    AdamW step of a 2-layer BERT-base (batch 4 x 128) through the kernels
    and one through the plain path, and compares the loss, every gradient
@@ -195,8 +199,12 @@ GPT_ATTN_SHAPE = (8, 1024, 16, 64)  # attention of the training phase
 # full attention (#4): BERT's shape, a ragged L, GPT's shape
 BERT_ATTN_SHAPE = (32, 128, 12, 64)
 FULL_SHAPES = (BERT_ATTN_SHAPE, (4, 200, 12, 64), (8, 1024, 16, 64))
-# packed dK/dV (#8), (b, L, H, d): the experiment's shape first
-PACKED_SHAPES = ((8, 1024, 16, 64), (4, 200, 12, 64), BERT_ATTN_SHAPE)
+# packed dK/dV (#8), (b, L, H, d): the experiment's shape first, ragged L,
+# BERT's, and the head dims where bf16(q * scale) rounds (32, 128)
+PACKED_SHAPES = ((8, 1024, 16, 64), (4, 200, 12, 64), BERT_ATTN_SHAPE,
+                 (2, 512, 8, 32), (2, 1024, 8, 128), (2, 333, 4, 128))
+# ... timed at the experiment's b, L, H for each head dim
+PACKED_TIMED = ((8, 1024, 16, 64), (8, 1024, 16, 32), (8, 1024, 16, 128))
 BERT_SHAPE = (32, 128)  # batch x tokens of the BERT training phase
 
 
@@ -855,9 +863,22 @@ def check_bert_kernels(dev, rnd, gen, fused, flash_tpu, dkv_mod, bert_cfg,
         delta = flash_tpu._delta(out, do)
         bhld = lambda t: t.transpose(1, 2).contiguous()
         args4 = (bhld(q), bhld(k), bhld(v), bhld(do), lse, delta)
+        # the first call under the profiler: every launch on the
+        # tensor-core kernel, none on another kernel of that name
+        found = kernel_launches(lambda: dkv_mod.dkv_call(*args4),
+                                f"dkv_packed {shape}")
+        mma = sum(n for key, n in found.items()
+                  if "dkv_packed_mma_kernel<" in key)
+        other = {key: n for key, n in found.items() if "dkv_packed" in key
+                 and "dkv_packed_mma_kernel<" not in key}
         dk, dv = dkv_mod.dkv_call(*args4)
+        dk2, dv2 = dkv_mod.dkv_call(*args4)
         dk3, dv3 = flash_tpu.flash_bwd_dkv(q, k, v, do, lse, delta)
         torch.cuda.synchronize()
+        same = torch.equal(dk, dk2) and torch.equal(dv, dv2)
+        # at d = 64 the scale is 2^-3, bf16(q * scale) is exact, and #8
+        # runs #3's loop and numerics on the same values: the same bits
+        same3 = torch.equal(dk, bhld(dk3)) and torch.equal(dv, bhld(dv3))
         ref = dkv_mod._dkv_packed_reference(*args4)
         res = [packed_worst(a, b) for a, b in zip((dk, dv), ref)]
         res3 = [packed_worst(a, bhld(b)) for a, b in zip((dk, dv),
@@ -867,10 +888,23 @@ def check_bert_kernels(dev, rnd, gen, fused, flash_tpu, dkv_mod, bert_cfg,
             + "/".join(f"{e:.3g}" for e, _ in res) + ", vs the causal dK/dV "
             "kernel (#3, tensor cores) "
             + "/".join(f"{e:.3g}" for e, _ in res3)
-            + f" (tol {PACKED_REL_TOL:.4g} x max|ref|)")
+            + f" (tol {PACKED_REL_TOL:.4g} x max|ref|); same bits over two "
+            f"calls {same}, as #3's {same3}; profile: {mma} launch(es) of "
+            f"dkv_packed_mma_kernel, others {other}")
         if not all(ok for _, ok in res + res3):
             raise AssertionError("packed dK/dV kernel disagrees")
-        del q, k, v, do, out, lse, delta, args4, dk, dv, dk3, dv3, ref
+        if not same:
+            raise AssertionError("packed dK/dV kernel gives other bits on a "
+                                 "second call")
+        if shape[3] == 64 and not same3:
+            raise AssertionError("at d = 64 the packed dK/dV kernel and the "
+                                 "causal dK/dV kernel give other bits")
+        if mma != 1 or other:
+            raise AssertionError(f"packed dK/dV's profile shows {mma} "
+                                 f"tensor-core launches (expected 1) and "
+                                 f"{other}")
+        del q, k, v, do, out, lse, delta, args4, dk, dv, dk2, dv2, dk3, dv3
+        del ref
     torch.cuda.empty_cache()
 
     # AdamW over BERT-base's 157 f32 tensors (no masters), decay on the
@@ -911,6 +945,25 @@ def check_bert_kernels(dev, rnd, gen, fused, flash_tpu, dkv_mod, bert_cfg,
                                       errs.items()) + f" (tol {ADAM_TOL})")
     del got, want, grads
     torch.cuda.empty_cache()
+
+
+def kernel_launches(fn, what, attempts=3):
+    """{kernel name: launches} of one call of ``fn`` under
+    ``torch.profiler``; a window in which it records no kernel is taken
+    again, up to ``attempts`` windows, then the run fails naming ``what``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        found = {e.key: e.count for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA}
+        if found:
+            return found
+    raise RuntimeError(f"kernels of {what}: the profiler recorded no kernel "
+                       f"in {attempts} windows")
 
 
 def packed_worst(got, ref):
@@ -991,31 +1044,41 @@ def time_bert_kernels(dev, rnd, gen, fused, flash_tpu, dkv_mod, bert_cfg):
                         "(dQ, dK and dV)"})
         del q, k, v, do, qt, kt, vt, out, lse, delta, lt, ys
 
-    b, L, H, d = PACKED_SHAPES[0]
-    q, k, v, do = (rnd(b, L, H, d, dtype=torch.bfloat16) for _ in range(4))
-    out, lse = flash_tpu._fwd(q, k, v)
-    delta = flash_tpu._delta(out, do)
-    bhld = lambda t: t.transpose(1, 2).contiguous()
-    args4 = (bhld(q), bhld(k), bhld(v), bhld(do), lse, delta)
-    lt = [t.detach().requires_grad_() for t in args4[:3]]
-    ys = F.scaled_dot_product_attention(*lt, is_causal=True)
-    lib = lambda: torch.autograd.grad(ys, lt, args4[3], retain_graph=True)
-    kern = lambda: dkv_mod.dkv_call(*args4)
-    # the packed [dV | dK] output holds dK's and dV's bytes
-    bound, by = flash_bound(b, L, H, d, torch.bfloat16, "dkv")
-    timings.append({
-        "kernel": "dkv_packed", "shape": [b, L, H, d], "dtype": "bfloat16",
-        "ms": time_ms(kern, iters=20),
-        "plain_ms": time_ms(lambda: dkv_mod._dkv_packed_reference(*args4),
-                            iters=5, warmup=1),
-        "library_ms": time_ms(lib, iters=20),
-        "device_ms": device_ms(kern, f"dkv_packed {[b, L, H, d]}"),
-        "library_device_ms": device_ms(lib, "SDPA's causal backward"),
-        "bound_ms": bound,
-        "bound_by": by,
-        "note": "library time is SDPA's whole causal backward; the causal "
-                "dK/dV kernel's time at this shape is in phase 3b"})
-    del q, k, v, do, out, lse, delta, args4, lt, ys
+    for b, L, H, d in PACKED_TIMED:
+        q, k, v, do = (rnd(b, L, H, d, dtype=torch.bfloat16)
+                       for _ in range(4))
+        out, lse = flash_tpu._fwd(q, k, v)
+        delta = flash_tpu._delta(out, do)
+        bhld = lambda t: t.transpose(1, 2).contiguous()
+        args4 = (bhld(q), bhld(k), bhld(v), bhld(do), lse, delta)
+        lt = [t.detach().requires_grad_() for t in args4[:3]]
+        ys = F.scaled_dot_product_attention(*lt, is_causal=True)
+        lib = lambda: torch.autograd.grad(ys, lt, args4[3],
+                                          retain_graph=True)
+        kern = lambda: dkv_mod.dkv_call(*args4)
+        # the packed [dV | dK] output holds dK's and dV's bytes
+        bound, by = flash_bound(b, L, H, d, torch.bfloat16, "dkv")
+        shape = [b, L, H, d]
+        timings.append({
+            "kernel": "dkv_packed", "shape": shape, "dtype": "bfloat16",
+            "ms": time_ms(kern, iters=20),
+            "plain_ms": time_ms(
+                lambda: dkv_mod._dkv_packed_reference(*args4), iters=5,
+                warmup=1),
+            "library_ms": time_ms(lib, iters=20),
+            "device_ms": device_ms(kern, f"dkv_packed {shape}"),
+            "library_device_ms": device_ms(lib, "SDPA's causal backward "
+                                           f"{shape}"),
+            # the causal dK/dV kernel (#3), the same four products on the
+            # same values in [b, L, H, d]
+            "dkv_device_ms": device_ms(
+                lambda: flash_tpu.flash_bwd_dkv(q, k, v, do, lse, delta),
+                f"flash_attn_bwd_dkv {shape}"),
+            "bound_ms": bound, "bound_by": by,
+            "note": "library time is SDPA's whole causal backward (dQ, dK "
+                    "and dV); dkv_device_ms is the causal dK/dV kernel "
+                    "(flash_attn_bwd_dkv) on the same inputs"})
+        del q, k, v, do, out, lse, delta, args4, lt, ys
 
     numels = [int(np.prod(s)) for s in bert_param_shapes(bert_cfg)]
     decay = [0.01] * len(numels)
@@ -1058,6 +1121,16 @@ def time_bert_kernels(dev, rnd, gen, fused, flash_tpu, dkv_mod, bert_cfg):
             f"library {t['library_ms']:.4f} ms (device "
             f"{t['library_device_ms']:.4f}), bound {t['bound_ms']:.5f} ms "
             f"({t['bound_by']})")
+    for t in timings:
+        if t["kernel"] == "dkv_packed":
+            dev_ms = t["device_ms"]
+            log(f"[3c] dkv_packed {t['shape']}: device {dev_ms:.4f} ms, "
+                f"{t['bound_ms'] / dev_ms:.3f} of its bound "
+                f"({t['bound_by']}), {dev_ms / t['library_device_ms']:.2f}x "
+                f"SDPA's whole causal backward "
+                f"({t['library_device_ms']:.4f} ms), "
+                f"{dev_ms / t['dkv_device_ms']:.2f}x the causal dK/dV kernel "
+                f"({t['dkv_device_ms']:.4f} ms)")
     return timings
 
 
@@ -1161,8 +1234,12 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"    {src} {kernel}: {line.strip()}")
             # the warp-per-row LayerNorms keep their rows and sums in
-            # registers: a spill would put them in local memory
-            if "_warp_kernel" in kernel and "spill" in line and \
+            # registers, the packed dK/dV at d <= 64 its K and V fragments
+            # and both accumulators: a spill would put them in local memory
+            packed = re.fullmatch(r"dkv_packed_mma_kernel<Li(\d+)>", kernel)
+            if ("_warp_kernel" in kernel
+                    or (packed and int(packed.group(1)) <= 64)) \
+                    and "spill" in line and \
                     re.search(r"[1-9]\d* bytes spill", line):
                 raise AssertionError(f"{src} {kernel} spills: {line}")
 
@@ -1857,7 +1934,7 @@ def main() -> int:
              ("bert_training", "bert_padded")),
             ("dkv_packed", "paddle_tpu_torch/csrc/dkv_packed.cu",
              "tools/experiments/dkv_packed_kernel.py:43",
-             next(t for t in timings if t["kernel"] == "dkv_packed"),
+             timed("dkv_packed", list(PACKED_TIMED[0])),
              ("packed_dkv",))):
         by_phase = launches[name]
         if any(by_phase[phase] == 0 for phase in paths):
@@ -1873,6 +1950,12 @@ def main() -> int:
             "device_ms": t["device_ms"],
             "device_l2_ms": t.get("device_l2_ms"), "shape": t["shape"],
             "dtype": t["dtype"]})
+        if name == "dkv_packed":
+            kernels[-1]["note"] = (
+                "the causal dK/dV kernel (flash_attn_bwd_dkv) at the same "
+                f"shape in this run: device {t['dkv_device_ms']:.4f} ms; "
+                f"library_ms is SDPA's whole causal backward (device "
+                f"{t['library_device_ms']:.4f} ms)")
     log(f"card: {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,7 @@
 // Tensor-core helpers shared by the bf16 attention kernels
-// (flash_attn_fwd.cu, flash_attn_bwd.cu): 16-byte cp.async tile copies
-// into padded shared memory, ldmatrix, mma.sync m16n8k16 (bf16 operands,
-// f32 accumulators), 2^x and bf16 packing.
+// (flash_attn_fwd.cu, flash_attn_bwd.cu, dkv_mma_common.cuh): 16-byte
+// cp.async tile copies into padded shared memory, ldmatrix, mma.sync
+// m16n8k16 (bf16 operands, f32 accumulators), 2^x and bf16 packing.
 //
 // Fragment layouts of m16n8k16 (g = lane / 4, tig = lane % 4):
 //  - A, 16 x 16, four registers of two bf16: a[0] row g, cols 2tig and
@@ -130,6 +130,32 @@ __device__ __forceinline__ void load_tile_async(__nv_bfloat16* dst,
     const bool in = l < L;
     cp_async16(smem_addr(dst + r * S + c * 8),
                src + (in ? l : 0) * sl + c * 8, in);
+  }
+}
+
+// Multiplies the 16-byte chunks of a tile that this thread copied with
+// `load_tile_async<D, ROWS>` (the same thread-to-chunk map) by `mul`, each
+// product rounded to bf16, in place. Call after `cp_async_wait` has landed
+// them and before the barrier that publishes the tile: no other thread
+// reads or writes these chunks in between.
+template <int D, int ROWS>
+__device__ __forceinline__ void scale_own_chunks(__nv_bfloat16* tile,
+                                                 float mul) {
+  constexpr int CPR = D / 8;
+  constexpr int S = smem_stride<D>();
+#pragma unroll
+  for (int i = 0; i < ROWS * CPR / kThreads; ++i) {
+    const int idx = threadIdx.x + i * kThreads;
+    uint4* p = reinterpret_cast<uint4*>(tile + (idx / CPR) * S +
+                                        (idx % CPR) * 8);
+    uint4 u = *p;
+    uint32_t* w = reinterpret_cast<uint32_t*>(&u);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 f = unpack_bf16(w[e]);
+      w[e] = pack_bf16(f.x * mul, f.y * mul);
+    }
+    *p = u;
   }
 }
 

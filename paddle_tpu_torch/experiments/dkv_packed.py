@@ -5,9 +5,11 @@
 attention from the forward's lse and ``delta = rowsum(dO ⊙ O)``, with the
 reference kernel's bf16 roundings (``q·scale``, P and dS rounded to bf16
 before their products, f32 accumulation), in one launch of
-``csrc/dkv_packed.cu`` that writes one packed [b·h, L, 2d] bf16 buffer
-(dV in columns 0..d, dK in d..2d). CPU tensors run the plain version,
-``_dkv_packed_reference``, which mirrors the same roundings.
+``csrc/dkv_packed.cu``'s tensor-core kernel (the dK/dV loop of the causal
+attention backward, ``csrc/dkv_mma_common.cuh``) that writes one packed
+[b·h, L, 2d] bf16 buffer (dV in columns 0..d, dK in d..2d). CPU tensors
+run the plain version, ``_dkv_packed_reference``, which mirrors the same
+roundings.
 
 The experiment is not wired into the training backward (the reference
 does not wire it either); whether the packed layout should replace the
@@ -88,11 +90,14 @@ dkv_call.launches = 0  # kernel launches, counted where they happen
 
 
 def _check_args(q4, k4, v4, do4, lse, delta):
-    if q4.device.type != "cuda":
-        raise ValueError(f"dkv_call: unsupported device {q4.device}")
+    # the shapes first: a call the kernel cannot take raises as such on any
+    # device
     if q4.dim() != 4 or q4.shape[-1] not in HEAD_DIMS:
         raise ValueError(f"dkv_call: q must be [b, H, L, d] with d in "
                          f"{HEAD_DIMS}, got {tuple(q4.shape)}")
+    if q4.shape[0] * q4.shape[1] > 65535:  # the grid's y extent
+        raise ValueError(f"dkv_call: b * H = {q4.shape[0] * q4.shape[1]} "
+                         "is more than the kernel's 65535 batch-heads")
     for name, t in (("q", q4), ("k", k4), ("v", v4), ("dout", do4)):
         if (t.shape != q4.shape or t.dtype != torch.bfloat16
                 or t.device != q4.device or not t.is_contiguous()):
@@ -104,6 +109,13 @@ def _check_args(q4, k4, v4, do4, lse, delta):
                 or t.device != q4.device or not t.is_contiguous()):
             raise ValueError(f"dkv_call: {name} must be a contiguous f32 "
                              f"{tuple(q4.shape[:3])} tensor on {q4.device}")
+    if q4.device.type != "cuda":
+        raise ValueError(f"dkv_call: unsupported device {q4.device}")
+    for name, t in (("q", q4), ("k", k4), ("v", v4), ("dout", do4)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"dkv_call: {name} must start on a 16-byte "
+                             f"boundary for cp.async (address "
+                             f"{t.data_ptr():#x})")
 
 
 def _plain_causal(q, k, v):

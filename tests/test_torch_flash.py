@@ -13,10 +13,12 @@ against `_dq_kernel` + `_dkv_kernel` run in interpret mode on bf16
 operands, and at a ragged L against `jax.vjp` of `xla_attention`; the
 `flash_bwd_dq` entry's (dq, delta). The packed dK/dV experiment against
 `tools/experiments/dkv_packed_kernel.py`'s `dkv_kernel` in interpret
-mode. The CUDA kernels against the plain path on a card (marked `cuda`):
-the bf16 tensor-core forward and backward at GPT's and BERT's shapes,
-with and without a key bias, the backward's delta, and the refusal of
-rows that are not 16-byte aligned."""
+mode, at d = 32, 64 and 128. The CUDA kernels against the plain path on a
+card (marked `cuda`): the bf16 tensor-core forward and backward at GPT's
+and BERT's shapes, with and without a key bias, the backward's delta, the
+packed dK/dV at every head dim (also at a ragged L, and the same bits over
+two calls), and the refusal of rows and operands that are not 16-byte
+aligned."""
 import functools
 import importlib.util
 import math
@@ -704,9 +706,13 @@ def _packed_inputs(b, H, L, d, seed):
     return q, k, v, do, lse.astype(np.float32), delta.astype(np.float32)
 
 
-def test_packed_dkv_matches_dkv_kernel_in_interpret_mode():
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_packed_dkv_matches_dkv_kernel_in_interpret_mode(d):
+    """At d = 32 and 128 the reference's bf16(q·scale) rounds (at d = 64
+    the scale is 2^-3 and it is exact): the plain version rounds there
+    too."""
     ref_mod = _reference_dkv_module()
-    b, H, L, d, blk = 1, 2, 128, 64, 64
+    b, H, L, blk = 1, 2, 128, 64
     q, k, v, do, lse, delta = _packed_inputs(b, H, L, d, seed=0)
     bh = b * H
     rs = lambda t: jnp.asarray(t.reshape(bh, L, d), jnp.bfloat16)
@@ -771,6 +777,17 @@ def test_packed_dkv_on_other_devices_raises():
         tdkv.dkv_call(q, q, q, q, lse, lse)
 
 
+def test_packed_dkv_refuses_more_batch_heads_than_its_grid_takes():
+    """b·H rides on the grid's y axis (at most 65535): more raises before
+    any launch, on any device."""
+    q = torch.empty(257, 256, 1, 32, device="meta", dtype=torch.bfloat16)
+    lse = torch.empty(257, 256, 1, device="meta")
+    before = tdkv.dkv_call.launches
+    with pytest.raises(ValueError, match="65535 batch-heads"):
+        tdkv.dkv_call(q, q, q, q, lse, lse)
+    assert tdkv.dkv_call.launches == before
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 2e-2)])
@@ -788,19 +805,50 @@ def test_cuda_full_kernels_match_plain(cuda_device, dtype, tol):
 
 
 @pytest.mark.cuda
-def test_cuda_packed_dkv_matches_plain(cuda_device):
-    q, k, v, do, lse, delta = _packed_inputs(2, 4, 200, 64, seed=2)
+@pytest.mark.parametrize("b,H,L,d", [(2, 4, 200, 64), (2, 4, 256, 32),
+                                     (2, 4, 256, 128), (1, 3, 77, 32),
+                                     (1, 3, 333, 128)])
+def test_cuda_packed_dkv_matches_plain(cuda_device, b, H, L, d):
+    """The tensor-core kernel against its plain version at every head
+    dim, ragged L among them; two calls give the same bits, and at d = 64
+    those of the causal dK/dV kernel."""
+    q, k, v, do, lse, delta = _packed_inputs(b, H, L, d, seed=2)
     tb = lambda a: torch.from_numpy(a).to(cuda_device, torch.bfloat16)
     tf = lambda a: torch.from_numpy(a).to(cuda_device)
     args = (tb(q), tb(k), tb(v), tb(do), tf(lse), tf(delta))
     before = tdkv.dkv_call.launches
     dk, dv = tdkv.dkv_call(*args)
+    dk2, dv2 = tdkv.dkv_call(*args)
     torch.cuda.synchronize()
-    assert tdkv.dkv_call.launches == before + 1
+    assert tdkv.dkv_call.launches == before + 2
+    assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
     ref = tdkv._dkv_packed_reference(*args)
     for got, want in zip((dk, dv), ref):
         err = float((got.float() - want.float()).abs().max())
         assert err <= PACKED_REL_TOL * float(want.float().abs().max())
+    if d == 64:  # bf16(q·2^-3) is exact: the causal dK/dV kernel's bits
+        blhd = lambda t: t.transpose(1, 2).contiguous()
+        dk3, dv3 = tflash.flash_bwd_dkv(*(blhd(t) for t in args[:4]),
+                                        *args[4:])
+        assert torch.equal(dk, dk3.transpose(1, 2))
+        assert torch.equal(dv, dv3.transpose(1, 2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["q", "k", "v", "dout"])
+def test_cuda_packed_dkv_raises_on_a_misaligned_operand(cuda_device, name):
+    """q, k, v and dO are copied with 16-byte cp.async: a contiguous
+    view that starts off a 16-byte boundary raises before any launch."""
+    shape, n = (1, 2, 16, 64), 2 * 16 * 64
+    ops = {key: torch.zeros(shape, device=cuda_device, dtype=torch.bfloat16)
+           for key in ("q", "k", "v", "dout")}
+    base = torch.zeros(n + 8, device=cuda_device, dtype=torch.bfloat16)
+    ops[name] = base[1:n + 1].view(shape)  # 2 bytes past the boundary
+    lse = torch.zeros(shape[:3], device=cuda_device)
+    before = tdkv.dkv_call.launches
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        tdkv.dkv_call(ops["q"], ops["k"], ops["v"], ops["dout"], lse, lse)
+    assert tdkv.dkv_call.launches == before
 
 
 # bf16 tensor-core forward against the plain version: P is rounded to bf16
