@@ -85,9 +85,30 @@ failing on the first phase that fails:
     masked AdamW steps with every attention call on the full kernels;
 11. runs the packed dK/dV experiment's own entry point
     (``paddle_tpu_torch.experiments.dkv_packed.main``) and checks its
-    gradients against autograd.
+    gradients against autograd;
+12. trains GPT-2 345M the way Megatron-LM's ``examples/pretrain_gpt.sh``
+    pretrains it (AdamW with weight decay 0.01 off the LayerNorm weights
+    and biases, ``LinearWarmup(CosineAnnealingDecay)`` from 1.5e-4 to 1e-5
+    with its warm-up and decay cut to 3 and 10 steps,
+    ``ClipGradByGlobalNorm(1.0)``, dropout 0.1, bf16 with f32 masters,
+    batch 8 x 1024): 12a holds the global norm's sum-of-squares kernel
+    against its plain version on the model's 292 bf16 gradients (and the
+    same bits over two calls) and the clip-scaled AdamW kernel against
+    ``_adam_reference``, and times both; 12b trains through
+    ``ParallelTrainStep`` under remat 'off', 'full', 'dots' and
+    'dots_no_batch' from the same seeds: step 1's loss and gradient norm
+    (the kernel's device scalar) must be bitwise those of 'off' (or, if
+    two 'off' runs differ here, within their difference), then 10 steps
+    with the scheduler stepped must give finite, falling losses and the
+    launch counts per step (attention forward 24, or 48 under a recompute
+    policy; LayerNorm forward 49, or 97: ln_f is outside the recomputed
+    blocks; Adam 2 and its sum-of-squares pass 2), and it prints each
+    policy's step p50 and peak memory ('full''s peak must be below
+    'off''s); 12c takes 3 steps through ``jit.TrainStep`` and through
+    ``ParallelTrainStep`` from the same bf16 weights and needs the same
+    losses.
 
-Every kernel's launch count is set to 0 before each of phases 4-11 and
+Every kernel's launch count is set to 0 before each of phases 4-12 and
 read after it. The last two lines are a ``{"kernels": [...]}`` JSON
 object and ``{"ok": true, "device": {...}}``.
 """
@@ -100,6 +121,7 @@ import re
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -206,6 +228,19 @@ PACKED_SHAPES = ((8, 1024, 16, 64), (4, 200, 12, 64), BERT_ATTN_SHAPE,
 # ... timed at the experiment's b, L, H for each head dim
 PACKED_TIMED = ((8, 1024, 16, 64), (8, 1024, 16, 32), (8, 1024, 16, 128))
 BERT_SHAPE = (32, 128)  # batch x tokens of the BERT training phase
+# phase 12: GPT-2 345M trained as Megatron-LM's examples/pretrain_gpt.sh
+# trains it (lr 1.5e-4, linear warm-up then cosine decay to 1e-5, weight
+# decay 0.01, global-norm clip 1.0, dropout 0.1), its warm-up and decay
+# cut to 3 and 10 steps so that a short run crosses both
+OPTIONS_PEAK_LR, OPTIONS_MIN_LR = 1.5e-4, 1e-5
+OPTIONS_WARMUP, OPTIONS_T_MAX = 3, 10
+OPTIONS_CLIP = 1.0
+OPTIONS_DROPOUT = 0.1
+OPTIONS_STEPS = 10  # timed steps per policy, after step 1
+REMAT_POLICIES = ("off", "full", "dots", "dots_no_batch")
+# the global norm: kernel and plain version sum the same f32 squares in
+# other orders (f32 rounding of a sum of 3.5e8 terms)
+NORM_RTOL = 1e-5
 
 
 def log(*a):
@@ -414,7 +449,7 @@ def plain_kernels(gpt_mod, fused, flash_tpu, norm_mod, bert_mod, attention):
     gpt_mod.dot_product_attention = \
         lambda q, k, v, causal, layout: flash_tpu._flash_reference(q, k, v)[0]
     bert_mod.dot_product_attention = bert_attention
-    fused.fused_adam_step = fused._adam_reference
+    fused.fused_adam_step = fused._fused_adam_reference
     try:
         yield
     finally:
@@ -947,6 +982,326 @@ def check_bert_kernels(dev, rnd, gen, fused, flash_tpu, dkv_mod, bert_cfg,
     torch.cuda.empty_cache()
 
 
+def sumsq_bound(numels, esize):
+    # each gradient read once; a multiply-add per element (f32)
+    nbytes = sum(numels) * esize + 8
+    flops = 2 * sum(numels)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_CORE_FLOPS
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops \
+        else "operations"
+
+
+def check_clip_kernels(dev, cfg, fused, err):
+    """Phase 12a: the sum-of-squares kernel (``grad_global_norm``)
+    against ``_global_norm_reference`` on GPT-2 345M's 292 bf16 gradients
+    (relative NORM_RTOL, the same bits over two calls), and one AdamW step
+    with the clip folded in (bf16 params, f32 masters, per-tensor L2 and
+    decoupled decay on the matrices) against ``_adam_reference`` given the
+    kernel's scale, to ADAM_TOL; then their times. Returns the timings of
+    the sum-of-squares pass and of the clip-scaled Adam."""
+    numels = [int(np.prod(s)) for s in gpt_param_shapes(cfg)]
+    gen = torch.Generator(device=dev).manual_seed(12)
+    grads = [(torch.randn(n, device=dev, generator=gen) * 0.05).to(
+        torch.bfloat16) for n in numels]
+    got = fused.grad_global_norm(grads, OPTIONS_CLIP)
+    again = fused.grad_global_norm(grads, OPTIONS_CLIP)
+    want = fused._global_norm_reference(grads, OPTIONS_CLIP)
+    torch.cuda.synchronize()
+    rel = float(((got - want).abs() / want.abs()).max())
+    err["grad_sumsq"] = max(err["grad_sumsq"], float((got - want).abs()[0]))
+    log(f"[12a] global norm over {len(numels)} bf16 gradients "
+        f"({sum(numels)} values): kernel {float(got[0]):.7g} scale "
+        f"{float(got[1]):.7g}, plain {float(want[0]):.7g} scale "
+        f"{float(want[1]):.7g}, rel err {rel:.3g} (tol {NORM_RTOL}); same "
+        f"bits over two calls {torch.equal(got, again)}")
+    if not (rel <= NORM_RTOL and torch.equal(got, again)
+            and float(got[1]) < 1.0):
+        raise AssertionError("the sum-of-squares kernel disagrees")
+
+    masters = [torch.randn(n, device=dev, generator=gen) for n in numels]
+    l2 = [0.01 * (i % 3 == 1) for i in range(len(numels))]
+    decay = [0.01 if len(s) == 2 else 0.0 for s in gpt_param_shapes(cfg)]
+    lr = torch.full((), OPTIONS_PEAK_LR, device=dev)
+
+    def state():
+        return dict(P=[m.to(torch.bfloat16) for m in masters],
+                    M=[torch.zeros_like(m) for m in masters],
+                    V=[torch.zeros_like(m) for m in masters],
+                    P1=[torch.ones((), device=dev) for _ in numels],
+                    P2=[torch.ones((), device=dev) for _ in numels],
+                    MS=[m.clone() for m in masters])
+
+    k, pl = state(), state()
+    norm = fused.fused_adam_step(k["P"], grads, k["M"], k["V"], k["P1"],
+                                 k["P2"], lr, masters=k["MS"],
+                                 weight_decay=l2, decoupled_decay=decay,
+                                 clip_norm=OPTIONS_CLIP)
+    fused._adam_reference(pl["P"], grads, pl["M"], pl["V"], pl["P1"],
+                          pl["P2"], lr, masters=pl["MS"], weight_decay=l2,
+                          decoupled_decay=decay, grad_scale=norm[1])
+    torch.cuda.synchronize()
+    e_adam, ok = 0.0, True
+    for key in ("P", "M", "V", "P1", "P2", "MS"):
+        for a, b in zip(k[key], pl[key]):
+            e, good = worst(a, b, *ADAM_TOL)
+            e_adam, ok = max(e_adam, e), ok and good
+    err["adam"] = max(err["adam"], e_adam)
+    log(f"[12a] AdamW with the clip scale over {len(numels)} tensors: max "
+        f"err vs plain {e_adam:.3g} (tol {ADAM_TOL}); kernel's norm equals "
+        f"grad_global_norm's {torch.equal(norm, got)}")
+    if not (ok and torch.equal(norm, got)):
+        raise AssertionError("the clip-scaled Adam kernel disagrees")
+    del pl, masters
+    torch.cuda.empty_cache()
+
+    # times: the pass alone; the Adam step with the pass folded in
+    norm_fn = lambda: fused.grad_global_norm(grads, OPTIONS_CLIP)
+    if hasattr(torch.nn.utils, "get_total_norm"):
+        lib_name = "torch.nn.utils.get_total_norm"
+        lib = lambda: torch.nn.utils.get_total_norm(grads)
+    else:
+        lib_name = "torch.linalg.vector_norm(torch._foreach_norm)"
+        lib = lambda: torch.linalg.vector_norm(
+            torch.stack(torch._foreach_norm(grads)))
+    bound, by = sumsq_bound(numels, 2)
+    sumsq = {"kernel": "grad_sumsq", "shape": [len(numels), sum(numels)],
+             "dtype": "bf16 grads", "ms": time_ms(norm_fn, iters=20),
+             "device_ms": device_ms(norm_fn, "grad_global_norm", iters=10),
+             "plain_ms": time_ms(lambda: fused._global_norm_reference(
+                 grads, OPTIONS_CLIP), iters=3, warmup=1),
+             "library_ms": time_ms(lib, iters=10),
+             "library_device_ms": device_ms(lib, lib_name, iters=5),
+             "library": lib_name, "bound_ms": bound, "bound_by": by}
+    step = lambda: fused.fused_adam_step(
+        k["P"], grads, k["M"], k["V"], k["P1"], k["P2"], lr,
+        masters=k["MS"], weight_decay=l2, decoupled_decay=decay,
+        clip_norm=OPTIONS_CLIP)
+    with_clip = {"ms": time_ms(step, iters=10),
+                 "device_ms": device_ms(step, "adam with the clip", iters=5)}
+    with_clip["adam_device_ms"] = with_clip["device_ms"] - sumsq["device_ms"]
+    log(f"[12a] time grad_sumsq {sumsq['shape']}: kernel {sumsq['ms']:.4f} "
+        f"ms (device {sumsq['device_ms']:.4f}), plain "
+        f"{sumsq['plain_ms']:.4f} ms, {lib_name} {sumsq['library_ms']:.4f} "
+        f"ms (device {sumsq['library_device_ms']:.4f}), bound "
+        f"{bound:.5f} ms ({by}), {bound / sumsq['device_ms']:.3f} of it")
+    log(f"[12a] time AdamW + clip over {len(numels)} tensors: "
+        f"{with_clip['ms']:.4f} ms (device {with_clip['device_ms']:.4f}, of "
+        f"which the update {with_clip['adam_device_ms']:.4f})")
+    del k, grads
+    torch.cuda.empty_cache()
+    return sumsq, with_clip
+
+
+def options_model(gpt_mod, dev):
+    """GPT-2 345M from seed 4 with dropout 0.1 (attention dropout 0: no
+    attention kernel takes one) in f32."""
+    cfg = gpt_mod.gpt2_medium(hidden_dropout=OPTIONS_DROPOUT,
+                              attention_dropout=0.0)
+    return gpt_mod.GPTForCausalLM(cfg, device=dev, dtype=torch.float32,
+                                  seed=4)
+
+
+def options_optimizer(model, AdamW, lr_mod, ClipGradByGlobalNorm):
+    """AdamW as Megatron-LM's pretrain_gpt.sh runs it: weight decay 0.01
+    except LayerNorm weights and biases, global-norm clip, the warm-up and
+    cosine schedule (cut), f32 masters."""
+    sched = lr_mod.LinearWarmup(
+        lr_mod.CosineAnnealingDecay(OPTIONS_PEAK_LR, T_max=OPTIONS_T_MAX,
+                                    eta_min=OPTIONS_MIN_LR),
+        warmup_steps=OPTIONS_WARMUP, start_lr=0.0, end_lr=OPTIONS_PEAK_LR)
+    opt = AdamW(sched, parameters=model.parameters(), weight_decay=0.01,
+                apply_decay_param_fun=lambda n: not (
+                    n.endswith("bias") or ".ln_" in n),
+                grad_clip=ClipGradByGlobalNorm(OPTIONS_CLIP),
+                multi_precision=True)
+    return opt, sched
+
+
+def busy_per_step(step, batch, n_steps=2):
+    """(wall ms, device busy ms) per training step over ``n_steps`` steps
+    under ``torch.profiler`` (device activity only): the busy time is the
+    sum of the kernels' durations, the wall time ends in a synchronize.
+    The busy time is None when the profiler recorded no kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            step(*batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / n_steps
+    busy = sum(getattr(e, "self_device_time_total", 0.0)
+               for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+    return wall, (busy / 1e3 / n_steps if busy > 0 else None)
+
+
+@contextlib.contextmanager
+def captured_norms(opt_mod, norms):
+    """Append the (norm, scale) device tensor of each ``fused_adam_step``
+    call that the optimizers of ``opt_mod`` make to ``norms``. Only their
+    view of ``ops.fused`` is swapped: the kernel wrapper and its launch
+    counter stay as they are."""
+    real = opt_mod.fused
+
+    def capture(*a, **k):
+        out = real.fused_adam_step(*a, **k)
+        norms.append(out)
+        return out
+
+    opt_mod.fused = types.SimpleNamespace(fused_adam_step=capture)
+    try:
+        yield
+    finally:
+        opt_mod.fused = real
+
+
+def train_with_options(dev, gen, cfg, counted, launches, opt_mod, gpt_mod,
+                       ParallelTrainStep, TrainStep, AdamW, lr_mod,
+                       ClipGradByGlobalNorm):
+    """Phases 12b and 12c (see the module's docstring); the launches of
+    each run go into ``launches[kernel]["options_<run>"]``."""
+
+    def reset_counts():
+        for fn in counted.values():
+            fn.launches = 0
+
+    def read_counts(phase):
+        for name, fn in counted.items():
+            launches[name][phase] = fn.launches
+
+    ids = torch.randint(0, cfg.vocab_size, TRAIN_SHAPE, device=dev,
+                        generator=gen)
+    labels = torch.roll(ids, -1, dims=1)
+    batch = ((ids, labels), (labels,))
+    n_ln = 2 * cfg.num_layers + 1
+    first, policies = {}, {}
+    # 'off' twice: whether two identical runs give the same bits here
+    for run, policy in enumerate(("off",) + REMAT_POLICIES):
+        model = options_model(gpt_mod, dev)
+        opt, sched = options_optimizer(model, AdamW, lr_mod,
+                                       ClipGradByGlobalNorm)
+        step = ParallelTrainStep(model, lambda out, lbl: out, opt,
+                                 compute_dtype=torch.bfloat16, remat=policy)
+        norms = []
+        with captured_norms(opt_mod, norms):
+            loss1 = step(*batch)
+            sched.step()
+            torch.cuda.synchronize()
+            key = policy if run else "off_first"
+            first[key] = (loss1.clone(), norms[0][0].clone())
+            if not run:
+                del step, model, opt
+                torch.cuda.empty_cache()
+                continue
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            marks = [torch.cuda.Event(enable_timing=True)
+                     for _ in range(OPTIONS_STEPS + 1)]
+            losses = [loss1]
+            for i in range(OPTIONS_STEPS):
+                marks[i].record()
+                losses.append(step(*batch))
+                sched.step()
+            marks[-1].record()
+            torch.cuda.synchronize()
+        read_counts(f"options_{policy}")
+        peak = torch.cuda.max_memory_allocated()
+        step_ms = sorted(marks[i].elapsed_time(marks[i + 1])
+                         for i in range(OPTIONS_STEPS))
+        all_losses = [float(x) for x in torch.stack(losses)]
+        recompute = policy != "off"
+        want = {**{n: 0 for n in counted},
+                # ln_f lies outside the recomputed blocks
+                "layer_norm_fwd": (n_ln + recompute * 2 * cfg.num_layers)
+                * OPTIONS_STEPS,
+                "layer_norm_bwd": 2 * n_ln * OPTIONS_STEPS,
+                "flash_attn_fwd": (1 + recompute) * cfg.num_layers
+                * OPTIONS_STEPS,
+                "flash_attn_bwd_dq": cfg.num_layers * OPTIONS_STEPS,
+                "flash_attn_bwd_dkv": cfg.num_layers * OPTIONS_STEPS,
+                "adam": 2 * OPTIONS_STEPS, "grad_sumsq": 2 * OPTIONS_STEPS}
+        got = {n: launches[n][f"options_{policy}"] for n in counted}
+        wall_ms, busy_ms = busy_per_step(step, batch)
+        policies[policy] = {
+            "profiled_wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "step_ms_p50": step_ms[OPTIONS_STEPS // 2],
+            "step_ms_min": step_ms[0], "step_ms_max": step_ms[-1],
+            "peak_memory_bytes": peak, "losses": all_losses,
+            "grad_norm_step1": float(first[policy][1]),
+            "lr_last": opt.get_lr()}
+        log(f"[12b] remat={policy}: step p50 {step_ms[OPTIONS_STEPS // 2]:.2f}"
+            f" ms (min {step_ms[0]:.2f}, max {step_ms[-1]:.2f}), peak "
+            f"memory {peak / 2**30:.2f} GiB, loss {all_losses[0]:.4f} -> "
+            f"{all_losses[-1]:.4f}, step-1 grad norm "
+            f"{float(first[policy][1]):.6g}, lr now {opt.get_lr():.4g}; "
+            f"profiled step: wall {wall_ms:.2f} ms, device busy "
+            + (f"{busy_ms:.2f} ms (share {busy_ms / wall_ms:.3f})"
+               if busy_ms else "not measured") + f"; launches {got}")
+        if not all(np.isfinite(all_losses)) or \
+                not all_losses[-1] < all_losses[0]:
+            raise AssertionError(f"remat={policy}: losses {all_losses}")
+        if got != want:
+            raise AssertionError(f"remat={policy} launched {got}, expected "
+                                 f"{want}")
+        del step, model, opt, losses
+        torch.cuda.empty_cache()
+    # step 1 (loss, gradient norm) under each policy against 'off'
+    off_diff = [float((a - b).abs()) for a, b in zip(first["off_first"],
+                                                     first["off"])]
+    bitwise_off = off_diff == [0.0, 0.0]
+    for policy in REMAT_POLICIES:
+        diff = [float((a - b).abs()) for a, b in zip(first[policy],
+                                                     first["off"])]
+        log(f"[12b] step 1 under {policy} vs off: |loss diff| {diff[0]:.3g}, "
+            f"|grad norm diff| {diff[1]:.3g} (off vs off: {off_diff})")
+        if (diff != [0.0, 0.0]) if bitwise_off else \
+                any(d > o for d, o in zip(diff, off_diff)):
+            raise AssertionError(f"remat={policy}: step 1 differs from off "
+                                 f"by {diff} (off vs off: {off_diff})")
+    if not policies["full"]["peak_memory_bytes"] < \
+            policies["off"]["peak_memory_bytes"]:
+        raise AssertionError("remat='full' did not lower the peak memory")
+    log("options " + json.dumps({"bitwise_off_vs_off": bitwise_off,
+                                 "off_vs_off_diff": off_diff,
+                                 "policies": policies}))
+
+    # 12c: TrainStep and ParallelTrainStep take the same 3 steps; the
+    # weights are rounded to bf16 first, so that both engines start from
+    # the same f32 masters
+    engine_losses = {}
+    for name in ("train_step", "parallel"):
+        model = options_model(gpt_mod, dev)
+        with torch.no_grad():
+            for p in model.parameters():
+                p.copy_(p.to(torch.bfloat16))
+        if name == "train_step":
+            model.to(torch.bfloat16)
+        opt, sched = options_optimizer(model, AdamW, lr_mod,
+                                       ClipGradByGlobalNorm)
+        if name == "train_step":
+            step = TrainStep(model, lambda out, lbl: out, opt)
+        else:
+            step = ParallelTrainStep(model, lambda out, lbl: out, opt,
+                                     compute_dtype=torch.bfloat16)
+        reset_counts()
+        losses = []
+        for _ in range(3):
+            losses.append(step(*batch))
+            sched.step()
+        torch.cuda.synchronize()
+        read_counts(f"options_{name}")
+        engine_losses[name] = [float(x) for x in losses]
+        del step, model, opt, losses
+        torch.cuda.empty_cache()
+    log(f"[12c] 3 steps: TrainStep {engine_losses['train_step']}, "
+        f"ParallelTrainStep {engine_losses['parallel']}")
+    if engine_losses["train_step"] != engine_losses["parallel"]:
+        raise AssertionError("TrainStep and ParallelTrainStep disagree")
+
+
+
 def kernel_launches(fn, what, attempts=3):
     """{kernel name: launches} of one call of ``fn`` under
     ``torch.profiler``; a window in which it records no kernel is taken
@@ -1187,6 +1542,10 @@ def main() -> int:
         run_generation_streams)
     from paddle_tpu_torch.experiments import dkv_packed as dkv_mod
     from paddle_tpu_torch.jit.functionalize import get_params
+    from paddle_tpu_torch.jit.train_step import TrainStep
+    from paddle_tpu_torch.nn.clip import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import lr as lr_mod
+    from paddle_tpu_torch.optimizer import optimizer as opt_mod
     from paddle_tpu_torch.nn.layer import norm as norm_mod
     from paddle_tpu_torch.ops import _build, attention, flash_tpu, fused
     from paddle_tpu_torch.optimizer import Adam, AdamW
@@ -1206,7 +1565,8 @@ def main() -> int:
                "flash_attn_fwd_full": flash_tpu.flash_attention_full,
                "flash_attn_bwd_dq_full": flash_tpu.flash_bwd_dq_full,
                "flash_attn_bwd_dkv_full": flash_tpu.flash_bwd_dkv_full,
-               "dkv_packed": dkv_mod.dkv_call}
+               "dkv_packed": dkv_mod.dkv_call,
+               "grad_sumsq": fused.grad_global_norm}
     plain = lambda: plain_kernels(gpt_mod, fused, flash_tpu, norm_mod,
                                   bert_mod, attention)
 
@@ -1887,12 +2247,21 @@ def main() -> int:
             and packed["err_dv"] <= PACKED_REL_TOL * packed["scale_dv"]):
         raise AssertionError("the packed dK/dV is not the causal gradient")
 
+    # -- phase 12: GPT-2 345M trained as it is pretrained ------------------
+    sumsq_t, adam_clip_t = check_clip_kernels(dev, cfg, fused, err)
+    timings.append(sumsq_t)
+    train_with_options(dev, gen, cfg, counted, launches, opt_mod, gpt_mod,
+                       ParallelTrainStep, TrainStep, AdamW, lr_mod,
+                       ClipGradByGlobalNorm)
+
     # -- the kernels line and the result --------------------------------------
     def timed(kernel, shape):
         return next(t for t in timings if t["kernel"] == kernel
                     and t["shape"] == shape)
 
     bert_attn = list(BERT_ATTN_SHAPE)
+    options_paths = tuple(f"options_{p}" for p in REMAT_POLICIES) + (
+        "options_train_step", "options_parallel")
     kernels = []
     # each kernel with the phases (main paths) that must have launched it
     for name, source, replaces, t, paths in (
@@ -1917,7 +2286,9 @@ def main() -> int:
             ("adam", "paddle_tpu_torch/csrc/adam.cu",
              "paddle_tpu/ops/fused.py:172",
              next(t for t in timings if t["kernel"] == "adam"),
-             ("training", "bert_training")),
+             ("training", "bert_training") + options_paths),
+            ("grad_sumsq", "paddle_tpu_torch/csrc/adam.cu",
+             "paddle_tpu/nn/clip.py:111", sumsq_t, options_paths),
             ("flash_attn_fwd_full", "paddle_tpu_torch/csrc/flash_attn_fwd.cu",
              "paddle_tpu/ops/attention.py:156",
              timed("flash_attn_fwd_full", bert_attn),
@@ -1950,6 +2321,17 @@ def main() -> int:
             "device_ms": t["device_ms"],
             "device_l2_ms": t.get("device_l2_ms"), "shape": t["shape"],
             "dtype": t["dtype"]})
+        if name == "adam":
+            kernels[-1]["with_clip_ms"] = adam_clip_t["ms"]
+            kernels[-1]["with_clip_device_ms"] = adam_clip_t["device_ms"]
+            kernels[-1]["with_clip_update_device_ms"] = \
+                adam_clip_t["adam_device_ms"]
+        if name == "grad_sumsq":
+            kernels[-1]["note"] = (
+                "the global-norm clip's sum-of-squares pass, run inside "
+                "fused_adam_step; it replaces the XLA-level "
+                "clip_grads_global_norm_raw, no Pallas kernel; library_ms "
+                f"is {sumsq_t['library']}")
         if name == "dkv_packed":
             kernels[-1]["note"] = (
                 "the causal dK/dV kernel (flash_attn_bwd_dkv) at the same "

@@ -14,15 +14,19 @@ CUDA C++ counterpart under ``csrc/`` (built at first use by
 ``ops._build``); each sits beside its plain PyTorch version, which a
 wrapper takes only for tensors that lie on the CPU.
 
-This package covers three slices. Serving: GPT-2 token serving over a
-paged KV cache (``inference.serving``) and the model
-(``text.models.gpt``). Training: the single-device ``ParallelTrainStep``
-(``distributed.fleet.engine``), Adam and AdamW (``optimizer``) and cross
-entropy (``nn.functional``), for GPT-2 and for BERT pretraining
+Serving: GPT-2 token serving over a paged KV cache
+(``inference.serving``) and the model (``text.models.gpt``). Training:
+the single-device ``ParallelTrainStep`` (``distributed.fleet.engine``)
+and ``jit.train_step.TrainStep``, with recompute policies
+(``ops.remat_policy``), the optimizers, learning-rate schedulers and
+regularizers (``optimizer``, ``optimizer.lr``, ``regularizer``),
+gradient clips (``nn.clip``) and cross entropy (``nn.functional``,
+``nn.CrossEntropyLoss``), for GPT-2 and for BERT pretraining
 (``text.models.bert``, with the layers of ``nn.layer``). Their kernels
 (``ops``): LayerNorm forward and backward, flash-attention forward and
 dQ / dK-dV backward (causal or over every key), and a multi-tensor
-Adam/AdamW; ``experiments`` holds the packed dK/dV experiment.
+Adam/AdamW with the global-norm clip's sum-of-squares pass;
+``experiments`` holds the packed dK/dV experiment.
 """
 from .core.place import resolve_device
 

@@ -1,12 +1,16 @@
-// Multi-tensor Adam for Hopper (sm_90a).
+// Multi-tensor Adam for Hopper (sm_90a), with the global-norm gradient
+// clip folded in.
 //
 // Replaces: paddle_tpu/ops/fused.py `_adam_kernel` (launched by
 // `pl.pallas_call` in `fused_adam_step`), with the engine's master-weight
-// contract (`master_aware_update`, distributed/fleet/engine.py) and
-// AdamW's decoupled decay (`apply_optimizer_update`, the same file) folded
-// in. The math is `Adam._update` (optimizer/optimizer.py), per element in
-// f32:
-//   g' = g + wd * p                      (L2 decay folded into the grad)
+// contract (`master_aware_update`, distributed/fleet/engine.py), its
+// global-norm clip (`clip_grads_global_norm_raw`, nn/clip.py), the L2
+// decay it folds into the grad and AdamW's decoupled decay
+// (`apply_optimizer_update`, the same file). The math is `Adam._update`
+// (optimizer/optimizer.py), per element in f32:
+//   g = g * scale, rounded back to g's dtype   (the clip: a tensor that
+//                                               takes part in it, when on)
+//   g' = g + l2 * p                      (L2 decay, the tensor's own l2)
 //   p = p * (1 - lr * c)                 (AdamW: the tensor's coefficient c,
 //                                         0 where it is not decayed)
 //   b1p = beta1_pow * b1,  b2p = beta2_pow * b2
@@ -18,39 +22,151 @@
 // Every operation is a separately rounded IEEE op (__fmul_rn & co.), so
 // no FMA contraction makes the kernel differ from the plain version.
 //
-// What bounds it on this card: bytes. Per element it reads g (2 or 4 B),
-// p, m, v (12 B) and writes p, m, v (12 B) plus the bf16 copy (2 B):
+// The clip's scale = clip / max(||g||, clip) comes from a sum-of-squares
+// pass over the same tensor table, two launches before the update: one
+// block per (tensor, chunk) writes the f32 sum of g*g over its chunk, then
+// one block adds those partials in a fixed order (so the norm is the same
+// bits on every call) and writes (norm, scale) to a device buffer that the
+// update reads through a pointer. Nothing is read back to the host.
+//
+// What bounds it on this card: bytes. Per element the update reads g (2 or
+// 4 B), p, m, v (12 B) and writes p, m, v (12 B) plus the bf16 copy (2 B):
 // 28 B per parameter in master mode, ~9.9 GB for GPT-2 345M, so the least
-// time is ~3.0 ms at 3.35 TB/s; ~20 flops per element are nothing.
+// time is ~3.0 ms at 3.35 TB/s; ~20 flops per element are nothing. The
+// sum-of-squares pass reads each gradient once (0.71 GB of bf16 for GPT-2
+// 345M, ~0.21 ms), with 16-byte loads where the gradient is 16-byte
+// aligned.
 //
 // Design. One launch covers every tensor: a device table holds, per
 // tensor, the pointers of p, m, v, the bf16 copy, its two beta powers,
-// its size and its decoupled-decay coefficient; a second array holds each
-// tensor's grad pointer (grads are new tensors every step, the rest is
-// not, so only that array is re-sent).
+// its size, its decoupled-decay and L2 coefficients and whether it takes
+// part in the clip; a second array holds each tensor's grad pointer
+// (grads are new tensors every step, the rest is not, so only that array
+// is re-sent).
 // The grid runs over (tensor, chunk) pairs listed in a third array, so
 // small and large tensors share one launch and every block does at most
 // one chunk. The per-tensor beta powers (device f32; members' step counts
 // may differ) are read by every block of the update, so they are advanced
 // by a second, tiny launch that runs after it on the same stream: no block
-// can see a half-advanced power. lr is a device scalar: nothing is read
-// back to the host.
+// can see a half-advanced power. lr is a device scalar.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
 namespace {
 
 constexpr int kThreads = 256;
-// columns of the tensor table (int64 each)
-// (kDecay holds the f32 bits of the tensor's decoupled-decay coefficient)
-enum { kP = 0, kM, kV, kLow, kB1p, kB2p, kN, kGDtype, kDecay, kCols };
+constexpr int kFinishThreads = 1024;
+// columns of the tensor table (int64 each): kDecay and kL2 hold the f32
+// bits of the tensor's decoupled-decay and L2 coefficients, kClip is 1
+// where the tensor takes part in the clip
+enum {
+  kP = 0, kM, kV, kLow, kB1p, kB2p, kN, kGDtype, kDecay, kL2, kClip, kCols
+};
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+// Sum over a block in a fixed order (xor shuffles, then warp 0 over the
+// warps' sums): the same inputs give the same bits. Thread 0 gets the sum.
+template <int kBlock>
+__device__ float block_sum(float s) {
+  __shared__ float warp_sums[kBlock / 32];
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    s = __fadd_rn(s, __shfl_xor_sync(0xffffffffu, s, o));
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (lane == 0) warp_sums[warp] = s;
+  __syncthreads();
+  s = 0.f;
+  if (warp == 0) {
+    s = lane < kBlock / 32 ? warp_sums[lane] : 0.f;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      s = __fadd_rn(s, __shfl_xor_sync(0xffffffffu, s, o));
+  }
+  return s;
+}
+
+// f32 sum of g*g over [start, end) of one gradient, by this thread's
+// share of the block. A chunk starts at a multiple of the chunk size (a
+// multiple of 8), so a 16-byte-aligned gradient is read in 16-byte
+// vectors up to the chunk's last whole vector.
+template <typename T>
+__device__ float chunk_sumsq(const T* __restrict__ g, long long start,
+                             long long end) {
+  constexpr int kVec = 16 / sizeof(T);
+  float s = 0.f;
+  long long tail = start;
+  if ((reinterpret_cast<unsigned long long>(g) & 15) == 0) {
+    const long long nvec = (end - start) / kVec;
+    const uint4* v = reinterpret_cast<const uint4*>(g + start);
+    for (long long j = threadIdx.x; j < nvec; j += kThreads) {
+      const uint4 u = v[j];
+      const T* x = reinterpret_cast<const T*>(&u);
+#pragma unroll
+      for (int k = 0; k < kVec; ++k) {
+        const float f = to_f32(x[k]);
+        s = __fmaf_rn(f, f, s);
+      }
+    }
+    tail = start + nvec * kVec;
+  }
+  for (long long i = tail + threadIdx.x; i < end; i += kThreads) {
+    const float f = to_f32(g[i]);
+    s = __fmaf_rn(f, f, s);
+  }
+  return s;
+}
+
+// One block per (tensor, chunk): the f32 sum of g*g over the chunk (0 for
+// a tensor that takes no part in the clip) into partials[blockIdx.x].
+__global__ void __launch_bounds__(kThreads)
+grad_sumsq_kernel(const long long* __restrict__ tab,
+                  const long long* __restrict__ grads,
+                  const int* __restrict__ chunks, float* __restrict__ partials,
+                  int chunk) {
+  const int t = chunks[2 * blockIdx.x];
+  const long long start = (long long)chunks[2 * blockIdx.x + 1] * chunk;
+  const long long* e = tab + (long long)t * kCols;
+  float s = 0.f;
+  if (e[kClip] != 0) {
+    const long long n = e[kN];
+    const long long end = start + chunk < n ? start + chunk : n;
+    s = e[kGDtype] == 1
+            ? chunk_sumsq(reinterpret_cast<const __nv_bfloat16*>(grads[t]),
+                          start, end)
+            : chunk_sumsq(reinterpret_cast<const float*>(grads[t]), start,
+                          end);
+  }
+  s = block_sum<kThreads>(s);
+  if (threadIdx.x == 0) partials[blockIdx.x] = s;
+}
+
+// One block: the partials added in a fixed order; out = (norm, scale) with
+// scale = clip / max(norm, clip) (a NaN norm gives a NaN scale, as the
+// reference's jnp.maximum does).
+__global__ void __launch_bounds__(kFinishThreads)
+grad_norm_finish_kernel(const float* __restrict__ partials, int n,
+                        float clip, float* __restrict__ out) {
+  float s = 0.f;
+  for (int i = threadIdx.x; i < n; i += kFinishThreads)
+    s = __fadd_rn(s, partials[i]);
+  s = block_sum<kFinishThreads>(s);
+  if (threadIdx.x == 0) {
+    const float norm = __fsqrt_rn(s);
+    out[0] = norm;
+    out[1] = __fdiv_rn(clip, (norm >= clip || norm != norm) ? norm : clip);
+  }
+}
 
 __global__ void __launch_bounds__(kThreads)
 adam_update_kernel(const long long* __restrict__ tab,
                    const long long* __restrict__ grads,
                    const int* __restrict__ chunks, const float* lr_ptr,
-                   float b1, float b2, float omb1, float omb2, float eps,
-                   float wd, int chunk) {
+                   const float* scale_ptr, float b1, float b2, float omb1,
+                   float omb2, float eps, int chunk) {
   const int t = chunks[2 * blockIdx.x];
   const long long start = (long long)chunks[2 * blockIdx.x + 1] * chunk;
   const long long* e = tab + (long long)t * kCols;
@@ -68,12 +184,23 @@ adam_update_kernel(const long long* __restrict__ tab,
   const float lr_t = __fdiv_rn(__fmul_rn(lr, __fsqrt_rn(__fsub_rn(1.f, b2p))),
                                __fsub_rn(1.f, b1p));
   const float coeff = __int_as_float((int)e[kDecay]);
+  const float l2 = __int_as_float((int)e[kL2]);
+  const bool scaled = scale_ptr != nullptr && e[kClip] != 0;
+  const float scale = scaled ? *scale_ptr : 1.f;
   const float keep = __fsub_rn(1.f, __fmul_rn(lr, coeff));
   const long long end = start + chunk < n ? start + chunk : n;
   for (long long i = start + threadIdx.x; i < end; i += kThreads) {
-    float g = g_bf16 ? __bfloat162float(gb[i]) : gf[i];
+    float g;
+    if (g_bf16) {
+      g = __bfloat162float(gb[i]);
+      if (scaled)
+        g = __bfloat162float(__float2bfloat16_rn(__fmul_rn(g, scale)));
+    } else {
+      g = gf[i];
+      if (scaled) g = __fmul_rn(g, scale);
+    }
     float pv = p[i];
-    if (wd != 0.f) g = __fadd_rn(g, __fmul_rn(wd, pv));
+    if (l2 != 0.f) g = __fadd_rn(g, __fmul_rn(l2, pv));
     if (coeff != 0.f) pv = __fmul_rn(pv, keep);
     const float m1 = __fadd_rn(__fmul_rn(b1, m[i]), __fmul_rn(omb1, g));
     const float m2 =
@@ -100,29 +227,54 @@ __global__ void adam_advance_pows_kernel(const long long* __restrict__ tab,
 
 }  // namespace
 
-// tab: device int64 [ntensors, 9] (p, m, v, bf16 copy or 0, beta1_pow,
+// tab: device int64 [ntensors, 11] (p, m, v, bf16 copy or 0, beta1_pow,
 // beta2_pow, numel, grad dtype 0 = f32 / 1 = bf16, the f32 bits of the
-// decoupled-decay coefficient); grads: device int64
-// [ntensors] grad pointers; chunks: device int32 [nchunks, 2] (tensor,
-// chunk index) with chunk size `chunk`; lr: device f32 scalar. Two
+// decoupled-decay and of the L2 coefficient, 1 if the tensor is clipped);
+// grads: device int64 [ntensors] grad pointers; chunks: device int32
+// [nchunks, 2] (tensor, chunk index) with chunk size `chunk`; lr: device
+// f32 scalar; scale: device f32 clip scale, or null for no clip. Two
 // launches (the update, then the beta-power advance). Returns a
 // cudaError_t (0 = launched).
 extern "C" int ptt_adam_step(const void* tab, const void* grads,
                              const void* chunks, int nchunks, int ntensors,
-                             const void* lr, float b1, float b2, float omb1,
-                             float omb2, float eps, float wd, int chunk,
-                             void* stream) {
+                             const void* lr, const void* scale, float b1,
+                             float b2, float omb1, float omb2, float eps,
+                             int chunk, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (nchunks <= 0 || ntensors <= 0 || chunk <= 0)
     return (int)cudaErrorInvalidValue;
   const long long* t = static_cast<const long long*>(tab);
   adam_update_kernel<<<nchunks, kThreads, 0, s>>>(
       t, static_cast<const long long*>(grads),
-      static_cast<const int*>(chunks), static_cast<const float*>(lr), b1,
-      b2, omb1, omb2, eps, wd, chunk);
+      static_cast<const int*>(chunks), static_cast<const float*>(lr),
+      static_cast<const float*>(scale), b1, b2, omb1, omb2, eps, chunk);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   adam_advance_pows_kernel<<<(ntensors + 255) / 256, 256, 0, s>>>(
       t, ntensors, b1, b2);
+  return (int)cudaGetLastError();
+}
+
+// The global gradient norm over the table's clipped tensors (the same
+// tab, grads and chunks as ptt_adam_step; only numel, grad dtype and the
+// clip flag are read): partials is device f32 [nchunks] scratch, out
+// device f32 [2] gets (norm, clip / max(norm, clip)). Two launches (the
+// per-chunk sums, then the fixed-order finish). Returns a cudaError_t.
+extern "C" int ptt_grad_sumsq(const void* tab, const void* grads,
+                              const void* chunks, int nchunks,
+                              void* partials, void* out, float clip,
+                              int chunk, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (nchunks <= 0 || chunk <= 0 || chunk % 8 != 0)
+    return (int)cudaErrorInvalidValue;
+  grad_sumsq_kernel<<<nchunks, kThreads, 0, s>>>(
+      static_cast<const long long*>(tab),
+      static_cast<const long long*>(grads), static_cast<const int*>(chunks),
+      static_cast<float*>(partials), chunk);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  grad_norm_finish_kernel<<<1, kFinishThreads, 0, s>>>(
+      static_cast<const float*>(partials), nchunks, clip,
+      static_cast<float*>(out));
   return (int)cudaGetLastError();
 }

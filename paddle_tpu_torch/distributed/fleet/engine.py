@@ -23,6 +23,15 @@ A float ``compute_dtype`` runs in one of the reference's two modes
 layer's parameter names (``Optimizer.name_parameters``), as the
 reference's engine passes names to ``apply_decay_param_fun``.
 
+The optimizer's options apply as in its own ``step``: a learning-rate
+scheduler is read at every step (the caller steps it, or ``run_steps``
+does), and a ``ClipGradByGlobalNorm`` is folded into the Adam kernel. The
+reference's compiled engines skip a ``ClipGradByValue`` or
+``ClipGradByNorm`` without a word (``apply_optimizer_update``); the port
+refuses them here. ``remat`` (or the older ``recompute``; ``remat`` wins)
+names an ``ops.remat_policy`` policy: each decoder block, or encoder
+layer, is recomputed in the backward.
+
 Unlike the reference, whose jitted step holds its own copy of the state,
 the step updates the layer's parameters in place: they ARE the step's
 state. ``sync_to_layer()`` puts the f32 masters into the layer (the
@@ -38,6 +47,9 @@ from torch import nn
 
 from ...core.place import resolve_device
 from ...jit.functionalize import functionalize, set_params
+from ...nn.clip import ClipGradByGlobalNorm
+from ...ops import remat_policy
+from ...optimizer.lr import LRScheduler
 from ...profiler.telemetry import get_telemetry
 
 __all__ = ["ParallelTrainStep"]
@@ -51,23 +63,30 @@ class ParallelTrainStep:
     """One training step of ``layer`` on one device (default ``"cuda"``).
 
     Not ported yet, and refused: a mesh and its data-, tensor- and
-    sequence-parallel axes, ZeRO sharding and ``recompute``."""
+    sequence-parallel axes, ZeRO sharding, ``remat='offload'`` and
+    ``'auto'``, and a clip other than ``ClipGradByGlobalNorm``."""
+
+    _telemetry = "engine"  # the prefix of the step's counters
 
     def __init__(self, layer: nn.Module, loss_fn: Callable, optimizer,
                  device=None, compute_dtype: Optional[torch.dtype] = None,
                  master_weights: Optional[bool] = None,
-                 recompute: bool = False, mesh=None, dp_axis=None,
+                 recompute=False, mesh=None, dp_axis=None,
                  mp_axis=None, sharding_axis=None, zero_stage: int = 0,
-                 sp_axis=None):
+                 sp_axis=None, remat=None):
         if mesh is not None or zero_stage or any(
                 a is not None for a in (dp_axis, mp_axis, sharding_axis,
                                         sp_axis)):
             raise NotImplementedError(
-                "ParallelTrainStep: meshes, data/tensor/sequence "
+                f"{type(self).__name__}: meshes, data/tensor/sequence "
                 "parallelism and ZeRO are not ported yet (one device only)")
-        if recompute:
+        clip = optimizer._grad_clip
+        if clip is not None and not isinstance(clip, ClipGradByGlobalNorm):
             raise NotImplementedError(
-                "ParallelTrainStep: recompute is not ported yet")
+                f"{type(self).__name__}: {type(clip).__name__} needs a pass "
+                "of its own that the compiled step does not have; the "
+                "reference's compiled engines skip it silently. Use "
+                "ClipGradByGlobalNorm, or Optimizer.step() outside an engine")
         if compute_dtype not in (None, torch.float32, torch.bfloat16):
             raise NotImplementedError(
                 f"ParallelTrainStep: compute_dtype {compute_dtype} is not "
@@ -90,9 +109,10 @@ class ParallelTrainStep:
         self._optimizer = optimizer
         self._compute_dtype = compute_dtype
         self._master = compute_dtype is not None and bool(master_weights)
-        self._apply = functionalize(
+        self._apply = remat_policy.apply_policy(functionalize(
             layer, training=True,
-            compute_dtype=None if self._master else compute_dtype)
+            compute_dtype=None if self._master else compute_dtype),
+            recompute if remat is None else remat, layer)
         optimizer.name_parameters(layer.named_parameters())
         if self._master:
             for p in layer.parameters():
@@ -117,15 +137,38 @@ class ParallelTrainStep:
         self._record_step()
         return loss.detach()
 
+    def run_steps(self, inputs, labels, step_scheduler: bool = True
+                  ) -> torch.Tensor:
+        """One step per entry of the leading axis of ``inputs`` and
+        ``labels`` (tuples of [n_steps, ...] tensors, or one such tensor);
+        returns the [n_steps] f32 losses. A learning-rate scheduler is
+        stepped between the steps (``n_steps − 1`` times) unless
+        ``step_scheduler=False``: the learning rates are the reference's,
+        ``sched()`` for the first step and ``sched.step()`` before each
+        further one."""
+        inputs, labels = _as_tuple(inputs), _as_tuple(labels)
+        sched = self._optimizer._learning_rate
+        if not (step_scheduler and isinstance(sched, LRScheduler)):
+            sched = None
+        losses = []
+        for i in range(inputs[0].shape[0]):
+            if i and sched is not None:
+                sched.step()
+            losses.append(self(tuple(a[i] for a in inputs),
+                               tuple(b[i] for b in labels)))
+        return torch.stack(losses)
+
     def _record_step(self) -> None:
-        """``engine/steps`` and ``engine/step_ms``: the step time is the
-        interval between calls, which in steady state equals the device's
-        step time without a blocking sync (the reference's rule)."""
+        """``<prefix>/steps`` and ``<prefix>/step_ms`` (``engine`` here,
+        ``jit`` for ``jit.TrainStep``): the step time is the interval
+        between calls, which in steady state equals the device's step time
+        without a blocking sync (the reference's rule)."""
         tel = get_telemetry()
         now = time.perf_counter()
-        tel.counter("engine/steps")
+        tel.counter(f"{self._telemetry}/steps")
         if self._last_step_t is not None:
-            tel.observe("engine/step_ms", (now - self._last_step_t) * 1e3)
+            tel.observe(f"{self._telemetry}/step_ms",
+                        (now - self._last_step_t) * 1e3)
         self._last_step_t = now
 
     def sync_to_layer(self) -> None:

@@ -1,0 +1,65 @@
+"""The training and evaluation steps of a layer — counterpart of
+``paddle_tpu.jit.train_step``.
+
+``TrainStep(layer, loss_fn, optimizer)(inputs, labels)`` is one step of
+``distributed.fleet.engine.ParallelTrainStep`` on the layer's own
+dtypes: the same forward, backward and optimizer step (the reference
+keeps two copies of one update, ``_finish_step`` and
+``apply_optimizer_update``; the port has one). A bf16 layer under
+``multi_precision`` trains on f32 masters made from its bf16 values, as
+the reference's ``TrainStep`` does. Its telemetry is ``jit/steps`` and
+``jit/step_ms``.
+
+``EvalStep(layer)(*inputs)`` is the layer's forward in eval mode without
+autograd.
+
+Not ported yet, and refused: ``check_finite``, ``guard_updates`` and
+``fingerprint_every`` (they wait for the resilience port).
+"""
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import torch
+from torch import nn
+
+from ..distributed.fleet.engine import ParallelTrainStep
+from .functionalize import functionalize
+
+__all__ = ["TrainStep", "EvalStep"]
+
+
+class TrainStep(ParallelTrainStep):
+    """One training step of ``layer`` on ``device`` (default ``"cuda"``),
+    with ``remat`` an ``ops.remat_policy`` policy."""
+
+    _telemetry = "jit"
+
+    def __init__(self, layer: nn.Module, loss_fn: Callable, optimizer,
+                 device=None, remat="off", *,
+                 check_finite: Optional[bool] = None,
+                 guard_updates: bool = False,
+                 fingerprint_every: Optional[int] = None):
+        if check_finite or guard_updates or fingerprint_every:
+            raise NotImplementedError(
+                "TrainStep: check_finite, guard_updates and "
+                "fingerprint_every wait for the resilience port")
+        super().__init__(layer, loss_fn, optimizer, device=device,
+                         remat=remat)
+
+
+class EvalStep:
+    """``layer``'s forward in eval mode, without autograd, on the device
+    of its parameters. ``loss_fn`` is kept, as in the reference, and not
+    called."""
+
+    def __init__(self, layer: nn.Module, loss_fn: Optional[Callable] = None):
+        self._layer = layer
+        self._loss_fn = loss_fn
+        self._apply = functionalize(layer, training=False)
+        self._device = next(layer.parameters()).device
+
+    @torch.no_grad()
+    def __call__(self, *inputs):
+        return self._apply(*(a.to(self._device, non_blocking=True)
+                             for a in inputs))

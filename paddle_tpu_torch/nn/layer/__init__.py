@@ -1,4 +1,6 @@
 from .common import Dropout, Embedding, Linear, linear
+from .loss import CrossEntropyLoss
 from .norm import LayerNorm
 
-__all__ = ["Dropout", "Embedding", "LayerNorm", "Linear", "linear"]
+__all__ = ["CrossEntropyLoss", "Dropout", "Embedding", "LayerNorm", "Linear",
+           "linear"]

@@ -71,8 +71,12 @@ _SIGNATURES = {
     "ptt_flash_attn_bwd_dkv": _FLASH_BWD,
     "ptt_flash_attn_bwd_dq_full": _FLASH_BWD,
     "ptt_flash_attn_bwd_dkv_full": _FLASH_BWD,
-    "ptt_adam_step": ([_P, _P, _P, _I, _I, _P, _F, _F, _F, _F, _F, _F, _I,
+    # tab, grads, chunks, nchunks, ntensors, lr, clip scale (null: none),
+    # b1, b2, 1 - b1, 1 - b2, eps, chunk, stream
+    "ptt_adam_step": ([_P, _P, _P, _I, _I, _P, _P, _F, _F, _F, _F, _F, _I,
                        _P], _I),
+    # tab, grads, chunks, nchunks, partials, out, clip, chunk, stream
+    "ptt_grad_sumsq": ([_P, _P, _P, _I, _P, _P, _F, _I, _P], _I),
     "ptt_dkv_packed": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P], _I),
 }
 

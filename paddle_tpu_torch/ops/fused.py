@@ -14,7 +14,12 @@ fallback between the two: a CUDA tensor the kernel cannot take raises.
 - ``fused_adam_step`` updates many parameters in one pass
   (``csrc/adam.cu``, the port of ``_adam_kernel``, two launches per call)
   or through ``_adam_reference``, a per-tensor loop over the reference's
-  ``Adam._update``, with AdamW's decoupled decay per tensor.
+  ``Adam._update``, with an L2 and an AdamW decoupled-decay coefficient
+  per tensor. Given ``clip_norm`` it first runs ``csrc/adam.cu``'s
+  sum-of-squares pass over the same tensor table (two more launches, the
+  kernel of ``grad_global_norm``; plain version ``_global_norm_reference``)
+  and the update reads the clip scale from the device. The plain version
+  of the whole call is ``_fused_adam_reference``.
 """
 from __future__ import annotations
 
@@ -26,7 +31,8 @@ import torch
 
 from . import _build
 
-__all__ = ["fused_layer_norm", "fused_adam_step", "layer_norm_bwd"]
+__all__ = ["fused_layer_norm", "fused_adam_step", "grad_global_norm",
+           "layer_norm_bwd"]
 
 
 # ---------------------------------------------------------------------------
@@ -235,8 +241,26 @@ def _check_ln_args(fn, x, weight, bias, hidden):
 
 
 # ---------------------------------------------------------------------------
-# multi-tensor Adam
+# multi-tensor Adam and the global gradient norm
 # ---------------------------------------------------------------------------
+def _global_norm_reference(grads: Sequence[torch.Tensor], clip_norm: float,
+                           need_clip: Optional[Sequence[bool]] = None
+                           ) -> torch.Tensor:
+    """Plain global gradient norm, the reference's
+    ``clip_grads_global_norm_raw``: the squares of every gradient (whose
+    ``need_clip`` is true) summed in f32 from the gradient cast to f32,
+    ``norm = sqrt(sum)``, ``scale = clip_norm / max(norm, clip_norm)``.
+    Returns the f32 tensor ``[norm, scale]`` on the gradients' device."""
+    clip = need_clip if need_clip is not None else [True] * len(grads)
+    dev = grads[0].device if len(grads) else torch.device("cpu")
+    sq = torch.zeros((), dtype=torch.float32, device=dev)
+    for g, c in zip(grads, clip):
+        if c:
+            sq = sq + g.float().square().sum()
+    norm = sq.sqrt()
+    return torch.stack([norm, clip_norm / norm.clamp(min=clip_norm)])
+
+
 def _adam_reference(params: Sequence[torch.Tensor],
                     grads: Sequence[torch.Tensor],
                     moment1: Sequence[torch.Tensor],
@@ -245,27 +269,36 @@ def _adam_reference(params: Sequence[torch.Tensor],
                     beta2_pow: Sequence[torch.Tensor], lr: torch.Tensor,
                     masters: Optional[Sequence[Optional[torch.Tensor]]] = None,
                     beta1: float = 0.9, beta2: float = 0.999,
-                    eps: float = 1e-8, weight_decay: float = 0.0,
-                    decoupled_decay: Optional[Sequence[float]] = None
-                    ) -> None:
+                    eps: float = 1e-8, weight_decay=0.0,
+                    decoupled_decay=None,
+                    grad_scale: Optional[torch.Tensor] = None,
+                    need_clip: Optional[Sequence[bool]] = None) -> None:
     """Plain multi-tensor Adam, in place: for each tensor, exactly
     ``Adam._update`` of the reference on the f32 master (when one is
-    given; the param is then re-cast from it) or on the param itself,
-    with the L2 ``weight_decay`` folded into the grad first and, for a
-    tensor whose ``decoupled_decay`` coefficient c is not 0, the value
-    scaled by ``1 − lr·c`` before the update (AdamW, in the order of the
-    reference engine's ``apply_optimizer_update``)."""
+    given; the param is then re-cast from it) or on the param itself.
+    Before it, in the order of the reference engine's
+    ``apply_optimizer_update``: a gradient that takes part in the clip
+    (``need_clip``, default all) becomes ``g · grad_scale`` rounded back to
+    its dtype; the tensor's L2 coefficient (``weight_decay``) is folded
+    into the gradient as ``coeff · value``; and a tensor whose
+    ``decoupled_decay`` coefficient c is not 0 is scaled by ``1 − lr·c``
+    (AdamW). ``weight_decay`` and ``decoupled_decay`` are one float for
+    every tensor or a float each."""
     n = len(params)
     masters = masters if masters is not None else [None] * n
-    decay = decoupled_decay if decoupled_decay is not None else [0.0] * n
-    for p, g, m, v, b1p, b2p, master, c in zip(
+    l2 = _per_tensor(weight_decay, n)
+    decay = _per_tensor(decoupled_decay, n)
+    clip = need_clip if need_clip is not None else [True] * n
+    for p, g, m, v, b1p, b2p, master, wd, c, clipped in zip(
             params, grads, moment1, moment2, beta1_pow, beta2_pow, masters,
-            decay):
+            l2, decay, clip):
         target = master if master is not None else p
+        if grad_scale is not None and clipped:
+            g = (g.float() * grad_scale).to(g.dtype)
         g = g.to(target.dtype)
         value = target
-        if weight_decay:
-            g = g + weight_decay * value
+        if wd:
+            g = g + wd * value
         if c:
             value = value * (1 - lr * c)
         new_b1p = b1p * beta1
@@ -283,10 +316,91 @@ def _adam_reference(params: Sequence[torch.Tensor],
         b2p.copy_(new_b2p)
 
 
-# elements of one (tensor, chunk) work item of the CUDA update
+def _fused_adam_reference(params, grads, moment1, moment2, beta1_pow,
+                          beta2_pow, lr, masters=None, beta1=0.9,
+                          beta2=0.999, eps=1e-8, weight_decay=0.0,
+                          decoupled_decay=None, clip_norm=None,
+                          need_clip=None) -> Optional[torch.Tensor]:
+    """The plain version of ``fused_adam_step``, with its arguments and
+    its result: ``_global_norm_reference`` for the clip, then
+    ``_adam_reference`` with that scale."""
+    norm = (_global_norm_reference(grads, clip_norm, need_clip)
+            if clip_norm is not None else None)
+    _adam_reference(params, grads, moment1, moment2, beta1_pow, beta2_pow,
+                    lr, masters, beta1, beta2, eps, weight_decay,
+                    decoupled_decay, None if norm is None else norm[1],
+                    need_clip)
+    return norm
+
+
+def _per_tensor(coeff, n: int) -> List[float]:
+    """``coeff`` (None, one float, or a float per tensor) as n floats."""
+    if coeff is None:
+        return [0.0] * n
+    if isinstance(coeff, (int, float)):
+        return [float(coeff)] * n
+    return [float(c) for c in coeff]
+
+
+# elements of one (tensor, chunk) work item of the CUDA update and of the
+# sum-of-squares pass (a multiple of the pass's 8-element vectors)
 _ADAM_CHUNK = 16384
-# p, m, v, bf16 copy, beta1_pow, beta2_pow, numel, g dtype, decay bits
-_TABLE_COLS = 9
+# p, m, v, bf16 copy, beta1_pow, beta2_pow, numel, g dtype, decoupled-decay
+# bits, L2 bits, clipped
+_TABLE_COLS = 11
+
+
+def grad_global_norm(grads: Sequence[torch.Tensor], clip_norm: float,
+                     need_clip: Optional[Sequence[bool]] = None
+                     ) -> torch.Tensor:
+    """The global norm of ``grads`` (those whose ``need_clip`` is true,
+    default all) and the clip scale ``clip_norm / max(norm, clip_norm)``,
+    as the f32 tensor ``[norm, scale]`` on their device; nothing is read
+    back to the host. CUDA tensors (f32 or bf16, contiguous) go through
+    the sum-of-squares kernel of ``csrc/adam.cu`` (two launches: the
+    per-chunk sums, then a fixed-order finish, so the bits repeat), CPU
+    tensors through ``_global_norm_reference``. ``fused_adam_step`` runs
+    the same kernel over its own table when given ``clip_norm``."""
+    n = len(grads)
+    clip = list(need_clip) if need_clip is not None else [True] * n
+    if len(clip) != n:
+        raise ValueError("grad_global_norm: need_clip differs in length")
+    if n == 0:
+        raise ValueError("grad_global_norm: no gradients")
+    dev = grads[0].device
+    if dev.type == "cpu":
+        return _global_norm_reference(grads, clip_norm, clip)
+    if dev.type != "cuda":
+        raise ValueError(f"grad_global_norm: unsupported device {dev}")
+    rows = []
+    for i, (g, c) in enumerate(zip(grads, clip)):
+        _check_grad("grad_global_norm", i, g, dev)
+        if g.numel():
+            rows.append((0,) * 6 + (g.numel(), _build.DTYPE_CODES[g.dtype],
+                                    0, 0, int(bool(c))))
+    tab, chunks, _, nchunks = _device_table(dev, rows)
+    return _launch_global_norm(
+        dev, tab, _pointers([g for g in grads if g.numel()], dev), chunks,
+        nchunks, clip_norm)
+
+
+grad_global_norm.launches = 0  # kernel launches (two per call)
+
+
+def _launch_global_norm(dev, tab, gptrs, chunks, nchunks, clip_norm):
+    out = torch.empty(2, dtype=torch.float32, device=dev)
+    if nchunks == 0:
+        return out.copy_(torch.tensor([0.0, 1.0]))
+    partials = torch.empty(nchunks, dtype=torch.float32, device=dev)
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        err = lib.ptt_grad_sumsq(
+            tab.data_ptr(), gptrs.data_ptr(), chunks.data_ptr(), nchunks,
+            partials.data_ptr(), out.data_ptr(), float(clip_norm),
+            _ADAM_CHUNK, torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "grad_sumsq")
+    grad_global_norm.launches += 2
+    return out
 
 
 def fused_adam_step(params: Sequence[torch.Tensor],
@@ -297,40 +411,50 @@ def fused_adam_step(params: Sequence[torch.Tensor],
                     beta2_pow: Sequence[torch.Tensor], lr: torch.Tensor,
                     masters: Optional[Sequence[Optional[torch.Tensor]]] = None,
                     beta1: float = 0.9, beta2: float = 0.999,
-                    eps: float = 1e-8, weight_decay: float = 0.0,
-                    decoupled_decay: Optional[Sequence[float]] = None
-                    ) -> None:
+                    eps: float = 1e-8, weight_decay=0.0,
+                    decoupled_decay=None, clip_norm: Optional[float] = None,
+                    need_clip: Optional[Sequence[bool]] = None
+                    ) -> Optional[torch.Tensor]:
     """One Adam step over many parameters, in place — the multi-tensor
     counterpart of the reference's ``fused_adam_step`` with the engine's
-    master-weight handling and AdamW's decoupled decay.
+    master-weight handling, its global-norm clip, L2 decay and AdamW's
+    decoupled decay.
 
     ``params[i]`` is updated through ``masters[i]`` (its f32 master, when
     given: the param is then the bf16 resident copy, re-cast from the new
     master in the same pass) or directly (an f32 param). ``moment1``,
     ``moment2`` are f32 like the master; ``beta1_pow``/``beta2_pow`` are
     per-tensor 0-d f32 tensors, advanced by one step; ``lr`` is a 0-d f32
-    tensor on the params' device. ``decoupled_decay`` (AdamW) gives each
+    tensor on the params' device. ``weight_decay`` is the L2 coefficient
+    folded into each gradient (one float, or a float per tensor: a
+    parameter's own regularizer); ``decoupled_decay`` (AdamW) gives each
     tensor a coefficient c (0: not decayed): its f32 value is scaled by
-    ``1 − lr·c`` before the Adam update. ``weight_decay`` is Adam's L2
-    term, folded into every gradient. Nothing is read back to the host.
+    ``1 − lr·c`` before the Adam update. With ``clip_norm`` the gradients
+    (those whose ``need_clip`` is true, default all) are first scaled by
+    ``clip_norm / max(global norm, clip_norm)``, each rounded back to its
+    own dtype, and the f32 tensor ``[norm, scale]`` is returned. Nothing is
+    read back to the host.
 
-    CUDA tensors go through ``csrc/adam.cu`` (two launches per call),
-    CPU tensors through ``_adam_reference``.
+    CUDA tensors go through ``csrc/adam.cu`` (two launches per call, and
+    with ``clip_norm`` the two of the sum-of-squares pass before them),
+    CPU tensors through ``_fused_adam_reference``.
     """
     n = len(params)
     masters = list(masters) if masters is not None else [None] * n
-    decay = (list(decoupled_decay) if decoupled_decay is not None
-             else [0.0] * n)
-    lists = (grads, moment1, moment2, beta1_pow, beta2_pow, masters, decay)
+    l2 = _per_tensor(weight_decay, n)
+    decay = _per_tensor(decoupled_decay, n)
+    clip = list(need_clip) if need_clip is not None else [True] * n
+    lists = (grads, moment1, moment2, beta1_pow, beta2_pow, masters, l2,
+             decay, clip)
     if any(len(t) != n for t in lists):
         raise ValueError("fused_adam_step: the lists differ in length")
     if n == 0:
-        return
+        return None
     dev = params[0].device
     if dev.type == "cpu":
-        return _adam_reference(params, grads, moment1, moment2, beta1_pow,
-                               beta2_pow, lr, masters, beta1, beta2, eps,
-                               weight_decay, decay)
+        return _fused_adam_reference(
+            params, grads, moment1, moment2, beta1_pow, beta2_pow, lr,
+            masters, beta1, beta2, eps, l2, decay, clip_norm, clip)
     if dev.type != "cuda":
         raise ValueError(f"fused_adam_step: unsupported device {dev}")
     if lr.device != dev or lr.dtype != torch.float32 or lr.numel() != 1:
@@ -338,24 +462,51 @@ def fused_adam_step(params: Sequence[torch.Tensor],
                         f"tensor on {dev}, got {lr.dtype} on {lr.device}")
     tab, chunks, ntensors, nchunks = _adam_table(
         params, grads, moment1, moment2, beta1_pow, beta2_pow, masters,
-        decay)
+        decay, l2, clip if clip_norm is not None else [False] * n)
+    gptrs = _pointers([g for g in grads if g.numel()], dev)
+    norm = None
+    if clip_norm is not None:
+        norm = _launch_global_norm(dev, tab, gptrs, chunks, nchunks,
+                                   clip_norm)
     if nchunks == 0:
-        return
-    gptrs = torch.tensor([g.data_ptr() for g in grads if g.numel()],
-                         dtype=torch.int64).pin_memory()
-    gptrs = gptrs.to(dev, non_blocking=True)
+        return norm
     lib = _build.library()
     with torch.cuda.device(dev):
         err = lib.ptt_adam_step(
             tab.data_ptr(), gptrs.data_ptr(), chunks.data_ptr(), nchunks,
-            ntensors, lr.data_ptr(), beta1, beta2, 1 - beta1, 1 - beta2,
-            eps, float(weight_decay), _ADAM_CHUNK,
+            ntensors, lr.data_ptr(),
+            norm[1:].data_ptr() if norm is not None else None, beta1, beta2,
+            1 - beta1, 1 - beta2, eps, _ADAM_CHUNK,
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "adam_step")
     fused_adam_step.launches += 2
+    return norm
 
 
 fused_adam_step.launches = 0  # kernel launches (two per call)
+
+
+def _pointers(tensors: Sequence[torch.Tensor], dev) -> torch.Tensor:
+    """The tensors' data pointers as a device int64 array (a pinned
+    host-to-device copy that the launch after it waits for on the
+    stream)."""
+    ptrs = torch.tensor([t.data_ptr() for t in tensors],
+                        dtype=torch.int64).pin_memory()
+    return ptrs.to(dev, non_blocking=True)
+
+
+def _check_grad(fn, i, g, dev):
+    if g.device != dev:
+        raise ValueError(f"{fn}: grad {i} is on {g.device}, the first on "
+                         f"{dev}")
+    if g.is_sparse:
+        raise NotImplementedError(f"{fn}: grad {i} is row-sparse; sparse "
+                                  "gradients are not ported yet")
+    if not g.is_contiguous():
+        raise ValueError(f"{fn}: grad {i} is not contiguous")
+    if g.dtype not in _build.DTYPE_CODES:
+        raise TypeError(f"{fn}: grad {i} is {g.dtype} (float32, bfloat16)")
+
 
 # device tables of the tensors' pointers, keyed by those pointers: the
 # params, masters and moments are updated in place, so a training loop
@@ -364,17 +515,39 @@ _TABLES: Dict[tuple, tuple] = {}
 _TABLES_MAX = 8
 
 
+def _device_table(dev, rows: List[tuple]):
+    """``(table, chunks, ntensors, nchunks)`` on ``dev`` for the table
+    ``rows`` (``_TABLE_COLS`` ints each), made once per distinct table."""
+    key = (dev, tuple(rows))
+    hit = _TABLES.get(key)
+    if hit is None:
+        chunks = [(t, c) for t, row in enumerate(rows)
+                  for c in range(-(-row[6] // _ADAM_CHUNK))]
+        tab = torch.tensor(rows, dtype=torch.int64).reshape(-1, _TABLE_COLS)
+        ch = torch.tensor(chunks, dtype=torch.int32).reshape(-1, 2)
+        hit = (tab.to(dev), ch.to(dev), len(rows), len(chunks))
+        if len(_TABLES) >= _TABLES_MAX:
+            _TABLES.pop(next(iter(_TABLES)))
+        _TABLES[key] = hit
+    return hit
+
+
+def _f32_bits(x: float) -> int:
+    return int(np.float32(x).view(np.int32))
+
+
 def _adam_table(params, grads, moment1, moment2, beta1_pow, beta2_pow,
-                masters, decay):
+                masters, decay, l2, clip):
     dev = params[0].device
     rows: List[tuple] = []
-    for i, (p, g, m, v, b1p, b2p, master, c) in enumerate(zip(
+    for i, (p, g, m, v, b1p, b2p, master, c, wd, clipped) in enumerate(zip(
             params, grads, moment1, moment2, beta1_pow, beta2_pow,
-            masters, decay)):
+            masters, decay, l2, clip)):
         target = master if master is not None else p
-        for name, t in (("param", p), ("grad", g), ("moment1", m),
-                        ("moment2", v), ("beta1_pow", b1p),
-                        ("beta2_pow", b2p), ("master", target)):
+        _check_grad("fused_adam_step", i, g, dev)
+        for name, t in (("param", p), ("moment1", m), ("moment2", v),
+                        ("beta1_pow", b1p), ("beta2_pow", b2p),
+                        ("master", target)):
             if t.device != dev:
                 raise ValueError(f"fused_adam_step: {name} {i} is on "
                                  f"{t.device}, params[0] on {dev}")
@@ -407,17 +580,6 @@ def _adam_table(params, grads, moment1, moment2, beta1_pow, beta2_pow,
         rows.append((target.data_ptr(), m.data_ptr(), v.data_ptr(),
                      p.data_ptr() if master is not None else 0,
                      b1p.data_ptr(), b2p.data_ptr(), p.numel(),
-                     _build.DTYPE_CODES[g.dtype],
-                     int(np.float32(c).view(np.int32))))
-    key = (dev, tuple(rows))
-    hit = _TABLES.get(key)
-    if hit is None:
-        chunks = [(t, c) for t, row in enumerate(rows)
-                  for c in range(-(-row[6] // _ADAM_CHUNK))]
-        tab = torch.tensor(rows, dtype=torch.int64).reshape(-1, _TABLE_COLS)
-        ch = torch.tensor(chunks, dtype=torch.int32).reshape(-1, 2)
-        hit = (tab.to(dev), ch.to(dev), len(rows), len(chunks))
-        if len(_TABLES) >= _TABLES_MAX:
-            _TABLES.pop(next(iter(_TABLES)))
-        _TABLES[key] = hit
-    return hit
+                     _build.DTYPE_CODES[g.dtype], _f32_bits(c), _f32_bits(wd),
+                     int(bool(clipped))))
+    return _device_table(dev, rows)

@@ -1,26 +1,42 @@
-"""Optimizers — counterpart of ``paddle_tpu.optimizer.optimizer``, kept
-to the Adam and AdamW the training slices run.
+"""Optimizers — counterpart of ``paddle_tpu.optimizer.optimizer``.
 
-The update is the reference's ``Adam._update``, which is not
-``torch.optim.Adam``: ``lr_t = lr·√(1−β2ᵗ)/(1−β1ᵗ)`` and
-``p ← p − lr_t·m/(√v + eps)``, so eps is not bias-corrected, and the
-beta powers are per-parameter f32 state multiplied once per step.
+Every optimizer takes the reference's options: a float or an
+``LRScheduler`` (``optimizer.lr``) as ``learning_rate``, a float or a
+regularizer (``regularizer.L1Decay``/``L2Decay``) as ``weight_decay``
+(a parameter's own ``regularizer`` attribute wins over it; either is
+folded into the gradient as ``coeff · p``, L1 too, as in the reference),
+and a clip (``nn.clip``) as ``grad_clip``. Not ported, and refused:
+``lazy_mode``, a per-parameter ``optimize_attr`` learning rate, AdamW's
+``lr_ratio`` and row-sparse gradients.
 
-State per parameter: ``moment1``, ``moment2``, ``beta1_pow``,
-``beta2_pow`` (device f32 scalars) and, under ``multi_precision`` for a
-float parameter that is not f32, the f32 ``master`` the update runs on
-(the parameter is then re-cast from it). ``step()`` hands every parameter
-with a gradient to ``ops.fused.fused_adam_step`` in one call: the
-multi-tensor CUDA kernel for parameters on the card, the plain
-``_adam_reference`` for parameters on the CPU. The learning rate lives on
-the device too, so a step never reads anything back to the host.
+``step()`` runs, as the reference's eager ``step`` does: the clip over
+every parameter that has a gradient, then per parameter the L2 fold and
+the update. Under ``multi_precision`` a float parameter that is not f32
+gets an f32 ``master``, which the update runs on; the parameter is then
+re-cast from it.
 
-``AdamW`` adds the reference's decoupled decay: before its Adam update a
-parameter is scaled by ``1 − lr·weight_decay``, unless
+``Adam`` and ``AdamW`` are the training path: their update is the
+reference's ``Adam._update``, which is not ``torch.optim.Adam``:
+``lr_t = lr·√(1−β2ᵗ)/(1−β1ᵗ)`` and ``p ← p − lr_t·m/(√v + eps)``, so eps
+is not bias-corrected, and the beta powers are per-parameter f32 state
+multiplied once per step. Their ``step()`` hands every parameter with a
+gradient to ``ops.fused.fused_adam_step`` in one call per device: the
+multi-tensor CUDA kernel on the card (with a ``ClipGradByGlobalNorm``
+folded into it: its sum-of-squares pass and the update's scale both run
+on the device), the plain ``_adam_reference`` on the CPU. The learning
+rate lives on the device too, so a step never reads anything back to the
+host. ``AdamW`` adds the reference's decoupled decay: before its Adam
+update a parameter is scaled by ``1 − lr·weight_decay``, unless
 ``apply_decay_param_fun(name)`` says no. The name is the parameter's name
 in the model (``bert.encoder.0.ln1.bias``), as the reference's engine
 passes it; ``ParallelTrainStep`` hands the optimizer those names
 (``name_parameters``).
+
+The other optimizers (``SGD``, ``Momentum``, ``LarsMomentum``,
+``Adagrad``, ``Adamax``, ``Adadelta``, ``RMSProp``, ``Lamb``) have no
+Pallas kernel in the reference: each ``_update`` is the reference's
+formula in plain PyTorch over the f32 master or the parameter, a few
+launches per parameter.
 """
 from __future__ import annotations
 
@@ -29,32 +45,48 @@ from typing import Dict, Iterable, List, Optional, Tuple
 import torch
 from torch import nn
 
+from ..nn.clip import ClipGradBase, ClipGradByGlobalNorm
 from ..ops import fused
+from .lr import LRScheduler
 
-__all__ = ["Optimizer", "Adam", "AdamW"]
+__all__ = ["Optimizer", "SGD", "Momentum", "LarsMomentum", "Adagrad",
+           "Adam", "AdamW", "Adamax", "Adadelta", "RMSProp", "Lamb"]
+
+State = Dict[str, torch.Tensor]
 
 
 class Optimizer:
-    def __init__(self, learning_rate: float = 0.001,
+    def __init__(self, learning_rate=0.001,
                  parameters: Optional[Iterable[torch.Tensor]] = None,
-                 weight_decay: Optional[float] = None, grad_clip=None,
+                 weight_decay=None, grad_clip: Optional[ClipGradBase] = None,
                  multi_precision: bool = False):
         if parameters is None:
             raise ValueError("parameters is required (pass "
                              "model.parameters())")
-        if grad_clip is not None:
-            raise NotImplementedError("grad_clip is not ported yet")
-        if not isinstance(learning_rate, (int, float)):
-            raise NotImplementedError(
-                "learning-rate schedulers are not ported yet; pass a float")
+        if not isinstance(learning_rate, (int, float, LRScheduler)):
+            raise TypeError("learning_rate must be a float or an "
+                            f"LRScheduler, got {type(learning_rate).__name__}")
+        if grad_clip is not None and not isinstance(grad_clip, ClipGradBase):
+            raise TypeError("grad_clip must be a ClipGradByValue, "
+                            "ClipGradByNorm or ClipGradByGlobalNorm, got "
+                            f"{type(grad_clip).__name__}")
         if isinstance(parameters, nn.Module):
             parameters = parameters.parameters()
         self._parameter_list: List[torch.Tensor] = list(parameters)
-        self._learning_rate = float(learning_rate)
-        self._weight_decay = float(weight_decay or 0.0)
+        for p in self._parameter_list:
+            attr = getattr(p, "optimize_attr", None) or {}
+            if attr.get("learning_rate", 1.0) != 1.0:
+                raise NotImplementedError(
+                    "per-parameter learning rates (optimize_attr) are not "
+                    "ported yet")
+        self._learning_rate = (learning_rate if isinstance(
+            learning_rate, LRScheduler) else float(learning_rate))
+        self._weight_decay = weight_decay
+        self._grad_clip = grad_clip
         self._multi_precision = bool(multi_precision)
-        self._accumulators: Dict[int, dict] = {}
-        self._lr_dev: Dict[torch.device, torch.Tensor] = {}
+        self._accumulators: Dict[int, State] = {}
+        # device -> (value, its 0-d f32 tensor on that device)
+        self._lr_dev: Dict[torch.device, Tuple[float, torch.Tensor]] = {}
         self._names: Dict[int, str] = {}
         self._global_step = 0
 
@@ -68,28 +100,34 @@ class Optimizer:
 
     # -- lr ---------------------------------------------------------------
     def get_lr(self) -> float:
+        if isinstance(self._learning_rate, LRScheduler):
+            return float(self._learning_rate())
         return self._learning_rate
 
     def set_lr(self, value: float) -> None:
+        if isinstance(self._learning_rate, LRScheduler):
+            raise RuntimeError("cannot set_lr when learning_rate is a "
+                               "scheduler")
         self._learning_rate = float(value)
-        self._lr_dev.clear()
 
     def lr_device_scalar(self, device) -> torch.Tensor:
-        """The learning rate as a 0-d f32 tensor on ``device``, made once
-        per value with a fill (no host-to-device copy to wait for)."""
+        """The current learning rate as a 0-d f32 tensor on ``device``,
+        made anew with a fill (no host-to-device copy to wait for) only
+        when the value changed since the last call."""
         dev = torch.device(device)
-        t = self._lr_dev.get(dev)
-        if t is None:
-            t = self._lr_dev[dev] = torch.full(
-                (), self._learning_rate, dtype=torch.float32, device=dev)
-        return t
+        value = self.get_lr()
+        cached = self._lr_dev.get(dev)
+        if cached is None or cached[0] != value:
+            cached = self._lr_dev[dev] = (value, torch.full(
+                (), value, dtype=torch.float32, device=dev))
+        return cached[1]
 
     # -- state ------------------------------------------------------------
-    def _init_state(self, value: torch.Tensor) -> dict:
+    def _init_state(self, value: torch.Tensor) -> State:
         return {}
 
     def state_for(self, p: torch.Tensor,
-                  master: Optional[torch.Tensor] = None) -> dict:
+                  master: Optional[torch.Tensor] = None) -> State:
         """The state of ``p``, made on first use. Under
         ``multi_precision`` a float parameter that is not f32 gets an f32
         ``master``: ``master`` when given (the engine passes the f32 values
@@ -108,22 +146,165 @@ class Optimizer:
             self._accumulators[key] = st
         return self._accumulators[key]
 
+    def _decay_coeff(self, p: torch.Tensor) -> float:
+        """The L2 coefficient folded into ``p``'s gradient: its own
+        ``regularizer``'s, else the optimizer's ``weight_decay``."""
+        reg = getattr(p, "regularizer", None)
+        wd = reg if reg is not None else self._weight_decay
+        if wd is None:
+            return 0.0
+        return float(getattr(wd, "coeff", wd))
+
     # -- entry points -----------------------------------------------------
     def clear_grad(self) -> None:
         """Drop every gradient (the next backward allocates new ones)."""
         for p in self._parameter_list:
             p.grad = None
 
+    def _params_grads(self) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+        out = []
+        for p in self._parameter_list:
+            if p.grad is None:
+                continue
+            if p.grad.is_sparse:
+                raise NotImplementedError(
+                    "row-sparse gradients are not ported yet")
+            out.append((p, p.grad))
+        return out
+
+    @torch.no_grad()
     def step(self) -> None:
+        """One step over every parameter that has a gradient: the clip,
+        then per parameter the L2 fold and ``_update`` (on the f32 master
+        when there is one)."""
+        params_grads = self._params_grads()
+        if self._grad_clip is not None:
+            params_grads = self._grad_clip(params_grads)
+        self._global_step += 1
+        lr = self.get_lr()
+        for p, g in params_grads:
+            state = self.state_for(p)
+            master = state.get("master")
+            target = master if master is not None else p.detach()
+            g = g.to(target.dtype)
+            wd = self._decay_coeff(p)
+            if wd:
+                g = g + wd * target
+            sub = {k: v for k, v in state.items() if k != "master"}
+            new, new_state = self._update_param(p, target, g, sub, lr)
+            target.copy_(new)
+            if master is not None:
+                new_state["master"] = master
+                p.detach().copy_(master)
+            self._accumulators[id(p)] = new_state
+
+    def _update_param(self, p, value, grad, state, lr):
+        """``_update`` for parameter ``p`` (a hook for per-parameter
+        options)."""
+        return self._update(value, grad, state, lr)
+
+    def _update(self, param: torch.Tensor, grad: torch.Tensor,
+                state: State, lr: float) -> Tuple[torch.Tensor, State]:
         raise NotImplementedError
 
 
-class Adam(Optimizer):
-    def __init__(self, learning_rate: float = 0.001, beta1: float = 0.9,
-                 beta2: float = 0.999, epsilon: float = 1e-08,
-                 parameters=None, weight_decay: Optional[float] = None,
-                 grad_clip=None, lazy_mode: bool = False,
+def _zeros(value: torch.Tensor) -> torch.Tensor:
+    return torch.zeros_like(value)
+
+
+def _one(value: torch.Tensor) -> torch.Tensor:
+    return torch.ones((), dtype=torch.float32, device=value.device)
+
+
+def _norm(t: torch.Tensor) -> torch.Tensor:
+    return t.float().square().sum().sqrt()
+
+
+class SGD(Optimizer):
+    def __init__(self, learning_rate=0.001, parameters=None,
+                 weight_decay=None, grad_clip=None,
                  multi_precision: bool = False):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         multi_precision)
+
+    def _update(self, param, grad, state, lr):
+        return param - lr * grad, state
+
+
+class Momentum(Optimizer):
+    def __init__(self, learning_rate=0.001, momentum: float = 0.9,
+                 parameters=None, use_nesterov: bool = False,
+                 weight_decay=None, grad_clip=None,
+                 multi_precision: bool = False):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         multi_precision)
+        self._momentum = momentum
+        self._nesterov = use_nesterov
+
+    def _init_state(self, value):
+        return {"velocity": _zeros(value)}
+
+    def _update(self, param, grad, state, lr):
+        v = self._momentum * state["velocity"] + grad
+        if self._nesterov:
+            new_p = param - lr * (grad + self._momentum * v)
+        else:
+            new_p = param - lr * v
+        return new_p, {"velocity": v}
+
+
+class LarsMomentum(Momentum):
+    """LARS: the step of each tensor scaled by ``lars_coeff·‖p‖ / (‖g‖ +
+    lars_weight_decay·‖p‖ + epsilon)`` (``lr`` where a norm is 0).
+    ``exclude_from_weight_decay`` is taken and, as in the reference, not
+    used."""
+
+    def __init__(self, learning_rate=0.001, momentum: float = 0.9,
+                 lars_coeff: float = 0.001,
+                 lars_weight_decay: float = 0.0005, parameters=None,
+                 grad_clip=None, exclude_from_weight_decay=None,
+                 epsilon: float = 0, multi_precision: bool = False):
+        super().__init__(learning_rate, momentum, parameters, False, None,
+                         grad_clip, multi_precision)
+        self._lars_coeff = lars_coeff
+        self._lars_wd = lars_weight_decay
+        self._epsilon = epsilon
+
+    def _update(self, param, grad, state, lr):
+        pn, gn = _norm(param), _norm(grad)
+        local_lr = torch.where(
+            (pn > 0) & (gn > 0),
+            lr * self._lars_coeff * pn
+            / (gn + self._lars_wd * pn + self._epsilon),
+            torch.tensor(lr, dtype=torch.float32, device=param.device),
+        ).to(param.dtype)
+        v = self._momentum * state["velocity"] + local_lr * (
+            grad + self._lars_wd * param)
+        return param - v, {"velocity": v}
+
+
+class Adagrad(Optimizer):
+    def __init__(self, learning_rate, epsilon: float = 1e-06,
+                 parameters=None, weight_decay=None, grad_clip=None,
+                 initial_accumulator_value: float = 0.0):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip)
+        self._epsilon = epsilon
+        self._init_acc = initial_accumulator_value
+
+    def _init_state(self, value):
+        return {"moment": torch.full_like(value, self._init_acc)}
+
+    def _update(self, param, grad, state, lr):
+        m = state["moment"] + grad * grad
+        new_p = param - lr * grad / (torch.sqrt(m) + self._epsilon)
+        return new_p, {"moment": m}
+
+
+class Adam(Optimizer):
+    def __init__(self, learning_rate=0.001, beta1: float = 0.9,
+                 beta2: float = 0.999, epsilon: float = 1e-08,
+                 parameters=None, weight_decay=None, grad_clip=None,
+                 lazy_mode: bool = False, multi_precision: bool = False):
         if lazy_mode:
             raise NotImplementedError("lazy_mode (sparse rows) is not "
                                       "ported yet")
@@ -133,30 +314,38 @@ class Adam(Optimizer):
         self._beta2 = float(beta2)
         self._epsilon = float(epsilon)
 
-    def _init_state(self, value: torch.Tensor) -> dict:
-        ones = lambda: torch.ones((), dtype=torch.float32,
-                                  device=value.device)
-        return {"moment1": torch.zeros_like(value),
-                "moment2": torch.zeros_like(value),
-                "beta1_pow": ones(), "beta2_pow": ones()}
+    def _init_state(self, value: torch.Tensor) -> State:
+        return {"moment1": _zeros(value), "moment2": _zeros(value),
+                "beta1_pow": _one(value), "beta2_pow": _one(value)}
 
-    def _decay_coeff(self, p: torch.Tensor) -> float:
+    def _l2_coeff(self, p: torch.Tensor) -> float:
+        """The L2 coefficient folded into ``p``'s gradient."""
+        return self._decay_coeff(p)
+
+    def _decoupled_coeff(self, p: torch.Tensor) -> float:
         """The decoupled-decay coefficient of ``p`` (0 for Adam)."""
         return 0.0
 
     @torch.no_grad()
     def step(self) -> None:
         """One Adam step over every parameter that has a gradient, in
-        place, in one ``fused_adam_step`` call per device."""
+        place, in one ``fused_adam_step`` call per device. A
+        ``ClipGradByGlobalNorm`` runs inside that call; the other clips
+        run on the gradients first."""
+        params_grads = self._params_grads()
+        clip = self._grad_clip
+        if clip is not None and not isinstance(clip, ClipGradByGlobalNorm):
+            params_grads = clip(params_grads)
+            clip = None
         self._global_step += 1
         by_device: Dict[torch.device, list] = {}
-        for p in self._parameter_list:
-            if p.grad is not None:
-                by_device.setdefault(p.device, []).append(p)
-        for dev, params in by_device.items():
+        for p, g in params_grads:
+            by_device.setdefault(p.device, []).append((p, g))
+        for dev, pairs in by_device.items():
+            params = [p for p, _ in pairs]
             states = [self.state_for(p) for p in params]
             fused.fused_adam_step(
-                [p.data for p in params], [p.grad for p in params],
+                [p.data for p in params], [g for _, g in pairs],
                 [s["moment1"] for s in states],
                 [s["moment2"] for s in states],
                 [s["beta1_pow"] for s in states],
@@ -164,8 +353,10 @@ class Adam(Optimizer):
                 self.lr_device_scalar(dev),
                 masters=[s.get("master") for s in states],
                 beta1=self._beta1, beta2=self._beta2, eps=self._epsilon,
-                weight_decay=self._weight_decay,
-                decoupled_decay=[self._decay_coeff(p) for p in params])
+                weight_decay=[self._l2_coeff(p) for p in params],
+                decoupled_decay=[self._decoupled_coeff(p) for p in params],
+                clip_norm=clip.clip_norm if clip is not None else None,
+                need_clip=[getattr(p, "need_clip", True) for p in params])
 
 
 class AdamW(Adam):
@@ -175,13 +366,15 @@ class AdamW(Adam):
     update — the order of the reference engine's
     ``apply_optimizer_update``. ``apply_decay_param_fun(name) -> bool``
     picks the parameters that decay, by their names in the model (see
-    ``Optimizer.name_parameters``). ``lr_ratio`` is not ported: the
-    reference's engine ignores it too."""
+    ``Optimizer.name_parameters``). No L2 term is folded into the
+    gradient, whatever a parameter's ``regularizer``, as in the
+    reference's AdamW. ``lr_ratio`` is not ported: the reference's engine
+    ignores it too."""
 
-    def __init__(self, learning_rate: float = 0.001, beta1: float = 0.9,
+    def __init__(self, learning_rate=0.001, beta1: float = 0.9,
                  beta2: float = 0.999, epsilon: float = 1e-08,
-                 parameters=None, weight_decay: float = 0.01,
-                 lr_ratio=None, apply_decay_param_fun=None, grad_clip=None,
+                 parameters=None, weight_decay=0.01, lr_ratio=None,
+                 apply_decay_param_fun=None, grad_clip=None,
                  lazy_mode: bool = False, multi_precision: bool = False):
         if lr_ratio is not None:
             raise NotImplementedError("AdamW: lr_ratio is not ported yet")
@@ -190,7 +383,10 @@ class AdamW(Adam):
         self._coeff = float(getattr(weight_decay, "coeff", weight_decay))
         self._apply_decay_param_fun = apply_decay_param_fun
 
-    def _decay_coeff(self, p: torch.Tensor) -> float:
+    def _l2_coeff(self, p: torch.Tensor) -> float:
+        return 0.0
+
+    def _decoupled_coeff(self, p: torch.Tensor) -> float:
         if not self._coeff:
             return 0.0
         if self._apply_decay_param_fun is None:
@@ -202,3 +398,125 @@ class AdamW(Adam):
                 "train through ParallelTrainStep or call "
                 "name_parameters(model.named_parameters())")
         return self._coeff if self._apply_decay_param_fun(name) else 0.0
+
+
+class Adamax(Optimizer):
+    def __init__(self, learning_rate=0.001, beta1: float = 0.9,
+                 beta2: float = 0.999, epsilon: float = 1e-08,
+                 parameters=None, weight_decay=None, grad_clip=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip)
+        self._beta1 = beta1
+        self._beta2 = beta2
+        self._epsilon = epsilon
+
+    def _init_state(self, value):
+        return {"moment": _zeros(value), "inf_norm": _zeros(value),
+                "beta1_pow": _one(value)}
+
+    def _update(self, param, grad, state, lr):
+        b1, b2, eps = self._beta1, self._beta2, self._epsilon
+        b1p = state["beta1_pow"] * b1
+        m = b1 * state["moment"] + (1 - b1) * grad
+        u = torch.maximum(b2 * state["inf_norm"], grad.abs() + eps)
+        new_p = param - (lr / (1 - b1p)).to(param.dtype) * m / u
+        return new_p, {"moment": m, "inf_norm": u, "beta1_pow": b1p}
+
+
+class Adadelta(Optimizer):
+    def __init__(self, learning_rate=0.001, epsilon: float = 1e-06,
+                 rho: float = 0.95, parameters=None, weight_decay=None,
+                 grad_clip=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip)
+        self._epsilon = epsilon
+        self._rho = rho
+
+    def _init_state(self, value):
+        return {"avg_squared_grad": _zeros(value),
+                "avg_squared_update": _zeros(value)}
+
+    def _update(self, param, grad, state, lr):
+        rho, eps = self._rho, self._epsilon
+        asg = rho * state["avg_squared_grad"] + (1 - rho) * grad * grad
+        update = grad * torch.sqrt(state["avg_squared_update"] + eps) \
+            / torch.sqrt(asg + eps)
+        asu = rho * state["avg_squared_update"] + (1 - rho) * update * update
+        return param - lr * update, {"avg_squared_grad": asg,
+                                     "avg_squared_update": asu}
+
+
+class RMSProp(Optimizer):
+    def __init__(self, learning_rate, rho: float = 0.95,
+                 epsilon: float = 1e-06, momentum: float = 0.0,
+                 centered: bool = False, parameters=None, weight_decay=None,
+                 grad_clip=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip)
+        self._rho = rho
+        self._epsilon = epsilon
+        self._momentum = momentum
+        self._centered = centered
+
+    def _init_state(self, value):
+        return {"mean_square": _zeros(value), "mean_grad": _zeros(value),
+                "momentum_acc": _zeros(value)}
+
+    def _update(self, param, grad, state, lr):
+        rho, eps = self._rho, self._epsilon
+        ms = rho * state["mean_square"] + (1 - rho) * grad * grad
+        mg = state["mean_grad"]
+        if self._centered:
+            mg = rho * mg + (1 - rho) * grad
+            denom = torch.sqrt(ms - mg * mg + eps)
+        else:
+            denom = torch.sqrt(ms + eps)
+        mom = self._momentum * state["momentum_acc"] + lr * grad / denom
+        return param - mom, {"mean_square": ms, "mean_grad": mg,
+                             "momentum_acc": mom}
+
+
+class Lamb(Optimizer):
+    """LAMB: the bias-corrected Adam direction ``r`` (plus
+    ``lamb_weight_decay · p`` unless ``exclude_from_weight_decay_fn(p)``
+    says so) scaled by the trust ratio ``‖p‖ / ‖r‖`` (1 where a norm is
+    0). The function is given the parameter tensor, as the reference
+    gives it the parameter. No L2 term is folded into the gradient, as in
+    the reference's ``Lamb.step``."""
+
+    def __init__(self, learning_rate=0.001, lamb_weight_decay: float = 0.01,
+                 beta1: float = 0.9, beta2: float = 0.999,
+                 epsilon: float = 1e-06, parameters=None, grad_clip=None,
+                 exclude_from_weight_decay_fn=None):
+        super().__init__(learning_rate, parameters, None, grad_clip)
+        self._beta1 = beta1
+        self._beta2 = beta2
+        self._epsilon = epsilon
+        self._lamb_wd = lamb_weight_decay
+        self._exclude_fn = exclude_from_weight_decay_fn
+
+    def _init_state(self, value):
+        return {"moment1": _zeros(value), "moment2": _zeros(value),
+                "beta1_pow": _one(value), "beta2_pow": _one(value)}
+
+    def _decay_coeff(self, p):
+        return 0.0
+
+    def _update_param(self, p, value, grad, state, lr):
+        decay = self._exclude_fn is None or not self._exclude_fn(p)
+        return self._update(value, grad, state, lr, decay)
+
+    def _update(self, param, grad, state, lr, decay=True):
+        b1, b2, eps = self._beta1, self._beta2, self._epsilon
+        b1p = state["beta1_pow"] * b1
+        b2p = state["beta2_pow"] * b2
+        m1 = b1 * state["moment1"] + (1 - b1) * grad
+        m2 = b2 * state["moment2"] + (1 - b2) * grad * grad
+        m1_hat = m1 / (1 - b1p)
+        m2_hat = m2 / (1 - b2p)
+        r = m1_hat / (torch.sqrt(m2_hat) + eps)
+        if decay and self._lamb_wd:
+            r = r + self._lamb_wd * param
+        w_norm, r_norm = _norm(param), _norm(r)
+        trust = torch.where((w_norm > 0) & (r_norm > 0), w_norm / r_norm,
+                            torch.ones_like(w_norm)).to(param.dtype)
+        new_p = param - lr * trust * r
+        return new_p, {"moment1": m1, "moment2": m2, "beta1_pow": b1p,
+                       "beta2_pow": b2p}

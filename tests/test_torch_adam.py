@@ -202,7 +202,8 @@ def test_cuda_kernel_matches_plain(cuda_device, master):
     f32 = [rnd(n) for n in sizes]
     low = torch.bfloat16 if master else torch.float32
     state = lambda: dict(
-        P=[p.to(low) for p in f32], G=[rnd(n).to(low) for n in sizes],
+        P=[p.to(low, copy=True) for p in f32],
+        G=[rnd(n).to(low) for n in sizes],
         M=[torch.zeros(n, device=cuda_device) for n in sizes],
         V=[torch.zeros(n, device=cuda_device) for n in sizes],
         P1=[torch.full((), B1 ** i, device=cuda_device) for i in range(4)],

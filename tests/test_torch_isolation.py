@@ -19,6 +19,7 @@ from paddle_tpu_torch.distributed.fleet.engine import ParallelTrainStep
 from paddle_tpu_torch.inference.serving import (KVCacheConfig, KVCachePool,
                                                 TokenServeConfig,
                                                 TokenServingEngine)
+from paddle_tpu_torch.jit.train_step import TrainStep
 from paddle_tpu_torch.optimizer import Adam
 from paddle_tpu_torch.experiments import dkv_packed
 from paddle_tpu_torch.text.models import bert as tbert
@@ -44,7 +45,9 @@ def test_package_has_the_slice_modules():
                 "nn.functional.loss", "optimizer.optimizer",
                 "distributed.fleet.engine", "bench", "text.models.bert",
                 "nn.layer.common", "nn.layer.norm",
-                "experiments.dkv_packed"):
+                "experiments.dkv_packed", "regularizer", "optimizer.lr",
+                "nn.clip", "nn.layer.loss", "ops.remat_policy",
+                "jit.train_step"):
         assert "paddle_tpu_torch." + mod in names
 
 
@@ -109,6 +112,9 @@ def test_entry_points_without_device_raise_on_a_cuda_less_machine(no_cuda):
     with pytest.raises(RuntimeError):
         ParallelTrainStep(model, lambda out, lbl: out,
                           Adam(parameters=model.parameters()))
+    with pytest.raises(RuntimeError):
+        TrainStep(model, lambda out, lbl: out,
+                  Adam(parameters=model.parameters()))
     with pytest.raises(RuntimeError, match="CUDA"):
         bench.main()
     with pytest.raises(RuntimeError, match="CUDA"):

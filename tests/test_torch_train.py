@@ -2,7 +2,8 @@
 against the reference's: GPT-2 tiny with the reference's weights, batch
 2 x 64, Adam lr 1e-3, three steps of each engine on the CPU, in f32 and in
 bf16 master-weight mode; step 1's gradients against `jax.grad` of the
-reference's loss; the refused options; the dropout generator."""
+reference's loss; the options that are not ported and the wrong option
+types, refused; the dropout generator."""
 import importlib
 
 import jax
@@ -19,7 +20,7 @@ from paddle_tpu_torch.distributed.fleet.engine import ParallelTrainStep
 from paddle_tpu_torch.jit.functionalize import (functionalize, get_params,
                                                 load_jax_params, set_params)
 from paddle_tpu_torch.nn.functional import cross_entropy
-from paddle_tpu_torch.optimizer import Adam
+from paddle_tpu_torch.optimizer import Adam, AdamW
 from paddle_tpu_torch.profiler.telemetry import get_telemetry
 from paddle_tpu_torch.text.models import gpt as tgpt
 
@@ -202,9 +203,9 @@ def test_step_records_steps_and_step_ms():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(recompute=True), dict(mesh=object()), dict(dp_axis="dp"),
-    dict(zero_stage=1), dict(sp_axis="sp"),
-    dict(compute_dtype=torch.float16)])
+    dict(mesh=object()), dict(dp_axis="dp"), dict(zero_stage=1),
+    dict(sp_axis="sp"), dict(compute_dtype=torch.float16),
+    dict(remat="offload"), dict(recompute="auto")])
 def test_unported_engine_options_raise(kw):
     model = tgpt.GPTForCausalLM(tgpt.gpt2_tiny(), device="cpu")
     opt = Adam(LR, parameters=model.parameters())
@@ -220,12 +221,21 @@ def test_a_layer_on_another_device_is_refused():
         ParallelTrainStep(model, lambda out, lbl: out, opt, device="meta")
 
 
-@pytest.mark.parametrize("kw", [dict(grad_clip=object()),
-                                dict(lazy_mode=True),
-                                dict(learning_rate=lambda: 0.1)])
+@pytest.mark.parametrize("kw", [dict(lazy_mode=True),
+                                dict(lr_ratio=lambda p: 1.0)])
 def test_unported_optimizer_options_raise(kw):
     model = tgpt.GPTForCausalLM(tgpt.gpt2_tiny(), device="cpu")
     with pytest.raises(NotImplementedError):
+        AdamW(parameters=model.parameters(), **kw)
+
+
+@pytest.mark.parametrize("kw", [dict(grad_clip=object()),
+                                dict(learning_rate=lambda: 0.1)])
+def test_wrong_optimizer_option_types_are_refused(kw):
+    """A clip that is no clip class, and a callable that is no
+    scheduler."""
+    model = tgpt.GPTForCausalLM(tgpt.gpt2_tiny(), device="cpu")
+    with pytest.raises(TypeError):
         Adam(parameters=model.parameters(), **kw)
 
 
@@ -298,16 +308,6 @@ def test_cross_entropy_matches_reference_with_ignore_index(ignored):
     assert got.dtype == torch.float32
     np.testing.assert_allclose(float(got), float(np.asarray(ref.numpy())),
                                atol=1e-5, rtol=1e-6)
-
-
-@pytest.mark.parametrize("kw", [dict(soft_label=True),
-                                dict(label_smoothing=0.1),
-                                dict(weight=torch.ones(8)),
-                                dict(reduction="sum")])
-def test_cross_entropy_unported_options_raise(kw):
-    with pytest.raises(NotImplementedError):
-        cross_entropy(torch.zeros(2, 8), torch.zeros(2, dtype=torch.long),
-                      **kw)
 
 
 def test_set_params_points_parameters_at_the_tensors():
