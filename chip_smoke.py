@@ -106,9 +106,29 @@ failing on the first phase that fails:
     policy's step p50 and peak memory ('full''s peak must be below
     'off''s); 12c takes 3 steps through ``jit.TrainStep`` and through
     ``ParallelTrainStep`` from the same bf16 weights and needs the same
-    losses.
+    losses;
+13. trains the vision family: 13a holds the Adam kernel against its plain
+    version on LeNet's 10 tensors (tails of 2 past the vector) and times
+    it, takes one LeNet step through the kernel and one through the plain
+    update from the same weights (loss, gradients, parameters), then runs
+    BASELINE config #1 (``TrainStep(LeNet(), CrossEntropyLoss(),
+    Adam(1e-3))`` at batch 64 x 1 x 28 x 28 from ``RandomState(0)``): 3
+    warm-up and 30 timed steps, samples/s, step p50, busy share and the
+    Adam launches (2 a step), then one epoch of
+    ``DataLoader(MNIST(mode="train"), 64, shuffle=True, drop_last=True)``
+    (the synthetic digits, pinned batches): the loss falls and
+    ``Accuracy`` on the test split ends above chance; 13b takes one f32
+    ``Momentum(0.01, 0.9)`` step of ResNet-50 at 2 x 3 x 64 x 64 on the
+    card (TF32 off) and on the CPU from the same weights and buffers and
+    compares the loss, the gradients, the updates and the running
+    statistics; 13c trains ResNet-50 at config #2's model and batch
+    (128 x 3 x 224 x 224, 1000 classes, ``Momentum(0.01, 0.9)``, AMP O1 in
+    bf16 under ``amp.auto_cast``) through ``TrainStep``: 3 warm-up and 10
+    timed steps, samples/s, step p50, peak memory, a 2-step profile (busy
+    share, device time a step, the top 12 device operations), the loss
+    finite and falling, and an eval-mode forward finite.
 
-Every kernel's launch count is set to 0 before each of phases 4-12 and
+Every kernel's launch count is set to 0 before each of phases 4-13 and
 read after it. The last two lines are a ``{"kernels": [...]}`` JSON
 object and ``{"ok": true, "device": {...}}``.
 """
@@ -241,6 +261,42 @@ REMAT_POLICIES = ("off", "full", "dots", "dots_no_batch")
 # the global norm: kernel and plain version sum the same f32 squares in
 # other orders (f32 rounding of a sum of 3.5e8 terms)
 NORM_RTOL = 1e-5
+# phase 13: the vision family. LeNet as BASELINE config #1 runs it
+# (batch 64 x 1 x 28 x 28 from RandomState(0), Adam 1e-3) and ResNet-50 at
+# config #2's model and batch (128 x 3 x 224 x 224, 1000 classes,
+# Momentum(0.01, 0.9), AMP O1 in bf16)
+LENET_BATCH = 64
+LENET_STEPS = 30
+RESNET_BATCH, RESNET_SIZE = 128, 224
+RESNET_STEPS = 10
+# 13b, ResNet-50 f32 on the card against the CPU at 2 x 3 x 64 x 64, TF32
+# off: both sides sum in f32 in other orders, and a randomly initialised
+# ResNet-50 at batch 2 amplifies that rounding (its 53 BatchNorms see 8
+# values a channel in layer4, and its gradients grow ~100-fold toward the
+# stem): the same bounds as tests/test_torch_vision.py's CPU comparison
+# with the reference (logits and running statistics 1e-3 of their largest
+# magnitude, fc's gradient 5e-3, every gradient tensor and every update
+# p' - p within 0.1 of its L2 norm)
+R50_CHECK_SHAPE = (2, 3, 64, 64)
+R50_FWD_TOL = 1e-3
+R50_FC_GRAD_TOL = 5e-3
+R50_GRAD_L2_TOL = 0.1
+# 13a: LeNet's step through the Adam kernel against the plain update, from
+# the same weights and the same gradients (cuDNN run deterministic for the
+# two backward passes): the loss and gradients the same to f32 noise, the
+# parameters to ADAM_TOL
+LENET_GRAD_RTOL = 1e-6
+# the kinds a profile's device operations are summed by, first match wins
+DEVICE_OP_KINDS = (
+    ("layout transposes", ("nchwToNhwc", "nhwcToNchw")),
+    ("convolutions and GEMMs", ("conv", "xmma", "gemm", "cudnn", "wgrad",
+                                "dgrad", "sm90_", "sm80_", "cutlass")),
+    ("Adam (#7)", ("adam_update", "grad_sumsq", "grad_norm_finish")),
+    ("reductions", ("reduce_kernel",)),
+    ("pooling", ("max_pool", "avg_pool", "adaptive")),
+    ("copies and casts", ("copy",)),
+    ("elementwise", ("elementwise",)),
+)
 
 
 def log(*a):
@@ -1531,6 +1587,381 @@ def profile_bert_training(step, batch, n_layers):
     return busy_us / wall_us
 
 
+def l2_rel(got, ref):
+    return float((got.double() - ref.double()).norm()
+                 / ref.double().norm().clamp(min=1e-30))
+
+
+def max_rel(got, ref):
+    return float((got.float() - ref.float()).abs().max()
+                 / ref.float().abs().max().clamp(min=1e-30))
+
+
+def check_adam_on_lenet(dev, gen, fused, err):
+    """13a's kernel check: #7 on LeNet's 10 tensors (54, 6, 2400, 16,
+    48000, 120, 10080, 84, 840 and 10 values: tails of 2 past the
+    vector), three steps against ``_adam_reference``, then timed beside
+    its plain version and ``torch.optim.Adam(fused=True)``."""
+    from paddle_tpu_torch.vision.models import LeNet
+
+    numels = [p.numel() for p in LeNet(device=dev).parameters()]
+    got = dict(
+        P=[torch.randn(n, device=dev, generator=gen) for n in numels],
+        G=[torch.randn(n, device=dev, generator=gen) for n in numels],
+        M=[torch.zeros(n, device=dev) for n in numels],
+        V=[torch.zeros(n, device=dev) for n in numels],
+        P1=[torch.ones((), device=dev) for _ in numels],
+        P2=[torch.ones((), device=dev) for _ in numels])
+    want = {k: [t.clone() for t in v] for k, v in got.items()}
+    want["G"] = got["G"]
+    lr = torch.full((), 1e-3, device=dev)
+    for _ in range(3):
+        fused.fused_adam_step(got["P"], got["G"], got["M"], got["V"],
+                              got["P1"], got["P2"], lr)
+        fused._adam_reference(want["P"], want["G"], want["M"], want["V"],
+                              want["P1"], want["P2"], lr)
+    torch.cuda.synchronize()
+    errs = {}
+    for key in ("P", "M", "V", "P1", "P2"):
+        res = [worst(a, b, *ADAM_TOL) for a, b in zip(got[key], want[key])]
+        errs[key] = max(e for e, _ in res)
+        if not all(ok for _, ok in res):
+            raise AssertionError(f"adam kernel disagrees on LeNet's {key}")
+    err["adam"] = max(err["adam"], *errs.values())
+    args = [got[k] for k in ("P", "G", "M", "V", "P1", "P2")] + [lr]
+    kern = lambda: fused.fused_adam_step(*args)
+    lib_p = [torch.nn.Parameter(torch.randn(n, device=dev, generator=gen))
+             for n in numels]
+    for q in lib_p:
+        q.grad = torch.randn(q.numel(), device=dev, generator=gen)
+    lib = torch.optim.Adam(lib_p, lr=1e-3, fused=True)
+    bound, by = adam_bound(numels, 4, 0)
+    t = {"kernel": "adam", "shape": [len(numels), sum(numels)],
+         "dtype": "float32", "ms": time_ms(kern),
+         "device_ms": device_ms(kern, "adam over LeNet's tensors"),
+         "plain_ms": time_ms(lambda: fused._adam_reference(*args)),
+         "library_ms": time_ms(lib.step),
+         "library_device_ms": device_ms(lib.step, "torch.optim.Adam(fused="
+                                        "True) over LeNet's tensors"),
+         "bound_ms": bound, "bound_by": by}
+    log(f"[13a] adam on LeNet's {len(numels)} tensors ({sum(numels)} "
+        f"values), 3 steps: max err " + ", ".join(
+            f"{k} {e:.3g}" for k, e in errs.items()) + f" (tol {ADAM_TOL}); "
+        f"kernel {t['ms']:.4f} ms (device {t['device_ms']:.4f}), plain "
+        f"{t['plain_ms']:.4f} ms, torch.optim.Adam(fused=True) "
+        f"{t['library_ms']:.4f} ms (device {t['library_device_ms']:.4f}), "
+        f"bound {bound:.6f} ms ({by})")
+    return t
+
+
+def profile_step(phase, step, batch, n_steps=2, top=12):
+    """Wall and device busy time per step of ``n_steps`` steps under
+    ``torch.profiler`` and the ``top`` device operations by time; fails if
+    the profiler saw no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            step(*batch)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_us = lambda e: getattr(e, "self_device_time_total", 0.0)
+    busy_us = sum(dev_us(e) for e in kernels)
+    if busy_us <= 0:
+        raise AssertionError(f"[{phase}] the profiler saw no device time")
+    by_kind = {}
+    for e in kernels:
+        kind = next((k for k, words in DEVICE_OP_KINDS
+                     if any(w in e.key for w in words)), "other")
+        by_kind[kind] = by_kind.get(kind, 0.0) + dev_us(e) / 1e3 / n_steps
+    out = {"wall_ms_per_step": wall_us / 1e3 / n_steps,
+           "device_ms_per_step": busy_us / 1e3 / n_steps,
+           "busy_share": busy_us / wall_us, "top": [],
+           "device_ms_by_kind": by_kind}
+    log(f"[{phase}] profile ({n_steps} steps): wall "
+        f"{out['wall_ms_per_step']:.2f} ms a step, device busy "
+        f"{out['device_ms_per_step']:.2f} ms a step, busy share "
+        f"{out['busy_share']:.4f}; by kind: " + ", ".join(
+            f"{k} {v:.3f}" for k, v in sorted(by_kind.items(),
+                                              key=lambda kv: -kv[1])))
+    for e in sorted(kernels, key=dev_us, reverse=True)[:top]:
+        out["top"].append({"kernel": e.key[:120], "count": e.count,
+                           "ms_per_step": dev_us(e) / 1e3 / n_steps})
+        log(f"[{phase}] profile: {dev_us(e) / 1e3 / n_steps:9.3f} ms a step"
+            f"  x{e.count / n_steps:<6g} {e.key[:90]}")
+    return out
+
+
+def timed_steps(step, batch, n_steps):
+    """(losses, sorted step times in ms, wall seconds) of ``n_steps``
+    steps, each step's time from CUDA events between steps."""
+    marks = [torch.cuda.Event(enable_timing=True)
+             for _ in range(n_steps + 1)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = []
+    for i in range(n_steps):
+        marks[i].record()
+        losses.append(step(*batch))
+    marks[-1].record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return (losses, sorted(marks[i].elapsed_time(marks[i + 1])
+                           for i in range(n_steps)), wall)
+
+
+def train_lenet(dev, gen, counted, launches, fused, plain, err):
+    """Phase 13a: LeNet as BASELINE config #1 runs it."""
+    from paddle_tpu_torch.io import DataLoader
+    from paddle_tpu_torch.jit.train_step import EvalStep, TrainStep
+    from paddle_tpu_torch.metric import Accuracy
+    from paddle_tpu_torch.nn import CrossEntropyLoss
+    from paddle_tpu_torch.nn.functional import cross_entropy
+    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.vision.datasets import MNIST
+    from paddle_tpu_torch.vision.models import LeNet
+
+    adam_t = check_adam_on_lenet(dev, gen, fused, err)
+    rng = np.random.RandomState(0)  # bench_all.py's config #1 inputs
+    xs = torch.from_numpy(rng.randn(LENET_BATCH, 1, 28, 28).astype(
+        np.float32)).to(dev)
+    ys = torch.from_numpy(rng.randint(0, 10, LENET_BATCH).astype(
+        np.int64)).to(dev)
+
+    # one step through #7 and one through the plain update, same weights
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        res = []
+        for use_plain in (False, True):
+            model = LeNet(device=dev)
+            opt = Adam(1e-3, parameters=model.parameters())
+            loss = cross_entropy(model(xs), ys)
+            loss.backward()
+            grads = [p.grad.clone() for p in model.parameters()]
+            with plain() if use_plain else contextlib.nullcontext():
+                opt.step()
+            torch.cuda.synchronize()
+            res.append((loss.detach(), grads,
+                        [p.detach().clone() for p in model.parameters()]))
+    finally:
+        torch.backends.cudnn.deterministic = det
+    (l_k, g_k, p_k), (l_p, g_p, p_p) = res
+    e_loss = float((l_k - l_p).abs())
+    e_grad = max(max_rel(a, b) for a, b in zip(g_k, g_p))
+    par = [worst(a, b, *ADAM_TOL) for a, b in zip(p_k, p_p)]
+    e_par = max(e for e, _ in par)
+    log(f"[13a] LeNet step through #7 against the plain update: loss "
+        f"{float(l_k):.6f} (err {e_loss:.3g}), gradients max rel err "
+        f"{e_grad:.3g} (tol {LENET_GRAD_RTOL}), parameters max err "
+        f"{e_par:.3g} (tol {ADAM_TOL})")
+    if e_loss > LENET_GRAD_RTOL * abs(float(l_p)) or e_grad > \
+            LENET_GRAD_RTOL or not all(ok for _, ok in par):
+        raise AssertionError("LeNet's step through #7 disagrees with the "
+                             "plain update")
+    err["adam"] = max(err["adam"], e_par)
+
+    # config #1: TrainStep(LeNet(), CrossEntropyLoss(), Adam(1e-3))
+    model = LeNet(device=dev)
+    step = TrainStep(model, CrossEntropyLoss(),
+                     Adam(1e-3, parameters=model.parameters()))
+    batch = ((xs,), (ys,))
+    warm = [step(*batch) for _ in range(3)]
+    for fn in counted.values():
+        fn.launches = 0
+    losses, step_ms, wall = timed_steps(step, batch, LENET_STEPS)
+    for name, fn in counted.items():
+        launches[name]["lenet_training"] = fn.launches
+    got = {n: launches[n]["lenet_training"] for n in counted}
+    want = {**{n: 0 for n in counted}, "adam": 2 * LENET_STEPS}
+    prof = profile_step("13a", step, batch, n_steps=10, top=8)
+    all_losses = [float(x) for x in torch.stack(warm + losses)]
+    out = {"samples_per_s": LENET_BATCH * LENET_STEPS / wall,
+           "step_ms_p50": step_ms[LENET_STEPS // 2],
+           "step_ms_min": step_ms[0], "step_ms_max": step_ms[-1],
+           "busy_share": prof["busy_share"],
+           "device_ms_per_step": prof["device_ms_per_step"],
+           "device_over_step_p50": prof["device_ms_per_step"]
+           / step_ms[LENET_STEPS // 2],
+           "adam_launches_per_step": got["adam"] / LENET_STEPS,
+           "losses": all_losses}
+    log(f"[13a] LeNet config #1 (batch {LENET_BATCH}, Adam 1e-3): "
+        f"{out['samples_per_s']:.1f} samples/s over {LENET_STEPS} steps, "
+        f"step p50 {out['step_ms_p50']:.3f} ms (min {step_ms[0]:.3f}, max "
+        f"{step_ms[-1]:.3f}), device {out['device_ms_per_step']:.4f} ms a "
+        f"step, busy share {out['busy_share']:.4f}; loss "
+        f"{all_losses[0]:.4f} -> {all_losses[-1]:.4f}; launches {got}")
+    if got != want:
+        raise AssertionError(f"13a launched {got}, expected {want}")
+    if not all(np.isfinite(all_losses)) or not all_losses[-1] < \
+            all_losses[0]:
+        raise AssertionError(f"13a: LeNet's loss did not fall: {all_losses}")
+
+    # one epoch of the synthetic MNIST through the DataLoader
+    np.random.seed(0)
+    model = LeNet(device=dev)
+    step = TrainStep(model, CrossEntropyLoss(),
+                     Adam(1e-3, parameters=model.parameters()))
+    loader = DataLoader(MNIST(mode="train"), batch_size=LENET_BATCH,
+                        shuffle=True, drop_last=True)
+    for fn in counted.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    pinned = True
+    epoch = []
+    for img, lbl in loader:
+        pinned = pinned and img.is_pinned() and lbl.is_pinned()
+        epoch.append(step((img,), (lbl,)))
+    epoch = [float(x) for x in torch.stack(epoch)]
+    epoch_s = time.perf_counter() - t0
+    for name, fn in counted.items():
+        launches[name]["lenet_mnist"] = fn.launches
+    acc = Accuracy()
+    evaluate = EvalStep(model)
+    for img, lbl in DataLoader(MNIST(mode="test"), batch_size=128):
+        acc.update(acc.compute(evaluate(img), lbl))
+    out.update(mnist_epoch_s=epoch_s, mnist_losses=epoch,
+               mnist_test_accuracy=float(acc.accumulate()))
+    log(f"[13a] one epoch of MNIST (synthetic, {len(epoch)} batches of "
+        f"{LENET_BATCH}, pinned {pinned}) in {epoch_s:.2f} s: loss "
+        f"{np.mean(epoch[:4]):.4f} -> {np.mean(epoch[-4:]):.4f} (means of "
+        f"the first and last 4); test accuracy {acc.accumulate():.4f}; "
+        f"adam launches {launches['adam']['lenet_mnist']}")
+    if not pinned:
+        raise AssertionError("13a: the DataLoader's batches are not pinned")
+    if not np.mean(epoch[-4:]) < np.mean(epoch[:4]):
+        raise AssertionError(f"13a: the MNIST loss did not fall: {epoch}")
+    if not acc.accumulate() > 0.1:
+        raise AssertionError("13a: test accuracy at chance")
+    if launches["adam"]["lenet_mnist"] != 2 * len(epoch):
+        raise AssertionError("13a: the epoch did not run #7 twice a step")
+    return out, adam_t
+
+
+def resnet_card_against_cpu(dev):
+    """Phase 13b: one f32 Momentum step of ResNet-50 on the card (TF32
+    off) and on the CPU from the same weights and buffers."""
+    from paddle_tpu_torch.jit.functionalize import (get_buffers, get_params,
+                                                    load_jax_params)
+    from paddle_tpu_torch.nn.functional import cross_entropy
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.vision.models import resnet50
+
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy(rng.randn(*R50_CHECK_SHAPE).astype(np.float32))
+    y = torch.from_numpy(rng.randint(0, 1000, (R50_CHECK_SHAPE[0], 1)))
+    cpu = resnet50(device="cpu", seed=1)
+    for b in cpu.buffers():  # running statistics away from 0 and 1
+        b.copy_(torch.rand(b.shape, generator=torch.Generator()
+                           .manual_seed(b.numel())) + 0.5)
+    params0 = {k: v.clone() for k, v in get_params(cpu).items()}
+    card = load_jax_params(
+        resnet50(device=dev, seed=2),
+        {k: v.numpy() for k, v in params0.items()},
+        buffers={k: v.numpy() for k, v in get_buffers(cpu).items()})
+    res = {}
+    for where, model in (("cpu", cpu), ("card", card)):
+        opt = Momentum(0.01, 0.9, parameters=model.parameters())
+        loss = cross_entropy(model(x.to(model.conv1.weight.device)),
+                             y.to(model.conv1.weight.device))
+        loss.backward()
+        grads = {n: p.grad.detach().cpu().clone()
+                 for n, p in model.named_parameters()}
+        opt.step()
+        res[where] = (float(loss.detach()), grads,
+                      {n: v.cpu() for n, v in get_params(model).items()},
+                      {n: v.cpu() for n, v in get_buffers(model).items()})
+    (l_c, g_c, p_c, b_c), (l_g, g_g, p_g, b_g) = res["cpu"], res["card"]
+    e_loss = abs(l_g - l_c) / abs(l_c)
+    e_fc = max_rel(g_g["fc.weight"], g_c["fc.weight"])
+    e_grad = max(l2_rel(g_g[n], g_c[n]) for n in g_c)
+    e_upd = max(l2_rel(p_g[n] - params0[n], p_c[n] - params0[n])
+                for n in p_c)
+    e_buf = max(max_rel(b_g[n], b_c[n]) for n in b_c)
+    out = {"loss_card": l_g, "loss_cpu": l_c, "loss_rel_err": e_loss,
+           "fc_grad_max_rel_err": e_fc, "grad_l2_rel_err": e_grad,
+           "update_l2_rel_err": e_upd, "buffer_max_rel_err": e_buf}
+    log(f"[13b] ResNet-50 f32 {R50_CHECK_SHAPE}, one Momentum step, card "
+        f"against CPU (TF32 off): loss {l_g:.6f} / {l_c:.6f} (rel err "
+        f"{e_loss:.3g}, tol {R50_FWD_TOL}), fc grad max rel err {e_fc:.3g} "
+        f"(tol {R50_FC_GRAD_TOL}), worst gradient L2 rel err {e_grad:.3g} "
+        f"and update {e_upd:.3g} (tol {R50_GRAD_L2_TOL}), running "
+        f"statistics max rel err {e_buf:.3g} (tol {R50_FWD_TOL})")
+    if not (e_loss <= R50_FWD_TOL and e_fc <= R50_FC_GRAD_TOL
+            and e_grad <= R50_GRAD_L2_TOL and e_upd <= R50_GRAD_L2_TOL
+            and e_buf <= R50_FWD_TOL):
+        raise AssertionError("13b: ResNet-50 on the card disagrees with "
+                             "the CPU")
+    return out
+
+
+def train_resnet(dev, counted, launches):
+    """Phase 13c: ResNet-50 at config #2's model, batch and AMP policy."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.jit.train_step import EvalStep, TrainStep
+    from paddle_tpu_torch.nn import CrossEntropyLoss
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.vision.models import resnet50
+
+    rng = np.random.RandomState(0)  # bench_all.py's config #2 inputs
+    x = torch.from_numpy(rng.randn(RESNET_BATCH, 3, RESNET_SIZE,
+                                   RESNET_SIZE).astype(np.float32)).to(dev)
+    y = torch.from_numpy(rng.randint(0, 1000, (RESNET_BATCH, 1)).astype(
+        np.int64)).to(dev)
+    model = resnet50(num_classes=1000, device=dev)
+    train = TrainStep(model, CrossEntropyLoss(),
+                      Momentum(0.01, 0.9, parameters=model.parameters()))
+
+    def step(inputs, labels):
+        with amp.auto_cast(dtype="bfloat16"):
+            return train(inputs, labels)
+
+    batch = ((x,), (y,))
+    warm = [step(*batch) for _ in range(3)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counted.values():
+        fn.launches = 0
+    losses, step_ms, wall = timed_steps(step, batch, RESNET_STEPS)
+    for name, fn in counted.items():
+        launches[name]["resnet_training"] = fn.launches
+    peak = torch.cuda.max_memory_allocated()
+    prof = profile_step("13c", step, batch)
+    all_losses = [float(v) for v in torch.stack(warm + losses)]
+    with amp.auto_cast(dtype="bfloat16"):
+        logits = EvalStep(model)(x)
+    out = {"samples_per_s": RESNET_BATCH * RESNET_STEPS / wall,
+           "step_ms_p50": step_ms[RESNET_STEPS // 2],
+           "step_ms_min": step_ms[0], "step_ms_max": step_ms[-1],
+           "peak_memory_bytes": peak, "losses": all_losses,
+           "eval_logits_dtype": str(logits.dtype),
+           "device_over_step_p50": prof["device_ms_per_step"]
+           / step_ms[RESNET_STEPS // 2], **prof}
+    log(f"[13c] ResNet-50 bf16 AMP O1 at {RESNET_BATCH} x 3 x "
+        f"{RESNET_SIZE}^2, Momentum(0.01, 0.9): {out['samples_per_s']:.1f} "
+        f"samples/s over {RESNET_STEPS} steps, step p50 "
+        f"{out['step_ms_p50']:.2f} ms (min {step_ms[0]:.2f}, max "
+        f"{step_ms[-1]:.2f}), peak memory {peak / 2**30:.2f} GiB; loss "
+        f"{all_losses[0]:.4f} -> {all_losses[-1]:.4f}; eval logits "
+        f"{tuple(logits.shape)} {logits.dtype}")
+    if not all(np.isfinite(all_losses)) or not all_losses[-1] < \
+            all_losses[0]:
+        raise AssertionError(f"13c: the loss is not finite and falling: "
+                             f"{all_losses}")
+    if tuple(logits.shape) != (RESNET_BATCH, 1000) or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError("13c: the eval-mode forward is not finite")
+    if any(launches[n]["resnet_training"] for n in counted):
+        raise AssertionError("13c: a Pallas-kernel counterpart launched in "
+                             "ResNet-50's step")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2253,6 +2684,16 @@ def main() -> int:
     train_with_options(dev, gen, cfg, counted, launches, opt_mod, gpt_mod,
                        ParallelTrainStep, TrainStep, AdamW, lr_mod,
                        ClipGradByGlobalNorm)
+    torch.cuda.empty_cache()
+
+    # -- phase 13: the vision family -----------------------------------------
+    lenet, lenet_adam_t = train_lenet(dev, gen, counted, launches, fused,
+                                      plain, err)
+    vision = {"lenet": lenet, "resnet_check": resnet_card_against_cpu(dev)}
+    torch.cuda.empty_cache()
+    vision["resnet_training"] = train_resnet(dev, counted, launches)
+    log("vision " + json.dumps(vision))
+    torch.cuda.empty_cache()
 
     # -- the kernels line and the result --------------------------------------
     def timed(kernel, shape):
@@ -2286,7 +2727,8 @@ def main() -> int:
             ("adam", "paddle_tpu_torch/csrc/adam.cu",
              "paddle_tpu/ops/fused.py:172",
              next(t for t in timings if t["kernel"] == "adam"),
-             ("training", "bert_training") + options_paths),
+             ("training", "bert_training") + options_paths
+             + ("lenet_training", "lenet_mnist")),
             ("grad_sumsq", "paddle_tpu_torch/csrc/adam.cu",
              "paddle_tpu/nn/clip.py:111", sumsq_t, options_paths),
             ("flash_attn_fwd_full", "paddle_tpu_torch/csrc/flash_attn_fwd.cu",
@@ -2322,6 +2764,9 @@ def main() -> int:
             "device_l2_ms": t.get("device_l2_ms"), "shape": t["shape"],
             "dtype": t["dtype"]})
         if name == "adam":
+            kernels[-1]["lenet"] = {k: lenet_adam_t[k] for k in (
+                "shape", "ms", "device_ms", "plain_ms", "library_ms",
+                "library_device_ms", "bound_ms", "bound_by")}
             kernels[-1]["with_clip_ms"] = adam_clip_t["ms"]
             kernels[-1]["with_clip_device_ms"] = adam_clip_t["device_ms"]
             kernels[-1]["with_clip_update_device_ms"] = \

@@ -26,7 +26,12 @@ gradient clips (``nn.clip``) and cross entropy (``nn.functional``,
 (``ops``): LayerNorm forward and backward, flash-attention forward and
 dQ / dK-dV backward (causal or over every key), and a multi-tensor
 Adam/AdamW with the global-norm clip's sum-of-squares pass;
-``experiments`` holds the packed dK/dV experiment.
+``experiments`` holds the packed dK/dV experiment. The vision family
+trains on the same steps: LeNet and the ResNets (``vision.models``)
+over convolutions, pooling, BatchNorm, activations and containers
+(``nn``), with mixed precision (``amp.auto_cast``), the data pipeline
+(``io``, ``vision.datasets``) and metrics (``metric``); these run
+through cuDNN and plain PyTorch, as the reference runs them through XLA.
 """
 from .core.place import resolve_device
 

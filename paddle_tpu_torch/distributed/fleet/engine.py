@@ -34,7 +34,12 @@ layer, is recomputed in the backward.
 
 Unlike the reference, whose jitted step holds its own copy of the state,
 the step updates the layer's parameters in place: they ARE the step's
-state. ``sync_to_layer()`` puts the f32 masters into the layer (the
+state. So are its buffers: a train-mode forward updates BatchNorm's
+running statistics in place, and in master mode they stay f32 (only
+parameters are cast). Inputs are moved with ``non_blocking=True``, so a
+pinned batch (``io.DataLoader`` built for the card) overlaps its copy.
+Under ``amp.auto_cast`` the white-listed ops of the forward run in the
+AMP dtype on the f32 parameters (the reference's O1). ``sync_to_layer()`` puts the f32 masters into the layer (the
 reference's checkpoint contract), and the next step casts them back.
 """
 from __future__ import annotations
@@ -98,11 +103,12 @@ class ParallelTrainStep:
         dev = resolve_device(device)
         if dev.type == "cuda" and dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
-        if any(p.device != dev for p in layer.parameters()):
+        tensors = [*layer.parameters(), *layer.buffers()]
+        if any(t.device != dev for t in tensors):
             raise ValueError(
-                f"ParallelTrainStep: the layer's parameters must be on "
-                f"{dev} (build the model with device=...), found "
-                f"{sorted({str(p.device) for p in layer.parameters()})}")
+                f"ParallelTrainStep: the layer's parameters and buffers "
+                f"must be on {dev} (build the model with device=...), "
+                f"found {sorted({str(t.device) for t in tensors})}")
         self._device = dev
         self._layer = layer
         self._loss_fn = loss_fn

@@ -47,7 +47,14 @@ def test_package_has_the_slice_modules():
                 "nn.layer.common", "nn.layer.norm",
                 "experiments.dkv_packed", "regularizer", "optimizer.lr",
                 "nn.clip", "nn.layer.loss", "ops.remat_policy",
-                "jit.train_step"):
+                "jit.train_step", "amp.auto_cast",
+                "nn.functional.activation", "nn.functional.conv",
+                "nn.functional.pooling", "nn.functional.norm",
+                "nn.layer.activation", "nn.layer.container",
+                "nn.layer.conv", "nn.layer.pooling", "vision.models.lenet",
+                "vision.models.resnet", "vision.datasets", "io.dataset",
+                "io.sampler", "io.collate", "io.dataloader",
+                "metric.metrics"):
         assert "paddle_tpu_torch." + mod in names
 
 
@@ -123,3 +130,21 @@ def test_entry_points_without_device_raise_on_a_cuda_less_machine(no_cuda):
         tbert.BertForPretraining(tbert.bert_tiny())
     with pytest.raises(RuntimeError):
         dkv_packed.main()
+
+
+def test_vision_entry_points_without_device_raise_on_a_cuda_less_machine(
+        no_cuda):
+    from paddle_tpu_torch.io import DataLoader
+    from paddle_tpu_torch.vision.datasets import FakeData
+    from paddle_tpu_torch.vision.models import LeNet, resnet18
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        LeNet()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resnet18(num_classes=10)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DataLoader(FakeData(4), batch_size=2)
+    model = LeNet(device="cpu")
+    with pytest.raises(RuntimeError):
+        TrainStep(model, lambda out, lbl: out,
+                  Adam(parameters=model.parameters()))
