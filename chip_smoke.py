@@ -126,9 +126,32 @@ failing on the first phase that fails:
     bf16 under ``amp.auto_cast``) through ``TrainStep``: 3 warm-up and 10
     timed steps, samples/s, step p50, peak memory, a 2-step profile (busy
     share, device time a step, the top 12 device operations), the loss
-    finite and falling, and an eval-mode forward finite.
+    finite and falling, and an eval-mode forward finite;
+14. trains through the high-level API: 14a runs BASELINE config #1 as the
+    reference's hapi test does (``Model(LeNet()).prepare(Adam(1e-3),
+    CrossEntropyLoss(), Accuracy())``, ``fit`` over the synthetic MNIST at
+    batch 64 for 2 epochs with ``prefetch_depth=2``, a ``save_dir``,
+    ``EarlyStopping``, ``LRScheduler`` and ``ModelCheckpoint``, then
+    ``evaluate``, ``predict(stack_outputs=True)``, ``save`` and ``load``):
+    Adam (#7) 2 launches a step, samples/s and step p50 beside 13a's
+    ``TrainStep``, the host split from ``fit``'s spans (train step, metric
+    forward, callbacks, checkpoints, loader), a profiled busy share, the
+    files written and a ``.pdparams`` read back to the same bits; then,
+    with deterministic cuDNN, ``prefetch_depth=2`` against 0 and 1 epoch +
+    save + load into a fresh Model and Adam + 1 epoch against 2 epochs, the
+    same bits; 14b trains MobileNetV2 (1000 classes) at 128 x 3 x 224 x 224
+    in fp16 O1 with ``GradScaler(2**15)`` and ``Momentum(0.1, 0.9,
+    L2Decay(4e-5))``, fed by ``FakeData`` 256 x 256 images through
+    ``RandomCrop``, ``RandomHorizontalFlip``, ``Normalize`` and
+    ``Transpose`` in 4 loader workers and the ``DevicePrefetcher``: 3
+    warm-up and 20 timed steps (samples/s, step p50, input-wait share from
+    the goodput ledger, peak memory, the scale each step, a 2-step profile),
+    then a step with a gradient made non-finite (no parameter or velocity
+    bit moves, the scale halves) and a finite one that updates again; 14c
+    trains VGG-16 at 64 x 3 x 224 x 224 the same way for 5 steps
+    (samples/s, peak memory, finite losses, a positive scale).
 
-Every kernel's launch count is set to 0 before each of phases 4-13 and
+Every kernel's launch count is set to 0 before each of phases 4-14 and
 read after it. The last two lines are a ``{"kernels": [...]}`` JSON
 object and ``{"ok": true, "device": {...}}``.
 """
@@ -138,6 +161,7 @@ import contextlib
 import itertools
 import json
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -286,6 +310,18 @@ R50_GRAD_L2_TOL = 0.1
 # two backward passes): the loss and gradients the same to f32 noise, the
 # parameters to ADAM_TOL
 LENET_GRAD_RTOL = 1e-6
+# phase 14: the high-level API. 14a is BASELINE config #1 as the
+# reference's hapi test runs it (Model(LeNet()) with Adam(1e-3),
+# CrossEntropyLoss and Accuracy, fit over the synthetic MNIST at batch
+# 64); 14b MobileNetV2 at ImageNet width (1000 classes, 3 x 224 x 224 crops
+# of FakeData's 256 x 256 images, batch 128) in fp16 O1 with dynamic loss
+# scaling and Momentum(0.1, 0.9, L2Decay(4e-5)); 14c VGG-16 the same way at
+# batch 64
+FIT_EPOCHS = 2
+PROFILE_ITERS = 10  # steps of the profiled fit
+MOBILE_BATCH, MOBILE_SIZE, MOBILE_STEPS = 128, 224, 20
+IMAGENET_MEAN, IMAGENET_STD = [0.485, 0.456, 0.406], [0.229, 0.224, 0.225]
+VGG_BATCH, VGG_SIZE, VGG_STEPS = 64, 224, 5
 # the kinds a profile's device operations are summed by, first match wins
 DEVICE_OP_KINDS = (
     ("layout transposes", ("nchwToNhwc", "nhwcToNchw")),
@@ -1962,6 +1998,365 @@ def train_resnet(dev, counted, launches):
     return out
 
 
+def _cleared(counted):
+    for fn in counted.values():
+        fn.launches = 0
+
+
+def _read_launches(counted, launches, phase):
+    for name, fn in counted.items():
+        launches[name][phase] = fn.launches
+    return {n: launches[n][phase] for n in counted}
+
+
+def _bitwise(a, b, what):
+    """Fail unless the two dicts hold the same keys and the same bits."""
+    if a.keys() != b.keys():
+        raise AssertionError(f"{what}: the keys differ")
+    for k in a:
+        x, y = a[k], b[k]
+        same = (torch.equal(x.cpu(), y.cpu()) if isinstance(x, torch.Tensor)
+                else x == y)
+        if not same:
+            raise AssertionError(f"{what}: {k} differs")
+
+
+class _LossLog:
+    """A hapi callback that keeps each train batch's loss."""
+
+    def __init__(self, callback_cls):
+        self.cb = type("LossLog", (callback_cls,), {
+            "on_train_batch_end": lambda cb, step, logs=None:
+                self.losses.append(logs["loss"])})()
+        self.losses = []
+
+
+def span_split(events):
+    """Host milliseconds of ``Model.fit``'s spans by name, and the loader's
+    share: each epoch's time outside its steps and checkpoints."""
+    by = {}
+    for e in events:
+        by.setdefault(e["name"], []).append(e["dur"] / 1e3)
+    tot = {k: sum(v) for k, v in by.items()}
+    loader = tot.get("epoch", 0.0) - tot.get("step", 0.0) \
+        - tot.get("checkpoint", 0.0)
+    steps = sorted(by.get("step", [0.0]))
+    return {"step_ms_p50": steps[len(steps) // 2], "n_steps": len(steps),
+            "train_step_ms": tot.get("compute", 0.0) + tot.get("h2d", 0.0),
+            "metric_ms": tot.get("metric", 0.0),
+            "callback_ms": tot.get("callback", 0.0),
+            "checkpoint_ms": tot.get("checkpoint", 0.0),
+            "loader_and_epoch_ms": loader, "fit_ms": tot.get("fit", 0.0)}
+
+
+def train_hapi_lenet(dev, counted, launches, lenet_13a, workdir):
+    """Phase 14a: BASELINE config #1 through ``Model``."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import callbacks as cbs
+    from paddle_tpu_torch.metric import Accuracy
+    from paddle_tpu_torch.nn import CrossEntropyLoss
+    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.profiler import spans
+    from paddle_tpu_torch.vision.datasets import MNIST
+    from paddle_tpu_torch.vision.models import LeNet
+
+    train, test = MNIST(mode="train"), MNIST(mode="test")
+
+    def build(seed=0):
+        net = LeNet(device=dev, seed=seed)
+        return pt.Model(net).prepare(
+            Adam(1e-3, parameters=net.parameters()), CrossEntropyLoss(),
+            Accuracy())
+
+    def state(model):
+        opt = model._optimizer.state_dict()
+        return ({k: v.detach().clone()
+                 for k, v in model.network.state_dict().items()},
+                {k: v.clone() if isinstance(v, torch.Tensor) else v
+                 for k, v in opt.items()})
+
+    # the run: fit, evaluate, predict, save, load
+    np.random.seed(0)
+    model = build()
+    log_cb = _LossLog(cbs.Callback)
+    save_dir, mc_dir = workdir / "fit", workdir / "mc"
+    torch.cuda.synchronize()
+    _cleared(counted)
+    spans.open_window()
+    t0 = time.perf_counter()
+    model.fit(train, batch_size=LENET_BATCH, epochs=FIT_EPOCHS,
+              prefetch_depth=2, save_dir=str(save_dir), verbose=0,
+              callbacks=[cbs.EarlyStopping(patience=5), cbs.LRScheduler(),
+                         cbs.ModelCheckpoint(save_dir=str(mc_dir)),
+                         log_cb.cb])
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    spans.close_window()
+    got = _read_launches(counted, launches, "hapi_lenet")
+    split = span_split(spans.chrome_events())
+    n_steps = len(log_cb.losses)
+    want = {**{n: 0 for n in counted}, "adam": 2 * n_steps}
+    logs = model.evaluate(test, batch_size=128, verbose=0)
+    (preds,) = model.predict(test, batch_size=128, stack_outputs=True)
+    model.save(str(workdir / "final"))
+    loaded = pt.load(str(workdir / "final.pdparams"))
+    _bitwise({k: v.detach() for k, v in loaded.items()},
+             {k: v.detach().cpu() for k, v in
+              model.network.state_dict().items()}, "14a: .pdparams")
+    model.load(str(workdir / "final"))
+    written = {d.name: sorted(f.name for f in d.iterdir())
+               for d in (save_dir, mc_dir)}
+    profiled = build()
+    prof = profile_step("14a", lambda: profiled.fit(
+        train, batch_size=LENET_BATCH, epochs=1, num_iters=PROFILE_ITERS,
+        verbose=0, prefetch_depth=2), (), n_steps=1, top=6)
+    samples = n_steps * LENET_BATCH
+    out = {"samples_per_s": samples / fit_s, "fit_s": fit_s,
+           "steps": n_steps, **split,
+           "busy_share": prof["busy_share"],
+           "device_ms_per_step": prof["device_ms_per_step"] / PROFILE_ITERS,
+           "train_step_13a_samples_per_s": lenet_13a["samples_per_s"],
+           "train_step_13a_step_ms_p50": lenet_13a["step_ms_p50"],
+           "adam_launches_per_step": got["adam"] / n_steps,
+           "eval": {k: float(v) for k, v in logs.items()},
+           "losses_first_last": [log_cb.losses[0], log_cb.losses[-1]],
+           "files": written}
+    log(f"[14a] Model.fit(LeNet, MNIST, batch {LENET_BATCH}, {FIT_EPOCHS} "
+        f"epochs, prefetch 2): {out['samples_per_s']:.1f} samples/s over "
+        f"{n_steps} steps ({fit_s:.2f} s, saves included), step p50 "
+        f"{split['step_ms_p50']:.3f} ms; jit.TrainStep in 13a: "
+        f"{lenet_13a['samples_per_s']:.1f} samples/s, step p50 "
+        f"{lenet_13a['step_ms_p50']:.3f} ms; busy share "
+        f"{prof['busy_share']:.4f}, device {out['device_ms_per_step']:.4f} "
+        f"ms a step")
+    log(f"[14a] host split over the fit (ms): train step "
+        f"{split['train_step_ms']:.1f}, metric forward "
+        f"{split['metric_ms']:.1f}, callbacks {split['callback_ms']:.1f}, "
+        f"checkpoints {split['checkpoint_ms']:.1f}, loader and epoch "
+        f"{split['loader_and_epoch_ms']:.1f} (fit {split['fit_ms']:.1f})")
+    log(f"[14a] loss {log_cb.losses[0]:.4f} -> {log_cb.losses[-1]:.4f}; "
+        f"evaluate {out['eval']}; predict {preds.shape}; files {written}; "
+        f"launches {got}")
+    if got != want:
+        raise AssertionError(f"14a launched {got}, expected {want}")
+    if preds.shape != (len(test), 10) or not np.isfinite(preds).all():
+        raise AssertionError("14a: predict's outputs are not finite")
+    if not out["eval"]["acc"] > 0.1 or not np.isfinite(out["eval"]["loss"]):
+        raise AssertionError(f"14a: evaluate at chance: {out['eval']}")
+    if written[save_dir.name] != [f"{e}.{x}" for e in range(FIT_EPOCHS)
+                                  for x in ("pdopt", "pdparams")] or \
+            "final.pdparams" not in written[mc_dir.name]:
+        raise AssertionError(f"14a: checkpoint files {written}")
+
+    # the bit-for-bit checks, with deterministic cuDNN
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs = []
+        for depth in (0, 2):
+            np.random.seed(0)
+            m = build()
+            rec = _LossLog(cbs.Callback)
+            m.fit(train, batch_size=LENET_BATCH, epochs=1, verbose=0,
+                  prefetch_depth=depth, callbacks=[rec.cb])
+            runs.append((rec.losses, state(m)))
+        if runs[0][0] != runs[1][0]:
+            raise AssertionError("14a: prefetch_depth=2 changed the losses")
+        _bitwise(runs[0][1][0], runs[1][1][0], "14a: prefetch, parameters")
+        _bitwise(runs[0][1][1], runs[1][1][1], "14a: prefetch, Adam state")
+        kw = dict(batch_size=LENET_BATCH, verbose=0, shuffle=False)
+        whole = build()
+        whole.fit(train, epochs=2, **kw)
+        first = build()
+        first.fit(train, epochs=1, **kw)
+        first.save(str(workdir / "resume"))
+        resumed = build(seed=5)
+        resumed.load(str(workdir / "resume"))
+        resumed.fit(train, epochs=1, **kw)
+        (wp, wo), (rp, ro) = state(whole), state(resumed)
+        _bitwise(wp, rp, "14a: resume, parameters")
+        _bitwise(wo, ro, "14a: resume, Adam state")
+    finally:
+        torch.backends.cudnn.deterministic = det
+    log(f"[14a] prefetch_depth=2 = prefetch_depth=0 over "
+        f"{len(runs[0][0])} steps, and 1 epoch + save + load into a fresh "
+        f"Model + 1 epoch = 2 epochs: the same bits (losses, parameters, "
+        f"moments, beta powers; global_step {wo['global_step']})")
+    return out
+
+
+def _no_pallas_counterparts(counted, launches, phase):
+    got = _read_launches(counted, launches, phase)
+    if any(got.values()):
+        raise AssertionError(f"{phase}: a Pallas-kernel counterpart "
+                             f"launched: {got}")
+
+
+def train_mobilenet_fp16(dev, counted, launches):
+    """Phase 14b: MobileNetV2 at ImageNet width in fp16 with loss
+    scaling, fed by FakeData, the ImageNet transforms, 4 loader workers
+    and the device prefetcher."""
+    import multiprocessing
+
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.io import DataLoader, DevicePrefetcher
+    from paddle_tpu_torch.nn import CrossEntropyLoss
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.profiler import goodput
+    from paddle_tpu_torch.regularizer import L2Decay
+    from paddle_tpu_torch.vision import transforms as T
+    from paddle_tpu_torch.vision.datasets import FakeData
+    from paddle_tpu_torch.vision.models import mobilenet_v2
+
+    model = mobilenet_v2(num_classes=1000, device=dev)
+    opt = Momentum(0.1, 0.9, parameters=model.parameters(),
+                   weight_decay=L2Decay(4e-5))
+    scaler = amp.GradScaler(init_loss_scaling=2.0**15)
+    loss_fn = CrossEntropyLoss()
+    tf = T.Compose([T.RandomCrop(MOBILE_SIZE), T.RandomHorizontalFlip(),
+                    T.Normalize(IMAGENET_MEAN, IMAGENET_STD,
+                                data_format="HWC"), T.Transpose()])
+    n_batches = 3 + MOBILE_STEPS + 2 + 2
+    data = FakeData(num_samples=MOBILE_BATCH * n_batches,
+                    image_shape=(256, 256, 3), num_classes=1000,
+                    transform=tf)
+    np.random.seed(0)
+    loader = DataLoader(data, batch_size=MOBILE_BATCH, shuffle=True,
+                        drop_last=True, num_workers=4, places=dev)
+    pf = DevicePrefetcher(loader, depth=2, device=dev)
+    scales = []
+
+    def step(poison=False):
+        img, lbl = next(pf)
+        with amp.auto_cast(dtype="float16"):
+            out = model(img)
+        loss = loss_fn(out, lbl)
+        scaled = scaler.scale(loss)
+        scaled.backward()
+        if poison:
+            model.classifier[1].weight.grad[0, 0] = float("inf")
+        scaler.minimize(opt, scaled)
+        scales.append(scaler._scale)
+        return loss.detach()
+
+    try:
+        t0 = time.perf_counter()
+        warm = [step() for _ in range(3)]
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        _cleared(counted)
+        g0 = goodput.snapshot()["categories"]["input_wait"]
+        times, losses = [], []
+        t_all = time.perf_counter()
+        for _ in range(MOBILE_STEPS):
+            t = time.perf_counter()
+            losses.append(step())
+            times.append((time.perf_counter() - t) * 1e3)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t_all
+        wait = goodput.snapshot()["categories"]["input_wait"] - g0
+        _no_pallas_counterparts(counted, launches, "mobilenet_fp16")
+        peak = torch.cuda.max_memory_allocated()
+        prof = profile_step("14b", step, (), n_steps=2, top=12)
+
+        # a step with a gradient made non-finite: nothing moves
+        snap = lambda: ([p.detach().clone() for p in model.parameters()],
+                        [opt.state_for(p)["velocity"].clone()
+                         for p in model.parameters()], opt._global_step)
+        before = snap()
+        scale_before = scaler._scale
+        step(poison=True)
+        after = snap()
+        skipped = (scaler._found_inf and scaler._scale == scale_before / 2
+                   and after[2] == before[2]
+                   and all(torch.equal(a, b) for a, b in
+                           zip(before[0] + before[1], after[0] + after[1])))
+        step()
+        moved = snap()
+        resumed = (not scaler._found_inf and moved[2] == before[2] + 1
+                   and not torch.equal(moved[0][0], before[0][0]))
+    finally:
+        pf.close()
+        del pf, loader
+    for child in multiprocessing.active_children():
+        child.join(timeout=30)
+    if multiprocessing.active_children():
+        raise AssertionError("14b: loader workers outlived the phase")
+    times.sort()
+    all_losses = [float(v) for v in torch.stack(warm + losses)]
+    out = {"samples_per_s": MOBILE_BATCH * MOBILE_STEPS / wall,
+           "step_ms_p50": times[len(times) // 2], "step_ms_min": times[0],
+           "step_ms_max": times[-1], "first_3_steps_s": first_s,
+           "input_wait_share": wait / wall, "peak_memory_bytes": peak,
+           "losses": all_losses, "scales": scales, **prof}
+    log(f"[14b] MobileNetV2 fp16 O1 + GradScaler at {MOBILE_BATCH} x 3 x "
+        f"{MOBILE_SIZE}^2 (FakeData 256^2, RandomCrop, flip, Normalize, "
+        f"Transpose, 4 workers, prefetch 2): {out['samples_per_s']:.1f} "
+        f"samples/s over {MOBILE_STEPS} steps, step p50 "
+        f"{out['step_ms_p50']:.2f} ms (min {times[0]:.2f}, max "
+        f"{times[-1]:.2f}), input wait share {out['input_wait_share']:.4f}, "
+        f"peak memory {peak / 2**30:.2f} GiB; device "
+        f"{prof['device_ms_per_step']:.2f} ms a step, busy share "
+        f"{prof['busy_share']:.4f}")
+    log(f"[14b] loss {all_losses[0]:.4f} -> {all_losses[-1]:.4f}; scale a "
+        f"step {scales}; forced overflow skipped cleanly {skipped}, next "
+        f"step updated {resumed}")
+    if not np.isfinite(all_losses).all():
+        raise AssertionError(f"14b: a loss is not finite: {all_losses}")
+    if not skipped or not resumed:
+        raise AssertionError("14b: the forced non-finite step was not "
+                             "skipped cleanly, or the next did not update")
+    return out
+
+
+def train_vgg_fp16(dev, counted, launches):
+    """Phase 14c: VGG-16 at 224^2 in fp16 O1 with GradScaler."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.nn import CrossEntropyLoss
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.vision.models import vgg16
+
+    model = vgg16(num_classes=1000, device=dev)
+    opt = Momentum(0.01, 0.9, parameters=model.parameters())
+    scaler = amp.GradScaler(init_loss_scaling=2.0**15)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn(VGG_BATCH, 3, VGG_SIZE, VGG_SIZE, device=dev,
+                    generator=gen)
+    y = torch.randint(0, 1000, (VGG_BATCH, 1), device=dev, generator=gen)
+
+    def step():
+        with amp.auto_cast(dtype="float16"):
+            out = model(x)
+        loss = CrossEntropyLoss()(out, y)
+        scaled = scaler.scale(loss)
+        scaled.backward()
+        scaler.minimize(opt, scaled)
+        return loss.detach()
+
+    warm = [step() for _ in range(2)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _cleared(counted)
+    losses, step_ms, wall = timed_steps(step, (), VGG_STEPS)
+    _no_pallas_counterparts(counted, launches, "vgg_fp16")
+    peak = torch.cuda.max_memory_allocated()
+    all_losses = [float(v) for v in torch.stack(warm + losses)]
+    out = {"samples_per_s": VGG_BATCH * VGG_STEPS / wall,
+           "step_ms_p50": step_ms[VGG_STEPS // 2],
+           "peak_memory_bytes": peak, "losses": all_losses,
+           "scale": scaler._scale}
+    log(f"[14c] VGG-16 fp16 O1 + GradScaler at {VGG_BATCH} x 3 x "
+        f"{VGG_SIZE}^2: "
+        f"{out['samples_per_s']:.1f} samples/s over {VGG_STEPS} steps, step "
+        f"p50 {out['step_ms_p50']:.2f} ms, peak memory {peak / 2**30:.2f} "
+        f"GiB; loss {all_losses}; scale {scaler._scale}")
+    if not np.isfinite(all_losses).all() or not scaler._scale > 0:
+        raise AssertionError(f"14c: loss {all_losses}, scale "
+                             f"{scaler._scale}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2695,6 +3090,21 @@ def main() -> int:
     log("vision " + json.dumps(vision))
     torch.cuda.empty_cache()
 
+    # -- phase 14: the high-level API ------------------------------------------
+    workdir = Path(__file__).resolve().parent / "build" / "chip_smoke_hapi"
+    shutil.rmtree(workdir, ignore_errors=True)
+    workdir.mkdir(parents=True)
+    try:
+        hapi = {"lenet": train_hapi_lenet(dev, counted, launches, lenet,
+                                          workdir)}
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    hapi["mobilenet_fp16"] = train_mobilenet_fp16(dev, counted, launches)
+    torch.cuda.empty_cache()
+    hapi["vgg_fp16"] = train_vgg_fp16(dev, counted, launches)
+    log("hapi " + json.dumps(hapi))
+    torch.cuda.empty_cache()
+
     # -- the kernels line and the result --------------------------------------
     def timed(kernel, shape):
         return next(t for t in timings if t["kernel"] == kernel
@@ -2728,7 +3138,7 @@ def main() -> int:
              "paddle_tpu/ops/fused.py:172",
              next(t for t in timings if t["kernel"] == "adam"),
              ("training", "bert_training") + options_paths
-             + ("lenet_training", "lenet_mnist")),
+             + ("lenet_training", "lenet_mnist", "hapi_lenet")),
             ("grad_sumsq", "paddle_tpu_torch/csrc/adam.cu",
              "paddle_tpu/nn/clip.py:111", sumsq_t, options_paths),
             ("flash_attn_fwd_full", "paddle_tpu_torch/csrc/flash_attn_fwd.cu",

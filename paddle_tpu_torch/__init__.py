@@ -32,7 +32,18 @@ over convolutions, pooling, BatchNorm, activations and containers
 (``nn``), with mixed precision (``amp.auto_cast``), the data pipeline
 (``io``, ``vision.datasets``) and metrics (``metric``); these run
 through cuDNN and plain PyTorch, as the reference runs them through XLA.
+The high-level API trains them: ``Model`` (``hapi``) with its callbacks
+(``callbacks``), ``summary``, checkpoints (``save``/``load``,
+``framework.io``, with the optimizers' state dicts), the device
+prefetcher (``io.DevicePrefetcher``), vision transforms
+(``vision.transforms``), VGG and MobileNet, and fp16 loss scaling
+(``amp.GradScaler``); the spans and the goodput ledger (``profiler``) and
+the preemption exit (``resilience``) go with them.
 """
+from . import callbacks
 from .core.place import resolve_device
+from .framework import load, save
+from .hapi import Model, summary
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "Model", "save", "load", "summary",
+           "callbacks"]

@@ -19,6 +19,11 @@ A float ``compute_dtype`` runs in one of the reference's two modes
   in f32 and the update is f32 (the reference's per-step cast in
   ``forward_loss``).
 
+Each call is the goodput ledger's ``productive_step`` and opens the
+reference's spans: ``step`` (unless a loop above holds one), with ``h2d``
+(the inputs' copies) and ``compute`` (forward, backward and update)
+inside it.
+
 ``compute_dtype=None`` trains in f32. The engine hands the optimizer the
 layer's parameter names (``Optimizer.name_parameters``), as the
 reference's engine passes names to ``apply_decay_param_fun``.
@@ -39,11 +44,15 @@ running statistics in place, and in master mode they stay f32 (only
 parameters are cast). Inputs are moved with ``non_blocking=True``, so a
 pinned batch (``io.DataLoader`` built for the card) overlaps its copy.
 Under ``amp.auto_cast`` the white-listed ops of the forward run in the
-AMP dtype on the f32 parameters (the reference's O1). ``sync_to_layer()`` puts the f32 masters into the layer (the
-reference's checkpoint contract), and the next step casts them back.
+AMP dtype on the f32 parameters (the reference's O1).
+``sync_to_layer()`` puts the f32 masters into the layer (the reference's
+checkpoint contract), and the next step casts them back;
+``refresh_from_layer()`` is the other way round: the masters are rebuilt
+from what was loaded into the layer, where it disagrees with them.
 """
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Callable, Optional
 
@@ -55,6 +64,8 @@ from ...jit.functionalize import functionalize, set_params
 from ...nn.clip import ClipGradByGlobalNorm
 from ...ops import remat_policy
 from ...optimizer.lr import LRScheduler
+from ...profiler import goodput as _goodput
+from ...profiler import spans as _spans
 from ...profiler.telemetry import get_telemetry
 
 __all__ = ["ParallelTrainStep"]
@@ -129,19 +140,27 @@ class ParallelTrainStep:
         self._last_step_t: Optional[float] = None
 
     def __call__(self, inputs, labels) -> torch.Tensor:
-        if self._synced:
-            self._recast_from_masters()
-        dev = self._device
-        inputs = tuple(a.to(dev, non_blocking=True) for a in
-                       _as_tuple(inputs))
-        labels = tuple(a.to(dev, non_blocking=True) for a in
-                       _as_tuple(labels))
-        loss = self._loss_fn(self._apply(*inputs), *labels).float()
-        loss.backward()
-        self._optimizer.step()
-        self._optimizer.clear_grad()
-        self._record_step()
-        return loss.detach()
+        with _goodput.activity("productive_step"), \
+                contextlib.ExitStack() as stack:
+            if not _spans.in_category("step"):
+                # a loop above (hapi's fit) may hold the step span already
+                stack.enter_context(_spans.span(
+                    "step", cat="step", step=self._optimizer._global_step))
+            if self._synced:
+                self._recast_from_masters()
+            dev = self._device
+            with _spans.span("h2d", cat="h2d"):
+                inputs = tuple(a.to(dev, non_blocking=True) for a in
+                               _as_tuple(inputs))
+                labels = tuple(a.to(dev, non_blocking=True) for a in
+                               _as_tuple(labels))
+            with _spans.span("compute", cat="compute"):
+                loss = self._loss_fn(self._apply(*inputs), *labels).float()
+                loss.backward()
+                self._optimizer.step()
+                self._optimizer.clear_grad()
+            self._record_step()
+            return loss.detach()
 
     def run_steps(self, inputs, labels, step_scheduler: bool = True
                   ) -> torch.Tensor:
@@ -190,6 +209,26 @@ class ParallelTrainStep:
             n: self._optimizer.state_for(p)["master"].clone()
             for n, p in named.items() if p.is_floating_point()})
         self._synced = True
+
+    @torch.no_grad()
+    def refresh_from_layer(self) -> None:
+        """Take the layer's current values as the trained state, after
+        something wrote into the layer (``hapi.Model.load``). Every f32
+        master the optimizer holds (master mode, or a low-precision layer
+        under ``multi_precision``) is rebuilt from its parameter where
+        the two disagree: an element whose master still rounds to the
+        parameter keeps the master's extra bits (a resume that restored
+        both), any other takes the parameter's value. Otherwise the next
+        step would cast stale masters over what was just loaded. In master
+        mode the next step casts the masters back."""
+        for p in self._layer.parameters():
+            st = self._optimizer._accumulators.get(id(p))
+            master = st.get("master") if st else None
+            if master is not None:
+                master.copy_(torch.where(master.to(p.dtype) == p, master,
+                                         p.detach().float()))
+        if self._master:
+            self._synced = True
 
     def _recast_from_masters(self) -> None:
         for p in self._layer.parameters():

@@ -1,10 +1,10 @@
-"""Datasets, samplers and the DataLoader (``paddle_tpu.io`` counterpart).
-``io/prefetch.py`` (the device prefetcher) and ``io/data_feed.py`` are
-not ported yet."""
+"""Datasets, samplers, the DataLoader and the device prefetcher
+(``paddle_tpu.io`` counterpart). ``io/data_feed.py`` is not ported yet."""
 from .collate import default_collate_fn, default_convert_fn
 from .dataloader import DataLoader, WorkerInfo, get_worker_info
 from .dataset import (ChainDataset, ComposeDataset, ConcatDataset, Dataset,
                       IterableDataset, Subset, TensorDataset, random_split)
+from .prefetch import DevicePrefetcher, ShapeBuckets
 from .sampler import (BatchSampler, DistributedBatchSampler, RandomSampler,
                       Sampler, SequenceSampler, SubsetRandomSampler,
                       WeightedRandomSampler)
@@ -15,4 +15,4 @@ __all__ = ["DataLoader", "get_worker_info", "WorkerInfo",
            "ChainDataset", "ConcatDataset", "Subset", "random_split",
            "Sampler", "SequenceSampler", "RandomSampler",
            "WeightedRandomSampler", "BatchSampler", "DistributedBatchSampler",
-           "SubsetRandomSampler"]
+           "SubsetRandomSampler", "DevicePrefetcher", "ShapeBuckets"]

@@ -1,11 +1,13 @@
 """Layers, functionals and gradient clips of the port (``paddle_tpu.nn``
 counterpart), kept to what the ported slices use: the transformers'
 layers, and the vision family's convolutions, pooling, BatchNorms,
-activations and containers."""
+activations and containers; ``set_state_dict`` loads a layer's state
+with the reference's semantics."""
 from . import functional
 from .clip import ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue
 from .layer import *  # noqa: F401,F403
 from .layer import __all__ as _layer_all
+from .layer_base import set_state_dict
 
 __all__ = ["functional", "ClipGradByGlobalNorm", "ClipGradByNorm",
-           "ClipGradByValue", *_layer_all]
+           "ClipGradByValue", "set_state_dict", *_layer_all]

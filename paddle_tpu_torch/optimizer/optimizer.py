@@ -32,6 +32,17 @@ in the model (``bert.encoder.0.ln1.bias``), as the reference's engine
 passes it; ``ParallelTrainStep`` hands the optimizer those names
 (``name_parameters``).
 
+``state_dict()`` and ``set_state_dict()`` keep the reference's layout:
+``global_step``, ``{name}__{key}`` for each state tensor of each
+parameter that has state (``moment1``, ``beta1_pow``, ``velocity``, …,
+and ``master``), and ``LR_Scheduler`` when the learning rate is a
+scheduler. ``name`` is the parameter's name in its model (recorded by
+``name_parameters``), else its position in the parameter list; the
+reference's is the generated ``p.name``, so optimizer state does not
+cross between the packages. ``set_state_dict`` copies the saved values
+into the state in place, and makes the state of a parameter that has
+none yet.
+
 The other optimizers (``SGD``, ``Momentum``, ``LarsMomentum``,
 ``Adagrad``, ``Adamax``, ``Adadelta``, ``RMSProp``, ``Lamb``) have no
 Pallas kernel in the reference: each ``_update`` is the reference's
@@ -42,6 +53,7 @@ from __future__ import annotations
 
 from typing import Dict, Iterable, List, Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -154,6 +166,52 @@ class Optimizer:
         if wd is None:
             return 0.0
         return float(getattr(wd, "coeff", wd))
+
+    # -- checkpoint -------------------------------------------------------
+    def _state_key(self, i: int, p: torch.Tensor) -> str:
+        return self._names.get(id(p), str(i))
+
+    def state_dict(self) -> dict:
+        """The optimizer's state in the reference's layout (the state
+        tensors themselves, not copies)."""
+        out = {"global_step": self._global_step}
+        for i, p in enumerate(self._parameter_list):
+            st = self._accumulators.get(id(p))
+            if st is None:
+                continue
+            name = self._state_key(i, p)
+            for k, v in st.items():
+                out[f"{name}__{k}"] = v
+        if isinstance(self._learning_rate, LRScheduler):
+            out["LR_Scheduler"] = self._learning_rate.state_dict()
+        return out
+
+    @torch.no_grad()
+    def set_state_dict(self, state_dict: dict) -> None:
+        """Restore what ``state_dict`` returned (tensors or numpy
+        arrays): the step count, the scheduler's state, and each saved
+        state tensor copied into the parameter's state in place."""
+        self._global_step = int(state_dict.get("global_step", 0))
+        sched = state_dict.get("LR_Scheduler")
+        if sched is not None and isinstance(self._learning_rate,
+                                            LRScheduler):
+            self._learning_rate.set_state_dict(sched)
+        for i, p in enumerate(self._parameter_list):
+            prefix = self._state_key(i, p) + "__"
+            saved = {k[len(prefix):]: v for k, v in state_dict.items()
+                     if k.startswith(prefix)}
+            if not saved:
+                continue
+            st = self.state_for(p)
+            for k, v in saved.items():
+                v = v if isinstance(v, torch.Tensor) else torch.as_tensor(
+                    np.asarray(v))
+                cur = st.get(k)
+                if cur is not None and cur.shape == v.shape:
+                    cur.copy_(v)
+                else:
+                    st[k] = v.to(device=p.device, dtype=torch.float32,
+                                 copy=True)
 
     # -- entry points -----------------------------------------------------
     def clear_grad(self) -> None:

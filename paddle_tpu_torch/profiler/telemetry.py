@@ -1,22 +1,29 @@
 """Telemetry core — counterpart of ``paddle_tpu.profiler.telemetry``,
-kept to the surface the serving runtime uses: counters, gauges and
-streaming histograms, read back through ``scalars()``.
+kept to the surface the port uses: counters, gauges and streaming
+histograms, read back through ``scalars()``, timers (``timer``), the JSONL
+sink (``to_jsonl``, one record a call, with the goodput ledger's table)
+and ``sample_device_memory``.
 
 Scalar names are namespaced as in the reference: ``counter/<name>``,
 ``gauge/<name>`` and ``hist/<name>/{count,sum,min,max,mean,ema,p50,p95,
-p99}``. The JSONL sink, the schema gate and the attribution publishers
-arrive with the profiler port.
+p99}``. The schema gate and the cost-attribution publishers are not
+ported.
 """
 from __future__ import annotations
 
+import json
 import math
+import os
 import threading
+import time
 from collections import deque
 from typing import Dict, Optional
 
 import numpy as np
+import torch
 
-__all__ = ["Histogram", "Telemetry", "get_telemetry"]
+__all__ = ["Histogram", "Telemetry", "get_telemetry",
+           "sample_device_memory"]
 
 _HIST_WINDOW = 1024  # sliding-window size backing the percentile estimates
 _EMA_ALPHA = 0.1
@@ -59,6 +66,35 @@ class Histogram:
                 "p50": float(p50), "p95": float(p95), "p99": float(p99)}
 
 
+class _Timer:
+    """Context manager feeding a histogram in milliseconds; a block that
+    raises records nothing (its partial time is no sample)."""
+
+    def __init__(self, telemetry: "Telemetry", name: str):
+        self._tel = telemetry
+        self._name = name
+        self.elapsed_ms = None
+
+    def __enter__(self):
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, exc_type, *exc):
+        self.elapsed_ms = (time.perf_counter() - self._t0) * 1e3
+        if exc_type is None:
+            self._tel.observe(self._name, self.elapsed_ms)
+        return False
+
+
+def _coerce_scalar(v) -> Optional[float]:
+    """A finite float of ``v``, or None."""
+    try:
+        f = float(np.asarray(v).ravel()[0])
+    except (TypeError, ValueError, IndexError):
+        return None
+    return f if math.isfinite(f) else None
+
+
 class Telemetry:
     """Process-wide metric hub. All mutators are cheap and thread-safe."""
 
@@ -82,6 +118,10 @@ class Telemetry:
 
     def observe(self, name: str, value) -> None:
         self.histogram(name).observe(value)
+
+    def timer(self, name: str) -> _Timer:
+        """``with tel.timer("checkpoint/write_ms"): ...``"""
+        return _Timer(self, name)
 
     def histogram(self, name: str) -> Histogram:
         with self._lock:
@@ -119,6 +159,34 @@ class Telemetry:
                     out[f"hist/{k}/{field}"] = float(v)
         return out
 
+    def to_jsonl(self, path: str, step: Optional[int] = None,
+                 tag: str = "telemetry", extra: Optional[dict] = None
+                 ) -> str:
+        """Append one record ``{"ts", "step", "tag", "scalars"}`` to
+        ``path`` (the reference's layout): the flat scalars, ``extra``'s
+        finite numbers on top, and the goodput ledger's table under
+        ``"goodput"``."""
+        from . import goodput
+
+        goodput.publish(self)
+        goodput_payload = goodput.jsonl_payload()
+        scalars = self.scalars()
+        for k, v in (extra or {}).items():
+            f = _coerce_scalar(v)
+            if f is not None:
+                scalars[str(k)] = f
+        rec = {"ts": time.time(),
+               "step": int(step) if step is not None else None,
+               "tag": str(tag), "scalars": scalars}
+        if goodput_payload:
+            rec["goodput"] = goodput_payload
+        d = os.path.dirname(path)
+        if d:
+            os.makedirs(d, exist_ok=True)
+        with open(path, "a") as f:
+            f.write(json.dumps(rec) + "\n")
+        return path
+
     def reset(self) -> None:
         """Drop every counter, gauge and histogram."""
         with self._lock:
@@ -138,3 +206,27 @@ def get_telemetry() -> Telemetry:
             if _telemetry is None:
                 _telemetry = Telemetry()
     return _telemetry
+
+
+def sample_device_memory(telemetry: Optional[Telemetry] = None) -> dict:
+    """Device-memory gauges: ``device/bytes_in_use.d<i>`` and
+    ``device/peak_bytes_in_use.d<i>`` for every CUDA device this process
+    sees (``torch.cuda.memory_allocated`` and ``max_memory_allocated``,
+    the caching allocator's counts), and their sums under the unsuffixed
+    names. Returns the gauges; a no-op (``{}``) without CUDA."""
+    tel = telemetry or get_telemetry()
+    out: Dict[str, float] = {}
+    if not torch.cuda.is_available():
+        return out
+    totals = {"bytes_in_use": 0.0, "peak_bytes_in_use": 0.0}
+    for i in range(torch.cuda.device_count()):
+        for key, fn in (("bytes_in_use", torch.cuda.memory_allocated),
+                        ("peak_bytes_in_use",
+                         torch.cuda.max_memory_allocated)):
+            v = float(fn(i))
+            out[f"device/{key}.d{i}"] = v
+            totals[key] += v
+    out.update({f"device/{k}": v for k, v in totals.items()})
+    for k, v in out.items():
+        tel.gauge(k, v)
+    return out

@@ -54,7 +54,12 @@ def test_package_has_the_slice_modules():
                 "nn.layer.conv", "nn.layer.pooling", "vision.models.lenet",
                 "vision.models.resnet", "vision.datasets", "io.dataset",
                 "io.sampler", "io.collate", "io.dataloader",
-                "metric.metrics"):
+                "metric.metrics", "profiler.spans", "profiler.goodput",
+                "resilience.retry", "resilience.preemption",
+                "framework.io", "nn.layer_base", "amp.grad_scaler",
+                "io.prefetch", "hapi.callbacks", "callbacks", "hapi.model",
+                "hapi.summary", "vision.transforms", "vision.models.vgg",
+                "vision.models.mobilenet"):
         assert "paddle_tpu_torch." + mod in names
 
 
@@ -148,3 +153,51 @@ def test_vision_entry_points_without_device_raise_on_a_cuda_less_machine(
     with pytest.raises(RuntimeError):
         TrainStep(model, lambda out, lbl: out,
                   Adam(parameters=model.parameters()))
+
+
+def test_fit_prefetch_and_load_run_without_jax(tmp_path):
+    """The slice's user path in a fresh process: Model.fit through the
+    DevicePrefetcher, save and framework.io.load, with jax and the
+    reference absent from sys.modules at the end."""
+    code = textwrap.dedent(f"""
+        import sys
+        sys.path.insert(0, {_REPO!r})
+        import paddle_tpu_torch as pt
+        from paddle_tpu_torch.io import Subset
+        from paddle_tpu_torch.nn import CrossEntropyLoss
+        from paddle_tpu_torch.optimizer import Adam
+        from paddle_tpu_torch.vision.datasets import MNIST
+        from paddle_tpu_torch.vision.models import LeNet
+        net = LeNet(device="cpu")
+        model = pt.Model(net).prepare(Adam(parameters=net.parameters()),
+                                      CrossEntropyLoss())
+        model.fit(Subset(MNIST(mode="train"), list(range(128))),
+                  batch_size=64, verbose=0, prefetch_depth=2)
+        model.save({str(tmp_path / "ck")!r})
+        state = pt.load({str(tmp_path / "ck.pdparams")!r})
+        bad = sorted(m for m in sys.modules
+                     if m == "jax" or m.startswith("jax.")
+                     or m == "paddle_tpu" or m.startswith("paddle_tpu."))
+        print("BAD", bad, "KEYS", len(state))
+    """)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=180, cwd=_REPO, env=env)
+    assert out.returncode == 0, out.stderr
+    assert "BAD [] KEYS 10" in out.stdout, out.stdout
+
+
+def test_slice_entry_points_without_device_raise_on_a_cuda_less_machine(
+        no_cuda):
+    from paddle_tpu_torch.io import DevicePrefetcher
+    from paddle_tpu_torch.vision.models import (mobilenet_v1, mobilenet_v2,
+                                                vgg16)
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DevicePrefetcher([])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        vgg16()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mobilenet_v2()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mobilenet_v1(scale=0.25)

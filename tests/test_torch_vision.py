@@ -72,6 +72,20 @@ R50_FWD_TOL = 1e-3
 R50_FC_GRAD_TOL = 5e-3
 R50_GRAD_L2_TOL = 0.1
 BF16_LOSS_RTOL = 5e-2
+# vgg11 (with BatchNorm) and mobilenet_v2(scale=0.25) at 2 x 3 x 64 x 64:
+# logits, the step's loss and the running statistics within 1e-4 of their
+# largest magnitude (measured 3.1e-7, 1.6e-5 and 7.9e-6); each
+# parameter's update p' - p within 5e-2 of its L2 norm (measured 1.4e-2:
+# the port's f32 gradients are within 2.4e-6 of its f64 run, the
+# reference's 1.4e-2 from it at vgg11's conv layers; mobilenet's
+# small-batch BatchNorms: 8.8e-3), plus lr·1e-4 an element for gradients
+# that are rounding noise: the biases in front of a BatchNorm, whose
+# gradient is 0 analytically (f64: ~1e-7), and mobilenet's first
+# depthwise BatchNorm bias (f64: at most 2.7e-5; measured 1.4e-7 an
+# element apart)
+VGG_MOBILE_TOL = 1e-4
+VGG_MOBILE_UPDATE_L2 = 5e-2
+VGG_MOBILE_UPDATE_FLOOR = 1e-6
 
 
 def _np(d):
@@ -105,7 +119,11 @@ def resnet50_ref():
 
 @pytest.mark.parametrize("name,kw", [("LeNet", {}),
                                      ("resnet18", {"num_classes": 10}),
-                                     ("resnet50", {})])
+                                     ("resnet50", {}),
+                                     ("vgg11", {}),
+                                     ("vgg11", {"batch_norm": True}),
+                                     ("mobilenet_v2", {"scale": 0.25}),
+                                     ("mobilenet_v1", {"scale": 0.25})])
 def test_models_name_their_tensors_as_the_reference(name, kw, request):
     ref = (request.getfixturevalue("resnet50_ref") if name == "resnet50"
            else _ref_model(name, **kw))
@@ -312,3 +330,52 @@ def test_lenet_trains_on_mnist_through_the_dataloader():
                                places="cpu"):
         acc.update(acc.compute(evaluate(img), lbl))
     assert acc.accumulate() > 0.1
+
+
+@pytest.mark.parametrize("name,kw,dropout", [
+    ("vgg11", {"batch_norm": True, "num_classes": 10}, (2, 5)),
+    ("mobilenet_v2", {"scale": 0.25, "num_classes": 10}, (0,))])
+def test_vgg_and_mobilenet_forward_and_momentum_step_match_reference(
+        name, kw, dropout):
+    """Eval-mode logits from non-trivial running statistics, then one
+    train-mode Momentum step through `TrainStep` on both sides (the
+    classifier's dropouts set to p=0 on both: the packages draw masks
+    from different generators): the loss, each parameter's update and the
+    running statistics the step updated. See VGG_MOBILE_* for the
+    bounds."""
+    ref = _ref_model(name, **kw)
+    rng = np.random.RandomState(1)
+    for b in ref.buffers():
+        b._value = jnp.asarray(rng.rand(*b.shape).astype(np.float32) + 0.5)
+    port = _port_model(name, ref, **kw)
+    for i in dropout:
+        ref.classifier[i].p = 0.0
+        port.classifier[i].p = 0.0
+    x, y = _resnet_batch(10)
+    ref.eval()
+    want = ref(paddle.to_tensor(x)).numpy()
+    ref.train()
+    _rel_close(EvalStep(port)(torch.from_numpy(x)), want, VGG_MOBILE_TOL)
+    params0 = _np(jfunc.get_params(ref))
+    opt = paddle.optimizer.Momentum(learning_rate=0.01, momentum=0.9,
+                                    parameters=ref.parameters())
+    rstep = paddle.jit.TrainStep(ref, loss_fn=paddle.nn.CrossEntropyLoss(),
+                                 optimizer=opt)
+    ref_loss = float(rstep((paddle.to_tensor(x),),
+                           (paddle.to_tensor(y),)).numpy())
+    rstep.sync_to_layer()
+    step = TrainStep(port, CrossEntropyLoss(),
+                     Momentum(0.01, 0.9, parameters=port.parameters()),
+                     device="cpu")
+    loss = float(step((torch.from_numpy(x),), (torch.from_numpy(y),)))
+    assert abs(loss - ref_loss) <= VGG_MOBILE_TOL * abs(ref_loss)
+    ref_params = _np(jfunc.get_params(ref))
+    for pname, p in get_params(port).items():
+        got = p.numpy().astype(np.float64) - params0[pname]
+        want = ref_params[pname].astype(np.float64) - params0[pname]
+        err = np.linalg.norm(got - want)
+        assert err <= VGG_MOBILE_UPDATE_L2 * np.linalg.norm(want) + \
+            VGG_MOBILE_UPDATE_FLOOR * np.sqrt(want.size), pname
+    ref_bufs = _np(jfunc.get_buffers(ref))
+    for bname, b in get_buffers(port).items():
+        _rel_close(b, ref_bufs[bname], VGG_MOBILE_TOL)
