@@ -149,9 +149,27 @@ failing on the first phase that fails:
     then a step with a gradient made non-finite (no parameter or velocity
     bit moves, the scale halves) and a finite one that updates again; 14c
     trains VGG-16 at 64 x 3 x 224 x 224 the same way for 5 steps
-    (samples/s, peak memory, finite losses, a positive scale).
+    (samples/s, peak memory, finite losses, a positive scale);
+15. trains guarded and fingerprinted: 15a is ``bench_input_pipeline``'s
+    twin at its full size (``paddle_tpu_torch.bench.InputPipeline``: the
+    MLP through ``TrainStep`` with and without ``step.prefetch``; the
+    per-step losses of a pass with and a pass without it the same bits,
+    Adam 2 launches a step, samples/s and the speedup); 15b is BERT-base
+    at ``bench_bert_dp``'s configuration with ``fingerprint_every=1``: two
+    3-step runs give the same digests, the multi-tensor fold
+    (``csrc/tree_reduce.cu``) against its plain version on the engine's
+    state (the XOR word equal, the sums within ``FOLD_SUM_RTOL`` of the
+    abs-sum, two folds the same bits) and timed beside
+    ``torch._foreach_norm(ord=1)``, ``corrupt_param_bit`` changes the
+    word, and ``bench.bench_bert``'s three fingerprint columns; 15c runs
+    ``StepGuard`` over guarded engines on GPT-2 345M (8 x 1024, bf16 with
+    f32 masters) and BERT-base: an injected NaN batch and an update made
+    to overflow (lr 3.4e38) move no bit of the state and name their
+    leaves, two bad steps in a row roll back to the snapshot's bits,
+    Adam's check pass (``adam_finite_check``) gives its plain version's
+    flags and is timed, and the step p50 with and without the guard.
 
-Every kernel's launch count is set to 0 before each of phases 4-14 and
+Every kernel's launch count is set to 0 before each of phases 4-15 and
 read after it. The last two lines are a ``{"kernels": [...]}`` JSON
 object and ``{"ok": true, "device": {...}}``.
 """
@@ -2357,6 +2375,326 @@ def train_vgg_fp16(dev, counted, launches):
     return out
 
 
+# --- phase 15: guarded and fingerprinted training ------------------------
+# an lr at the top of f32's range: an Adam step moves an element by about
+# lr, so a bf16-cast new master (GPT) or an AdamW-decayed f32 value (BERT)
+# overflows while every gradient stays finite
+LR_OVERFLOW = 3.4e38
+# the fold's f32 sums, kernel against plain: the same values summed in
+# another order; the signed sum within this share of the abs-sum
+FOLD_SUM_RTOL = 1e-5
+GUARD_STEPS = 10  # timed steps a mode, guard on and off
+
+
+def state_bits(step):
+    """The engine's state as one flat dict of on-device copies."""
+    snap = step.snapshot_state()
+    flat = {f"{g}/{n}": t for g in ("params", "buffers")
+            for n, t in snap[g].items()}
+    flat.update({f"opt/{n}/{k}": t for n, st in snap["opt_state"].items()
+                 for k, t in st.items()})
+    return flat
+
+
+def same_bits(a, b, what):
+    """Fail unless two flat state dicts hold the same bits (on the card)."""
+    if a.keys() != b.keys():
+        raise AssertionError(f"{what}: the state's keys differ")
+    for k in a:
+        if not torch.equal(a[k], b[k]):
+            raise AssertionError(f"{what}: {k} moved")
+
+
+class ScaledByInput(torch.nn.Module):
+    """``model``'s output times a float input: the float leaf of the batch
+    that ``FaultInjector.corrupt_batch`` poisons (token ids cannot hold a
+    NaN). Its first output (the loss, or the MLM logits) is scaled."""
+
+    def __init__(self, model):
+        super().__init__()
+        self.model = model
+
+    def forward(self, *args):
+        out = self.model(*args[:-1])
+        if isinstance(out, tuple):
+            return (out[0] * args[-1],) + tuple(out[1:])
+        return out * args[-1]
+
+
+def adam_lists(opt, params):
+    """``Adam._fused_step``'s arguments for ``params`` (with gradients)."""
+    states = [opt.state_for(p) for p in params]
+    return ((
+        [p.data for p in params], [p.grad for p in params],
+        [s["moment1"] for s in states], [s["moment2"] for s in states],
+        [s["beta1_pow"] for s in states], [s["beta2_pow"] for s in states],
+        opt.lr_device_scalar(params[0].device)),
+        dict(masters=[s.get("master") for s in states], beta1=opt._beta1,
+             beta2=opt._beta2, eps=opt._epsilon,
+             weight_decay=[opt._l2_coeff(p) for p in params],
+             decoupled_decay=[opt._decoupled_coeff(p) for p in params]))
+
+
+def pipeline_phase(counted, launches):
+    """Phase 15a: ``bench_input_pipeline``'s twin at its full size."""
+    from paddle_tpu_torch import bench
+
+    # the same weights twice: one pass without the prefetcher, one with
+    _cleared(counted)
+    off_losses = bench.InputPipeline().epoch(False)
+    on_run = bench.InputPipeline()
+    on_losses = on_run.epoch(True)
+    torch.cuda.synchronize()
+    got = _read_launches(counted, launches, "pipeline")
+    n = 2 * on_run.n_batches
+    want = {**{k: 0 for k in counted}, "adam": 2 * n}
+    if got != want:
+        raise AssertionError(f"15a launched {got}, expected {want}")
+    if off_losses != on_losses:
+        raise AssertionError(f"15a: the prefetcher changed the losses: "
+                             f"{off_losses} vs {on_losses}")
+    off = on_run.rate(False)
+    on = on_run.rate(True)
+    out = {"value": on, "prefetch_off_samples_per_sec": off,
+           "speedup": on / off, "adam_launches_per_step": 2,
+           "losses": on_losses}
+    log(f"[15a] input pipeline (MLP 1024-1024-1024-10, Adam, batch 256, 30 "
+        f"batches of 30 ms + decode): prefetch on {on:.1f} samples/s, off "
+        f"{off:.1f}, speedup {on / off:.3f}; per-step losses on and off "
+        f"the same bits; Adam 2 launches a step")
+    return out
+
+
+def fold_kernel_check(step, tree_reduce, sanitizer, leaves_fn, err):
+    """Kernel B on an engine's state against its plain version, timed."""
+    leaves = leaves_fn(step._state_tree())
+    fp = tree_reduce.tree_reduce(leaves, "fold")
+    again = tree_reduce.tree_reduce(leaves, "fold")
+    ref = sanitizer.tree_fingerprint(leaves)
+    torch.cuda.synchronize()
+    x_k, x_p = int(fp["xor"]), int(ref["xor"])
+    e_sum = abs(float(fp["sum"]) - float(ref["sum"]))
+    e_abs = abs(float(fp["abs_sum"]) - float(ref["abs_sum"]))
+    scale = float(ref["abs_sum"])
+    err["tree_reduce"] = max(err["tree_reduce"], e_sum, e_abs)
+    log(f"[15b] fold of {len(leaves)} leaves "
+        f"({sum(t.numel() for t in leaves)} values): xor {x_k:#010x} "
+        f"(plain {x_p:#010x}), sum err {e_sum:.4g}, abs-sum err "
+        f"{e_abs:.4g} (tol {FOLD_SUM_RTOL} x {scale:.6g})")
+    if x_k != x_p:
+        raise AssertionError("15b: the fold's XOR word differs from the "
+                             "plain version's")
+    if max(e_sum, e_abs) > FOLD_SUM_RTOL * scale:
+        raise AssertionError("15b: the fold's sums disagree")
+    if not all(torch.equal(fp[k], again[k]) for k in fp):
+        raise AssertionError("15b: two folds of one state differ")
+    floats = [t for t in leaves if t.is_floating_point()]
+    nbytes = sum(t.numel() * t.element_size() for t in leaves)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = 2 * sum(t.numel() for t in floats) / F32_CORE_FLOPS
+    kern = lambda: tree_reduce.tree_reduce(leaves, "fold")
+    lib = lambda: torch._foreach_norm(floats, 1)
+    return {"kernel": "tree_reduce", "shape": [len(leaves),
+                                               sum(t.numel() for t in leaves)],
+            "dtype": "mixed", "ms": time_ms(kern, iters=20),
+            "device_ms": device_ms(kern, "tree_reduce fold"),
+            "plain_ms": time_ms(lambda: sanitizer.tree_fingerprint(leaves),
+                                iters=2, warmup=1),
+            "library_ms": time_ms(lib, iters=20),
+            "library_device_ms": device_ms(lib, "_foreach_norm(ord=1)"),
+            "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def bert_fingerprint_phase(counted, launches, tree_reduce, sanitizer,
+                           leaves_fn, corrupt_param_bit, fingerprint_digest,
+                           err):
+    """Phase 15b: BERT-base at bench_bert_dp's configuration with
+    ``fingerprint_every=1``."""
+    from paddle_tpu_torch import bench
+    from paddle_tpu_torch.text.models.bert import bert_base
+
+    cfg = bert_base(hidden_dropout=0.0, attention_dropout=0.0)
+    ids, mlm, nsp = bench.bert_batch(cfg)
+    digests = []
+    for run in range(2):
+        step = bench.bert_engine(cfg, fingerprint_every=1)
+        _cleared(counted)
+        for _ in range(3):
+            step((ids,), (mlm, nsp))
+        torch.cuda.synchronize()
+        got = _read_launches(counted, launches, f"bert_fingerprint_{run}")
+        want = {**{k: 0 for k in counted}, "adam": 6, "tree_reduce": 6,
+                "layer_norm_fwd": 3 * 26, "layer_norm_bwd": 3 * 52,
+                "flash_attn_fwd_full": 36, "flash_attn_bwd_dq_full": 36,
+                "flash_attn_bwd_dkv_full": 36}
+        if got != want:
+            raise AssertionError(f"15b launched {got}, expected {want}")
+        digests.append([(s, fingerprint_digest(fp))
+                        for s, fp in step.fingerprint_history()])
+        if run == 0:
+            del step
+    log(f"[15b] two 3-step runs, fingerprints: {digests[0]} / {digests[1]}")
+    if digests[0] != digests[1] or [s for s, _ in digests[0]] != [0, 1, 2]:
+        raise AssertionError("15b: two identical runs gave other digests")
+    timing = fold_kernel_check(step, tree_reduce, sanitizer, leaves_fn, err)
+    # the fold's share of a step's device time, which the host's pace
+    # does not move (bench_bert's columns below divide two host-timed
+    # legs)
+    plain = bench.bert_engine(cfg)
+    dev_ms = {}
+    for what, e in (("plain", plain), ("fingerprint", step),
+                    ("fingerprint", step), ("plain", plain)):
+        t = device_ms(lambda: e((ids,), (mlm, nsp)),
+                      f"15b BERT step ({what})", iters=5)
+        dev_ms[what] = min(t, dev_ms.get(what, t))
+    del plain
+    log(f"[15b] device time a step: {dev_ms['plain']:.3f} ms, "
+        f"{dev_ms['fingerprint']:.3f} ms fingerprinting every step "
+        f"(+{100 * (dev_ms['fingerprint'] / dev_ms['plain'] - 1):.2f}%)")
+    before = int(step.state_fingerprint()["xor"])
+    name = corrupt_param_bit(step)
+    after = int(step.state_fingerprint()["xor"])
+    log(f"[15b] corrupt_param_bit({name}): xor {before:#010x} -> "
+        f"{after:#010x}")
+    if before == after:
+        raise AssertionError("15b: a flipped bit left the XOR word")
+    del step
+    torch.cuda.empty_cache()
+    _cleared(counted)
+    res = bench.bench_bert()
+    torch.cuda.synchronize()
+    got = _read_launches(counted, launches, "bert_fingerprint_bench")
+    n_fp = 2 + 3 * 30  # bench.bench_bert's fingerprinting leg
+    if got["tree_reduce"] != 2 * n_fp or got["adam_check"]:
+        raise AssertionError(f"15b: bench_bert launched {got}")
+    log(f"[15b] bench_bert: {json.dumps(res)}")
+    return {"digests": digests[0], "bench": res,
+            "device_ms_step": dev_ms}, timing
+
+
+def guard_phase(dev, counted, launches, model, make_opt, batch, loss_fn,
+                label, fused, err, compute_dtype=torch.bfloat16):
+    """Phase 15c on one model: StepGuard over a guarded engine — an
+    injected NaN batch and an overflowing update kept out bit for bit, a
+    rollback after two bad steps in a row, the step p50 with the guard on
+    and off, and the check pass against its plain version."""
+    from paddle_tpu_torch.distributed.fleet.engine import ParallelTrainStep
+    from paddle_tpu_torch.profiler.telemetry import get_telemetry
+    from paddle_tpu_torch.resilience import (FaultInjector, RecoveryPolicy,
+                                             StepGuard)
+
+    wrapped = ScaledByInput(model)
+    opt = make_opt(wrapped)
+    inputs, labels = batch
+    one = torch.ones((), device=dev)
+    step = ParallelTrainStep(wrapped, loss_fn, opt,
+                             compute_dtype=compute_dtype, guard_updates=True)
+    guard = StepGuard(step, RecoveryPolicy(
+        max_consecutive_bad=2, snapshot_every=1000, quarantine_dir=None),
+        injector=FaultInjector(nan_steps=[2, 6, 7]))
+    tel = get_telemetry()
+    rollbacks = tel.counter_value("resilience/rollbacks")
+    _cleared(counted)
+    report = {}
+    n_steps = 8  # bad: 2 (NaN), 4 (overflow), 6 and 7 (NaN: a rollback)
+    for i in range(n_steps):
+        if i == 4:
+            opt.set_lr(LR_OVERFLOW)
+        before = state_bits(step) if i in (2, 4) else None
+        guard(inputs + (one,), labels)
+        ok, bad = step.last_step_finite()
+        if i in (2, 4):
+            kind = "NaN batch" if i == 2 else f"lr {LR_OVERFLOW:g}"
+            log(f"[15c] {label}: step {i} ({kind}) kept out: {len(bad)} "
+                f"leaves named, e.g. {bad[:3]}")
+            if ok or (i == 2 and "loss" not in bad) or (
+                    i == 4 and any(b.startswith("grad") for b in bad)):
+                raise AssertionError(f"15c {label}: step {i}: {ok} {bad}")
+            same_bits(state_bits(step), before,
+                      f"15c {label} bad step {i}")
+            report[f"bad_{i}"] = len(bad)
+            del before
+            opt.set_lr(TRAIN_LR)
+    torch.cuda.synchronize()
+    got = _read_launches(counted, launches, f"guard_{label}")
+    if got["adam"] != 2 * n_steps or got["adam_check"] != 2 * n_steps:
+        raise AssertionError(f"15c {label}: launches {got}")
+    # steps 6 and 7 were bad in a row: the guard rolled back to its
+    # snapshot, the state it loaded with
+    if tel.counter_value("resilience/rollbacks") != rollbacks + 1:
+        raise AssertionError(f"15c {label}: no rollback")
+    flat = {}
+    for g, tree in guard._snap.items():
+        for n, t in tree.items():
+            if isinstance(t, dict):
+                flat.update({f"opt/{n}/{k}": v for k, v in t.items()})
+            else:
+                flat[f"{g}/{n}"] = t
+    same_bits(state_bits(step), flat, f"15c {label} rollback")
+    del flat
+    log(f"[15c] {label}: 2 bad steps in a row rolled back to the "
+        f"snapshot's bits; launches {got}")
+    # the check pass against its plain version, on a real step's grads
+    loss = loss_fn(step._apply(*inputs, one), *labels).float()
+    loss.backward()
+    params = [p for p in wrapped.parameters() if p.grad is not None]
+    args, kw = adam_lists(opt, params)
+    flags, _ = fused.adam_finite_check(*args, **kw, loss=loss.detach())
+    ref = fused._adam_check_reference(*args, **kw, loss=loss.detach())
+    if not torch.equal(flags, ref):
+        raise AssertionError(f"15c {label}: the check pass's flags differ")
+    numels = [p.numel() for p in params]
+    g_size = params[0].grad.element_size()
+    nbytes = sum(numels) * (g_size + 12)  # g, and p (or master), m, v
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = 20 * sum(numels) / F32_CORE_FLOPS
+    kern = lambda: fused.adam_finite_check(*args, **kw, loss=loss.detach())
+    timing = {"kernel": "adam_check", "shape": [len(params), sum(numels)],
+              "dtype": str(params[0].dtype)[6:],
+              "ms": time_ms(kern, iters=20),
+              "device_ms": device_ms(kern, f"adam_check {label}"),
+              "plain_ms": time_ms(lambda: fused._adam_check_reference(
+                  *args, **kw, loss=loss.detach()), iters=2, warmup=1),
+              "library_ms": None, "bound_ms": max(t_bytes, t_ops) * 1e3,
+              "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    opt.clear_grad()
+    # the step time with the guard and without it, on one model
+    plain = ParallelTrainStep(wrapped, loss_fn, opt,
+                              compute_dtype=compute_dtype)
+    clean = FaultInjector()
+    guard._injector = clean
+    p50 = {}
+    # in turns (off, engine, guard, guard, engine, off): the guarded engine
+    # alone (the check pass, no host read) and through StepGuard (one flag
+    # read a step, which waits for the step to end)
+    modes = {"off": lambda: plain(inputs + (one,), labels),
+             "engine": lambda: step(inputs + (one,), labels),
+             "guard": lambda: guard(inputs + (one,), labels)}
+    for mode in ("off", "engine", "guard", "guard", "engine", "off"):
+        modes[mode]()
+        _, ms, _ = timed_steps(modes[mode], (), GUARD_STEPS)
+        p50.setdefault(mode, []).append(ms[GUARD_STEPS // 2])
+    p50 = {k: sorted(v)[0] for k, v in p50.items()}
+    # the device's share: kernel time a step, which the host's pace does
+    # not move
+    dev_ms = {mode: device_ms(modes[mode], f"15c {label} step ({mode})",
+                              iters=5) for mode in ("off", "engine")}
+    log(f"[15c] {label}: step p50 (the better of two turns) "
+        f"{p50['off']:.2f} ms without the guard, {p50['engine']:.2f} ms "
+        f"with the guarded engine alone, {p50['guard']:.2f} ms through "
+        f"StepGuard; device time a step {dev_ms['off']:.3f} ms without "
+        f"the guard, {dev_ms['engine']:.3f} ms with it; check pass "
+        f"{timing['device_ms']:.4f} ms device, bound "
+        f"{timing['bound_ms']:.4f} ms ({timing['bound_by']})")
+    report.update(step_ms_p50_off=p50["off"],
+                  step_ms_p50_engine=p50["engine"],
+                  step_ms_p50_guard=p50["guard"],
+                  device_ms_off=dev_ms["off"],
+                  device_ms_engine=dev_ms["engine"], check=timing)
+    return report, timing
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2373,8 +2711,13 @@ def main() -> int:
     from paddle_tpu_torch.optimizer import lr as lr_mod
     from paddle_tpu_torch.optimizer import optimizer as opt_mod
     from paddle_tpu_torch.nn.layer import norm as norm_mod
-    from paddle_tpu_torch.ops import _build, attention, flash_tpu, fused
+    from paddle_tpu_torch.core import sanitizer
+    from paddle_tpu_torch.core.tree import leaves as tree_leaves
+    from paddle_tpu_torch.ops import (_build, attention, flash_tpu, fused,
+                                      tree_reduce)
     from paddle_tpu_torch.optimizer import Adam, AdamW
+    from paddle_tpu_torch.resilience import (corrupt_param_bit,
+                                             fingerprint_digest)
     from paddle_tpu_torch.profiler.telemetry import get_telemetry
     from paddle_tpu_torch.text.models import bert as bert_mod
     from paddle_tpu_torch.text.models import gpt as gpt_mod
@@ -2392,7 +2735,9 @@ def main() -> int:
                "flash_attn_bwd_dq_full": flash_tpu.flash_bwd_dq_full,
                "flash_attn_bwd_dkv_full": flash_tpu.flash_bwd_dkv_full,
                "dkv_packed": dkv_mod.dkv_call,
-               "grad_sumsq": fused.grad_global_norm}
+               "grad_sumsq": fused.grad_global_norm,
+               "adam_check": fused.adam_finite_check,
+               "tree_reduce": tree_reduce.tree_reduce}
     plain = lambda: plain_kernels(gpt_mod, fused, flash_tpu, norm_mod,
                                   bert_mod, attention)
 
@@ -3105,6 +3450,35 @@ def main() -> int:
     log("hapi " + json.dumps(hapi))
     torch.cuda.empty_cache()
 
+    # -- phase 15: guarded and fingerprinted training -------------------------
+    resilience = {"pipeline": pipeline_phase(counted, launches)}
+    torch.cuda.empty_cache()
+    resilience["bert_fingerprint"], fold_t = bert_fingerprint_phase(
+        counted, launches, tree_reduce, sanitizer, tree_leaves,
+        corrupt_param_bit, fingerprint_digest, err)
+    torch.cuda.empty_cache()
+    ids = torch.randint(0, train_cfg.vocab_size, TRAIN_SHAPE, device=dev,
+                        generator=gen)
+    labels = torch.roll(ids, -1, dims=1)
+    resilience["guard_gpt"], check_t = guard_phase(
+        dev, counted, launches,
+        gpt_mod.GPTForCausalLM(train_cfg, dtype=torch.float32, seed=4),
+        lambda m: Adam(TRAIN_LR, parameters=m.parameters(),
+                       multi_precision=True),
+        ((ids, labels), (labels,)), lambda out, lbl: out, "gpt", fused, err)
+    torch.cuda.empty_cache()
+    bert_model = bert_mod.BertForPretraining(bert_cfg, dtype=torch.float32,
+                                             seed=6)
+    ids, mlm, nsp = bert_batch(bert_cfg, *BERT_SHAPE, gen, dev)
+    resilience["guard_bert"], _ = guard_phase(
+        dev, counted, launches, bert_model,
+        lambda m: AdamW(TRAIN_LR, parameters=m.parameters(),
+                        weight_decay=0.01),
+        ((ids,), (mlm, nsp)), bert_model.loss_fn, "bert", fused, err)
+    del bert_model
+    log("resilience " + json.dumps(resilience))
+    torch.cuda.empty_cache()
+
     # -- the kernels line and the result --------------------------------------
     def timed(kernel, shape):
         return next(t for t in timings if t["kernel"] == kernel
@@ -3138,7 +3512,8 @@ def main() -> int:
              "paddle_tpu/ops/fused.py:172",
              next(t for t in timings if t["kernel"] == "adam"),
              ("training", "bert_training") + options_paths
-             + ("lenet_training", "lenet_mnist", "hapi_lenet")),
+             + ("lenet_training", "lenet_mnist", "hapi_lenet", "pipeline",
+                "bert_fingerprint_0", "guard_gpt", "guard_bert")),
             ("grad_sumsq", "paddle_tpu_torch/csrc/adam.cu",
              "paddle_tpu/nn/clip.py:111", sumsq_t, options_paths),
             ("flash_attn_fwd_full", "paddle_tpu_torch/csrc/flash_attn_fwd.cu",
@@ -3158,7 +3533,14 @@ def main() -> int:
             ("dkv_packed", "paddle_tpu_torch/csrc/dkv_packed.cu",
              "tools/experiments/dkv_packed_kernel.py:43",
              timed("dkv_packed", list(PACKED_TIMED[0])),
-             ("packed_dkv",))):
+             ("packed_dkv",)),
+            ("adam_check", "paddle_tpu_torch/csrc/adam.cu",
+             "paddle_tpu/core/sanitizer.py:57", check_t,
+             ("guard_gpt", "guard_bert")),
+            ("tree_reduce", "paddle_tpu_torch/csrc/tree_reduce.cu",
+             "paddle_tpu/core/sanitizer.py:102", fold_t,
+             ("bert_fingerprint_0", "bert_fingerprint_1",
+              "bert_fingerprint_bench"))):
         by_phase = launches[name]
         if any(by_phase[phase] == 0 for phase in paths):
             raise AssertionError(f"{name} never launched on the main path "
@@ -3187,6 +3569,21 @@ def main() -> int:
                 "fused_adam_step; it replaces the XLA-level "
                 "clip_grads_global_norm_raw, no Pallas kernel; library_ms "
                 f"is {sumsq_t['library']}")
+        if name == "adam_check":
+            kernels[-1]["note"] = (
+                "the guarded step's check pass of the Adam kernel (#7), run "
+                "before its update on GPT-2 345M's 292 tensors (bf16 grads, "
+                "f32 masters); no Pallas kernel: it replaces the XLA-level "
+                "finite_flags / select_if_finite (sanitizer.py:38, :57); no "
+                "one PyTorch call computes it (library_ms null)")
+        if name == "tree_reduce":
+            kernels[-1]["note"] = (
+                "the multi-tensor fold of BERT-base's state (params, AdamW "
+                "moments and beta powers); no Pallas kernel: it replaces "
+                "the XLA-level tree_fingerprint (sanitizer.py:102) and "
+                "finite_flags; library_ms is torch._foreach_norm(ord=1) "
+                "over the float leaves, the abs-sum part alone: no torch "
+                "call folds XOR")
         if name == "dkv_packed":
             kernels[-1]["note"] = (
                 "the causal dK/dV kernel (flash_attn_bwd_dkv) at the same "

@@ -38,7 +38,12 @@ The high-level API trains them: ``Model`` (``hapi``) with its callbacks
 prefetcher (``io.DevicePrefetcher``), vision transforms
 (``vision.transforms``), VGG and MobileNet, and fp16 loss scaling
 (``amp.GradScaler``); the spans and the goodput ledger (``profiler``) and
-the preemption exit (``resilience``) go with them.
+the preemption exit (``resilience``) go with them. Guarded and
+fingerprinted training: the engines' finite sweep, gated update and state
+fingerprints (``core.sanitizer``; on the card the Adam kernel's check
+pass and the multi-tensor fold of ``ops.tree_reduce``), ``StepGuard``, the
+watchdog, fault injection and the integrity monitor (``resilience``), and
+train-state checkpoints (``incubate.checkpoint``).
 """
 from . import callbacks
 from .core.place import resolve_device

@@ -1,9 +1,10 @@
 """Training throughput on one card — the port's twin of the repository's
 ``bench.py`` (GPT-2 345M) and of ``bench_all.py``'s ``bench_bert_dp``
-(BERT-base pretraining):
+(BERT-base pretraining) and ``bench_input_pipeline``:
 
-    python -m paddle_tpu_torch.bench          # GPT-2 345M
-    python -m paddle_tpu_torch.bench bert     # BERT-base
+    python -m paddle_tpu_torch.bench            # GPT-2 345M
+    python -m paddle_tpu_torch.bench bert       # BERT-base
+    python -m paddle_tpu_torch.bench pipeline   # the prefetcher on and off
 
 GPT-2 345M: the configuration and loop of ``bench.py`` — 24 layers,
 hidden 1024, 16 heads, vocab 50304, dropout 0, batch 8 x 1024 tokens,
@@ -21,6 +22,24 @@ weight_decay=0.01)``, bf16 compute without master weights; its
 median window) and its keys (``metric``, ``value`` in samples/s,
 ``unit``, ``tokens_per_sec``, ``mfu_pct``). The MFU takes
 ``bench_all``'s FLOPs per token over the H100's own dense bf16 peak.
+Before the headline leg, as ``bench_bert_dp`` does, a second engine on a
+fresh model fingerprints its state at every step (``fingerprint_every=1``,
+the multi-tensor fold of ``ops.tree_reduce``): ``fingerprint_samples_per_
+sec``, ``fingerprint_fold_overhead_pct`` (the fold's cost as a share of a
+step) and ``fingerprint_overhead_pct`` (that share at the production
+interval of 100 steps). ``bench_bert_dp`` runs on a one-device ``mesh``;
+meshes wait for the multi-device port, so this twin runs the engine on
+the card without one.
+
+The input pipeline: ``bench_input_pipeline``'s configuration — a 3-layer
+MLP (1024, 1024, 1024, 10) with ``CrossEntropyLoss`` and Adam lr 1e-3
+through ``jit.TrainStep``, 30 batches of 256 x 1024 a pass, each costing
+a 30 ms sleep (the source's latency) and a numpy decode (uint8 to f32,
+per-row normalisation), and ``float(loss)`` at every step: one warm-up
+pass without the prefetcher, then the median of 3 passes without it and
+of 3 with ``step.prefetch(batches, depth=2)``; its keys (``value``: the
+samples/s with the prefetcher, ``prefetch_off_samples_per_sec``,
+``speedup``).
 
 Each prints a line naming the card, then one JSON line. They need a CUDA
 card and raise without one.
@@ -111,38 +130,129 @@ def _rate(fn, n_warm: int, n_iter: int, reps: int = 3) -> float:
     return sorted(rates)[len(rates) // 2]
 
 
-def bench_bert() -> dict:
+# bench_bert_dp's production fingerprint interval: the fold's cost a step
+# is divided by it for the amortized overhead
+_FP_PRODUCTION_EVERY = 100
+
+
+def bert_engine(config, fingerprint_every: int = 0, device="cuda"):
+    """``bench_bert_dp``'s engine on a fresh BERT-base from seed 0:
+    ``AdamW(1e-4, weight_decay=0.01)``, bf16 compute on f32 parameters."""
     from .distributed.fleet.engine import ParallelTrainStep
     from .optimizer import AdamW
-    from .text.models.bert import BertForPretraining, bert_base
+    from .text.models.bert import BertForPretraining
 
-    _require_card("BERT-base pretraining")
-    config = bert_base(hidden_dropout=0.0, attention_dropout=0.0)
-    b, L = 32, 128
+    model = BertForPretraining(config, device=device, seed=0)
+    opt = AdamW(learning_rate=1e-4, weight_decay=0.01,
+                parameters=model.parameters())
+    return ParallelTrainStep(model, loss_fn=model.loss_fn, optimizer=opt,
+                             device=device, compute_dtype=torch.bfloat16,
+                             fingerprint_every=fingerprint_every)
+
+
+def bert_batch(config, b: int = 32, L: int = 128, device="cuda"):
+    """``bench_bert_dp``'s batch from ``RandomState(0)``, on ``device``."""
     rng = np.random.RandomState(0)
     ids = rng.randint(0, config.vocab_size, (b, L)).astype(np.int32)
     mlm = np.where(rng.rand(b, L) < 0.15, ids, -100).astype(np.int32)
     nsp = rng.randint(0, 2, b).astype(np.int64)
-    ids, mlm, nsp = (torch.from_numpy(a).long().cuda()
-                     for a in (ids, mlm, nsp))
-    model = BertForPretraining(config, device="cuda", seed=0)
-    opt = AdamW(learning_rate=1e-4, weight_decay=0.01,
-                parameters=model.parameters())
-    step = ParallelTrainStep(model, loss_fn=model.loss_fn, optimizer=opt,
-                             compute_dtype=torch.bfloat16)
+    return tuple(torch.from_numpy(a).long().to(device)
+                 for a in (ids, mlm, nsp))
+
+
+def bench_bert() -> dict:
+    from .text.models.bert import bert_base
+
+    _require_card("BERT-base pretraining")
+    config = bert_base(hidden_dropout=0.0, attention_dropout=0.0)
+    b, L = 32, 128
+    ids, mlm, nsp = bert_batch(config, b, L)
+    # the fingerprinting leg first, on its own fresh model (bench_bert_dp's
+    # order: it pays any cold-start cost, a conservative bias)
+    step_fp = bert_engine(config, fingerprint_every=1)
+    sps_fp = _rate(lambda i: step_fp((ids,), (mlm, nsp)), 2, 30) * b
+    del step_fp
+    torch.cuda.empty_cache()
+    step = bert_engine(config)
     sps = _rate(lambda i: step((ids,), (mlm, nsp)), 2, 30) * b
+    fold_pct = (sps / sps_fp - 1.0) * 100
     return {"metric": "bert_base_dp_pretrain_samples_per_sec_per_chip",
             "value": round(sps, 2), "unit": "samples/sec",
             "tokens_per_sec": round(sps * L, 2),
+            "fingerprint_samples_per_sec": round(sps_fp, 2),
+            "fingerprint_fold_overhead_pct": round(fold_pct, 3),
+            "fingerprint_overhead_pct": round(
+                fold_pct / _FP_PRODUCTION_EVERY, 4),
             "mfu_pct": round(100.0 * sps * L * bert_flops_per_token(config)
                              / H100_BF16_DENSE_FLOPS, 2)}
 
 
+class InputPipeline:
+    """``bench_input_pipeline``'s workload: the MLP's ``TrainStep`` on the
+    card (weights from a seed) and its batch source. ``epoch(prefetch)``
+    runs one pass and returns its per-step losses (read with ``float``
+    at every step, the logging loop's sync)."""
+
+    def __init__(self, b: int = 256, d: int = 1024, n_batches: int = 30,
+                 acquire_s: float = 0.030, seed: int = 0, device="cuda"):
+        from . import nn
+        from .jit.train_step import TrainStep
+        from .optimizer import Adam
+
+        gen = torch.Generator().manual_seed(seed)
+        net = nn.Sequential(
+            nn.Linear(d, d, generator=gen), nn.ReLU(),
+            nn.Linear(d, d, generator=gen), nn.ReLU(),
+            nn.Linear(d, 10, generator=gen)).to(device)
+        opt = Adam(learning_rate=1e-3, parameters=net.parameters())
+        self.step = TrainStep(net, nn.CrossEntropyLoss(), opt, device=device)
+        rng = np.random.RandomState(0)
+        self.payloads = [rng.randint(0, 256, (b, d)).astype(np.uint8)
+                         for _ in range(8)]
+        self.ys = rng.randint(0, 10, b).astype(np.int64)
+        self.b, self.n_batches, self.acquire_s = b, n_batches, acquire_s
+
+    def batches(self):
+        for i in range(self.n_batches):
+            time.sleep(self.acquire_s)  # the source's latency: a wait
+            raw = self.payloads[i % len(self.payloads)]
+            x = raw.astype(np.float32) / 255.0
+            x = (x - x.mean(axis=1, keepdims=True)) / (
+                x.std(axis=1, keepdims=True) + 1e-6)
+            yield (x,), (self.ys,)
+
+    def epoch(self, prefetch: bool) -> List[float]:
+        it = (self.step.prefetch(self.batches(), depth=2) if prefetch
+              else self.batches())
+        return [float(self.step(inp, lab)) for inp, lab in it]
+
+    def rate(self, prefetch: bool, reps: int = 3) -> float:
+        vals = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            self.epoch(prefetch)
+            vals.append(self.n_batches * self.b / (time.perf_counter() - t0))
+        return sorted(vals)[len(vals) // 2]
+
+
+def bench_pipeline() -> dict:
+    _require_card("the input pipeline")
+    run = InputPipeline()
+    run.epoch(False)  # warm-up: the kernels' first launches off the clock
+    off = run.rate(False)
+    on = run.rate(True)
+    return {"metric": "input_pipeline_prefetch_samples_per_sec",
+            "value": round(on, 2), "unit": "samples/sec",
+            "prefetch_off_samples_per_sec": round(off, 2),
+            "speedup": round(on / off, 3)}
+
+
 def main(argv: Optional[List[str]] = None) -> dict:
-    """Run the bench named by ``argv[0]`` (``gpt``, the default, or
-    ``bert``) and print its result."""
+    """Run the bench named by ``argv[0]`` (``gpt``, the default, ``bert``
+    or ``pipeline``) and print its result."""
     which = argv[0] if argv else "gpt"
-    benches = {"gpt": bench_gpt, "bert": bench_bert}
+    benches = {"gpt": bench_gpt, "bert": bench_bert,
+               "pipeline": bench_pipeline}
     if which not in benches:
         raise SystemExit(f"usage: python -m paddle_tpu_torch.bench "
                          f"[{'|'.join(benches)}]")

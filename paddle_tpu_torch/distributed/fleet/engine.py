@@ -49,17 +49,56 @@ AMP dtype on the f32 parameters (the reference's O1).
 checkpoint contract), and the next step casts them back;
 ``refresh_from_layer()`` is the other way round: the masters are rebuilt
 from what was loaded into the layer, where it disagrees with them.
+
+The resilience contract of the reference's engines (what
+``resilience.StepGuard`` and ``resilience.IntegrityMonitor`` build on):
+
+- ``check_finite`` (default ``FLAGS_check_nan_inf`` when the engine is
+  built) sweeps each step's ``loss``, ``grad`` and updated ``param``
+  leaves (``core.sanitizer.finite_flags``' names, ``grad['fc.weight']``)
+  and raises ``FloatingPointError`` after the update is committed;
+- ``guard_updates`` keeps the sweep's flags for ``last_step_finite()``
+  instead, and a step whose flags are not all true keeps every bit of the
+  state it came with: parameters (and their resident casts), masters,
+  moments, beta powers and buffers. The optimizer's step count still
+  advances, as in the reference. With Adam the sweep is the kernel's
+  check pass, run before the update, and the update reads its verdict on
+  the device (``ops.fused.FiniteCheck``); other optimizers copy their
+  state first and restore it with a ``torch.where``; buffers (BatchNorm's
+  running statistics, written in the forward) are copied before the
+  forward and restored the same way. No host sync either way;
+- ``fingerprint_every`` (default ``PADDLE_TPU_FINGERPRINT_EVERY``, 0 =
+  off) folds the state the step keeps into ``{"sum", "abs_sum", "xor"}``
+  (``core.sanitizer.tree_fingerprint`` over params, optimizer state and
+  buffers in the reference's structure; ``ops.tree_reduce`` on the card)
+  on the steps whose ``_global_step`` is a multiple of it, and publishes
+  it (``resilience.integrity.publish_fingerprint``) into a history of
+  ``PADDLE_TPU_FP_HISTORY`` (64) entries; the device scalars are read only
+  when ``last_fingerprint()`` asks;
+- ``snapshot_state()`` copies the state; ``restore_state(snap)`` copies a
+  snapshot (this engine's, or the reference engine's as numpy arrays)
+  into the tensors already there, so that the Adam kernel's pointer table
+  and the optimizer's per-parameter state stay valid;
+- ``prefetch(batches, depth=2, buckets=None)`` is an
+  ``io.DevicePrefetcher`` staged onto the engine's device.
+
+Each step beats the watchdog (``resilience.watchdog.heartbeat``).
 """
 from __future__ import annotations
 
+import collections
 import contextlib
+import os
 import time
-from typing import Callable, Optional
+from typing import Callable, Dict, List, Optional
 
+import numpy as np
 import torch
 from torch import nn
 
+from ...core import sanitizer
 from ...core.place import resolve_device
+from ...core.tree import as_tensor
 from ...jit.functionalize import functionalize, set_params
 from ...nn.clip import ClipGradByGlobalNorm
 from ...ops import remat_policy
@@ -67,6 +106,7 @@ from ...optimizer.lr import LRScheduler
 from ...profiler import goodput as _goodput
 from ...profiler import spans as _spans
 from ...profiler.telemetry import get_telemetry
+from ...resilience import watchdog as _watchdog
 
 __all__ = ["ParallelTrainStep"]
 
@@ -89,7 +129,10 @@ class ParallelTrainStep:
                  master_weights: Optional[bool] = None,
                  recompute=False, mesh=None, dp_axis=None,
                  mp_axis=None, sharding_axis=None, zero_stage: int = 0,
-                 sp_axis=None, remat=None):
+                 sp_axis=None, remat=None,
+                 check_finite: Optional[bool] = None,
+                 guard_updates: bool = False,
+                 fingerprint_every: Optional[int] = None):
         if mesh is not None or zero_stage or any(
                 a is not None for a in (dp_axis, mp_axis, sharding_axis,
                                         sp_axis)):
@@ -138,29 +181,209 @@ class ParallelTrainStep:
                     p.data = p.data.to(compute_dtype)
         self._synced = False
         self._last_step_t: Optional[float] = None
+        self._init_resilience(check_finite, guard_updates, fingerprint_every)
+
+    # -- the resilience contract --------------------------------------------
+    def _init_resilience(self, check_finite, guard_updates,
+                         fingerprint_every) -> None:
+        from ...resilience.integrity import fingerprint_every_from_env
+
+        self._guard_updates = bool(guard_updates)
+        self._check_nan = (sanitizer.jit_check_enabled()
+                           if check_finite is None
+                           else bool(check_finite)) or self._guard_updates
+        named = dict(self._layer.named_parameters())
+        self._param_names = sorted(named)
+        # the sweep's leaves in the reference's order: the loss, then each
+        # float parameter's gradient and new value by sorted name
+        self._swept = [named[n] for n in self._param_names
+                       if named[n].is_floating_point()]
+        swept_names = [n for n in self._param_names
+                       if named[n].is_floating_point()]
+        self._nan_names: List[str] = (
+            ["loss"] + [f"grad[{n!r}]" for n in swept_names]
+            + [f"param[{n!r}]" for n in swept_names])
+        self._last_flags: Optional[torch.Tensor] = None
+        if fingerprint_every is None:
+            fingerprint_every = fingerprint_every_from_env()
+        self._fp_every = max(0, int(fingerprint_every))
+        self._fp_history: collections.deque = collections.deque(
+            maxlen=int(os.environ.get("PADDLE_TPU_FP_HISTORY", "64") or 64))
+        # the fingerprint's leaves: parameters and buffers by sorted name
+        self._fp_params = sorted(named.items())
+        buffers = sorted(self._layer.named_buffers())
+        self._fp_buffer_names = [n for n, _ in buffers]
+        self._fp_buffers = [b for _, b in buffers]
+        self._window: Optional[list] = None  # run_steps' flags
+
+    def last_step_finite(self):
+        """``(ok, bad_leaf_names)`` of the latest step's sweep (a host read
+        of its flags)."""
+        return sanitizer.finite_report(self._nan_names, self._last_flags)
+
+    @property
+    def fingerprint_every(self) -> int:
+        """The fingerprint interval (0 = off)."""
+        return self._fp_every
+
+    def last_fingerprint(self):
+        """The newest fingerprint as ``(step, {"sum", "abs_sum", "xor"})``
+        read to the host (numpy scalars: f32, f32, uint32), or None before
+        the first one."""
+        if not self._fp_history:
+            return None
+        step, fp = self._fp_history[-1]
+        return step, _host_fingerprint(fp)
+
+    def fingerprint_history(self):
+        """The bounded history of ``(step, fingerprint)`` pairs, oldest
+        first (device scalars: read them lazily)."""
+        return list(self._fp_history)
+
+    def _state_tree(self):
+        """``(params, opt_state, buffers)`` as the reference's engine holds
+        them: dicts by name (sorted when walked), each parameter's state
+        under its keys (``beta1_pow``, ``beta2_pow``, ``master``,
+        ``moment1``, ``moment2`` for Adam)."""
+        params = {n: p.detach() for n, p in self._fp_params}
+        state = {n: self._opt_state_of(p) for n, p in self._fp_params}
+        buffers = dict(zip(self._fp_buffer_names, self._fp_buffers))
+        return params, state, buffers
+
+    def _opt_state_of(self, p) -> Dict[str, torch.Tensor]:
+        """``p``'s optimizer state; for a parameter that has none yet, the
+        state the optimizer would make for it."""
+        st = self._optimizer._accumulators.get(id(p))
+        return dict(st) if st is not None else \
+            self._optimizer._init_state(p.detach())
+
+    def _fp_leaves(self) -> List[torch.Tensor]:
+        """The leaves of ``_state_tree()`` in its flatten order, without
+        building the tree: the parameters by name, each one's state by
+        name and key, the buffers by name."""
+        params = [p for _, p in self._fp_params]
+        out = list(params)
+        for p in params:
+            st = self._opt_state_of(p)
+            out += [st[k] for k in sorted(st)]
+        return out + self._fp_buffers
+
+    def state_fingerprint(self) -> Dict[str, torch.Tensor]:
+        """The fingerprint of the state as it is now (device scalars):
+        ``tree_fingerprint(params, opt_state, buffers)``, through the
+        multi-tensor kernel on the card."""
+        from ...ops.tree_reduce import tree_fold
+
+        return tree_fold(self._fp_leaves())
+
+    def snapshot_state(self) -> dict:
+        """A copy of the train state, ``{"params", "buffers",
+        "opt_state"}`` by name (the reference's layout; in master mode the
+        params are the resident casts and ``opt_state`` holds the
+        masters)."""
+        params, state, buffers = self._state_tree()
+        return {"params": {n: t.clone() for n, t in params.items()},
+                "buffers": {n: t.clone() for n, t in buffers.items()},
+                "opt_state": {n: {k: v.clone() for k, v in st.items()}
+                              for n, st in state.items()}}
+
+    @torch.no_grad()
+    def restore_state(self, snap: dict) -> None:
+        """Copy a snapshot into the engine's own tensors (``copy_``: the
+        optimizer's state and the Adam kernel's pointer table keep finding
+        them). Leaves may be tensors on any device or numpy arrays (the
+        reference's bfloat16 ones too); a parameter without optimizer
+        state gets it."""
+        named = dict(self._layer.named_parameters())
+        bufs = dict(self._layer.named_buffers())
+        for n, v in snap["params"].items():
+            named[n].detach().copy_(as_tensor(v))
+        for n, v in snap.get("buffers", {}).items():
+            bufs[n].copy_(as_tensor(v))
+        opt = self._optimizer
+        for n, st in snap.get("opt_state", {}).items():
+            p = named[n]
+            cur = opt._accumulators.get(id(p))
+            if cur is None:
+                master = st.get("master")
+                cur = opt.state_for(p, master=None if master is None
+                                    else as_tensor(master))
+            for k, v in st.items():
+                cur[k].copy_(as_tensor(v))
+        self._last_step_t = None
+
+    def prefetch(self, batches, depth: int = 2, buckets=None):
+        """An ``io.DevicePrefetcher`` over ``(inputs, labels)`` batches,
+        staged onto this engine's device ``depth`` batches ahead; a staged
+        batch passes through the step's ``.to()`` without a copy."""
+        from ...io.prefetch import DevicePrefetcher
+
+        return DevicePrefetcher(batches, depth=depth, buckets=buckets,
+                                device=self._device)
+
+    def _publish(self, step: int) -> None:
+        from ...resilience.integrity import publish_fingerprint
+
+        publish_fingerprint(self._fp_history, step, self.state_fingerprint(),
+                            self._fp_every)
+
+    def _fp_due(self, step: int) -> bool:
+        return bool(self._fp_every) and step % self._fp_every == 0
 
     def __call__(self, inputs, labels) -> torch.Tensor:
+        _watchdog.heartbeat()
+        opt = self._optimizer
+        step_no = opt._global_step
         with _goodput.activity("productive_step"), \
                 contextlib.ExitStack() as stack:
             if not _spans.in_category("step"):
                 # a loop above (hapi's fit) may hold the step span already
                 stack.enter_context(_spans.span(
-                    "step", cat="step", step=self._optimizer._global_step))
+                    "step", cat="step", step=step_no))
             if self._synced:
                 self._recast_from_masters()
             dev = self._device
             with _spans.span("h2d", cat="h2d"):
-                inputs = tuple(a.to(dev, non_blocking=True) for a in
-                               _as_tuple(inputs))
-                labels = tuple(a.to(dev, non_blocking=True) for a in
-                               _as_tuple(labels))
+                inputs = tuple(as_tensor(a).to(dev, non_blocking=True)
+                               for a in _as_tuple(inputs))
+                labels = tuple(as_tensor(a).to(dev, non_blocking=True)
+                               for a in _as_tuple(labels))
             with _spans.span("compute", cat="compute"):
+                old_buffers = ([(b, b.clone()) for b in self._layer.buffers()]
+                               if self._guard_updates else [])
                 loss = self._loss_fn(self._apply(*inputs), *labels).float()
                 loss.backward()
-                self._optimizer.step()
-                self._optimizer.clear_grad()
+                flags = None
+                if self._check_nan:
+                    flags = opt.step_checked(loss.detach(), self._swept,
+                                             gate=self._guard_updates)
+                    if old_buffers:
+                        ok = flags.all()
+                        for b, old in old_buffers:
+                            b.copy_(torch.where(ok, b, old))
+                else:
+                    opt.step()
+                opt.clear_grad()
             self._record_step()
+        if self._window is not None:
+            self._window.append(flags)
             return loss.detach()
+        if self._fp_due(step_no):
+            self._publish(step_no)
+        if self._check_nan:
+            self._last_flags = flags
+            if not self._guard_updates:
+                self._raise_if_nonfinite(step_no)
+        return loss.detach()
+
+    def _raise_if_nonfinite(self, step_no: int) -> None:
+        """The unguarded check's raise, after the update was committed; the
+        step count stays where it was, as the reference's raise comes
+        before its increment."""
+        ok, _ = self.last_step_finite()
+        if not ok:
+            self._optimizer._global_step = step_no
+            sanitizer.raise_if_nonfinite(self._nan_names, self._last_flags)
 
     def run_steps(self, inputs, labels, step_scheduler: bool = True
                   ) -> torch.Tensor:
@@ -170,17 +393,32 @@ class ParallelTrainStep:
         stepped between the steps (``n_steps − 1`` times) unless
         ``step_scheduler=False``: the learning rates are the reference's,
         ``sched()`` for the first step and ``sched.step()`` before each
-        further one."""
+        further one. As the reference's window: the sweep's flags are the
+        AND over its steps (an unguarded check raises after the window),
+        and one fingerprint of the window's final state is taken, labelled
+        with its last step, when a step of the window is due."""
         inputs, labels = _as_tuple(inputs), _as_tuple(labels)
         sched = self._optimizer._learning_rate
         if not (step_scheduler and isinstance(sched, LRScheduler)):
             sched = None
+        first = self._optimizer._global_step
+        n_steps = as_tensor(inputs[0]).shape[0]
         losses = []
-        for i in range(inputs[0].shape[0]):
-            if i and sched is not None:
-                sched.step()
-            losses.append(self(tuple(a[i] for a in inputs),
-                               tuple(b[i] for b in labels)))
+        self._window = []
+        try:
+            for i in range(n_steps):
+                if i and sched is not None:
+                    sched.step()
+                losses.append(self(tuple(a[i] for a in inputs),
+                                   tuple(b[i] for b in labels)))
+        finally:
+            window, self._window = self._window, None
+        if any(self._fp_due(first + k) for k in range(n_steps)):
+            self._publish(first + n_steps - 1)
+        if self._check_nan and window:
+            self._last_flags = torch.stack(window).all(dim=0)
+            if not self._guard_updates:
+                self._raise_if_nonfinite(first)
         return torch.stack(losses)
 
     def _record_step(self) -> None:
@@ -236,3 +474,11 @@ class ParallelTrainStep:
                 p.data = self._optimizer.state_for(p)["master"].to(
                     self._compute_dtype)
         self._synced = False
+
+
+def _host_fingerprint(fp: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """A fingerprint's device scalars read to numpy: the sums as f32, the
+    word as uint32 (the reference's dtypes)."""
+    return {"sum": np.float32(fp["sum"].item()),
+            "abs_sum": np.float32(fp["abs_sum"].item()),
+            "xor": np.uint32(int(fp["xor"].item()) & 0xFFFFFFFF)}

@@ -13,8 +13,13 @@ the reference's ``TrainStep`` does. Its telemetry is ``jit/steps`` and
 ``EvalStep(layer)(*inputs)`` is the layer's forward in eval mode without
 autograd.
 
-Not ported yet, and refused: ``check_finite``, ``guard_updates`` and
-``fingerprint_every`` (they wait for the resilience port).
+``check_finite``, ``guard_updates`` and ``fingerprint_every`` are the
+engine's resilience contract (see ``distributed.fleet.engine``), and
+``prefetch`` stages batches onto the step's device (``EvalStep.prefetch``
+onto the layer's). One difference from the reference's ``TrainStep``: its
+sweep reads the gradients after a global-norm clip has scaled them (so one
+NaN gradient marks every clipped one), the port's reads them as they come,
+as the reference's ``ParallelTrainStep`` does.
 """
 from __future__ import annotations
 
@@ -23,6 +28,7 @@ from typing import Callable, Optional
 import torch
 from torch import nn
 
+from ..core.tree import as_tensor
 from ..distributed.fleet.engine import ParallelTrainStep
 from .functionalize import functionalize
 
@@ -40,12 +46,10 @@ class TrainStep(ParallelTrainStep):
                  check_finite: Optional[bool] = None,
                  guard_updates: bool = False,
                  fingerprint_every: Optional[int] = None):
-        if check_finite or guard_updates or fingerprint_every:
-            raise NotImplementedError(
-                "TrainStep: check_finite, guard_updates and "
-                "fingerprint_every wait for the resilience port")
         super().__init__(layer, loss_fn, optimizer, device=device,
-                         remat=remat)
+                         remat=remat, check_finite=check_finite,
+                         guard_updates=guard_updates,
+                         fingerprint_every=fingerprint_every)
 
 
 class EvalStep:
@@ -59,7 +63,15 @@ class EvalStep:
         self._apply = functionalize(layer, training=False)
         self._device = next(layer.parameters()).device
 
+    def prefetch(self, batches, depth: int = 2, buckets=None):
+        """An ``io.DevicePrefetcher`` over input batches, staged onto the
+        layer's device (see ``TrainStep.prefetch``)."""
+        from ..io.prefetch import DevicePrefetcher
+
+        return DevicePrefetcher(batches, depth=depth, buckets=buckets,
+                                device=self._device)
+
     @torch.no_grad()
     def __call__(self, *inputs):
-        return self._apply(*(a.to(self._device, non_blocking=True)
+        return self._apply(*(as_tensor(a).to(self._device, non_blocking=True)
                              for a in inputs))

@@ -34,7 +34,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "paddle_tpu_torch"
 SOURCES = ("errors.cu", "layer_norm.cu", "layer_norm_bwd.cu",
            "flash_attn_fwd.cu", "flash_attn_bwd.cu", "adam.cu",
-           "dkv_packed.cu")
+           "dkv_packed.cu", "tree_reduce.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # dtype codes of the C entry points
@@ -72,12 +72,20 @@ _SIGNATURES = {
     "ptt_flash_attn_bwd_dq_full": _FLASH_BWD,
     "ptt_flash_attn_bwd_dkv_full": _FLASH_BWD,
     # tab, grads, chunks, nchunks, ntensors, lr, clip scale (null: none),
-    # b1, b2, 1 - b1, 1 - b2, eps, chunk, stream
-    "ptt_adam_step": ([_P, _P, _P, _I, _I, _P, _P, _F, _F, _F, _F, _F, _I,
-                       _P], _I),
+    # ok word (null: ungated), b1, b2, 1 - b1, 1 - b2, eps, chunk, stream
+    "ptt_adam_step": ([_P, _P, _P, _I, _I, _P, _P, _P, _F, _F, _F, _F, _F,
+                       _I, _P], _I),
+    # tab, grads, chunks, nchunks, ntensors, starts, lr, clip scale, loss,
+    # b1, b2, 1 - b1, 1 - b2, eps, chunk, partials, flags, ok, stream
+    "ptt_adam_check": ([_P, _P, _P, _I, _I, _P, _P, _P, _P, _F, _F, _F, _F,
+                        _F, _I, _P, _P, _P, _P], _I),
     # tab, grads, chunks, nchunks, partials, out, clip, chunk, stream
     "ptt_grad_sumsq": ([_P, _P, _P, _I, _P, _P, _F, _I, _P], _I),
     "ptt_dkv_packed": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P], _I),
+    # tab, chunks, nchunks, leaf_chunks, nleaves, chunk, mode, partials,
+    # out_sums, out_xor, flags, stream
+    "ptt_tree_reduce": ([_P, _P, _I, _P, _I, _I, _I, _P, _P, _P, _P, _P],
+                        _I),
 }
 
 

@@ -19,7 +19,13 @@ fallback between the two: a CUDA tensor the kernel cannot take raises.
   sum-of-squares pass over the same tensor table (two more launches, the
   kernel of ``grad_global_norm``; plain version ``_global_norm_reference``)
   and the update reads the clip scale from the device. The plain version
-  of the whole call is ``_fused_adam_reference``.
+  of the whole call is ``_fused_adam_reference``. Given a ``FiniteCheck``
+  (the engines' ``check_finite`` / ``guard_updates``), the check pass of
+  ``adam_finite_check`` runs before the update (two more launches, plain
+  version ``_adam_check_reference``): it evaluates every new value and
+  writes none, gives the step's finite flags, and under the check's gate
+  the update and the beta powers' advance write nothing when a flag is
+  false.
 """
 from __future__ import annotations
 
@@ -32,7 +38,7 @@ import torch
 from . import _build
 
 __all__ = ["fused_layer_norm", "fused_adam_step", "grad_global_norm",
-           "layer_norm_bwd"]
+           "layer_norm_bwd", "adam_finite_check", "FiniteCheck"]
 
 
 # ---------------------------------------------------------------------------
@@ -261,6 +267,29 @@ def _global_norm_reference(grads: Sequence[torch.Tensor], clip_norm: float,
     return torch.stack([norm, clip_norm / norm.clamp(min=clip_norm)])
 
 
+def _adam_math(p, g, m, v, b1p, b2p, master, lr, beta1, beta2, eps, wd,
+               c, grad_scale, clipped):
+    """One tensor of ``_adam_reference``: ``(target, new, m1, m2, b1p',
+    b2p')``, where ``target`` is the f32 tensor updated (the master, or the
+    param) and ``new`` its new value; nothing is written."""
+    target = master if master is not None else p
+    if grad_scale is not None and clipped:
+        g = (g.float() * grad_scale).to(g.dtype)
+    g = g.to(target.dtype)
+    value = target
+    if wd:
+        g = g + wd * value
+    if c:
+        value = value * (1 - lr * c)
+    new_b1p = b1p * beta1
+    new_b2p = b2p * beta2
+    m1 = beta1 * m + (1 - beta1) * g
+    m2 = beta2 * v + (1 - beta2) * g * g
+    lr_t = lr * torch.sqrt(1 - new_b2p) / (1 - new_b1p)
+    new = value - (lr_t * m1 / (torch.sqrt(m2) + eps)).to(target.dtype)
+    return target, new, m1, m2, new_b1p, new_b2p
+
+
 def _adam_reference(params: Sequence[torch.Tensor],
                     grads: Sequence[torch.Tensor],
                     moment1: Sequence[torch.Tensor],
@@ -292,21 +321,9 @@ def _adam_reference(params: Sequence[torch.Tensor],
     for p, g, m, v, b1p, b2p, master, wd, c, clipped in zip(
             params, grads, moment1, moment2, beta1_pow, beta2_pow, masters,
             l2, decay, clip):
-        target = master if master is not None else p
-        if grad_scale is not None and clipped:
-            g = (g.float() * grad_scale).to(g.dtype)
-        g = g.to(target.dtype)
-        value = target
-        if wd:
-            g = g + wd * value
-        if c:
-            value = value * (1 - lr * c)
-        new_b1p = b1p * beta1
-        new_b2p = b2p * beta2
-        m1 = beta1 * m + (1 - beta1) * g
-        m2 = beta2 * v + (1 - beta2) * g * g
-        lr_t = lr * torch.sqrt(1 - new_b2p) / (1 - new_b1p)
-        new = value - (lr_t * m1 / (torch.sqrt(m2) + eps)).to(target.dtype)
+        target, new, m1, m2, new_b1p, new_b2p = _adam_math(
+            p, g, m, v, b1p, b2p, master, lr, beta1, beta2, eps, wd, c,
+            grad_scale, clipped)
         target.copy_(new)
         if master is not None:
             p.copy_(new)
@@ -316,21 +333,80 @@ def _adam_reference(params: Sequence[torch.Tensor],
         b2p.copy_(new_b2p)
 
 
+def _adam_check_reference(params, grads, moment1, moment2, beta1_pow,
+                          beta2_pow, lr, masters=None, beta1=0.9,
+                          beta2=0.999, eps=1e-8, weight_decay=0.0,
+                          decoupled_decay=None, grad_scale=None,
+                          need_clip=None, loss=None) -> torch.Tensor:
+    """The plain version of the check pass (``adam_finite_check``): the
+    bool flags ``[loss, grad_0 .. grad_n-1, param_0 .. param_n-1, True]``
+    of one ``_adam_reference`` step that is computed and not written. A
+    gradient's flag is its own (before the clip's scale), a parameter's is
+    its new value in the parameter's dtype (the bf16 copy of a new
+    master); no loss is a finite one."""
+    n = len(params)
+    masters = masters if masters is not None else [None] * n
+    l2 = _per_tensor(weight_decay, n)
+    decay = _per_tensor(decoupled_decay, n)
+    clip = need_clip if need_clip is not None else [True] * n
+    dev = params[0].device
+    true = torch.ones((), dtype=torch.bool, device=dev)
+    g_ok, p_ok = [], []
+    for p, g, m, v, b1p, b2p, master, wd, c, clipped in zip(
+            params, grads, moment1, moment2, beta1_pow, beta2_pow, masters,
+            l2, decay, clip):
+        _, new, *_ = _adam_math(p, g, m, v, b1p, b2p, master, lr, beta1,
+                                beta2, eps, wd, c, grad_scale, clipped)
+        g_ok.append(torch.isfinite(g).all())
+        p_ok.append(torch.isfinite(new.to(p.dtype)).all())
+    loss_ok = torch.isfinite(loss).all() if loss is not None else true
+    return torch.stack([loss_ok, *g_ok, *p_ok, true])
+
+
 def _fused_adam_reference(params, grads, moment1, moment2, beta1_pow,
                           beta2_pow, lr, masters=None, beta1=0.9,
                           beta2=0.999, eps=1e-8, weight_decay=0.0,
                           decoupled_decay=None, clip_norm=None,
-                          need_clip=None) -> Optional[torch.Tensor]:
+                          need_clip=None, check=None
+                          ) -> Optional[torch.Tensor]:
     """The plain version of ``fused_adam_step``, with its arguments and
-    its result: ``_global_norm_reference`` for the clip, then
-    ``_adam_reference`` with that scale."""
+    its result: ``_global_norm_reference`` for the clip, then (given a
+    ``check``) ``_adam_check_reference``, then ``_adam_reference`` with
+    that scale, skipped when the check gates the step and a flag is
+    false."""
     norm = (_global_norm_reference(grads, clip_norm, need_clip)
             if clip_norm is not None else None)
+    scale = None if norm is None else norm[1]
+    if check is not None:
+        flags = _adam_check_reference(
+            params, grads, moment1, moment2, beta1_pow, beta2_pow, lr,
+            masters, beta1, beta2, eps, weight_decay, decoupled_decay,
+            scale, need_clip, check.loss)
+        check.flags, check.ok = flags, flags.all().to(torch.int32)
+        if check.gate and not bool(check.ok):
+            return norm
     _adam_reference(params, grads, moment1, moment2, beta1_pow, beta2_pow,
                     lr, masters, beta1, beta2, eps, weight_decay,
-                    decoupled_decay, None if norm is None else norm[1],
-                    need_clip)
+                    decoupled_decay, scale, need_clip)
     return norm
+
+
+class FiniteCheck:
+    """Asks ``fused_adam_step`` for the step's finite sweep, the check
+    pass of ``adam_finite_check``: after the call ``flags`` is the bool
+    tensor ``[loss, grad_0 .. grad_n-1, param_0 .. param_n-1, True]`` (in
+    the order of the params given; the last slot is a constant for
+    callers that pad) and ``ok`` the int32 0-d AND of them, both on the
+    params' device. With ``gate`` the update (and the beta powers'
+    advance) is skipped on the device when ``ok`` is 0, without a host
+    sync. ``loss`` is the step's f32 loss (None: not checked)."""
+
+    def __init__(self, loss: Optional[torch.Tensor] = None,
+                 gate: bool = True):
+        self.loss = loss
+        self.gate = bool(gate)
+        self.flags: Optional[torch.Tensor] = None
+        self.ok: Optional[torch.Tensor] = None
 
 
 def _per_tensor(coeff, n: int) -> List[float]:
@@ -378,7 +454,7 @@ def grad_global_norm(grads: Sequence[torch.Tensor], clip_norm: float,
         if g.numel():
             rows.append((0,) * 6 + (g.numel(), _build.DTYPE_CODES[g.dtype],
                                     0, 0, int(bool(c))))
-    tab, chunks, _, nchunks = _device_table(dev, rows)
+    tab, chunks, _, nchunks, _ = _device_table(dev, rows)
     return _launch_global_norm(
         dev, tab, _pointers([g for g in grads if g.numel()], dev), chunks,
         nchunks, clip_norm)
@@ -413,7 +489,8 @@ def fused_adam_step(params: Sequence[torch.Tensor],
                     beta1: float = 0.9, beta2: float = 0.999,
                     eps: float = 1e-8, weight_decay=0.0,
                     decoupled_decay=None, clip_norm: Optional[float] = None,
-                    need_clip: Optional[Sequence[bool]] = None
+                    need_clip: Optional[Sequence[bool]] = None,
+                    check: Optional["FiniteCheck"] = None
                     ) -> Optional[torch.Tensor]:
     """One Adam step over many parameters, in place — the multi-tensor
     counterpart of the reference's ``fused_adam_step`` with the engine's
@@ -435,9 +512,17 @@ def fused_adam_step(params: Sequence[torch.Tensor],
     own dtype, and the f32 tensor ``[norm, scale]`` is returned. Nothing is
     read back to the host.
 
+    Given a ``FiniteCheck``, the step's finite sweep runs before the
+    update (``adam_finite_check``: the check pass evaluates every new value
+    with the update's arithmetic and writes none) and fills its ``flags``
+    and ``ok``; under its ``gate`` the update and the beta powers' advance
+    read ``ok`` on the device and write nothing when it is 0, so a
+    non-finite step keeps every bit of the state it came with.
+
     CUDA tensors go through ``csrc/adam.cu`` (two launches per call, and
-    with ``clip_norm`` the two of the sum-of-squares pass before them),
-    CPU tensors through ``_fused_adam_reference``.
+    with ``clip_norm`` the two of the sum-of-squares pass before them, and
+    with ``check`` the two of the check pass), CPU tensors through
+    ``_fused_adam_reference``.
     """
     n = len(params)
     masters = list(masters) if masters is not None else [None] * n
@@ -454,20 +539,27 @@ def fused_adam_step(params: Sequence[torch.Tensor],
     if dev.type == "cpu":
         return _fused_adam_reference(
             params, grads, moment1, moment2, beta1_pow, beta2_pow, lr,
-            masters, beta1, beta2, eps, l2, decay, clip_norm, clip)
+            masters, beta1, beta2, eps, l2, decay, clip_norm, clip, check)
     if dev.type != "cuda":
         raise ValueError(f"fused_adam_step: unsupported device {dev}")
     if lr.device != dev or lr.dtype != torch.float32 or lr.numel() != 1:
         raise TypeError("fused_adam_step: lr must be a one-element f32 "
                         f"tensor on {dev}, got {lr.dtype} on {lr.device}")
-    tab, chunks, ntensors, nchunks = _adam_table(
+    table, index = _adam_table(
         params, grads, moment1, moment2, beta1_pow, beta2_pow, masters,
         decay, l2, clip if clip_norm is not None else [False] * n)
+    tab, chunks, ntensors, nchunks, _ = table
     gptrs = _pointers([g for g in grads if g.numel()], dev)
     norm = None
     if clip_norm is not None:
         norm = _launch_global_norm(dev, tab, gptrs, chunks, nchunks,
                                    clip_norm)
+    ok = None
+    if check is not None:
+        check.flags, check.ok = _launch_check(
+            dev, table, index, n, gptrs, lr, norm, check.loss, beta1, beta2,
+            eps)
+        ok = check.ok if check.gate else None
     if nchunks == 0:
         return norm
     lib = _build.library()
@@ -475,7 +567,8 @@ def fused_adam_step(params: Sequence[torch.Tensor],
         err = lib.ptt_adam_step(
             tab.data_ptr(), gptrs.data_ptr(), chunks.data_ptr(), nchunks,
             ntensors, lr.data_ptr(),
-            norm[1:].data_ptr() if norm is not None else None, beta1, beta2,
+            norm[1:].data_ptr() if norm is not None else None,
+            ok.data_ptr() if ok is not None else None, beta1, beta2,
             1 - beta1, 1 - beta2, eps, _ADAM_CHUNK,
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "adam_step")
@@ -484,6 +577,82 @@ def fused_adam_step(params: Sequence[torch.Tensor],
 
 
 fused_adam_step.launches = 0  # kernel launches (two per call)
+
+
+def adam_finite_check(params, grads, moment1, moment2, beta1_pow, beta2_pow,
+                      lr, masters=None, beta1=0.9, beta2=0.999, eps=1e-8,
+                      weight_decay=0.0, decoupled_decay=None,
+                      clip_norm=None, need_clip=None, loss=None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The finite sweep of one ``fused_adam_step`` with these arguments,
+    computed and not applied: ``(flags, ok)`` as ``FiniteCheck`` gives
+    them (the flags of the loss, of each gradient and of each new
+    parameter in its dtype; ``ok`` their AND, int32). CUDA tensors go
+    through ``csrc/adam.cu``'s check pass (two launches, and with
+    ``clip_norm`` the sum-of-squares pass first; nothing is written to the
+    state), CPU tensors through ``_adam_check_reference``.
+    ``fused_adam_step(..., check=FiniteCheck(loss))`` runs the same pass
+    before its update."""
+    n = len(params)
+    masters = list(masters) if masters is not None else [None] * n
+    l2 = _per_tensor(weight_decay, n)
+    decay = _per_tensor(decoupled_decay, n)
+    clip = list(need_clip) if need_clip is not None else [True] * n
+    dev = params[0].device
+    if dev.type == "cpu":
+        norm = (_global_norm_reference(grads, clip_norm, clip)
+                if clip_norm is not None else None)
+        flags = _adam_check_reference(
+            params, grads, moment1, moment2, beta1_pow, beta2_pow, lr,
+            masters, beta1, beta2, eps, l2, decay,
+            None if norm is None else norm[1], clip, loss)
+        return flags, flags.all().to(torch.int32)
+    table, index = _adam_table(
+        params, grads, moment1, moment2, beta1_pow, beta2_pow, masters,
+        decay, l2, clip if clip_norm is not None else [False] * n)
+    gptrs = _pointers([g for g in grads if g.numel()], dev)
+    norm = (_launch_global_norm(dev, table.tab, gptrs, table.chunks,
+                                table.nchunks, clip_norm)
+            if clip_norm is not None else None)
+    return _launch_check(dev, table, index, n, gptrs, lr, norm, loss, beta1,
+                         beta2, eps)
+
+
+adam_finite_check.launches = 0  # check-pass launches (two per call)
+
+
+def _launch_check(dev, table: "_Table", index: List[int], n: int, gptrs,
+                  lr, norm, loss, beta1, beta2, eps):
+    """The check pass over ``table``: flags in param order (``index``:
+    the param of each table row; an empty param's flags are true)."""
+    if loss is not None and (loss.device != dev or loss.dtype !=
+                             torch.float32 or loss.numel() != 1):
+        raise TypeError("fused_adam_step: the checked loss must be a "
+                        f"one-element f32 tensor on {dev}")
+    rows = table.ntensors
+    flags = torch.empty(2 * rows + 2, dtype=torch.bool, device=dev)
+    ok = torch.empty((), dtype=torch.int32, device=dev)
+    partials = torch.empty(max(2 * table.nchunks, 1), dtype=torch.int32,
+                           device=dev)
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        err = lib.ptt_adam_check(
+            table.tab.data_ptr(), gptrs.data_ptr(), table.chunks.data_ptr(),
+            table.nchunks, rows, table.starts.data_ptr(), lr.data_ptr(),
+            norm[1:].data_ptr() if norm is not None else None,
+            loss.data_ptr() if loss is not None else None, beta1, beta2,
+            1 - beta1, 1 - beta2, eps, _ADAM_CHUNK, partials.data_ptr(),
+            flags.data_ptr(), ok.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "adam_check")
+    adam_finite_check.launches += 2
+    if rows != n:  # empty params: true flags (the table's last slot)
+        pick = [0] + [1 + index.index(i) if i in index else 2 * rows + 1
+                      for i in range(n)] \
+            + [1 + rows + index.index(i) if i in index else 2 * rows + 1
+               for i in range(n)] + [2 * rows + 1]
+        flags = flags[torch.tensor(pick, device=dev)]
+    return flags, ok
 
 
 def _pointers(tensors: Sequence[torch.Tensor], dev) -> torch.Tensor:
@@ -511,21 +680,32 @@ def _check_grad(fn, i, g, dev):
 # device tables of the tensors' pointers, keyed by those pointers: the
 # params, masters and moments are updated in place, so a training loop
 # builds its table once
-_TABLES: Dict[tuple, tuple] = {}
+_TABLES: Dict[tuple, "_Table"] = {}
 _TABLES_MAX = 8
 
 
-def _device_table(dev, rows: List[tuple]):
-    """``(table, chunks, ntensors, nchunks)`` on ``dev`` for the table
-    ``rows`` (``_TABLE_COLS`` ints each), made once per distinct table."""
+class _Table(NamedTuple):
+    tab: torch.Tensor     # device int64 [ntensors, _TABLE_COLS]
+    chunks: torch.Tensor  # device int32 [nchunks, 2] (tensor, chunk)
+    ntensors: int
+    nchunks: int
+    starts: torch.Tensor  # device int32 [ntensors + 1]: first chunk of each
+
+
+def _device_table(dev, rows: List[tuple]) -> _Table:
+    """The device table of ``rows`` (``_TABLE_COLS`` ints each) and its
+    chunks, made once per distinct table."""
     key = (dev, tuple(rows))
     hit = _TABLES.get(key)
     if hit is None:
-        chunks = [(t, c) for t, row in enumerate(rows)
-                  for c in range(-(-row[6] // _ADAM_CHUNK))]
+        counts = [-(-row[6] // _ADAM_CHUNK) for row in rows]
+        chunks = [(t, c) for t, n in enumerate(counts) for c in range(n)]
         tab = torch.tensor(rows, dtype=torch.int64).reshape(-1, _TABLE_COLS)
         ch = torch.tensor(chunks, dtype=torch.int32).reshape(-1, 2)
-        hit = (tab.to(dev), ch.to(dev), len(rows), len(chunks))
+        starts = torch.tensor(np.concatenate([[0], np.cumsum(counts)]),
+                              dtype=torch.int32)
+        hit = _Table(tab.to(dev), ch.to(dev), len(rows), len(chunks),
+                     starts.to(dev))
         if len(_TABLES) >= _TABLES_MAX:
             _TABLES.pop(next(iter(_TABLES)))
         _TABLES[key] = hit
@@ -540,6 +720,7 @@ def _adam_table(params, grads, moment1, moment2, beta1_pow, beta2_pow,
                 masters, decay, l2, clip):
     dev = params[0].device
     rows: List[tuple] = []
+    index: List[int] = []  # the param of each row (empty ones have none)
     for i, (p, g, m, v, b1p, b2p, master, c, wd, clipped) in enumerate(zip(
             params, grads, moment1, moment2, beta1_pow, beta2_pow,
             masters, decay, l2, clip)):
@@ -577,9 +758,10 @@ def _adam_table(params, grads, moment1, moment2, beta1_pow, beta2_pow,
                 raise ValueError(f"fused_adam_step: tensor {i} sizes differ")
         if p.numel() == 0:
             continue
+        index.append(i)
         rows.append((target.data_ptr(), m.data_ptr(), v.data_ptr(),
                      p.data_ptr() if master is not None else 0,
                      b1p.data_ptr(), b2p.data_ptr(), p.numel(),
                      _build.DTYPE_CODES[g.dtype], _f32_bits(c), _f32_bits(wd),
                      int(bool(clipped))))
-    return _device_table(dev, rows)
+    return _device_table(dev, rows), index

@@ -58,7 +58,7 @@ import torch
 from torch import nn
 
 from ..nn.clip import ClipGradBase, ClipGradByGlobalNorm
-from ..ops import fused
+from ..ops import fused, tree_reduce
 from .lr import LRScheduler
 
 __all__ = ["Optimizer", "SGD", "Momentum", "LarsMomentum", "Adagrad",
@@ -256,6 +256,36 @@ class Optimizer:
                 p.detach().copy_(master)
             self._accumulators[id(p)] = new_state
 
+    @torch.no_grad()
+    def step_checked(self, loss: torch.Tensor,
+                     order: List[torch.Tensor], gate: bool
+                     ) -> torch.Tensor:
+        """``step()`` with the reference engines' finite sweep: returns the
+        bool flags ``[loss, grad of each of order, each of order after the
+        update]`` on the device (a parameter without a gradient has a true
+        grad flag). With ``gate`` a step whose flags are not all true keeps
+        every parameter, master and state tensor it came with (a
+        ``torch.where`` on the device, no host sync). This plain route
+        copies the stepped state first; Adam's kernel needs no copy."""
+        stepped = [p for p, _ in self._params_grads()]
+        old = {}
+        if gate:
+            for p in stepped:
+                st = self.state_for(p)
+                old[id(p)] = (p.detach().clone(),
+                              {k: v.clone() for k, v in st.items()})
+        self.step()
+        flags = _sweep(loss, order)
+        if gate:
+            ok = flags.all()
+            for p in stepped:
+                p_old, st_old = old[id(p)]
+                p.detach().copy_(torch.where(ok, p.detach(), p_old))
+                st = self._accumulators[id(p)]
+                for k, v in st_old.items():
+                    st[k].copy_(torch.where(ok, st[k], v))
+        return flags
+
     def _update_param(self, p, value, grad, state, lr):
         """``_update`` for parameter ``p`` (a hook for per-parameter
         options)."""
@@ -264,6 +294,17 @@ class Optimizer:
     def _update(self, param: torch.Tensor, grad: torch.Tensor,
                 state: State, lr: float) -> Tuple[torch.Tensor, State]:
         raise NotImplementedError
+
+
+def _sweep(loss: torch.Tensor, order: List[torch.Tensor]) -> torch.Tensor:
+    """The finite flags of ``loss``, each parameter's gradient and each
+    parameter, in that order (``ops.tree_reduce.tree_finite``: one walk of
+    the multi-tensor kernel on the card)."""
+    none = torch.zeros((), dtype=torch.float32, device=loss.device)
+    leaves = ([loss.reshape(())]
+              + [p.grad if p.grad is not None else none for p in order]
+              + [p.detach() for p in order])
+    return tree_reduce.tree_finite(leaves)
 
 
 def _zeros(value: torch.Tensor) -> torch.Tensor:
@@ -371,6 +412,8 @@ class Adam(Optimizer):
         self._beta1 = float(beta1)
         self._beta2 = float(beta2)
         self._epsilon = float(epsilon)
+        # index tensors that put the check pass's flags in a caller's order
+        self._flag_order: Dict[tuple, torch.Tensor] = {}
 
     def _init_state(self, value: torch.Tensor) -> State:
         return {"moment1": _zeros(value), "moment2": _zeros(value),
@@ -390,6 +433,37 @@ class Adam(Optimizer):
         place, in one ``fused_adam_step`` call per device. A
         ``ClipGradByGlobalNorm`` runs inside that call; the other clips
         run on the gradients first."""
+        self._fused_step()
+
+    @torch.no_grad()
+    def step_checked(self, loss: torch.Tensor,
+                     order: List[torch.Tensor], gate: bool
+                     ) -> torch.Tensor:
+        """``Optimizer.step_checked`` through the kernel's check pass
+        (``fused_adam_step(check=...)``): the sweep evaluates the update
+        before it, and under ``gate`` the update reads the verdict on the
+        device and writes nothing on a bad step."""
+        check = fused.FiniteCheck(loss.reshape(()), gate)
+        params = self._fused_step(check)
+        if check.flags is None:  # no parameter had a gradient
+            return _sweep(loss, order)
+        # the kernel's flags follow `params` (the stepped ones); reorder
+        # to `order`, the last slot (always true) for the rest
+        n = len(params)
+        pos = {id(p): i for i, p in enumerate(params)}
+        key = (check.flags.device, tuple(pos.get(id(p), -1) for p in order),
+               n)
+        pick = self._flag_order.get(key)
+        if pick is None:
+            last = 2 * n + 1
+            grad = [1 + pos[id(p)] if id(p) in pos else last for p in order]
+            par = [1 + n + pos[id(p)] if id(p) in pos else last
+                   for p in order]
+            pick = self._flag_order[key] = torch.tensor(
+                [0] + grad + par, device=check.flags.device)
+        return check.flags[pick]
+
+    def _fused_step(self, check=None) -> List[torch.Tensor]:
         params_grads = self._params_grads()
         clip = self._grad_clip
         if clip is not None and not isinstance(clip, ClipGradByGlobalNorm):
@@ -399,6 +473,9 @@ class Adam(Optimizer):
         by_device: Dict[torch.device, list] = {}
         for p, g in params_grads:
             by_device.setdefault(p.device, []).append((p, g))
+        if check is not None and len(by_device) > 1:
+            raise NotImplementedError(
+                "a checked Adam step takes the parameters of one device")
         for dev, pairs in by_device.items():
             params = [p for p, _ in pairs]
             states = [self.state_for(p) for p in params]
@@ -414,7 +491,9 @@ class Adam(Optimizer):
                 weight_decay=[self._l2_coeff(p) for p in params],
                 decoupled_decay=[self._decoupled_coeff(p) for p in params],
                 clip_norm=clip.clip_norm if clip is not None else None,
-                need_clip=[getattr(p, "need_clip", True) for p in params])
+                need_clip=[getattr(p, "need_clip", True) for p in params],
+                check=check)
+        return [p for p, _ in params_grads]
 
 
 class AdamW(Adam):

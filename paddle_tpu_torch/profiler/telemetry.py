@@ -113,8 +113,14 @@ class Telemetry:
             return self._counters.get(name, 0)
 
     def gauge(self, name: str, value) -> None:
+        """Set a gauge. A tensor is kept as it is and read when the gauges
+        are (``snapshot``), so a device scalar costs no sync here."""
+        if isinstance(value, torch.Tensor):
+            value = value.detach()
+        else:
+            value = float(value)
         with self._lock:
-            self._gauges[name] = float(value)
+            self._gauges[name] = value
 
     def observe(self, name: str, value) -> None:
         self.histogram(name).observe(value)
@@ -141,6 +147,10 @@ class Telemetry:
             counters = dict(self._counters)
             gauges = dict(self._gauges)
             hists = dict(self._hists)
+        for k, v in gauges.items():
+            if isinstance(v, torch.Tensor):
+                f = _coerce_scalar(v.double().cpu())
+                gauges[k] = f if f is not None else float("nan")
         return {"counters": counters, "gauges": gauges,
                 "histograms": {k: h.summary() for k, h in hists.items()}}
 

@@ -59,7 +59,11 @@ def test_package_has_the_slice_modules():
                 "framework.io", "nn.layer_base", "amp.grad_scaler",
                 "io.prefetch", "hapi.callbacks", "callbacks", "hapi.model",
                 "hapi.summary", "vision.transforms", "vision.models.vgg",
-                "vision.models.mobilenet"):
+                "vision.models.mobilenet", "core.flags", "core.sanitizer",
+                "core.tree", "ops.tree_reduce", "resilience.watchdog",
+                "resilience.inject", "resilience.guard",
+                "resilience.integrity", "incubate.checkpoint",
+                "distributed.communication"):
         assert "paddle_tpu_torch." + mod in names
 
 
@@ -131,6 +135,11 @@ def test_entry_points_without_device_raise_on_a_cuda_less_machine(no_cuda):
         bench.main()
     with pytest.raises(RuntimeError, match="CUDA"):
         bench.main(["bert"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bench.main(["pipeline"])
+    from paddle_tpu_torch.resilience import golden_step_digest
+    with pytest.raises(RuntimeError, match="CUDA"):
+        golden_step_digest()
     with pytest.raises(RuntimeError):
         tbert.BertForPretraining(tbert.bert_tiny())
     with pytest.raises(RuntimeError):

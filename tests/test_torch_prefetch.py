@@ -6,7 +6,10 @@ order, running ahead of the consumer, the telemetry counters and
 histograms, bucketing of ragged batches — and `ShapeBuckets` against the
 reference's on the same arrays, bit for bit (pads, hits and misses).
 The default device is the card: without one the prefetcher raises, and
-`sharding` waits for the multi-GPU port."""
+`sharding` waits for the multi-GPU port. The engines' `prefetch`
+(`ParallelTrainStep`, `TrainStep`, `EvalStep`, as the reference's
+`test_engine_prefetch_end_to_end` / `test_jit_train_step_prefetch` use
+them) gives the losses and outputs of the loop without it."""
 import threading
 import time
 
@@ -176,3 +179,80 @@ def test_shape_buckets_refuse_empty_and_non_positive_sizes():
         ShapeBuckets((0, 8))
     assert ShapeBuckets((32, 8)).target(9) == 32
     assert ShapeBuckets((8,)).target(9) is None
+
+
+# -- the engines' prefetch ----------------------------------------------------
+def _engine_run(engine_cls, prefetch, n=5):
+    from paddle_tpu_torch import nn as tnn
+    from paddle_tpu_torch.optimizer import Adam
+
+    gen = torch.Generator().manual_seed(0)
+    net = tnn.Linear(8, 4, device="cpu")
+    with torch.no_grad():
+        net.weight.copy_(torch.randn(8, 4, generator=gen))
+    opt = Adam(1e-2, parameters=net.parameters())
+    step = engine_cls(net, lambda out, y: ((out - y) ** 2).mean(), opt,
+                      device="cpu")
+    rng = np.random.RandomState(0)
+    batches = [((rng.randn(16, 8).astype(np.float32),),
+                (rng.randn(16, 4).astype(np.float32),)) for _ in range(n)]
+    source = step.prefetch(iter(batches), depth=2) if prefetch else batches
+    return [float(step(x, y)) for x, y in source]
+
+
+@pytest.mark.parametrize("engine", ["TrainStep", "ParallelTrainStep"])
+def test_engine_prefetch_gives_the_losses_of_the_plain_loop(engine):
+    from paddle_tpu_torch.distributed.fleet.engine import ParallelTrainStep
+    from paddle_tpu_torch.jit.train_step import TrainStep
+
+    cls = {"TrainStep": TrainStep, "ParallelTrainStep": ParallelTrainStep}[
+        engine]
+    plain = _engine_run(cls, prefetch=False)
+    staged = _engine_run(cls, prefetch=True)
+    assert len(staged) == 5 and staged == plain
+
+
+def test_eval_step_prefetch_gives_the_same_outputs():
+    from paddle_tpu_torch import nn as tnn
+    from paddle_tpu_torch.jit.train_step import EvalStep
+
+    net = tnn.Linear(8, 4, device="cpu")
+    with torch.no_grad():
+        net.weight.copy_(torch.ones(8, 4))
+    ev = EvalStep(net)
+    rng = np.random.RandomState(1)
+    xs = [rng.randn(3, 8).astype(np.float32) for _ in range(4)]
+    with ev.prefetch(iter([(x,) for x in xs]), depth=2) as pf:
+        staged = [ev(*b) for b in pf]
+    assert len(staged) == 4
+    for x, y in zip(xs, staged):
+        assert isinstance(y, torch.Tensor)
+        assert torch.equal(y, ev(torch.from_numpy(x)))
+
+
+def test_engine_prefetch_stages_onto_the_engine_device():
+    from paddle_tpu_torch import nn as tnn
+    from paddle_tpu_torch.jit.train_step import TrainStep
+    from paddle_tpu_torch.optimizer import Adam
+
+    net = tnn.Linear(2, 2, device="cpu")
+    step = TrainStep(net, lambda o, y: o.sum(),
+                     Adam(1e-3, parameters=net.parameters()), device="cpu")
+    pf = step.prefetch([((np.ones((1, 2), np.float32),), ())],
+                       buckets=(4,))
+    assert pf._device == torch.device("cpu") and pf.depth == 2
+    assert pf._buckets is not None
+    pf.close()
+
+
+def test_pipeline_bench_twin_gives_the_same_losses_with_the_prefetcher():
+    """`bench pipeline`'s workload at a small size on the CPU: a pass
+    with `step.prefetch` and one without, from the same weights, give the
+    same losses (the bench's rates come from these passes)."""
+    from paddle_tpu_torch import bench
+
+    kw = dict(b=8, d=32, n_batches=4, acquire_s=0.0, device="cpu")
+    off = bench.InputPipeline(**kw).epoch(False)
+    on = bench.InputPipeline(**kw).epoch(True)
+    assert len(on) == 4 and on == off
+    assert all(np.isfinite(on))

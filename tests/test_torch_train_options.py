@@ -271,10 +271,20 @@ def test_engines_refuse_the_clips_they_do_not_run(engine, clip):
                                 dict(fingerprint_every=10),
                                 dict(remat="offload"), dict(remat="auto")])
 def test_train_step_refuses_what_is_not_ported(kw):
+    """The remat policies that wait for their slice are refused; the
+    resilience arguments are ported (since the resilience slice) and
+    taken as the reference takes them."""
     model = tgpt.GPTForCausalLM(tgpt.gpt2_tiny(num_layers=1), device="cpu")
     opt = AdamW(1e-3, parameters=model.parameters())
-    with pytest.raises(NotImplementedError):
-        TrainStep(model, lambda out, lbl: out, opt, device="cpu", **kw)
+    if "remat" in kw:
+        with pytest.raises(NotImplementedError):
+            TrainStep(model, lambda out, lbl: out, opt, device="cpu", **kw)
+        return
+    step = TrainStep(model, lambda out, lbl: out, opt, device="cpu", **kw)
+    assert step._check_nan is bool(kw.get("check_finite")
+                                   or kw.get("guard_updates"))
+    assert step._guard_updates is kw.get("guard_updates", False)
+    assert step.fingerprint_every == kw.get("fingerprint_every", 0)
 
 
 def test_eval_step_is_the_eval_forward_without_autograd():
