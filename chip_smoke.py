@@ -169,7 +169,28 @@ failing on the first phase that fails:
     Adam's check pass (``adam_finite_check``) gives its plain version's
     flags and is timed, and the step p50 with and without the guard.
 
-Every kernel's launch count is set to 0 before each of phases 4-15 and
+16. trains long-context GPT-small (12 layers, hidden 768, 12 heads,
+    ``max_position_embeddings=8192``) at b = 1, L = 8192 as
+    ``bench_all.py``'s ``longctx`` does: 16a holds #1-#3 at
+    [1, 8192, 12, 64] bf16 causal against their plain versions, the
+    ``xla`` (q-chunked) and ``blockwise`` tiers' outputs and gradients
+    against the f32 plain path (``TIER_REL_TOL``), and times #1-#3 and
+    SDPA's causal forward and backward beside their bound; 16b runs
+    ``paddle_tpu_torch.bench.bench_longctx`` at full size (the forced
+    blockwise leg, the measured tier verdict with every candidate's
+    timing, the ``remat='auto'`` probe at 60% of the off peak, whose
+    chosen peak must not exceed it, and the headline leg, whose engine
+    then takes 3 counted steps: losses finite and falling, #1-#3 12 a
+    step when the verdict is ``flash_tpu``, #5 25 and #7 2, peak memory,
+    and a 2-step profile), and a leg
+    forced onto ``flash_tpu`` when the verdict is another tier; 16c takes
+    2 steps under remat 'off' (twice), 'dots_no_batch', 'offload' and
+    'auto' (with the card's memory pinned to 60% of the off peak, so that
+    it must recompute) and holds step 1's loss, step 1's gradient norm
+    and step 2's loss against 'off' as 12b does, and compares offload's
+    measured peak with 'dots_no_batch''s (it must be lower).
+
+Every kernel's launch count is set to 0 before each of phases 4-16 and
 read after it. The last two lines are a ``{"kernels": [...]}`` JSON
 object and ``{"ok": true, "device": {...}}``.
 """
@@ -178,6 +199,7 @@ from __future__ import annotations
 import contextlib
 import itertools
 import json
+import os
 import re
 import shutil
 import subprocess
@@ -373,29 +395,47 @@ def time_ms(fn, iters=50, warmup=5):
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, what, iters=20, attempts=3):
+def device_ms(fn, what, iters=20, attempts=5):
     """Device time of one call of ``fn``: the summed duration of the
     kernels it launches (``torch.profiler``), without the host's launch
-    gaps that CUDA events over back-to-back calls also count. Now and then
-    the profiler records no kernel of a window: such a window is taken
-    again, up to ``attempts`` windows; then the run fails, naming ``what``
-    was timed."""
-    from torch.profiler import ProfilerActivity, profile
+    gaps that CUDA events over back-to-back calls also count. Each
+    profiler session first runs a warm-up window of ``iters`` calls whose
+    records it discards, then the measured window. Now and then the
+    profiler records no kernel of a window, or only some of them (a sum a
+    third short, seen at L = 8192 without the warm-up window): a window
+    with fewer device operations than calls (each call launches at least
+    one) is taken again, up to ``attempts`` sessions; then the run fails,
+    naming ``what`` was timed."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     torch.cuda.synchronize()
+    seen = []
     for _ in range(attempts):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        total = sum(getattr(e, "self_device_time_total", 0.0)
-                    for e in prof.key_averages()
-                    if e.device_type == torch.autograd.DeviceType.CUDA)
-        if total > 0:
-            return total / iters / 1e3
-    raise RuntimeError(f"device time of {what}: the profiler recorded no "
-                       f"kernel in {attempts} windows of {iters} calls")
+        got = {}
+
+        def ready(prof):
+            ops = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+            got["total"] = sum(getattr(e, "self_device_time_total", 0.0)
+                               for e in ops)
+            got["count"] = sum(e.count for e in ops)
+
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1),
+                     on_trace_ready=ready) as prof:
+            for _ in range(2):  # the warm-up window, the measured one
+                for _ in range(iters):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        seen.append(got.get("count", 0))
+        if got.get("total", 0) > 0 and got["count"] >= iters:
+            return got["total"] / iters / 1e3
+    raise RuntimeError(f"device time of {what}: the profiler recorded "
+                       f"{seen} device operations in {attempts} windows of "
+                       f"{iters} calls (fewer than calls)")
 
 
 def in_turn(fns):
@@ -557,7 +597,8 @@ def plain_kernels(gpt_mod, fused, flash_tpu, norm_mod, bert_mod, attention):
     norm_mod.fused_layer_norm = fused._ln_reference
     gpt_mod.fused_layer_norm = fused._ln_reference
     gpt_mod.dot_product_attention = \
-        lambda q, k, v, causal, layout: flash_tpu._flash_reference(q, k, v)[0]
+        lambda q, k, v, causal, layout, **_: \
+        flash_tpu._flash_reference(q, k, v)[0]
     bert_mod.dot_product_attention = bert_attention
     fused.fused_adam_step = fused._fused_adam_reference
     try:
@@ -2695,6 +2736,317 @@ def guard_phase(dev, counted, launches, model, make_opt, batch, loss_fn,
     return report, timing
 
 
+# --- phase 16: long-context training -----------------------------------
+# GPT-small's attention at bench_gpt_long_context's L = 8192, b = 1
+LONGCTX_ATTN_SHAPE = (1, 8192, 12, 64)
+LONGCTX_STEPS = 3  # the counted window of the headline and forced legs
+# the tiers on bf16 inputs against the f32 plain path, each output and
+# gradient within a share of its largest magnitude: blockwise computes in
+# f32 and rounds each result once (2^-8 of an element); the chunked tier
+# stores its scores, exp weights and dS in bf16 as the reference does (a
+# few roundings compound: 0.7% measured at L = 4096 on the CPU)
+TIER_REL_TOL = {"xla": 2.0 ** -5, "blockwise": 2.0 ** -6}
+
+
+def check_longctx_attention(rnd, flash_tpu, attention, err):
+    """Phase 16a: #1-#3 at the long-context shape against their plain
+    versions; the xla (chunked) and blockwise tiers' outputs and gradients
+    against the plain materialized path; times of #1-#3 and SDPA's causal
+    forward and backward. Returns the timing entries."""
+    F = torch.nn.functional
+    shape = LONGCTX_ATTN_SHAPE
+    q, k, v, do = attn_operands(rnd, shape, torch.bfloat16)
+    out, lse = flash_tpu.flash_attention_blhd(q, k, v)
+    torch.cuda.synchronize()
+    ref_out, ref_lse = flash_tpu._flash_reference(q, k, v)
+    e_o, ok_o = worst(out, ref_out, *FLASH_OUT_TOL[torch.bfloat16])
+    e_l, ok_l = worst(lse, ref_lse, *FLASH_LSE_TOL[torch.bfloat16])
+    del ref_out, ref_lse
+    err["flash_attn_fwd"] = max(err["flash_attn_fwd"], e_o, e_l)
+    res, res32, res_d = check_flash_backward(flash_tpu, q, k, v, do, out,
+                                             lse, True, None)
+    for name, (e, _) in zip(("flash_attn_bwd_dq", "flash_attn_bwd_dkv",
+                             "flash_attn_bwd_dkv"), res):
+        err[name] = max(err[name], e)
+    log(f"[16a] flash bf16 (b,L,H,d)={shape}: out err {e_o:.3g} (tol "
+        f"{FLASH_OUT_TOL[torch.bfloat16]}), lse err {e_l:.3g}; "
+        + bwd_report(res, res32, res_d))
+    if not (ok_o and ok_l and all(ok for _, ok in res + res32)
+            and res_d[1]):
+        raise AssertionError("a flash kernel disagrees at L = 8192")
+    torch.cuda.empty_cache()
+
+    # the tiers against the f32 plain path, forward and backward
+    leaves = [t.float().requires_grad_() for t in (q, k, v)]
+    ref = attention._materialized(*leaves, causal=True, layout="blhd")
+    refs = [ref.detach(), *torch.autograd.grad(ref, leaves, do.float())]
+    del ref, leaves
+    torch.cuda.empty_cache()
+    tr = lambda t: t.transpose(1, 2)
+    tiers = {"xla": lambda a, b, c: attention.xla_attention(
+                 a, b, c, causal=True, layout="blhd"),
+             "blockwise": lambda a, b, c: tr(attention.blockwise_attention(
+                 tr(a), tr(b), tr(c), causal=True))}
+    for tier, fn in tiers.items():
+        lv = [t.clone().requires_grad_() for t in (q, k, v)]
+        o = fn(*lv)
+        got = [o.detach(), *torch.autograd.grad(o, lv, do)]
+        errs = [float((a.float() - b).abs().max()) / float(b.abs().max())
+                for a, b in zip(got, refs)]
+        log(f"[16a] tier {tier} bf16 {shape}: out/dq/dk/dv max err "
+            + "/".join(f"{e:.4f}" for e in errs)
+            + f" of max|ref| (tol {TIER_REL_TOL[tier]:.4g})")
+        if max(errs) > TIER_REL_TOL[tier]:
+            raise AssertionError(f"the {tier} tier disagrees at L = 8192")
+        del lv, o, got
+    del refs
+    torch.cuda.empty_cache()
+
+    # times, as phases 3 and 3b take them
+    timings = []
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    bound, by = flash_bound(*shape, torch.bfloat16)
+    timings.append({
+        "kernel": "flash_attn_fwd", "shape": list(shape),
+        "dtype": "bfloat16",
+        "ms": time_ms(lambda: flash_tpu.flash_attention_blhd(q, k, v),
+                      iters=20),
+        "plain_ms": time_ms(lambda: flash_tpu._flash_reference(q, k, v),
+                            iters=5, warmup=1),
+        "library_ms": time_ms(sdpa, iters=20),
+        "device_ms": device_ms(lambda: flash_tpu.flash_attention_blhd(
+            q, k, v), f"flash_attn_fwd {shape}"),
+        "library_device_ms": device_ms(sdpa, f"SDPA {shape}"),
+        "bound_ms": bound, "bound_by": by})
+    _, delta = flash_tpu.flash_bwd_dq(q, k, v, do, lse, out)
+    lt = [t.detach().requires_grad_() for t in (qt, kt, vt)]
+    ys = F.scaled_dot_product_attention(*lt, is_causal=True)
+    lib = lambda: torch.autograd.grad(ys, lt, do.transpose(1, 2),
+                                      retain_graph=True)
+    plain_ms = time_ms(lambda: flash_tpu._flash_bwd_reference(
+        q, k, v, out, lse, do, bf16_operands=True), iters=3, warmup=1)
+    lib_ms, lib_dev = time_ms(lib, iters=20), device_ms(
+        lib, f"SDPA's causal backward {list(shape)}")
+    for name, kern in (
+            ("dq", lambda: flash_tpu.flash_bwd_dq(q, k, v, do, lse, out)),
+            ("dkv", lambda: flash_tpu.flash_bwd_dkv(q, k, v, do, lse,
+                                                    delta))):
+        bound, by = flash_bound(*shape, torch.bfloat16, name)
+        timings.append({
+            "kernel": f"flash_attn_bwd_{name}", "shape": list(shape),
+            "dtype": "bfloat16", "ms": time_ms(kern, iters=20),
+            "plain_ms": plain_ms, "library_ms": lib_ms,
+            "device_ms": device_ms(kern, f"flash_attn_bwd_{name} {shape}"),
+            "library_device_ms": lib_dev, "bound_ms": bound, "bound_by": by,
+            "note": "plain and library times are the whole backward "
+                    "(dQ, dK and dV)"})
+    for t in timings:
+        log(f"[16a] time {t['kernel']} {t['shape']} bf16: device "
+            f"{t['device_ms']:.4f} ms (events {t['ms']:.4f}), "
+            f"{t['bound_ms'] / t['device_ms']:.3f} of its bound "
+            f"{t['bound_ms']:.4f} ms ({t['bound_by']}); plain "
+            f"{t['plain_ms']:.3f} ms; SDPA device "
+            f"{t['library_device_ms']:.4f} ms "
+            f"(events {t['library_ms']:.4f})")
+    del q, k, v, do, out, lse, delta, lt, ys
+    torch.cuda.empty_cache()
+    return timings
+
+
+def longctx_phase(counted, launches, bench_mod):
+    """Phase 16b: ``bench_gpt_long_context``'s twin at full size
+    (``bench.bench_longctx``); its legs' launches go to
+    ``launches[kernel]["longctx_bench"]``, the headline engine's counted
+    window to ``["longctx"]``, a leg forced onto ``flash_tpu`` (when the
+    verdict is another tier) to ``["longctx_flash"]``. Returns the bench's
+    result and the phase that ran #1-#3."""
+    from paddle_tpu_torch.profiler.telemetry import get_telemetry
+
+    config, b, L, _ = bench_mod.longctx_config()
+    n_layers = config.num_layers
+    window = {}
+
+    def counted_steps(engine, ids, labels, phase):
+        _cleared(counted)
+        losses = [float(engine((ids,), (labels,)))
+                  for _ in range(LONGCTX_STEPS)]
+        torch.cuda.synchronize()
+        per_step = {n: c / LONGCTX_STEPS for n, c in
+                    _read_launches(counted, launches, phase).items()}
+        if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+            raise AssertionError(f"{phase}: losses {losses} not finite "
+                                 "and falling")
+        return losses, per_step
+
+    def hook(engine, ids, labels):
+        _read_launches(counted, launches, "longctx_bench")
+        torch.cuda.reset_peak_memory_stats()
+        window["losses"], window["per_step"] = counted_steps(
+            engine, ids, labels, "longctx")
+        window["peak_bytes"] = torch.cuda.max_memory_allocated()
+        window["profile"] = profile_step("16b", engine, ((ids,), (labels,)))
+
+    _cleared(counted)
+    t0 = time.perf_counter()
+    result = bench_mod.bench_longctx(headline_hook=hook)
+    seconds = time.perf_counter() - t0
+    tier = result["attn_tier_selected"]
+    log(f"[16b] longctx bench ({seconds:.1f} s): tier verdict {tier}, "
+        f"timings (ms, fwd+bwd at [1, 12, 8192, 64] bf16) "
+        f"{result['tier_timings_ms']}; tokens/s {result['value']} "
+        f"(forced blockwise {result['tokens_per_sec_forced_blockwise']}, "
+        f"speedup {result['tier_ablation_speedup']}), mfu "
+        f"{result['mfu_pct']}%")
+    log(f"[16b] remat probe: off peak {result['remat_off_peak_hbm_bytes']:.0f}"
+        f" B, budget {result['remat_budget_bytes']:.0f} B, chosen "
+        f"{result['remat_auto_policy']!r} at "
+        f"{result['remat_auto_peak_hbm_bytes']:.0f} B")
+    if not (result["remat_auto_peak_hbm_bytes"]
+            <= result["remat_off_peak_hbm_bytes"]):
+        raise AssertionError("remat='auto' chose a peak above the off peak")
+    fallbacks = get_telemetry().counter_value("attn/tier_fallbacks")
+    if fallbacks:
+        raise AssertionError(f"{fallbacks} attention calls were rerouted")
+    per_step = window["per_step"]
+    flash_steps = 1 if tier == "flash_tpu" else 0
+    want = {"flash_attn_fwd": n_layers * flash_steps,
+            "flash_attn_bwd_dq": n_layers * flash_steps,
+            "flash_attn_bwd_dkv": n_layers * flash_steps,
+            "layer_norm_fwd": 2 * n_layers + 1, "adam": 2}
+    log(f"[16b] headline leg ({tier}): losses {window['losses']}, peak "
+        f"{window['peak_bytes']} B, launches a step {per_step}")
+    result["headline_profile"] = window["profile"]
+    result["headline_peak_bytes"] = window["peak_bytes"]
+    for name, n in want.items():
+        if per_step[name] != n:
+            raise AssertionError(f"longctx: {name} launched {per_step[name]}"
+                                 f" a step, expected {n}")
+    flash_phase = "longctx"
+    if tier != "flash_tpu":
+        # the verdict went elsewhere: #1-#3 still run in this training step
+        flash_phase = "longctx_flash"
+        ids, labels = bench_mod.longctx_batch(config, b, L)
+        with forced_attention_policy("flash_tpu"):
+            engine = bench_mod.longctx_engine(config)
+            losses, per_step = counted_steps(engine, ids, labels,
+                                             flash_phase)
+        del engine
+        log(f"[16b] forced flash_tpu leg: losses {losses}, launches a step "
+            f"{per_step}")
+        for name in ("flash_attn_fwd", "flash_attn_bwd_dq",
+                     "flash_attn_bwd_dkv"):
+            if per_step[name] != n_layers:
+                raise AssertionError(f"forced flash_tpu: {name} launched "
+                                     f"{per_step[name]} a step")
+        torch.cuda.empty_cache()
+    return result, flash_phase
+
+
+@contextlib.contextmanager
+def forced_attention_policy(policy):
+    saved = os.environ.get("PADDLE_TPU_ATTN_POLICY")
+    os.environ["PADDLE_TPU_ATTN_POLICY"] = policy
+    try:
+        yield
+    finally:
+        if saved is None:
+            del os.environ["PADDLE_TPU_ATTN_POLICY"]
+        else:
+            os.environ["PADDLE_TPU_ATTN_POLICY"] = saved
+
+
+@contextlib.contextmanager
+def step_grad_norms(engine, norms):
+    """Append to ``norms`` the global norm (f32, a device scalar) of the
+    gradients that each of ``engine``'s optimizer steps is about to apply;
+    the step itself is left as it is."""
+    opt = engine._optimizer
+    real = opt.step
+    params = [p for p in engine._layer.parameters() if p.requires_grad]
+
+    def step(*a, **k):
+        norms.append(torch.linalg.vector_norm(torch.stack(
+            [torch.linalg.vector_norm(p.grad.float()) for p in params
+             if p.grad is not None])))
+        return real(*a, **k)
+
+    opt.step = step
+    try:
+        yield
+    finally:
+        del opt.step
+
+
+def longctx_remat_phase(counted, launches, bench_mod):
+    """Phase 16c: remat 'offload' and 'auto' at the long-context shape,
+    held against 'off' as phase 12b holds the other policies — step 1's
+    loss, the global norm of step 1's gradients (what 'offload''s copies
+    out to pinned host memory and back feed) and step 2's loss, all the
+    bits of 'off' when two 'off' runs agree bit for bit, else no further
+    from 'off' than they are from each other. 'auto' resolves with the
+    card's memory pinned to 60% of 'off''s measured peak, so that it takes
+    a recompute rung. Offload's measured peak must lie below
+    'dots_no_batch''s."""
+    config, b, L, _ = bench_mod.longctx_config()
+    ids, labels = bench_mod.longctx_batch(config, b, L)
+    runs, peaks = {}, {}
+    saved = os.environ.get("PADDLE_TPU_DEVICE_HBM_BYTES")
+    try:
+        for run, policy in enumerate(("off", "off", "dots_no_batch",
+                                      "offload", "auto")):
+            engine = bench_mod.longctx_engine(config, remat=policy)
+            if run == 0:
+                for p in ("off", "dots_no_batch", "offload"):
+                    peaks[p] = engine.lower_cost(p, (ids,), (labels,))[
+                        "peak_hbm_bytes"]
+                pinned = int(0.6 * peaks["off"])
+            if policy == "auto":
+                os.environ["PADDLE_TPU_DEVICE_HBM_BYTES"] = str(pinned)
+            norms = []
+            with step_grad_norms(engine, norms):
+                _cleared(counted)
+                losses = [engine((ids,), (labels,)) for _ in range(2)]
+                torch.cuda.synchronize()
+            _read_launches(counted, launches, f"longctx_remat_{policy}")
+            name = f"{policy}#2" if (policy == "off" and run) else policy
+            runs[name] = torch.stack([losses[0], norms[0], losses[1]])
+            if policy == "auto":
+                chosen = engine.remat_policy_chosen
+            del engine
+            torch.cuda.empty_cache()
+    finally:
+        if saved is None:
+            os.environ.pop("PADDLE_TPU_DEVICE_HBM_BYTES", None)
+        else:
+            os.environ["PADDLE_TPU_DEVICE_HBM_BYTES"] = saved
+    noise = (runs["off"] - runs["off#2"]).abs()
+    bitwise_off = not bool(noise.any())
+    got = {k: [float(x) for x in v] for k, v in runs.items()}
+    log(f"[16c] (step 1 loss, step 1 grad norm, step 2 loss): {got}; two "
+        f"'off' runs differ by {[float(x) for x in noise]}; auto chose "
+        f"{chosen!r} with the memory pinned to {pinned} B; peaks off "
+        f"{peaks['off']:.0f} B, offload {peaks['offload']:.0f} B, "
+        f"dots_no_batch {peaks['dots_no_batch']:.0f} B")
+    for name, v in runs.items():
+        if (not torch.equal(v, runs["off"])) if bitwise_off else \
+                bool(((v - runs["off"]).abs() > noise).any()):
+            raise AssertionError(f"16c: {name} gives {got[name]}, 'off' "
+                                 f"{got['off']} (off vs off "
+                                 f"{[float(x) for x in noise]})")
+    if chosen == "off":
+        raise AssertionError("16c: 'auto' took no recompute with the "
+                             "memory pinned below 'off''s peak")
+    if not peaks["offload"] < peaks["dots_no_batch"]:
+        raise AssertionError("16c: offload's peak is not below "
+                             "dots_no_batch's")
+    return {"runs": got, "bitwise_off_vs_off": bitwise_off,
+            "auto_chosen": chosen, "auto_pinned_memory_bytes": pinned,
+            "peak_off_bytes": peaks["off"],
+            "peak_offload_bytes": peaks["offload"],
+            "peak_dots_no_batch_bytes": peaks["dots_no_batch"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2721,6 +3073,7 @@ def main() -> int:
     from paddle_tpu_torch.profiler.telemetry import get_telemetry
     from paddle_tpu_torch.text.models import bert as bert_mod
     from paddle_tpu_torch.text.models import gpt as gpt_mod
+    from paddle_tpu_torch import bench as bench_mod
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3479,6 +3832,13 @@ def main() -> int:
     log("resilience " + json.dumps(resilience))
     torch.cuda.empty_cache()
 
+    # -- phase 16: long-context training ---------------------------------------
+    longctx_t = check_longctx_attention(rnd, flash_tpu, attention, err)
+    longctx, flash_phase = longctx_phase(counted, launches, bench_mod)
+    longctx["remat"] = longctx_remat_phase(counted, launches, bench_mod)
+    log("longctx " + json.dumps(longctx))
+    torch.cuda.empty_cache()
+
     # -- the kernels line and the result --------------------------------------
     def timed(kernel, shape):
         return next(t for t in timings if t["kernel"] == kernel
@@ -3493,27 +3853,30 @@ def main() -> int:
             ("layer_norm_fwd", "paddle_tpu_torch/csrc/layer_norm.cu",
              "paddle_tpu/ops/fused.py:25",
              timed("layer_norm_fwd", list(LN_TIMED[0])),
-             ("dense_forward", "training", "bert_training")),
+             ("dense_forward", "training", "bert_training", "longctx")),
             ("flash_attn_fwd", "paddle_tpu_torch/csrc/flash_attn_fwd.cu",
              "paddle_tpu/ops/flash_tpu.py:43",
              timed("flash_attn_fwd", list(GPT_ATTN_SHAPE)),
-             ("dense_forward", "training")),
+             ("dense_forward", "training", flash_phase)),
             ("layer_norm_bwd", "paddle_tpu_torch/csrc/layer_norm_bwd.cu",
              "paddle_tpu/ops/fused.py:34",
              timed("layer_norm_bwd", list(LN_TIMED[0])),
-             ("training", "bert_training")),
+             ("training", "bert_training", "longctx")),
             ("flash_attn_bwd_dq", "paddle_tpu_torch/csrc/flash_attn_bwd.cu",
              "paddle_tpu/ops/flash_tpu.py:83",
-             timed("flash_attn_bwd_dq", [8, 1024, 16, 64]), ("training",)),
+             timed("flash_attn_bwd_dq", [8, 1024, 16, 64]),
+             ("training", flash_phase)),
             ("flash_attn_bwd_dkv", "paddle_tpu_torch/csrc/flash_attn_bwd.cu",
              "paddle_tpu/ops/flash_tpu.py:118",
-             timed("flash_attn_bwd_dkv", [8, 1024, 16, 64]), ("training",)),
+             timed("flash_attn_bwd_dkv", [8, 1024, 16, 64]),
+             ("training", flash_phase)),
             ("adam", "paddle_tpu_torch/csrc/adam.cu",
              "paddle_tpu/ops/fused.py:172",
              next(t for t in timings if t["kernel"] == "adam"),
              ("training", "bert_training") + options_paths
              + ("lenet_training", "lenet_mnist", "hapi_lenet", "pipeline",
-                "bert_fingerprint_0", "guard_gpt", "guard_bert")),
+                "bert_fingerprint_0", "guard_gpt", "guard_bert",
+                "longctx")),
             ("grad_sumsq", "paddle_tpu_torch/csrc/adam.cu",
              "paddle_tpu/nn/clip.py:111", sumsq_t, options_paths),
             ("flash_attn_fwd_full", "paddle_tpu_torch/csrc/flash_attn_fwd.cu",
@@ -3555,6 +3918,11 @@ def main() -> int:
             "device_ms": t["device_ms"],
             "device_l2_ms": t.get("device_l2_ms"), "shape": t["shape"],
             "dtype": t["dtype"]})
+        at_8192 = [t for t in longctx_t if t["kernel"] == name]
+        if at_8192:
+            kernels[-1]["longctx"] = {k: at_8192[0][k] for k in (
+                "shape", "ms", "device_ms", "plain_ms", "library_ms",
+                "library_device_ms", "bound_ms", "bound_by")}
         if name == "adam":
             kernels[-1]["lenet"] = {k: lenet_adam_t[k] for k in (
                 "shape", "ms", "device_ms", "plain_ms", "library_ms",

@@ -41,25 +41,48 @@ of 3 with ``step.prefetch(batches, depth=2)``; its keys (``value``: the
 samples/s with the prefetcher, ``prefetch_off_samples_per_sec``,
 ``speedup``).
 
-Each prints a line naming the card, then one JSON line. They need a CUDA
-card and raise without one.
+Long context: ``bench_gpt_long_context``'s configuration and legs —
+GPT-small (12 layers, hidden 768, 12 heads, vocab 50304,
+``max_position_embeddings=8192``, dropout 0) at b = 1, L = 8192, ``Adam(1e-4)``,
+bf16 compute on f32 parameters through ``ParallelTrainStep`` with no
+recompute, one batch from ``RandomState(0)``: (1) the forced ``blockwise``
+tier, ``max(2, iters // 2)`` steps a window; (2) ``PADDLE_TPU_ATTN_POLICY=
+bench`` (unless the caller set a policy) with the verdict cache in a
+temporary file; (3) the ``remat='auto'`` probe: ``lower_cost('off')``, the
+budget pinned to 60% of its peak (``PADDLE_TPU_DEVICE_HBM_BYTES``), then
+``remat_policy.resolve``; (4) the headline leg, ``iters = 10`` steps a
+window after a telemetry reset. Its keys are the reference's (``metric``,
+``value``, ``unit``, ``seq_len``, ``tokens_per_sec_forced_blockwise``,
+``tier_ablation_speedup``, ``attn_tier_selected``, ``remat_off_peak_hbm_
+bytes``, ``remat_auto_policy``, ``remat_auto_peak_hbm_bytes``, ``mfu_pct``
+over the H100's dense bf16 peak, ``vs_baseline``) and ``tier_timings_ms``,
+the verdict's timings. The reference's one-device ``mesh`` waits for the
+multi-device port. ``--smoke`` is the reference's smoke size (2 layers,
+hidden 128, 4 heads, vocab 1024, L = 512, f32, ``remat='full'``, 2 steps a
+window) and runs on the CPU:
+
+    python -m paddle_tpu_torch.bench longctx [--smoke]
+
+Each prints a line naming its device, then one JSON line. Apart from
+``longctx --smoke`` they need a CUDA card and raise without one.
 """
 from __future__ import annotations
 
 import json
+import os
 import sys
+import tempfile
 import time
 from typing import List, Optional
 
 import numpy as np
 import torch
 
+from .profiler.xla_cost import H100_BF16_DENSE_FLOPS
+
 # bench.py's BASELINE_TOKENS_PER_SEC: 90% of an A100 at 45% training MFU
 # on this model (~68k tokens/s), the north star of the whole repository
 BASELINE_TOKENS_PER_SEC = 61_000.0
-# NVIDIA's data sheet for the H100 SXM: dense bf16 tensor-core peak at its
-# 700 W power limit
-H100_BF16_DENSE_FLOPS = 989e12
 
 
 def _require_card(what: str) -> None:
@@ -247,17 +270,174 @@ def bench_pipeline() -> dict:
             "speedup": round(on / off, 3)}
 
 
+def longctx_config(smoke: bool = False):
+    """``bench_gpt_long_context``'s model and shape: ``(config, b, L,
+    iters)``."""
+    from .text.models.gpt import GPTConfig
+
+    if smoke:
+        return (GPTConfig(vocab_size=1024, hidden_size=128, num_layers=2,
+                          num_heads=4, max_position_embeddings=512,
+                          hidden_dropout=0.0, attention_dropout=0.0),
+                1, 512, 2)
+    return (GPTConfig(hidden_size=768, num_layers=12, num_heads=12,
+                      max_position_embeddings=8192, hidden_dropout=0.0,
+                      attention_dropout=0.0), 1, 8192, 10)
+
+
+def longctx_engine(config, smoke: bool = False, remat=None, device="cuda"):
+    """The leg's engine on a fresh model from seed 0: ``Adam(1e-4)``; at
+    full size bf16 compute on f32 parameters and no recompute, at the
+    smoke size f32 and ``remat='full'``."""
+    from .distributed.fleet.engine import ParallelTrainStep
+    from .optimizer import Adam
+    from .text.models.gpt import GPTForCausalLM
+
+    model = GPTForCausalLM(config, device=device, seed=0)
+    opt = Adam(learning_rate=1e-4, parameters=model.parameters())
+    return ParallelTrainStep(
+        model, loss_fn=model.loss_fn, optimizer=opt, device=device,
+        remat=("full" if smoke else "off") if remat is None else remat,
+        compute_dtype=None if smoke else torch.bfloat16)
+
+
+def longctx_batch(config, b: int, L: int, device="cuda"):
+    """The leg's batch from ``RandomState(0)``: ids and the ids shifted
+    by one."""
+    rng = np.random.RandomState(0)
+    ids = rng.randint(0, config.vocab_size, (b, L)).astype(np.int64)
+    labels = np.roll(ids, -1, axis=1)
+    return (torch.from_numpy(ids).to(device),
+            torch.from_numpy(labels).to(device))
+
+
+def longctx_flops_per_token(config, L: int) -> float:
+    """``bench_gpt_long_context``'s count: 6 x the matmul parameters
+    (12·n·h² + V·h) plus the causal attention term 6·L·h·n."""
+    n_mat = (12 * config.num_layers * config.hidden_size ** 2
+             + config.vocab_size * config.hidden_size)
+    return 6 * n_mat + 6 * L * config.hidden_size * config.num_layers
+
+
+_LONGCTX_ENV = ("PADDLE_TPU_ATTN_POLICY", "PADDLE_TPU_ATTN_TIER_CACHE",
+                "PADDLE_TPU_DEVICE_HBM_BYTES")
+
+
+def bench_longctx(smoke: bool = False, headline_hook=None) -> dict:
+    """The four legs (module docstring). ``headline_hook(engine, ids,
+    labels)``, when given, is called with the headline leg's engine after
+    its windows (the smoke test reads launches and losses there)."""
+    from .ops import remat_policy, tier_policy
+    from .profiler.telemetry import get_telemetry
+
+    device = "cpu" if smoke else "cuda"
+    if not smoke:
+        _require_card("GPT-small long-context training")
+    config, b, L, iters = longctx_config(smoke)
+    ids, labels = longctx_batch(config, b, L, device)
+
+    def measure(engine, n_iter):
+        return _rate(lambda i: engine((ids,), (labels,)), 1, n_iter) * b * L
+
+    def release():
+        if device == "cuda":
+            torch.cuda.empty_cache()
+
+    tel = get_telemetry()
+    saved_env = {k: os.environ.get(k) for k in _LONGCTX_ENV}
+    scratch = tempfile.TemporaryDirectory(prefix="paddle_tpu_torch_bench_")
+    try:
+        # the tier ablation leg: the forced streaming floor
+        os.environ["PADDLE_TPU_ATTN_POLICY"] = "blockwise"
+        engine = longctx_engine(config, smoke, device=device)
+        abl_tps = measure(engine, max(2, iters // 2))
+        del engine
+        release()
+
+        # measured tier selection for the remaining legs
+        os.environ["PADDLE_TPU_ATTN_POLICY"] = (
+            saved_env["PADDLE_TPU_ATTN_POLICY"] or "bench")
+        if tier_policy.cache_path() is None:
+            os.environ["PADDLE_TPU_ATTN_TIER_CACHE"] = os.path.join(
+                scratch.name, "attn_tiers.json")
+        tier_policy.reset()  # in-memory verdicts; the file decides
+
+        # the remat control-loop probe
+        probe = longctx_engine(config, smoke, remat="auto", device=device)
+        remat_cols = {}
+        off = probe.lower_cost("off", (ids,), (labels,))
+        if off is not None:
+            os.environ["PADDLE_TPU_DEVICE_HBM_BYTES"] = str(
+                max(int(off["peak_hbm_bytes"] * 0.6), 1))
+            chosen = remat_policy.resolve(
+                "fleet.train_step",
+                lambda p: probe.lower_cost(p, (ids,), (labels,)),
+                device=device)
+            remat_cols = {
+                "remat_off_peak_hbm_bytes": off["peak_hbm_bytes"],
+                "remat_auto_policy": chosen,
+                "remat_auto_peak_hbm_bytes": tel.scalars().get(
+                    "gauge/remat/peak_hbm/fleet.train_step"),
+                "remat_budget_bytes": remat_policy.budget_bytes(device)}
+            del os.environ["PADDLE_TPU_DEVICE_HBM_BYTES"]
+        del probe
+        release()
+
+        # the headline leg: measured tier selection, clean telemetry
+        tel.reset()
+        engine = longctx_engine(config, smoke, device=device)
+        tps = measure(engine, iters)
+        if headline_hook is not None:
+            headline_hook(engine, ids, labels)
+        del engine
+        release()
+    finally:
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        scratch.cleanup()
+    d = config.hidden_size // config.num_heads
+    tier_id = tel.scalars().get(
+        f"gauge/attn/tier.{tier_policy.gauge_key(L, d, True)}")
+    id_to_name = {v: k for k, v in tier_policy.TIER_IDS.items()}
+    dtype = torch.float32 if smoke else torch.bfloat16
+    verdict = tier_policy.registry().verdict(tier_policy.make_key(
+        config.num_heads, L, d, dtype, True, device)) or {}
+    out = {"metric": "gpt_small_L8192_longctx_train_tokens_per_sec",
+           "value": round(tps, 1), "unit": "tokens/sec", "seq_len": L,
+           "tokens_per_sec_forced_blockwise": round(abl_tps, 1),
+           "tier_ablation_speedup": round(tps / abl_tps, 3),
+           "attn_tier_selected": id_to_name.get(tier_id, "unknown"),
+           "tier_timings_ms": verdict.get("timings_ms")}
+    out.update(remat_cols)
+    if not smoke:
+        flops_tok = longctx_flops_per_token(config, L)
+        out["mfu_pct"] = round(100.0 * tps * flops_tok
+                               / H100_BF16_DENSE_FLOPS, 2)
+        # bench.py's north-star methodology: 90% of an A100 at a typical
+        # 45% training MFU (312 TF/s bf16 peak)
+        out["vs_baseline"] = round(
+            tps / (0.9 * 0.45 * 312e12 / flops_tok), 4)
+    return out
+
+
 def main(argv: Optional[List[str]] = None) -> dict:
-    """Run the bench named by ``argv[0]`` (``gpt``, the default, ``bert``
-    or ``pipeline``) and print its result."""
+    """Run the bench named by ``argv[0]`` (``gpt``, the default, ``bert``,
+    ``pipeline`` or ``longctx`` [``--smoke``]) and print its result."""
+    argv = list(argv or [])
+    smoke = "--smoke" in argv
+    argv = [a for a in argv if a != "--smoke"]
     which = argv[0] if argv else "gpt"
     benches = {"gpt": bench_gpt, "bert": bench_bert,
-               "pipeline": bench_pipeline}
-    if which not in benches:
+               "pipeline": bench_pipeline,
+               "longctx": lambda: bench_longctx(smoke)}
+    if which not in benches or (smoke and which != "longctx"):
         raise SystemExit(f"usage: python -m paddle_tpu_torch.bench "
-                         f"[{'|'.join(benches)}]")
+                         f"[{'|'.join(benches)}] [--smoke (longctx)]")
     result = benches[which]()
-    print(f"device: {torch.cuda.get_device_name(0)}")
+    print("device: " + ("cpu" if smoke else torch.cuda.get_device_name(0)))
     print(json.dumps(result))
     return result
 

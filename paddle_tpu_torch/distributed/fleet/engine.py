@@ -35,7 +35,15 @@ reference's compiled engines skip a ``ClipGradByValue`` or
 ``ClipGradByNorm`` without a word (``apply_optimizer_update``); the port
 refuses them here. ``remat`` (or the older ``recompute``; ``remat`` wins)
 names an ``ops.remat_policy`` policy: each decoder block, or encoder
-layer, is recomputed in the backward.
+layer, is recomputed in the backward. ``remat='auto'`` is resolved on the
+first call's batch (``remat_policy.resolve`` over ``lower_cost``, entry
+``fleet.train_step``, ``jit.train_step`` for ``jit.TrainStep``); the
+chosen policy is the engine's from then on (``remat_policy_chosen``).
+``lower_cost(policy, inputs, labels)`` measures one forward and backward
+of this step under ``policy`` (``remat_policy.step_cost``: peak memory,
+FLOPs, bytes) and leaves the engine as it was: parameters, masters,
+optimizer state, ``.grad``, buffers, the dropout generators and the
+global RNGs, the step count and the telemetry step counters.
 
 Unlike the reference, whose jitted step holds its own copy of the state,
 the step updates the layer's parameters in place: they ARE the step's
@@ -119,10 +127,11 @@ class ParallelTrainStep:
     """One training step of ``layer`` on one device (default ``"cuda"``).
 
     Not ported yet, and refused: a mesh and its data-, tensor- and
-    sequence-parallel axes, ZeRO sharding, ``remat='offload'`` and
-    ``'auto'``, and a clip other than ``ClipGradByGlobalNorm``."""
+    sequence-parallel axes, ZeRO sharding, and a clip other than
+    ``ClipGradByGlobalNorm``."""
 
     _telemetry = "engine"  # the prefix of the step's counters
+    _remat_entry = "fleet.train_step"  # remat='auto''s gauge entry
 
     def __init__(self, layer: nn.Module, loss_fn: Callable, optimizer,
                  device=None, compute_dtype: Optional[torch.dtype] = None,
@@ -169,10 +178,17 @@ class ParallelTrainStep:
         self._optimizer = optimizer
         self._compute_dtype = compute_dtype
         self._master = compute_dtype is not None and bool(master_weights)
-        self._apply = remat_policy.apply_policy(functionalize(
+        self._forward = functionalize(
             layer, training=True,
-            compute_dtype=None if self._master else compute_dtype),
-            recompute if remat is None else remat, layer)
+            compute_dtype=None if self._master else compute_dtype)
+        self._remat = remat_policy.normalize(
+            recompute if remat is None else remat)
+        self.remat_policy_chosen: Optional[str] = None
+        self._apply = None  # remat='auto': built on the first batch
+        if self._remat != "auto":
+            self.remat_policy_chosen = self._remat
+            self._apply = remat_policy.apply_policy(self._forward,
+                                                    self._remat, layer)
         optimizer.name_parameters(layer.named_parameters())
         if self._master:
             for p in layer.parameters():
@@ -348,6 +364,8 @@ class ParallelTrainStep:
                                for a in _as_tuple(inputs))
                 labels = tuple(as_tensor(a).to(dev, non_blocking=True)
                                for a in _as_tuple(labels))
+            if self._apply is None:
+                self._resolve_remat(inputs, labels)
             with _spans.span("compute", cat="compute"):
                 old_buffers = ([(b, b.clone()) for b in self._layer.buffers()]
                                if self._guard_updates else [])
@@ -375,6 +393,70 @@ class ParallelTrainStep:
             if not self._guard_updates:
                 self._raise_if_nonfinite(step_no)
         return loss.detach()
+
+    # -- remat='auto' ----------------------------------------------------------
+    def lower_cost(self, policy, inputs, labels) -> Optional[Dict[str, float]]:
+        """``remat_policy.step_cost`` of this step's forward and backward
+        under ``policy`` on this batch (the measurement ``remat='auto'``
+        ladders on), or None when it runs out of memory. The engine is left
+        as it was (see the module docstring)."""
+        dev = self._device
+        inputs = tuple(as_tensor(a).to(dev) for a in _as_tuple(inputs))
+        labels = tuple(as_tensor(a).to(dev) for a in _as_tuple(labels))
+        return self._step_cost(remat_policy.normalize(policy), inputs,
+                               labels)
+
+    def _step_cost(self, policy: str, inputs, labels):
+        layer = self._layer
+        apply = remat_policy.apply_policy(self._forward, policy, layer)
+        params = [p for p in layer.parameters() if p.requires_grad]
+        gens = remat_policy._generators(layer)
+        gen_states = [g.get_state() for g in gens]
+        buffers = [(b, b.clone()) for b in layer.buffers()]
+        cpu_rng = torch.get_rng_state()
+        cuda_rng = (torch.cuda.get_rng_state(self._device)
+                    if self._device.type == "cuda" else None)
+
+        def run():
+            for g, st in zip(gens, gen_states):
+                g.set_state(st)  # each run draws the step's masks
+            loss = self._loss_fn(apply(*inputs), *labels).float()
+            torch.autograd.grad(loss, params, allow_unused=True)
+
+        try:
+            return remat_policy.step_cost(run, self._device,
+                                          self._resident_bytes())
+        finally:
+            for g, st in zip(gens, gen_states):
+                g.set_state(st)
+            with torch.no_grad():
+                for b, old in buffers:
+                    b.copy_(old)
+            torch.set_rng_state(cpu_rng)
+            if cuda_rng is not None:
+                torch.cuda.set_rng_state(cuda_rng, self._device)
+
+    def _resident_bytes(self) -> int:
+        """Bytes of the state that lives across steps: parameters, buffers
+        and the optimizer's tensors (each storage once)."""
+        tensors = [*self._layer.parameters(), *self._layer.buffers()]
+        for st in self._optimizer._accumulators.values():
+            tensors += [t for t in st.values()
+                        if isinstance(t, torch.Tensor)]
+        storages = {t.untyped_storage().data_ptr():
+                    t.untyped_storage().nbytes() for t in tensors}
+        return sum(storages.values())
+
+    def _resolve_remat(self, inputs, labels) -> None:
+        """remat='auto': measure on this batch and build the step with the
+        winner (once, before the first step)."""
+        chosen = remat_policy.resolve(
+            self._remat_entry,
+            lambda policy: self._step_cost(policy, inputs, labels),
+            device=self._device)
+        self.remat_policy_chosen = chosen
+        self._apply = remat_policy.apply_policy(self._forward, chosen,
+                                                self._layer)
 
     def _raise_if_nonfinite(self, step_no: int) -> None:
         """The unguarded check's raise, after the update was committed; the

@@ -37,9 +37,11 @@ __all__ = ["TrainStep", "EvalStep"]
 
 class TrainStep(ParallelTrainStep):
     """One training step of ``layer`` on ``device`` (default ``"cuda"``),
-    with ``remat`` an ``ops.remat_policy`` policy."""
+    with ``remat`` an ``ops.remat_policy`` policy or ``'auto'`` (resolved
+    on the first batch, gauge entry ``jit.train_step``)."""
 
     _telemetry = "jit"
+    _remat_entry = "jit.train_step"
 
     def __init__(self, layer: nn.Module, loss_fn: Callable, optimizer,
                  device=None, remat="off", *,

@@ -9,13 +9,15 @@ computes ``x @ W + b``, and parameters carry the reference's names
 head is tied to ``wte``, the MLP uses tanh-approximated GELU, every
 LayerNorm goes through ``ops.fused.fused_layer_norm`` (``nn.layer.norm``)
 and attention through
-``ops.attention.dot_product_attention`` (the flash kernel on the card),
-both differentiable. Dropout draws its masks from a ``torch.Generator``
-the model owns, seeded from the constructor's ``seed``.
+``ops.attention.dot_product_attention`` (the flash kernel on the card;
+``GPTConfig.use_flash_attention=False`` takes the blockwise tier, as in
+the reference), both differentiable. Dropout draws its masks from a
+``torch.Generator`` the model owns, seeded from the constructor's
+``seed``.
 
-The reference's TPU tuning knobs (``use_flash_attention``,
-``manual_layer_norm``, ``fused_head_ce``) select XLA lowerings and the
-training loss; they have no counterpart here.
+The reference's other TPU tuning knobs (``manual_layer_norm``,
+``fused_head_ce``) select XLA lowerings and the training loss; they have
+no counterpart here.
 """
 from __future__ import annotations
 
@@ -51,6 +53,7 @@ class GPTConfig:
     attention_dropout: float = 0.1
     initializer_range: float = 0.02
     layer_norm_epsilon: float = 1e-5
+    use_flash_attention: bool = True
 
     def __post_init__(self):
         if self.intermediate_size == 0:
@@ -67,6 +70,7 @@ class GPTAttention(nn.Module):
         self.qkv = Linear(h, 3 * h, device, dtype)
         self.proj = Linear(h, h, device, dtype)
         self.dropout = Dropout(config.hidden_dropout, gen)
+        self.use_flash = config.use_flash_attention
 
     def forward(self, x):
         b, l, h = x.shape
@@ -74,7 +78,8 @@ class GPTAttention(nn.Module):
         # at its row stride of 3h, with no split copy or transpose
         q, k, v = (t.view(b, l, self.num_heads, self.head_dim)
                    for t in self.qkv(x).split(h, dim=-1))
-        o = dot_product_attention(q, k, v, causal=True, layout="blhd")
+        o = dot_product_attention(q, k, v, causal=True,
+                                  use_flash=self.use_flash, layout="blhd")
         return self.dropout(self.proj(o.reshape(b, l, h)))
 
 

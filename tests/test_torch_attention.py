@@ -10,6 +10,7 @@ import torch
 
 from paddle_tpu.ops import attention as jatt
 from paddle_tpu_torch.ops import attention as tatt
+from paddle_tpu_torch.ops import tier_policy
 
 TOL = 1e-5
 
@@ -49,8 +50,8 @@ def test_paged_tiers_agree_and_dispatch_follows_heuristic():
     scan = tatt._paged_scan_impl(*case)
     torch.testing.assert_close(gather, scan, atol=TOL, rtol=0)
     assert torch.equal(tatt.paged_attention(*case), gather)  # 5·4 <= 4096
-    assert tatt._paged_heuristic(256, 16) == "paged_gather"
-    assert tatt._paged_heuristic(257, 16) == "paged_scan"
+    assert tier_policy._paged_heuristic(256, 16) == "paged_gather"
+    assert tier_policy._paged_heuristic(257, 16) == "paged_scan"
 
 
 def test_paged_int8_scales_wait_for_quant():

@@ -63,7 +63,8 @@ def test_package_has_the_slice_modules():
                 "core.tree", "ops.tree_reduce", "resilience.watchdog",
                 "resilience.inject", "resilience.guard",
                 "resilience.integrity", "incubate.checkpoint",
-                "distributed.communication"):
+                "distributed.communication", "ops.tier_policy",
+                "profiler.xla_cost"):
         assert "paddle_tpu_torch." + mod in names
 
 
@@ -137,6 +138,8 @@ def test_entry_points_without_device_raise_on_a_cuda_less_machine(no_cuda):
         bench.main(["bert"])
     with pytest.raises(RuntimeError, match="CUDA"):
         bench.main(["pipeline"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bench.main(["longctx"])
     from paddle_tpu_torch.resilience import golden_step_digest
     with pytest.raises(RuntimeError, match="CUDA"):
         golden_step_digest()

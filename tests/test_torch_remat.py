@@ -4,19 +4,22 @@ every gradient under each ported policy are bitwise equal to 'off' (the
 recomputed blocks draw the dropout masks they drew the first time, and
 a forward on casts of the parameters recomputes on the same casts);
 the recompute really runs (the LayerNorm forwards run twice, fewer bytes
-are saved); 'offload' and 'auto' raise."""
+are saved); 'offload' keeps the products on the host and 'auto' resolves
+on the engine's first batch, both stepping to 'off''s losses."""
 import numpy as np
 import pytest
 import torch
 from torch import nn
 
 from paddle_tpu.ops import remat_policy as jremat
+from paddle_tpu_torch.distributed.fleet.engine import ParallelTrainStep
 from paddle_tpu_torch.jit.functionalize import functionalize
 from paddle_tpu_torch.ops import fused
 from paddle_tpu_torch.ops import remat_policy as tremat
+from paddle_tpu_torch.optimizer import Adam
 from paddle_tpu_torch.text.models import gpt as tgpt
 
-PORTED = ("full", "nothing", "dots", "dots_no_batch")
+PORTED = ("full", "nothing", "dots", "dots_no_batch", "offload")
 VOCAB = (None, False, True, "off", "", "full", "nothing", "dots",
          "dots_no_batch", "offload", "auto")
 
@@ -34,10 +37,21 @@ def test_unknown_policies_are_refused_and_ids_match():
 
 
 @pytest.mark.parametrize("policy", ["offload", "auto"])
-def test_unported_policies_raise(policy):
-    model = tgpt.GPTForCausalLM(tgpt.gpt2_tiny(num_layers=1), device="cpu")
-    with pytest.raises(NotImplementedError, match=policy):
-        tremat.apply_policy(functionalize(model, True), policy, model)
+def test_offload_and_auto_step_to_the_losses_of_off(policy):
+    """Two steps of ParallelTrainStep under the policy give 'off''s loss
+    bits (dropout 0.1: the recompute redraws the same masks; 'auto' on the
+    CPU's 32 GB budget resolves to 'off')."""
+    losses = {}
+    for p in ("off", policy):
+        model = _model()
+        step = ParallelTrainStep(model, lambda out, lbl: out,
+                                 Adam(1e-3, parameters=model.parameters()),
+                                 device="cpu", remat=p)
+        ids, labels = _batch()
+        losses[p] = [step((ids, labels), (labels,)) for _ in range(2)]
+        assert step.remat_policy_chosen == ("off" if p == "auto" else p)
+    for a, b in zip(losses[policy], losses["off"]):
+        assert torch.equal(a, b)
 
 
 def _model():

@@ -204,14 +204,29 @@ def test_step_records_steps_and_step_ms():
 
 @pytest.mark.parametrize("kw", [
     dict(mesh=object()), dict(dp_axis="dp"), dict(zero_stage=1),
-    dict(sp_axis="sp"), dict(compute_dtype=torch.float16),
-    dict(remat="offload"), dict(recompute="auto")])
+    dict(sp_axis="sp"), dict(compute_dtype=torch.float16)])
 def test_unported_engine_options_raise(kw):
     model = tgpt.GPTForCausalLM(tgpt.gpt2_tiny(), device="cpu")
     opt = Adam(LR, parameters=model.parameters())
     with pytest.raises(NotImplementedError):
         ParallelTrainStep(model, lambda out, lbl: out, opt, device="cpu",
                           **kw)
+
+
+@pytest.mark.parametrize("kw", [dict(remat="offload"),
+                                dict(recompute="auto")])
+def test_offload_and_auto_engine_options_train(kw):
+    """Ported with the memory slice: the engine builds and its first step
+    gives the loss bits of the engine without recompute."""
+    ids, labels = (torch.from_numpy(a).long() for a in _batch())
+    losses = []
+    for options in (kw, {}):
+        model = tgpt.GPTForCausalLM(tgpt.gpt2_tiny(), device="cpu")
+        step = ParallelTrainStep(model, lambda out, lbl: out,
+                                 Adam(LR, parameters=model.parameters()),
+                                 device="cpu", **options)
+        losses.append(step((ids, labels), (labels,)))
+    assert torch.equal(losses[0], losses[1])
 
 
 def test_a_layer_on_another_device_is_refused():

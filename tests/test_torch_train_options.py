@@ -266,20 +266,37 @@ def test_engines_refuse_the_clips_they_do_not_run(engine, clip):
         engine(model, lambda out, lbl: out, opt, device="cpu")
 
 
+@pytest.mark.parametrize("remat", ["offload", "auto"])
+def test_train_step_takes_offload_and_auto(remat):
+    """The policies of the memory slice build and step: the losses of 3
+    TrainStep steps are 'off''s bits, and 'auto' resolves (to 'off' on the
+    CPU's 32 GB budget) under jit.train_step's gauge."""
+    from paddle_tpu_torch.profiler.telemetry import get_telemetry
+
+    ids, labels = (torch.from_numpy(a[0]).long() for a in _batches())
+    losses = {}
+    for r in ("off", remat):
+        model = tgpt.GPTForCausalLM(tgpt.gpt2_tiny(num_layers=1),
+                                    device="cpu")
+        step = TrainStep(model, lambda out, lbl: out,
+                         AdamW(1e-3, parameters=model.parameters()),
+                         device="cpu", remat=r)
+        losses[r] = [step((ids, labels), (labels,)) for _ in range(3)]
+    for a, b in zip(losses[remat], losses["off"]):
+        assert torch.equal(a, b)
+    if remat == "auto":
+        assert step.remat_policy_chosen == "off"
+        assert get_telemetry().scalars()["gauge/remat/jit.train_step"] == 0
+
+
 @pytest.mark.parametrize("kw", [dict(check_finite=True),
                                 dict(guard_updates=True),
-                                dict(fingerprint_every=10),
-                                dict(remat="offload"), dict(remat="auto")])
+                                dict(fingerprint_every=10)])
 def test_train_step_refuses_what_is_not_ported(kw):
-    """The remat policies that wait for their slice are refused; the
-    resilience arguments are ported (since the resilience slice) and
-    taken as the reference takes them."""
+    """The resilience arguments are ported (since the resilience slice)
+    and taken as the reference takes them."""
     model = tgpt.GPTForCausalLM(tgpt.gpt2_tiny(num_layers=1), device="cpu")
     opt = AdamW(1e-3, parameters=model.parameters())
-    if "remat" in kw:
-        with pytest.raises(NotImplementedError):
-            TrainStep(model, lambda out, lbl: out, opt, device="cpu", **kw)
-        return
     step = TrainStep(model, lambda out, lbl: out, opt, device="cpu", **kw)
     assert step._check_nan is bool(kw.get("check_finite")
                                    or kw.get("guard_updates"))
