@@ -395,7 +395,7 @@ def time_ms(fn, iters=50, warmup=5):
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, what, iters=20, attempts=5):
+def device_ms(fn, what, iters=20, attempts=10):
     """Device time of one call of ``fn``: the summed duration of the
     kernels it launches (``torch.profiler``), without the host's launch
     gaps that CUDA events over back-to-back calls also count. Each
@@ -404,8 +404,9 @@ def device_ms(fn, what, iters=20, attempts=5):
     profiler records no kernel of a window, or only some of them (a sum a
     third short, seen at L = 8192 without the warm-up window): a window
     with fewer device operations than calls (each call launches at least
-    one) is taken again, up to ``attempts`` sessions; then the run fails,
-    naming ``what`` was timed."""
+    one) is taken again, after a pause, up to ``attempts`` sessions; then
+    the run fails, naming ``what`` was timed. (Five sessions in a row
+    were once short by a third or more, early in the script.)"""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
@@ -433,6 +434,7 @@ def device_ms(fn, what, iters=20, attempts=5):
         seen.append(got.get("count", 0))
         if got.get("total", 0) > 0 and got["count"] >= iters:
             return got["total"] / iters / 1e3
+        time.sleep(0.5)
     raise RuntimeError(f"device time of {what}: the profiler recorded "
                        f"{seen} device operations in {attempts} windows of "
                        f"{iters} calls (fewer than calls)")
@@ -3047,6 +3049,297 @@ def longctx_remat_phase(counted, launches, bench_mod):
             "peak_dots_no_batch_bytes": peaks["dots_no_batch"]}
 
 
+# --- phase 17: the static graph ---------------------------------------------
+# 17a: ResNet-50 f32 at 13b's shape recorded into a Program, one exe.run
+# against one eager step of a dygraph copy (same weights and buffers), with
+# 13b's bounds: both run the same torch ops on the card, so the loss within
+# R50_FWD_TOL relative and every update p' - p within R50_GRAD_L2_TOL of
+# its L2 norm; the running statistics keep their record-time bits (the
+# update runs at record time only); then the same program at a second batch
+STATIC_SECOND_BATCH = 3
+# 17b: config #2 as bench resnet50 runs it, windows of 20 steps
+STATIC_WINDOW = 20
+STATIC_WINDOWS = 3
+# the replay's host cost: a batch at which the host bounds the step
+STATIC_HOST_BATCH = 2
+STATIC_HOST_STEPS = 10
+# step 1's loss against 13c's TrainStep loss from the same weights and
+# batch: the same bf16 AMP O1 ops, but cuDNN may pick other algorithms for
+# another call order, and the bf16 logits' roundings move the mean loss by
+# a few 2^-9 of its value
+STATIC_R50_LOSS_RTOL = 2.0 ** -6
+# 17c: GPT-2 345M at depth 2 (full width), 8 x 1024, bf16 parameters with
+# Adam's f32 masters; kernels against plain within phase 7's bf16 loss
+# tolerance (LOSS_BF16_RTOL)
+STATIC_GPT_LAYERS = 2
+STATIC_GPT_RUNS = 3
+
+
+def static_resnet_check(dev):
+    """Phase 17a: a recorded ResNet-50 step on the card against an eager
+    step of a copy, then a run at another batch."""
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.nn.functional import cross_entropy
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.vision.models import resnet50
+
+    b0, c, h, w = R50_CHECK_SHAPE
+    rng = np.random.RandomState(0)
+    batches = [(torch.from_numpy(rng.randn(b, c, h, w).astype(
+        np.float32)).to(dev), torch.from_numpy(rng.randint(
+            0, 1000, (b, 1))).to(dev)) for b in (b0, STATIC_SECOND_BATCH)]
+    main = static.Program()
+    with static.program_guard(main):
+        x = static.data("x", [None, c, h, w], "float32", device=dev)
+        y = static.data("y", [None, 1], "int64", device=dev)
+        model = resnet50(num_classes=1000, seed=3, device=dev)
+        loss = cross_entropy(model(x), y.reshape(-1))
+        Momentum(0.01, 0.9).minimize(loss)
+    eager = resnet50(num_classes=1000, seed=4, device=dev)
+    eager.load_state_dict(model.state_dict())
+    params0 = {n: p.detach().clone() for n, p in model.named_parameters()}
+    recorded = {n: b.detach().clone() for n, b in model.named_buffers()}
+    exe = static.Executor(dev)
+    (l_s,) = exe.run(main, feed={"x": batches[0][0], "y": batches[0][1]},
+                     fetch_list=[loss])
+    opt = Momentum(0.01, 0.9, parameters=eager.parameters())
+    l_e = cross_entropy(eager(batches[0][0]), batches[0][1].reshape(-1))
+    l_e.backward()
+    opt.step()
+    l_s, l_e = float(l_s), float(l_e.detach())
+    e_loss = abs(l_s - l_e) / abs(l_e)
+    eager_p = dict(eager.named_parameters())
+    e_upd = max(l2_rel(p.detach() - params0[n], eager_p[n].detach()
+                       - params0[n]) for n, p in model.named_parameters())
+    kept = all(torch.equal(b, recorded[n])
+               for n, b in model.named_buffers())
+    (l_s2,) = exe.run(main, feed={"x": batches[1][0], "y": batches[1][1]},
+                      fetch_list=[loss])
+    with torch.no_grad():
+        l_e2 = float(cross_entropy(eager(batches[1][0]),
+                                   batches[1][1].reshape(-1)))
+    e_loss2 = abs(float(l_s2) - l_e2) / abs(l_e2)
+    out = {"ops": len(main.ops), "params": len(main.parameters),
+           "loss_static": l_s, "loss_eager": l_e, "loss_rel_err": e_loss,
+           "update_l2_rel_err": e_upd, "running_stats_as_recorded": kept,
+           "second_batch": STATIC_SECOND_BATCH,
+           "loss_static_second": float(l_s2), "loss_eager_second": l_e2,
+           "loss_rel_err_second": e_loss2}
+    log(f"[17a] ResNet-50 f32 {R50_CHECK_SHAPE} recorded ({out['ops']} ops, "
+        f"{out['params']} parameters), one exe.run against one eager "
+        f"Momentum step (TF32 off): loss {l_s:.6f} / {l_e:.6f} (rel err "
+        f"{e_loss:.3g}, tol {R50_FWD_TOL}), worst update L2 rel err "
+        f"{e_upd:.3g} (tol {R50_GRAD_L2_TOL}), running statistics as "
+        f"recorded: {kept}; at batch {STATIC_SECOND_BATCH}: loss "
+        f"{float(l_s2):.6f} / {l_e2:.6f} (rel err {e_loss2:.3g})")
+    if not (e_loss <= R50_FWD_TOL and e_upd <= R50_GRAD_L2_TOL and kept
+            and e_loss2 <= R50_FWD_TOL):
+        raise AssertionError("17a: the recorded ResNet-50 step disagrees "
+                             "with the eager one")
+    return out
+
+
+def static_resnet_bench(counted, launches, bench_mod, trainstep_loss0):
+    """Phase 17b: config #2 through bench resnet50's own function."""
+    t0 = time.perf_counter()
+    step, b, parts = bench_mod.build_resnet50_train(window=STATIC_WINDOW)
+    torch.cuda.synchronize()
+    record_s = time.perf_counter() - t0
+    warm = step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _cleared(counted)
+    marks = [torch.cuda.Event(enable_timing=True)
+             for _ in range(STATIC_WINDOWS + 1)]
+    windows = []
+    t0 = time.perf_counter()
+    for i in range(STATIC_WINDOWS):
+        marks[i].record()
+        windows.append(step())
+    marks[-1].record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = _read_launches(counted, launches, "static_resnet")
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = sorted(marks[i].elapsed_time(marks[i + 1]) / STATIC_WINDOW
+                     for i in range(STATIC_WINDOWS))
+    prof = profile_step("17b", step, (), n_steps=1)
+    host = static_host_cost(parts)
+    losses = [[float(v) for v in w] for w in [warm] + windows]
+    flat = [v for w in losses for v in w]
+    sps = b * STATIC_WINDOW * STATIC_WINDOWS / wall
+    e_first = abs(flat[0] - trainstep_loss0) / abs(trainstep_loss0)
+    exe = parts["executor"]
+    plan_ops = max(len(p.ops) for p in exe._plans.values())
+    out = {"samples_per_s": sps, "step_ms_p50": step_ms[len(step_ms) // 2],
+           "step_ms_min": step_ms[0], "step_ms_max": step_ms[-1],
+           "peak_memory_bytes": peak, "record_s": record_s,
+           "ops": len(parts["program"].ops), "plan_ops": plan_ops,
+           "window_losses": losses,
+           "device_ms_per_step": prof["device_ms_per_step"] / STATIC_WINDOW,
+           "wall_ms_per_step": prof["wall_ms_per_step"] / STATIC_WINDOW,
+           "busy_share": prof["busy_share"],
+           "device_ms_by_kind": {k: v / STATIC_WINDOW for k, v in
+                                 prof["device_ms_by_kind"].items()},
+           "mfu_pct": 100.0 * sps * bench_mod.RESNET50_FLOPS_PER_SAMPLE
+           / bench_mod.H100_BF16_DENSE_FLOPS,
+           "step1_loss": flat[0], "trainstep_step1_loss": trainstep_loss0,
+           "step1_loss_rel_err": e_first, "host_bound_b2": host}
+    log(f"[17b] config #2 through static.Executor.run_steps(window="
+        f"{STATIC_WINDOW}): recorded in {record_s:.2f} s ({out['ops']} ops, "
+        f"{plan_ops} in the replay plan); {sps:.1f} samples/s over "
+        f"{STATIC_WINDOWS} windows, step p50 {out['step_ms_p50']:.2f} ms "
+        f"(window / {STATIC_WINDOW}; min {step_ms[0]:.2f}, max "
+        f"{step_ms[-1]:.2f}), peak memory {peak / 2**30:.2f} GiB; profiled "
+        f"window: {out['device_ms_per_step']:.2f} ms of device time and "
+        f"{out['wall_ms_per_step']:.2f} ms of wall a step, busy share "
+        f"{out['busy_share']:.4f}; MFU {out['mfu_pct']:.2f}%; step 1 loss "
+        f"{flat[0]:.6f} against 13c's TrainStep {trainstep_loss0:.6f} (rel "
+        f"err {e_first:.3g}, tol {STATIC_R50_LOSS_RTOL})")
+    log(f"[17b] at b = {STATIC_HOST_BATCH} (host-bound): a step "
+        f"{host['static_ms']:.2f} ms through exe.run, {host['eager_ms']:.2f} "
+        f"ms as an eager step of the same model (medians of "
+        f"{2 * STATIC_HOST_STEPS} steps each, alternated); the replay adds "
+        f"{host['static_ms'] - host['eager_ms']:.2f} ms")
+    for i, w in enumerate(losses):
+        log(f"[17b] window {i} losses: {w[0]:.4f} ... {w[-1]:.4f}")
+    if not all(np.isfinite(flat)) or not flat[-1] < flat[0]:
+        raise AssertionError(f"17b: the loss is not finite and falling: "
+                             f"{losses}")
+    if any(got.values()):
+        raise AssertionError(f"17b: a Pallas-kernel counterpart launched "
+                             f"in config #2's step: {got}")
+    if e_first > STATIC_R50_LOSS_RTOL:
+        raise AssertionError("17b: step 1's loss disagrees with 13c's")
+    return out
+
+
+def static_host_cost(parts):
+    """Per-step wall at a batch small enough that the host bounds the
+    step: ``exe.run`` of the recorded program against an eager step
+    (forward under the same AMP, backward, Momentum) of the same model,
+    alternated, each step synchronized."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.nn.functional import cross_entropy
+    from paddle_tpu_torch.optimizer import Momentum
+
+    exe, main, loss = parts["executor"], parts["program"], parts["loss"]
+    feed = {k: v[:STATIC_HOST_BATCH] for k, v in parts["feed"].items()}
+    model = parts["model"]
+    opt = Momentum(0.01, 0.9, parameters=model.parameters())
+
+    def static_step():
+        return exe.run(main, feed=feed, fetch_list=[loss],
+                       return_numpy=False)[0]
+
+    def eager_step():
+        with amp.auto_cast(dtype="bfloat16"):
+            out = cross_entropy(model(feed["x"]), feed["y"].reshape(-1))
+        out.backward()
+        opt.step()
+        opt.clear_grad()
+        return out
+
+    times = {"static": [], "eager": []}
+    for fn in (static_step, eager_step):
+        for _ in range(3):
+            fn()
+    torch.cuda.synchronize()
+    for _ in range(2):
+        for name, fn in (("static", static_step), ("eager", eager_step)):
+            for _ in range(STATIC_HOST_STEPS):
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                times[name].append((time.perf_counter() - t0) * 1e3)
+    return {f"{k}_ms": float(np.median(v)) for k, v in times.items()}
+
+
+def static_gpt_kernels(dev, gen, counted, launches, gpt_mod, plain, dense):
+    """Phase 17c: the kernels through the program machinery — a recorded
+    GPT-2 345M training step (depth 2) with the kernels and, recorded
+    again, inside ``plain``; then ``jit.to_static`` of the dense forward
+    against phase 4's logits."""
+    from paddle_tpu_torch import jit, static
+    from paddle_tpu_torch.optimizer import Adam
+
+    cfg = gpt_mod.gpt2_medium(num_layers=STATIC_GPT_LAYERS,
+                              hidden_dropout=0.0, attention_dropout=0.0)
+    ids = torch.randint(0, cfg.vocab_size, TRAIN_SHAPE, device=dev,
+                        generator=gen)
+    labels = torch.roll(ids, -1, dims=1)
+    feed = {"ids": ids, "labels": labels}
+
+    def record():
+        main = static.Program()
+        with static.program_guard(main):
+            x = static.data("ids", list(TRAIN_SHAPE), "int64", device=dev)
+            y = static.data("labels", list(TRAIN_SHAPE), "int64",
+                            device=dev)
+            model = gpt_mod.GPTForCausalLM(cfg, dtype=torch.bfloat16,
+                                           seed=5)
+            loss = model(x, y)
+            Adam(TRAIN_LR, multi_precision=True).minimize(loss)
+        return main, loss
+
+    exe = static.Executor(dev)
+    main_k, loss_k = record()
+    _cleared(counted)
+    losses_k = [float(exe.run(main_k, feed=feed, fetch_list=[loss_k])[0])
+                for _ in range(STATIC_GPT_RUNS)]
+    torch.cuda.synchronize()
+    got = _read_launches(counted, launches, "static_gpt")
+    n = STATIC_GPT_LAYERS
+    n_ln = 2 * n + 1
+    want = {name: 0 for name in counted}
+    want.update({"flash_attn_fwd": n, "flash_attn_bwd_dq": n,
+                 "flash_attn_bwd_dkv": n, "layer_norm_fwd": n_ln,
+                 "layer_norm_bwd": 2 * n_ln, "adam": 2})
+    want = {k: v * STATIC_GPT_RUNS for k, v in want.items()}
+    with plain():
+        main_p, loss_p = record()
+        losses_p = [float(exe.run(main_p, feed=feed,
+                                  fetch_list=[loss_p])[0])
+                    for _ in range(STATIC_GPT_RUNS)]
+    e_loss = max(abs(a - b) / abs(b) for a, b in zip(losses_k, losses_p))
+    del main_k, main_p
+    torch.cuda.empty_cache()
+    # jit.to_static of the dense forward: phase 4's model and ids
+    dense_ids, dense_logits = dense
+    model = gpt_mod.GPTForCausalLM(gpt_mod.gpt2_medium(), dtype=torch.bfloat16,
+                                   seed=0).eval()
+    _cleared(counted)
+    logits = jit.to_static(model)(dense_ids)
+    torch.cuda.synchronize()
+    got_st = _read_launches(counted, launches, "static_to_static")
+    same = torch.equal(logits.cpu(), dense_logits)
+    out = {"losses_kernels": losses_k, "losses_plain": losses_p,
+           "loss_rel_err": e_loss, "launches_per_run": {
+               k: v // STATIC_GPT_RUNS for k, v in got.items() if v},
+           "to_static_same_bits": same,
+           "to_static_launches": {k: v for k, v in got_st.items() if v},
+           "to_static_requires_grad": logits.requires_grad}
+    log(f"[17c] GPT-2 345M at depth {n}, {TRAIN_SHAPE}, bf16 with Adam's "
+        f"f32 masters, {STATIC_GPT_RUNS} exe.run of a recorded program: "
+        f"losses {losses_k} through the kernels, {losses_p} plain (rel err "
+        f"{e_loss:.3g}, tol {LOSS_BF16_RTOL}); launches a run "
+        f"{out['launches_per_run']}; jit.to_static dense forward [1, 1024]: "
+        f"phase 4's bits {same}, launches {out['to_static_launches']}")
+    if got != want:
+        raise AssertionError(f"17c: the recorded step launched {got}, "
+                             f"expected {want}")
+    if not (e_loss <= LOSS_BF16_RTOL and all(np.isfinite(losses_k))):
+        raise AssertionError("17c: the recorded step through the kernels "
+                             "disagrees with the plain one")
+    if not same or logits.requires_grad:
+        raise AssertionError("17c: jit.to_static's logits are not phase "
+                             "4's")
+    if (got_st["layer_norm_fwd"], got_st["flash_attn_fwd"]) != (49, 24):
+        raise AssertionError(f"17c: to_static launched {got_st}, expected "
+                             "49 LayerNorm and 24 attention forwards")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3321,6 +3614,7 @@ def main() -> int:
     if (n_ln, n_flash) != (2 * cfg.num_layers + 1, cfg.num_layers):
         raise AssertionError(f"dense forward launched LN {n_ln}, flash "
                              f"{n_flash}; expected 49 and 24")
+    dense = (ids, logits.cpu())  # phase 17c's jit.to_static comparison
 
     # -- phase 5: token serving at full width --------------------------------
     block = 16
@@ -3839,6 +4133,18 @@ def main() -> int:
     log("longctx " + json.dumps(longctx))
     torch.cuda.empty_cache()
 
+    # -- phase 17: the static graph ---------------------------------------------
+    static = {"resnet_check": static_resnet_check(dev)}
+    torch.cuda.empty_cache()
+    static["resnet_config2"] = static_resnet_bench(
+        counted, launches, bench_mod,
+        vision["resnet_training"]["losses"][0])
+    torch.cuda.empty_cache()
+    static["gpt_kernels"] = static_gpt_kernels(dev, gen, counted, launches,
+                                               gpt_mod, plain, dense)
+    log("static " + json.dumps(static))
+    torch.cuda.empty_cache()
+
     # -- the kernels line and the result --------------------------------------
     def timed(kernel, shape):
         return next(t for t in timings if t["kernel"] == kernel
@@ -3853,30 +4159,32 @@ def main() -> int:
             ("layer_norm_fwd", "paddle_tpu_torch/csrc/layer_norm.cu",
              "paddle_tpu/ops/fused.py:25",
              timed("layer_norm_fwd", list(LN_TIMED[0])),
-             ("dense_forward", "training", "bert_training", "longctx")),
+             ("dense_forward", "training", "bert_training", "longctx",
+              "static_gpt", "static_to_static")),
             ("flash_attn_fwd", "paddle_tpu_torch/csrc/flash_attn_fwd.cu",
              "paddle_tpu/ops/flash_tpu.py:43",
              timed("flash_attn_fwd", list(GPT_ATTN_SHAPE)),
-             ("dense_forward", "training", flash_phase)),
+             ("dense_forward", "training", flash_phase, "static_gpt",
+              "static_to_static")),
             ("layer_norm_bwd", "paddle_tpu_torch/csrc/layer_norm_bwd.cu",
              "paddle_tpu/ops/fused.py:34",
              timed("layer_norm_bwd", list(LN_TIMED[0])),
-             ("training", "bert_training", "longctx")),
+             ("training", "bert_training", "longctx", "static_gpt")),
             ("flash_attn_bwd_dq", "paddle_tpu_torch/csrc/flash_attn_bwd.cu",
              "paddle_tpu/ops/flash_tpu.py:83",
              timed("flash_attn_bwd_dq", [8, 1024, 16, 64]),
-             ("training", flash_phase)),
+             ("training", flash_phase, "static_gpt")),
             ("flash_attn_bwd_dkv", "paddle_tpu_torch/csrc/flash_attn_bwd.cu",
              "paddle_tpu/ops/flash_tpu.py:118",
              timed("flash_attn_bwd_dkv", [8, 1024, 16, 64]),
-             ("training", flash_phase)),
+             ("training", flash_phase, "static_gpt")),
             ("adam", "paddle_tpu_torch/csrc/adam.cu",
              "paddle_tpu/ops/fused.py:172",
              next(t for t in timings if t["kernel"] == "adam"),
              ("training", "bert_training") + options_paths
              + ("lenet_training", "lenet_mnist", "hapi_lenet", "pipeline",
                 "bert_fingerprint_0", "guard_gpt", "guard_bert",
-                "longctx")),
+                "longctx", "static_gpt")),
             ("grad_sumsq", "paddle_tpu_torch/csrc/adam.cu",
              "paddle_tpu/nn/clip.py:111", sumsq_t, options_paths),
             ("flash_attn_fwd_full", "paddle_tpu_torch/csrc/flash_attn_fwd.cu",
@@ -3912,6 +4220,8 @@ def main() -> int:
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": sum(by_phase.values()),
             "launches_by_phase": by_phase,
+            "launches_static": sum(by_phase.get(p, 0) for p in (
+                "static_resnet", "static_gpt", "static_to_static")),
             "max_abs_err": err[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],

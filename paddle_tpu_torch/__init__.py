@@ -43,12 +43,46 @@ fingerprinted training: the engines' finite sweep, gated update and state
 fingerprints (``core.sanitizer``; on the card the Adam kernel's check
 pass and the multi-tensor fold of ``ops.tree_reduce``), ``StepGuard``, the
 watchdog, fault injection and the integrity monitor (``resilience``), and
-train-state checkpoints (``incubate.checkpoint``).
+train-state checkpoints (``incubate.checkpoint``). The static graph:
+``static`` records a ``Program`` under ``program_guard`` and replays it
+with an ``Executor`` (``run``, ``run_steps``), with control flow and
+``static.nn``; ``jit.to_static`` (with the ``dy2static`` converter),
+``jit.save`` / ``jit.load``; ``enable_static`` / ``disable_static`` switch
+the mode.
 """
 from . import callbacks
-from .core.place import resolve_device
+from .core.place import CPUPlace, CUDAPlace, resolve_device
 from .framework import load, save
 from .hapi import Model, summary
 
-__all__ = ["resolve_device", "Model", "save", "load", "summary",
-           "callbacks"]
+__all__ = ["resolve_device", "CPUPlace", "CUDAPlace", "Model", "save",
+           "load", "summary", "callbacks", "enable_static",
+           "disable_static", "in_dynamic_mode", "enable_dygraph",
+           "disable_dygraph"]
+
+
+def enable_static() -> None:
+    """Turn static mode on (``static``'s Program / Executor style)."""
+    from .static.program import _enable_static_mode
+
+    _enable_static_mode()
+
+
+def disable_static(place=None) -> None:
+    """Back to dygraph (eager) mode."""
+    from .static.program import _disable_static_mode
+
+    _disable_static_mode()
+
+
+def in_dynamic_mode() -> bool:
+    from .static.program import _in_static_mode
+
+    return not _in_static_mode()
+
+
+enable_dygraph = disable_static
+
+
+def disable_dygraph() -> None:
+    enable_static()

@@ -63,8 +63,20 @@ window) and runs on the CPU:
 
     python -m paddle_tpu_torch.bench longctx [--smoke]
 
+ResNet-50 through the static graph (BASELINE config #2): ``bench_all``'s
+``build_resnet50_train`` and ``bench_resnet50`` as written — ResNet-50
+recorded into a ``static.Program`` under ``program_guard`` (bf16 AMP O1,
+``Momentum(0.01, 0.9).minimize``), trained by ``Executor.run_steps`` in
+windows of 20 steps on device-resident feeds from ``RandomState(0)`` at
+b = 128, ``_rate(one, 2, 3)``; the reference's key
+``resnet50_static_executor_samples_per_sec_per_chip`` and ``mfu_pct``
+(3 x 4.1 GFLOP a sample over the H100's dense bf16 peak). ``--smoke``
+(b = 8 at 32², 100 classes, no AMP, no window) runs on the CPU:
+
+    python -m paddle_tpu_torch.bench resnet50 [--smoke]
+
 Each prints a line naming its device, then one JSON line. Apart from
-``longctx --smoke`` they need a CUDA card and raise without one.
+the ``--smoke`` runs they need a CUDA card and raise without one.
 """
 from __future__ import annotations
 
@@ -139,18 +151,23 @@ def bert_flops_per_token(config) -> float:
 def _rate(fn, n_warm: int, n_iter: int, reps: int = 3) -> float:
     """``bench_all._rate``: median steps/s of ``reps`` windows of
     ``n_iter`` steps after ``n_warm`` warm-up steps; each window ends by
-    reading the last loss back (a sync)."""
+    reading the last output back (a sync)."""
     for i in range(n_warm):
         out = fn(i)
-    float(out)
+    _block(out)
     rates = []
     for _ in range(reps):
         t0 = time.perf_counter()
         for i in range(n_iter):
             out = fn(i)
-        float(out)
+        _block(out)
         rates.append(n_iter / (time.perf_counter() - t0))
     return sorted(rates)[len(rates) // 2]
+
+
+def _block(out) -> None:
+    """Read ``out`` (a loss, or a window's stacked losses) to the host."""
+    torch.as_tensor(out).detach().cpu()
 
 
 # bench_bert_dp's production fingerprint interval: the fold's cost a step
@@ -423,19 +440,95 @@ def bench_longctx(smoke: bool = False, headline_hook=None) -> dict:
     return out
 
 
+# ResNet-50 at 224²: ~4.1 GFLOP a sample forward, ~3x that with the
+# backward (bench_all.py's reckoning)
+RESNET50_FLOPS_PER_SAMPLE = 3 * 4.1e9
+
+
+def build_resnet50_train(smoke: bool = False, window: Optional[int] = None,
+                         device="cuda"):
+    """``bench_all.build_resnet50_train``: ResNet-50 recorded into a
+    ``static.Program`` (``data`` x [None, 3, 224, 224] and y [None, 1],
+    the model and ``cross_entropy`` under ``amp.auto_cast(dtype=
+    "bfloat16")``, ``Momentum(0.01, 0.9).minimize(loss)``), ``exe.run``
+    of the startup program, and device-resident feeds from
+    ``RandomState(0)`` at b = 128. ``step(i)`` runs one ``Executor.run``,
+    or with ``window`` one ``run_steps`` of that many steps
+    (``return_numpy=False``), and returns the loss fetch. ``smoke``: b = 8
+    at 32² with 100 classes and no AMP. Returns ``(step, b, parts)``,
+    parts holding the program, executor, loss variable and model."""
+    from . import amp, static
+    from .nn.functional import cross_entropy
+    from .optimizer import Momentum
+    from .vision.models import resnet50
+
+    dev = torch.device(device)
+    b = 8 if smoke else 128
+    size = 32 if smoke else 224
+    classes = 100 if smoke else 1000
+    main, start = static.Program(), static.Program()
+    with static.program_guard(main, start):
+        x = static.data("x", [None, 3, size, size], "float32", device=dev)
+        y = static.data("y", [None, 1], "int64", device=dev)
+        model = resnet50(num_classes=classes, seed=0, device=dev)
+        with amp.auto_cast(enable=not smoke, dtype="bfloat16"):
+            logits = model(x)
+            loss = cross_entropy(logits, y.reshape(-1))
+        Momentum(learning_rate=0.01, momentum=0.9).minimize(loss)
+    exe = static.Executor(dev)
+    exe.run(start)
+    rng = np.random.RandomState(0)
+    xv = torch.from_numpy(rng.randn(b, 3, size, size).astype(
+        np.float32)).to(dev)
+    yv = torch.from_numpy(rng.randint(0, classes, (b, 1)).astype(
+        np.int64)).to(dev)
+    feed = {"x": xv, "y": yv}
+    if window:
+        def step(_i=None):
+            return exe.run_steps(main, feed=feed, fetch_list=[loss],
+                                 n_steps=window, return_numpy=False)[0]
+    else:
+        def step(_i=None):
+            return exe.run(main, feed=feed, fetch_list=[loss],
+                           return_numpy=False)[0]
+    return step, b, {"program": main, "executor": exe, "loss": loss,
+                     "model": model, "feed": feed}
+
+
+def bench_resnet50(smoke: bool = False) -> dict:
+    """``bench_all.bench_resnet50``: ``_rate(one, 2, 3) * b * window``
+    over windows of 20 steps (``smoke``: single runs on the CPU)."""
+    if not smoke:
+        _require_card("ResNet-50 training")
+    window = None if smoke else 20
+    one, b, _ = build_resnet50_train(smoke, window,
+                                     "cpu" if smoke else "cuda")
+    sps = _rate(one, 2, 3) * b * (window or 1)
+    out = {"metric": "resnet50_static_executor_samples_per_sec_per_chip",
+           "value": round(sps, 2), "unit": "samples/sec"}
+    if not smoke:
+        out["mfu_pct"] = round(100.0 * sps * RESNET50_FLOPS_PER_SAMPLE
+                               / H100_BF16_DENSE_FLOPS, 2)
+    return out
+
+
 def main(argv: Optional[List[str]] = None) -> dict:
     """Run the bench named by ``argv[0]`` (``gpt``, the default, ``bert``,
-    ``pipeline`` or ``longctx`` [``--smoke``]) and print its result."""
+    ``pipeline``, ``longctx`` or ``resnet50``, the last two with
+    ``--smoke``) and print its result."""
     argv = list(argv or [])
     smoke = "--smoke" in argv
     argv = [a for a in argv if a != "--smoke"]
     which = argv[0] if argv else "gpt"
     benches = {"gpt": bench_gpt, "bert": bench_bert,
                "pipeline": bench_pipeline,
-               "longctx": lambda: bench_longctx(smoke)}
-    if which not in benches or (smoke and which != "longctx"):
+               "longctx": lambda: bench_longctx(smoke),
+               "resnet50": lambda: bench_resnet50(smoke)}
+    if which not in benches or (smoke and which not in ("longctx",
+                                                        "resnet50")):
         raise SystemExit(f"usage: python -m paddle_tpu_torch.bench "
-                         f"[{'|'.join(benches)}] [--smoke (longctx)]")
+                         f"[{'|'.join(benches)}] [--smoke (longctx, "
+                         "resnet50)]")
     result = benches[which]()
     print("device: " + ("cpu" if smoke else torch.cuda.get_device_name(0)))
     print(json.dumps(result))

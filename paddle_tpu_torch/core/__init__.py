@@ -1,3 +1,3 @@
-from .place import resolve_device
+from .place import CPUPlace, CUDAPlace, resolve_device
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "CPUPlace", "CUDAPlace"]

@@ -1,8 +1,9 @@
 """Device resolution — counterpart of ``paddle_tpu.core.place``.
 
 The port's entry points take ``device=None`` and run on the card by
-default. A missing card is an error, never a silent move to the CPU:
-the CPU is used only when the caller names it.
+default (``static.Executor`` takes a ``CPUPlace`` or ``CUDAPlace``). A
+missing card is an error, never a silent move to the CPU: the CPU is used
+only when the caller names it.
 """
 from __future__ import annotations
 
@@ -10,9 +11,26 @@ from typing import Optional, Union
 
 import torch
 
-__all__ = ["DEFAULT_DEVICE", "resolve_device"]
+__all__ = ["DEFAULT_DEVICE", "resolve_device", "CPUPlace", "CUDAPlace"]
 
 DEFAULT_DEVICE = "cuda"
+
+
+class CPUPlace:
+    """The host, as ``static.Executor``'s ``place``."""
+
+    def __repr__(self):
+        return "CPUPlace"
+
+
+class CUDAPlace:
+    """CUDA device ``index``, as ``static.Executor``'s ``place``."""
+
+    def __init__(self, index: int = 0):
+        self.index = int(index)
+
+    def __repr__(self):
+        return f"CUDAPlace({self.index})"
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None

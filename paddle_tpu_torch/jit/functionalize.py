@@ -12,6 +12,7 @@ given tensors; ``functionalize`` runs a module in a given train/eval
 mode, optionally on casts of its float parameters. Buffers are the
 module's own: a train-mode forward updates BatchNorm's running
 statistics in place, and a cast mode leaves them in their dtype.
+``TracedLayer`` calls a layer in a fixed mode under ``no_grad``.
 """
 from __future__ import annotations
 
@@ -23,7 +24,7 @@ from torch import nn
 from torch.func import functional_call
 
 __all__ = ["get_params", "set_params", "get_buffers", "set_buffers",
-           "load_jax_params", "functionalize"]
+           "load_jax_params", "functionalize", "TracedLayer"]
 
 
 def get_params(model: nn.Module) -> Dict[str, torch.Tensor]:
@@ -123,3 +124,22 @@ def _copy_named(kind: str, named: Mapping[str, torch.Tensor],
                 raise ValueError(f"{name}: shape {a.shape} != "
                                  f"{tuple(t.shape)}")
             t.copy_(torch.from_numpy(a))
+
+
+class TracedLayer:
+    """A layer's forward in a fixed mode (eval unless ``training``),
+    called under ``no_grad``: outputs without gradient, buffers updated
+    as the forward updates them (the reference's jitted functionalized
+    apply)."""
+
+    def __init__(self, layer: nn.Module, training: bool = False,
+                 donate_buffers: bool = False):
+        self._layer = layer
+        self._apply = functionalize(layer, training=training)
+
+    def __call__(self, *args):
+        with torch.no_grad():
+            out = self._apply(*args)
+        if isinstance(out, (list, tuple)):
+            return type(out)(o.detach() for o in out)
+        return out.detach()

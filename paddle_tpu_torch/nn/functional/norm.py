@@ -30,6 +30,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from ...core.recording import record_opaque
+
 __all__ = ["batch_norm"]
 
 
@@ -95,8 +97,8 @@ def batch_norm(x: torch.Tensor, running_mean: Optional[torch.Tensor],
             c, dtype=torch.float32, device=x.device)
         b = bias if bias is not None else torch.zeros(
             c, dtype=torch.float32, device=x.device)
-        out, mean, var = _BatchNormTrain.apply(x, w, b, axes, shape,
-                                               epsilon)
+        out, mean, var = record_opaque(_BatchNormTrain.apply, x, w, b,
+                                       axes, shape, epsilon)
         if running_mean is not None:
             with torch.no_grad():
                 running_mean.copy_(momentum * running_mean + (1.0 - momentum)

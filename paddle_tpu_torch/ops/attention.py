@@ -75,6 +75,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..core.recording import record_opaque
 from ..profiler.telemetry import get_telemetry
 from . import flash_tpu, tier_policy
 
@@ -279,7 +280,8 @@ def xla_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Lq, Lk = q.shape[axis_l], k.shape[axis_l]
     if (causal and bias is None and Lq == Lk
             and _causal_chunk_size(Lq) is not None):
-        return _CausalChunked.apply(q, k, v, layout == "blhd")
+        return record_opaque(_CausalChunked.apply, q, k, v,
+                             layout == "blhd")
     return _materialized(q, k, v, causal, bias, layout)
 
 
@@ -394,8 +396,8 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if bias is not None:
         bias = torch.broadcast_to(
             bias, (*q.shape[:3], k.shape[2]))
-    return _Blockwise.apply(q, k, v, bias, causal, block_k, q_offset,
-                            kv_offset)
+    return record_opaque(_Blockwise.apply, q, k, v, bias, causal, block_k,
+                         q_offset, kv_offset)
 
 
 # ---------------------------------------------------------------------------

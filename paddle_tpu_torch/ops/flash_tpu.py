@@ -55,6 +55,7 @@ from typing import Tuple
 
 import torch
 
+from ..core.recording import record_opaque
 from . import _build
 
 __all__ = ["flash_attention_blhd", "flash_attention_full", "flash_bwd_dq",
@@ -307,7 +308,7 @@ def flash_attention_blhd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise NotImplementedError(
             "flash_attention_blhd is the causal kernel; dispatch "
             "non-causal attention through dot_product_attention")
-    return _FlashFn.apply(q, k, v, True, None)
+    return record_opaque(_FlashFn.apply, q, k, v, True, None)
 
 
 def flash_attention_full(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -317,7 +318,7 @@ def flash_attention_full(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     operands, with an optional f32 [b, L] ``key_bias`` added to the scaled
     scores; returns ``(out, lse)``, differentiable in q, k and v (not in
     the bias)."""
-    return _FlashFn.apply(q, k, v, False, key_bias)
+    return record_opaque(_FlashFn.apply, q, k, v, False, key_bias)
 
 
 flash_attention_blhd.launches = 0  # forward kernel launches, causal

@@ -35,6 +35,7 @@ from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..core.recording import record_opaque
 from . import _build
 
 __all__ = ["fused_layer_norm", "fused_adam_step", "grad_global_norm",
@@ -223,7 +224,7 @@ def fused_layer_norm(x: torch.Tensor, weight: torch.Tensor,
     forward is the CUDA kernel (CUDA tensors, float32 or bfloat16,
     contiguous) or ``_ln_reference`` (CPU tensors), the backward
     ``layer_norm_bwd``."""
-    return _LayerNormFn.apply(x, weight, bias, eps)
+    return record_opaque(_LayerNormFn.apply, x, weight, bias, eps)
 
 
 fused_layer_norm.launches = 0  # forward kernel launches

@@ -9,6 +9,11 @@ and a clip (``nn.clip``) as ``grad_clip``. Not ported, and refused:
 ``lazy_mode``, a per-parameter ``optimize_attr`` learning rate, AdamW's
 ``lr_ratio`` and row-sparse gradients.
 
+``minimize(loss)`` binds the optimizer to the Program being recorded
+(``static.program_guard``), where ``parameters`` may be left out (the
+program's trainable parameters are taken); eagerly it is ``backward``,
+then ``step``.
+
 ``step()`` runs, as the reference's eager ``step`` does: the clip over
 every parameter that has a gradient, then per parameter the L2 fold and
 the update. Under ``multi_precision`` a float parameter that is not f32
@@ -73,8 +78,10 @@ class Optimizer:
                  weight_decay=None, grad_clip: Optional[ClipGradBase] = None,
                  multi_precision: bool = False):
         if parameters is None:
-            raise ValueError("parameters is required (pass "
-                             "model.parameters())")
+            if not _static_recording():
+                raise ValueError("parameters is required (pass "
+                                 "model.parameters())")
+            parameters = ()  # bound to the program's by minimize
         if not isinstance(learning_rate, (int, float, LRScheduler)):
             raise TypeError("learning_rate must be a float or an "
                             f"LRScheduler, got {type(learning_rate).__name__}")
@@ -85,12 +92,7 @@ class Optimizer:
         if isinstance(parameters, nn.Module):
             parameters = parameters.parameters()
         self._parameter_list: List[torch.Tensor] = list(parameters)
-        for p in self._parameter_list:
-            attr = getattr(p, "optimize_attr", None) or {}
-            if attr.get("learning_rate", 1.0) != 1.0:
-                raise NotImplementedError(
-                    "per-parameter learning rates (optimize_attr) are not "
-                    "ported yet")
+        _refuse_lr_attrs(self._parameter_list)
         self._learning_rate = (learning_rate if isinstance(
             learning_rate, LRScheduler) else float(learning_rate))
         self._weight_decay = weight_decay
@@ -214,6 +216,30 @@ class Optimizer:
                                  copy=True)
 
     # -- entry points -----------------------------------------------------
+    def minimize(self, loss: torch.Tensor, startup_program=None,
+                 parameters=None, no_grad_set=None):
+        """While a Program records: bind ``(self, loss)`` to it, so that
+        ``static.Executor`` runs backward and this optimizer's ``step``
+        each run (an optimizer made without ``parameters`` takes the
+        program's trainable ones). Eager: ``loss.backward()``, then
+        ``step()``. Returns ``([], [(param, grad), ...])``."""
+        from ..static.program import current_program
+
+        prog = current_program()
+        if prog is not None and _static_recording():
+            if parameters is not None:
+                self._parameter_list = list(parameters)
+            elif not self._parameter_list:
+                self._parameter_list = [
+                    p for p in prog.all_parameters() if p.requires_grad
+                    and getattr(p, "trainable", True)]
+            _refuse_lr_attrs(self._parameter_list)
+            prog._optimize = (self, loss)
+            return [], [(p, None) for p in self._parameter_list]
+        loss.backward()
+        self.step()
+        return [], [(p, p.grad) for p in self._parameter_list]
+
     def clear_grad(self) -> None:
         """Drop every gradient (the next backward allocates new ones)."""
         for p in self._parameter_list:
@@ -294,6 +320,21 @@ class Optimizer:
     def _update(self, param: torch.Tensor, grad: torch.Tensor,
                 state: State, lr: float) -> Tuple[torch.Tensor, State]:
         raise NotImplementedError
+
+
+def _static_recording() -> bool:
+    from ..core import recording
+
+    return recording.active() is not None
+
+
+def _refuse_lr_attrs(params) -> None:
+    for p in params:
+        attr = getattr(p, "optimize_attr", None) or {}
+        if attr.get("learning_rate", 1.0) != 1.0:
+            raise NotImplementedError(
+                "per-parameter learning rates (optimize_attr) are not "
+                "ported yet")
 
 
 def _sweep(loss: torch.Tensor, order: List[torch.Tensor]) -> torch.Tensor:

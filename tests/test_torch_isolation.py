@@ -64,7 +64,10 @@ def test_package_has_the_slice_modules():
                 "resilience.inject", "resilience.guard",
                 "resilience.integrity", "incubate.checkpoint",
                 "distributed.communication", "ops.tier_policy",
-                "profiler.xla_cost"):
+                "profiler.xla_cost", "core.recording", "static",
+                "static.program", "static.executor", "static.control_flow",
+                "static.nn", "nn.param_attr", "nn.initializer",
+                "jit.dy2static"):
         assert "paddle_tpu_torch." + mod in names
 
 
@@ -165,6 +168,26 @@ def test_vision_entry_points_without_device_raise_on_a_cuda_less_machine(
     with pytest.raises(RuntimeError):
         TrainStep(model, lambda out, lbl: out,
                   Adam(parameters=model.parameters()))
+
+
+def test_static_entry_points_without_device_raise_on_a_cuda_less_machine(
+        no_cuda):
+    from paddle_tpu_torch import static
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        static.Executor()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        static.Executor(static.CUDAPlace(0))
+    prog = static.Program()
+    with static.program_guard(prog):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            static.data("x", [None, 4])
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            static.create_parameter([4])
+    assert not prog.feed_vars
+    assert static.Executor(static.CPUPlace()).device.type == "cpu"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bench.main(["resnet50"])
 
 
 def test_fit_prefetch_and_load_run_without_jax(tmp_path):
