@@ -190,7 +190,29 @@ failing on the first phase that fails:
     and step 2's loss against 'off' as 12b does, and compares offload's
     measured peak with 'dots_no_batch''s (it must be lower).
 
-Every kernel's launch count is set to 0 before each of phases 4-16 and
+17. runs the static graph: 17a a recorded ResNet-50 f32 step against an
+    eager step, 17b BASELINE config #2 through ``bench.build_resnet50_
+    train``, 17c a recorded 2-layer GPT-2 345M step with and inside
+    ``plain_kernels`` and ``jit.to_static`` of phase 4's dense forward;
+18. serves breadth: 18a holds the registered kernel ops
+    (``paddle_tpu_torch::layer_norm_fwd``, ``::flash_attn_fwd``) against
+    their plain versions at the Predictor's shapes, then runs GPT-2 345M
+    (bf16, phase 4's weights) through an ``inference.Predictor`` from
+    ``set_layer`` and from the ``.pdexport`` that ``jit.save`` wrote
+    (loaded by ``create_predictor_from_path``): phase 4's logits (the
+    layer the same bits, the artifact within ``LOGITS_BF16_ATOL``), #1 24
+    and #5 49 launches a forward on both paths, the p50 of a forward at
+    [8, 1024]; 18b runs ``bench serving`` and 18c ``bench decode`` at
+    ``bench_all``'s full size (every request ``ok``, nothing unaccounted,
+    no leaked block), then GPT-2 345M in f32 served with ``spec_k=3`` and
+    a 1-layer draft, whose tokens must equal ``dense_greedy_reference``'s
+    (accept rate, tokens/s, no block of either pool leaked); 18d serves
+    GPT-2 345M from an int8 pool beside a bf16 pool (the int8 pool at
+    most ``INT8_POOL_SHARE`` of the bf16 pool's bytes, the share of greedy
+    tokens that agree, the first decode step's logits within
+    ``INT8_LOGIT_SPAN_SHARE`` of the bf16 logits' range).
+
+Every kernel's launch count is set to 0 before each of phases 4-18 and
 read after it. The last two lines are a ``{"kernels": [...]}`` JSON
 object and ``{"ok": true, "device": {...}}``.
 """
@@ -3340,6 +3362,309 @@ def static_gpt_kernels(dev, gen, counted, launches, gpt_mod, plain, dense):
     return out
 
 
+# phase 18: serving breadth. The Predictor's batch for the timed forward,
+# the draft of 18c (GPT-2 345M's vocabulary, hidden 512, 1 layer, 8 heads)
+# and the prompts of 18c and 18d
+PREDICTOR_BATCH = 8
+SPEC_K = 3
+SPEC_DRAFT = dict(vocab_size=50304, hidden_size=512, num_layers=1,
+                  num_heads=8, hidden_dropout=0.0, attention_dropout=0.0)
+SPEC_PROMPTS = (40, 150)
+SPEC_NEW_TOKENS = 8
+INT8_PROMPTS = (32, 200, 77, 128)
+INT8_NEW_TOKENS = 32
+# int8 pages plus one f32 scale per token-head: (64 + 4) / 128 of a bf16
+# pool at head dim 64 = 0.53
+INT8_POOL_SHARE = 0.55
+# tests/test_torch_quant_kv.py's (and the reference's
+# test_int8_kv_close_to_bf16_reference) rule: the int8 pool's logits within
+# 5% of the bf16 pool's logit range
+INT8_LOGIT_SPAN_SHARE = 0.05
+
+
+def check_registered_ops(dev, gen, fused, flash_tpu, err):
+    """18a: the registered ops the exported program calls, at the
+    Predictor's shapes ([8 x 1024, 1024] LayerNorm rows, [8, 1024, 16, 64]
+    attention as views of the fused QKV), against their plain versions."""
+    rows, hidden = PREDICTOR_BATCH * 1024, 1024
+    x = torch.randn(rows, hidden, device=dev, generator=gen).bfloat16()
+    w, b = (torch.randn(hidden, device=dev, generator=gen).bfloat16()
+            for _ in range(2))
+    y = torch.ops.paddle_tpu_torch.layer_norm_fwd(x, w, b, 1e-5)
+    e_ln, ok_ln = worst(y, fused._ln_reference(x, w, b),
+                        *LN_TOL[torch.bfloat16])
+    rnd = lambda *shape, dtype: torch.randn(
+        *shape, device=dev, generator=gen).to(dtype)
+    q, k, v, _ = attn_operands(rnd, (PREDICTOR_BATCH, 1024, 16, 64),
+                               torch.bfloat16, fused_qkv=True)
+    out, lse = torch.ops.paddle_tpu_torch.flash_attn_fwd(q, k, v)
+    ref_out, ref_lse = flash_tpu._flash_reference(q, k, v)
+    e_o, ok_o = worst(out, ref_out, *FLASH_OUT_TOL[torch.bfloat16])
+    e_l, ok_l = worst(lse, ref_lse, *FLASH_LSE_TOL[torch.bfloat16])
+    torch.cuda.synchronize()
+    err["layer_norm_fwd"] = max(err["layer_norm_fwd"], e_ln)
+    err["flash_attn_fwd"] = max(err["flash_attn_fwd"], e_o, e_l)
+    log(f"[18a] registered ops at the Predictor's shapes: "
+        f"paddle_tpu_torch::layer_norm_fwd [{rows}, {hidden}] bf16 max err "
+        f"{e_ln:.3g} (tol {LN_TOL[torch.bfloat16]}); "
+        f"paddle_tpu_torch::flash_attn_fwd {list(q.shape)} bf16 as "
+        f"fused-QKV views: out err {e_o:.3g}, lse err {e_l:.3g}")
+    if not (ok_ln and ok_o and ok_l):
+        raise AssertionError("18a: a registered op disagrees with its "
+                             "plain version")
+
+
+def predictor_phase(dev, gen, counted, launches, gpt_mod, fused, flash_tpu,
+                    dense, err, smi):
+    """18a: GPT-2 345M (bf16, phase 4's weights) through a Predictor from
+    ``set_layer`` and through the ``.pdexport`` that ``jit.save`` wrote,
+    loaded by ``create_predictor_from_path``: both give phase 4's logits
+    (the layer the same bits, the artifact within its bf16 tolerance) and
+    launch #1 24 and #5 49 times a forward; the p50 of a forward at
+    [8, 1024] on each."""
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.inference import (Config, create_predictor,
+                                            create_predictor_from_path)
+
+    check_registered_ops(dev, gen, fused, flash_tpu, err)
+    cfg = gpt_mod.gpt2_medium()
+    model = gpt_mod.GPTForCausalLM(cfg, dtype=torch.bfloat16, seed=0).eval()
+    spec = [jit.InputSpec([None, 1024], "int64", "ids")]
+    config = Config()
+    config.set_layer(model, spec)
+    layer_pred = create_predictor(config)
+    workdir = Path(__file__).resolve().parent / "build" / "chip_smoke_export"
+    shutil.rmtree(workdir, ignore_errors=True)
+    t0 = time.perf_counter()
+    jit.save(model, str(workdir / "gpt2_medium"), input_spec=spec)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    art_pred = create_predictor_from_path(str(workdir / "gpt2_medium"))
+    load_s = time.perf_counter() - t0
+    artifact_bytes = (workdir / "gpt2_medium.pdexport").stat().st_size
+    dense_ids, dense_logits = dense
+    ids8 = torch.randint(0, cfg.vocab_size, (PREDICTOR_BATCH, 1024),
+                         device=dev, generator=gen)
+    out, n_layers = {}, cfg.num_layers
+    for path, pred in (("layer", layer_pred), ("export", art_pred)):
+        fn = pred.serving_fn()
+        _cleared(counted)
+        (logits,) = fn(dense_ids)
+        torch.cuda.synchronize()
+        got = _read_launches(counted, launches, f"predictor_{path}")
+        e = float((logits.float().cpu() - dense_logits.float()).abs().max())
+        p50 = sorted(time_ms(lambda: fn(ids8), iters=1, warmup=0)
+                     for _ in range(7))[3]
+        out[path] = {"logits_max_err": e,
+                     "same_bits": torch.equal(logits.cpu(), dense_logits),
+                     "launches": {k: v for k, v in got.items() if v},
+                     "forward_p50_ms": p50}
+        log(f"[18a] Predictor ({path}) GPT-2 345M bf16 [1, 1024]: logits "
+            f"max err {e:.4g} against phase 4 (same bits "
+            f"{out[path]['same_bits']}), launches {out[path]['launches']}; "
+            f"forward [{PREDICTOR_BATCH}, 1024] p50 {p50:.2f} ms ({smi})")
+        if got["layer_norm_fwd"] != 2 * n_layers + 1 \
+                or got["flash_attn_fwd"] != n_layers \
+                or sum(got.values()) != 3 * n_layers + 1:
+            raise AssertionError(f"18a: the {path} Predictor launched {got}"
+                                 f", expected 49 LayerNorm and 24 attention "
+                                 "forwards")
+    if not out["layer"]["same_bits"]:
+        raise AssertionError("18a: the layer Predictor's logits are not "
+                             "phase 4's bits")
+    if out["export"]["logits_max_err"] > LOGITS_BF16_ATOL:
+        raise AssertionError("18a: the exported program's logits disagree "
+                             "with phase 4's")
+    out.update(kernel_ops=art_pred.kernel_ops, save_s=save_s, load_s=load_s,
+               artifact_bytes=artifact_bytes)
+    if art_pred.kernel_ops != {"layer_norm_fwd": 2 * n_layers + 1,
+                               "flash_attn_fwd": n_layers}:
+        raise AssertionError(f"18a: the exported graph holds "
+                             f"{art_pred.kernel_ops}")
+    log(f"[18a] jit.save with the export {save_s:.1f} s, "
+        f"create_predictor_from_path {load_s:.1f} s, .pdexport "
+        f"{artifact_bytes / 2**20:.1f} MiB, graph ops {art_pred.kernel_ops}")
+    shutil.rmtree(workdir, ignore_errors=True)
+    return out, model
+
+
+def serving_benches_phase(counted, launches, bench_mod, smi):
+    """18b and 18c's first part: ``bench serving`` and ``bench decode`` at
+    ``bench_all``'s full size (each raises on a lost or shed request or a
+    leaked block)."""
+    out = {}
+    for name, fn in (("serving", bench_mod.bench_serving),
+                     ("decode", bench_mod.bench_decode)):
+        _cleared(counted)
+        t0 = time.perf_counter()
+        out[name] = fn()
+        torch.cuda.synchronize()
+        got = _read_launches(counted, launches, f"bench_{name}")
+        out[name]["wall_s"] = time.perf_counter() - t0
+        log(f"[18{'b' if name == 'serving' else 'c'}] bench {name} ({smi}): "
+            f"{json.dumps(out[name])}; launches "
+            f"{ {k: v for k, v in got.items() if v} }")
+    return out
+
+
+def spec_phase(dev, counted, launches, gpt_mod, smi):
+    """18c: GPT-2 345M in f32 (phase 6's weights) served with ``spec_k=3``
+    and a random 1-layer draft: the tokens equal
+    ``dense_greedy_reference``'s, no block of either pool leaks."""
+    from paddle_tpu_torch.inference.serving import (TokenServeConfig,
+                                                    TokenServingEngine,
+                                                    dense_greedy_reference)
+    from paddle_tpu_torch.profiler.telemetry import get_telemetry
+
+    cfg = gpt_mod.gpt2_medium()
+    model32 = gpt_mod.GPTForCausalLM(cfg, dtype=torch.float32, seed=1).eval()
+    draft = gpt_mod.GPTForCausalLM(gpt_mod.GPTConfig(**SPEC_DRAFT),
+                                   dtype=torch.float32, seed=2).eval()
+    block = 16
+    engine = TokenServingEngine(model32, TokenServeConfig(
+        decode_buckets=(1, 2), prefill_chunk=128,
+        max_new_tokens=SPEC_NEW_TOKENS, kv_blocks=2 * 1024 // block + 1,
+        kv_block_size=block, kv_dtype="float32", spec_k=SPEC_K),
+        draft_model=draft)
+    rng = np.random.RandomState(18)
+    prompts = [rng.randint(0, cfg.vocab_size, n).astype(np.int32)
+               for n in SPEC_PROMPTS]
+    engine.start()
+    tel = get_telemetry()
+    tel.reset()
+    _cleared(counted)
+    t0 = time.perf_counter()
+    reqs = [engine.submit(p, max_new_tokens=SPEC_NEW_TOKENS)
+            for p in prompts]
+    for r in reqs:
+        if not r.wait(600):
+            raise AssertionError(f"18c: request {r.id} did not finish")
+    wall = time.perf_counter() - t0
+    acct = engine.shutdown()
+    torch.cuda.synchronize()
+    got = _read_launches(counted, launches, "serving_spec")
+    kv = engine.kv_accounting()
+    refs = [dense_greedy_reference(model32, p, SPEC_NEW_TOKENS)
+            for p in prompts]
+    served = [[int(t) for t in r.outputs[0]] for r in reqs]
+    rate = tel.snapshot()["gauges"].get("serve/spec_accept_rate", 0.0)
+    out = {"accept_rate": rate, "tokens_per_s":
+           sum(map(len, served)) / wall, "wall_s": wall,
+           "spec_proposed": tel.counter_value("serve/spec_proposed"),
+           "spec_accepted": tel.counter_value("serve/spec_accepted"),
+           "launches": {k: v for k, v in got.items() if v}}
+    log(f"[18c] GPT-2 345M f32, spec_k={SPEC_K}, draft {SPEC_DRAFT}: served "
+        f"{served}, dense reference {refs}; accept rate {rate:.4f}, "
+        f"{out['tokens_per_s']:.1f} tokens/s ({smi}); leaked blocks "
+        f"{kv['leaked_blocks']} + draft {kv['draft']['leaked_blocks']}; "
+        f"launches {out['launches']}")
+    if served != refs or any(r.status != "ok" for r in reqs):
+        raise AssertionError("18c: speculative serving differs from "
+                             "dense_greedy_reference")
+    if kv["leaked_blocks"] or kv["draft"]["leaked_blocks"] \
+            or acct["unaccounted"] or acct["double_terminal"]:
+        raise AssertionError(f"18c: accounting broken: {acct} {kv}")
+    if not out["spec_proposed"]:
+        raise AssertionError("18c: no speculative round ran")
+    del engine, model32, draft
+    torch.cuda.empty_cache()
+    return out
+
+
+def first_decode_logits(model, kv_dtype, prompt, dev):
+    """The logits of one decode step after a one-chunk prefill of
+    ``prompt`` into a ``kv_dtype`` pool, and the token fed to it (the
+    prefill's greedy next token)."""
+    from paddle_tpu_torch.inference.serving import KVCacheConfig, KVCachePool
+    from paddle_tpu_torch.jit.functionalize import get_params
+    from paddle_tpu_torch.text.models.gpt import gpt_decode_fns
+
+    c = model.config
+    n, block = len(prompt), 16
+    pool = KVCachePool(KVCacheConfig(
+        c.num_layers, c.num_heads, c.hidden_size // c.num_heads,
+        num_blocks=n // block + 3, block_size=block, dtype=kv_dtype))
+    pool.ensure(1, n + 1)
+    width = n // block + 2
+    table = torch.from_numpy(pool.block_table(1, width)[None]).to(dev)
+    ints = lambda a: torch.tensor(a, dtype=torch.int32, device=dev)
+    fwd, params = gpt_decode_fns(c, kv_dtype), get_params(model)
+    with torch.no_grad():
+        logits, _ = fwd(params, ints([list(prompt)]), ints([list(range(n))]),
+                        pool.pages, table, ints([n]))
+        tok = int(logits[0, -1].argmax())
+        logits, _ = fwd(params, ints([[tok]]), ints([[n]]), pool.pages,
+                        table, ints([n + 1]))
+    return logits[0, 0].float()
+
+
+def int8_phase(dev, counted, launches, model, smi):
+    """18d: GPT-2 345M (bf16) served from an int8 pool beside a bf16 pool:
+    the pools' bytes (int8 at most ``INT8_POOL_SHARE`` of bf16), the share
+    of greedy tokens that agree, and the first decode step's logit error
+    within ``INT8_LOGIT_SPAN_SHARE`` of the bf16 logits' range."""
+    from paddle_tpu_torch.inference.serving import (TokenServeConfig,
+                                                    TokenServingEngine,
+                                                    run_generation_streams)
+
+    cfg = model.config
+    rng = np.random.RandomState(81)
+    prompts = [rng.randint(0, cfg.vocab_size, n).astype(np.int32)
+               for n in INT8_PROMPTS]
+    block = 16
+    out, served = {}, {}
+    for kv_dtype in ("bfloat16", "int8"):
+        engine = TokenServingEngine(model, TokenServeConfig(
+            capacity=16, decode_buckets=(1, 2, 4), prefill_chunk=128,
+            max_new_tokens=INT8_NEW_TOKENS,
+            kv_blocks=len(prompts) * 1024 // block + 1, kv_block_size=block,
+            kv_dtype=kv_dtype))
+        engine.start()
+        _cleared(counted)
+        res = run_generation_streams(
+            engine, n_streams=len(prompts), requests_per_stream=1,
+            prompt_fn=lambda i: prompts[i], max_new_tokens=INT8_NEW_TOKENS)
+        acct = engine.shutdown()
+        torch.cuda.synchronize()
+        _read_launches(counted, launches, f"serving_{kv_dtype}")
+        kv = engine.kv_accounting()
+        served[kv_dtype] = [[int(t) for t in r.outputs[0]]
+                            for r in res["requests"]]
+        out[kv_dtype] = {"pool_bytes": engine._pool.nbytes(),
+                         "tokens_per_s": res["tokens_per_s"],
+                         "by_status": res["by_status"]}
+        if kv["leaked_blocks"] or acct["unaccounted"] \
+                or res["by_status"] != {"ok": len(prompts)}:
+            raise AssertionError(f"18d: {kv_dtype} serving broken: {acct} "
+                                 f"{kv} {res['by_status']}")
+        del engine
+        torch.cuda.empty_cache()
+    pairs = [(a, b) for x, y in zip(served["bfloat16"], served["int8"])
+             for a, b in zip(x, y)]
+    agree = sum(a == b for a, b in pairs) / len(pairs)
+    share = out["int8"]["pool_bytes"] / out["bfloat16"]["pool_bytes"]
+    ref = first_decode_logits(model, "bfloat16", prompts[1], dev)
+    got = first_decode_logits(model, "int8", prompts[1], dev)
+    e = float((got - ref).abs().max())
+    span = float(ref.max() - ref.min())
+    out.update(pool_share=share, token_agreement=agree,
+               first_step_logit_err=e, bf16_logit_span=span)
+    log(f"[18d] GPT-2 345M bf16 served from an int8 pool: pool "
+        f"{out['int8']['pool_bytes'] / 2**20:.1f} MiB vs bf16 "
+        f"{out['bfloat16']['pool_bytes'] / 2**20:.1f} MiB (share "
+        f"{share:.4f}, at most {INT8_POOL_SHARE}); greedy tokens agreeing "
+        f"{agree:.4f}; first decode step logits max err {e:.4g} against "
+        f"the bf16 pool's (bound {INT8_LOGIT_SPAN_SHARE} x span {span:.4g} "
+        f"= {INT8_LOGIT_SPAN_SHARE * span:.4g}); tokens/s int8 "
+        f"{out['int8']['tokens_per_s']:.1f}, bf16 "
+        f"{out['bfloat16']['tokens_per_s']:.1f} ({smi})")
+    if share > INT8_POOL_SHARE:
+        raise AssertionError(f"18d: the int8 pool is {share:.3f} of bf16's")
+    if not e < INT8_LOGIT_SPAN_SHARE * span:
+        raise AssertionError("18d: int8 pages move the logits too far")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4145,6 +4470,19 @@ def main() -> int:
     log("static " + json.dumps(static))
     torch.cuda.empty_cache()
 
+    # -- phase 18: serving breadth ---------------------------------------------
+    serving, model = predictor_phase(dev, gen, counted, launches, gpt_mod,
+                                     fused, flash_tpu, dense, err, smi)
+    torch.cuda.empty_cache()
+    serving["benches"] = serving_benches_phase(counted, launches, bench_mod,
+                                               smi)
+    torch.cuda.empty_cache()
+    serving["spec"] = spec_phase(dev, counted, launches, gpt_mod, smi)
+    serving["int8"] = int8_phase(dev, counted, launches, model, smi)
+    del model
+    log("serving_breadth " + json.dumps(serving))
+    torch.cuda.empty_cache()
+
     # -- the kernels line and the result --------------------------------------
     def timed(kernel, shape):
         return next(t for t in timings if t["kernel"] == kernel
@@ -4160,12 +4498,14 @@ def main() -> int:
              "paddle_tpu/ops/fused.py:25",
              timed("layer_norm_fwd", list(LN_TIMED[0])),
              ("dense_forward", "training", "bert_training", "longctx",
-              "static_gpt", "static_to_static")),
+              "static_gpt", "static_to_static", "predictor_layer",
+              "predictor_export", "serving_spec", "serving_int8")),
             ("flash_attn_fwd", "paddle_tpu_torch/csrc/flash_attn_fwd.cu",
              "paddle_tpu/ops/flash_tpu.py:43",
              timed("flash_attn_fwd", list(GPT_ATTN_SHAPE)),
              ("dense_forward", "training", flash_phase, "static_gpt",
-              "static_to_static")),
+              "static_to_static", "predictor_layer", "predictor_export",
+              "bench_decode")),
             ("layer_norm_bwd", "paddle_tpu_torch/csrc/layer_norm_bwd.cu",
              "paddle_tpu/ops/fused.py:34",
              timed("layer_norm_bwd", list(LN_TIMED[0])),
@@ -4222,6 +4562,8 @@ def main() -> int:
             "launches_by_phase": by_phase,
             "launches_static": sum(by_phase.get(p, 0) for p in (
                 "static_resnet", "static_gpt", "static_to_static")),
+            "launches_predictor": sum(by_phase.get(p, 0) for p in (
+                "predictor_layer", "predictor_export")),
             "max_abs_err": err[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],

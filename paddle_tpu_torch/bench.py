@@ -75,6 +75,25 @@ b = 128, ``_rate(one, 2, 3)``; the reference's key
 
     python -m paddle_tpu_torch.bench resnet50 [--smoke]
 
+Serving: ``bench_all``'s ``bench_serving`` and ``bench_decode`` as
+written. ``serving`` runs closed-loop streams through the one-shot
+``ServingEngine`` over a ``Predictor`` of a 3-layer MLP (each request an
+[L, d] activation, L = 128, d = 512; 16 streams x 40 requests, one batch
+bucket of 16, 2 warm-up requests a stream) and reports tokens/s
+(``ok_per_s * L``), requests/s, latency p50/p99, the batch occupancy p50
+and the bucket's warm-up time. ``decode`` serves greedy generation to 8
+streams (prompts of 256 tokens from ``RandomState(0)``, 64 new tokens,
+4 requests a stream after one warm-up round) from a GPT (vocab 2048,
+hidden 256, 4 layers, 8 heads, f32, seed 0) over the paged KV cache:
+first with ``spec_k=3`` and a draft (hidden 128, 1 layer, 2 heads, seed
+3), then the one-shot baseline (a ``Predictor`` whose ``serving_fn``
+recomputes the whole padded context for every token), then plain
+continuous batching, the headline; the keys are ``bench_all``'s.
+``--smoke`` takes the reference's ``SMOKE`` sizes and runs on the CPU:
+
+    python -m paddle_tpu_torch.bench serving [--smoke]
+    python -m paddle_tpu_torch.bench decode [--smoke]
+
 Each prints a line naming its device, then one JSON line. Apart from
 the ``--smoke`` runs they need a CUDA card and raise without one.
 """
@@ -512,10 +531,187 @@ def bench_resnet50(smoke: bool = False) -> dict:
     return out
 
 
+def bench_serving(smoke: bool = False) -> dict:
+    """``bench_all.bench_serving``: closed-loop request latency and
+    throughput at N synchronous streams through the one-shot
+    ``ServingEngine``, one batch bucket sized to the concurrency. The
+    closed loop never sheds: any non-OK status raises."""
+    from .inference import Config, create_predictor
+    from .inference.serving import ServeConfig, ServingEngine, run_streams
+    from .nn import Linear, ReLU, Sequential
+    from .profiler.telemetry import get_telemetry
+    from .static.program import InputSpec
+
+    if not smoke:
+        _require_card("serving")
+    device = "cpu" if smoke else "cuda"
+    L, d = (16, 64) if smoke else (128, 512)
+    streams = 2 if smoke else 16
+    per_stream = 4 if smoke else 40
+    gen = torch.Generator().manual_seed(0)
+    net = Sequential(Linear(d, d, device, generator=gen), ReLU(),
+                     Linear(d, d, device, generator=gen), ReLU(),
+                     Linear(d, d, device, generator=gen))
+    net.eval()
+    cfg = Config()
+    if smoke:
+        cfg.disable_gpu()
+    cfg.set_layer(net, [InputSpec([None, L, d], "float32", "x")])
+    engine = ServingEngine(create_predictor(cfg), ServeConfig(
+        capacity=4 * streams, buckets=(streams,)))
+    engine.start()  # warm-up: the bucket's shape runs before the clock
+    rng = np.random.RandomState(0)
+    xs = rng.randn(32, L, d).astype(np.float32)
+    try:
+        run_streams(engine, streams, 2, lambda k: [xs[k % len(xs)]])  # warm
+        out = run_streams(engine, streams, per_stream,
+                          lambda k: [xs[k % len(xs)]])
+    finally:
+        acct = engine.shutdown()
+    n = streams * per_stream
+    if acct["unaccounted"] or acct["double_terminal"] \
+            or out["by_status"].get("ok", 0) != n:
+        raise AssertionError(
+            f"closed-loop serving shed or lost requests: {out['by_status']}, "
+            f"unaccounted={acct['unaccounted']}, "
+            f"double_terminal={acct['double_terminal']}")
+    occ = get_telemetry().hist_summary("serve/batch_occupancy") or {}
+    return {"metric": "serving_closed_loop_tokens_per_sec",
+            "value": round(out["ok_per_s"] * L, 1), "unit": "tokens/sec",
+            "streams": streams, "tokens_per_request": L,
+            "requests_per_sec": round(out["ok_per_s"], 2),
+            "p50_ms": round(out["p50_ms"], 3),
+            "p99_ms": round(out["p99_ms"], 3),
+            "batch_occupancy_p50": round(occ.get("p50", 0.0), 3),
+            "warmup_compile_ms": round(engine.warmup_ms[streams], 1)}
+
+
+def bench_decode(smoke: bool = False) -> dict:
+    """``bench_all.bench_decode``: greedy generation at 8 streams through
+    decode-step continuous batching over the paged KV cache, against the
+    one-shot baseline (a Predictor recomputing the full prefix every
+    token) and with speculative decoding (a draft proposing k=3). The
+    spec and baseline legs run first, the headline leg last."""
+    from .inference import Config, create_predictor
+    from .inference.serving import (TokenServeConfig, TokenServingEngine,
+                                    run_generation_streams)
+    from .profiler.telemetry import get_telemetry
+    from .static.program import InputSpec
+    from .text.models.gpt import GPTConfig, GPTForCausalLM
+
+    if not smoke:
+        _require_card("decode serving")
+    device = "cpu" if smoke else "cuda"
+    streams = 8
+    if smoke:
+        P, T, per_stream = 48, 16, 2
+        mcfg = dict(vocab_size=512, hidden_size=128, num_layers=2,
+                    num_heads=4)
+    else:
+        P, T, per_stream = 256, 64, 4
+        mcfg = dict(vocab_size=2048, hidden_size=256, num_layers=4,
+                    num_heads=8)
+    Lmax = P + T
+    model = GPTForCausalLM(GPTConfig(
+        max_position_embeddings=Lmax, hidden_dropout=0.0,
+        attention_dropout=0.0, **mcfg), device=device, seed=0).eval()
+    draft = GPTForCausalLM(GPTConfig(
+        vocab_size=mcfg["vocab_size"], hidden_size=mcfg["hidden_size"] // 2,
+        num_layers=1, num_heads=2, max_position_embeddings=Lmax,
+        hidden_dropout=0.0, attention_dropout=0.0), device=device,
+        seed=3).eval()
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, mcfg["vocab_size"], P).astype(np.int32)
+               for _ in range(streams)]
+    bs = 16
+    kv_blocks = streams * (Lmax // bs + 1) + 8
+
+    def serve_cfg(spec_k=0):
+        return TokenServeConfig(
+            capacity=4 * streams, decode_buckets=(1, 2, 4, 8),
+            max_running=streams, prefill_chunk=min(P, 32),
+            kv_blocks=kv_blocks, kv_block_size=bs, max_seq_len=Lmax,
+            spec_k=spec_k)
+
+    def run_leg(engine):
+        engine.start()
+        try:
+            run_generation_streams(  # warm: every step shape has run
+                engine, streams, 1,
+                lambda k: prompts[k % streams], max_new_tokens=4)
+            out = run_generation_streams(
+                engine, streams, per_stream,
+                lambda k: prompts[k % streams], max_new_tokens=T)
+        finally:
+            acct = engine.shutdown()
+        want_ok = streams * (per_stream + 1)  # warm + timed rounds
+        if acct["unaccounted"] or acct["double_terminal"] \
+                or engine.kv_accounting()["leaked_blocks"] \
+                or acct["by_status"].get("ok", 0) != want_ok:
+            raise AssertionError(f"decode bench lost requests or blocks: "
+                                 f"{acct}, {engine.kv_accounting()}")
+        return out
+
+    tel = get_telemetry()
+    # leg 1: speculative decoding
+    spec = run_leg(TokenServingEngine(model, serve_cfg(spec_k=3),
+                                      device=device, draft_model=draft))
+    accept = tel.snapshot()["gauges"].get("serve/spec_accept_rate", 0.0)
+
+    # leg 2: the one-shot baseline — a Predictor over the full padded
+    # context, recomputing the whole prefix for every generated token
+    # (all streams batched per step)
+    cfg = Config()
+    if smoke:
+        cfg.disable_gpu()
+    cfg.set_layer(model, [InputSpec([None, Lmax], "int64", "ids")])
+    raw_fn = create_predictor(cfg).serving_fn()
+
+    def serving_logits(arr):
+        out = raw_fn(arr)
+        return (out[0] if isinstance(out, (list, tuple)) else out) \
+            .float().cpu().numpy()
+
+    ids = np.zeros((streams, Lmax), np.int64)
+    for s in range(streams):
+        ids[s, :P] = prompts[s]
+    serving_logits(ids)  # warm-up off the clock
+    t0 = time.perf_counter()
+    n_base_tokens = 0
+    for _ in range(per_stream):
+        cur = ids.copy()
+        ln = P
+        for _ in range(T):
+            logits = serving_logits(cur)
+            cur[:, ln] = logits[:, ln - 1].argmax(-1)
+            ln += 1
+            n_base_tokens += streams
+    oneshot_tps = n_base_tokens / (time.perf_counter() - t0)
+
+    # leg 3 (last, the headline): plain continuous batching; evictions
+    # are this leg's own (the counters are process-wide)
+    ev0 = tel.counter_value("serve/kv_evictions")
+    out = run_leg(TokenServingEngine(model, serve_cfg(), device=device))
+    evictions = tel.counter_value("serve/kv_evictions") - ev0
+    return {"metric": "decode_serving_tokens_per_sec",
+            "value": round(out["tokens_per_s"], 1), "unit": "tokens/sec",
+            "streams": streams, "prompt_len": P, "max_new_tokens": T,
+            "oneshot_tokens_per_sec": round(oneshot_tps, 1),
+            "continuous_batching_speedup":
+                round(out["tokens_per_s"] / max(oneshot_tps, 1e-9), 3),
+            "spec_tokens_per_sec": round(spec["tokens_per_s"], 1),
+            "spec_accept_rate": round(float(accept), 4),
+            "ttft_p50_ms": round(out.get("ttft_p50_ms", 0.0), 3),
+            "ttft_p99_ms": round(out.get("ttft_p99_ms", 0.0), 3),
+            "tpot_p50_ms": round(out.get("tpot_p50_ms", 0.0), 3),
+            "tpot_p99_ms": round(out.get("tpot_p99_ms", 0.0), 3),
+            "kv_evictions": int(evictions)}
+
+
 def main(argv: Optional[List[str]] = None) -> dict:
     """Run the bench named by ``argv[0]`` (``gpt``, the default, ``bert``,
-    ``pipeline``, ``longctx`` or ``resnet50``, the last two with
-    ``--smoke``) and print its result."""
+    ``pipeline``, ``longctx``, ``resnet50``, ``serving`` or ``decode``,
+    the last four with ``--smoke``) and print its result."""
     argv = list(argv or [])
     smoke = "--smoke" in argv
     argv = [a for a in argv if a != "--smoke"]
@@ -523,12 +719,14 @@ def main(argv: Optional[List[str]] = None) -> dict:
     benches = {"gpt": bench_gpt, "bert": bench_bert,
                "pipeline": bench_pipeline,
                "longctx": lambda: bench_longctx(smoke),
-               "resnet50": lambda: bench_resnet50(smoke)}
-    if which not in benches or (smoke and which not in ("longctx",
-                                                        "resnet50")):
+               "resnet50": lambda: bench_resnet50(smoke),
+               "serving": lambda: bench_serving(smoke),
+               "decode": lambda: bench_decode(smoke)}
+    smokes = ("longctx", "resnet50", "serving", "decode")
+    if which not in benches or (smoke and which not in smokes):
         raise SystemExit(f"usage: python -m paddle_tpu_torch.bench "
-                         f"[{'|'.join(benches)}] [--smoke (longctx, "
-                         "resnet50)]")
+                         f"[{'|'.join(benches)}] [--smoke "
+                         f"({', '.join(smokes)})]")
     result = benches[which]()
     print("device: " + ("cpu" if smoke else torch.cuda.get_device_name(0)))
     print(json.dumps(result))

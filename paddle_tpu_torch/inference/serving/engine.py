@@ -1,28 +1,42 @@
-"""ServingEngine — counterpart of ``paddle_tpu.inference.serving.engine``,
-kept to the request-lifecycle core the token engine
-(``decode.TokenServingEngine``) builds on: submit → admit-or-shed, the
-single terminal funnel ``_finish`` with its accounting ledger, drain and
-shutdown.
+"""ServingEngine — counterpart of ``paddle_tpu.inference.serving.engine``:
+the overload-safe request-serving runtime over one
+``inference.Predictor``.
+
+    client threads ──submit()──▶ AdmissionQueue ──take()──▶ BatchScheduler
+                        │ explicit shed                        │ bucketed
+                        ▼                                      ▼ step
+                  REJECTED status                   OK / DEADLINE_EXCEEDED
 
 Past capacity the server says no (``REJECTED`` at submit) instead of
 buffering; expired work is shed at every stage; a drain stops admission,
 lets queued work finish within a grace window and terminates the rest as
-``DRAINED``. Every submitted request reaches exactly one terminal status
-— ``accounting()`` proves it.
+``DRAINED``. SIGTERM (``install_preemption``) triggers that drain, and
+``exit_if_preempted`` then leaves with exit code 77 for the launch
+supervisor to relaunch. Every submitted request reaches exactly one
+terminal status — ``accounting()`` proves it. The token engine
+(``decode.TokenServingEngine``) shares this lifecycle and brings its own
+scheduler and ``submit``.
 
-The one-shot predictor engine (``BatchScheduler``), the ops server,
-request tracing, the compile cache and the preemption exit come with
-later slices; here ``ServingEngine`` is the base whose subclass supplies
-the scheduler (``_make_scheduler``) and ``submit``.
+Telemetry (``serve/*``): counters ``requests accepted completed
+admission_rejects deadline_exceeded drained errors batches
+double_terminal drains``; gauges ``queue_depth queue_capacity draining
+dtype_bits``; histograms ``latency_ms batch_ms[.b<N>] batch_occupancy``.
+The reference's ops server, request traces and compile cache are not
+ported.
 """
 from __future__ import annotations
 
 import threading
-from typing import Dict, Optional, Sequence
+import time
+from typing import Callable, Dict, List, Optional, Sequence
+
+import numpy as np
 
 from ...profiler.telemetry import get_telemetry
+from ...resilience.inject import active_injector
 from .admission import ADMIT, REJECT_EXPIRED, AdmissionQueue
 from .request import Request, RequestStatus
+from .scheduler import BatchScheduler
 
 __all__ = ["ServeConfig", "ServingEngine"]
 
@@ -71,13 +85,21 @@ class ServeConfig:
 
 
 class ServingEngine:
-    """Request-lifecycle core shared by the engine variants. Subclasses
-    set ``self.config``, implement ``_make_scheduler`` (an object with
-    ``warmup()``, ``start()`` and ``join(timeout)``) and ``submit``, and
-    call ``_init_runtime()``."""
+    """Continuous-batching server over one ``inference.Predictor``: each
+    dispatch packs the queued requests into the smallest batch bucket
+    that fits and runs the predictor's ``serving_fn`` on the predictor's
+    device."""
+
+    def __init__(self, predictor, config: Optional[ServeConfig] = None):
+        self.config = config or ServeConfig()
+        self._predictor = predictor
+        self._serving_fn = predictor.serving_fn()
+        self._sample_specs = predictor.sample_specs()
+        self._init_runtime()
 
     def _make_scheduler(self):
-        raise NotImplementedError
+        """The device loop (the token engine substitutes its own)."""
+        return BatchScheduler(self)
 
     def _init_runtime(self) -> None:
         self._queue = AdmissionQueue(self.config.capacity)
@@ -95,21 +117,54 @@ class ServingEngine:
         self._drain_reason: Optional[str] = None
         self._drained = threading.Event()
         self._drain_latch_lock = threading.Lock()
+        self._on_drain: Optional[Callable[[], None]] = None
         self._grace_timer: Optional[threading.Timer] = None
 
     # -- lifecycle ---------------------------------------------------------
-    def start(self) -> "ServingEngine":
-        """Start the scheduler thread after running every step shape
-        once (kernel build, allocator, library handles), so the first
-        request pays none of that."""
+    def start(self, warmup: bool = True) -> "ServingEngine":
+        """Start the scheduler thread; with ``warmup`` (default) after
+        running every step shape once (kernel build, allocator, library
+        handles), so the first request pays none of that. ``warmup_ms``
+        holds each shape's wall time."""
         if self._started:
             return self
         self._tel.gauge("serve/queue_capacity", self.config.capacity)
         self._tel.gauge("serve/draining", 0)
-        self.warmup_ms = self._scheduler.warmup()
+        self._publish_start_gauges()
+        self.warmup_ms = self._scheduler.warmup() if warmup else {}
         self._started = True
         self._scheduler.start()
         return self
+
+    def _publish_start_gauges(self) -> None:
+        self._tel.gauge("serve/dtype_bits",
+                        getattr(self._predictor, "serving_dtype_bits", 32))
+
+    # -- client side -------------------------------------------------------
+    def submit(self, inputs: Sequence[np.ndarray],
+               deadline_s: Optional[float] = None) -> Request:
+        """Admit or shed one request (per-sample inputs, WITHOUT the
+        batch axis). ALWAYS returns a ``Request``; a shed one is already
+        terminal."""
+        if not self._started:
+            raise RuntimeError("ServingEngine.start() first")
+        # validate before taking an id: a ValueError leaves the ledger
+        if len(inputs) != len(self._sample_specs):
+            raise ValueError(
+                f"request has {len(inputs)} inputs, model takes "
+                f"{len(self._sample_specs)}")
+        arrays = []
+        for a, (shape, dtype) in zip(inputs, self._sample_specs):
+            a = np.asarray(a, dtype=dtype)
+            if tuple(a.shape) != tuple(shape):
+                raise ValueError(
+                    f"request input shape {tuple(a.shape)} != per-sample "
+                    f"spec {tuple(shape)} (submit WITHOUT the batch axis)")
+            arrays.append(a)
+        req_id = self._allocate_request_id()
+        req = Request(req_id, arrays, self._resolve_deadline(req_id,
+                                                             deadline_s))
+        return self._admit(req)
 
     # -- admission funnel --------------------------------------------------
     def _allocate_request_id(self) -> int:
@@ -119,8 +174,13 @@ class ServingEngine:
             self._submitted_total += 1
         return req_id
 
-    def _resolve_deadline(self, deadline_s: Optional[float]
+    def _resolve_deadline(self, req_id: int, deadline_s: Optional[float]
                           ) -> Optional[float]:
+        inj = active_injector()
+        if inj is not None:
+            storm = inj.storm_deadline(req_id)
+            if storm is not None:  # injected deadline storm
+                return storm
         return (self.config.default_deadline_s if deadline_s is None
                 else deadline_s)
 
@@ -180,6 +240,35 @@ class ServingEngine:
                     "unaccounted": unaccounted,
                     "double_terminal": self._double_terminal}
 
+    def debug_requests(self, limit: int = 256) -> list:
+        """One row per pending request (age, phase, deadline left),
+        oldest first, at most ``limit``."""
+        with self._id_lock:
+            reqs = sorted(self._pending.values(),
+                          key=lambda r: r.submitted_at)
+        now = time.monotonic()
+        return [r.debug_state(now) for r in reqs
+                if r.status == RequestStatus.PENDING][:int(limit)]
+
+    # -- batch formation (scheduler-facing) ---------------------------------
+    def _stack_batch(self, reqs: List[Request], bucket: int
+                     ) -> List[np.ndarray]:
+        """The requests' inputs stacked, padded with zero rows to
+        ``bucket`` (their results are sliced off after the run)."""
+        arrays = []
+        n = len(reqs)
+        for i in range(len(self._sample_specs)):
+            arr = np.stack([r.inputs[i] for r in reqs])
+            if bucket > n:
+                pad = np.zeros((bucket - n,) + arr.shape[1:], arr.dtype)
+                arr = np.concatenate([arr, pad])
+            arrays.append(arr)
+        return arrays
+
+    def _zero_batch(self, bucket: int) -> List[np.ndarray]:
+        return [np.zeros((bucket,) + tuple(shape), dtype)
+                for shape, dtype in self._sample_specs]
+
     # -- drain / shutdown ---------------------------------------------------
     @property
     def draining(self) -> bool:
@@ -219,6 +308,11 @@ class ServingEngine:
                          detail="unfinished at drain completion")
         self._tel.gauge("serve/draining", 0)
         self._tel.gauge("serve/queue_depth", 0)
+        if self._on_drain is not None:
+            try:
+                self._on_drain()
+            except Exception:
+                pass  # the drain outcome outranks its hook
         self._drained.set()
 
     def drain(self, wait: bool = True, reason: str = "drain",
@@ -245,3 +339,31 @@ class ServingEngine:
         if self._started:
             self._scheduler.join(timeout=5.0)
         return acct
+
+    # -- preemption ---------------------------------------------------------
+    def install_preemption(self, on_drain: Optional[Callable[[], None]] = None
+                           ) -> "ServingEngine":
+        """Arm SIGTERM/SIGINT handling: the scheduler loop checks the
+        preemption flag and flips into drain. ``on_drain`` runs once every
+        accepted request is terminal; then call ``exit_if_preempted()``
+        from the main thread to take the exit-77 relaunch path."""
+        from ...resilience.preemption import install_preemption_handler
+
+        install_preemption_handler()
+        self._on_drain = on_drain
+        return self
+
+    def exit_if_preempted(self, save_fn: Optional[Callable[[], None]] = None,
+                          timeout: Optional[float] = None) -> bool:
+        """When a preemption drained the engine (or the preemption flag is
+        set: a SIGTERM that raced an already-latched drain): wait for the
+        drain, then ``resilience.preemption.exit_for_relaunch`` (raises
+        ``SystemExit(77)``). Returns False when there was no preemption."""
+        from ...resilience.preemption import (exit_for_relaunch,
+                                              preemption_requested)
+
+        if self._drain_reason != "preempted" and not preemption_requested():
+            return False
+        self.wait_drained(timeout)
+        exit_for_relaunch(save_fn)
+        return True  # unreachable: exit_for_relaunch raises

@@ -9,10 +9,15 @@
 - host side: a free list plus an owner map; accounting is exact —
   ``used_blocks`` returns to 0 after a drain.
 
+- int8 storage (``dtype='int8'``): K/V quantize on write through
+  ``quant.quantize_kv`` (one f32 scale per token-head, in
+  ``pages['k_scale'] / pages['v_scale']``, [num_layers, num_blocks,
+  block_size, heads]) and dequantize one page pair at a time inside the
+  paged attention: the cache takes about half a bf16 pool's bytes.
+
 Page 0 is a reserved **scratch page**: never allocated, it takes every
 masked-out write (padding rows of a bucketed batch, padded tail of a
 prefill chunk), so the scatter needs no data-dependent guard.
-int8 pages (with per-token-head scales) wait for the ``quant`` port.
 """
 from __future__ import annotations
 
@@ -29,7 +34,7 @@ __all__ = ["KVCacheConfig", "KVCachePool", "SCRATCH_PAGE"]
 
 SCRATCH_PAGE = 0
 
-_STORE_DTYPES = ("float32", "bfloat16")
+_STORE_DTYPES = ("float32", "bfloat16", "int8")
 
 
 class KVCacheConfig:
@@ -39,14 +44,13 @@ class KVCacheConfig:
         num_layers/num_heads/head_dim: the served model's KV shape.
         num_blocks: pool capacity in blocks (one is reserved as scratch).
         block_size: tokens per block.
-        dtype: 'float32' | 'bfloat16' storage.
+        dtype: 'float32' | 'bfloat16' | 'int8' storage; int8 adds the
+            per-token-head scale planes.
     """
 
     def __init__(self, num_layers: int, num_heads: int, head_dim: int,
                  num_blocks: int = 64, block_size: int = 16,
                  dtype: str = "float32"):
-        if dtype == "int8":
-            raise NotImplementedError("int8 KV pages wait for the quant port")
         if dtype not in _STORE_DTYPES:
             raise ValueError(f"kv dtype {dtype!r} not in {_STORE_DTYPES}")
         if num_blocks < 2:
@@ -82,6 +86,10 @@ class KVCachePool:
             "k": torch.zeros(shape, dtype=store, device=self.device),
             "v": torch.zeros(shape, dtype=store, device=self.device),
         }
+        if c.dtype == "int8":  # one f32 scale per token-head
+            for name in ("k_scale", "v_scale"):
+                self.pages[name] = torch.zeros(
+                    shape[:-1], dtype=torch.float32, device=self.device)
         self._lock = threading.Lock()
         self._free: List[int] = list(range(1, c.num_blocks))
         self._owned: Dict[int, List[int]] = {}  # request id -> block ids
@@ -133,6 +141,10 @@ class KVCachePool:
     def used_blocks(self) -> int:
         with self._lock:
             return self.config.usable_blocks - len(self._free)
+
+    def nbytes(self) -> int:
+        """Device bytes of the pages (scale planes included)."""
+        return sum(t.numel() * t.element_size() for t in self.pages.values())
 
     def accounting(self) -> dict:
         """The leak ledger: after a drain ``leaked_blocks`` is 0 and

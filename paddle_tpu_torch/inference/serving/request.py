@@ -5,8 +5,8 @@ Every submitted request reaches EXACTLY ONE terminal status, whatever the
 load, the deadlines or a drain do. ``Request.finish`` is the single
 transition point: the first terminal status wins, a second attempt
 returns False (the engine counts it as ``serve/double_terminal``,
-expected to stay 0). Request-scoped traces and the ops-plane debug rows
-come with the profiler and ops-server ports.
+expected to stay 0). Request-scoped traces come with the profiler's
+ops-server port.
 """
 from __future__ import annotations
 
@@ -96,6 +96,22 @@ class Request:
         end = self.finished_at if self.finished_at is not None \
             else time.monotonic()
         return (end - self.submitted_at) * 1e3
+
+    def phase(self) -> str:
+        """``inflight`` while pending (queued or in a running batch: the
+        engine does not track which), else the terminal status."""
+        return "inflight" if self.status == RequestStatus.PENDING \
+            else self.status
+
+    def debug_state(self, now: Optional[float] = None) -> dict:
+        """One row of ``ServingEngine.debug_requests``: the request's age,
+        its deadline left and what it is doing."""
+        now = time.monotonic() if now is None else now
+        return {"id": self.id, "status": self.status, "phase": self.phase(),
+                "age_ms": (now - self.submitted_at) * 1e3,
+                "deadline_remaining_ms": (
+                    None if self.deadline is None
+                    else (self.deadline - now) * 1e3)}
 
     def __repr__(self):
         return (f"Request(id={self.id}, status={self.status!r}"

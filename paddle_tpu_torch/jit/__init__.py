@@ -14,8 +14,9 @@ function records its ``if`` / ``while`` as ``static`` control flow.
 
 ``save(layer, path)`` writes ``path.pdiparams`` (the layer's state dict,
 ``framework.io``) and ``path.pdmodel`` (its class name), as the reference
-does; the ``.pdexport`` artifact that an ``input_spec`` asks for needs
-``inference/_export.py``, which is not ported yet, and raises.
+does; with an ``input_spec`` it also writes ``path.pdexport``, the
+``torch.export`` program of the layer's eval forward with its weights
+(``inference/_export.py``), which ``inference.create_predictor`` serves.
 """
 from __future__ import annotations
 
@@ -94,26 +95,87 @@ def not_to_static(fn):
     return fn
 
 
+class _Serving(nn.Module):
+    """The exported forward: ``layer`` with its float inputs cast to
+    ``dtype`` and its float outputs cast back to float32 (a precision
+    export), or ``layer`` as it is (``dtype`` None)."""
+
+    def __init__(self, layer: nn.Module, dtype: Optional[torch.dtype]):
+        super().__init__()
+        self.layer = layer
+        self.dtype = dtype
+
+    def forward(self, *xs):
+        if self.dtype is None:
+            return self.layer(*xs)
+        xs = [x.to(self.dtype) if x.is_floating_point() else x for x in xs]
+        out = self.layer(*xs)
+        outs = out if isinstance(out, (list, tuple)) else (out,)
+        outs = tuple(o.float() if o.is_floating_point() else o for o in outs)
+        return outs if isinstance(out, (list, tuple)) else outs[0]
+
+
+def _float_dtype(layer: nn.Module) -> str:
+    for p in layer.parameters():
+        if p.is_floating_point():
+            return str(p.dtype).replace("torch.", "")
+    return "float32"
+
+
 def save(layer, path: str, input_spec=None, **configs) -> None:
     """``path.pdiparams`` (the state dict) and ``path.pdmodel`` (the
-    class name)."""
+    class name); with ``input_spec`` (``InputSpec``s, None/-1 for a
+    dynamic dim) also ``path.pdexport``, the exported eval forward.
+    ``precision='bfloat16' | 'float16'`` bakes weights cast to that dtype
+    into the artifact (its float inputs are cast, its float outputs come
+    back as float32). The layer is put in eval mode. An export that
+    fails raises."""
     from ..framework.io import save as _save_state
 
-    if input_spec:
-        raise NotImplementedError(
-            "jit.save with input_spec writes a .pdexport artifact, which "
-            "needs inference/_export.py (not ported yet); save without "
-            "input_spec for the weights")
     if isinstance(layer, StaticFunction):
         layer = layer._layer
+    precision = configs.get("precision")
+    if precision and precision not in ("float32", "bfloat16", "float16"):
+        raise ValueError(f"unsupported export precision {precision!r} "
+                         "(float32, bfloat16, float16)")
     d = os.path.dirname(path)
     if d:
         os.makedirs(d, exist_ok=True)
     _save_state(layer.state_dict(), path + ".pdiparams",
                 **({"cipher_key": configs["encrypt_key"]}
                    if configs.get("encrypt_key") else {}))
+    meta = {"class": type(layer).__name__}
+    if input_spec:
+        meta["in_specs"] = _export_layer(layer, path, input_spec, precision)
     with open(path + ".pdmodel", "wb") as f:
-        pickle.dump({"class": type(layer).__name__}, f)
+        pickle.dump(meta, f)
+
+
+def _export_layer(layer, path, input_spec, precision):
+    """Write ``path.pdexport``; returns its input specs."""
+    import copy
+
+    from ..inference._export import export_module, write_pdexport
+    from ..static.program import convert_dtype
+
+    layer.eval()
+    cast = None
+    if precision and precision != "float32":
+        cast = getattr(torch, precision)
+        layer = copy.deepcopy(layer).to(cast)
+    device = next((t.device for t in layer.parameters()),
+                  torch.device("cpu"))
+    specs = [(list(s.shape), convert_dtype(s.dtype)) for s in input_spec]
+    ep = export_module(_Serving(layer, cast), specs, device)
+    n_out = len([n for n in ep.graph_signature.output_specs
+                 if n.kind.name == "USER_OUTPUT"])
+    in_specs = [([None if d is None or d < 0 else int(d) for d in shape],
+                 str(dt).replace("torch.", "")) for shape, dt in specs]
+    write_pdexport(path, ep,
+                   [s.name or f"x{i}" for i, s in enumerate(input_spec)],
+                   [f"output{i}" for i in range(n_out)], in_specs,
+                   dtype=precision or _float_dtype(layer))
+    return in_specs
 
 
 class _Loaded:

@@ -588,6 +588,17 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 # ---------------------------------------------------------------------------
 # Positions are logical: token p of a sequence lives in table slot
 # p // block_size at offset p % block_size, so slot index IS position.
+# int8 pages carry one f32 scale per token-head and are widened
+# (``quant.dequantize_kv``) where they are read.
+
+def _paged_widen(x, scale):
+    """Gathered pages (int8 with their scales, or float) in f32."""
+    if scale is None:
+        return x.float()
+    from ..quant import dequantize_kv
+
+    return dequantize_kv(x, scale)
+
 
 def _paged_mask(k_pos, q_positions, kv_lens):
     """[B, T, K] bool: causal (k_pos <= q_pos) AND within the written
@@ -598,17 +609,19 @@ def _paged_mask(k_pos, q_positions, kv_lens):
 
 
 def _paged_gather_impl(q, k_pages, v_pages, block_tables, q_positions,
-                       kv_lens):
-    """q: [B, T, H, D]; k_pages/v_pages: [N, bs, H, D]; block_tables:
-    [B, M] int; q_positions: [B, T] int global positions; kv_lens: [B]
-    int valid prefix. One gather of the whole context, then one masked
-    softmax."""
+                       kv_lens, k_scale=None, v_scale=None):
+    """q: [B, T, H, D]; k_pages/v_pages: [N, bs, H, D] (+ [N, bs, H]
+    scales for int8 pools); block_tables: [B, M] int; q_positions:
+    [B, T] int global positions; kv_lens: [B] int valid prefix. One
+    gather of the whole context, then one masked softmax."""
     B, T, H, D = q.shape
     bs = k_pages.shape[1]
     M = block_tables.shape[1]
     tables = block_tables.long()
-    k = k_pages[tables].float().reshape(B, M * bs, H, D)
-    v = v_pages[tables].float().reshape(B, M * bs, H, D)
+    k = _paged_widen(k_pages[tables], None if k_scale is None
+                     else k_scale[tables]).reshape(B, M * bs, H, D)
+    v = _paged_widen(v_pages[tables], None if v_scale is None
+                     else v_scale[tables]).reshape(B, M * bs, H, D)
     s = torch.einsum("bthd,bkhd->bhtk", q.float() / math.sqrt(D), k)
     k_pos = torch.arange(M * bs, device=q.device)
     mask = _paged_mask(k_pos, q_positions, kv_lens)
@@ -620,9 +633,10 @@ def _paged_gather_impl(q, k_pages, v_pages, block_tables, q_positions,
 
 
 def _paged_scan_impl(q, k_pages, v_pages, block_tables, q_positions,
-                     kv_lens):
+                     kv_lens, k_scale=None, v_scale=None):
     """Online-softmax loop over table slots — the flash recurrence over
-    pages; only one [B, bs, H, D] page pair is live per step."""
+    pages; only one [B, bs, H, D] page pair is live (and, for int8
+    pools, dequantized) per step."""
     B, T, H, D = q.shape
     bs = k_pages.shape[1]
     M = block_tables.shape[1]
@@ -634,8 +648,10 @@ def _paged_scan_impl(q, k_pages, v_pages, block_tables, q_positions,
     offsets = torch.arange(bs, device=q.device)
     for i in range(M):
         pids = tables[:, i]
-        kc = k_pages[pids].float()  # [B, bs, H, D]
-        vc = v_pages[pids].float()
+        kc = _paged_widen(k_pages[pids], None if k_scale is None
+                          else k_scale[pids])  # [B, bs, H, D]
+        vc = _paged_widen(v_pages[pids], None if v_scale is None
+                          else v_scale[pids])
         s = torch.einsum("bthd,bshd->bhts", qf, kc)
         mask = _paged_mask(i * bs + offsets, q_positions, kv_lens)
         s = s.masked_fill(~mask[:, None], _NEG_INF)
@@ -660,22 +676,24 @@ def paged_attention(q, k_pages, v_pages, block_tables, q_positions,
         q_positions: [B, T] int global position of each query token.
         kv_lens: [B] int — valid cache positions, this chunk's writes
             included.
-        k_scale/v_scale: int8 page scales; not supported until the
-            ``quant`` port.
+        k_scale/v_scale: [N, bs, H] f32 per-token-head scales when the
+            pool stores int8 (``quant.quantize_kv``), else None.
 
     The tier is ``tier_policy.select_paged``'s (the heuristic unless
     ``PADDLE_TPU_ATTN_PAGED_POLICY`` forces a tier or ``bench``), published
     as ``gauge/attn/tier.paged.t<T>.d<D>``.
     """
-    if k_scale is not None or v_scale is not None:
-        raise NotImplementedError("int8 KV pages wait for the quant port")
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("paged_attention: int8 pages need both k_scale "
+                         "and v_scale")
     get_telemetry().counter("attn/calls")
     B, T, H, D = q.shape
     tier = tier_policy.select_paged(T, H, D, block_tables.shape[1],
-                                    k_pages.shape[1], k_pages.dtype, False,
-                                    device=q.device)
+                                    k_pages.shape[1], k_pages.dtype,
+                                    k_scale is not None, device=q.device)
     get_telemetry().gauge(f"attn/tier.paged.t{T}.d{D}",
                           tier_policy.TIER_IDS[tier])
     impl = (_paged_gather_impl if tier == "paged_gather"
             else _paged_scan_impl)
-    return impl(q, k_pages, v_pages, block_tables, q_positions, kv_lens)
+    return impl(q, k_pages, v_pages, block_tables, q_positions, kv_lens,
+                k_scale, v_scale)

@@ -11,7 +11,10 @@ dK/dV kernels of ``csrc/flash_attn_bwd.cu`` (the ports of ``_dq_kernel``
 and ``_dkv_kernel``; in full mode the same math with the mask dropped);
 for tensors on the CPU they run the plain PyTorch versions,
 ``_flash_reference`` and ``_flash_bwd_reference``. Each mode's kernels
-have their own launch counts. Both return ``(out, lse)``: ``out`` is
+have their own launch counts. The causal forward goes through the
+registered op ``paddle_tpu_torch::flash_attn_fwd``, so that
+``torch.export`` keeps it in an exported program (the Predictor's
+``.pdexport``). Both return ``(out, lse)``: ``out`` is
 [b, L, H, d] in q's dtype, ``lse`` the f32 log-sum-exp of each query
 row's scaled scores, [b, H, L] (not differentiable).
 
@@ -279,6 +282,26 @@ def _bwd(q, k, v, out, lse, key_bias, dout, causal):
     return dq, dk, dv
 
 
+@torch.library.custom_op("paddle_tpu_torch::flash_attn_fwd", mutates_args=())
+def _flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The causal forward as a registered op: ``torch.export`` keeps it
+    as one node of the exported graph, and the loaded program calls it
+    back here (the kernel on the card, the plain version on the CPU)."""
+    return _fwd(q, k, v, True, None)
+
+
+@_flash_fwd_op.register_fake
+def _(q, k, v):
+    _flash_fwd_op.traced_calls += 1
+    b, L, H, d = q.shape
+    return (q.new_empty((b, L, H, d)),
+            q.new_empty((b, H, L), dtype=torch.float32))
+
+
+_flash_fwd_op.traced_calls = 0  # calls traced (export), never launched
+
+
 class _FlashFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal, key_bias):
@@ -286,7 +309,12 @@ class _FlashFn(torch.autograd.Function):
             raise NotImplementedError(
                 "flash attention gives the key bias no gradient; pass one "
                 "that does not require it (e.g. bias.detach())")
-        out, lse = _fwd(q, k, v, causal, key_bias)
+        # the op's fake kernel would answer for a meta tensor: other
+        # devices go straight to the wrapper, which refuses them
+        if causal and key_bias is None and q.device.type in ("cpu", "cuda"):
+            out, lse = _flash_fwd_op(q, k, v)
+        else:
+            out, lse = _fwd(q, k, v, causal, key_bias)
         ctx.causal = causal
         ctx.save_for_backward(q, k, v, out, lse, key_bias)
         ctx.mark_non_differentiable(lse)

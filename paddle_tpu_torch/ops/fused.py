@@ -7,7 +7,9 @@ fallback between the two: a CUDA tensor the kernel cannot take raises.
 
 - ``fused_layer_norm`` is a ``torch.autograd.Function``: its forward is
   ``csrc/layer_norm.cu`` (the port of the Pallas ``_ln_kernel``) or
-  ``_ln_reference``; its backward ``csrc/layer_norm_bwd.cu`` (the port of
+  ``_ln_reference``, called through the registered op
+  ``paddle_tpu_torch::layer_norm_fwd`` so that ``torch.export`` keeps
+  it in an exported program; its backward ``csrc/layer_norm_bwd.cu`` (the port of
   ``_ln_bwd_kernel``, two launches per call) or ``_ln_bwd_reference``.
   Each source holds two kernels, a warp per row (the models' widths) and a
   block per row (any other call); ``_ln_plan`` picks one from the shape.
@@ -203,12 +205,33 @@ def layer_norm_bwd(x: torch.Tensor, weight: torch.Tensor, g: torch.Tensor,
 layer_norm_bwd.launches = 0  # kernel launches (two per call)
 
 
+@torch.library.custom_op("paddle_tpu_torch::layer_norm_fwd", mutates_args=())
+def _ln_fwd_op(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               eps: float) -> torch.Tensor:
+    """The LayerNorm forward as a registered op: ``torch.export`` keeps it
+    as one node of the exported graph, and the loaded program calls it
+    back here (the kernel on the card, the plain version on the CPU)."""
+    return _ln_fwd(x, weight, bias, eps)
+
+
+@_ln_fwd_op.register_fake
+def _(x, weight, bias, eps):
+    _ln_fwd_op.traced_calls += 1
+    return torch.empty_like(x)
+
+
+_ln_fwd_op.traced_calls = 0  # calls traced (export), never launched
+
+
 class _LayerNormFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, weight, bias, eps):
         ctx.eps = eps
         ctx.save_for_backward(x, weight)
-        return _ln_fwd(x, weight, bias, eps)
+        # the op's fake kernel would answer for a meta tensor: other
+        # devices go straight to the wrapper, which refuses them
+        fwd = _ln_fwd_op if x.device.type in ("cpu", "cuda") else _ln_fwd
+        return fwd(x, weight, bias, eps)
 
     @staticmethod
     def backward(ctx, g):

@@ -448,24 +448,30 @@ def bench_paged(key: str, t: int, h: int, d: int, m: int, bs: int, dtype,
                 quantized: bool, persist: bool = True,
                 device=None) -> Optional[dict]:
     """Time both paged tiers' forward at [1, t, h, d] queries over an
-    [m * bs]-token paged context and record the winner."""
+    [m * bs]-token paged context (int8 pages with their scales when
+    ``quantized``) and record the winner."""
     from . import attention as att
+    from ..quant import quantize_kv
 
-    if quantized:
-        raise NotImplementedError("int8 KV pages wait for the quant port")
     device = torch.device("cpu" if device is None else device)
 
     def measure():
         rng = np.random.RandomState(0)
         mk = lambda *shape: torch.from_numpy(
-            rng.randn(*shape).astype(np.float32)).to(device=device,
-                                                     dtype=dtype)
-        q = mk(1, t, h, d)
+            rng.randn(*shape).astype(np.float32)).to(device=device)
+        q = mk(1, t, h, d).to(dtype)
         k_pages, v_pages = mk(m + 1, bs, h, d), mk(m + 1, bs, h, d)
+        scales = (None, None)
+        if quantized:
+            (k_pages, ks), (v_pages, vs) = (quantize_kv(k_pages),
+                                            quantize_kv(v_pages))
+            scales = (ks, vs)
+        else:
+            k_pages, v_pages = k_pages.to(dtype), v_pages.to(dtype)
         ints = lambda a: torch.from_numpy(a.astype(np.int32)).to(device)
         args = (q, k_pages, v_pages, ints(np.arange(1, m + 1)[None, :]),
                 ints(np.arange(m * bs - t, m * bs)[None, :]),
-                ints(np.asarray([m * bs])))
+                ints(np.asarray([m * bs])), *scales)
         timings = {}
         for tier in PAGED_TIERS:
             impl = (att._paged_gather_impl if tier == "paged_gather"

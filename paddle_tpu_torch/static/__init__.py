@@ -43,7 +43,7 @@ from .program import (InputSpec, Program, _disable_static_mode,  # noqa
                       _enable_static_mode, _in_static_mode, current_program,
                       data, default_main_program, default_startup_program,
                       name_scope, param_name, program_guard, prune,
-                      _tensor_leaves)
+                      _tensor_leaves, _Var)
 
 Scope = _Scope
 Variable = torch.Tensor  # recorded variables are tensors
@@ -371,16 +371,139 @@ def normalize_program(program, feed_vars, fetch_vars) -> Program:
     return pruned
 
 
-def _needs_export(name):
-    def not_ported(*args, **kwargs):
-        raise NotImplementedError(
-            f"static.{name} needs inference/_export.py and "
-            "inference.create_predictor, which are not ported yet")
-    not_ported.__name__ = name
-    return not_ported
+def _bound(t, env, consts):
+    """Template ``t`` of a recorded op's arguments with its variable
+    slots read from ``env`` and its constant tensors (parameters,
+    buffers) replaced by the module's copies in ``consts``."""
+    if isinstance(t, _Var):
+        return env[t.uid]
+    if isinstance(t, torch.Tensor):
+        return consts.get(id(t), t)
+    if isinstance(t, list):
+        return [_bound(x, env, consts) for x in t]
+    if isinstance(t, tuple) and type(t) is tuple:
+        return tuple(_bound(x, env, consts) for x in t)
+    if isinstance(t, dict):
+        return {k: _bound(v, env, consts) for k, v in t.items()}
+    return t
 
 
-save_inference_model = _needs_export("save_inference_model")
-load_inference_model = _needs_export("load_inference_model")
-serialize_program = _needs_export("serialize_program")
-deserialize_program = _needs_export("deserialize_program")
+class _InferenceProgram(torch.nn.Module):
+    """A pruned program's feed → fetch replay as a module whose buffers
+    are the constant tensors its ops read (what ``torch.export`` needs
+    to store the weights beside the graph)."""
+
+    def __init__(self, ops, feed_ids, fetch_ids):
+        super().__init__()
+        self._ops, self._feed_ids, self._fetch_ids = ops, feed_ids, fetch_ids
+        self._const_ids = []
+        seen = set()
+        for op in ops:
+            for t in _tensor_leaves((op.args, op.kwargs)):
+                if id(t) not in seen:
+                    seen.add(id(t))
+                    self.register_buffer(f"c{len(self._const_ids)}",
+                                         t.detach())
+                    self._const_ids.append(id(t))
+
+    def forward(self, *feeds):
+        env = dict(zip(self._feed_ids, feeds))
+        consts = {uid: getattr(self, f"c{i}")
+                  for i, uid in enumerate(self._const_ids)}
+        for op in self._ops:
+            out = op.fn(*_bound(op.args, env, consts),
+                        **_bound(op.kwargs, env, consts))
+            if op._bind is not None:
+                op._bind(env, out)
+        return tuple(env[uid] for uid in self._fetch_ids)
+
+
+def save_inference_model(path_prefix, feed_vars, fetch_vars, executor=None,
+                         program=None) -> None:
+    """The program pruned to the feed → fetch subgraph (the training ops
+    of a loss a fetch does not need are dropped), exported with its
+    weights as ``path_prefix.pdexport`` (``inference/_export.py``), which
+    ``load_inference_model`` and ``inference.create_predictor`` serve;
+    ``path_prefix.pdmodel`` holds the feed and fetch names. A None/-1 dim
+    of a placeholder stays dynamic in the artifact."""
+    from ..inference._export import export_module, write_pdexport
+
+    program = program or default_main_program()
+    feed_vars = feed_vars if isinstance(feed_vars, (list, tuple)) \
+        else [feed_vars]
+    fetch_vars = fetch_vars if isinstance(fetch_vars, (list, tuple)) \
+        else [fetch_vars]
+    names = {id(t): n for n, t in program.feed_vars.items()}
+    feed_names = [names.get(id(t)) for t in feed_vars]
+    if None in feed_names:
+        raise ValueError("feed_vars must be placeholders of the program "
+                         "(static.data)")
+    ops = prune(program.ops, [id(t) for t in fetch_vars])
+    produced = {uid for op in ops for uid in op.produces}
+    needed = {uid for op in ops for uid in op.reads} - produced
+    missing = sorted(n for n, t in program.feed_vars.items()
+                     if id(t) in needed and n not in feed_names)
+    if missing:
+        raise ValueError(
+            f"inference subgraph reads feed vars {missing} that are not in "
+            "feed_vars — include them or fetch something upstream")
+    module = _InferenceProgram(ops, [id(t) for t in feed_vars],
+                               [id(t) for t in fetch_vars])
+    specs = [(program.declared_shapes.get(n, list(t.shape)), t.dtype)
+             for n, t in zip(feed_names, feed_vars)]
+    device = program.device or feed_vars[0].device
+    ep = export_module(module, specs, device)
+    output_names = [f"output{i}" for i in range(len(fetch_vars))]
+    in_specs = [([None if d is None or int(d) < 0 else int(d)
+                  for d in shape], str(dt).replace("torch.", ""))
+                for shape, dt in specs]
+    write_pdexport(path_prefix, ep, feed_names, output_names, in_specs,
+                   dtype="float32")
+    with open(path_prefix + ".pdmodel", "wb") as f:
+        pickle.dump({"feed_names": feed_names, "fetch_names": output_names,
+                     "in_specs": in_specs, "device": device.type}, f)
+
+
+def load_inference_model(path_prefix, executor=None):
+    """``(predictor, feed_names, fetch_names)`` of what
+    ``save_inference_model`` wrote; the predictor runs on the executor's
+    device, or without an executor where the program was exported."""
+    from ..inference import Config, create_predictor
+
+    with open(path_prefix + ".pdmodel", "rb") as f:
+        meta = pickle.load(f)
+    config = Config(path_prefix)
+    device = getattr(executor, "device", None)
+    if (device.type if device is not None else meta["device"]) == "cpu":
+        config.disable_gpu()
+    return create_predictor(config), meta["feed_names"], meta["fetch_names"]
+
+
+def serialize_program(feed_vars, fetch_vars, program=None) -> bytes:
+    """The deployable program as bytes: what ``save_inference_model``
+    writes (the exported program with its weights)."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as td:
+        prefix = os.path.join(td, "m")
+        save_inference_model(prefix, feed_vars, fetch_vars, program=program)
+        with open(prefix + ".pdexport", "rb") as f:
+            export_bytes = f.read()
+        with open(prefix + ".pdmodel", "rb") as f:
+            meta = f.read()
+    return pickle.dumps({"export": export_bytes, "meta": meta})
+
+
+def deserialize_program(data, executor=None):
+    """``(predictor, feed_names, fetch_names)`` of ``serialize_program``'s
+    bytes, as ``load_inference_model`` returns them."""
+    import tempfile
+
+    blob = pickle.loads(data)
+    with tempfile.TemporaryDirectory() as td:
+        prefix = os.path.join(td, "m")
+        with open(prefix + ".pdexport", "wb") as f:
+            f.write(blob["export"])
+        with open(prefix + ".pdmodel", "wb") as f:
+            f.write(blob["meta"])
+        return load_inference_model(prefix, executor)

@@ -36,6 +36,7 @@ from ...nn.layer.common import linear as _linear
 from ...nn.layer.norm import LayerNorm
 from ...ops.attention import dot_product_attention, paged_attention
 from ...ops.fused import fused_layer_norm
+from ...quant import quantize_kv
 
 __all__ = ["GPTConfig", "GPT", "GPTForCausalLM", "gpt2_small", "gpt2_medium",
            "gpt2_tiny", "gpt_decode_fns"]
@@ -202,11 +203,16 @@ def gpt_decode_fns(config: GPTConfig, kv_dtype: str = "float32"):
     are immutable and donated), the pages are updated IN PLACE and the
     same dict is returned: the pool is the largest serving buffer and is
     never copied. Masked-out tokens (padded rows, padded chunk tails —
-    q_position >= kv_len) write into the scratch page 0.
+    q_position >= kv_len) write into the scratch page 0. An int8 pool
+    (``kv_dtype='int8'``) quantizes the chunk's K/V on write
+    (``quant.quantize_kv``, one scale per token-head into
+    ``pages['k_scale'] / pages['v_scale']``) and the attention reads them
+    back through the scales.
     """
-    if kv_dtype not in ("float32", "bfloat16"):
-        raise NotImplementedError(
-            f"kv_dtype {kv_dtype!r}: int8 pages wait for the quant port")
+    if kv_dtype not in ("float32", "bfloat16", "int8"):
+        raise ValueError(f"kv_dtype {kv_dtype!r} not in ('float32', "
+                         "'bfloat16', 'int8')")
+    quantized = kv_dtype == "int8"
     nh = config.num_heads
     hd = config.hidden_size // nh
     hsz = config.hidden_size
@@ -240,10 +246,18 @@ def gpt_decode_fns(config: GPTConfig, kv_dtype: str = "float32"):
             h = fused_layer_norm(x, ln1w, ln1b, eps)
             q3, k3, v3 = (t.reshape(B, T, nh, hd)
                           for t in _linear(h, qkvw, qkvb).split(hsz, dim=-1))
-            pages["k"][i, page_idx, slot] = k3.to(store)
-            pages["v"][i, page_idx, slot] = v3.to(store)
+            if quantized:
+                for name, t in (("k", k3), ("v", v3)):
+                    tq, ts = quantize_kv(t)
+                    pages[name][i, page_idx, slot] = tq
+                    pages[name + "_scale"][i, page_idx, slot] = ts
+                scales = (pages["k_scale"][i], pages["v_scale"][i])
+            else:
+                pages["k"][i, page_idx, slot] = k3.to(store)
+                pages["v"][i, page_idx, slot] = v3.to(store)
+                scales = (None, None)
             o = paged_attention(q3, pages["k"][i], pages["v"][i],
-                                block_tables, q_positions, kv_lens)
+                                block_tables, q_positions, kv_lens, *scales)
             x = x + _linear(o.reshape(B, T, hsz), projw, projb)
             h2 = fused_layer_norm(x, ln2w, ln2b, eps)
             h2 = F.gelu(_linear(h2, fcw, fcb), approximate="tanh")

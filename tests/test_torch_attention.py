@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 import torch
 
+from paddle_tpu import quant as jquant
 from paddle_tpu.ops import attention as jatt
 from paddle_tpu_torch.ops import attention as tatt
 from paddle_tpu_torch.ops import tier_policy
@@ -55,9 +56,22 @@ def test_paged_tiers_agree_and_dispatch_follows_heuristic():
 
 
 def test_paged_int8_scales_wait_for_quant():
-    case = [torch.from_numpy(a) for a in _paged_case(2, 1, seed=1)]
-    with pytest.raises(NotImplementedError):
-        tatt.paged_attention(*case, k_scale=torch.ones(1))
+    """int8 pages, which used to wait for the quant port: both tiers with
+    the reference's int8 pages and per-token-head scales against the
+    reference's tiers on the same pages, and a scale passed alone
+    refused."""
+    q, k, v, tables, qpos, lens = _paged_case(3, 2, seed=1)
+    (kq, ks), (vq, vs) = (jquant.quantize_kv(jnp.asarray(a)) for a in (k, v))
+    args = [q, kq, vq, tables, qpos, lens]
+    t = [torch.from_numpy(np.asarray(a)) for a in args + [ks, vs]]
+    for impl in ("_paged_gather_impl", "_paged_scan_impl"):
+        ref = np.asarray(getattr(jatt, impl)(
+            *(jnp.asarray(a) for a in args), ks, vs))
+        got = getattr(tatt, impl)(*t).numpy()
+        np.testing.assert_allclose(got, ref, atol=TOL, rtol=0)
+    t = t[:6]
+    with pytest.raises(ValueError, match="both"):
+        tatt.paged_attention(*t, k_scale=torch.from_numpy(np.asarray(ks)))
 
 
 @pytest.mark.parametrize("layout", ["blhd", "bhld"])

@@ -67,7 +67,8 @@ def test_package_has_the_slice_modules():
                 "profiler.xla_cost", "core.recording", "static",
                 "static.program", "static.executor", "static.control_flow",
                 "static.nn", "nn.param_attr", "nn.initializer",
-                "jit.dy2static"):
+                "jit.dy2static", "inference", "inference._export",
+                "inference.serving.scheduler", "quant"):
         assert "paddle_tpu_torch." + mod in names
 
 
@@ -236,3 +237,35 @@ def test_slice_entry_points_without_device_raise_on_a_cuda_less_machine(
         mobilenet_v2()
     with pytest.raises(RuntimeError, match="CUDA"):
         mobilenet_v1(scale=0.25)
+
+
+def test_serving_entry_points_without_device_raise_on_a_cuda_less_machine(
+        no_cuda, tmp_path):
+    """The Predictor (from a layer or a .pdexport), and through it the
+    one-shot ServingEngine, and the serving benches ask for the card
+    unless told otherwise."""
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.inference import (Config, create_predictor,
+                                            create_predictor_from_path)
+    from paddle_tpu_torch.inference.serving import ServingEngine
+    from paddle_tpu_torch.nn import Linear
+
+    net = Linear(4, 3, "cpu", generator=torch.Generator().manual_seed(0))
+    spec = [jit.InputSpec([None, 4], "float32")]
+    cfg = Config()
+    cfg.set_layer(net, spec)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        create_predictor(cfg)
+    prefix = str(tmp_path / "m")
+    jit.save(net, prefix, input_spec=spec)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        create_predictor(Config(prefix))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        create_predictor_from_path(prefix)
+    cfg.disable_gpu()
+    engine = ServingEngine(create_predictor(cfg))  # the CPU, asked for
+    assert engine.shutdown()["submitted"] == 0
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bench.main(["serving"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bench.main(["decode"])

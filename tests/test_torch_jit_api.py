@@ -12,8 +12,9 @@ across by ``load_jax_params``:
 - ``TracedLayer``: the eval-mode forward, buffers left alone;
 - ``not_to_static``, ``InputSpec``, and ``save`` / ``load``: a round trip
   of the port's files, the reference's ``.pdiparams`` read by the port's
-  ``load``, and ``input_spec`` refused (the ``.pdexport`` artifact waits
-  for the inference export).
+  ``load``, and with ``input_spec`` the ``.pdexport`` artifact, whose
+  Predictor gives the reference Predictor's outputs (a BatchNorm in eval
+  mode, a dynamic batch).
 
 Tolerances: outputs and running statistics 1e-5 (f32, other summation
 orders); the saved weights exact."""
@@ -194,7 +195,25 @@ def test_save_load_round_trip_and_the_reference_files(tmp_path):
     for k, v in jnet.state_dict().items():
         np.testing.assert_array_equal(_np(ref.state_dict()[k]),
                                       np.asarray(v._value))
-    with pytest.raises(NotImplementedError, match="inference/_export.py"):
-        jit.save(tnet, str(tmp_path / "x"),
-                 input_spec=[jit.InputSpec([None, 4], "float32")])
-    assert not os.path.exists(str(tmp_path / "x.pdiparams"))
+    # with input_spec: the .pdexport artifact, served by a Predictor with
+    # the reference Predictor's outputs (the reference's .pdexport is a
+    # jax.export program, so each side serves its own)
+    from paddle_tpu import inference as jinf
+    from paddle_tpu_torch import inference as tinf
+
+    jplain, tplain = _pair(train=False, tcls=TPlain, jcls=JPlain)
+    spec = [jit.InputSpec([None, 4], "float32", "x")]
+    jit.save(tplain, str(tmp_path / "x"), input_spec=spec)
+    paddle.jit.save(jplain, str(tmp_path / "jx"), input_spec=[
+        paddle.jit.InputSpec([None, 4], "float32", "x")])
+    assert os.path.exists(str(tmp_path / "x.pdiparams"))
+    assert jit.load(str(tmp_path / "x")).meta["in_specs"] \
+        == [([None, 4], "float32")]
+    cfg = tinf.Config(str(tmp_path / "x"))
+    cfg.disable_gpu()
+    pred = tinf.create_predictor(cfg)
+    jpred = jinf.create_predictor(jinf.Config(str(tmp_path / "jx")))
+    for n in (1, 5):
+        x = _x(n, n)
+        np.testing.assert_allclose(pred.run([x])[0], jpred.run([x])[0],
+                                   rtol=1e-5, atol=1e-5)

@@ -486,9 +486,10 @@ def test_program_state_save_load_and_serialize(tmp_path):
     assert len(pruned.all_parameters()) == 2
 
 
-def test_placement_and_what_is_not_ported():
+def test_placement_and_what_is_not_ported(tmp_path):
     """Nothing moves between devices silently; the functions that wait
-    for later modules raise, naming them."""
+    for later modules raise, naming them; save_inference_model, which
+    waited for the export, serves what it saved."""
     main = static.Program()
     with static.program_guard(main):
         x = static.data("x", [None, 4], "float32", device="meta")
@@ -499,8 +500,21 @@ def test_placement_and_what_is_not_ported():
     with pytest.raises(ValueError, match="placeholders are on"):
         with static.program_guard(main):
             static.data("z", [1], device=CPU)
-    with pytest.raises(NotImplementedError, match="inference/_export.py"):
-        static.save_inference_model("p", [], [])
+    # save_inference_model, which waited for the export: the placeholder
+    # on the CPU round-trips through the .pdexport
+    served = static.Program()
+    with static.program_guard(served):
+        y = static.data("y", [None, 4], "float32", device=CPU)
+        out2 = y * 2 + 1
+    prefix = str(tmp_path / "p")
+    static.save_inference_model(prefix, [y], [out2], program=served)
+    pred, feeds, fetches = static.load_inference_model(
+        prefix, static.Executor(static.CPUPlace()))
+    assert (feeds, fetches) == (["y"], ["output0"])
+    yb = np.arange(12, dtype=np.float32).reshape(3, 4)
+    np.testing.assert_array_equal(pred.run([yb])[0], yb * 2 + 1)
+    with pytest.raises(ValueError, match="placeholders"):
+        static.save_inference_model(prefix, [out2], [out2], program=served)
     with pytest.raises(NotImplementedError, match="io/data_feed.py"):
         static.Executor(static.CPUPlace()).train_from_dataset(main)
     with pytest.raises(NotImplementedError, match="group_norm"):
