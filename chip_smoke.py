@@ -204,13 +204,17 @@ failing on the first phase that fails:
     and #5 49 launches a forward on both paths, the p50 of a forward at
     [8, 1024]; 18b runs ``bench serving`` and 18c ``bench decode`` at
     ``bench_all``'s full size (every request ``ok``, nothing unaccounted,
-    no leaked block), then GPT-2 345M in f32 served with ``spec_k=3`` and
-    a 1-layer draft, whose tokens must equal ``dense_greedy_reference``'s
-    (accept rate, tokens/s, no block of either pool leaked); 18d serves
-    GPT-2 345M from an int8 pool beside a bf16 pool (the int8 pool at
-    most ``INT8_POOL_SHARE`` of the bf16 pool's bytes, the share of greedy
-    tokens that agree, the first decode step's logits within
-    ``INT8_LOGIT_SPAN_SHARE`` of the bf16 logits' range).
+    no leaked block); 18c runs ``bench decode``'s plain leg again under
+    ``torch.profiler`` (busy share, top kernels; its tokens must equal
+    ``dense_greedy_reference``'s), then GPT-2 345M in f32 served with
+    ``spec_k=3`` and a 1-layer draft, whose tokens must equal
+    ``dense_greedy_reference``'s (accept rate, tokens/s, no block of
+    either pool leaked); 18d serves GPT-2 345M from an int8 pool beside a
+    bf16 pool (the int8 pool at most ``INT8_POOL_SHARE`` of the bf16
+    pool's bytes, the share of greedy tokens that agree, the first decode
+    step's logits within ``INT8_LOGIT_SPAN_SHARE`` of the bf16 logits'
+    range), each pool's run profiled once. Every shape 18b-18d gave #1
+    and #5 is then held against the plain versions.
 
 Every kernel's launch count is set to 0 before each of phases 4-18 and
 read after it. The last two lines are a ``{"kernels": [...]}`` JSON
@@ -633,10 +637,13 @@ def plain_kernels(gpt_mod, fused, flash_tpu, norm_mod, bert_mod, attention):
          fused.fused_adam_step) = saved
 
 
-def profile_serving(model, serve_cfg, prompts, engine_cls, run_streams):
+def profile_serving(model, serve_cfg, prompts, engine_cls, run_streams,
+                    tag="5", new_tokens=8):
     """Device busy share of the serving loop: ``torch.profiler`` over a
-    second closed-loop run (8 requests, 8 new tokens each) on a fresh
-    engine; prints the busy share and the device time by kernel."""
+    closed-loop run (one request a prompt, ``new_tokens`` new tokens each)
+    on a fresh engine; prints the busy share and the device time by
+    kernel under ``[tag]``. Returns the busy share, the top kernels and
+    the run's requests."""
     from torch.profiler import ProfilerActivity, profile
 
     engine = engine_cls(model, serve_cfg)
@@ -644,8 +651,10 @@ def profile_serving(model, serve_cfg, prompts, engine_cls, run_streams):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        run_streams(engine, n_streams=8, requests_per_stream=1,
-                    prompt_fn=lambda i: prompts[i], max_new_tokens=8)
+        res = run_streams(engine, n_streams=len(prompts),
+                          requests_per_stream=1,
+                          prompt_fn=lambda i: prompts[i],
+                          max_new_tokens=new_tokens)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     engine.shutdown()
@@ -653,15 +662,20 @@ def profile_serving(model, serve_cfg, prompts, engine_cls, run_streams):
                if e.device_type == torch.autograd.DeviceType.CUDA]
     dev_us = lambda e: getattr(e, "self_device_time_total", 0.0)
     busy_us = sum(dev_us(e) for e in kernels)
+    out = {"wall_ms": wall_us / 1e3, "busy_ms": busy_us / 1e3,
+           "busy_share": None, "top": [], "requests": res["requests"]}
     if busy_us <= 0:
-        log("[5] profile: the profiler saw no device time (device busy "
-            "share not measured)")
-        return
-    log(f"[5] profile: wall {wall_us / 1e3:.1f} ms, device busy "
+        log(f"[{tag}] profile: the profiler saw no device time (device "
+            "busy share not measured)")
+        return out
+    out["busy_share"] = busy_us / wall_us
+    log(f"[{tag}] profile: wall {wall_us / 1e3:.1f} ms, device busy "
         f"{busy_us / 1e3:.1f} ms, busy share {busy_us / wall_us:.4f}")
     for e in sorted(kernels, key=dev_us, reverse=True)[:8]:
-        log(f"[5] profile: {dev_us(e) / 1e3:9.3f} ms  x{e.count:<6d} "
+        out["top"].append([e.key[:90], dev_us(e) / 1e3, e.count])
+        log(f"[{tag}] profile: {dev_us(e) / 1e3:9.3f} ms  x{e.count:<6d} "
             f"{e.key[:90]}")
+    return out
 
 
 def check_backward_kernels(dev, rnd, fused, flash_tpu, err):
@@ -3366,6 +3380,8 @@ def static_gpt_kernels(dev, gen, counted, launches, gpt_mod, plain, dense):
 # the draft of 18c (GPT-2 345M's vocabulary, hidden 512, 1 layer, 8 heads)
 # and the prompts of 18c and 18d
 PREDICTOR_BATCH = 8
+# forwards off the clock, then single forwards whose median is the p50
+PREDICTOR_WARMUP, PREDICTOR_SAMPLES = 3, 31
 SPEC_K = 3
 SPEC_DRAFT = dict(vocab_size=50304, hidden_size=512, num_layers=1,
                   num_heads=8, hidden_dropout=0.0, attention_dropout=0.0)
@@ -3380,6 +3396,98 @@ INT8_POOL_SHARE = 0.55
 # test_int8_kv_close_to_bf16_reference) rule: the int8 pool's logits within
 # 5% of the bf16 pool's logit range
 INT8_LOGIT_SPAN_SHARE = 0.05
+
+
+@contextlib.contextmanager
+def kernel_shapes(fused, flash_tpu):
+    """While open, records every call of the LayerNorm and flash forward
+    wrappers (shape, dtype, strides, options): the shapes a main path gave
+    the kernels, which ``check_kernel_shapes`` then holds against the
+    plain versions. Launch counts are untouched."""
+    seen = {"layer_norm_fwd": set(), "flash_attn_fwd": set()}
+    ln_fwd, flash_fwd = fused._ln_fwd, flash_tpu._fwd
+
+    def ln(x, weight, bias, eps):
+        seen["layer_norm_fwd"].add(
+            (x.numel() // x.shape[-1], x.shape[-1], x.dtype,
+             fused._alignment(x, weight, bias) % 16 == 0, eps))
+        return ln_fwd(x, weight, bias, eps)
+
+    def flash(q, k, v, causal=True, key_bias=None):
+        seen["flash_attn_fwd"].add(
+            (tuple(q.shape), q.dtype, causal, key_bias is not None,
+             q.stride(), k.stride(), v.stride()))
+        return flash_fwd(q, k, v, causal, key_bias)
+
+    fused._ln_fwd, flash_tpu._fwd = ln, flash
+    try:
+        yield seen
+    finally:
+        fused._ln_fwd, flash_tpu._fwd = ln_fwd, flash_fwd
+
+
+def check_kernel_shapes(dev, gen, seen, fused, flash_tpu, err):
+    """18: each call shape that ``kernel_shapes`` recorded, on fresh
+    inputs of that shape, dtype and layout, through the kernel and the
+    plain version (``LN_TOL``, ``FLASH_OUT_TOL`` / ``FLASH_LSE_TOL``)."""
+    rnd = lambda *shape, dtype: torch.randn(
+        *shape, device=dev, generator=gen).to(dtype)
+
+    def strided(shape, stride, dtype):
+        t = torch.empty_strided(shape, stride, dtype=dtype, device=dev)
+        return t.copy_(rnd(*shape, dtype=dtype))
+
+    worst_ln = worst_fl = 0.0
+    bad = []
+    for rows, hidden, dtype, aligned, eps in sorted(
+            seen["layer_norm_fwd"], key=str):
+        x = rnd(rows, hidden, dtype=dtype)
+        x = x if aligned else misaligned(x)
+        w, b = rnd(hidden, dtype=dtype), rnd(hidden, dtype=dtype)
+        e, ok = worst(fused._ln_fwd(x, w, b, eps),
+                      fused._ln_reference(x, w, b, eps), *LN_TOL[dtype])
+        worst_ln = max(worst_ln, e)
+        if not ok:
+            bad.append(("layer_norm_fwd", rows, hidden, dtype, aligned, e))
+    for shape, dtype, causal, biased, qs, ks, vs in sorted(
+            seen["flash_attn_fwd"], key=str):
+        q, k, v = (strided(shape, st, dtype) for st in (qs, ks, vs))
+        kb = padding_bias(shape[0], shape[1], gen, dev) if biased else None
+        out, lse = flash_tpu._fwd(q, k, v, causal, kb)
+        ref_out, ref_lse = flash_tpu._flash_reference(q, k, v, causal, kb)
+        e_o, ok_o = worst(out, ref_out, *FLASH_OUT_TOL[dtype])
+        e_l, ok_l = worst(lse, ref_lse, *FLASH_LSE_TOL[dtype])
+        worst_fl = max(worst_fl, e_o, e_l)
+        if not (ok_o and ok_l):
+            bad.append(("flash_attn_fwd", shape, dtype, causal, qs, e_o,
+                        e_l))
+    torch.cuda.synchronize()
+    err["layer_norm_fwd"] = max(err["layer_norm_fwd"], worst_ln)
+    err["flash_attn_fwd"] = max(err["flash_attn_fwd"], worst_fl)
+    widths = sorted({(h, str(d)[6:]) for _, h, d, _, _ in
+                     seen["layer_norm_fwd"]})
+    rows = sorted({r for r, *_ in seen["layer_norm_fwd"]})
+    lengths = {}  # (b, H, d, dtype) -> the sequence lengths seen
+    for (b, L, H, d), dtype, *_ in seen["flash_attn_fwd"]:
+        lengths.setdefault(f"b{b} H{H} d{d} {str(dtype)[6:]}", set()).add(L)
+    flash_shapes = {k: f"L {min(v)}-{max(v)} ({len(v)})"
+                    for k, v in sorted(lengths.items())}
+    log(f"[18] the kernels at every shape phases 18b-18d gave them, against "
+        f"the plain versions: layer_norm_fwd {len(seen['layer_norm_fwd'])} "
+        f"shapes (widths {widths}, rows {rows}) max err {worst_ln:.3g} "
+        f"(tol f32 {LN_TOL[torch.float32]}, bf16 {LN_TOL[torch.bfloat16]});"
+        f" flash_attn_fwd {len(seen['flash_attn_fwd'])} shapes "
+        f"{flash_shapes} max err {worst_fl:.3g} (f32 out and lse tol "
+        f"{FLASH_OUT_TOL[torch.float32]}, bf16 out "
+        f"{FLASH_OUT_TOL[torch.bfloat16]}, lse "
+        f"{FLASH_LSE_TOL[torch.bfloat16]})")
+    if bad:
+        raise AssertionError(f"18: a kernel disagrees with its plain "
+                             f"version at the main path's shapes: {bad}")
+    return {"layer_norm_fwd_shapes": len(seen["layer_norm_fwd"]),
+            "layer_norm_widths": [list(w) for w in widths],
+            "flash_attn_fwd_shapes": flash_shapes,
+            "layer_norm_max_err": worst_ln, "flash_max_err": worst_fl}
 
 
 def check_registered_ops(dev, gen, fused, flash_tpu, err):
@@ -3421,7 +3529,9 @@ def predictor_phase(dev, gen, counted, launches, gpt_mod, fused, flash_tpu,
     loaded by ``create_predictor_from_path``: both give phase 4's logits
     (the layer the same bits, the artifact within its bf16 tolerance) and
     launch #1 24 and #5 49 times a forward; the p50 of a forward at
-    [8, 1024] on each."""
+    [8, 1024] on each (CUDA events around single calls, so it counts the
+    host's dispatch where that is slower than the card) and its device
+    time (``torch.profiler``)."""
     from paddle_tpu_torch import jit
     from paddle_tpu_torch.inference import (Config, create_predictor,
                                             create_predictor_from_path)
@@ -3453,16 +3563,20 @@ def predictor_phase(dev, gen, counted, launches, gpt_mod, fused, flash_tpu,
         torch.cuda.synchronize()
         got = _read_launches(counted, launches, f"predictor_{path}")
         e = float((logits.float().cpu() - dense_logits.float()).abs().max())
-        p50 = sorted(time_ms(lambda: fn(ids8), iters=1, warmup=0)
-                     for _ in range(7))[3]
+        time_ms(lambda: fn(ids8), iters=1, warmup=PREDICTOR_WARMUP)
+        p50 = float(np.median([time_ms(lambda: fn(ids8), iters=1, warmup=0)
+                               for _ in range(PREDICTOR_SAMPLES)]))
+        dev_t = device_ms(lambda: fn(ids8), f"the {path} Predictor's "
+                          "forward", iters=5)
         out[path] = {"logits_max_err": e,
                      "same_bits": torch.equal(logits.cpu(), dense_logits),
                      "launches": {k: v for k, v in got.items() if v},
-                     "forward_p50_ms": p50}
+                     "forward_p50_ms": p50, "forward_device_ms": dev_t}
         log(f"[18a] Predictor ({path}) GPT-2 345M bf16 [1, 1024]: logits "
             f"max err {e:.4g} against phase 4 (same bits "
             f"{out[path]['same_bits']}), launches {out[path]['launches']}; "
-            f"forward [{PREDICTOR_BATCH}, 1024] p50 {p50:.2f} ms ({smi})")
+            f"forward [{PREDICTOR_BATCH}, 1024] p50 {p50:.2f} ms over "
+            f"{PREDICTOR_SAMPLES} calls, device time {dev_t:.2f} ms ({smi})")
         if got["layer_norm_fwd"] != 2 * n_layers + 1 \
                 or got["flash_attn_fwd"] != n_layers \
                 or sum(got.values()) != 3 * n_layers + 1:
@@ -3505,6 +3619,41 @@ def serving_benches_phase(counted, launches, bench_mod, smi):
             f"{json.dumps(out[name])}; launches "
             f"{ {k: v for k, v in got.items() if v} }")
     return out
+
+
+def decode_profile_phase(counted, launches, bench_mod, smi):
+    """18c: ``bench decode``'s plain leg (its models, prompts and engine
+    config from ``bench.decode_setup``) once more, one request a prompt,
+    under ``torch.profiler``: the device busy share and the top kernels.
+    Its greedy tokens must equal ``dense_greedy_reference``'s (phase 6's
+    rule), which runs the one-shot leg's dense forward."""
+    from paddle_tpu_torch.inference.serving import (TokenServingEngine,
+                                                    dense_greedy_reference,
+                                                    run_generation_streams)
+
+    w = bench_mod.decode_setup()
+    model, prompts, T = w["model"], w["prompts"], w["T"]
+    _cleared(counted)
+    prof = profile_serving(model, w["serve_cfg"](), prompts,
+                           TokenServingEngine, run_generation_streams,
+                           tag="18c", new_tokens=T)
+    torch.cuda.synchronize()
+    got = _read_launches(counted, launches, "decode_profile")
+    reqs = prof.pop("requests")
+    served = [[int(t) for t in r.outputs[0]] if r.outputs else []
+              for r in reqs]
+    refs = [dense_greedy_reference(model, p, T) for p in prompts]
+    same = sum(a == b for a, b in zip(served, refs))
+    log(f"[18c] bench decode's plain leg under the profiler ({smi}): "
+        f"{len(prompts)} prompts of {w['P']}, {T} new tokens each; "
+        f"{same} of {len(prompts)} requests give dense_greedy_reference's "
+        f"tokens; launches { {k: v for k, v in got.items() if v} }")
+    if same != len(prompts) or any(r.status != "ok" for r in reqs):
+        raise AssertionError("18c: bench decode's paged decode differs from "
+                             "dense_greedy_reference")
+    del w, model
+    torch.cuda.empty_cache()
+    return prof
 
 
 def spec_phase(dev, counted, launches, gpt_mod, smi):
@@ -3614,11 +3763,12 @@ def int8_phase(dev, counted, launches, model, smi):
     block = 16
     out, served = {}, {}
     for kv_dtype in ("bfloat16", "int8"):
-        engine = TokenServingEngine(model, TokenServeConfig(
+        serve_cfg = TokenServeConfig(
             capacity=16, decode_buckets=(1, 2, 4), prefill_chunk=128,
             max_new_tokens=INT8_NEW_TOKENS,
             kv_blocks=len(prompts) * 1024 // block + 1, kv_block_size=block,
-            kv_dtype=kv_dtype))
+            kv_dtype=kv_dtype)
+        engine = TokenServingEngine(model, serve_cfg)
         engine.start()
         _cleared(counted)
         res = run_generation_streams(
@@ -3638,6 +3788,11 @@ def int8_phase(dev, counted, launches, model, smi):
             raise AssertionError(f"18d: {kv_dtype} serving broken: {acct} "
                                  f"{kv} {res['by_status']}")
         del engine
+        out[kv_dtype]["profile"] = profile_serving(
+            model, serve_cfg, prompts, TokenServingEngine,
+            run_generation_streams, tag=f"18d {kv_dtype}",
+            new_tokens=INT8_NEW_TOKENS)
+        del out[kv_dtype]["profile"]["requests"]
         torch.cuda.empty_cache()
     pairs = [(a, b) for x, y in zip(served["bfloat16"], served["int8"])
              for a, b in zip(x, y)]
@@ -4474,12 +4629,19 @@ def main() -> int:
     serving, model = predictor_phase(dev, gen, counted, launches, gpt_mod,
                                      fused, flash_tpu, dense, err, smi)
     torch.cuda.empty_cache()
-    serving["benches"] = serving_benches_phase(counted, launches, bench_mod,
-                                               smi)
-    torch.cuda.empty_cache()
-    serving["spec"] = spec_phase(dev, counted, launches, gpt_mod, smi)
-    serving["int8"] = int8_phase(dev, counted, launches, model, smi)
+    # 18b-18d record the shapes they give #1 and #5; each is then held
+    # against the plain versions
+    with kernel_shapes(fused, flash_tpu) as seen:
+        serving["benches"] = serving_benches_phase(counted, launches,
+                                                   bench_mod, smi)
+        torch.cuda.empty_cache()
+        serving["decode_profile"] = decode_profile_phase(
+            counted, launches, bench_mod, smi)
+        serving["spec"] = spec_phase(dev, counted, launches, gpt_mod, smi)
+        serving["int8"] = int8_phase(dev, counted, launches, model, smi)
     del model
+    serving["kernel_shapes"] = check_kernel_shapes(dev, gen, seen, fused,
+                                                   flash_tpu, err)
     log("serving_breadth " + json.dumps(serving))
     torch.cuda.empty_cache()
 

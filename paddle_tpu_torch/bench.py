@@ -586,21 +586,14 @@ def bench_serving(smoke: bool = False) -> dict:
             "warmup_compile_ms": round(engine.warmup_ms[streams], 1)}
 
 
-def bench_decode(smoke: bool = False) -> dict:
-    """``bench_all.bench_decode``: greedy generation at 8 streams through
-    decode-step continuous batching over the paged KV cache, against the
-    one-shot baseline (a Predictor recomputing the full prefix every
-    token) and with speculative decoding (a draft proposing k=3). The
-    spec and baseline legs run first, the headline leg last."""
-    from .inference import Config, create_predictor
-    from .inference.serving import (TokenServeConfig, TokenServingEngine,
-                                    run_generation_streams)
-    from .profiler.telemetry import get_telemetry
-    from .static.program import InputSpec
+def decode_setup(smoke: bool = False) -> dict:
+    """``bench_decode``'s workload: the target and draft GPTs (f32, seeds
+    0 and 3), the 8 prompts, the sizes (``P`` prompt tokens, ``T`` new
+    tokens, ``per_stream`` timed requests a stream, ``Lmax``) and
+    ``serve_cfg(spec_k=0)``, the engines' ``TokenServeConfig``."""
+    from .inference.serving import TokenServeConfig
     from .text.models.gpt import GPTConfig, GPTForCausalLM
 
-    if not smoke:
-        _require_card("decode serving")
     device = "cpu" if smoke else "cuda"
     streams = 8
     if smoke:
@@ -633,6 +626,29 @@ def bench_decode(smoke: bool = False) -> dict:
             kv_blocks=kv_blocks, kv_block_size=bs, max_seq_len=Lmax,
             spec_k=spec_k)
 
+    return dict(device=device, streams=streams, P=P, T=T,
+                per_stream=per_stream, Lmax=Lmax, model=model, draft=draft,
+                prompts=prompts, serve_cfg=serve_cfg)
+
+
+def bench_decode(smoke: bool = False) -> dict:
+    """``bench_all.bench_decode``: greedy generation at 8 streams through
+    decode-step continuous batching over the paged KV cache, against the
+    one-shot baseline (a Predictor recomputing the full prefix every
+    token) and with speculative decoding (a draft proposing k=3). The
+    spec and baseline legs run first, the headline leg last."""
+    from .inference import Config, create_predictor
+    from .inference.serving import TokenServingEngine, run_generation_streams
+    from .profiler.telemetry import get_telemetry
+    from .static.program import InputSpec
+
+    if not smoke:
+        _require_card("decode serving")
+    w = decode_setup(smoke)
+    device, streams, P, T = w["device"], w["streams"], w["P"], w["T"]
+    per_stream, Lmax, model = w["per_stream"], w["Lmax"], w["model"]
+    prompts, serve_cfg = w["prompts"], w["serve_cfg"]
+
     def run_leg(engine):
         engine.start()
         try:
@@ -655,7 +671,7 @@ def bench_decode(smoke: bool = False) -> dict:
     tel = get_telemetry()
     # leg 1: speculative decoding
     spec = run_leg(TokenServingEngine(model, serve_cfg(spec_k=3),
-                                      device=device, draft_model=draft))
+                                      device=device, draft_model=w["draft"]))
     accept = tel.snapshot()["gauges"].get("serve/spec_accept_rate", 0.0)
 
     # leg 2: the one-shot baseline — a Predictor over the full padded

@@ -40,6 +40,8 @@ from .scheduler import BatchScheduler
 
 __all__ = ["ServeConfig", "ServingEngine"]
 
+_WAIT_SLICE_S = 0.05  # longest single wait of ``wait_drained``
+
 
 class ServeConfig:
     """Serving knobs. ``buckets`` are batch-size buckets.
@@ -329,8 +331,18 @@ class ServingEngine:
         return self.accounting()
 
     def wait_drained(self, timeout: Optional[float] = None) -> bool:
-        return self._drained.wait(
-            self.config.drain_grace_s + 30.0 if timeout is None else timeout)
+        """Wait until the drain is over; False on ``timeout``. Waits in
+        slices of ``_WAIT_SLICE_S``: Python runs a signal handler (the
+        SIGTERM that starts a drain) in the main thread only between
+        waits, so one long wait would sleep through a signal that arrived
+        just before it began."""
+        end = time.monotonic() + (self.config.drain_grace_s + 30.0
+                                  if timeout is None else timeout)
+        while not self._drained.wait(
+                min(_WAIT_SLICE_S, max(0.0, end - time.monotonic()))):
+            if time.monotonic() >= end:
+                return False
+        return True
 
     def shutdown(self) -> dict:
         """Clean teardown — same path as drain, then joins the scheduler.

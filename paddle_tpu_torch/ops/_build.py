@@ -182,3 +182,15 @@ def check(err: int, what: str) -> None:
 def stream_of(t: torch.Tensor) -> int:
     """Handle of PyTorch's current stream on ``t``'s device."""
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def refuse_trace(t: torch.Tensor, what: str) -> None:
+    """Raise when ``t`` is a fake tensor: an export traced a kernel's
+    wrapper instead of its registered op, and its program would run the
+    plain version."""
+    from torch._subclasses.fake_tensor import is_fake
+
+    if is_fake(t):
+        raise RuntimeError(
+            f"{what}: an export traced the wrapper, not its registered op; "
+            "the exported program would run the plain version")

@@ -11,10 +11,11 @@ dK/dV kernels of ``csrc/flash_attn_bwd.cu`` (the ports of ``_dq_kernel``
 and ``_dkv_kernel``; in full mode the same math with the mask dropped);
 for tensors on the CPU they run the plain PyTorch versions,
 ``_flash_reference`` and ``_flash_bwd_reference``. Each mode's kernels
-have their own launch counts. The causal forward goes through the
-registered op ``paddle_tpu_torch::flash_attn_fwd``, so that
-``torch.export`` keeps it in an exported program (the Predictor's
-``.pdexport``). Both return ``(out, lse)``: ``out`` is
+have their own launch counts. While ``torch.export`` traces the causal
+forward, the registered op ``paddle_tpu_torch::flash_attn_fwd`` stands
+in for it, so that the exported program (the Predictor's ``.pdexport``)
+keeps it as one node; an eager call does not go through the dispatcher.
+Both return ``(out, lse)``: ``out`` is
 [b, L, H, d] in q's dtype, ``lse`` the f32 log-sum-exp of each query
 row's scaled scores, [b, H, L] (not differentiable).
 
@@ -147,6 +148,8 @@ def _bwd_plain(q, k, v, dout, lse, delta, causal=True, key_bias=None,
 
 def _fwd(q, k, v, causal=True, key_bias=None):
     if q.device.type == "cpu":
+        if causal and key_bias is None:
+            _build.refuse_trace(q, "flash_attention_blhd")
         return _flash_reference(q, k, v, causal, key_bias)
     fn = "flash_attention_blhd" if causal else "flash_attention_full"
     _check_cuda_args(fn, q, k, v)
@@ -293,13 +296,9 @@ def _flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
 
 @_flash_fwd_op.register_fake
 def _(q, k, v):
-    _flash_fwd_op.traced_calls += 1
     b, L, H, d = q.shape
     return (q.new_empty((b, L, H, d)),
             q.new_empty((b, H, L), dtype=torch.float32))
-
-
-_flash_fwd_op.traced_calls = 0  # calls traced (export), never launched
 
 
 class _FlashFn(torch.autograd.Function):
@@ -309,9 +308,9 @@ class _FlashFn(torch.autograd.Function):
             raise NotImplementedError(
                 "flash attention gives the key bias no gradient; pass one "
                 "that does not require it (e.g. bias.detach())")
-        # the op's fake kernel would answer for a meta tensor: other
-        # devices go straight to the wrapper, which refuses them
-        if causal and key_bias is None and q.device.type in ("cpu", "cuda"):
+        # the registered op only while an export traces: eager calls skip
+        # the dispatcher's round trip
+        if causal and key_bias is None and torch.compiler.is_compiling():
             out, lse = _flash_fwd_op(q, k, v)
         else:
             out, lse = _fwd(q, k, v, causal, key_bias)

@@ -7,10 +7,12 @@ fallback between the two: a CUDA tensor the kernel cannot take raises.
 
 - ``fused_layer_norm`` is a ``torch.autograd.Function``: its forward is
   ``csrc/layer_norm.cu`` (the port of the Pallas ``_ln_kernel``) or
-  ``_ln_reference``, called through the registered op
-  ``paddle_tpu_torch::layer_norm_fwd`` so that ``torch.export`` keeps
-  it in an exported program; its backward ``csrc/layer_norm_bwd.cu`` (the port of
-  ``_ln_bwd_kernel``, two launches per call) or ``_ln_bwd_reference``.
+  ``_ln_reference``; while ``torch.export`` traces it, the registered op
+  ``paddle_tpu_torch::layer_norm_fwd`` stands in for it, so that the
+  exported program keeps it as one node (an eager call does not go
+  through the dispatcher); its backward ``csrc/layer_norm_bwd.cu`` (the
+  port of ``_ln_bwd_kernel``, two launches per call) or
+  ``_ln_bwd_reference``.
   Each source holds two kernels, a warp per row (the models' widths) and a
   block per row (any other call); ``_ln_plan`` picks one from the shape.
 - ``fused_adam_step`` updates many parameters in one pass
@@ -142,6 +144,7 @@ def _alignment(*tensors: torch.Tensor) -> int:
 
 def _ln_fwd(x, weight, bias, eps):
     if x.device.type == "cpu":
+        _build.refuse_trace(x, "fused_layer_norm")
         return _ln_reference(x, weight, bias, eps)
     hidden = x.shape[-1]
     _check_ln_args("fused_layer_norm", x, weight, bias, hidden)
@@ -216,11 +219,7 @@ def _ln_fwd_op(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
 
 @_ln_fwd_op.register_fake
 def _(x, weight, bias, eps):
-    _ln_fwd_op.traced_calls += 1
     return torch.empty_like(x)
-
-
-_ln_fwd_op.traced_calls = 0  # calls traced (export), never launched
 
 
 class _LayerNormFn(torch.autograd.Function):
@@ -228,9 +227,9 @@ class _LayerNormFn(torch.autograd.Function):
     def forward(ctx, x, weight, bias, eps):
         ctx.eps = eps
         ctx.save_for_backward(x, weight)
-        # the op's fake kernel would answer for a meta tensor: other
-        # devices go straight to the wrapper, which refuses them
-        fwd = _ln_fwd_op if x.device.type in ("cpu", "cuda") else _ln_fwd
+        # the registered op only while an export traces: eager calls skip
+        # the dispatcher's round trip
+        fwd = _ln_fwd_op if torch.compiler.is_compiling() else _ln_fwd
         return fwd(x, weight, bias, eps)
 
     @staticmethod

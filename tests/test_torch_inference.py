@@ -169,10 +169,14 @@ def test_dynamic_batch_export_serves_other_batches(tmp_path):
         _close(out, _ref(jnet, x))
 
 
-def test_export_that_loses_a_kernel_op_raises(monkeypatch):
+def test_kernel_ops_stand_in_only_while_an_export_traces(monkeypatch):
+    """Eager LayerNorm and causal flash calls go straight to their
+    wrappers; an export traces the registered ops into its graph, and the
+    exported program gives the eager outputs. An export that reaches a
+    wrapper instead of its op raises."""
     _, tnet = _pair()
 
-    class WithNorm(torch.nn.Module):
+    class WithKernels(torch.nn.Module):
         def __init__(self):
             super().__init__()
             self.net = tnet
@@ -180,15 +184,45 @@ def test_export_that_loses_a_kernel_op_raises(monkeypatch):
             self.b = torch.nn.Parameter(torch.zeros(4))
 
         def forward(self, x):
-            return fused.fused_layer_norm(self.net(x), self.w, self.b)
+            y = fused.fused_layer_norm(self.net(x), self.w, self.b)
+            q = y.view(y.shape[0], 1, 1, 4).expand(-1, 2, -1, -1)
+            out, _ = flash_tpu.flash_attention_blhd(q, q, q)
+            return out.reshape(y.shape[0], 8)
 
-    ep = _export.export_module(WithNorm().eval(), [([None, 8],
-                                                    torch.float32)], "cpu")
-    assert _export.kernel_nodes(ep) == {"layer_norm_fwd": 1}
-    monkeypatch.setattr(_export, "kernel_nodes", lambda ep: {})
-    with pytest.raises(RuntimeError, match="lost"):
-        _export.export_module(WithNorm().eval(),
-                              [([None, 8], torch.float32)], "cpu")
+    calls = {"layer_norm_fwd": 0, "flash_attn_fwd": 0}
+
+    def count(key, op):
+        def wrapped(*a):
+            calls[key] += 1
+            return op(*a)
+        return wrapped
+
+    monkeypatch.setattr(fused, "_ln_fwd_op",
+                        count("layer_norm_fwd", fused._ln_fwd_op))
+    monkeypatch.setattr(flash_tpu, "_flash_fwd_op",
+                        count("flash_attn_fwd", flash_tpu._flash_fwd_op))
+    module = WithKernels().eval()
+    x = torch.from_numpy(_x(4, 3))
+    with torch.no_grad():
+        eager = module(x)
+    assert calls == {"layer_norm_fwd": 0, "flash_attn_fwd": 0}
+    ep = _export.export_module(module, [([None, 8], torch.float32)], "cpu")
+    assert calls == {"layer_norm_fwd": 1, "flash_attn_fwd": 1}
+    assert _export.kernel_nodes(ep) == {"layer_norm_fwd": 1,
+                                        "flash_attn_fwd": 1}
+    with torch.no_grad():
+        got = ep.module()(x)
+    torch.testing.assert_close(got, eager, rtol=RTOL, atol=RTOL)
+    # an export that reaches a wrapper in place of its op raises rather
+    # than tracing the plain version into the program
+    for name, wrapper in (("_ln_fwd_op", fused._ln_fwd),
+                          ("_flash_fwd_op", flash_tpu._fwd)):
+        with monkeypatch.context() as m:
+            m.setattr(fused if name == "_ln_fwd_op" else flash_tpu, name,
+                      wrapper)
+            with pytest.raises(RuntimeError, match="registered op"):
+                _export.export_module(module, [([None, 8], torch.float32)],
+                                      "cpu")
 
 
 # -- a GPT through the export keeps the kernels' ops ---------------------------

@@ -426,6 +426,47 @@ def test_injected_sigterm_at_a_batch_boundary_in_a_child(tmp_path):
     assert r.returncode == 77, (r.returncode, r.stderr[-2000:])
 
 
+
+def test_sigterm_taken_by_another_thread_still_drains_in_a_child():
+    """A SIGTERM that another thread takes (the main thread blocks it) runs
+    its Python handler only when the main thread next runs bytecode:
+    ``wait_drained`` must wake up for it, not sleep out its timeout."""
+    code = textwrap.dedent("""
+        import os, signal, sys, time
+        import torch
+        from paddle_tpu_torch.inference import Config, create_predictor
+        from paddle_tpu_torch.inference.serving import (ServeConfig,
+                                                        ServingEngine)
+        from paddle_tpu_torch.jit import InputSpec
+        from paddle_tpu_torch.nn import Linear
+
+        cfg = Config()
+        cfg.disable_gpu()
+        cfg.set_layer(Linear(4, 3, "cpu", generator=torch.Generator()
+                             .manual_seed(0)).eval(),
+                      [InputSpec([None, 4], "float32")])
+        eng = ServingEngine(create_predictor(cfg), ServeConfig(
+            buckets=(1,), drain_grace_s=2.0))
+        eng.install_preemption().start()
+        # the scheduler thread, started before the mask, takes the signal
+        signal.pthread_sigmask(signal.SIG_BLOCK, [signal.SIGTERM])
+        os.kill(os.getpid(), signal.SIGTERM)
+        t0 = time.monotonic()
+        drained = eng.wait_drained(30.0)
+        took = time.monotonic() - t0
+        assert drained and took < 10.0, (drained, took)
+        assert eng.drain_reason == "preempted", eng.drain_reason
+        eng.exit_if_preempted()
+        sys.exit(3)
+    """)
+    env = {**os.environ, "JAX_PLATFORMS": "cpu",
+           "PYTHONPATH": _REPO + os.pathsep
+           + os.environ.get("PYTHONPATH", "")}
+    env.pop("PADDLE_TPU_INJECT", None)
+    r = subprocess.run([sys.executable, "-c", code], env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 77, (r.returncode, r.stderr[-2000:])
+
 # -- load generators -----------------------------------------------------------
 def test_summarize_counts_and_percentiles():
     reqs = []
