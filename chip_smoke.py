@@ -215,8 +215,31 @@ failing on the first phase that fails:
     step's logits within ``INT8_LOGIT_SPAN_SHARE`` of the bf16 logits'
     range), each pool's run profiled once. Every shape 18b-18d gave #1
     and #5 is then held against the plain versions.
+19. the parameter surface: 19a (run right after 3c, where the profiler's
+    windows hold every launch) holds Adam's fp16 instance (fp16
+    gradients and resident copies, f32 masters) with its per-tensor
+    learning-rate scale column against the plain version over GPT-2
+    345M's 292 tensors (scales 1, 0.5 on the LayerNorms, 0 on wpe, times
+    an AdamW ``lr_ratio`` of 2 on the matrices; a step plain, one clipped,
+    one checked) and over ResNet-50's tensors, the copy equal to the
+    master's fp16 rounding, and times it beside its bound and
+    ``torch.optim.Adam(fused=True)`` over the f32 masters; 19b trains
+    ResNet-50 at config #2's batch (128 x 3 x 224^2) in pure fp16
+    (``amp.decorate(level='O2')``, ``Adam(multi_precision=True)``,
+    ``GradScaler``) through the eager loop and through ``TrainStep``:
+    Adam's launches per step, step 1's loss against the f32 forward on the
+    same weights and batch, the skipped steps, samples/s, step p50, a
+    profile and peak memory; 19c trains ``Embedding(50304, 1024,
+    padding_idx=0, sparse=True)`` and a dense head over 8 x 1024 ids for 3
+    steps of SGD, Adam, lazy Adam and Adam with a global-norm clip
+    against the same model with a dense table (lazy Adam: the untouched
+    rows keep their bits, the padding row never moves) and prints the
+    step times; 19d takes one eager ``Adam.step`` of GPT-2 345M (bf16, f32
+    masters) with learning-rate scales 0.5 on the LayerNorms and 0 on wpe
+    through the kernel and through the plain update: the same bits, wpe
+    unchanged.
 
-Every kernel's launch count is set to 0 before each of phases 4-18 and
+Every kernel's launch count is set to 0 before each of phases 4-19 and
 read after it. The last two lines are a ``{"kernels": [...]}`` JSON
 object and ``{"ok": true, "device": {...}}``.
 """
@@ -301,6 +324,22 @@ TRAIN_LR = 1e-4
 # other way; a real disagreement is a 2·lr move, which the gradient check
 # catches first.
 PARAM_ATOL = TRAIN_LR
+
+# phase 19b: step 1's f32 loss against the pure-fp16 one on the same
+# weights and batch: fp16 keeps 11 bits, and ResNet-50's 53 BatchNorms
+# renormalise what each layer's rounding (2^-11 relative) adds; the loss
+# (~ln 1000) within 2e-2 of itself
+O2_LOSS_RTOL = 2e-2
+# 19b's GradScaler starts at the reference's default scale; the warm-up
+# runs until the scaler has taken a step (at most O2_WARMUP_MAX steps)
+O2_INIT_LOSS_SCALE = 2.0 ** 15
+O2_WARMUP_MAX = 20
+# phase 19c: the sparse table's update against the dense one, f32: the
+# same per-element formula, duplicate rows summed in another order
+SPARSE_TOL = (1e-6, 1e-5)
+SPARSE_STEPS = 3
+# 19c's table (GPT-2 345M's wte) and its ids (the training batch)
+SPARSE_VOCAB, SPARSE_DIM = 50304, 1024
 
 # --- the card's peaks (H100 SXM data sheet, dense, at 700 W) ----------------
 HBM_BYTES_PER_S = 3.35e12
@@ -421,7 +460,7 @@ def time_ms(fn, iters=50, warmup=5):
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, what, iters=20, attempts=10):
+def device_ms(fn, what, iters=20, attempts=10, per_call=1):
     """Device time of one call of ``fn``: the summed duration of the
     kernels it launches (``torch.profiler``), without the host's launch
     gaps that CUDA events over back-to-back calls also count. Each
@@ -429,9 +468,11 @@ def device_ms(fn, what, iters=20, attempts=10):
     records it discards, then the measured window. Now and then the
     profiler records no kernel of a window, or only some of them (a sum a
     third short, seen at L = 8192 without the warm-up window): a window
-    with fewer device operations than calls (each call launches at least
-    one) is taken again, after a pause, up to ``attempts`` sessions; then
-    the run fails, naming ``what`` was timed. (Five sessions in a row
+    with fewer device operations than ``per_call`` a call (each call
+    launches at least that many) is taken again, after a pause, up to
+    ``attempts`` sessions; then the run fails, naming ``what`` was timed.
+    (A window of the Adam kernel once held half its launches and timed
+    it at twice its bound: its calls launch 2.) (Five sessions in a row
     were once short by a third or more, early in the script.)"""
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -458,7 +499,7 @@ def device_ms(fn, what, iters=20, attempts=10):
                 torch.cuda.synchronize()
                 prof.step()
         seen.append(got.get("count", 0))
-        if got.get("total", 0) > 0 and got["count"] >= iters:
+        if got.get("total", 0) > 0 and got["count"] >= iters * per_call:
             return got["total"] / iters / 1e3
         time.sleep(0.5)
     raise RuntimeError(f"device time of {what}: the profiler recorded "
@@ -878,7 +919,8 @@ def time_backward_kernels(dev, rnd, fused, flash_tpu, cfg):
     kern = lambda: fused.fused_adam_step(*args, masters=masters)
     plain = lambda: fused._adam_reference(*args, masters=masters)
     kern_ms = time_ms(kern, iters=10)
-    kern_dev = device_ms(kern, f"adam over {len(numels)} tensors", iters=5)
+    kern_dev = device_ms(kern, f"adam over {len(numels)} tensors", iters=5,
+                         per_call=2)
     plain_ms = time_ms(plain, iters=3, warmup=1)
     del params, grads, ms_, vs_, masters
     torch.cuda.empty_cache()
@@ -3820,6 +3862,449 @@ def int8_phase(dev, counted, launches, model, smi):
     return out
 
 
+# --- phase 19: the parameter surface -------------------------------------------
+def gpt_lr_scales(cfg):
+    """19a's per-tensor learning-rate scales and AdamW coefficients over
+    ``gpt_param_shapes``: 0.5 on the LayerNorms, 0 on wpe, 1 elsewhere,
+    each times an ``lr_ratio`` of 2 on the matrices; decay 0.01 on the
+    matrices."""
+    shapes = gpt_param_shapes(cfg)
+    ln = {0, 1, 6, 7}  # a layer's ln1 and ln2 weights and biases
+    scales, decay = [], []
+    for i, shape in enumerate(shapes):
+        layer = i - 2
+        if i == 1:
+            s = 0.0  # wpe
+        elif i >= len(shapes) - 2 or (layer >= 0 and layer % 12 in ln):
+            s = 0.5
+        else:
+            s = 1.0
+        scales.append(s * (2.0 if len(shape) == 2 else 1.0))
+        decay.append(0.01 if len(shape) == 2 else 0.0)
+    return scales, decay
+
+
+def fp16_adam_check(dev, gen, fused, numels, scales, decay, err, what):
+    """19a: three steps of #7's fp16 instance (fp16 gradients and resident
+    copies, f32 masters, the lr-scale column) against the plain version:
+    a plain step, one with the global-norm clip (the plain update given
+    the kernel's scale; the norm against the plain norm, NORM_RTOL) and
+    one through the check pass (the same flags). Every tensor to
+    ADAM_TOL, the copy exactly the master's fp16 rounding."""
+    f32 = [torch.randn(n, device=dev, generator=gen) for n in numels]
+    got = dict(
+        P=[t.half() for t in f32],
+        M=[torch.zeros(n, device=dev) for n in numels],
+        V=[torch.zeros(n, device=dev) for n in numels],
+        P1=[torch.ones((), device=dev) for _ in numels],
+        P2=[torch.ones((), device=dev) for _ in numels], MS=f32)
+    want = {k: [t.clone() for t in v] for k, v in got.items()}
+    grads = [(torch.randn(n, device=dev, generator=gen) * 0.05).half()
+             for n in numels]
+    lr = torch.full((), TRAIN_LR, device=dev)
+    opts = dict(decoupled_decay=decay, lr_scale=scales)
+    keys = ("P", "M", "V", "P1", "P2")
+    norm_rel = 0.0
+    for step in range(3):
+        args_k = [got[k] for k in keys[:1]] + [grads] + \
+            [got[k] for k in keys[1:]] + [lr]
+        args_p = [want[k] for k in keys[:1]] + [grads] + \
+            [want[k] for k in keys[1:]] + [lr]
+        if step == 1:
+            norm = fused.fused_adam_step(*args_k, masters=got["MS"],
+                                         clip_norm=OPTIONS_CLIP, **opts)
+            ref = fused._global_norm_reference(grads, OPTIONS_CLIP)
+            norm_rel = float(((norm - ref).abs() / ref.abs()).max())
+            err["grad_sumsq"] = max(err["grad_sumsq"],
+                                    float((norm - ref).abs()[0]))
+            if not norm_rel <= NORM_RTOL:
+                raise AssertionError(f"19a {what}: the fp16 sum-of-squares "
+                                     f"pass is off by {norm_rel:.3g}")
+            fused._adam_reference(*args_p, masters=want["MS"],
+                                  grad_scale=norm[1], **opts)
+        elif step == 2:
+            ck, cp = fused.FiniteCheck(), fused.FiniteCheck()
+            fused.fused_adam_step(*args_k, masters=got["MS"], check=ck,
+                                  **opts)
+            fused._fused_adam_reference(*args_p, masters=want["MS"],
+                                        check=cp, **opts)
+            if not torch.equal(ck.flags, cp.flags) or int(ck.ok) != 1:
+                raise AssertionError(f"19a {what}: the fp16 check pass "
+                                     "disagrees")
+        else:
+            fused.fused_adam_step(*args_k, masters=got["MS"], **opts)
+            fused._adam_reference(*args_p, masters=want["MS"], **opts)
+    torch.cuda.synchronize()
+    errs = {}
+    for key in ("P", "MS", "M", "V", "P1", "P2"):
+        res = [worst(a, b, *ADAM_TOL) for a, b in zip(got[key], want[key])]
+        errs[key] = max(e for e, _ in res)
+        if not all(ok for _, ok in res):
+            raise AssertionError(f"19a {what}: the fp16 adam kernel "
+                                 f"disagrees on {key}")
+    if not all(torch.equal(p, m.half()) for p, m in zip(got["P"],
+                                                         got["MS"])):
+        raise AssertionError(f"19a {what}: an fp16 copy is not its master's "
+                             "fp16 rounding")
+    err["adam"] = max(err["adam"], *errs.values())
+    log(f"[19a] adam fp16 ({what}: {len(numels)} tensors, {sum(numels)} "
+        f"params, scales {sorted(set(scales))}), 3 steps (plain, clipped, "
+        "checked): max err " + ", ".join(f"{k} {e:.3g}" for k, e in
+                                         errs.items())
+        + f" (tol {ADAM_TOL}); clip norm rel err {norm_rel:.3g} (tol "
+        f"{NORM_RTOL}); copies == fp16(master)")
+    return got, grads, lr
+
+
+def param_adam_phase(dev, cfg, fused, err):
+    """19a: #7's fp16 instance and lr-scale column on GPT-2 345M's and
+    ResNet-50's tensors; the timing at GPT-2 345M's."""
+    from paddle_tpu_torch.vision.models import resnet50
+
+    gen = torch.Generator(device=dev).manual_seed(19)
+    numels = [int(np.prod(s)) for s in gpt_param_shapes(cfg)]
+    scales, decay = gpt_lr_scales(cfg)
+    got, grads, lr = fp16_adam_check(dev, gen, fused, numels, scales,
+                                     decay, err, "GPT-2 345M")
+    # wpe (scale 0) kept its master and copy: a zero step, decay included
+    p_wpe, m_wpe = got["P"][1].clone(), got["MS"][1].clone()
+    args = (got["P"], grads, got["M"], got["V"], got["P1"], got["P2"], lr)
+    kern = lambda: fused.fused_adam_step(*args, masters=got["MS"],
+                                         decoupled_decay=decay,
+                                         lr_scale=scales)
+    kern()
+    torch.cuda.synchronize()
+    if not (torch.equal(got["P"][1], p_wpe)
+            and torch.equal(got["MS"][1], m_wpe)):
+        raise AssertionError("19a: a tensor at scale 0 moved")
+    kern_ms = time_ms(kern, iters=10)
+    kern_dev = device_ms(kern, "fp16 adam over GPT-2 345M", iters=5,
+                         per_call=2)
+    plain = lambda: fused._adam_reference(*args, masters=got["MS"],
+                                          decoupled_decay=decay,
+                                          lr_scale=scales)
+    plain_ms = time_ms(plain, iters=3, warmup=1)
+    lib_p = [torch.nn.Parameter(m.clone()) for m in got["MS"]]
+    for q in lib_p:
+        q.grad = torch.randn(q.numel(), device=dev, generator=gen)
+    del got, grads, args
+    torch.cuda.empty_cache()
+    opt = torch.optim.Adam(lib_p, lr=TRAIN_LR, fused=True)
+    lib_ms = time_ms(opt.step, iters=10)
+    lib_dev = device_ms(opt.step, "torch.optim.Adam(fused=True)", iters=5)
+    del lib_p, opt
+    torch.cuda.empty_cache()
+    bound, by = adam_bound(numels, 2, 2)
+    out = {"kernel": "adam_fp16", "shape": [len(numels), sum(numels)],
+           "dtype": "float16 grads and copies, f32 masters, lr scales",
+           "ms": kern_ms, "device_ms": kern_dev, "plain_ms": plain_ms,
+           "library_ms": lib_ms, "library_device_ms": lib_dev,
+           "bound_ms": bound, "bound_by": by}
+    log(f"[19a] adam fp16 over GPT-2 345M's {len(numels)} tensors: kernel "
+        f"{kern_ms:.3f} ms (device {kern_dev:.3f}, {bound / kern_dev:.3f} "
+        f"of its bound {bound:.3f} ms, {by}), plain {plain_ms:.3f} ms, "
+        f"torch.optim.Adam(fused=True) over the f32 masters {lib_ms:.3f} "
+        f"ms (device {lib_dev:.3f})")
+    shapes = [tuple(p.shape) for p in resnet50(num_classes=1000,
+                                               device="cpu").parameters()]
+    res = fp16_adam_check(dev, gen, fused,
+                          [int(np.prod(s)) for s in shapes],
+                          [1.0] * len(shapes), [0.0] * len(shapes), err,
+                          "ResNet-50 O2")
+    del res
+    torch.cuda.empty_cache()
+    return out
+
+
+def o2_resnet_phase(dev, counted, launches):
+    """19b: ResNet-50 at config #2's batch in pure fp16: decorate O2,
+    Adam with f32 masters, GradScaler, through the eager loop and through
+    TrainStep."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.jit.train_step import TrainStep
+    from paddle_tpu_torch.nn import CrossEntropyLoss
+    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.vision.models import resnet50
+
+    rng = np.random.RandomState(0)  # config #2's inputs
+    x = torch.from_numpy(rng.randn(RESNET_BATCH, 3, RESNET_SIZE,
+                                   RESNET_SIZE).astype(np.float32)).to(dev)
+    y = torch.from_numpy(rng.randint(0, 1000, (RESNET_BATCH, 1)).astype(
+        np.int64)).to(dev)
+    model = resnet50(num_classes=1000, device=dev)
+    ce = CrossEntropyLoss()
+    # the f32 loss of step 1 on the same weights and batch (train mode,
+    # the running statistics put back)
+    saved = [b.clone() for b in model.buffers()]
+    with torch.no_grad():
+        loss32 = float(ce(model(x), y))
+    with torch.no_grad():
+        for b, s in zip(model.buffers(), saved):
+            b.copy_(s)
+    del saved
+    amp.decorate(model, level="O2", dtype="float16")
+    opt = Adam(1e-3, parameters=model.parameters(), multi_precision=True)
+    scaler = amp.GradScaler(init_loss_scaling=O2_INIT_LOSS_SCALE)
+    skipped = []
+
+    def eager(inputs, labels):
+        with amp.auto_cast(level="O2", dtype="float16"):
+            loss = ce(model(*inputs), *labels)
+        scaler.scale(loss).backward()
+        scaler.step(opt)
+        skipped.append(scaler._found_inf)
+        scaler.update()
+        opt.clear_grad()
+        return loss.detach()
+
+    batch = ((x,), (y,))
+    warm = [eager(*batch)]
+    while len(warm) < O2_WARMUP_MAX and (len(warm) < 3 or all(skipped)):
+        warm.append(eager(*batch))
+    loss16 = float(warm[0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _cleared(counted)
+    n_skip0 = sum(skipped)
+    losses, step_ms, wall = timed_steps(eager, batch, RESNET_STEPS)
+    launched = _read_launches(counted, launches, "param_resnet_o2")
+    peak = torch.cuda.max_memory_allocated()
+    stepped = RESNET_STEPS - (sum(skipped) - n_skip0)
+    prof = profile_step("19b", eager, batch)
+    rel = abs(loss16 - loss32) / abs(loss32)
+    all_losses = [float(v) for v in torch.stack(warm + losses)]
+    out = {"samples_per_s": RESNET_BATCH * RESNET_STEPS / wall,
+           "step_ms_p50": step_ms[RESNET_STEPS // 2],
+           "step_ms_min": step_ms[0], "step_ms_max": step_ms[-1],
+           "peak_memory_bytes": peak, "losses": all_losses,
+           "loss_step1_fp16": loss16, "loss_step1_f32": loss32,
+           "loss_step1_rel_err": rel, "skipped_steps": int(sum(skipped)),
+           "skipped_in_warmup": int(n_skip0),
+           "loss_scale": scaler._scale, "adam_launches": launched["adam"],
+           "device_over_step_p50": prof["device_ms_per_step"]
+           / step_ms[RESNET_STEPS // 2], **prof}
+    log(f"[19b] ResNet-50 pure fp16 (O2, Adam f32 masters, GradScaler) at "
+        f"{RESNET_BATCH} x 3 x {RESNET_SIZE}^2: {out['samples_per_s']:.1f} "
+        f"samples/s over {RESNET_STEPS} steps, step p50 "
+        f"{out['step_ms_p50']:.2f} ms, peak memory {peak / 2**30:.2f} GiB; "
+        f"step 1 loss fp16 {loss16:.5f} vs f32 {loss32:.5f} (rel "
+        f"{rel:.3g}, tol {O2_LOSS_RTOL}); skipped {sum(skipped)} of "
+        f"{len(skipped)} steps ({n_skip0} in the warm-up), scale now "
+        f"{scaler._scale:g}; adam launches {launched['adam']} for "
+        f"{stepped} steps; losses {all_losses[0]:.4f} -> "
+        f"{all_losses[-1]:.4f}")
+    if rel > O2_LOSS_RTOL:
+        raise AssertionError("19b: the fp16 step-1 loss is off the f32 one")
+    if launched["adam"] != 2 * stepped or stepped == 0:
+        raise AssertionError(f"19b: {launched['adam']} adam launches for "
+                             f"{stepped} steps taken (2 a step)")
+    if not all(np.isfinite(all_losses[n_skip0:])):
+        raise AssertionError(f"19b: a loss after the scaler settled is not "
+                             f"finite: {all_losses}")
+    # TrainStep on the decorated model (no loss scale: the engine takes
+    # none, as the reference's): the masters are the optimizer's
+    train = TrainStep(model, ce, opt, device=dev)
+
+    def engine(inputs, labels):
+        with amp.auto_cast(level="O2", dtype="float16"):
+            return train(inputs, labels)
+
+    [engine(*batch) for _ in range(2)]
+    _cleared(counted)
+    t_losses, t_ms, t_wall = timed_steps(engine, batch, 4)
+    t_launched = _read_launches(counted, launches, "param_trainstep_o2")
+    t_losses = [float(v) for v in torch.stack(t_losses)]
+    out["trainstep"] = {"samples_per_s": RESNET_BATCH * 4 / t_wall,
+                        "step_ms_p50": t_ms[2], "losses": t_losses,
+                        "adam_launches": t_launched["adam"]}
+    log(f"[19b] TrainStep on the decorated model: "
+        f"{out['trainstep']['samples_per_s']:.1f} samples/s, step p50 "
+        f"{t_ms[2]:.2f} ms, losses {t_losses}, adam launches "
+        f"{t_launched['adam']} for 4 steps")
+    if t_launched["adam"] != 8 or not all(np.isfinite(t_losses)):
+        raise AssertionError("19b: TrainStep's fp16 steps")
+    if any(p.dtype != torch.float16 for p in model.parameters()):
+        raise AssertionError("19b: a parameter left fp16")
+    return out
+
+
+def sparse_phase(dev, counted, launches):
+    """19c: a row-sparse table at GPT-2 345M's wte width against the same
+    model with a dense one, 3 steps of each optimizer setup."""
+    from paddle_tpu_torch import nn as tnn
+    from paddle_tpu_torch.nn.clip import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import SGD, Adam
+
+    vocab, h = SPARSE_VOCAB, SPARSE_DIM
+    gen = torch.Generator(device=dev).manual_seed(193)
+    w0 = torch.randn(vocab, h, device=dev, generator=gen) * 0.02
+    head0 = torch.randn(h, 8, device=dev, generator=gen) * 0.05
+    batches = [torch.randint(0, vocab // 8, TRAIN_SHAPE, device=dev,
+                             generator=gen) for _ in range(SPARSE_STEPS)]
+    for b in batches:
+        b[:, ::97] = 0  # padding lookups
+
+    def model(sparse):
+        emb = tnn.Embedding(vocab, h, padding_idx=0, sparse=sparse,
+                            device=dev)
+        head = tnn.Linear(h, 8, device=dev)
+        with torch.no_grad():
+            emb.weight.copy_(w0)
+            head.weight.copy_(head0)
+        return emb, head
+
+    setups = {
+        "sgd": lambda ps: SGD(0.5, parameters=ps),
+        "adam": lambda ps: Adam(1e-3, parameters=ps),
+        "adam_lazy": lambda ps: Adam(1e-3, parameters=ps, lazy_mode=True),
+        "adam_global_clip": lambda ps: Adam(
+            1e-3, parameters=ps, grad_clip=ClipGradByGlobalNorm(0.1)),
+    }
+    out = {}
+    for name, make in setups.items():
+        res = {}
+        for kind in ("dense", "sparse"):
+            emb, head = model(kind == "sparse")
+            opt = make([*emb.parameters(), *head.parameters()])
+            times = []
+            _cleared(counted)
+            for ids in batches:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                loss = (head(emb(ids)) ** 2).mean()
+                loss.backward()
+                if emb.weight.grad.is_sparse != (kind == "sparse"):
+                    raise AssertionError("19c: the table's gradient is not "
+                                         f"{kind}")
+                opt.step()
+                opt.clear_grad()
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            launched = _read_launches(counted, launches,
+                                      f"param_sparse_{name}_{kind}")
+            res[kind] = (emb, head, opt, sorted(times), launched)
+        (emb_d, head_d, opt_d, t_d, l_d), (emb_s, head_s, opt_s, t_s, l_s) = \
+            res["dense"], res["sparse"]
+        rows = torch.unique(torch.cat([b.reshape(-1) for b in batches]))
+        rows = rows[rows != 0]
+        entry = {"dense_ms_p50": t_d[1], "sparse_ms_p50": t_s[1],
+                 "touched_rows": int(rows.numel()),
+                 "adam_launches_dense": l_d["adam"],
+                 "adam_launches_sparse": l_s["adam"],
+                 "sumsq_launches_sparse": l_s["grad_sumsq"]}
+        if name == "adam_lazy":
+            w = emb_s.weight.detach()
+            m1 = opt_s._accumulators[id(emb_s.weight)]["moment1"]
+            untouched = torch.ones(vocab, dtype=torch.bool, device=dev)
+            untouched[rows] = False
+            untouched[0] = True
+            keep_w = torch.equal(w[untouched], w0[untouched])
+            keep_m = not bool(m1[untouched].any())
+            entry.update(untouched_rows_kept=keep_w,
+                         untouched_moments_zero=keep_m)
+            if not (keep_w and keep_m) or torch.equal(w[rows], w0[rows]):
+                raise AssertionError("19c: lazy Adam touched an untouched "
+                                     "row (or no row moved)")
+        else:
+            e, ok = worst(emb_s.weight, emb_d.weight, *SPARSE_TOL)
+            e2, ok2 = worst(head_s.weight, head_d.weight, *SPARSE_TOL)
+            entry["max_err_table"], entry["max_err_head"] = e, e2
+            if not (ok and ok2):
+                raise AssertionError(f"19c {name}: the sparse update is off "
+                                     f"the dense one ({e:.3g}, {e2:.3g}, "
+                                     f"tol {SPARSE_TOL})")
+        if not torch.equal(emb_s.weight.detach()[0], w0[0]):
+            raise AssertionError(f"19c {name}: the padding row moved")
+        if name.startswith("adam") and (l_d["adam"] != 2 * SPARSE_STEPS
+                                        or l_s["adam"] != 2 * SPARSE_STEPS):
+            raise AssertionError(f"19c {name}: the dense parameters did not "
+                                 "go through #7 once a step")
+        log(f"[19c] {name} Embedding({vocab}, {h}, padding_idx=0) + head, "
+            f"{TRAIN_SHAPE} ids, {SPARSE_STEPS} steps: ms a step p50 dense "
+            f"{t_d[1]:.2f}, sparse {t_s[1]:.2f}; "
+            + ", ".join(f"{k} {v}" if not isinstance(v, float)
+                        else f"{k} {v:.3g}" for k, v in entry.items()
+                        if not k.endswith("ms_p50")))
+        out[name] = entry
+        del res, emb_d, emb_s, head_d, head_s, opt_d, opt_s
+        torch.cuda.empty_cache()
+    return out
+
+
+def param_lr_phase(dev, gen, counted, launches, gpt_mod, norm_mod, plain):
+    """19d: one eager Adam step of GPT-2 345M (bf16, f32 masters) with
+    learning-rate scales (0.5 on the LayerNorms, 0 on wpe) through #7 and
+    through the plain update from the same state."""
+    from paddle_tpu_torch.optimizer import Adam
+
+    cfg = gpt_mod.gpt2_medium()
+    model = gpt_mod.GPTForCausalLM(cfg, device=dev, dtype=torch.bfloat16,
+                                   seed=0)
+    for mod in model.modules():
+        if isinstance(mod, norm_mod.LayerNorm):
+            for p in mod.parameters():
+                p.optimize_attr = {"learning_rate": 0.5}
+    wpe = model.gpt.wpe.weight
+    wpe.optimize_attr = {"learning_rate": 0.0}
+    opt = Adam(TRAIN_LR, parameters=model.parameters(), multi_precision=True)
+    ids = torch.randint(0, cfg.vocab_size, (2, 1024), device=dev,
+                        generator=gen)
+    logits = model(ids)
+    loss = torch.nn.functional.cross_entropy(
+        logits.float().reshape(-1, cfg.vocab_size), ids.reshape(-1))
+    loss.backward()
+    params = list(model.parameters())
+    for p in params:
+        opt.state_for(p)
+    snap = ([p.detach().clone() for p in params],
+            [{k: v.clone() for k, v in opt.state_for(p).items()}
+             for p in params])
+    _cleared(counted)
+    opt.step()
+    torch.cuda.synchronize()
+    launched = _read_launches(counted, launches, "param_lr")
+    got = ([p.detach().clone() for p in params],
+           [{k: v.clone() for k, v in opt.state_for(p).items()}
+            for p in params])
+    with torch.no_grad():
+        for p, v, st in zip(params, *snap):
+            p.copy_(v)
+            for k, t in opt.state_for(p).items():
+                t.copy_(st[k])
+    with plain():
+        opt.step()
+    torch.cuda.synchronize()
+    worst_err = 0.0
+    for p, v, st in zip(params, *got):
+        e, ok = worst(v, p.detach(), *ADAM_TOL)
+        worst_err = max(worst_err, e)
+        for k, t in opt.state_for(p).items():
+            e, ok2 = worst(st[k], t, *ADAM_TOL)
+            worst_err = max(worst_err, e)
+            ok = ok and ok2
+        if not ok:
+            raise AssertionError("19d: the kernel's scaled step is off the "
+                                 "plain one")
+    i_wpe = next(i for i, p in enumerate(params) if p is wpe)
+    kept = (torch.equal(got[0][i_wpe], snap[0][i_wpe])
+            and torch.equal(got[1][i_wpe]["master"],
+                            snap[1][i_wpe]["master"]))
+    ln_moved = [not torch.equal(g, s) for g, s, p in zip(
+        got[0], snap[0], params) if getattr(p, "optimize_attr", {}).get(
+        "learning_rate") == 0.5]
+    log(f"[19d] GPT-2 345M eager Adam step, lr scales 0.5 on "
+        f"{len(ln_moved)} LayerNorm tensors and 0 on wpe: kernel vs plain "
+        f"max err {worst_err:.3g} (tol {ADAM_TOL}); wpe and its master "
+        f"kept their bits {kept}; adam launches {launched['adam']}")
+    if not kept or launched["adam"] != 2 or not any(ln_moved):
+        raise AssertionError("19d: scale 0 moved wpe, or #7 was not the "
+                             "step")
+    del model, opt, snap, got, logits
+    torch.cuda.empty_cache()
+    return {"max_abs_err": worst_err, "wpe_kept": kept,
+            "adam_launches": launched["adam"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4018,6 +4503,11 @@ def main() -> int:
                        err)
     timings += time_bert_kernels(dev, rnd, gen, fused, flash_tpu, dkv_mod,
                                  bert_cfg)
+    # 19a (#7's fp16 instance and its lr-scale column) runs beside the
+    # other kernels' checks: late in the script the profiler has recorded
+    # as little as one operation of a window of its launches
+    surface = {"adam_fp16": param_adam_phase(dev, cfg, fused, err)}
+    torch.cuda.empty_cache()
     log("timings " + json.dumps(timings))
     for t in timings:
         if t["kernel"].startswith("flash_attn_fwd"):
@@ -4645,6 +5135,15 @@ def main() -> int:
     log("serving_breadth " + json.dumps(serving))
     torch.cuda.empty_cache()
 
+    # -- phase 19: the parameter surface (19a ran after phase 3c) ------------
+    surface["resnet_o2"] = o2_resnet_phase(dev, counted, launches)
+    torch.cuda.empty_cache()
+    surface["sparse"] = sparse_phase(dev, counted, launches)
+    surface["param_lr"] = param_lr_phase(dev, gen, counted, launches,
+                                         gpt_mod, norm_mod, plain)
+    log("parameter_surface " + json.dumps(surface))
+    torch.cuda.empty_cache()
+
     # -- the kernels line and the result --------------------------------------
     def timed(kernel, shape):
         return next(t for t in timings if t["kernel"] == kernel
@@ -4686,9 +5185,13 @@ def main() -> int:
              ("training", "bert_training") + options_paths
              + ("lenet_training", "lenet_mnist", "hapi_lenet", "pipeline",
                 "bert_fingerprint_0", "guard_gpt", "guard_bert",
-                "longctx", "static_gpt")),
+                "longctx", "static_gpt", "param_resnet_o2",
+                "param_trainstep_o2", "param_sparse_adam_dense",
+                "param_sparse_adam_sparse", "param_lr")),
             ("grad_sumsq", "paddle_tpu_torch/csrc/adam.cu",
-             "paddle_tpu/nn/clip.py:111", sumsq_t, options_paths),
+             "paddle_tpu/nn/clip.py:111", sumsq_t,
+             options_paths + ("param_sparse_adam_global_clip_dense",
+                              "param_sparse_adam_global_clip_sparse")),
             ("flash_attn_fwd_full", "paddle_tpu_torch/csrc/flash_attn_fwd.cu",
              "paddle_tpu/ops/attention.py:156",
              timed("flash_attn_fwd_full", bert_attn),
@@ -4741,6 +5244,16 @@ def main() -> int:
             kernels[-1]["lenet"] = {k: lenet_adam_t[k] for k in (
                 "shape", "ms", "device_ms", "plain_ms", "library_ms",
                 "library_device_ms", "bound_ms", "bound_by")}
+            fp16 = surface["adam_fp16"]
+            kernels[-1]["fp16"] = {k: fp16[k] for k in (
+                "shape", "dtype", "ms", "device_ms", "plain_ms",
+                "library_ms", "library_device_ms", "bound_ms", "bound_by")}
+            kernels[-1]["note_fp16"] = (
+                "the fp16 instance (dtype code 2: fp16 gradients and "
+                "resident copies over f32 masters) with the per-tensor "
+                "learning-rate scale column, phase 19a over GPT-2 345M's "
+                "292 tensors at scales 0-2; library_ms is "
+                "torch.optim.Adam(fused=True) over the f32 masters")
             kernels[-1]["with_clip_ms"] = adam_clip_t["ms"]
             kernels[-1]["with_clip_device_ms"] = adam_clip_t["device_ms"]
             kernels[-1]["with_clip_update_device_ms"] = \

@@ -114,8 +114,13 @@ amp_guard = auto_cast
 def decorate(models, optimizers=None, level="O2", dtype="float16",
              master_weight=None, save_dtype=None):
     """Pure low precision: at level O2 cast each model's float parameters
-    and buffers to ``dtype`` (in place). Returns the models, and the
-    optimizers with them when given, as the reference does."""
+    and buffers (BatchNorm's running statistics among them) to ``dtype``
+    (in place), as the reference's ``_convert_dtype`` does; the
+    parameters stay the same tensors. Returns the models, and the
+    optimizers with them when given, as the reference does. The f32
+    masters are the optimizer's (``multi_precision=True``);
+    ``master_weight`` and ``save_dtype`` are taken and, as in the
+    reference, not read."""
     single = not isinstance(models, (list, tuple))
     model_list = [models] if single else list(models)
     if level == "O2":

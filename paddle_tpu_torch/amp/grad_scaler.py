@@ -21,7 +21,9 @@ back to the gradient's dtype (the reference's values), with
 ``torch._foreach_mul_`` over the f32 gradients, and reads ONE flag back to
 the host: whether every unscaled gradient is finite (one max-abs
 reduction a tensor, ``torch._foreach_norm(..., inf)``, which propagates
-NaN and inf). The reference reads one flag per parameter.
+NaN and inf). The reference reads one flag per parameter. A row-sparse
+gradient (a sparse COO tensor) is unscaled and checked through its
+values, in place.
 
 Unlike the reference, ``unscale_`` followed by ``step`` (or ``minimize``)
 unscales once: ``unscale_`` sets a flag that ``step`` checks, and
@@ -76,8 +78,9 @@ class AmpScaler:
         scale, in place, and record whether they are all finite."""
         if not self._enable:
             return
-        grads = [p.grad for p in optimizer._parameter_list
-                 if p.grad is not None]
+        # a sparse gradient through its values (a view of them)
+        grads = [p.grad._values() if p.grad.is_sparse else p.grad
+                 for p in optimizer._parameter_list if p.grad is not None]
         inv = 1.0 / self._scale
         f32 = [g for g in grads if g.dtype == torch.float32]
         if f32:

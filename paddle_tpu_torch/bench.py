@@ -549,9 +549,9 @@ def bench_serving(smoke: bool = False) -> dict:
     streams = 2 if smoke else 16
     per_stream = 4 if smoke else 40
     gen = torch.Generator().manual_seed(0)
-    net = Sequential(Linear(d, d, device, generator=gen), ReLU(),
-                     Linear(d, d, device, generator=gen), ReLU(),
-                     Linear(d, d, device, generator=gen))
+    net = Sequential(Linear(d, d, device=device, generator=gen), ReLU(),
+                     Linear(d, d, device=device, generator=gen), ReLU(),
+                     Linear(d, d, device=device, generator=gen))
     net.eval()
     cfg = Config()
     if smoke:

@@ -10,15 +10,25 @@
 // (optimizer/optimizer.py), per element in f32:
 //   g = g * scale, rounded back to g's dtype   (the clip: a tensor that
 //                                               takes part in it, when on)
+//   lr = lr * s                          (the tensor's learning-rate scale s:
+//                                         its ParamAttr learning_rate times
+//                                         AdamW's lr_ratio, the reference's
+//                                         `_lr_for`; 1 for most tensors)
 //   g' = g + l2 * p                      (L2 decay, the tensor's own l2)
 //   p = p * (1 - lr * c)                 (AdamW: the tensor's coefficient c,
-//                                         0 where it is not decayed)
+//                                         0 where it is not decayed; the
+//                                         scaled lr, as the reference's
+//                                         AdamW.step decays with it)
 //   b1p = beta1_pow * b1,  b2p = beta2_pow * b2
 //   m = b1 * m + (1 - b1) * g',  v = b2 * v + (1 - b2) * g' * g'
 //   lr_t = lr * sqrt(1 - b2p) / (1 - b1p)
 //   p = p - lr_t * m / (sqrt(v) + eps)   (eps is NOT bias-corrected)
 // where p is the f32 master (or the f32 param when there is none); the
-// bf16 resident copy is written from the new master in the same pass.
+// low-precision resident copy (bf16, or fp16 for the reference's pure-fp16
+// O2 training) is written from the new master in the same pass, rounded to
+// nearest even (a master beyond fp16's 65504 becomes inf, as the
+// reference's `.astype(float16)` makes it). The gradient has the resident
+// copy's dtype: f32, bf16 or fp16 (code 0, 1 or 2 in the table).
 // Every operation is a separately rounded IEEE op (__fmul_rn & co.), so
 // no FMA contraction makes the kernel differ from the plain version.
 //
@@ -30,7 +40,7 @@
 // update reads through a pointer. Nothing is read back to the host.
 //
 // What bounds it on this card: bytes. Per element the update reads g (2 or
-// 4 B), p, m, v (12 B) and writes p, m, v (12 B) plus the bf16 copy (2 B):
+// 4 B), p, m, v (12 B) and writes p, m, v (12 B) plus the 2-byte copy (2 B):
 // 28 B per parameter in master mode, ~9.9 GB for GPT-2 345M, so the least
 // time is ~3.0 ms at 3.35 TB/s; ~20 flops per element are nothing. The
 // sum-of-squares pass reads each gradient once (0.71 GB of bf16 for GPT-2
@@ -47,9 +57,10 @@
 // GB for GPT-2 345M, ~1.5 ms.
 //
 // Design. One launch covers every tensor: a device table holds, per
-// tensor, the pointers of p, m, v, the bf16 copy, its two beta powers,
-// its size, its decoupled-decay and L2 coefficients and whether it takes
-// part in the clip; a second array holds each tensor's grad pointer
+// tensor, the pointers of p, m, v, the 2-byte copy, its two beta powers,
+// its size, its gradient's dtype, its decoupled-decay and L2
+// coefficients, whether it takes part in the clip and its learning-rate
+// scale; a second array holds each tensor's grad pointer
 // (grads are new tensors every step, the rest is not, so only that array
 // is re-sent).
 // The grid runs over (tensor, chunk) pairs listed in a third array, so
@@ -60,21 +71,44 @@
 // can see a half-advanced power. lr is a device scalar.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kFinishThreads = 1024;
-// columns of the tensor table (int64 each): kDecay and kL2 hold the f32
-// bits of the tensor's decoupled-decay and L2 coefficients, kClip is 1
-// where the tensor takes part in the clip
+// columns of the tensor table (int64 each): kGDtype is the gradient's
+// (and the resident copy's) dtype code, kDecay, kL2 and kLrScale hold the
+// f32 bits of the tensor's decoupled-decay and L2 coefficients and of its
+// learning-rate scale, kClip is 1 where the tensor takes part in the clip
 enum {
-  kP = 0, kM, kV, kLow, kB1p, kB2p, kN, kGDtype, kDecay, kL2, kClip, kCols
+  kP = 0, kM, kV, kLow, kB1p, kB2p, kN, kGDtype, kDecay, kL2, kClip,
+  kLrScale, kCols
 };
+// dtype codes (ops/_build.py DTYPE_CODES)
+enum { kF32 = 0, kBF16 = 1, kF16 = 2 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
+}
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
+
+// element i of a gradient of dtype code `code`, in f32
+__device__ __forceinline__ float load_grad(const void* g, int code,
+                                           long long i) {
+  if (code == kBF16)
+    return __bfloat162float(static_cast<const __nv_bfloat16*>(g)[i]);
+  if (code == kF16) return __half2float(static_cast<const __half*>(g)[i]);
+  return static_cast<const float*>(g)[i];
+}
+
+// x rounded to the 2-byte dtype `code` (nearest even) and back to f32;
+// x itself for f32
+__device__ __forceinline__ float round_to(float x, int code) {
+  if (code == kBF16) return __bfloat162float(__float2bfloat16_rn(x));
+  if (code == kF16) return __half2float(__float2half_rn(x));
+  return x;
 }
 
 // Sum over a block in a fixed order (xor shuffles, then warp 0 over the
@@ -143,11 +177,14 @@ grad_sumsq_kernel(const long long* __restrict__ tab,
   if (e[kClip] != 0) {
     const long long n = e[kN];
     const long long end = start + chunk < n ? start + chunk : n;
-    s = e[kGDtype] == 1
-            ? chunk_sumsq(reinterpret_cast<const __nv_bfloat16*>(grads[t]),
-                          start, end)
-            : chunk_sumsq(reinterpret_cast<const float*>(grads[t]), start,
-                          end);
+    const int code = (int)e[kGDtype];
+    if (code == kBF16)
+      s = chunk_sumsq(reinterpret_cast<const __nv_bfloat16*>(grads[t]),
+                      start, end);
+    else if (code == kF16)
+      s = chunk_sumsq(reinterpret_cast<const __half*>(grads[t]), start, end);
+    else
+      s = chunk_sumsq(reinterpret_cast<const float*>(grads[t]), start, end);
   }
   s = block_sum<kThreads>(s);
   if (threadIdx.x == 0) partials[blockIdx.x] = s;
@@ -183,14 +220,14 @@ adam_update_kernel(const long long* __restrict__ tab,
   float* __restrict__ p = reinterpret_cast<float*>(e[kP]);
   float* __restrict__ m = reinterpret_cast<float*>(e[kM]);
   float* __restrict__ v = reinterpret_cast<float*>(e[kV]);
-  __nv_bfloat16* __restrict__ low = reinterpret_cast<__nv_bfloat16*>(e[kLow]);
+  void* low = reinterpret_cast<void*>(e[kLow]);
   const float b1p = __fmul_rn(*reinterpret_cast<const float*>(e[kB1p]), b1);
   const float b2p = __fmul_rn(*reinterpret_cast<const float*>(e[kB2p]), b2);
   const long long n = e[kN];
-  const bool g_bf16 = e[kGDtype] == 1;
-  const float* gf = reinterpret_cast<const float*>(grads[t]);
-  const __nv_bfloat16* gb = reinterpret_cast<const __nv_bfloat16*>(grads[t]);
-  const float lr = *lr_ptr;
+  const int code = (int)e[kGDtype];
+  const void* g_ptr = reinterpret_cast<const void*>(grads[t]);
+  const float lr =
+      __fmul_rn(*lr_ptr, __int_as_float((int)e[kLrScale]));
   const float lr_t = __fdiv_rn(__fmul_rn(lr, __fsqrt_rn(__fsub_rn(1.f, b2p))),
                                __fsub_rn(1.f, b1p));
   const float coeff = __int_as_float((int)e[kDecay]);
@@ -200,15 +237,9 @@ adam_update_kernel(const long long* __restrict__ tab,
   const float keep = __fsub_rn(1.f, __fmul_rn(lr, coeff));
   const long long end = start + chunk < n ? start + chunk : n;
   for (long long i = start + threadIdx.x; i < end; i += kThreads) {
-    float g;
-    if (g_bf16) {
-      g = __bfloat162float(gb[i]);
-      if (scaled)
-        g = __bfloat162float(__float2bfloat16_rn(__fmul_rn(g, scale)));
-    } else {
-      g = gf[i];
-      if (scaled) g = __fmul_rn(g, scale);
-    }
+    float g = load_grad(g_ptr, code, i);
+    // the clipped gradient rounded back to its own dtype
+    if (scaled) g = round_to(__fmul_rn(g, scale), code);
     float pv = p[i];
     if (l2 != 0.f) g = __fadd_rn(g, __fmul_rn(l2, pv));
     if (coeff != 0.f) pv = __fmul_rn(pv, keep);
@@ -221,7 +252,12 @@ adam_update_kernel(const long long* __restrict__ tab,
     p[i] = pn;
     m[i] = m1;
     v[i] = m2;
-    if (low != nullptr) low[i] = __float2bfloat16(pn);
+    if (low != nullptr) {
+      if (code == kF16)
+        static_cast<__half*>(low)[i] = __float2half_rn(pn);
+      else
+        static_cast<__nv_bfloat16*>(low)[i] = __float2bfloat16_rn(pn);
+    }
   }
 }
 
@@ -260,10 +296,10 @@ adam_check_kernel(const long long* __restrict__ tab,
   const float b1p = __fmul_rn(*reinterpret_cast<const float*>(e[kB1p]), b1);
   const float b2p = __fmul_rn(*reinterpret_cast<const float*>(e[kB2p]), b2);
   const long long n = e[kN];
-  const bool g_bf16 = e[kGDtype] == 1;
-  const float* gf = reinterpret_cast<const float*>(grads[t]);
-  const __nv_bfloat16* gb = reinterpret_cast<const __nv_bfloat16*>(grads[t]);
-  const float lr = *lr_ptr;
+  const int code = (int)e[kGDtype];
+  const void* g_ptr = reinterpret_cast<const void*>(grads[t]);
+  const float lr =
+      __fmul_rn(*lr_ptr, __int_as_float((int)e[kLrScale]));
   const float lr_t = __fdiv_rn(__fmul_rn(lr, __fsqrt_rn(__fsub_rn(1.f, b2p))),
                                __fsub_rn(1.f, b1p));
   const float coeff = __int_as_float((int)e[kDecay]);
@@ -274,17 +310,9 @@ adam_check_kernel(const long long* __restrict__ tab,
   const long long end = start + chunk < n ? start + chunk : n;
   int g_bad = 0, p_bad = 0;
   for (long long i = start + threadIdx.x; i < end; i += kThreads) {
-    float g;
-    if (g_bf16) {
-      g = __bfloat162float(gb[i]);
-      g_bad |= !isfinite(g);
-      if (scaled)
-        g = __bfloat162float(__float2bfloat16_rn(__fmul_rn(g, scale)));
-    } else {
-      g = gf[i];
-      g_bad |= !isfinite(g);
-      if (scaled) g = __fmul_rn(g, scale);
-    }
+    float g = load_grad(g_ptr, code, i);
+    g_bad |= !isfinite(g);
+    if (scaled) g = round_to(__fmul_rn(g, scale), code);
     float pv = p[i];
     if (l2 != 0.f) g = __fadd_rn(g, __fmul_rn(l2, pv));
     if (coeff != 0.f) pv = __fmul_rn(pv, keep);
@@ -294,7 +322,7 @@ adam_check_kernel(const long long* __restrict__ tab,
     const float upd =
         __fdiv_rn(__fmul_rn(lr_t, m1), __fadd_rn(__fsqrt_rn(m2), eps));
     const float pn = __fsub_rn(pv, upd);
-    p_bad |= !isfinite(has_low ? __bfloat162float(__float2bfloat16(pn)) : pn);
+    p_bad |= !isfinite(has_low ? round_to(pn, code) : pn);
   }
   g_bad = __syncthreads_or(g_bad);
   p_bad = __syncthreads_or(p_bad);
@@ -336,9 +364,10 @@ adam_check_finish_kernel(const int* __restrict__ partials,
 
 }  // namespace
 
-// tab: device int64 [ntensors, 11] (p, m, v, bf16 copy or 0, beta1_pow,
-// beta2_pow, numel, grad dtype 0 = f32 / 1 = bf16, the f32 bits of the
-// decoupled-decay and of the L2 coefficient, 1 if the tensor is clipped);
+// tab: device int64 [ntensors, 12] (p, m, v, 2-byte copy or 0,
+// beta1_pow, beta2_pow, numel, grad (and copy) dtype 0 = f32 / 1 = bf16 /
+// 2 = fp16, the f32 bits of the decoupled-decay and of the L2 coefficient,
+// 1 if the tensor is clipped, the f32 bits of its learning-rate scale);
 // grads: device int64 [ntensors] grad pointers; chunks: device int32
 // [nchunks, 2] (tensor, chunk index) with chunk size `chunk`; lr: device
 // f32 scalar; scale: device f32 clip scale, or null for no clip; ok:

@@ -30,7 +30,15 @@ reference's engine passes names to ``apply_decay_param_fun``.
 
 The optimizer's options apply as in its own ``step``: a learning-rate
 scheduler is read at every step (the caller steps it, or ``run_steps``
-does), and a ``ClipGradByGlobalNorm`` is folded into the Adam kernel. The
+does), and a ``ClipGradByGlobalNorm`` is folded into the Adam kernel.
+The update is the reference engine's (``Optimizer.compiled_update``):
+every parameter at the optimizer's learning rate (a ``ParamAttr``
+``learning_rate`` and AdamW's ``lr_ratio`` are not read, as the
+reference's ``apply_optimizer_update`` reads neither), and a row-sparse
+gradient densified. A layer decorated for pure fp16 or bf16
+(``amp.decorate(level='O2')``) trains on the f32 masters of a
+``multi_precision`` optimizer, its gradients in the layer's dtype
+through the Adam kernel. The
 reference's compiled engines skip a ``ClipGradByValue`` or
 ``ClipGradByNorm`` without a word (``apply_optimizer_update``); the port
 refuses them here. ``remat`` (or the older ``recompute``; ``remat`` wins)
@@ -372,15 +380,18 @@ class ParallelTrainStep:
                 loss = self._loss_fn(self._apply(*inputs), *labels).float()
                 loss.backward()
                 flags = None
-                if self._check_nan:
-                    flags = opt.step_checked(loss.detach(), self._swept,
-                                             gate=self._guard_updates)
-                    if old_buffers:
-                        ok = flags.all()
-                        for b, old in old_buffers:
-                            b.copy_(torch.where(ok, b, old))
-                else:
-                    opt.step()
+                # the reference's compiled update: the optimizer's learning
+                # rate for every parameter, dense gradients
+                with opt.compiled_update():
+                    if self._check_nan:
+                        flags = opt.step_checked(loss.detach(), self._swept,
+                                                 gate=self._guard_updates)
+                        if old_buffers:
+                            ok = flags.all()
+                            for b, old in old_buffers:
+                                b.copy_(torch.where(ok, b, old))
+                    else:
+                        opt.step()
                 opt.clear_grad()
             self._record_step()
         if self._window is not None:

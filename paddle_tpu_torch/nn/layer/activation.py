@@ -8,7 +8,9 @@ from typing import Optional
 import torch
 from torch import nn
 
+from .. import initializer as I
 from ..functional import activation as A
+from ..layer_base import create_parameter
 
 __all__ = [
     "ReLU", "ReLU6", "ELU", "SELU", "CELU", "GELU", "Sigmoid", "Hardsigmoid",
@@ -66,15 +68,16 @@ GLU = _simple("GLU", "glu", [("axis", -1)])
 
 
 class PReLU(nn.Module):
-    """``prelu`` with a learned slope per channel (or one), initialised to
-    ``init`` as the reference's ``Constant(init)``."""
+    """``prelu`` with a learned slope per channel (or one), made from
+    ``weight_attr`` (by default ``Constant(init)``, as the reference's)."""
 
     def __init__(self, num_parameters=1, init=0.25, weight_attr=None,
                  data_format="NCHW", name=None, device=None, dtype=None):
         super().__init__()
         self._data_format = data_format
-        self.weight = nn.Parameter(torch.full((num_parameters,), init,
-                                              device=device, dtype=dtype))
+        self.weight = create_parameter(
+            [num_parameters], weight_attr, dtype,
+            default_initializer=I.Constant(init), device=device)
 
     def forward(self, x):
         return A.prelu(x, self.weight, self._data_format)

@@ -2,12 +2,13 @@
 
 Weights are ``[out, in/groups, *k]`` (``[in, out/groups, *k]`` for the
 transposed layers), the reference's layout, so they cross over without a
-transpose. Weight and bias start from the reference's default
-``Uniform(-bound, bound)`` with ``bound = 1/sqrt(in/groups · prod(k))``,
+transpose. Both are made from their ``ParamAttr``
+(``nn.layer_base.create_parameter``) as the reference's are: by default
+``Uniform(-bound, bound)`` with ``bound = 1/sqrt(in/groups · prod(k))``
+(a bias given a ``ParamAttr`` without an initializer starts at 0),
 drawn (weight first, then bias) from ``generator``: the model's, or, for
 a layer built alone, a generator of its own seeded with 0.
-``bias_attr=False`` means no bias. The other ``ParamAttr`` options are
-not ported, and refused.
+``bias_attr=False`` means no bias.
 """
 from __future__ import annotations
 
@@ -18,7 +19,9 @@ import numpy as np
 import torch
 from torch import nn
 
+from .. import initializer as I
 from ..functional import conv as C
+from ..layer_base import create_parameter
 
 __all__ = ["Conv1D", "Conv2D", "Conv3D", "Conv1DTranspose",
            "Conv2DTranspose", "Conv3DTranspose"]
@@ -28,15 +31,6 @@ def _ntuple(v, n):
     if isinstance(v, int):
         return [int(v)] * n
     return [int(i) for i in v]
-
-
-def _uniform(shape, bound: float, generator: torch.Generator, device=None,
-             dtype=None) -> torch.Tensor:
-    """``U(-bound, bound)`` of ``shape``, drawn on the CPU from
-    ``generator`` (so a seed gives the same values on any device)."""
-    t = torch.empty(shape, dtype=torch.float32).uniform_(
-        -bound, bound, generator=generator)
-    return t.to(device=device, dtype=dtype or torch.float32)
 
 
 class _ConvNd(nn.Module):
@@ -52,10 +46,6 @@ class _ConvNd(nn.Module):
         if padding_mode != "zeros":
             raise NotImplementedError(
                 f"padding_mode {padding_mode!r} is not ported (zeros)")
-        if weight_attr is not None or bias_attr not in (None, False):
-            raise NotImplementedError("ParamAttr is not ported: "
-                                      "weight_attr=None, bias_attr None or "
-                                      "False")
         n = self._n
         self._in_channels = in_channels
         self._out_channels = out_channels
@@ -74,10 +64,14 @@ class _ConvNd(nn.Module):
         bound = 1.0 / math.sqrt(fan_in)
         gen = (generator if generator is not None
                else torch.Generator().manual_seed(0))
-        kw = dict(device=device, dtype=dtype)
-        self.weight = nn.Parameter(_uniform(shape, bound, gen, **kw))
-        self.bias = (None if bias_attr is False else nn.Parameter(
-            _uniform([out_channels], bound, gen, **kw)))
+        kw = dict(dtype=dtype, device=device, generator=gen)
+        self.weight = create_parameter(
+            shape, weight_attr, default_initializer=I.Uniform(-bound, bound),
+            **kw)
+        self.register_parameter("bias", create_parameter(
+            [out_channels], bias_attr, is_bias=True,
+            default_initializer=(I.Uniform(-bound, bound) if bias_attr is None
+                                 else None), **kw))
 
     def extra_repr(self):
         return (f"{self._in_channels}, {self._out_channels}, "

@@ -1,5 +1,14 @@
-"""A layer's state — counterpart of the state methods of
-``paddle_tpu.nn.layer_base.Layer``.
+"""A layer's parameters and state — counterpart of
+``paddle_tpu.nn.layer_base.Layer``'s ``create_parameter`` and its state
+methods.
+
+``create_parameter`` makes a parameter from a ``ParamAttr`` as the
+reference's does: its initializer (else Xavier-uniform for a weight,
+zeros for a bias), its name, its learning-rate scale
+(``optimize_attr['learning_rate']``, which the optimizers' ``step``
+multiplies into the learning rate), its regularizer, ``trainable`` (the
+parameter's ``requires_grad``) and ``need_clip``; ``attr=False`` makes
+none.
 
 The port's layers are ``nn.Module``s, so ``module.state_dict()`` comes
 from torch: parameters and persistent buffers (BatchNorm's ``_mean`` and
@@ -9,13 +18,45 @@ reference. ``set_state_dict`` loads one with the reference's semantics.
 """
 from __future__ import annotations
 
-from typing import List, Mapping, Tuple
+from typing import List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
-__all__ = ["set_state_dict"]
+from . import initializer as I
+from .param_attr import ParamAttr
+
+__all__ = ["create_parameter", "set_state_dict"]
+
+
+def create_parameter(shape, attr=None, dtype=None, is_bias: bool = False,
+                     default_initializer: Optional[I.Initializer] = None,
+                     device=None,
+                     generator: Optional[torch.Generator] = None
+                     ) -> Optional[nn.Parameter]:
+    """A parameter of ``shape`` made as ``attr`` (a ``ParamAttr``, a
+    name, an initializer, None, or False for no parameter) says: its
+    initializer, else ``default_initializer``, else Xavier-uniform (zeros
+    for a bias), drawn from ``generator`` (else the initializers' own),
+    in ``dtype`` (default f32) on ``device``."""
+    attr = ParamAttr._to_attr(attr)
+    if attr is False:
+        return None
+    init = attr.initializer or default_initializer or (
+        I.Constant(0.0) if is_bias else I.XavierUniform())
+    dtype = dtype if dtype is not None else torch.float32
+    p = nn.Parameter(init(list(shape), dtype, device, generator=generator),
+                     requires_grad=bool(attr.trainable))
+    if attr.name:
+        from ..static.program import set_param_name
+
+        set_param_name(p, attr.name)
+    p.optimize_attr = {"learning_rate": attr.learning_rate}
+    p.regularizer = attr.regularizer
+    p.need_clip = attr.need_clip
+    p.trainable = bool(attr.trainable)
+    return p
 
 
 @torch.no_grad()

@@ -1,8 +1,9 @@
 """ParamAttr — counterpart of ``paddle_tpu.nn.param_attr``: a
 parameter's name, initializer, learning-rate scale, regularizer and
-whether it trains or is clipped. ``static.nn`` reads it when it makes a
-parameter; a ``learning_rate`` other than 1 is refused by the optimizers
-(per-parameter learning rates are not ported yet)."""
+whether it trains or is clipped. Every layer that makes a parameter
+reads it (``nn.layer_base.create_parameter``), as ``static.nn`` does; the
+optimizers' ``step`` scales the parameter's learning rate by its
+``learning_rate``."""
 from __future__ import annotations
 
 from . import initializer as I

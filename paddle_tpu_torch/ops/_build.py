@@ -27,7 +27,7 @@ from typing import Dict, Optional
 import torch
 
 __all__ = ["BUILD_DIR", "SOURCES", "build", "library", "check", "stream_of",
-           "DTYPE_CODES", "build_info"]
+           "DTYPE_CODES", "ACT_DTYPES", "build_info"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -37,8 +37,11 @@ SOURCES = ("errors.cu", "layer_norm.cu", "layer_norm_bwd.cu",
            "dkv_packed.cu", "tree_reduce.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-# dtype codes of the C entry points
-DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# dtype codes of the C entry points: the Adam kernels' gradients and
+# resident copies take all three, the LayerNorm and attention kernels the
+# ACT_DTYPES
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+ACT_DTYPES = (torch.float32, torch.bfloat16)
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None

@@ -362,7 +362,7 @@ def _check_cuda_args(fn, q, k, v, **more):
     backward's dout and out) as the kernels take them."""
     # the shapes first: a call the kernel cannot take raises as such on
     # any device
-    if q.dtype not in _build.DTYPE_CODES:
+    if q.dtype not in _build.ACT_DTYPES:
         raise TypeError(f"{fn}: dtype {q.dtype} not supported by the CUDA "
                         "kernel (float32, bfloat16)")
     if q.dim() != 4:

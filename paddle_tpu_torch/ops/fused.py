@@ -255,7 +255,7 @@ fused_layer_norm.launches = 0  # forward kernel launches
 def _check_ln_args(fn, x, weight, bias, hidden):
     if x.device.type != "cuda":
         raise ValueError(f"{fn}: unsupported device {x.device}")
-    if x.dtype not in _build.DTYPE_CODES:
+    if x.dtype not in _build.ACT_DTYPES:
         raise TypeError(f"{fn}: dtype {x.dtype} not supported by the CUDA "
                         "kernel (float32, bfloat16)")
     for name, t in (("weight", weight), ("bias", bias)):
@@ -291,11 +291,15 @@ def _global_norm_reference(grads: Sequence[torch.Tensor], clip_norm: float,
 
 
 def _adam_math(p, g, m, v, b1p, b2p, master, lr, beta1, beta2, eps, wd,
-               c, grad_scale, clipped):
+               c, grad_scale, clipped, lr_scale=1.0):
     """One tensor of ``_adam_reference``: ``(target, new, m1, m2, b1p',
     b2p')``, where ``target`` is the f32 tensor updated (the master, or the
-    param) and ``new`` its new value; nothing is written."""
+    param) and ``new`` its new value; nothing is written. The tensor's
+    learning rate is ``lr · lr_scale`` in f32, for the decay and the
+    update alike."""
     target = master if master is not None else p
+    if lr_scale != 1.0:
+        lr = lr * lr_scale
     if grad_scale is not None and clipped:
         g = (g.float() * grad_scale).to(g.dtype)
     g = g.to(target.dtype)
@@ -324,10 +328,13 @@ def _adam_reference(params: Sequence[torch.Tensor],
                     eps: float = 1e-8, weight_decay=0.0,
                     decoupled_decay=None,
                     grad_scale: Optional[torch.Tensor] = None,
-                    need_clip: Optional[Sequence[bool]] = None) -> None:
+                    need_clip: Optional[Sequence[bool]] = None,
+                    lr_scale=None) -> None:
     """Plain multi-tensor Adam, in place: for each tensor, exactly
     ``Adam._update`` of the reference on the f32 master (when one is
-    given; the param is then re-cast from it) or on the param itself.
+    given; the param, bf16 or fp16, is then re-cast from it) or on the
+    param itself, at the learning rate ``lr · lr_scale`` (the tensor's
+    scale: one float for every tensor or a float each, default 1).
     Before it, in the order of the reference engine's
     ``apply_optimizer_update``: a gradient that takes part in the clip
     (``need_clip``, default all) becomes ``g · grad_scale`` rounded back to
@@ -340,13 +347,14 @@ def _adam_reference(params: Sequence[torch.Tensor],
     masters = masters if masters is not None else [None] * n
     l2 = _per_tensor(weight_decay, n)
     decay = _per_tensor(decoupled_decay, n)
+    scales = _per_tensor(lr_scale, n, 1.0)
     clip = need_clip if need_clip is not None else [True] * n
-    for p, g, m, v, b1p, b2p, master, wd, c, clipped in zip(
+    for p, g, m, v, b1p, b2p, master, wd, c, clipped, s in zip(
             params, grads, moment1, moment2, beta1_pow, beta2_pow, masters,
-            l2, decay, clip):
+            l2, decay, clip, scales):
         target, new, m1, m2, new_b1p, new_b2p = _adam_math(
             p, g, m, v, b1p, b2p, master, lr, beta1, beta2, eps, wd, c,
-            grad_scale, clipped)
+            grad_scale, clipped, s)
         target.copy_(new)
         if master is not None:
             p.copy_(new)
@@ -360,26 +368,28 @@ def _adam_check_reference(params, grads, moment1, moment2, beta1_pow,
                           beta2_pow, lr, masters=None, beta1=0.9,
                           beta2=0.999, eps=1e-8, weight_decay=0.0,
                           decoupled_decay=None, grad_scale=None,
-                          need_clip=None, loss=None) -> torch.Tensor:
+                          need_clip=None, loss=None, lr_scale=None
+                          ) -> torch.Tensor:
     """The plain version of the check pass (``adam_finite_check``): the
     bool flags ``[loss, grad_0 .. grad_n-1, param_0 .. param_n-1, True]``
     of one ``_adam_reference`` step that is computed and not written. A
     gradient's flag is its own (before the clip's scale), a parameter's is
-    its new value in the parameter's dtype (the bf16 copy of a new
-    master); no loss is a finite one."""
+    its new value in the parameter's dtype (the bf16 or fp16 copy of a
+    new master); no loss is a finite one."""
     n = len(params)
     masters = masters if masters is not None else [None] * n
     l2 = _per_tensor(weight_decay, n)
     decay = _per_tensor(decoupled_decay, n)
+    scales = _per_tensor(lr_scale, n, 1.0)
     clip = need_clip if need_clip is not None else [True] * n
     dev = params[0].device
     true = torch.ones((), dtype=torch.bool, device=dev)
     g_ok, p_ok = [], []
-    for p, g, m, v, b1p, b2p, master, wd, c, clipped in zip(
+    for p, g, m, v, b1p, b2p, master, wd, c, clipped, s in zip(
             params, grads, moment1, moment2, beta1_pow, beta2_pow, masters,
-            l2, decay, clip):
+            l2, decay, clip, scales):
         _, new, *_ = _adam_math(p, g, m, v, b1p, b2p, master, lr, beta1,
-                                beta2, eps, wd, c, grad_scale, clipped)
+                                beta2, eps, wd, c, grad_scale, clipped, s)
         g_ok.append(torch.isfinite(g).all())
         p_ok.append(torch.isfinite(new.to(p.dtype)).all())
     loss_ok = torch.isfinite(loss).all() if loss is not None else true
@@ -390,7 +400,7 @@ def _fused_adam_reference(params, grads, moment1, moment2, beta1_pow,
                           beta2_pow, lr, masters=None, beta1=0.9,
                           beta2=0.999, eps=1e-8, weight_decay=0.0,
                           decoupled_decay=None, clip_norm=None,
-                          need_clip=None, check=None
+                          need_clip=None, check=None, lr_scale=None
                           ) -> Optional[torch.Tensor]:
     """The plain version of ``fused_adam_step``, with its arguments and
     its result: ``_global_norm_reference`` for the clip, then (given a
@@ -404,13 +414,13 @@ def _fused_adam_reference(params, grads, moment1, moment2, beta1_pow,
         flags = _adam_check_reference(
             params, grads, moment1, moment2, beta1_pow, beta2_pow, lr,
             masters, beta1, beta2, eps, weight_decay, decoupled_decay,
-            scale, need_clip, check.loss)
+            scale, need_clip, check.loss, lr_scale)
         check.flags, check.ok = flags, flags.all().to(torch.int32)
         if check.gate and not bool(check.ok):
             return norm
     _adam_reference(params, grads, moment1, moment2, beta1_pow, beta2_pow,
                     lr, masters, beta1, beta2, eps, weight_decay,
-                    decoupled_decay, scale, need_clip)
+                    decoupled_decay, scale, need_clip, lr_scale)
     return norm
 
 
@@ -432,10 +442,11 @@ class FiniteCheck:
         self.ok: Optional[torch.Tensor] = None
 
 
-def _per_tensor(coeff, n: int) -> List[float]:
-    """``coeff`` (None, one float, or a float per tensor) as n floats."""
+def _per_tensor(coeff, n: int, default: float = 0.0) -> List[float]:
+    """``coeff`` (None: ``default``, one float, or a float per tensor) as
+    n floats."""
     if coeff is None:
-        return [0.0] * n
+        return [default] * n
     if isinstance(coeff, (int, float)):
         return [float(coeff)] * n
     return [float(c) for c in coeff]
@@ -444,9 +455,9 @@ def _per_tensor(coeff, n: int) -> List[float]:
 # elements of one (tensor, chunk) work item of the CUDA update and of the
 # sum-of-squares pass (a multiple of the pass's 8-element vectors)
 _ADAM_CHUNK = 16384
-# p, m, v, bf16 copy, beta1_pow, beta2_pow, numel, g dtype, decoupled-decay
-# bits, L2 bits, clipped
-_TABLE_COLS = 11
+# p, m, v, 2-byte copy, beta1_pow, beta2_pow, numel, g dtype, decoupled-decay
+# bits, L2 bits, clipped, learning-rate scale bits
+_TABLE_COLS = 12
 
 
 def grad_global_norm(grads: Sequence[torch.Tensor], clip_norm: float,
@@ -455,7 +466,7 @@ def grad_global_norm(grads: Sequence[torch.Tensor], clip_norm: float,
     """The global norm of ``grads`` (those whose ``need_clip`` is true,
     default all) and the clip scale ``clip_norm / max(norm, clip_norm)``,
     as the f32 tensor ``[norm, scale]`` on their device; nothing is read
-    back to the host. CUDA tensors (f32 or bf16, contiguous) go through
+    back to the host. CUDA tensors (f32, bf16 or fp16, contiguous) go through
     the sum-of-squares kernel of ``csrc/adam.cu`` (two launches: the
     per-chunk sums, then a fixed-order finish, so the bits repeat), CPU
     tensors through ``_global_norm_reference``. ``fused_adam_step`` runs
@@ -476,7 +487,7 @@ def grad_global_norm(grads: Sequence[torch.Tensor], clip_norm: float,
         _check_grad("grad_global_norm", i, g, dev)
         if g.numel():
             rows.append((0,) * 6 + (g.numel(), _build.DTYPE_CODES[g.dtype],
-                                    0, 0, int(bool(c))))
+                                    0, 0, int(bool(c)), 0))
     tab, chunks, _, nchunks, _ = _device_table(dev, rows)
     return _launch_global_norm(
         dev, tab, _pointers([g for g in grads if g.numel()], dev), chunks,
@@ -513,19 +524,23 @@ def fused_adam_step(params: Sequence[torch.Tensor],
                     eps: float = 1e-8, weight_decay=0.0,
                     decoupled_decay=None, clip_norm: Optional[float] = None,
                     need_clip: Optional[Sequence[bool]] = None,
-                    check: Optional["FiniteCheck"] = None
-                    ) -> Optional[torch.Tensor]:
+                    check: Optional["FiniteCheck"] = None,
+                    lr_scale=None) -> Optional[torch.Tensor]:
     """One Adam step over many parameters, in place — the multi-tensor
     counterpart of the reference's ``fused_adam_step`` with the engine's
     master-weight handling, its global-norm clip, L2 decay and AdamW's
     decoupled decay.
 
     ``params[i]`` is updated through ``masters[i]`` (its f32 master, when
-    given: the param is then the bf16 resident copy, re-cast from the new
-    master in the same pass) or directly (an f32 param). ``moment1``,
+    given: the param is then the bf16 or fp16 resident copy, re-cast from
+    the new master in the same pass) or directly (an f32 param); its
+    gradient has the param's dtype. ``moment1``,
     ``moment2`` are f32 like the master; ``beta1_pow``/``beta2_pow`` are
     per-tensor 0-d f32 tensors, advanced by one step; ``lr`` is a 0-d f32
-    tensor on the params' device. ``weight_decay`` is the L2 coefficient
+    tensor on the params' device; ``lr_scale`` (one float, or a float per
+    tensor: the reference's ``optimize_attr['learning_rate']`` times
+    AdamW's ``lr_ratio``; default 1) scales it per tensor, for the
+    decoupled decay and the update. ``weight_decay`` is the L2 coefficient
     folded into each gradient (one float, or a float per tensor: a
     parameter's own regularizer); ``decoupled_decay`` (AdamW) gives each
     tensor a coefficient c (0: not decayed): its f32 value is scaled by
@@ -551,9 +566,10 @@ def fused_adam_step(params: Sequence[torch.Tensor],
     masters = list(masters) if masters is not None else [None] * n
     l2 = _per_tensor(weight_decay, n)
     decay = _per_tensor(decoupled_decay, n)
+    scales = _per_tensor(lr_scale, n, 1.0)
     clip = list(need_clip) if need_clip is not None else [True] * n
     lists = (grads, moment1, moment2, beta1_pow, beta2_pow, masters, l2,
-             decay, clip)
+             decay, clip, scales)
     if any(len(t) != n for t in lists):
         raise ValueError("fused_adam_step: the lists differ in length")
     if n == 0:
@@ -562,7 +578,8 @@ def fused_adam_step(params: Sequence[torch.Tensor],
     if dev.type == "cpu":
         return _fused_adam_reference(
             params, grads, moment1, moment2, beta1_pow, beta2_pow, lr,
-            masters, beta1, beta2, eps, l2, decay, clip_norm, clip, check)
+            masters, beta1, beta2, eps, l2, decay, clip_norm, clip, check,
+            scales)
     if dev.type != "cuda":
         raise ValueError(f"fused_adam_step: unsupported device {dev}")
     if lr.device != dev or lr.dtype != torch.float32 or lr.numel() != 1:
@@ -570,7 +587,7 @@ def fused_adam_step(params: Sequence[torch.Tensor],
                         f"tensor on {dev}, got {lr.dtype} on {lr.device}")
     table, index = _adam_table(
         params, grads, moment1, moment2, beta1_pow, beta2_pow, masters,
-        decay, l2, clip if clip_norm is not None else [False] * n)
+        decay, l2, clip if clip_norm is not None else [False] * n, scales)
     tab, chunks, ntensors, nchunks, _ = table
     gptrs = _pointers([g for g in grads if g.numel()], dev)
     norm = None
@@ -605,8 +622,8 @@ fused_adam_step.launches = 0  # kernel launches (two per call)
 def adam_finite_check(params, grads, moment1, moment2, beta1_pow, beta2_pow,
                       lr, masters=None, beta1=0.9, beta2=0.999, eps=1e-8,
                       weight_decay=0.0, decoupled_decay=None,
-                      clip_norm=None, need_clip=None, loss=None
-                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+                      clip_norm=None, need_clip=None, loss=None,
+                      lr_scale=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """The finite sweep of one ``fused_adam_step`` with these arguments,
     computed and not applied: ``(flags, ok)`` as ``FiniteCheck`` gives
     them (the flags of the loss, of each gradient and of each new
@@ -620,6 +637,7 @@ def adam_finite_check(params, grads, moment1, moment2, beta1_pow, beta2_pow,
     masters = list(masters) if masters is not None else [None] * n
     l2 = _per_tensor(weight_decay, n)
     decay = _per_tensor(decoupled_decay, n)
+    scales = _per_tensor(lr_scale, n, 1.0)
     clip = list(need_clip) if need_clip is not None else [True] * n
     dev = params[0].device
     if dev.type == "cpu":
@@ -628,11 +646,11 @@ def adam_finite_check(params, grads, moment1, moment2, beta1_pow, beta2_pow,
         flags = _adam_check_reference(
             params, grads, moment1, moment2, beta1_pow, beta2_pow, lr,
             masters, beta1, beta2, eps, l2, decay,
-            None if norm is None else norm[1], clip, loss)
+            None if norm is None else norm[1], clip, loss, scales)
         return flags, flags.all().to(torch.int32)
     table, index = _adam_table(
         params, grads, moment1, moment2, beta1_pow, beta2_pow, masters,
-        decay, l2, clip if clip_norm is not None else [False] * n)
+        decay, l2, clip if clip_norm is not None else [False] * n, scales)
     gptrs = _pointers([g for g in grads if g.numel()], dev)
     norm = (_launch_global_norm(dev, table.tab, gptrs, table.chunks,
                                 table.nchunks, clip_norm)
@@ -692,12 +710,15 @@ def _check_grad(fn, i, g, dev):
         raise ValueError(f"{fn}: grad {i} is on {g.device}, the first on "
                          f"{dev}")
     if g.is_sparse:
-        raise NotImplementedError(f"{fn}: grad {i} is row-sparse; sparse "
-                                  "gradients are not ported yet")
+        raise NotImplementedError(
+            f"{fn}: grad {i} is row-sparse; the optimizers step sparse "
+            "gradients on their row path (Optimizer._step_sparse), never "
+            "through this kernel")
     if not g.is_contiguous():
         raise ValueError(f"{fn}: grad {i} is not contiguous")
     if g.dtype not in _build.DTYPE_CODES:
-        raise TypeError(f"{fn}: grad {i} is {g.dtype} (float32, bfloat16)")
+        raise TypeError(f"{fn}: grad {i} is {g.dtype} (float32, bfloat16, "
+                        "float16)")
 
 
 # device tables of the tensors' pointers, keyed by those pointers: the
@@ -740,13 +761,13 @@ def _f32_bits(x: float) -> int:
 
 
 def _adam_table(params, grads, moment1, moment2, beta1_pow, beta2_pow,
-                masters, decay, l2, clip):
+                masters, decay, l2, clip, scales):
     dev = params[0].device
     rows: List[tuple] = []
     index: List[int] = []  # the param of each row (empty ones have none)
-    for i, (p, g, m, v, b1p, b2p, master, c, wd, clipped) in enumerate(zip(
-            params, grads, moment1, moment2, beta1_pow, beta2_pow,
-            masters, decay, l2, clip)):
+    for i, (p, g, m, v, b1p, b2p, master, c, wd, clipped, s) in enumerate(
+            zip(params, grads, moment1, moment2, beta1_pow, beta2_pow,
+                masters, decay, l2, clip, scales)):
         target = master if master is not None else p
         _check_grad("fused_adam_step", i, g, dev)
         for name, t in (("param", p), ("moment1", m), ("moment2", v),
@@ -770,9 +791,11 @@ def _adam_table(params, grads, moment1, moment2, beta1_pow, beta2_pow,
         if b1p.numel() != 1 or b2p.numel() != 1:
             raise ValueError(f"fused_adam_step: beta powers of {i} must "
                              "have one element")
-        if master is not None and p.dtype != torch.bfloat16:
+        if master is not None and p.dtype not in (torch.bfloat16,
+                                                  torch.float16):
             raise TypeError(f"fused_adam_step: param {i} has a master, so "
-                            f"it must be the bf16 copy, not {p.dtype}")
+                            f"it must be the bf16 or fp16 copy, not "
+                            f"{p.dtype}")
         if g.dtype != p.dtype:
             raise TypeError(f"fused_adam_step: grad {i} is {g.dtype}, "
                             f"param {p.dtype}")
@@ -786,5 +809,5 @@ def _adam_table(params, grads, moment1, moment2, beta1_pow, beta2_pow,
                      p.data_ptr() if master is not None else 0,
                      b1p.data_ptr(), b2p.data_ptr(), p.numel(),
                      _build.DTYPE_CODES[g.dtype], _f32_bits(c), _f32_bits(wd),
-                     int(bool(clipped))))
+                     int(bool(clipped)), _f32_bits(s)))
     return _device_table(dev, rows), index

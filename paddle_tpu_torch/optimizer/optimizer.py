@@ -5,9 +5,10 @@ Every optimizer takes the reference's options: a float or an
 regularizer (``regularizer.L1Decay``/``L2Decay``) as ``weight_decay``
 (a parameter's own ``regularizer`` attribute wins over it; either is
 folded into the gradient as ``coeff · p``, L1 too, as in the reference),
-and a clip (``nn.clip``) as ``grad_clip``. Not ported, and refused:
-``lazy_mode``, a per-parameter ``optimize_attr`` learning rate, AdamW's
-``lr_ratio`` and row-sparse gradients.
+and a clip (``nn.clip``) as ``grad_clip``. A parameter's learning rate
+is the optimizer's times its ``optimize_attr['learning_rate']`` (its
+``ParamAttr``'s; the reference's ``_lr_for``), and, for ``AdamW``, times
+``lr_ratio(p)``.
 
 ``minimize(loss)`` binds the optimizer to the Program being recorded
 (``static.program_guard``), where ``parameters`` may be left out (the
@@ -17,8 +18,26 @@ then ``step``.
 ``step()`` runs, as the reference's eager ``step`` does: the clip over
 every parameter that has a gradient, then per parameter the L2 fold and
 the update. Under ``multi_precision`` a float parameter that is not f32
-gets an f32 ``master``, which the update runs on; the parameter is then
-re-cast from it.
+(bf16, or fp16 under ``amp.decorate(level='O2')``) gets an f32
+``master``, which the L2 fold and the update run on; the parameter is
+then re-cast from it.
+
+A row-sparse gradient (``nn.Embedding(..., sparse=True)``'s: a sparse
+COO tensor, read as a ``core.selected_rows.RowSparseGrad``) takes the
+reference's row path: ``SGD`` adds ``-lr·values`` at its rows, ``Adam``
+and ``AdamW`` update the merged rows (``lazy_mode=False``: every moment
+decays and only the rows get the gradient's term, as the dense update
+would; ``lazy_mode=True``: only the rows' moments and values are read and
+written; AdamW decays only those rows), all in plain PyTorch, as the
+reference's are XLA-level code. Every other optimizer, and any parameter
+with an L2 coefficient, densifies it first. A master takes the row
+update and the rows are re-cast into the parameter.
+
+The reference's compiled steps (its engines and its static Executor)
+update otherwise: every parameter at the optimizer's learning rate (no
+``optimize_attr``, no ``lr_ratio``) and from dense gradients (a traced
+lookup has no sparse gradient). The port's engines and Executor step
+inside ``compiled_update()``, which does the same.
 
 ``Adam`` and ``AdamW`` are the training path: their update is the
 reference's ``Adam._update``, which is not ``torch.optim.Adam``:
@@ -56,12 +75,14 @@ launches per parameter.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
+from ..core.selected_rows import RowSparseGrad
 from ..nn.clip import ClipGradBase, ClipGradByGlobalNorm
 from ..ops import fused, tree_reduce
 from .lr import LRScheduler
@@ -92,7 +113,6 @@ class Optimizer:
         if isinstance(parameters, nn.Module):
             parameters = parameters.parameters()
         self._parameter_list: List[torch.Tensor] = list(parameters)
-        _refuse_lr_attrs(self._parameter_list)
         self._learning_rate = (learning_rate if isinstance(
             learning_rate, LRScheduler) else float(learning_rate))
         self._weight_decay = weight_decay
@@ -103,6 +123,18 @@ class Optimizer:
         self._lr_dev: Dict[torch.device, Tuple[float, torch.Tensor]] = {}
         self._names: Dict[int, str] = {}
         self._global_step = 0
+        self._compiled = False  # inside compiled_update()
+
+    @contextlib.contextmanager
+    def compiled_update(self):
+        """Within: step as the reference's compiled steps (engines, static
+        Executor) update — every parameter at the optimizer's learning
+        rate, and a row-sparse gradient densified (in ``p.grad``) first."""
+        prev, self._compiled = self._compiled, True
+        try:
+            yield self
+        finally:
+            self._compiled = prev
 
     def name_parameters(self, named: Iterable[Tuple[str, torch.Tensor]]
                         ) -> None:
@@ -123,6 +155,14 @@ class Optimizer:
             raise RuntimeError("cannot set_lr when learning_rate is a "
                                "scheduler")
         self._learning_rate = float(value)
+
+    def _lr_scale(self, p: torch.Tensor) -> float:
+        """The factor of ``p``'s learning rate: its ``optimize_attr``
+        ``learning_rate`` (1 inside ``compiled_update``)."""
+        if self._compiled:
+            return 1.0
+        attr = getattr(p, "optimize_attr", None) or {}
+        return float(attr.get("learning_rate", 1.0))
 
     def lr_device_scalar(self, device) -> torch.Tensor:
         """The current learning rate as a 0-d f32 tensor on ``device``,
@@ -233,7 +273,6 @@ class Optimizer:
                 self._parameter_list = [
                     p for p in prog.all_parameters() if p.requires_grad
                     and getattr(p, "trainable", True)]
-            _refuse_lr_attrs(self._parameter_list)
             prog._optimize = (self, loss)
             return [], [(p, None) for p in self._parameter_list]
         loss.backward()
@@ -245,28 +284,40 @@ class Optimizer:
         for p in self._parameter_list:
             p.grad = None
 
-    def _params_grads(self) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    def _params_grads(self) -> List[Tuple[torch.Tensor, object]]:
+        """``(p, grad)`` for every parameter with a gradient; a sparse
+        one as a ``RowSparseGrad`` (inside ``compiled_update``: densified
+        into ``p.grad`` first)."""
         out = []
         for p in self._parameter_list:
-            if p.grad is None:
+            g = p.grad
+            if g is None:
                 continue
-            if p.grad.is_sparse:
-                raise NotImplementedError(
-                    "row-sparse gradients are not ported yet")
-            out.append((p, p.grad))
+            if g.is_sparse:
+                if self._compiled:
+                    g = p.grad = g.to_dense()
+                else:
+                    g = RowSparseGrad.from_coo(g)
+            out.append((p, g))
         return out
 
     @torch.no_grad()
     def step(self) -> None:
         """One step over every parameter that has a gradient: the clip,
         then per parameter the L2 fold and ``_update`` (on the f32 master
-        when there is one)."""
+        when there is one) at its learning rate; a row-sparse gradient
+        takes the row path (``_step_sparse``) or is densified."""
         params_grads = self._params_grads()
         if self._grad_clip is not None:
             params_grads = self._grad_clip(params_grads)
         self._global_step += 1
         lr = self.get_lr()
         for p, g in params_grads:
+            lr_p = lr * self._lr_scale(p)
+            if isinstance(g, RowSparseGrad):
+                if self._step_sparse(p, g, lr_p):
+                    continue
+                g = g.to_dense()
             state = self.state_for(p)
             master = state.get("master")
             target = master if master is not None else p.detach()
@@ -275,12 +326,37 @@ class Optimizer:
             if wd:
                 g = g + wd * target
             sub = {k: v for k, v in state.items() if k != "master"}
-            new, new_state = self._update_param(p, target, g, sub, lr)
+            new, new_state = self._update_param(p, target, g, sub, lr_p)
             target.copy_(new)
             if master is not None:
                 new_state["master"] = master
                 p.detach().copy_(master)
             self._accumulators[id(p)] = new_state
+
+    def _step_sparse(self, p: torch.Tensor, g: RowSparseGrad,
+                     lr: float) -> bool:
+        """The row update of ``p`` (on its master when it has one, whose
+        written rows are then re-cast into ``p``), in place; False when
+        this optimizer has no row path for ``p`` (the caller densifies)."""
+        state = self.state_for(p)
+        master = state.get("master")
+        target = master if master is not None else p.detach()
+        rows = self._update_rows(p, target, g, state, lr)
+        if rows is False:
+            return False
+        if master is not None:
+            if rows is None:
+                p.detach().copy_(master)
+            else:
+                p.detach().index_copy_(0, rows, master.index_select(
+                    0, rows).to(p.dtype))
+        return True
+
+    def _update_rows(self, p, target, g: RowSparseGrad, state, lr):
+        """Update ``target`` (and ``state``) in place from the row-sparse
+        ``g``; returns the rows written (None: every row), or False for
+        no row path (the base class: densify)."""
+        return False
 
     @torch.no_grad()
     def step_checked(self, loss: torch.Tensor,
@@ -328,15 +404,6 @@ def _static_recording() -> bool:
     return recording.active() is not None
 
 
-def _refuse_lr_attrs(params) -> None:
-    for p in params:
-        attr = getattr(p, "optimize_attr", None) or {}
-        if attr.get("learning_rate", 1.0) != 1.0:
-            raise NotImplementedError(
-                "per-parameter learning rates (optimize_attr) are not "
-                "ported yet")
-
-
 def _sweep(loss: torch.Tensor, order: List[torch.Tensor]) -> torch.Tensor:
     """The finite flags of ``loss``, each parameter's gradient and each
     parameter, in that order (``ops.tree_reduce.tree_finite``: one walk of
@@ -369,6 +436,16 @@ class SGD(Optimizer):
 
     def _update(self, param, grad, state, lr):
         return param - lr * grad, state
+
+    def _update_rows(self, p, target, g, state, lr):
+        """``target[rows] -= lr·values`` for every entry (a repeated row
+        takes each of its entries), unless ``p`` has an L2 coefficient."""
+        if self._decay_coeff(p):
+            return False
+        v = g._valid()
+        target.index_add_(0, v.rows, -(lr * v.values.float()).to(
+            target.dtype))
+        return v.rows.unique()
 
 
 class Momentum(Optimizer):
@@ -445,11 +522,9 @@ class Adam(Optimizer):
                  beta2: float = 0.999, epsilon: float = 1e-08,
                  parameters=None, weight_decay=None, grad_clip=None,
                  lazy_mode: bool = False, multi_precision: bool = False):
-        if lazy_mode:
-            raise NotImplementedError("lazy_mode (sparse rows) is not "
-                                      "ported yet")
         super().__init__(learning_rate, parameters, weight_decay, grad_clip,
                          multi_precision)
+        self._lazy = bool(lazy_mode)
         self._beta1 = float(beta1)
         self._beta2 = float(beta2)
         self._epsilon = float(epsilon)
@@ -471,9 +546,13 @@ class Adam(Optimizer):
     @torch.no_grad()
     def step(self) -> None:
         """One Adam step over every parameter that has a gradient, in
-        place, in one ``fused_adam_step`` call per device. A
-        ``ClipGradByGlobalNorm`` runs inside that call; the other clips
-        run on the gradients first."""
+        place: the dense gradients in one ``fused_adam_step`` call per
+        device, each tensor at its learning-rate scale; a
+        ``ClipGradByGlobalNorm`` runs inside that call (unless row-sparse
+        gradients take part: the clip then scales every gradient first,
+        its dense norm still the kernel's sum-of-squares pass); the other
+        clips run on the gradients first. Row-sparse gradients take the
+        row path (``_update_rows``)."""
         self._fused_step()
 
     @torch.no_grad()
@@ -507,12 +586,23 @@ class Adam(Optimizer):
     def _fused_step(self, check=None) -> List[torch.Tensor]:
         params_grads = self._params_grads()
         clip = self._grad_clip
-        if clip is not None and not isinstance(clip, ClipGradByGlobalNorm):
+        sparse = any(isinstance(g, RowSparseGrad) for _, g in params_grads)
+        if clip is not None and (sparse or not isinstance(
+                clip, ClipGradByGlobalNorm)):
             params_grads = clip(params_grads)
             clip = None
         self._global_step += 1
+        lr = self.get_lr()
         by_device: Dict[torch.device, list] = {}
         for p, g in params_grads:
+            if isinstance(g, RowSparseGrad):
+                if check is not None:
+                    raise NotImplementedError(
+                        "a checked Adam step takes dense gradients (the "
+                        "engines densify inside compiled_update)")
+                if self._step_sparse(p, g, lr * self._lr_scale(p)):
+                    continue
+                g = g.to_dense()
             by_device.setdefault(p.device, []).append((p, g))
         if check is not None and len(by_device) > 1:
             raise NotImplementedError(
@@ -533,8 +623,54 @@ class Adam(Optimizer):
                 decoupled_decay=[self._decoupled_coeff(p) for p in params],
                 clip_norm=clip.clip_norm if clip is not None else None,
                 need_clip=[getattr(p, "need_clip", True) for p in params],
-                check=check)
+                check=check, lr_scale=[self._lr_scale(p) for p in params])
         return [p for p, _ in params_grads]
+
+    def _update_rows(self, p, target, g, state, lr):
+        """The reference's sparse Adam over the merged rows (AdamW first
+        decays those rows by ``1 − lr·c``): ``lazy_mode=False`` decays
+        every moment and adds the gradient's terms at the rows, so the
+        result is the dense update's; ``lazy_mode=True`` reads and writes
+        only the rows' moments and values. A parameter with an L2
+        coefficient (a regularizer or ``weight_decay``) is densified and
+        takes the plain dense update, as in the reference."""
+        m = g.merged()
+        rows = m.rows
+        c = self._decoupled_coeff(p)
+        if c:
+            target.index_copy_(0, rows, target.index_select(0, rows)
+                               * (1.0 - lr * c))
+        b1, b2, eps = self._beta1, self._beta2, self._epsilon
+        m1, m2 = state["moment1"], state["moment2"]
+        b1p, b2p = state["beta1_pow"], state["beta2_pow"]
+        if self._decay_coeff(p):
+            fused._adam_reference(
+                [target], [m.to_dense()], [m1], [m2], [b1p], [b2p],
+                torch.tensor(lr, dtype=torch.float32, device=target.device),
+                beta1=b1, beta2=b2, eps=eps, weight_decay=self._l2_coeff(p))
+            return None
+        vals = m.values.float()
+        new_b1p, new_b2p = b1p * b1, b2p * b2
+        lr_t = lr * torch.sqrt(1 - new_b2p) / (1 - new_b1p)
+        if not self._lazy:
+            m1.mul_(b1).index_add_(0, rows, ((1 - b1) * vals).to(m1.dtype))
+            m2.mul_(b2).index_add_(0, rows,
+                                   ((1 - b2) * vals * vals).to(m2.dtype))
+            target.sub_((lr_t * m1 / (torch.sqrt(m2) + eps)).to(
+                target.dtype))
+            written = None
+        else:
+            m1n = b1 * m1.index_select(0, rows).float() + (1 - b1) * vals
+            m2n = (b2 * m2.index_select(0, rows).float()
+                   + (1 - b2) * vals * vals)
+            target.index_copy_(0, rows, target.index_select(0, rows) - (
+                lr_t * m1n / (torch.sqrt(m2n) + eps)).to(target.dtype))
+            m1.index_copy_(0, rows, m1n.to(m1.dtype))
+            m2.index_copy_(0, rows, m2n.to(m2.dtype))
+            written = rows
+        b1p.copy_(new_b1p)
+        b2p.copy_(new_b2p)
+        return written
 
 
 class AdamW(Adam):
@@ -546,20 +682,26 @@ class AdamW(Adam):
     picks the parameters that decay, by their names in the model (see
     ``Optimizer.name_parameters``). No L2 term is folded into the
     gradient, whatever a parameter's ``regularizer``, as in the
-    reference's AdamW. ``lr_ratio`` is not ported: the reference's engine
-    ignores it too."""
+    reference's AdamW. ``lr_ratio(p)`` scales the parameter's learning
+    rate (for the decay too), as the reference's ``AdamW.step`` does; the
+    compiled steps ignore it, as the reference's do."""
 
     def __init__(self, learning_rate=0.001, beta1: float = 0.9,
                  beta2: float = 0.999, epsilon: float = 1e-08,
                  parameters=None, weight_decay=0.01, lr_ratio=None,
                  apply_decay_param_fun=None, grad_clip=None,
                  lazy_mode: bool = False, multi_precision: bool = False):
-        if lr_ratio is not None:
-            raise NotImplementedError("AdamW: lr_ratio is not ported yet")
         super().__init__(learning_rate, beta1, beta2, epsilon, parameters,
                          None, grad_clip, lazy_mode, multi_precision)
         self._coeff = float(getattr(weight_decay, "coeff", weight_decay))
         self._apply_decay_param_fun = apply_decay_param_fun
+        self._lr_ratio = lr_ratio
+
+    def _lr_scale(self, p: torch.Tensor) -> float:
+        scale = super()._lr_scale(p)
+        if self._lr_ratio is not None and not self._compiled:
+            scale *= float(self._lr_ratio(p))
+        return scale
 
     def _l2_coeff(self, p: torch.Tensor) -> float:
         return 0.0

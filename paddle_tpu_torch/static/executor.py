@@ -14,7 +14,11 @@ reference's prune), built once per (program, fetch list). Neither
   replay under autograd, ``backward`` of the loss, the gradients bound to
   the ``static.gradients`` / ``append_backward`` variables, the port's own
   ``optimizer.step()`` (Adam and AdamW: the multi-tensor kernel on the
-  card, a global-norm clip folded in), the gradients cleared, the
+  card, a global-norm clip folded in) inside ``compiled_update()`` (as the
+  reference's jitted step: every parameter at the optimizer's learning
+  rate, whatever its ``ParamAttr`` says, and a row-sparse gradient of
+  ``static.nn.embedding(is_sparse=True)`` densified), the gradients
+  cleared, the
   ``buffer_updates`` committed, and under ``FLAGS_check_nan_inf`` the
   finite check of the loss, gradients and parameters after the commit.
   Like the port's engines the step refuses ``ClipGradByValue`` and
@@ -384,12 +388,16 @@ class Executor:
             env[loss_id].backward()
         for pid, gvar in program._grad_map.items():
             g = program.parameters[pid].grad
-            env[id(gvar)] = (g.detach().clone() if g is not None
-                             else torch.zeros_like(gvar))
+            env[id(gvar)] = (torch.zeros_like(gvar) if g is None
+                             else g.to_dense() if g.is_sparse
+                             else g.detach().clone())
         outs = self._collect(plan, env)
-        grads = ({param_name(p): p.grad for p in opt._parameter_list
-                  if p.grad is not None} if plan.check else None)
-        opt.step()
+        # the reference's compiled update: the optimizer's learning rate
+        # for every parameter, dense gradients
+        with opt.compiled_update():
+            grads = ({param_name(p): g for p, g in opt._params_grads()}
+                     if plan.check else None)
+            opt.step()
         opt.clear_grad()
         with torch.no_grad():
             for pid, src in program.buffer_updates.items():

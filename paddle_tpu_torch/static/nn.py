@@ -7,6 +7,7 @@ input's device, then calls the port's functional op, so inside
 ``program_guard`` the op is recorded and the parameters join the program
 at their first use. Ported: ``fc``, ``conv2d``, ``conv2d_transpose``,
 ``conv3d``, ``conv3d_transpose``, ``batch_norm``, ``embedding``,
+``sparse_embedding``, ``row_conv``,
 ``layer_norm``, ``prelu``, ``create_parameter``, ``data_norm``,
 ``py_func``, ``bilinear_tensor_product``, ``conv_shift`` and the
 control-flow re-exports. The others need functions the port lacks and
@@ -23,20 +24,20 @@ import copy
 
 import numpy as np
 import torch
-import torch.nn.functional as TF
-from torch import nn
 
 from ..core import recording
 from ..nn import functional as F
 from ..nn import initializer as I
 from ..nn.layer.common import linear
+from ..nn.layer_base import create_parameter as _create_parameter
 from ..nn.param_attr import ParamAttr
 from ..ops.fused import fused_layer_norm
 from .control_flow import case, cond, switch_case, while_loop  # noqa: F401
 from .program import convert_dtype, current_program, set_param_name
 
 __all__ = ["fc", "conv2d", "conv2d_transpose", "conv3d", "conv3d_transpose",
-           "batch_norm", "embedding", "layer_norm", "prelu",
+           "batch_norm", "embedding", "sparse_embedding", "layer_norm",
+           "prelu", "row_conv",
            "create_parameter", "data_norm", "py_func",
            "bilinear_tensor_product", "conv_shift", "cond", "case",
            "switch_case", "while_loop"]
@@ -51,13 +52,10 @@ _NOT_PORTED = {
     "deform_conv2d": "vision/ops.py (Queue 1 item 5.5)",
     "multi_box_head": "vision/ops.py's prior_box (Queue 1 item 5.5)",
     "nce": "the sampled losses of nn/ (Queue 1 item 5.3)",
-    "row_conv": "nn/functional/common.py's pad (Queue 1 item 5.3)",
     "sequence_conv": "tensor/sequence.py (Queue 1 item 5.4)",
     "sequence_reshape": "tensor/sequence.py (Queue 1 item 5.4)",
     "sequence_scatter": "tensor/sequence.py (Queue 1 item 5.4)",
     "crf_decoding": "text/crf.py (Queue 1 item 5.5)",
-    "sparse_embedding": "row-sparse gradients and core/selected_rows.py "
-                        "(Queue 1 item 5.2)",
 }
 for _name in ("concat", "enumerate", "expand", "expand_as", "first_step",
               "last_step", "pad", "pool", "reverse", "slice", "softmax",
@@ -79,20 +77,8 @@ def __getattr__(name):
 # parameters
 # ---------------------------------------------------------------------------
 def _make_param(shape, attr, is_bias, dtype="float32", device=None):
-    attr = ParamAttr._to_attr(attr)
-    if attr is False:
-        return None
-    init = attr.initializer or (I.Constant(0.0) if is_bias
-                                else I.XavierUniform())
-    p = nn.Parameter(init(shape, convert_dtype(dtype), device),
-                     requires_grad=bool(attr.trainable))
-    if attr.name:
-        set_param_name(p, attr.name)
-    p.optimize_attr = {"learning_rate": attr.learning_rate}
-    p.regularizer = attr.regularizer
-    p.need_clip = attr.need_clip
-    p.trainable = bool(attr.trainable)
-    return p
+    return _create_parameter(shape, attr, convert_dtype(dtype), is_bias,
+                             device=device)
 
 
 def _make_scale_param(shape, attr, default_value, device):
@@ -231,16 +217,32 @@ def batch_norm(input, act=None, momentum=0.9, epsilon=1e-05, param_attr=None,
 
 def embedding(input, size, is_sparse=False, padding_idx=None,
               param_attr=None, dtype="float32"):
-    """Rows of a [size[0], size[1]] weight; ids equal to ``padding_idx``
-    give zeros."""
-    if is_sparse:
-        raise NotImplementedError("row-sparse gradients are not ported yet "
-                                  "(is_sparse=True)")
+    """Rows of a [size[0], size[1]] weight (``nn.functional.embedding``);
+    ids equal to ``padding_idx`` give zeros. ``is_sparse`` gives the
+    weight row-sparse gradients, which the Executor densifies before its
+    update, as the reference's traced step has dense ones."""
     w = _make_param(list(size), param_attr, False, dtype, input.device)
-    out = TF.embedding(input, w)
-    if padding_idx is not None and padding_idx >= 0:
-        out = out * (input != padding_idx).unsqueeze(-1).to(out.dtype)
-    return out
+    return F.embedding(input, w, padding_idx=padding_idx, sparse=is_sparse)
+
+
+def row_conv(input, future_context_size, param_attr=None, act=None):
+    """Lookahead row convolution of [N, T, D]: ``out[t] = Σ_{i=0..k}
+    w[i] · x[t+i]`` with weight [k+1, D], zeros past the sequence's end."""
+    d, k = int(input.shape[-1]), int(future_context_size)
+    w = _make_param([k + 1, d], param_attr, False, device=input.device)
+    out = 0.0
+    for i in range(k + 1):
+        out = out + F.pad(input[:, i:, :], [0, 0, 0, i, 0, 0]) * w[i]
+    return _act(out, act)
+
+
+def sparse_embedding(input, size, padding_idx=None, is_test=False,
+                     entry=None, param_attr=None, dtype="float32"):
+    """``embedding(is_sparse=True)`` (the reference's contrib
+    ``sparse_embedding``); ``entry``, a parameter-server admission policy,
+    is taken and not used."""
+    return embedding(input, size, is_sparse=True, padding_idx=padding_idx,
+                     param_attr=param_attr, dtype=dtype)
 
 
 def layer_norm(input, scale=True, shift=True, begin_norm_axis=1,

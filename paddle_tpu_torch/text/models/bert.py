@@ -59,9 +59,9 @@ class BertSelfAttention(nn.Module):
         h = config.hidden_size
         self.num_heads = config.num_heads
         self.head_dim = h // config.num_heads
-        self.qkv = Linear(h, 3 * h, device, dtype)
-        self.proj = Linear(h, h, device, dtype)
-        self.dropout = Dropout(config.attention_dropout, gen)
+        self.qkv = Linear(h, 3 * h, device=device, dtype=dtype)
+        self.proj = Linear(h, h, device=device, dtype=dtype)
+        self.dropout = Dropout(config.attention_dropout, generator=gen)
 
     def forward(self, x, attn_bias=None):
         b, l, h = x.shape
@@ -82,11 +82,13 @@ class BertLayer(nn.Module):
         super().__init__()
         h, eps = config.hidden_size, config.layer_norm_epsilon
         self.attn = BertSelfAttention(config, gen, device, dtype)
-        self.ln1 = LayerNorm(h, eps, device, dtype)
-        self.fc1 = Linear(h, config.intermediate_size, device, dtype)
-        self.fc2 = Linear(config.intermediate_size, h, device, dtype)
-        self.ln2 = LayerNorm(h, eps, device, dtype)
-        self.dropout = Dropout(config.hidden_dropout, gen)
+        self.ln1 = LayerNorm(h, eps, device=device, dtype=dtype)
+        self.fc1 = Linear(h, config.intermediate_size, device=device,
+                          dtype=dtype)
+        self.fc2 = Linear(config.intermediate_size, h, device=device,
+                          dtype=dtype)
+        self.ln2 = LayerNorm(h, eps, device=device, dtype=dtype)
+        self.dropout = Dropout(config.hidden_dropout, generator=gen)
 
     def forward(self, x, attn_bias=None):
         x = self.ln1(x + self.attn(x, attn_bias))
@@ -99,12 +101,15 @@ class BertEmbeddings(nn.Module):
                  dtype=None):
         super().__init__()
         h = config.hidden_size
-        self.word = Embedding(config.vocab_size, h, device, dtype)
-        self.position = Embedding(config.max_position_embeddings, h, device,
-                                  dtype)
-        self.token_type = Embedding(config.type_vocab_size, h, device, dtype)
-        self.ln = LayerNorm(h, config.layer_norm_epsilon, device, dtype)
-        self.dropout = Dropout(config.hidden_dropout, gen)
+        self.word = Embedding(config.vocab_size, h, device=device,
+                              dtype=dtype)
+        self.position = Embedding(config.max_position_embeddings, h,
+                                  device=device, dtype=dtype)
+        self.token_type = Embedding(config.type_vocab_size, h,
+                                    device=device, dtype=dtype)
+        self.ln = LayerNorm(h, config.layer_norm_epsilon, device=device,
+                           dtype=dtype)
+        self.dropout = Dropout(config.hidden_dropout, generator=gen)
 
     def forward(self, input_ids, token_type_ids=None):
         pos = torch.arange(input_ids.shape[1], device=input_ids.device)
@@ -161,8 +166,8 @@ class BertModel(nn.Module):
         self.embeddings = BertEmbeddings(config, gen, device, dtype)
         self.encoder = nn.ModuleList([BertLayer(config, gen, device, dtype)
                                       for _ in range(config.num_layers)])
-        self.pooler = Linear(config.hidden_size, config.hidden_size, device,
-                             dtype)
+        self.pooler = Linear(config.hidden_size, config.hidden_size,
+                             device=device, dtype=dtype)
         _init_weights(self, config, device, seed)
 
     def forward(self, input_ids, token_type_ids=None, attention_mask=None):
@@ -206,9 +211,10 @@ class BertForPretraining(nn.Module):
         self.config = config
         self.bert = BertModel(config, device, dtype, seed)
         h = config.hidden_size
-        self.mlm_transform = Linear(h, h, device, dtype)
-        self.mlm_ln = LayerNorm(h, config.layer_norm_epsilon, device, dtype)
-        self.nsp = Linear(h, 2, device, dtype)
+        self.mlm_transform = Linear(h, h, device=device, dtype=dtype)
+        self.mlm_ln = LayerNorm(h, config.layer_norm_epsilon, device=device,
+                           dtype=dtype)
+        self.nsp = Linear(h, 2, device=device, dtype=dtype)
         _init_weights(self, config, device, seed)
 
     def forward(self, input_ids, token_type_ids=None, attention_mask=None):
@@ -235,9 +241,10 @@ class BertForSequenceClassification(nn.Module):
         super().__init__()
         device = resolve_device(device)
         self.bert = BertModel(config, device, dtype, seed)
-        self.dropout = Dropout(config.hidden_dropout, self.bert.dropout_gen)
-        self.classifier = Linear(config.hidden_size, num_classes, device,
-                                 dtype)
+        self.dropout = Dropout(config.hidden_dropout,
+                               generator=self.bert.dropout_gen)
+        self.classifier = Linear(config.hidden_size, num_classes,
+                                 device=device, dtype=dtype)
         _init_weights(self, config, device, seed)
 
     def forward(self, input_ids, token_type_ids=None, attention_mask=None):

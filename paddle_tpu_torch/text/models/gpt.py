@@ -68,9 +68,9 @@ class GPTAttention(nn.Module):
         h = config.hidden_size
         self.num_heads = config.num_heads
         self.head_dim = h // config.num_heads
-        self.qkv = Linear(h, 3 * h, device, dtype)
-        self.proj = Linear(h, h, device, dtype)
-        self.dropout = Dropout(config.hidden_dropout, gen)
+        self.qkv = Linear(h, 3 * h, device=device, dtype=dtype)
+        self.proj = Linear(h, h, device=device, dtype=dtype)
+        self.dropout = Dropout(config.hidden_dropout, generator=gen)
         self.use_flash = config.use_flash_attention
 
     def forward(self, x):
@@ -89,10 +89,10 @@ class GPTMLP(nn.Module):
                  dtype=None):
         super().__init__()
         self.fc = Linear(config.hidden_size, config.intermediate_size,
-                         device, dtype)
+                         device=device, dtype=dtype)
         self.proj = Linear(config.intermediate_size, config.hidden_size,
-                           device, dtype)
-        self.dropout = Dropout(config.hidden_dropout, gen)
+                           device=device, dtype=dtype)
+        self.dropout = Dropout(config.hidden_dropout, generator=gen)
 
     def forward(self, x):
         return self.dropout(self.proj(F.gelu(self.fc(x), approximate="tanh")))
@@ -103,9 +103,11 @@ class GPTBlock(nn.Module):
                  dtype=None):
         super().__init__()
         eps = config.layer_norm_epsilon
-        self.ln_1 = LayerNorm(config.hidden_size, eps, device, dtype)
+        self.ln_1 = LayerNorm(config.hidden_size, eps, device=device,
+                              dtype=dtype)
         self.attn = GPTAttention(config, gen, device, dtype)
-        self.ln_2 = LayerNorm(config.hidden_size, eps, device, dtype)
+        self.ln_2 = LayerNorm(config.hidden_size, eps, device=device,
+                              dtype=dtype)
         self.mlp = GPTMLP(config, gen, device, dtype)
 
     def forward(self, x):
@@ -128,11 +130,11 @@ class GPT(nn.Module):
         self.wte = Embedding(config.vocab_size, config.hidden_size, **kw)
         self.wpe = Embedding(config.max_position_embeddings,
                              config.hidden_size, **kw)
-        self.drop = Dropout(config.hidden_dropout, gen)
+        self.drop = Dropout(config.hidden_dropout, generator=gen)
         self.h = nn.ModuleList([GPTBlock(config, gen, device, dtype)
                                 for _ in range(config.num_layers)])
         self.ln_f = LayerNorm(config.hidden_size, config.layer_norm_epsilon,
-                              device, dtype)
+                              device=device, dtype=dtype)
 
     def forward(self, input_ids):
         l = input_ids.shape[1]

@@ -162,7 +162,8 @@ class MobileNetV2(nn.Module):
             self.pool2d_avg = AdaptiveAvgPool2D(1)
         if num_classes > 0:
             self.classifier = Sequential(
-                Dropout(0.2, torch.Generator(device=dev).manual_seed(seed)),
+                Dropout(0.2, generator=torch.Generator(
+                    device=dev).manual_seed(seed)),
                 Linear(self.last_channel, num_classes, generator=gen))
         self.to(dev)
 

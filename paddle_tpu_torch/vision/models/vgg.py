@@ -79,9 +79,9 @@ class VGG(nn.Module):
             drop_gen = torch.Generator(device=dev).manual_seed(seed)
             self.classifier = Sequential(
                 Linear(512 * 7 * 7, 4096, generator=gen), ReLU(),
-                Dropout(0.5, drop_gen),
+                Dropout(0.5, generator=drop_gen),
                 Linear(4096, 4096, generator=gen), ReLU(),
-                Dropout(0.5, drop_gen),
+                Dropout(0.5, generator=drop_gen),
                 Linear(4096, num_classes, generator=gen))
         self.to(dev)
 

@@ -308,14 +308,38 @@ def test_adamw_excluding_a_tensor_equals_adam_on_it():
 
 
 def test_adamw_decay_fun_needs_names_and_lr_ratio_is_refused():
+    """``apply_decay_param_fun`` still needs the parameters' names;
+    ``lr_ratio`` is ported since: it scales each parameter's learning
+    rate, the decoupled decay's too, as the reference's ``AdamW.step``
+    does (three steps against it)."""
     p = torch.zeros(3)
     opt = tfused_optimizer.AdamW(1e-3, parameters=[p],
                                  apply_decay_param_fun=lambda n: True)
     p.grad = torch.ones(3)
     with pytest.raises(ValueError, match="names"):
         opt.step()
-    with pytest.raises(NotImplementedError):
-        tfused_optimizer.AdamW(1e-3, parameters=[p], lr_ratio=lambda q: 1.0)
+    rng = np.random.RandomState(4)
+    p0 = [rng.randn(16).astype(np.float32), rng.randn(4, 4).astype(
+        np.float32)]
+    grads = [[rng.randn(*a.shape).astype(np.float32) for a in p0]
+             for _ in range(3)]
+    ratio = lambda q: 0.25 if len(q.shape) == 1 else 2.0  # noqa: E731
+    jps = [paddle.core.tensor.Parameter(jnp.asarray(a), name=f"w{i}")
+           for i, a in enumerate(p0)]
+    jo = paddle.optimizer.AdamW(0.01, parameters=jps, weight_decay=0.1,
+                                lr_ratio=ratio)
+    tps = [torch.nn.Parameter(torch.from_numpy(a.copy())) for a in p0]
+    to = tfused_optimizer.AdamW(0.01, parameters=tps, weight_decay=0.1,
+                                lr_ratio=ratio)
+    for gs in grads:
+        for jp, tp, g in zip(jps, tps, gs):
+            jp.grad = paddle.core.tensor.wrap_raw(jnp.asarray(g))
+            tp.grad = torch.from_numpy(g)
+        jo.step()
+        to.step()
+    for jp, tp in zip(jps, tps):
+        np.testing.assert_allclose(tp.detach().numpy(), np.asarray(jp._value),
+                                   rtol=1e-6, atol=1e-7)
 
 
 def test_fused_step_decoupled_decay_is_one_coefficient_per_tensor():

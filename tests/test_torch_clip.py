@@ -144,11 +144,28 @@ def test_global_norm_plain_version_is_the_references_arithmetic():
 
 
 def test_sparse_gradients_and_other_devices_raise():
+    """Row-sparse gradients are clipped since (as the reference's
+    `RowSparseGrad`s, merged first: the dense clip of the same gradient);
+    a gradient on a device with no kernel and no plain version still
+    raises."""
+    from paddle_tpu.core.selected_rows import RowSparseGrad as JRows
+    from paddle_tpu_torch.core.selected_rows import RowSparseGrad
+
+    rows = np.array([1, 3, 1], np.int64)
+    vals = np.random.RandomState(2).randn(3, 2).astype(np.float32) * 3
     p = torch.nn.Parameter(torch.zeros(4, 2))
-    g = torch.zeros(4, 2).to_sparse()
-    for clip in _clip_classes().values():
-        with pytest.raises(NotImplementedError, match="sparse"):
-            clip[1]([(p, g)])
+    g = torch.sparse_coo_tensor(torch.from_numpy(rows)[None],
+                                torch.from_numpy(vals), (4, 2))
+    jp = types.SimpleNamespace(need_clip=True)
+    jg = JRows(jnp.asarray(rows, jnp.int32), jnp.asarray(vals), 4)
+    for name, clip in _clip_classes().items():
+        (_, got), = clip[1]([(p, g)])
+        (_, want), = clip[0]([(jp, jg)])
+        assert isinstance(got, RowSparseGrad) == isinstance(want, JRows)
+        got = got.to_dense() if isinstance(got, RowSparseGrad) else got
+        want = want.to_dense() if isinstance(want, JRows) else want._value
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
+                                   atol=1e-7, err_msg=name)
     with pytest.raises(ValueError, match="unsupported device"):
         fused.grad_global_norm([torch.empty(4, device="meta")], 1.0)
 
@@ -167,7 +184,8 @@ def _card_grads(dev, dtype, sizes=(1, 1000, 65536, 300001, 1024 * 1024)):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 def test_cuda_global_norm_matches_plain_and_repeats_its_bits(cuda_device,
                                                              dtype):
     grads = _card_grads(cuda_device, dtype)

@@ -220,7 +220,12 @@ def test_conv_layer_without_bias():
 
 
 def test_conv_layer_refuses_what_is_not_ported():
+    """``padding_mode`` other than zeros is not ported; ``weight_attr`` is
+    (a ``ParamAttr``, a name or an initializer), and what is none of them
+    raises TypeError as in the reference's ``ParamAttr._to_attr``."""
     with pytest.raises(NotImplementedError):
         tnn.Conv2D(3, 4, 3, padding_mode="reflect")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="ParamAttr"):
         tnn.Conv2D(3, 4, 3, weight_attr=object())
+    with pytest.raises(TypeError, match="ParamAttr"):
+        paddle.nn.Conv2D(3, 4, 3, weight_attr=object())

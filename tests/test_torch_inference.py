@@ -60,8 +60,8 @@ class JNet(jnn.Layer):
 class TNet(torch.nn.Module):
     def __init__(self):
         super().__init__()
-        self.fc1 = Linear(8, 16, "cpu")
-        self.fc2 = Linear(16, 4, "cpu")
+        self.fc1 = Linear(8, 16, device="cpu")
+        self.fc2 = Linear(16, 4, device="cpu")
 
     def forward(self, x):
         return self.fc2(torch.relu(self.fc1(x)))

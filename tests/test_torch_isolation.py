@@ -68,7 +68,8 @@ def test_package_has_the_slice_modules():
                 "static.program", "static.executor", "static.control_flow",
                 "static.nn", "nn.param_attr", "nn.initializer",
                 "jit.dy2static", "inference", "inference._export",
-                "inference.serving.scheduler", "quant"):
+                "inference.serving.scheduler", "quant",
+                "core.selected_rows", "nn.functional.common"):
         assert "paddle_tpu_torch." + mod in names
 
 
@@ -250,7 +251,7 @@ def test_serving_entry_points_without_device_raise_on_a_cuda_less_machine(
     from paddle_tpu_torch.inference.serving import ServingEngine
     from paddle_tpu_torch.nn import Linear
 
-    net = Linear(4, 3, "cpu", generator=torch.Generator().manual_seed(0))
+    net = Linear(4, 3, device="cpu", generator=torch.Generator().manual_seed(0))
     spec = [jit.InputSpec([None, 4], "float32")]
     cfg = Config()
     cfg.set_layer(net, spec)

@@ -213,12 +213,37 @@ def test_wrong_option_types_are_refused(kw):
 
 
 def test_unported_per_parameter_options_raise():
-    p = torch.nn.Parameter(torch.zeros(4))
-    p.optimize_attr = {"learning_rate": 0.5}
-    with pytest.raises(NotImplementedError, match="optimize_attr"):
-        topt.Momentum(parameters=[p])
-    q = torch.nn.Parameter(torch.zeros(4))
-    opt = topt.Adagrad(0.1, parameters=[q])
-    q.grad = torch.zeros(4).to_sparse()
-    with pytest.raises(NotImplementedError, match="sparse"):
-        opt.step()
+    """Ported since: a per-parameter ``optimize_attr`` learning rate
+    scales that parameter's step (Momentum), and a row-sparse gradient
+    into an optimizer without a row path (Adagrad) is densified, as the
+    reference's `_lr_for` and `_update_sparse` do: three steps each
+    against the reference's."""
+    from paddle_tpu.core.selected_rows import RowSparseGrad as JRows
+
+    rng = np.random.RandomState(3)
+    p0 = rng.randn(6, 4).astype(np.float32)
+    grads = [rng.randn(6, 4).astype(np.float32) for _ in range(3)]
+    rows = np.array([1, 4, 1], np.int64)
+    vals = [rng.randn(3, 4).astype(np.float32) for _ in range(3)]
+    for name, kw in (("Momentum", dict(learning_rate=0.1, momentum=0.9)),
+                     ("Adagrad", dict(learning_rate=0.1))):
+        jp = Parameter(jnp.asarray(p0), name="w")
+        jp.optimize_attr["learning_rate"] = 0.5
+        jo = getattr(paddle.optimizer, name)(parameters=[jp], **kw)
+        tp = torch.nn.Parameter(torch.from_numpy(p0.copy()))
+        tp.optimize_attr = {"learning_rate": 0.5}
+        to = getattr(topt, name)(parameters=[tp], **kw)
+        for g, v in zip(grads, vals):
+            if name == "Adagrad":  # row-sparse, densified
+                jp.grad = JRows(jnp.asarray(rows, jnp.int32),
+                                jnp.asarray(v), 6)
+                tp.grad = torch.sparse_coo_tensor(
+                    torch.from_numpy(rows)[None], torch.from_numpy(v),
+                    (6, 4))
+            else:
+                jp.grad = wrap_raw(jnp.asarray(g))
+                tp.grad = torch.from_numpy(g)
+            jo.step()
+            to.step()
+        np.testing.assert_allclose(tp.detach().numpy(), np.asarray(jp._value),
+                                   rtol=RTOL, atol=ATOL, err_msg=name)

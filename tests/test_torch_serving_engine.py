@@ -89,7 +89,7 @@ def _nets(in_dim=4, out_dim=3):
     paddle.seed(0)
     jnet = jnn.Linear(in_dim, out_dim)
     jnet.eval()
-    tnet = Linear(in_dim, out_dim, "cpu").eval()
+    tnet = Linear(in_dim, out_dim, device="cpu").eval()
     load_jax_params(tnet, {k: np.asarray(v)
                            for k, v in jget_params(jnet).items()})
     return jnet, tnet
@@ -329,7 +329,7 @@ _SIGTERM_WORKER = textwrap.dedent("""
     from paddle_tpu_torch.jit import InputSpec
     from paddle_tpu_torch.nn import Linear
 
-    net = Linear(4, 3, "cpu", generator=torch.Generator().manual_seed(0))
+    net = Linear(4, 3, device="cpu", generator=torch.Generator().manual_seed(0))
     net.eval()
     cfg = Config()
     cfg.disable_gpu()
@@ -402,7 +402,7 @@ def test_injected_sigterm_at_a_batch_boundary_in_a_child(tmp_path):
 
         cfg = Config()
         cfg.disable_gpu()
-        cfg.set_layer(Linear(4, 3, "cpu", generator=torch.Generator()
+        cfg.set_layer(Linear(4, 3, device="cpu", generator=torch.Generator()
                              .manual_seed(0)).eval(),
                       [InputSpec([None, 4], "float32")])
         eng = ServingEngine(create_predictor(cfg), ServeConfig(
@@ -442,7 +442,7 @@ def test_sigterm_taken_by_another_thread_still_drains_in_a_child():
 
         cfg = Config()
         cfg.disable_gpu()
-        cfg.set_layer(Linear(4, 3, "cpu", generator=torch.Generator()
+        cfg.set_layer(Linear(4, 3, device="cpu", generator=torch.Generator()
                              .manual_seed(0)).eval(),
                       [InputSpec([None, 4], "float32")])
         eng = ServingEngine(create_predictor(cfg), ServeConfig(

@@ -63,6 +63,21 @@ def _reference_heartbeat_kept():
     jwatchdog._last_beat = saved
 
 
+@pytest.fixture(autouse=True)
+def _reference_cost_gauges_dropped():
+    """The reference's Executor publishes each program's XLA cost as
+    process-wide gauges (``compile/<entry>/flops``, -1 where the CPU
+    backend counts none), and its telemetry schema check rejects a
+    negative one: drop the cost gauges a test added, for the suites that
+    run after this one in the same process."""
+    from paddle_tpu.profiler.telemetry import get_telemetry as jtelemetry
+
+    before = set(jtelemetry().snapshot()["gauges"])
+    yield
+    jtelemetry().remove_gauges(
+        lambda n: n.startswith("compile/") and n not in before)
+
+
 def _close(a, b, rtol=1e-5, atol=1e-6):
     np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=rtol,
                                atol=atol)
@@ -333,7 +348,7 @@ def test_dropout_mask_is_drawn_at_record_time_and_reused():
     main = static.Program()
     with static.program_guard(main):
         x = static.data("x", [None, 64], "float32", device=CPU)
-        out = Dropout(0.5, torch.Generator().manual_seed(0))(x)
+        out = Dropout(0.5, generator=torch.Generator().manual_seed(0))(x)
     exe = static.Executor(static.CPUPlace())
     xb = np.ones((4, 64), np.float32)
     a = exe.run(main, feed={"x": xb}, fetch_list=[out])[0]

@@ -237,11 +237,24 @@ def test_a_layer_on_another_device_is_refused():
 
 
 @pytest.mark.parametrize("kw", [dict(lazy_mode=True),
-                                dict(lr_ratio=lambda p: 1.0)])
+                                dict(lr_ratio=lambda p: 0.5)])
 def test_unported_optimizer_options_raise(kw):
-    model = tgpt.GPTForCausalLM(tgpt.gpt2_tiny(), device="cpu")
-    with pytest.raises(NotImplementedError):
-        AdamW(parameters=model.parameters(), **kw)
+    """Ported since; the engine updates as the reference's
+    ``apply_optimizer_update`` does, which reads neither (dense gradients
+    make lazy_mode moot, and lr_ratio is AdamW.step's alone): two steps
+    give the bits of the engine without the option."""
+    ids, labels = (torch.from_numpy(a).long() for a in _batch())
+    runs = []
+    for options in (kw, {}):
+        model = tgpt.GPTForCausalLM(tgpt.gpt2_tiny(), device="cpu")
+        step = ParallelTrainStep(model, lambda out, lbl: out,
+                                 AdamW(LR, parameters=model.parameters(),
+                                       **options), device="cpu")
+        losses = [step((ids, labels), (labels,)) for _ in range(2)]
+        runs.append((losses, [p.detach().clone()
+                              for p in model.parameters()]))
+    assert all(torch.equal(a, b) for a, b in zip(runs[0][0], runs[1][0]))
+    assert all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
 
 
 @pytest.mark.parametrize("kw", [dict(grad_clip=object()),
@@ -292,7 +305,8 @@ def test_same_seed_drops_the_same_elements():
     gen_a = torch.Generator().manual_seed(5)
     gen_b = torch.Generator().manual_seed(5)
     x = torch.ones(64, 32)
-    da, db = tgpt.Dropout(0.5, gen_a), tgpt.Dropout(0.5, gen_b)
+    da = tgpt.Dropout(0.5, generator=gen_a)
+    db = tgpt.Dropout(0.5, generator=gen_b)
     ya, yb = da(x), db(x)
     assert torch.equal(ya == 0, yb == 0)
     assert 0 < int((ya == 0).sum()) < x.numel()
