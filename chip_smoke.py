@@ -239,7 +239,30 @@ failing on the first phase that fails:
     through the kernel and through the plain update: the same bits, wpe
     unchanged.
 
-Every kernel's launch count is set to 0 before each of phases 4-19 and
+20. the rest of nn/: 20a trains Transformer-base (``nn.Transformer()`` at
+    its defaults, the paper's "base") with a shared 37,000-token embedding
+    tied to the output projection and label smoothing 0.1, Adam(0.9,
+    0.98, 1e-9) under ``NoamDecay(512, 4000)``, at 32 sentence pairs of
+    128 tokens a side through ``ParallelTrainStep``: step 1 in f32
+    (dropout 0, TF32 off) against the CPU's plain step (loss, gradient
+    norm, an updated weight of each kind), then f32 and bf16 O1 legs (3
+    warm-up and 10 timed steps at dropout 0.1: tokens/s, step p50, device
+    ms, busy share, peak memory, MFU, the top kernels, #5 30, #6 60 and
+    #7 2 launches a step and no LayerNorm on its plain path); 20b beam
+    searches 8 sources (beam 4, at most 64 steps) through
+    ``BeamSearchDecoder`` / ``dynamic_decode`` over the decoder's
+    ``gen_cache`` caches: the incremental logits against the full causal
+    forward at every step, each beam's score against the full forward's
+    log-probabilities, the beams sorted, beam size 1 the greedy decode;
+    20c trains Zaremba et al.'s "medium" LSTM language model and a GRU at
+    its shape (SGD 1.0, global-norm clip 5): step 1 against the CPU's,
+    tokens/s, step p50, kernel launches a step; 20d runs every function
+    and layer of the slice at small shapes on the card, with synchronizing
+    calls turned into errors, against the same call on CPU tensors, and
+    the four ``static.nn`` functions of the slice through
+    ``Executor.run``.
+
+Every kernel's launch count is set to 0 before each of phases 4-20 and
 read after it. The last two lines are a ``{"kernels": [...]}`` JSON
 object and ``{"ok": true, "device": {...}}``.
 """
@@ -248,6 +271,7 @@ from __future__ import annotations
 import contextlib
 import itertools
 import json
+import math
 import os
 import re
 import shutil
@@ -1857,7 +1881,8 @@ def profile_step(phase, step, batch, n_steps=2, top=12):
     out = {"wall_ms_per_step": wall_us / 1e3 / n_steps,
            "device_ms_per_step": busy_us / 1e3 / n_steps,
            "busy_share": busy_us / wall_us, "top": [],
-           "device_ms_by_kind": by_kind}
+           "device_ms_by_kind": by_kind,
+           "launches_per_step": sum(e.count for e in kernels) / n_steps}
     log(f"[{phase}] profile ({n_steps} steps): wall "
         f"{out['wall_ms_per_step']:.2f} ms a step, device busy "
         f"{out['device_ms_per_step']:.2f} ms a step, busy share "
@@ -4305,6 +4330,1023 @@ def param_lr_phase(dev, gen, counted, launches, gpt_mod, norm_mod, plain):
             "adam_launches": launched["adam"]}
 
 
+# --- phase 20: the rest of nn/ -----------------------------------------------
+# 20a: Transformer-base, Vaswani et al. (2017), Table 3 "base" (nn.Transformer's
+# defaults: N = 6 + 6, d_model 512, 8 heads, d_ff 2048, dropout 0.1,
+# post-norm), one 37,000-token BPE vocabulary shared by source and target
+# (§5.1) with the embedding scaled by √512 and tied to the output projection,
+# sinusoidal positions, label smoothing 0.1, Adam(0.9, 0.98, 1e-9) under
+# NoamDecay(512, 4000); 32 sentence pairs of 128 tokens a side (4,096
+# tokens each side: about one card's share of the paper's 25,000-token
+# batches over 8 GPUs), source lengths drawn in 64-128 and masked
+NMT_VOCAB, NMT_D, NMT_FF, NMT_LAYERS = 37000, 512, 2048, 6
+NMT_BATCH, NMT_LEN, NMT_MIN_SRC = 32, 128, 64
+NMT_LABEL_SMOOTHING, NMT_DROPOUT = 0.1, 0.1
+NMT_WARMUP, NMT_TIMED = 3, 10
+# the LayerNorms of one step: 2 per encoder layer, 3 per decoder layer
+NMT_LN_PER_STEP = 2 * NMT_LAYERS + 3 * NMT_LAYERS
+# 20a's parity leg, f32 with TF32 off and dropout 0: the card's step against
+# the CPU's plain step from the same weights and batch. Both sum f32
+# products in other orders through 12 layers: the loss to 1e-5 relative,
+# the global gradient norm to 1e-4 relative, and each weight after the
+# update within 2 lr of the CPU's (Noam's step-1 rate is 1.75e-7; an
+# element whose gradient is within f32 noise of 0 may step the other way).
+# That bound cannot see #7 (Adam's step 1 moves each element by about lr),
+# so #7 is held on its own: the plain version, run on the card from copies
+# of the kernel's inputs (the card's gradients, zero moments), must give
+# the kernel's bits in every parameter, moment and beta power
+NMT_LOSS_RTOL = 1e-5
+NMT_GNORM_RTOL = 1e-4
+# 20b: beam search over 8 of the batch's source sentences, beam 4, start
+# token 0, end token 1, at most 64 steps, f32 in eval mode. The incremental
+# logits within 1e-4 of the step's largest |logit| of the full causal
+# forward's (f32 products of other shapes); each beam's score within
+# 1e-5·|score| + 1e-3 of the full forward's sum of log-probabilities; the
+# greedy decode may leave beam size 1's tokens only where the full
+# forward's two candidates are within that logit tolerance (a near tie)
+NMT_BEAM_SOURCES, NMT_BEAM, NMT_MAX_STEPS = 8, 4, 64
+NMT_START, NMT_END = 0, 1
+NMT_INCR_REL_TOL = 1e-4
+NMT_SCORE_RTOL, NMT_SCORE_ATOL = 1e-5, 1e-3
+# 20c: Zaremba et al. (2014), "medium": an LSTM language model of 2 layers
+# of 650 units unrolled 35 steps at batch 20 over PTB's 10,000 words,
+# dropout 0.5, SGD at lr 1.0 with the gradients' global norm clipped to 5;
+# a GRU at the same shape. Step 1 at dropout 0 against the CPU's: the loss
+# to 1e-5 relative, the global gradient norm to 1e-4 relative, and each
+# parameter after the clipped update within 1e-3 of its tensor's largest
+# |update| on the CPU beyond one f32 ulp of its value (each side rounds
+# p - u once; a skipped or wrongly scaled update is off by a whole
+# update); the clip's norm and scale from the sum-of-squares kernel
+# against its plain version on the card step's own gradients, NORM_RTOL
+RNN_UPDATE_RTOL = 1e-3
+RNN_VOCAB, RNN_HIDDEN, RNN_LAYERS = 10000, 650, 2
+RNN_STEPS, RNN_BATCH, RNN_DROPOUT = 35, 20, 0.5
+RNN_LR, RNN_CLIP, RNN_TRAIN_STEPS = 1.0, 5.0, 3
+# 20d: each function and layer of the slice on the card against the same
+# call on CPU tensors, the tolerances of its CPU test: f32 values to
+# 1e-5 (+1e-5), gradients to 1e-4 (+1e-4); an infeasible CTC sequence's
+# gradient to 2e-3 (its paths sit near -1e5, where an f32 ulp is 0.0078)
+BREADTH_TOL, BREADTH_GRAD_TOL = (1e-5, 1e-5), (1e-4, 1e-4)
+CTC_INFEASIBLE_GRAD_ATOL = 2e-3
+
+
+@contextlib.contextmanager
+def calls_kept(module, name, kept):
+    """While inside, record every call of ``module.name`` in ``kept``: the
+    arguments as passed (tensors the call updates in place stay live),
+    copies of them taken before the call, the keywords and the result. A
+    wrapper that counts its launches under its module name counts them on
+    the stand-in; they are carried over to the wrapper's own count."""
+    fn = getattr(module, name)
+
+    def copy(a):
+        if isinstance(a, torch.Tensor):
+            return a.detach().clone()
+        if isinstance(a, (list, tuple)):
+            return type(a)(copy(x) for x in a)
+        return a
+
+    def keeping(*args, **kw):
+        before = copy(args)
+        keeping.launches = start = getattr(fn, "launches", 0)
+        out = fn(*args, **kw)
+        if hasattr(fn, "launches"):
+            fn.launches += keeping.launches - start
+        kept.append((args, before, kw, out))
+        return out
+
+    setattr(module, name, keeping)
+    try:
+        yield kept
+    finally:
+        setattr(module, name, fn)
+
+
+def sinusoid_table(n, d):
+    """Vaswani et al.'s positional encodings [n, d] (numpy, f32)."""
+    pos = np.arange(n)[:, None] / np.power(10000.0, np.arange(0, d, 2) / d)
+    table = np.zeros((n, d), np.float32)
+    table[:, 0::2], table[:, 1::2] = np.sin(pos), np.cos(pos)
+    return torch.from_numpy(table)
+
+
+class NMTModel(torch.nn.Module):
+    """Transformer-base as the paper trains it: ``nn.Transformer`` between
+    a shared embedding (scaled by √d, plus sinusoidal positions, then
+    dropout) and an output projection tied to it (through ``linear``, so
+    that AMP casts it)."""
+
+    def __init__(self, tnn, dev, dropout, generator=None):
+        super().__init__()
+        self.transformer = tnn.Transformer(
+            d_model=NMT_D, num_encoder_layers=NMT_LAYERS,
+            num_decoder_layers=NMT_LAYERS, dim_feedforward=NMT_FF,
+            dropout=dropout, device=dev, generator=generator)
+        self.embedding = tnn.Embedding(NMT_VOCAB, NMT_D, device=dev)
+        self.drop = tnn.Dropout(dropout, generator=generator)
+        self.register_buffer("pos", sinusoid_table(NMT_LEN, NMT_D).to(dev),
+                             persistent=False)
+        self.register_buffer(
+            "causal", self.transformer.generate_square_subsequent_mask(
+                NMT_LEN), persistent=False)
+
+    def embed(self, ids, start=0):
+        x = self.embedding(ids) * math.sqrt(NMT_D)
+        return self.drop(x + self.pos[start:start + ids.shape[1]])
+
+    def head(self, out):
+        from paddle_tpu_torch.nn.functional import linear
+
+        return linear(out, self.embedding.weight.t())
+
+    def forward(self, src, tgt, src_keep):
+        out = self.transformer(self.embed(src), self.embed(tgt), src_keep,
+                               self.causal[:tgt.shape[1], :tgt.shape[1]],
+                               src_keep)
+        return self.head(out)
+
+    def decode_logits(self, memory, memory_keep, tokens):
+        """The full causal forward of the decoder over ``tokens``."""
+        n = tokens.shape[1]
+        out = self.transformer.decoder(self.embed(tokens), memory,
+                                       self.causal[:n, :n], memory_keep)
+        return self.head(out)
+
+
+def nmt_batch(gen, dev):
+    """Source and target ids (the special tokens 0 and 1 left out), the
+    source lengths in [64, 128] as a [B, 1, 1, S] keep-mask, the decoder's
+    input (start token, then the target shifted) and its labels."""
+    src = torch.randint(2, NMT_VOCAB, (NMT_BATCH, NMT_LEN), device=dev,
+                        generator=gen)
+    tgt = torch.randint(2, NMT_VOCAB, (NMT_BATCH, NMT_LEN), device=dev,
+                        generator=gen)
+    lengths = torch.randint(NMT_MIN_SRC, NMT_LEN + 1, (NMT_BATCH,),
+                            device=dev, generator=gen)
+    keep = (torch.arange(NMT_LEN, device=dev)[None, :]
+            < lengths[:, None])[:, None, None, :]
+    tgt_in = torch.cat([torch.full_like(tgt[:, :1], NMT_START),
+                        tgt[:, :-1]], 1)
+    return src, tgt_in, keep, tgt
+
+
+def nmt_loss(logits, labels):
+    from paddle_tpu_torch.nn.functional import cross_entropy
+
+    return cross_entropy(logits.reshape(-1, NMT_VOCAB), labels.reshape(-1),
+                         label_smoothing=NMT_LABEL_SMOOTHING)
+
+
+def nmt_flops_per_step():
+    """Training FLOPs of one step (2 per multiply-add forward, twice that
+    backward), attention over the padded lengths as it is computed."""
+    d, ff, nl, b, s = NMT_D, NMT_FF, NMT_LAYERS, NMT_BATCH, NMT_LEN
+    tok = b * s
+    layer = tok * (4 * d * d + 2 * d * ff) + 2 * b * s * s * d
+    cross = tok * 4 * d * d + 2 * b * s * s * d
+    macs = nl * layer + nl * (layer + cross) + tok * d * NMT_VOCAB
+    return 3 * 2 * macs
+
+
+def nmt_engine(tnn, dev, dropout, seed_state, lr_mod, Adam,
+               ParallelTrainStep, generator=None):
+    """A model from ``seed_state`` (a CPU state dict), Adam under Noam and
+    the engine over them."""
+    model = NMTModel(tnn, dev, dropout, generator)
+    model.load_state_dict(seed_state)
+    sched = lr_mod.NoamDecay(d_model=NMT_D, warmup_steps=4000)
+    opt = Adam(sched, beta1=0.9, beta2=0.98, epsilon=1e-9,
+               parameters=model.parameters())
+    return model, opt, sched, ParallelTrainStep(model, nmt_loss, opt,
+                                                device=dev)
+
+
+def nmt_parity(dev, tnn, fused, batch, seed_state, lr_mod, Adam,
+               ParallelTrainStep, counted, launches):
+    """20a's parity leg: one f32 step (dropout 0) on the card and on the
+    CPU's plain path from the same weights and batch."""
+    def one_step(device, inputs, adam_calls):
+        model, opt, sched, step = nmt_engine(
+            tnn, device, 0.0, seed_state, lr_mod, Adam, ParallelTrainStep)
+        grads = {}
+        update = opt.step
+
+        def keep_grads_then_update():
+            grads.update({n: p.grad.detach().clone()
+                          for n, p in model.named_parameters()})
+            update()
+
+        opt.step = keep_grads_then_update
+        before = {n: p.detach().clone() for n, p in
+                  model.named_parameters()}
+        with (calls_kept(fused, "fused_adam_step", adam_calls)
+              if adam_calls is not None else contextlib.nullcontext()):
+            loss = float(step(inputs[:3], inputs[3:]))
+        gnorm = float(torch.sqrt(sum(g.double().square().sum()
+                                     for g in grads.values())))
+        delta = {n: (p.detach() - before[n]).cpu()
+                 for n, p in model.named_parameters()}
+        return loss, gnorm, delta, sched()
+
+    _cleared(counted)
+    adam_calls = []
+    loss_k, gnorm_k, delta_k, lr1 = one_step(dev, batch, adam_calls)
+    torch.cuda.synchronize()
+    got = _read_launches(counted, launches, "nmt_parity")
+    # #7 against its plain version on the card, from copies of its inputs
+    (live, copies, kw, _), = adam_calls
+    if kw.get("clip_norm") is not None or kw.get("check") is not None:
+        raise AssertionError("20a: the step's Adam took a clip or a check")
+    fused._adam_reference(*copies, **{k: v for k, v in kw.items()
+                                      if k not in ("clip_norm", "check")})
+    slots = {"params": 0, "moment1": 2, "moment2": 3, "beta1_pow": 4,
+             "beta2_pow": 5}
+    adam_same = {k: all(torch.equal(a, b) for a, b in
+                        zip(live[i], copies[i])) for k, i in slots.items()}
+    adam_err = max(float((a - b).abs().max())
+                   for a, b in zip(live[0], copies[0]))
+    del live, copies, adam_calls
+    loss_p, gnorm_p, delta_p, _ = one_step(
+        torch.device("cpu"), tuple(t.cpu() for t in batch), None)
+    last, mid = NMT_LAYERS - 1, NMT_LAYERS // 2
+    kinds = ("embedding.weight",
+             "transformer.encoder.layers.0.self_attn.q_proj.weight",
+             f"transformer.decoder.layers.{last}.cross_attn.v_proj.bias",
+             f"transformer.decoder.layers.{mid}.linear1.weight",
+             f"transformer.encoder.layers.{mid}.norm2.weight",
+             "transformer.decoder.layers.0.norm3.bias")
+    w_err = max(float((delta_k[n] - delta_p[n]).abs().max()) for n in kinds)
+    l_err = abs(loss_k - loss_p) / abs(loss_p)
+    g_err = abs(gnorm_k - gnorm_p) / gnorm_p
+    log(f"[20a] Transformer-base f32 step 1 (dropout 0, TF32 off) at "
+        f"{NMT_BATCH} x {NMT_LEN} a side: loss {loss_k:.7f} (card) vs "
+        f"{loss_p:.7f} (CPU), rel err {l_err:.3g} (tol {NMT_LOSS_RTOL}); "
+        f"grad norm {gnorm_k:.6f} vs {gnorm_p:.6f}, rel err {g_err:.3g} "
+        f"(tol {NMT_GNORM_RTOL}); update of {len(kinds)} weights (one of "
+        f"each kind) max err {w_err:.3g} (tol 2 lr = {2 * lr1:.3g}); #7 "
+        f"over the {len(delta_k)} tensors against its plain version on the "
+        f"card, same bits: {adam_same} (params max diff {adam_err:.3g}, "
+        f"{adam_err / lr1:.3g} lr); launches #5 {got['layer_norm_fwd']} #6 "
+        f"{got['layer_norm_bwd']} #7 {got['adam']}")
+    if (got["layer_norm_fwd"], got["layer_norm_bwd"], got["adam"]) != (
+            NMT_LN_PER_STEP, 2 * NMT_LN_PER_STEP, 2):
+        raise AssertionError(f"20a parity step launched {got}")
+    if not all(adam_same.values()):
+        raise AssertionError(f"20a: #7 at Transformer-base's tensors is off "
+                             f"its plain version: {adam_same}")
+    if not (l_err <= NMT_LOSS_RTOL and g_err <= NMT_GNORM_RTOL
+            and w_err <= 2 * lr1):
+        raise AssertionError("20a: the card's Transformer step is off the "
+                             "CPU's")
+    torch.cuda.empty_cache()
+    return {"loss_card": loss_k, "loss_cpu": loss_p, "loss_rel_err": l_err,
+            "grad_norm_rel_err": g_err, "update_max_err": w_err,
+            "lr_step1": lr1, "adam_same_bits_as_plain": adam_same,
+            "adam_params_max_diff": adam_err}
+
+
+@contextlib.contextmanager
+def plain_layer_norm_counted(fused):
+    """Count every call of the LayerNorm's plain versions while inside."""
+    calls = [0]
+    saved = fused._ln_reference, fused._ln_bwd_reference
+
+    def counted(fn):
+        def wrapped(*a, **k):
+            calls[0] += 1
+            return fn(*a, **k)
+        return wrapped
+
+    fused._ln_reference = counted(saved[0])
+    fused._ln_bwd_reference = counted(saved[1])
+    try:
+        yield calls
+    finally:
+        fused._ln_reference, fused._ln_bwd_reference = saved
+
+
+def nmt_timed_leg(dev, tnn, fused, amp, batch, seed_state, lr_mod, Adam,
+                  ParallelTrainStep, counted, launches, bf16, smi):
+    """20a's timed legs: dropout 0.1 from a generator, 3 warm-up and 10
+    timed steps (f32, or bf16 O1 under ``amp.auto_cast``), launches a
+    step, no LayerNorm on its plain path, and a 2-step profile."""
+    from paddle_tpu_torch.profiler.xla_cost import chip_peaks
+
+    phase = "nmt_bf16" if bf16 else "nmt_f32"
+    gen = torch.Generator(device=dev).manual_seed(20)
+    model, opt, sched, engine = nmt_engine(
+        tnn, dev, NMT_DROPOUT, seed_state, lr_mod, Adam, ParallelTrainStep,
+        gen)
+    ln_calls = [0]
+    for mod in model.modules():
+        if isinstance(mod, tnn.LayerNorm):
+            mod.register_forward_hook(
+                lambda *_: ln_calls.__setitem__(0, ln_calls[0] + 1))
+
+    def step(inputs, labels):
+        ctx = (amp.auto_cast(dtype="bfloat16") if bf16
+               else contextlib.nullcontext())
+        with ctx:
+            loss = engine(inputs, labels)
+        sched.step()
+        return loss
+
+    data = (batch[:3], batch[3:])
+    for _ in range(NMT_WARMUP):
+        step(*data)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ln_calls[0] = 0
+    _cleared(counted)
+    with plain_layer_norm_counted(fused) as plain_calls:
+        losses, times, wall = timed_steps(step, data, NMT_TIMED)
+    got = _read_launches(counted, launches, phase)
+    ln_per_step = ln_calls[0] / NMT_TIMED
+    peak = torch.cuda.max_memory_allocated()
+    prof = profile_step(f"20a {'bf16' if bf16 else 'f32'}", step, data)
+    per_step = {k: got[k] / NMT_TIMED for k in
+                ("layer_norm_fwd", "layer_norm_bwd", "adam")}
+    losses = [float(x) for x in losses]
+    p50 = times[len(times) // 2]
+    flops = nmt_flops_per_step()
+    peaks = chip_peaks(dev)
+    out = {
+        "dtype": "bf16 O1" if bf16 else "f32 (TF32 off)",
+        "tokens_per_s": 2 * NMT_BATCH * NMT_LEN * NMT_TIMED / wall,
+        "target_tokens_per_s": NMT_BATCH * NMT_LEN * NMT_TIMED / wall,
+        "step_p50_ms": p50, "device_ms_per_step":
+            prof["device_ms_per_step"], "busy_share": prof["busy_share"],
+        "peak_memory_gb": peak / 1e9,
+        "flops_per_step": flops,
+        "mfu_pct": 100.0 * flops / (p50 / 1e3) / peaks["flops"],
+        "launches_per_step": per_step, "layer_norm_calls_per_step":
+            ln_per_step, "plain_layer_norm_calls":
+            plain_calls[0], "losses": losses, "top": prof["top"][:8],
+        "device_ms_by_kind": prof["device_ms_by_kind"], "card": smi}
+    if not bf16:
+        out["mfu_f32_peak_pct"] = (100.0 * flops / (p50 / 1e3)
+                                   / PEAK_FLOPS[torch.float32])
+    log(f"[20a] {out['dtype']}: {out['tokens_per_s']:.1f} tokens/s (source "
+        f"+ target, {out['target_tokens_per_s']:.1f} target), step p50 "
+        f"{p50:.2f} ms, device {out['device_ms_per_step']:.2f} ms a step, "
+        f"busy share {out['busy_share']:.4f}, peak {out['peak_memory_gb']:.2f}"
+        f" GB, MFU {out['mfu_pct']:.2f}% of {peaks['flops'] / 1e12:.0f} "
+        f"TFLOP/s ({flops / 1e12:.3f} TFLOP a step); launches a step #5 "
+        f"{per_step['layer_norm_fwd']:g} #6 {per_step['layer_norm_bwd']:g} "
+        f"#7 {per_step['adam']:g}; LayerNorm calls a step "
+        f"{out['layer_norm_calls_per_step']:g}, on the plain path "
+        f"{plain_calls[0]}; losses {losses[0]:.4f} -> {losses[-1]:.4f} "
+        f"({smi})")
+    want = {"layer_norm_fwd": NMT_LN_PER_STEP,
+            "layer_norm_bwd": 2 * NMT_LN_PER_STEP, "adam": 2}
+    if per_step != want or plain_calls[0] or ln_per_step != NMT_LN_PER_STEP:
+        raise AssertionError(f"20a {phase}: launches a step {per_step} "
+                             f"(want {want}), plain LayerNorm calls "
+                             f"{plain_calls[0]}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"20a {phase}: a loss is not finite: {losses}")
+    del engine, opt
+    model.eval()
+    return model, out
+
+
+class NMTBeamCell:
+    """The beam-search cell over a trained ``NMTModel``: ids of the beams'
+    last tokens in, logits out; the state holds the decoder's caches
+    (``TransformerDecoder.gen_cache``: a ``Cache`` per self-attention, a
+    ``StaticCache`` per cross-attention) and the tokens so far. With
+    ``check`` it also runs the full causal forward over those tokens and
+    appends how far the incremental logits are from it (relative to the
+    step's largest |logit|, a device scalar)."""
+
+    def __init__(self, model, check=None):
+        self.model, self.check = model, check
+
+    def __call__(self, ids, states, memory=None, memory_keep=None):
+        model, seen = self.model, states["tokens"]
+        x = model.embed(ids[:, None], start=seen.shape[1])
+        out, caches = model.transformer.decoder(x, memory, None,
+                                                memory_keep,
+                                                states["caches"])
+        logits = model.head(out)[:, 0]
+        tokens = torch.cat([seen, ids[:, None]], 1)
+        if self.check is not None:
+            full = model.decode_logits(memory, memory_keep, tokens)[:, -1]
+            self.check.append((full - logits).abs().max()
+                              / full.abs().max())
+        return logits, {"caches": caches, "tokens": tokens}
+
+
+def nmt_beam_search(tnn, model, src, keep, beam, check=None):
+    """``dynamic_decode`` of ``BeamSearchDecoder`` over ``NMTBeamCell``:
+    (ids [B, beam, T], final states, lengths)."""
+    memory = model.transformer.encoder(model.embed(src), keep)
+    tile = tnn.BeamSearchDecoder.tile_beam_merge_with_batch
+    init = {"caches": model.transformer.decoder.gen_cache(memory),
+            "tokens": src.new_zeros(src.shape[0], 0)}
+    decoder = tnn.BeamSearchDecoder(NMTBeamCell(model, check), NMT_START,
+                                    NMT_END, beam)
+    return tnn.dynamic_decode(decoder, inits=init,
+                              max_step_num=NMT_MAX_STEPS, return_length=True,
+                              memory=tile(memory, beam),
+                              memory_keep=tile(keep, beam))
+
+
+def nmt_beam_phase(dev, tnn, model, batch, counted, launches, smi):
+    """20b: beam search over the trained f32 model, with its checks."""
+    src = batch[0][:NMT_BEAM_SOURCES]
+    keep = batch[2][:NMT_BEAM_SOURCES]
+    with torch.no_grad():
+        check = []
+        ids_c, _, _ = nmt_beam_search(tnn, model, src, keep, NMT_BEAM,
+                                      check)
+        incr_err = float(torch.stack(check).max())
+        torch.cuda.synchronize()
+        _cleared(counted)
+        t0 = time.perf_counter()
+        ids, states, lengths = nmt_beam_search(tnn, model, src, keep,
+                                               NMT_BEAM)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = _read_launches(counted, launches, "nmt_beam")
+        steps = ids.shape[2]
+        # each beam's score against the full forward's log-probabilities
+        memory = model.transformer.encoder(model.embed(src), keep)
+        tile = tnn.BeamSearchDecoder.tile_beam_merge_with_batch
+        flat = ids.reshape(-1, steps)
+        inputs = torch.cat([torch.full_like(flat[:, :1], NMT_START),
+                            flat[:, :-1]], 1)
+        logp = torch.log_softmax(model.decode_logits(
+            tile(memory, NMT_BEAM), tile(keep, NMT_BEAM), inputs).float(),
+            -1).gather(-1, flat[..., None])[..., 0]
+        ended = (flat == NMT_END).long().cumsum(1)
+        upto = (ended == 0) | ((ended == 1) & (flat == NMT_END))
+        recomputed = (logp * upto).sum(1).reshape(ids.shape[:2])
+        scores = states.log_probs
+        score_err = float(((scores - recomputed).abs()
+                           - NMT_SCORE_RTOL * recomputed.abs()).max())
+        ordered = bool((scores[:, :-1] >= scores[:, 1:]).all())
+        # beam size 1 against the full forward's greedy argmax
+        ids1, _, _ = nmt_beam_search(tnn, model, src, keep, 1)
+        seq = torch.full((src.shape[0], 1), NMT_START, device=dev)
+        for _ in range(ids1.shape[2]):
+            nxt = model.decode_logits(memory, keep, seq)[:, -1]
+            seq = torch.cat([seq, nxt.argmax(-1, keepdim=True)], 1)
+        greedy, near_ties = seq[:, 1:], 0
+        for b in range(src.shape[0]):
+            ends = (ids1[b, 0] == NMT_END).nonzero()
+            upto = int(ends[0]) + 1 if len(ends) else ids1.shape[2]
+            diff = (ids1[b, 0, :upto] != greedy[b, :upto]).nonzero()
+            if len(diff) == 0:
+                continue
+            t = int(diff[0])
+            prefix = torch.cat([seq[b:b + 1, :1], ids1[b:b + 1, 0, :t]], 1)
+            row = model.decode_logits(memory[b:b + 1], keep[b:b + 1],
+                                      prefix)[0, -1]
+            gap = float(row.max() - row[ids1[b, 0, t]])
+            if gap > NMT_INCR_REL_TOL * float(row.abs().max()):
+                raise AssertionError(
+                    f"20b: beam size 1 left the greedy decode of source {b} "
+                    f"at step {t} by a logit gap of {gap:.4g}")
+            near_ties += 1
+    out = {"steps": steps, "tokens_per_s": src.shape[0] * steps / wall,
+           "beam_tokens_per_s": src.shape[0] * NMT_BEAM * steps / wall,
+           "decode_s": wall, "incremental_rel_err": incr_err,
+           "score_err": score_err, "sorted": ordered,
+           "same_ids_with_checks": bool(torch.equal(ids, ids_c)),
+           "greedy_near_ties": near_ties,
+           "finished": int(states.finished.sum()),
+           "layer_norm_launches": got["layer_norm_fwd"], "card": smi}
+    log(f"[20b] beam search, {src.shape[0]} sources x beam {NMT_BEAM}, "
+        f"{steps} steps in {wall:.3f} s: {out['tokens_per_s']:.1f} tokens/s "
+        f"({out['beam_tokens_per_s']:.1f} beam tokens/s), #5 launches "
+        f"{got['layer_norm_fwd']}; incremental vs full logits "
+        f"{incr_err:.3g} of max|logit| (tol {NMT_INCR_REL_TOL}); beam "
+        f"score - recomputed log-prob beyond {NMT_SCORE_RTOL}|score| "
+        f"{score_err:.3g} (tol {NMT_SCORE_ATOL}); sorted {ordered}; beam 1 "
+        f"= greedy ({near_ties} near ties); {out['finished']} beams ended "
+        f"({smi})")
+    if got["layer_norm_fwd"] != 2 * NMT_LAYERS + 3 * NMT_LAYERS * steps:
+        raise AssertionError(f"20b launched {got}")
+    if not (incr_err <= NMT_INCR_REL_TOL and score_err <= NMT_SCORE_ATOL
+            and ordered and out["same_ids_with_checks"]):
+        raise AssertionError("20b: the beam search is off its full forward")
+    return out
+
+
+class RNNLM(torch.nn.Module):
+    """Zaremba et al.'s language model: embedding, dropout, a 2-layer
+    recurrent network (dropout between its layers), dropout, a linear
+    head over the vocabulary."""
+
+    def __init__(self, tnn, cls, dev, dropout, generator=None):
+        super().__init__()
+        self.embedding = tnn.Embedding(RNN_VOCAB, RNN_HIDDEN, device=dev)
+        self.drop_in = tnn.Dropout(dropout, generator=generator)
+        self.rnn = getattr(tnn, cls)(RNN_HIDDEN, RNN_HIDDEN, RNN_LAYERS,
+                                     dropout=dropout, device=dev,
+                                     generator=generator)
+        self.drop_out = tnn.Dropout(dropout, generator=generator)
+        self.decoder = tnn.Linear(RNN_HIDDEN, RNN_VOCAB, device=dev)
+
+    def forward(self, ids):
+        y, _ = self.rnn(self.drop_in(self.embedding(ids)))
+        return self.decoder(self.drop_out(y))
+
+
+def rnn_phase(dev, tnn, cls, counted, launches, smi):
+    """20c: step 1 (dropout 0) on the card against the CPU, then 1 warm-up
+    and 3 timed steps at dropout 0.5 from a generator, a 1-step
+    profile."""
+    from paddle_tpu_torch.nn import clip as clip_mod
+    from paddle_tpu_torch.nn.functional import cross_entropy
+    from paddle_tpu_torch.ops import fused
+    from paddle_tpu_torch.optimizer import SGD
+
+    gen = torch.Generator().manual_seed(21)
+    ids = torch.randint(0, RNN_VOCAB, (RNN_BATCH, RNN_STEPS + 1),
+                        generator=gen)
+    batch = (ids[:, :-1], ids[:, 1:])
+    seed_state = RNNLM(tnn, cls, "cpu", 0.0).state_dict()
+
+    def make(device, dropout, generator=None):
+        model = RNNLM(tnn, cls, device, dropout, generator)
+        model.load_state_dict(seed_state)
+        opt = SGD(RNN_LR, parameters=model.parameters(),
+                  grad_clip=tnn.ClipGradByGlobalNorm(RNN_CLIP))
+        return model, opt
+
+    def step(model, opt, x, y, norms=None):
+        loss = cross_entropy(model(x).reshape(-1, RNN_VOCAB), y.reshape(-1))
+        loss.backward()
+        if norms is not None:
+            norms.append(float(torch.sqrt(sum(
+                p.grad.double().square().sum()
+                for p in model.parameters()))))
+        opt.step()
+        opt.clear_grad()
+        return loss.detach()
+
+    def first(device, clip_calls):
+        model, opt = make(device, 0.0)
+        norms = []
+        with (calls_kept(clip_mod, "grad_global_norm", clip_calls)
+              if clip_calls is not None else contextlib.nullcontext()):
+            loss = float(step(model, opt, *(t.to(device) for t in batch),
+                              norms))
+        return loss, norms[0], {n: p.detach().cpu()
+                                for n, p in model.named_parameters()}
+
+    clip_calls = []
+    loss_k, norm_k, after_k = first(dev, clip_calls)
+    loss_p, norm_p, after_p = first(torch.device("cpu"), None)
+    l_err, g_err = abs(loss_k - loss_p) / loss_p, abs(norm_k - norm_p) / norm_p
+    # the clip's sum-of-squares kernel against its plain version on the
+    # card step's own gradients: [norm, scale]
+    (_, before, _, got_clip), = clip_calls
+    want_clip = fused._global_norm_reference(before[0], RNN_CLIP)
+    clip_err = float(((got_clip - want_clip).abs() / want_clip.abs()).max())
+    norm_clip = [float(x) for x in want_clip]
+    del clip_calls, before
+    # each parameter after the clipped update against the CPU's, beyond
+    # one ulp of its value, over the tensor's largest update
+    def update_err(n):
+        value = after_p[n].abs()
+        ulp = torch.nextafter(value, torch.tensor(math.inf)) - value
+        excess = ((after_k[n] - after_p[n]).abs() - ulp).clamp(min=0)
+        return float(excess.max()) / max(
+            float((after_p[n] - seed_state[n]).abs().max()), 1e-30)
+
+    upd_err = max(update_err(n) for n in after_p)
+    model, opt = make(dev, RNN_DROPOUT,
+                      torch.Generator(device=dev).manual_seed(22))
+    data = tuple(t.to(dev) for t in batch)
+    run = lambda x, y: step(model, opt, x, y)  # noqa: E731
+    run(*data)
+    _cleared(counted)
+    losses, times, wall = timed_steps(run, data, RNN_TRAIN_STEPS)
+    got = _read_launches(counted, launches, f"rnn_{cls.lower()}")
+    prof = profile_step(f"20c {cls}", run, data, n_steps=1, top=6)
+    p50 = times[len(times) // 2]
+    out = {"step1_loss_card": loss_k, "step1_loss_cpu": loss_p,
+           "loss_rel_err": l_err, "grad_norm_rel_err": g_err,
+           "clip_norm_scale": norm_clip, "clip_rel_err": clip_err,
+           "update_rel_err": upd_err,
+           "tokens_per_s": RNN_BATCH * RNN_STEPS * RNN_TRAIN_STEPS / wall,
+           "step_p50_ms": p50, "device_ms_per_step":
+               prof["device_ms_per_step"], "busy_share": prof["busy_share"],
+           "kernel_launches_per_step": prof["launches_per_step"],
+           "grad_sumsq_launches": got["grad_sumsq"],
+           "losses": [float(x) for x in losses], "card": smi}
+    log(f"[20c] {cls} LM ({RNN_LAYERS} x {RNN_HIDDEN}, {RNN_STEPS} steps, "
+        f"batch {RNN_BATCH}, vocab {RNN_VOCAB}): step 1 "
+        f"loss {loss_k:.6f} (card) vs {loss_p:.6f} (CPU), rel err "
+        f"{l_err:.3g} (tol {NMT_LOSS_RTOL}), grad norm rel err {g_err:.3g} "
+        f"(tol {NMT_GNORM_RTOL}); the clip's [norm, scale] "
+        f"[{norm_clip[0]:.6g}, {norm_clip[1]:.6g}] from the sum-of-squares "
+        f"kernel vs plain, rel err {clip_err:.3g} (tol {NORM_RTOL}); "
+        f"parameters after the update vs the CPU's, err beyond an ulp / "
+        f"max|update| {upd_err:.3g} (tol {RNN_UPDATE_RTOL}); dropout "
+        f"{RNN_DROPOUT}: "
+        f"{out['tokens_per_s']:.1f} tokens/s, step p50 {p50:.2f} ms, "
+        f"device {out['device_ms_per_step']:.2f} ms a step, busy share "
+        f"{out['busy_share']:.4f}, {out['kernel_launches_per_step']} kernel "
+        f"launches a step (the per-step loop: launch-bound); the clip's "
+        f"sum-of-squares launches {got['grad_sumsq']} ({smi})")
+    if not (l_err <= NMT_LOSS_RTOL and g_err <= NMT_GNORM_RTOL
+            and upd_err <= RNN_UPDATE_RTOL):
+        raise AssertionError(f"20c {cls}: step 1 is off the CPU's")
+    if not clip_err <= NORM_RTOL:
+        raise AssertionError(f"20c {cls}: the clip's sum-of-squares kernel "
+                             f"is off its plain version by {clip_err:.3g}")
+    if got["grad_sumsq"] != 2 * RNN_TRAIN_STEPS or not all(
+            math.isfinite(x) for x in out["losses"]):
+        raise AssertionError(f"20c {cls}: launches {got}, losses "
+                             f"{out['losses']}")
+    return out
+
+
+def breadth_cases(tnn, F):
+    """name -> (callable(tensors..., device), inputs maker(rng) -> numpy
+    args, kwargs, differentiable positions). Layers are built on the
+    device the call runs on, from the CPU layer's state."""
+    f32 = lambda r, *s: r.randn(*s).astype(np.float32)  # noqa: E731
+    probs = lambda r, *s: (r.rand(*s) * 0.9 + 0.05).astype(  # noqa: E731
+        np.float32)
+    signs = lambda r, *s: np.where(r.rand(*s) > 0.5, 1.0,  # noqa: E731
+                                   -1.0).astype(np.float32)
+    ints = lambda r, hi, *s: r.randint(0, hi, s).astype(np.int64)  # noqa
+
+    def ctc(r, ll=(4, 3, 2), il=(12, 10, 8)):
+        return (f32(r, 12, 3, 6), r.randint(1, 6, (3, 5)).astype(np.int64),
+                np.array(il, np.int64), np.array(ll, np.int64))
+
+    def hsig(r):
+        return (f32(r, 5, 4), ints(r, 6, 5, 1), 6, f32(r, 5, 4),
+                f32(r, 5, 1))
+
+    table = np.array([[0, 2, -1], [1, 3, 4], [0, -1, -1], [4, 2, 1],
+                      [3, 0, -1]], np.int64)
+    fn = lambda name: lambda *a, **k: getattr(F, name)(*a, **k)  # noqa
+    cases = {
+        "softmax_with_cross_entropy": (fn("softmax_with_cross_entropy"),
+                                       lambda r: (f32(r, 6, 5),
+                                                  ints(r, 5, 6, 1)),
+                                       {}, (0,)),
+        "mse_loss": (fn("mse_loss"), lambda r: (f32(r, 4, 3), f32(r, 4, 3)),
+                     {}, (0, 1)),
+        "l1_loss": (fn("l1_loss"), lambda r: (f32(r, 4, 3), f32(r, 4, 3)),
+                    dict(reduction="sum"), (0, 1)),
+        "square_error_cost": (fn("square_error_cost"), lambda r: (
+            f32(r, 4, 3), f32(r, 4, 3)), {}, (0,)),
+        "nll_loss": (fn("nll_loss"), lambda r: (
+            np.log(probs(r, 8, 5)), np.array([0, 3, -100, 4, 1, 1, 2, 0]),
+            probs(r, 5)), {}, (0,)),
+        "binary_cross_entropy": (fn("binary_cross_entropy"), lambda r: (
+            probs(r, 4, 3), probs(r, 4, 3)), {}, (0,)),
+        "binary_cross_entropy_with_logits": (
+            fn("binary_cross_entropy_with_logits"), lambda r: (
+                f32(r, 4, 3), probs(r, 4, 3), probs(r, 3)), {}, (0,)),
+        "kl_div": (fn("kl_div"), lambda r: (np.log(probs(r, 4, 5)),
+                                            probs(r, 4, 5)),
+                   dict(reduction="batchmean"), (0, 1)),
+        "smooth_l1_loss": (fn("smooth_l1_loss"), lambda r: (
+            f32(r, 5, 4), f32(r, 5, 4)), dict(delta=0.5), (0,)),
+        "margin_ranking_loss": (fn("margin_ranking_loss"), lambda r: (
+            f32(r, 8), f32(r, 8), signs(r, 8)), dict(margin=0.3), (0, 1)),
+        "hinge_embedding_loss": (fn("hinge_embedding_loss"), lambda r: (
+            f32(r, 4, 5), signs(r, 4, 5)), {}, (0,)),
+        "cosine_embedding_loss": (fn("cosine_embedding_loss"), lambda r: (
+            f32(r, 6, 4), f32(r, 6, 4), signs(r, 6)), {}, (0, 1)),
+        "log_loss": (fn("log_loss"), lambda r: (probs(r, 5, 1),
+                                                probs(r, 5, 1)), {}, (0,)),
+        "sigmoid_focal_loss": (fn("sigmoid_focal_loss"), lambda r: (
+            f32(r, 6, 3), probs(r, 6, 3), np.array([3.0], np.float32)), {},
+            (0,)),
+        "triplet_margin_loss": (fn("triplet_margin_loss"), lambda r: (
+            f32(r, 5, 4), f32(r, 5, 4), f32(r, 5, 4)), dict(swap=True),
+            (0, 1, 2)),
+        "ctc_loss": (fn("ctc_loss"), ctc, {}, (0,)),
+        "ctc_loss_infeasible": (fn("ctc_loss"), lambda r: ctc(
+            r, (5, 3, 2), (3, 10, 8)), dict(reduction="none"), (0,)),
+        "edit_distance": (fn("edit_distance"), lambda r: (
+            ints(r, 5, 4, 7), ints(r, 5, 4, 6), False, [0, 3],
+            np.array([7, 5, 0, 3]), np.array([6, 2, 4, 0])), {}, ()),
+        "hsigmoid_loss": (fn("hsigmoid_loss"), hsig, {}, (0, 3, 4)),
+        "hsigmoid_loss_custom": (
+            lambda x, lbl, n, w, b, t, c: F.hsigmoid_loss(
+                x, lbl, n, w, b, path_table=t, path_code=c),
+            lambda r: (f32(r, 5, 4), ints(r, 6, 5, 1), 6, f32(r, 6, 4),
+                       f32(r, 6, 1), table, ints(r, 2, 5, 3)), {},
+            (0, 3, 4)),
+        "dice_loss": (fn("dice_loss"), lambda r: (probs(r, 4, 3, 5),
+                                                  ints(r, 5, 4, 3, 1)), {},
+                      (0,)),
+        "npair_loss": (fn("npair_loss"), lambda r: (
+            f32(r, 6, 4), f32(r, 6, 4), np.array([0, 1, 0, 2, 1, 3])), {},
+            (0, 1)),
+        "layer_norm": (fn("layer_norm"), lambda r: (
+            f32(r, 6, 64), 64, f32(r, 64) + 1, f32(r, 64)), {}, (0, 2, 3)),
+        "layer_norm_two_axes": (fn("layer_norm"), lambda r: (
+            f32(r, 3, 4, 8), [4, 8]), {}, (0,)),
+        "instance_norm": (fn("instance_norm"), lambda r: (
+            f32(r, 2, 3, 4, 5), None, None, f32(r, 3), f32(r, 3)), {},
+            (0, 3, 4)),
+        "group_norm": (fn("group_norm"), lambda r: (
+            f32(r, 2, 6, 3, 3), 3, 1e-5, f32(r, 6), f32(r, 6)), {},
+            (0, 3, 4)),
+        "local_response_norm": (fn("local_response_norm"), lambda r: (
+            f32(r, 2, 7, 3, 3), 5), {}, (0,)),
+        "grid_sample_bilinear_zeros": (fn("grid_sample"), lambda r: (
+            f32(r, 2, 3, 5, 6), f32(r, 2, 4, 7, 2) * 0.8), {}, (0, 1)),
+        "grid_sample_bilinear_border": (fn("grid_sample"), lambda r: (
+            f32(r, 2, 3, 5, 6), f32(r, 2, 4, 7, 2) * 0.8),
+            dict(padding_mode="border", align_corners=False), (0, 1)),
+        "grid_sample_nearest_reflection": (fn("grid_sample"), lambda r: (
+            f32(r, 2, 3, 5, 6), f32(r, 2, 4, 7, 2) * 0.8),
+            dict(mode="nearest", padding_mode="reflection"), (0,)),
+        "affine_grid": (fn("affine_grid"), lambda r: (
+            f32(r, 2, 2, 3), [2, 3, 4, 5]), {}, (0,)),
+        "temporal_shift": (fn("temporal_shift"), lambda r: (
+            f32(r, 6, 8, 3, 3), 3), {}, (0,)),
+        "temporal_shift_nhwc": (fn("temporal_shift"), lambda r: (
+            f32(r, 6, 3, 3, 8), 3), dict(data_format="NHWC"), (0,)),
+        "gather_tree": (fn("gather_tree"), lambda r: (
+            ints(r, 9, 5, 3, 4), ints(r, 4, 5, 3, 4)), {}, ()),
+    }
+    layers = {
+        "MSELoss": (lambda d: tnn.MSELoss(), 2),
+        "L1Loss": (lambda d: tnn.L1Loss(), 2),
+        "NLLLoss": (lambda d: tnn.NLLLoss(), "nll"),
+        "BCELoss": (lambda d: tnn.BCELoss(), "probs"),
+        "BCEWithLogitsLoss": (lambda d: tnn.BCEWithLogitsLoss(), 2),
+        "KLDivLoss": (lambda d: tnn.KLDivLoss(), "kl"),
+        "SmoothL1Loss": (lambda d: tnn.SmoothL1Loss(), 2),
+        "MarginRankingLoss": (lambda d: tnn.MarginRankingLoss(0.2),
+                              "rank"),
+        "HingeEmbeddingLoss": (lambda d: tnn.HingeEmbeddingLoss(), "hinge"),
+        "CosineEmbeddingLoss": (lambda d: tnn.CosineEmbeddingLoss(),
+                                "cosine"),
+        "CTCLoss": (lambda d: tnn.CTCLoss(), "ctc"),
+        "TripletMarginLoss": (lambda d: tnn.TripletMarginLoss(), 3),
+        "HSigmoidLoss": (lambda d: tnn.HSigmoidLoss(4, 6, device=d),
+                         "hsig"),
+        "GroupNorm": (lambda d: tnn.GroupNorm(2, 4, device=d), "nchw4"),
+        "InstanceNorm1D": (lambda d: tnn.InstanceNorm1D(3, device=d),
+                           "ncl"),
+        "InstanceNorm2D": (lambda d: tnn.InstanceNorm2D(4, device=d),
+                           "nchw4"),
+        "InstanceNorm3D": (lambda d: tnn.InstanceNorm3D(2, device=d),
+                           "ncdhw"),
+        "LocalResponseNorm": (lambda d: tnn.LocalResponseNorm(3), "nchw4"),
+        "SpectralNorm": (lambda d: tnn.SpectralNorm([4, 3, 2], dim=1,
+                                                    power_iters=3,
+                                                    device=d), "w432"),
+        "SyncBatchNorm": (lambda d: tnn.SyncBatchNorm(4, device=d),
+                          "nchw4"),
+        "PairwiseDistance": (lambda d: tnn.PairwiseDistance(), 2),
+        "weight_norm": (lambda d: tnn.weight_norm(tnn.Linear(
+            4, 3, device=d)), "lin"),
+        "spectral_norm": (lambda d: tnn.spectral_norm(tnn.Conv2D(
+            4, 3, 3, device=d), dim=1), "nchw4"),
+        "ParameterList": (lambda d: _ParamProduct(tnn, d), "lin"),
+    }
+    inputs = {
+        2: lambda r: (f32(r, 4, 3), f32(r, 4, 3)),
+        3: lambda r: (f32(r, 5, 3), f32(r, 5, 3), f32(r, 5, 3)),
+        "nll": lambda r: (np.log(probs(r, 6, 4)), ints(r, 4, 6)),
+        "probs": lambda r: (probs(r, 4, 3), probs(r, 4, 3)),
+        "kl": lambda r: (np.log(probs(r, 4, 5)), probs(r, 4, 5)),
+        "rank": lambda r: (f32(r, 6), f32(r, 6), signs(r, 6)),
+        "hinge": lambda r: (f32(r, 4, 3), signs(r, 4, 3)),
+        "cosine": lambda r: (f32(r, 5, 3), f32(r, 5, 3), signs(r, 5)),
+        "ctc": ctc,
+        "hsig": lambda r: hsig(r)[:2],
+        "nchw4": lambda r: (f32(r, 2, 4, 5, 5),),
+        "ncl": lambda r: (f32(r, 2, 3, 6),),
+        "ncdhw": lambda r: (f32(r, 1, 2, 3, 3, 3),),
+        "w432": lambda r: (f32(r, 4, 3, 2),),
+        "lin": lambda r: (f32(r, 5, 4),),
+    }
+    for name, (build, kind) in layers.items():
+        cases[name] = (("layer", build), inputs[kind], {}, (0,))
+    return cases
+
+
+class _ParamProduct(torch.nn.Module):
+    """``x @ p0 @ p1`` over a ``ParameterList``."""
+
+    def __init__(self, tnn, device):
+        super().__init__()
+        gen = torch.Generator().manual_seed(0)
+        self.plist = tnn.ParameterList([torch.nn.Parameter(
+            torch.randn(4, 6, generator=gen).to(device))])
+        self.plist.append(torch.nn.Parameter(
+            torch.randn(6, 2, generator=gen).to(device)))
+
+    def forward(self, x):
+        return x @ self.plist[0] @ self.plist[1]
+
+
+def breadth_call(fn, args, kw, grad, device, layer_state=None):
+    """(first output, gradients of ``grad`` positions) on ``device``;
+    ``fn`` may be ("layer", build(device)). On the card the call and its
+    backward run with synchronizing CUDA calls turned into errors."""
+    targs = [torch.from_numpy(np.array(a)).to(device).requires_grad_(
+        i in grad) if isinstance(a, np.ndarray) else a
+        for i, a in enumerate(args)]
+    state = None
+    if isinstance(fn, tuple):
+        layer = fn[1](device)
+        if layer_state is not None:
+            layer.load_state_dict(layer_state)
+        state = layer.state_dict()
+        fn = layer
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = fn(*targs, **kw)
+        out = out[0] if isinstance(out, (tuple, list)) else out
+        if grad:
+            ct = torch.linspace(0.5, 1.5, out.numel(), device=out.device
+                                ).reshape(out.shape)
+            (out * ct).sum().backward()
+    finally:
+        if cuda:
+            torch.cuda.set_sync_debug_mode(0)
+    grads = [targs[i].grad.cpu() for i in grad]
+    return out.detach().cpu(), grads, state
+
+
+def breadth_phase(dev, tnn, F, static, counted, launches):
+    """20d: every function and layer of the slice on the card against the
+    same call on CPU tensors, and the four static.nn functions through
+    ``Executor.run`` on the card against the CPU's."""
+    worst_v, worst_g, n = 0.0, 0.0, 0
+    _cleared(counted)
+    for name, (fn, build, kw, grad) in breadth_cases(tnn, F).items():
+        args = build(np.random.RandomState(0))
+        cpu, cpu_g, state = breadth_call(fn, args, kw, grad, "cpu")
+        card, card_g, _ = breadth_call(fn, args, kw, grad, dev, state)
+        ok, e = _close_report(card, cpu, *BREADTH_TOL)
+        worst_v = max(worst_v, e)
+        for i, (a, b) in enumerate(zip(card_g, cpu_g)):
+            tol = BREADTH_GRAD_TOL
+            if name == "ctc_loss_infeasible":
+                a, b = a[:, 1:], b[:, 1:]  # the feasible sequences
+                ok2, e = _close_report(card_g[i][:, :1], cpu_g[i][:, :1],
+                                       0.0, CTC_INFEASIBLE_GRAD_ATOL)
+                ok = ok and ok2
+            ok2, e2 = _close_report(a, b, *tol)
+            ok, worst_g = ok and ok2, max(worst_g, e2)
+        if not ok:
+            raise AssertionError(f"20d: {name} on the card is off the CPU's")
+        n += 1
+    got = _read_launches(counted, launches, "nn_breadth")
+    static_err = static_breadth(dev, static)
+    log(f"[20d] {n} functions and layers on the card (under "
+        f"torch.cuda.set_sync_debug_mode('error')) against "
+        f"the CPU: worst value err {worst_v:.3g}, worst grad err "
+        f"{worst_g:.3g} (tols {BREADTH_TOL}, {BREADTH_GRAD_TOL}); "
+        f"static.nn group_norm / instance_norm / spectral_norm / nce through "
+        f"Executor.run: worst err {static_err:.3g}; #5 launches "
+        f"{got['layer_norm_fwd']}")
+    if got["layer_norm_fwd"] < 1 or static_err > BREADTH_TOL[1]:
+        raise AssertionError("20d: F.layer_norm missed #5, or a static.nn "
+                             "function is off the CPU's")
+    return {"cases": n, "worst_value_err": worst_v,
+            "worst_grad_err": worst_g, "static_worst_err": static_err}
+
+
+def _close_report(got, want, rtol, atol):
+    """(within rtol·|want| + atol everywhere, worst |got - want| beyond
+    rtol·|want|)."""
+    excess = (got.double() - want.double()).abs() - rtol * want.double(
+        ).abs()
+    worst = float(excess.max()) if excess.numel() else 0.0
+    return worst <= atol, max(worst, 0.0)
+
+
+def static_breadth(dev, static):
+    """The four static.nn functions of the slice recorded once on the card
+    and once on the CPU (the CPU program's parameters copied over), run
+    through ``Executor.run``: the worst difference."""
+    r = np.random.RandomState(1)
+    feeds = {"x4": r.randn(2, 4, 3, 3).astype(np.float32),
+             "w": r.randn(4, 3, 2).astype(np.float32),
+             "x": r.randn(5, 4).astype(np.float32),
+             "l": r.randint(0, 9, (5, 1)).astype(np.int64)}
+
+    def program(device):
+        main = static.Program()
+        with static.program_guard(main):
+            d = lambda n, s, t: static.data(n, s, t, device=device)  # noqa
+            x4 = d("x4", [None, 4, 3, 3], "float32")
+            outs = [static.nn.group_norm(x4, 2, act="relu"),
+                    static.nn.instance_norm(x4),
+                    static.nn.spectral_norm(d("w", [4, 3, 2], "float32"),
+                                            dim=1, power_iters=3),
+                    static.nn.nce(d("x", [None, 4], "float32"),
+                                  d("l", [None, 1], "int64"), 9,
+                                  num_neg_samples=3, seed=5)]
+        return main, outs
+
+    cpu_prog, cpu_outs = program("cpu")
+    card_prog, card_outs = program(dev)
+    with torch.no_grad():
+        for a, b in zip(card_prog.all_parameters(),
+                        cpu_prog.all_parameters()):
+            a.copy_(b)
+    want = static.Executor(static.CPUPlace()).run(
+        cpu_prog, feed=feeds, fetch_list=cpu_outs)
+    got = static.Executor(static.CUDAPlace(0)).run(
+        card_prog, feed=feeds, fetch_list=card_outs)
+    return max(float(np.abs(np.asarray(g) - np.asarray(w)).max())
+               for g, w in zip(got, want))
+
+
+def nn_slice_phase(dev, counted, launches, smi):
+    """Phase 20: Transformer-base trained and beam-searched, the LSTM and
+    GRU language models, and the breadth of the slice."""
+    from paddle_tpu_torch import amp, static
+    from paddle_tpu_torch import nn as tnn
+    from paddle_tpu_torch.distributed.fleet.engine import ParallelTrainStep
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.ops import fused
+    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.optimizer import lr as lr_mod
+
+    out, seconds = {}, {}
+    t0 = time.perf_counter()
+
+    def lap(name):
+        nonlocal t0
+        seconds[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+    tnn.initializer.seed(20)
+    seed_state = NMTModel(tnn, "cpu", 0.0).state_dict()
+    batch = nmt_batch(torch.Generator(device=dev).manual_seed(20), dev)
+    common = (seed_state, lr_mod, Adam, ParallelTrainStep)
+    out["parity"] = nmt_parity(dev, tnn, fused, batch, *common, counted,
+                               launches)
+    lap("20a_parity")
+    model, out["f32"] = nmt_timed_leg(dev, tnn, fused, amp, batch, *common,
+                                      counted, launches, False, smi)
+    lap("20a_f32")
+    out["beam"] = nmt_beam_phase(dev, tnn, model, batch, counted, launches,
+                                 smi)
+    del model
+    torch.cuda.empty_cache()
+    lap("20b")
+    model, out["bf16"] = nmt_timed_leg(dev, tnn, fused, amp, batch, *common,
+                                       counted, launches, True, smi)
+    del model
+    torch.cuda.empty_cache()
+    lap("20a_bf16")
+    out["lstm"] = rnn_phase(dev, tnn, "LSTM", counted, launches, smi)
+    out["gru"] = rnn_phase(dev, tnn, "GRU", counted, launches, smi)
+    lap("20c")
+    out["breadth"] = breadth_phase(dev, tnn, F, static, counted, launches)
+    torch.cuda.empty_cache()
+    lap("20d")
+    out["seconds"] = seconds
+    log("[20] seconds by part: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in seconds.items()))
+    return out
+
+
+def counted_kernels():
+    """Each kernel's wrapper by its name in the kernels line; each counts
+    its launches in ``.launches``."""
+    from paddle_tpu_torch.experiments import dkv_packed as dkv_mod
+    from paddle_tpu_torch.ops import flash_tpu, fused, tree_reduce
+
+    return {"layer_norm_fwd": fused.fused_layer_norm,
+            "flash_attn_fwd": flash_tpu.flash_attention_blhd,
+            "layer_norm_bwd": fused.layer_norm_bwd,
+            "flash_attn_bwd_dq": flash_tpu.flash_bwd_dq,
+            "flash_attn_bwd_dkv": flash_tpu.flash_bwd_dkv,
+            "adam": fused.fused_adam_step,
+            "flash_attn_fwd_full": flash_tpu.flash_attention_full,
+            "flash_attn_bwd_dq_full": flash_tpu.flash_bwd_dq_full,
+            "flash_attn_bwd_dkv_full": flash_tpu.flash_bwd_dkv_full,
+            "dkv_packed": dkv_mod.dkv_call,
+            "grad_sumsq": fused.grad_global_norm,
+            "adam_check": fused.adam_finite_check,
+            "tree_reduce": tree_reduce.tree_reduce}
+
+
+def card_name():
+    """The card's name and power limit, as nvidia-smi prints them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4337,26 +5379,12 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     ln_fn, flash_fn = fused.fused_layer_norm, flash_tpu.flash_attention_blhd
-    counted = {"layer_norm_fwd": ln_fn, "flash_attn_fwd": flash_fn,
-               "layer_norm_bwd": fused.layer_norm_bwd,
-               "flash_attn_bwd_dq": flash_tpu.flash_bwd_dq,
-               "flash_attn_bwd_dkv": flash_tpu.flash_bwd_dkv,
-               "adam": fused.fused_adam_step,
-               "flash_attn_fwd_full": flash_tpu.flash_attention_full,
-               "flash_attn_bwd_dq_full": flash_tpu.flash_bwd_dq_full,
-               "flash_attn_bwd_dkv_full": flash_tpu.flash_bwd_dkv_full,
-               "dkv_packed": dkv_mod.dkv_call,
-               "grad_sumsq": fused.grad_global_norm,
-               "adam_check": fused.adam_finite_check,
-               "tree_reduce": tree_reduce.tree_reduce}
+    counted = counted_kernels()
     plain = lambda: plain_kernels(gpt_mod, fused, flash_tpu, norm_mod,
                                   bert_mod, attention)
 
     # -- phase 1: the card ---------------------------------------------------
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    smi = card_name()
     log(f"[1] card: {smi}  (torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, {torch.cuda.device_count()} device(s))")
 
@@ -5144,6 +6172,10 @@ def main() -> int:
     log("parameter_surface " + json.dumps(surface))
     torch.cuda.empty_cache()
 
+    # -- phase 20: the rest of nn/ ------------------------------------------
+    nn_slice = nn_slice_phase(dev, counted, launches, smi)
+    log("nn_slice " + json.dumps(nn_slice))
+
     # -- the kernels line and the result --------------------------------------
     def timed(kernel, shape):
         return next(t for t in timings if t["kernel"] == kernel
@@ -5160,7 +6192,9 @@ def main() -> int:
              timed("layer_norm_fwd", list(LN_TIMED[0])),
              ("dense_forward", "training", "bert_training", "longctx",
               "static_gpt", "static_to_static", "predictor_layer",
-              "predictor_export", "serving_spec", "serving_int8")),
+              "predictor_export", "serving_spec", "serving_int8",
+              "nmt_parity", "nmt_f32", "nmt_bf16", "nmt_beam",
+              "nn_breadth")),
             ("flash_attn_fwd", "paddle_tpu_torch/csrc/flash_attn_fwd.cu",
              "paddle_tpu/ops/flash_tpu.py:43",
              timed("flash_attn_fwd", list(GPT_ATTN_SHAPE)),
@@ -5170,7 +6204,8 @@ def main() -> int:
             ("layer_norm_bwd", "paddle_tpu_torch/csrc/layer_norm_bwd.cu",
              "paddle_tpu/ops/fused.py:34",
              timed("layer_norm_bwd", list(LN_TIMED[0])),
-             ("training", "bert_training", "longctx", "static_gpt")),
+             ("training", "bert_training", "longctx", "static_gpt",
+              "nmt_parity", "nmt_f32", "nmt_bf16")),
             ("flash_attn_bwd_dq", "paddle_tpu_torch/csrc/flash_attn_bwd.cu",
              "paddle_tpu/ops/flash_tpu.py:83",
              timed("flash_attn_bwd_dq", [8, 1024, 16, 64]),
@@ -5187,11 +6222,13 @@ def main() -> int:
                 "bert_fingerprint_0", "guard_gpt", "guard_bert",
                 "longctx", "static_gpt", "param_resnet_o2",
                 "param_trainstep_o2", "param_sparse_adam_dense",
-                "param_sparse_adam_sparse", "param_lr")),
+                "param_sparse_adam_sparse", "param_lr", "nmt_parity",
+                "nmt_f32", "nmt_bf16")),
             ("grad_sumsq", "paddle_tpu_torch/csrc/adam.cu",
              "paddle_tpu/nn/clip.py:111", sumsq_t,
              options_paths + ("param_sparse_adam_global_clip_dense",
-                              "param_sparse_adam_global_clip_sparse")),
+                              "param_sparse_adam_global_clip_sparse",
+                              "rnn_lstm", "rnn_gru")),
             ("flash_attn_fwd_full", "paddle_tpu_torch/csrc/flash_attn_fwd.cu",
              "paddle_tpu/ops/attention.py:156",
              timed("flash_attn_fwd_full", bert_attn),
@@ -5229,6 +6266,9 @@ def main() -> int:
                 "static_resnet", "static_gpt", "static_to_static")),
             "launches_predictor": sum(by_phase.get(p, 0) for p in (
                 "predictor_layer", "predictor_export")),
+            "launches_nn_slice": sum(by_phase.get(p, 0) for p in (
+                "nmt_parity", "nmt_f32", "nmt_bf16", "nmt_beam",
+                "rnn_lstm", "rnn_gru", "nn_breadth")),
             "max_abs_err": err[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],

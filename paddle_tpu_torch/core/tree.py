@@ -1,5 +1,5 @@
 """Nested containers of tensors — the slice of ``jax.tree_util`` the
-port's resilience code needs.
+port's resilience code and beam search need.
 
 A tree is a dict, list or tuple of trees, ``None`` (an empty subtree) or
 a leaf (anything else). Dicts are walked in sorted-key order and a leaf's
@@ -55,16 +55,23 @@ def _collect(tree, out: list) -> None:
         out.append(tree)
 
 
-def tree_map(fn: Callable, tree):
-    """``tree`` with every leaf replaced by ``fn(leaf)`` (containers keep
-    their type; dict keys their insertion order)."""
+def tree_map(fn: Callable, tree, *rest):
+    """``tree`` with every leaf replaced by ``fn(leaf, *others)``, where
+    ``others`` are the leaves at the same place in ``rest`` (trees of
+    ``tree``'s structure), as ``jax.tree_util.tree_map`` does. Containers
+    keep their type, namedtuples included; dict keys their insertion
+    order."""
     if tree is None:
         return None
     if isinstance(tree, dict):
-        return type(tree)((k, tree_map(fn, v)) for k, v in tree.items())
+        return type(tree)((k, tree_map(fn, v, *(r[k] for r in rest)))
+                          for k, v in tree.items())
     if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, v) for v in tree)
-    return fn(tree)
+        items = [tree_map(fn, *vs) for vs in zip(tree, *rest)]
+        if hasattr(tree, "_fields"):  # a namedtuple
+            return type(tree)(*items)
+        return type(tree)(items)
+    return fn(tree, *rest)
 
 
 def structure(tree):

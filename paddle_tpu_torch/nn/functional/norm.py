@@ -1,6 +1,17 @@
-"""Batch normalization — counterpart of
-``paddle_tpu.nn.functional.norm.batch_norm`` (``_bn_stats``,
-``_bn_manual``).
+"""Normalizations — counterpart of ``paddle_tpu.nn.functional.norm``:
+``batch_norm`` (``_bn_stats``, ``_bn_manual``), ``layer_norm``,
+``instance_norm``, ``group_norm`` and ``local_response_norm``.
+
+``layer_norm`` over one trailing axis with a weight and a bias is the
+LayerNorm kernel (``ops.fused.fused_layer_norm``: #5 forward, #6
+backward on the card, their plain versions on the CPU), as
+``nn.LayerNorm`` is; any other shape takes the reference's plain
+two-pass path (mean, then the biased variance). ``instance_norm`` and
+``group_norm`` are the reference's two-pass statistics over the spatial
+axes (of each group of channels); ``local_response_norm`` divides by
+``(k + alpha·Σx²)^beta`` over a window of ``size`` channels, as the
+reference does (torch's divides ``alpha`` by ``size``, so it is not
+used).
 
 The reference computes it in XLA, with no Pallas kernel, so plain PyTorch
 is the port: a ``torch.autograd.Function`` that mirrors ``_bn_manual``.
@@ -31,8 +42,10 @@ from typing import Optional, Tuple
 import torch
 
 from ...core.recording import record_opaque
+from ...ops import fused
 
-__all__ = ["batch_norm"]
+__all__ = ["batch_norm", "layer_norm", "instance_norm", "group_norm",
+           "local_response_norm"]
 
 
 def _layout(x: torch.Tensor, data_format: str) -> Tuple[int, tuple, list]:
@@ -113,3 +126,91 @@ def batch_norm(x: torch.Tensor, running_mean: Optional[torch.Tensor],
     if bias is not None:
         out = out + bias.reshape(shape)
     return out
+
+
+def _affine(out: torch.Tensor, weight, bias, shape) -> torch.Tensor:
+    if weight is not None:
+        out = out * weight.reshape(shape)
+    if bias is not None:
+        out = out + bias.reshape(shape)
+    return out
+
+
+def _two_pass(x: torch.Tensor, axes):
+    """``(x − mean, var)`` over ``axes``: the reference's ``jnp.mean``
+    then ``jnp.var`` (biased)."""
+    mean = x.mean(dim=axes, keepdim=True)
+    var = (x - mean).square().mean(dim=axes, keepdim=True)
+    return x - mean, var
+
+
+def layer_norm(x: torch.Tensor, normalized_shape, weight=None, bias=None,
+               epsilon: float = 1e-05, name=None) -> torch.Tensor:
+    """LayerNorm over the trailing ``normalized_shape`` axes. One axis
+    with both a weight and a bias is the LayerNorm kernel
+    (``fused_layer_norm``; its plain version on the CPU); otherwise the
+    two-pass statistics of the reference's XLA path."""
+    shape = ([int(normalized_shape)] if isinstance(normalized_shape, int)
+             else [int(d) for d in normalized_shape])
+    if len(shape) == 1 and weight is not None and bias is not None:
+        return fused.fused_layer_norm(x, weight, bias, epsilon)
+    axes = tuple(range(x.dim() - len(shape), x.dim()))
+    centred, var = _two_pass(x, axes)
+    return _affine(centred * torch.rsqrt(var + epsilon), weight, bias,
+                   shape)
+
+
+def instance_norm(x: torch.Tensor, running_mean=None, running_var=None,
+                  weight=None, bias=None, use_input_stats: bool = True,
+                  momentum: float = 0.9, eps: float = 1e-05,
+                  data_format: str = "NCHW", name=None) -> torch.Tensor:
+    """Each sample's channels normalised over their spatial axes (the
+    reference reads neither the running statistics nor
+    ``use_input_stats``), then the per-channel affine."""
+    ch = 1 if data_format.startswith("NC") else x.dim() - 1
+    axes = (tuple(range(2, x.dim())) if ch == 1
+            else tuple(range(1, x.dim() - 1)))
+    centred, var = _two_pass(x, axes)
+    shape = [1] * x.dim()
+    shape[ch] = x.shape[ch]
+    return _affine(centred * torch.rsqrt(var + eps), weight, bias, shape)
+
+
+def group_norm(x: torch.Tensor, num_groups: int, epsilon: float = 1e-05,
+               weight=None, bias=None, data_format: str = "NCHW",
+               name=None) -> torch.Tensor:
+    """Each sample's channels in ``num_groups`` groups, each group
+    normalised over its channels and spatial axes, then the per-channel
+    affine; ``NHWC``-style formats are moved to channels-first and
+    back."""
+    last = not data_format.startswith("NC")
+    a = x.movedim(-1, 1) if last else x
+    c = a.shape[1]
+    # the batch stays -1 and the way back is reshape_as: a recorded
+    # program replays them at the fed batch size
+    g = a.reshape(-1, num_groups, c // num_groups, *a.shape[2:])
+    centred, var = _two_pass(g, tuple(range(2, g.dim())))
+    out = (centred * torch.rsqrt(var + epsilon)).reshape_as(a)
+    shape = [1] * a.dim()
+    shape[1] = c
+    out = _affine(out, weight, bias, shape)
+    return out.movedim(1, -1) if last else out
+
+
+def local_response_norm(x: torch.Tensor, size: int, alpha: float = 1e-4,
+                        beta: float = 0.75, k: float = 1.0,
+                        data_format: str = "NCHW", name=None
+                        ) -> torch.Tensor:
+    """``x / (k + alpha·Σ_window x²)^beta``, the window ``size`` channels
+    wide (``size // 2`` before the channel, the rest after it, zeros past
+    the ends)."""
+    last = not data_format.startswith("NC")
+    a = x.movedim(-1, 1) if last else x
+    c, half = a.shape[1], size // 2
+    pad = [0, 0] * (a.dim() - 2) + [half, size - half - 1]
+    sq = torch.nn.functional.pad(a * a, pad)
+    acc = torch.zeros_like(a)
+    for i in range(size):
+        acc = acc + sq.narrow(1, i, c)
+    out = a / (k + alpha * acc) ** beta
+    return out.movedim(1, -1) if last else out

@@ -1,17 +1,20 @@
+from . import (activation, common, container, decode, distance, loss, norm,
+               pooling, rnn, transformer)
 from .activation import *  # noqa: F401,F403
-from .activation import __all__ as _activation_all
 from .common import *  # noqa: F401,F403
-from .common import __all__ as _common_all
-from .container import LayerDict, LayerList, Sequential
+from .container import *  # noqa: F401,F403
 from .conv import (Conv1D, Conv1DTranspose, Conv2D, Conv2DTranspose, Conv3D,
                    Conv3DTranspose)
-from .loss import CrossEntropyLoss
-from .norm import BatchNorm, BatchNorm1D, BatchNorm2D, BatchNorm3D, LayerNorm
+from .decode import *  # noqa: F401,F403
+from .distance import *  # noqa: F401,F403
+from .loss import *  # noqa: F401,F403
+from .norm import *  # noqa: F401,F403
 from .pooling import *  # noqa: F401,F403
-from .pooling import __all__ as _pooling_all
+from .rnn import *  # noqa: F401,F403
+from .transformer import *  # noqa: F401,F403
 
-__all__ = ["CrossEntropyLoss", "LayerNorm", "Sequential", "LayerList",
-           "LayerDict", "Conv1D", "Conv2D", "Conv3D", "Conv1DTranspose",
-           "Conv2DTranspose", "Conv3DTranspose", "BatchNorm", "BatchNorm1D",
-           "BatchNorm2D", "BatchNorm3D", *_common_all, *_activation_all,
-           *_pooling_all]
+__all__ = ["Conv1D", "Conv2D", "Conv3D", "Conv1DTranspose",
+           "Conv2DTranspose", "Conv3DTranspose", *activation.__all__,
+           *common.__all__, *container.__all__, *decode.__all__,
+           *distance.__all__, *loss.__all__, *norm.__all__,
+           *pooling.__all__, *rnn.__all__, *transformer.__all__]

@@ -1,6 +1,7 @@
 """Container layers — counterpart of ``paddle_tpu.nn.layer.container``:
-``Sequential``, ``LayerList`` and ``LayerDict`` over torch's
-``nn.Sequential``, ``nn.ModuleList`` and ``nn.ModuleDict``.
+``Sequential``, ``LayerList``, ``LayerDict`` and ``ParameterList`` over
+torch's ``nn.Sequential``, ``nn.ModuleList``, ``nn.ModuleDict`` and
+``nn.ParameterList``.
 
 Children are named ``"0"``, ``"1"``, … (or by the names given), so
 parameters come out named as the reference's do (``features.0.weight``,
@@ -11,7 +12,7 @@ import collections
 
 from torch import nn
 
-__all__ = ["Sequential", "LayerList", "LayerDict"]
+__all__ = ["Sequential", "LayerList", "LayerDict", "ParameterList"]
 
 
 class Sequential(nn.Sequential):
@@ -44,3 +45,11 @@ class LayerDict(nn.ModuleDict):
 
     def __init__(self, sublayers=None):
         super().__init__(sublayers)
+
+
+class ParameterList(nn.ParameterList):
+    """A list of parameters named ``"0"``, ``"1"``, … (``append``,
+    indexing, iteration)."""
+
+    def __init__(self, parameters=None):
+        super().__init__(parameters)

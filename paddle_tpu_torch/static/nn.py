@@ -8,13 +8,16 @@ input's device, then calls the port's functional op, so inside
 at their first use. Ported: ``fc``, ``conv2d``, ``conv2d_transpose``,
 ``conv3d``, ``conv3d_transpose``, ``batch_norm``, ``embedding``,
 ``sparse_embedding``, ``row_conv``,
-``layer_norm``, ``prelu``, ``create_parameter``, ``data_norm``,
-``py_func``, ``bilinear_tensor_product``, ``conv_shift`` and the
-control-flow re-exports. The others need functions the port lacks and
+``layer_norm``, ``group_norm``, ``instance_norm``, ``spectral_norm``,
+``nce``, ``prelu``, ``create_parameter``, ``data_norm``, ``py_func``,
+``bilinear_tensor_product``, ``conv_shift`` and the control-flow
+re-exports. The others need functions the port lacks and
 raise ``NotImplementedError`` naming what they wait for.
 
 ``batch_norm`` updates fresh running statistics once, at record time, and
-not at replay, as the reference's does; ``data_norm``'s summaries persist
+not at replay, as the reference's does; ``nce`` draws its negative
+classes once, at build time, from ``np.random.RandomState(seed)``, as the
+reference does, so one seed gives both packages the same negatives; ``data_norm``'s summaries persist
 across runs through ``Program.buffer_updates`` (committed after each
 optimized run).
 """
@@ -37,6 +40,7 @@ from .program import convert_dtype, current_program, set_param_name
 
 __all__ = ["fc", "conv2d", "conv2d_transpose", "conv3d", "conv3d_transpose",
            "batch_norm", "embedding", "sparse_embedding", "layer_norm",
+           "group_norm", "instance_norm", "spectral_norm", "nce",
            "prelu", "row_conv",
            "create_parameter", "data_norm", "py_func",
            "bilinear_tensor_product", "conv_shift", "cond", "case",
@@ -45,13 +49,8 @@ __all__ = ["fc", "conv2d", "conv2d_transpose", "conv3d", "conv3d_transpose",
 # static.nn functions that wait for a module the port lacks (ROADMAP
 # Queue 1) -> what they wait for
 _NOT_PORTED = {
-    "group_norm": "nn/functional/norm.py's group_norm (Queue 1 item 5.3)",
-    "instance_norm": "nn/functional/norm.py's instance_norm (Queue 1 item "
-                     "5.3)",
-    "spectral_norm": "the spectral norm of nn/ (Queue 1 item 5.3)",
     "deform_conv2d": "vision/ops.py (Queue 1 item 5.5)",
     "multi_box_head": "vision/ops.py's prior_box (Queue 1 item 5.5)",
-    "nce": "the sampled losses of nn/ (Queue 1 item 5.3)",
     "sequence_conv": "tensor/sequence.py (Queue 1 item 5.4)",
     "sequence_reshape": "tensor/sequence.py (Queue 1 item 5.4)",
     "sequence_scatter": "tensor/sequence.py (Queue 1 item 5.4)",
@@ -269,6 +268,82 @@ def layer_norm(input, scale=True, shift=True, begin_norm_axis=1,
     if x is not input:
         out = out.view_as(input)
     return _act(out, act)
+
+
+def group_norm(input, groups, epsilon=1e-05, param_attr=None,
+               bias_attr=None, act=None, data_layout="NCHW", name=None):
+    """``F.group_norm`` with a fresh [C] scale (ones unless
+    ``param_attr``) and bias."""
+    c = input.shape[1 if data_layout.startswith("NC") else -1]
+    w = _make_scale_param([c], param_attr, 1.0, input.device)
+    b = _make_param([c], bias_attr, True, device=input.device)
+    out = F.group_norm(input, groups, epsilon=epsilon, weight=w, bias=b,
+                       data_format=data_layout)
+    return _act(out, act)
+
+
+def instance_norm(input, epsilon=1e-05, param_attr=None, bias_attr=None,
+                  name=None):
+    """``F.instance_norm`` of NC... input with a fresh [C] scale and
+    bias."""
+    c = input.shape[1]
+    w = _make_scale_param([c], param_attr, 1.0, input.device)
+    b = _make_param([c], bias_attr, True, device=input.device)
+    return F.instance_norm(input, weight=w, bias=b, eps=epsilon)
+
+
+def spectral_norm(weight, dim=0, power_iters=1, eps=1e-12, name=None):
+    """``weight / max(σ, eps)``, σ estimated by ``power_iters`` (at least
+    one) rounds of power iteration from a u of ones, fresh at every call
+    (the op form; the layer with stored u and v is
+    ``nn.SpectralNorm``)."""
+    mat = weight.movedim(dim, 0).reshape(weight.shape[dim], -1)
+    u = torch.ones(mat.shape[0], dtype=weight.dtype, device=weight.device)
+    for _ in range(max(1, int(power_iters))):
+        v = mat.t() @ u
+        v = v / torch.linalg.vector_norm(v).clamp(min=eps)
+        u = mat @ v
+        u = u / torch.linalg.vector_norm(u).clamp(min=eps)
+    sigma = u @ (mat @ v)
+    return weight / sigma.clamp(min=eps)
+
+
+def nce(input, label, num_total_classes, sample_weight=None, param_attr=None,
+        bias_attr=None, num_neg_samples=10, name=None, sampler="uniform",
+        custom_dist=None, seed=0, is_sparse=False):
+    """Noise-contrastive estimation [N, 1]: weight [num_total_classes, D]
+    and bias [num_total_classes]; each sample's positive class and the
+    ``num_neg_samples`` negatives (drawn at build time by ``sampler``
+    from ``np.random.RandomState(seed)``, shared by the batch) feed a
+    logistic loss. ``sample_weight`` and ``is_sparse`` are taken and not
+    used, as in the reference."""
+    d = int(input.shape[-1])
+    w = _make_param([num_total_classes, d], param_attr, False,
+                    device=input.device)
+    b = _make_param([num_total_classes], bias_attr, True,
+                    device=input.device)
+    rng = np.random.RandomState(seed or 0)
+    if sampler == "uniform":
+        negs = rng.randint(0, num_total_classes, num_neg_samples)
+    elif sampler == "log_uniform":
+        p = 1.0 / (np.arange(num_total_classes) + 1.0)
+        negs = rng.choice(num_total_classes, num_neg_samples, p=p / p.sum())
+    elif sampler == "custom_dist":
+        negs = rng.choice(num_total_classes, num_neg_samples,
+                          p=np.asarray(custom_dist))
+    else:
+        raise ValueError(f"unknown sampler {sampler!r}")
+    negs = torch.as_tensor(negs.astype(np.int64), device=input.device)
+    lbl = label.reshape(-1).long()
+    s_pos = (input * w[lbl]).sum(-1)
+    s_neg = input @ w[negs].t()
+    if b is not None:
+        s_pos = s_pos + b[lbl]
+        s_neg = s_neg + b[negs][None, :]
+    zero = torch.zeros((), dtype=input.dtype, device=input.device)
+    loss = (torch.logaddexp(zero, -s_pos)
+            + torch.logaddexp(zero, s_neg).sum(-1))
+    return loss[:, None]
 
 
 def prelu(x, mode, param_attr=None, data_format="NCHW", name=None):

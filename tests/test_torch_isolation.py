@@ -69,7 +69,10 @@ def test_package_has_the_slice_modules():
                 "static.nn", "nn.param_attr", "nn.initializer",
                 "jit.dy2static", "inference", "inference._export",
                 "inference.serving.scheduler", "quant",
-                "core.selected_rows", "nn.functional.common"):
+                "core.selected_rows", "nn.functional.common",
+                "nn.functional.vision", "nn.layer.rnn",
+                "nn.layer.transformer", "nn.layer.decode",
+                "nn.layer.distance", "nn.utils"):
         assert "paddle_tpu_torch." + mod in names
 
 
@@ -270,3 +273,24 @@ def test_serving_entry_points_without_device_raise_on_a_cuda_less_machine(
         bench.main(["serving"])
     with pytest.raises(RuntimeError, match="CUDA"):
         bench.main(["decode"])
+
+
+def test_nn_layers_without_device_raise_on_a_cuda_less_machine(no_cuda):
+    """The layers of the rest of nn/ that hold parameters make them on the
+    card unless told otherwise."""
+    from paddle_tpu_torch import nn
+
+    for make in (lambda: nn.Transformer(32, 4, 1, 1, 64),
+                 lambda: nn.MultiHeadAttention(32, 4),
+                 lambda: nn.TransformerEncoderLayer(32, 4, 64),
+                 lambda: nn.TransformerDecoderLayer(32, 4, 64),
+                 lambda: nn.LSTM(4, 8), lambda: nn.GRU(4, 8),
+                 lambda: nn.SimpleRNN(4, 8), lambda: nn.LSTMCell(4, 8),
+                 lambda: nn.GRUCell(4, 8), lambda: nn.SimpleRNNCell(4, 8),
+                 lambda: nn.GroupNorm(2, 4), lambda: nn.InstanceNorm2D(4),
+                 lambda: nn.SpectralNorm([4, 3]),
+                 lambda: nn.SyncBatchNorm(4),
+                 lambda: nn.HSigmoidLoss(4, 6)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make()
+    assert nn.LSTM(4, 8, device="cpu").weight_ih_l0.device.type == "cpu"

@@ -532,8 +532,8 @@ def test_placement_and_what_is_not_ported(tmp_path):
         static.save_inference_model(prefix, [out2], [out2], program=served)
     with pytest.raises(NotImplementedError, match="io/data_feed.py"):
         static.Executor(static.CPUPlace()).train_from_dataset(main)
-    with pytest.raises(NotImplementedError, match="group_norm"):
-        static.nn.group_norm(x, 2)
+    with pytest.raises(NotImplementedError, match="tensor/sequence.py"):
+        static.nn.sequence_conv(x, 2)
     with pytest.raises(ValueError, match="parameters is required"):
         toptim.SGD(0.1)
 
@@ -598,6 +598,24 @@ def _nn_cases():
         "create_parameter": (lambda P, st, d: [
             d("x", [None, 3], "float32") @ _param(st, [3, 2])],
             {"x": f32(4, 3)}),
+        "group_norm": (lambda P, st, d: [st.nn.group_norm(
+            d("x", [None, 4, 3, 3], "float32"), 2, act="relu")],
+            {"x": f32(2, 4, 3, 3)}),
+        "instance_norm": (lambda P, st, d: [st.nn.instance_norm(
+            d("x", [None, 3, 4, 4], "float32"))], {"x": f32(2, 3, 4, 4)}),
+        "spectral_norm": (lambda P, st, d: [st.nn.spectral_norm(
+            d("w", [4, 3, 2], "float32"), dim=1, power_iters=3)],
+            {"w": f32(4, 3, 2)}),
+        "nce": (lambda P, st, d: [st.nn.nce(
+            d("x", [None, 4], "float32"), d("l", [None, 1], "int64"), 9,
+            num_neg_samples=3, seed=5)],
+            {"x": f32(5, 4), "l": rng.randint(0, 9, (5, 1)).astype(
+                np.int64)}),
+        "nce_log_uniform": (lambda P, st, d: [st.nn.nce(
+            d("x", [None, 4], "float32"), d("l", [None, 1], "int64"), 9,
+            num_neg_samples=4, sampler="log_uniform", seed=2)],
+            {"x": f32(5, 4), "l": rng.randint(0, 9, (5, 1)).astype(
+                np.int64)}),
     }
 
 
