@@ -261,8 +261,29 @@ failing on the first phase that fails:
     calls turned into errors, against the same call on CPU tensors, and
     the four ``static.nn`` functions of the slice through
     ``Executor.run``.
+21. the tensor API: 21a runs every case of ``tests/torch_tensor_cases.py``
+    (each function of ``paddle_tpu_torch.tensor``, with its gradient where
+    the reference differentiates it) on the card, creation on the current
+    device "gpu:0", against the same case on the CPU, with synchronizing
+    calls turned into errors but for the listed data-dependent cases (and
+    the linalg cases whose cuSOLVER status torch reads back, which it
+    prints), then the static sequence functions through ``Executor.run``;
+    21b trains GPT-2 345M at phase 8's shape through the top-level API
+    (``paddle.seed``, ``paddle.randint``, O2 bf16 with Adam's f32
+    masters, ``loss.backward()``, ``opt.step()``, ``opt.clear_grad()``):
+    step 1's loss against phase 8's ``ParallelTrainStep`` on the same
+    weights and batch, 10 timed steps (tokens/s, step p50, device time, busy
+    share, peak memory, each beside phase 8's), the launch counts of #1-#3
+    and #5-#7, an accuracy from ``argmax`` / ``equal`` / ``mean``; 21c
+    samples 16 tokens (top-k 40: ``topk``, ``softmax``, ``multinomial``,
+    ``concat``) and, after ``set_cuda_rng_state`` back to the saved state,
+    the same 16 again; 21d holds third-order gradients, the WGAN-GP
+    penalty's gradient on a 1024-4096-1024 GELU MLP at batch 8192 and a
+    straight-through ``PyLayer`` against the CPU (or its plain function),
+    and checks that a backward with ``create_graph=True`` through #5 and #1
+    raises.
 
-Every kernel's launch count is set to 0 before each of phases 4-20 and
+Every kernel's launch count is set to 0 before each of phases 4-21 and
 read after it. The last two lines are a ``{"kernels": [...]}`` JSON
 object and ``{"ok": true, "device": {...}}``.
 """
@@ -1044,7 +1065,7 @@ def profile_training(step, ids, labels, n_layers):
     if busy_us <= 0:
         log("[8] profile: the profiler saw no device time (device busy "
             "share not measured)")
-        return
+        return None
     log(f"[8] profile (2 steps): wall {wall_us / 1e3:.1f} ms, device busy "
         f"{busy_us / 1e3:.1f} ms, busy share {busy_us / wall_us:.4f}")
     for e in sorted(kernels, key=dev_us, reverse=True)[:12]:
@@ -1052,6 +1073,8 @@ def profile_training(step, ids, labels, n_layers):
             f"{e.key[:90]}")
     check_attention_in_profile(kernels, 8, 2 * n_layers)
     check_layer_norm_in_profile(kernels, 8, 2 * (2 * n_layers + 1))
+    return {"device_ms_per_step": busy_us / 1e3 / 2,
+            "busy_share": busy_us / wall_us}
 
 
 def attn_operands(rnd, shape, dtype, fused_qkv=False):
@@ -5318,6 +5341,461 @@ def nn_slice_phase(dev, counted, launches, smi):
     return out
 
 
+# --- phase 21: the tensor API ----------------------------------------------------
+# 21a: every function of the tensor namespace on the card against the same
+# call on CPU tensors, each case's own tolerance (tests/torch_tensor_cases.py)
+# loosened to this floor for the card's other summation orders and
+# transcendental approximations (max |card - cpu| <= atol + rtol·|cpu|)
+TENSOR_CARD_TOL = (1e-4, 1e-5)
+# torch's lstsq on CUDA has the 'gels' driver only, which returns no
+# residuals, rank or singular values: the solution alone is compared
+SOLUTION_ONLY_ON_CARD = {"lstsq"}
+# 21b: GPT-2 345M trained through the top-level API, as phase 8's shape
+TENSOR_PATH_STEPS = 10
+# step 1's loss against phase 8's ParallelTrainStep on the same weights and
+# batch: the same bf16 ops if the engine's casts give the same bf16 weights;
+# else within a few bf16 roundings of the mean loss (2^-7 relative)
+TENSOR_PATH_LOSS_RTOL = 2.0 ** -7
+# 21c: top-k sampling from the trained model
+SAMPLE_PROMPT, SAMPLE_TOKENS, SAMPLE_TOP_K = 32, 16, 40
+# 21d: WGAN-GP (Gulrajani et al. 2017) on a 1024-4096-1024 GELU MLP critic
+GP_LAMBDA, GP_BATCH, GP_WIDTHS = 10.0, 8192, (1024, 4096, 1024)
+# the penalty's gradient, f32 with TF32 off, card against CPU: each tensor
+# within this share of its largest magnitude (sums over 8192 samples in
+# other orders, through a second derivative)
+GP_GRAD_REL_TOL = 1e-4
+STE_SHAPE = (8, 1024, 4096)
+
+
+def _tensor_cases():
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    import torch_tensor_cases as tc
+
+    return tc
+
+
+def _card_guard(tc, synced):
+    """A context that turns a synchronizing CUDA call into an error, except
+    for the cases allowed to sync; a case that raised is noted in
+    ``synced`` (and rerun without the guard)."""
+
+    @contextlib.contextmanager
+    def guard(name):
+        if name in tc.SYNCS or name in synced:
+            yield
+            return
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            yield
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    return guard
+
+
+def tensor_breadth(dev):
+    """21a: each case of the tensor namespace on the card (creation on the
+    current device "gpu:0") against the CPU's, under
+    ``set_sync_debug_mode("error")`` but for ``SYNCS``; then the static
+    sequence functions through ``Executor.run``."""
+    import paddle_tpu_torch as P
+
+    tc = _tensor_cases()
+    synced, failed, worst_v, worst_g, n = set(), [], 0.0, 0.0, 0
+    guard = _card_guard(tc, synced)
+    for name, case in tc.all_cases().items():
+        P.set_device("cpu")
+        want = tc.run(name, case, tc.PortAdapter(P.tensor, "cpu"))
+        P.set_device("gpu:0")
+        card = tc.PortAdapter(P.tensor, dev)
+        try:
+            got = tc.run(name, case, card, guard=guard)
+        except RuntimeError as e:
+            if "synchroniz" not in str(e):
+                raise
+            synced.add(name)
+            torch.cuda.set_sync_debug_mode(0)
+            got = tc.run(name, case, card, guard=guard)
+        try:
+            if case.kind == "random":
+                tc.compare_random(name, got[0])
+                tc.compare_random(name, want[0])
+            else:
+                if name in SOLUTION_ONLY_ON_CARD:
+                    got, want = (got[0][:1], got[1]), (want[0][:1],
+                                                       want[1])
+                tol = tuple(max(a, b) for a, b in zip(case.tol,
+                                                       TENSOR_CARD_TOL))
+                v, g = tc.compare(name, case._replace(tol=tol), got, want)
+                worst_v, worst_g = max(worst_v, v), max(worst_g, g)
+        except AssertionError as e:
+            failed.append(str(e))
+        n += 1
+    P.set_device("gpu:0")
+    unexpected = synced - tc.TORCH_SYNCS
+    if failed or unexpected:
+        raise AssertionError(
+            f"21a: {len(failed)} cases are off the CPU's: "
+            + "; ".join(failed) + f"; unexpected syncs: {sorted(unexpected)}"
+            + f"; all syncs: {sorted(synced)}")
+    log(f"[21a] {n} cases of the tensor namespace on the card against the "
+        f"CPU: worst excess of |card - cpu| over rtol·|cpu|: values "
+        f"{worst_v:.3g}, gradients {worst_g:.3g} (within atol: each case's "
+        f"tolerance, at least {TENSOR_CARD_TOL}); "
+        f"{len(tc.SYNCS)} cases may sync (data-dependent sizes, host "
+        f"reads); cases whose torch implementation synced (cuSOLVER "
+        f"status): {sorted(synced)}")
+    if unexpected:
+        raise AssertionError(f"21a: these cases synchronized with the card "
+                             f"under set_sync_debug_mode('error'): "
+                             f"{sorted(unexpected)}")
+    static_err = static_sequence_breadth(dev)
+    log(f"[21a] static.nn.sequence_* through Executor.run on the card "
+        f"against the CPU: worst err {static_err:.3g}")
+    if static_err > TENSOR_CARD_TOL[0]:
+        raise AssertionError("21a: a static.nn sequence function is off the "
+                             "CPU's")
+    return {"cases": n, "worst_value_err": worst_v,
+            "worst_grad_err": worst_g, "may_sync": len(tc.SYNCS),
+            "torch_synced": sorted(synced),
+            "static_sequence_worst_err": static_err}
+
+
+def static_sequence_breadth(dev):
+    """The static sequence functions recorded on the card and on the CPU
+    (the CPU program's parameters copied over), run through
+    ``Executor.run`` at a batch other than the record time's: the worst
+    difference."""
+    from paddle_tpu_torch import static
+
+    r = np.random.RandomState(2)
+    feeds = {"x": r.randn(4, 5, 2).astype(np.float32),
+             "n": np.array([3, 1, 5, 4], np.int64),
+             "i": np.array([[0, 4], [1, 1], [2, 3], [4, 0]], np.int64),
+             "u": r.randn(4, 2, 2).astype(np.float32)}
+
+    def program(device):
+        main = static.Program()
+        with static.program_guard(main):
+            d = lambda n, s, t: static.data(n, s, t, device=device)  # noqa
+            x, n = d("x", [None, 5, 2], "float32"), d("n", [None], "int64")
+            nn = static.nn
+            outs = [nn.sequence_conv(x, 3, filter_size=3, act="relu"),
+                    nn.sequence_reshape(x, 5),
+                    nn.sequence_scatter(x, d("i", [None, 2], "int64"),
+                                        d("u", [None, 2, 2], "float32")),
+                    nn.sequence_pool(x, "max", n),
+                    nn.sequence_pool(x, "sqrt", n),
+                    nn.sequence_last_step(x, n),
+                    nn.sequence_softmax(x, n), nn.sequence_reverse(x, n),
+                    nn.sequence_enumerate(x[..., 0], 2, lengths=n)]
+        return main, outs
+
+    cpu_prog, cpu_outs = program("cpu")
+    card_prog, card_outs = program(dev)
+    with torch.no_grad():
+        for a, b in zip(card_prog.all_parameters(),
+                        cpu_prog.all_parameters()):
+            a.copy_(b)
+    want = static.Executor(static.CPUPlace()).run(
+        cpu_prog, feed=feeds, fetch_list=cpu_outs)
+    got = static.Executor(static.CUDAPlace(0)).run(
+        card_prog, feed=feeds, fetch_list=card_outs)
+    return max(float(np.abs(np.asarray(g) - np.asarray(w)).max())
+               for g, w in zip(got, want))
+
+
+def _engine_step1_loss(gpt_mod, ids, labels):
+    """Phase 8's first step (ParallelTrainStep, bf16 compute over f32
+    masters) from the seed-4 weights on this batch."""
+    from paddle_tpu_torch.distributed.fleet.engine import ParallelTrainStep
+    from paddle_tpu_torch.optimizer import Adam
+
+    cfg = gpt_mod.gpt2_medium(hidden_dropout=0.0, attention_dropout=0.0)
+    model = gpt_mod.GPTForCausalLM(cfg, dtype=torch.float32, seed=4)
+    opt = Adam(TRAIN_LR, parameters=model.parameters(), multi_precision=True)
+    step = ParallelTrainStep(model, lambda out, lbl: out, opt,
+                             compute_dtype=torch.bfloat16)
+    loss = step((ids, labels), (labels,)).detach().float().cpu()
+    del step, model, opt
+    torch.cuda.empty_cache()
+    return loss
+
+
+def tensor_path(dev, counted, launches, phase8, smi):
+    """21b: GPT-2 345M at bench.py's shape trained as a reference user
+    writes the loop: ``paddle.seed``, the batch from ``paddle.randint``,
+    O2 bf16 with Adam's f32 masters, ``loss.backward()``, ``opt.step()``,
+    ``opt.clear_grad()``; an accuracy from argmax / equal / mean."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.text.models import gpt as gpt_mod
+
+    paddle.set_device("gpu:0")
+    paddle.seed(21)
+    cfg = gpt_mod.gpt2_medium(hidden_dropout=0.0, attention_dropout=0.0)
+    ids = paddle.randint(0, cfg.vocab_size, list(TRAIN_SHAPE))
+    labels = paddle.roll(ids, -1, axis=1)
+    ref_loss = _engine_step1_loss(gpt_mod, ids, labels)
+
+    model = gpt_mod.GPTForCausalLM(cfg, dtype=torch.float32, seed=4)
+    opt = paddle.optimizer.Adam(TRAIN_LR, parameters=model.parameters(),
+                                multi_precision=True)
+    model = paddle.amp.decorate(model, level="O2", dtype="bfloat16")
+
+    def train_step(ids, labels):
+        with paddle.amp.auto_cast(level="O2", dtype="bfloat16"):
+            loss = model(ids, labels)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss.detach()
+
+    first = train_step(ids, labels).float().cpu()
+    same_bits = bool(torch.equal(first, ref_loss))
+    rel = float((first - ref_loss).abs() / ref_loss.abs())
+    log(f"[21b] step 1's loss {float(first):.6f} against phase 8's "
+        f"ParallelTrainStep on the same weights and batch "
+        f"{float(ref_loss):.6f}: same bits {same_bits}, relative diff "
+        f"{rel:.3g} (tol {TENSOR_PATH_LOSS_RTOL:.3g})")
+    if rel > TENSOR_PATH_LOSS_RTOL:
+        raise AssertionError("21b: step 1's loss is off phase 8's")
+    for _ in range(2):
+        train_step(ids, labels)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _cleared(counted)
+    losses, step_ms, wall = timed_steps(train_step, (ids, labels),
+                                        TENSOR_PATH_STEPS)
+    got = _read_launches(counted, launches, "tensor_path")
+    peak = torch.cuda.max_memory_allocated()
+    n = TENSOR_PATH_STEPS
+    n_ln = 2 * cfg.num_layers + 1
+    want = {"layer_norm_fwd": n_ln * n, "layer_norm_bwd": 2 * n_ln * n,
+            "flash_attn_fwd": cfg.num_layers * n,
+            "flash_attn_bwd_dq": cfg.num_layers * n,
+            "flash_attn_bwd_dkv": cfg.num_layers * n, "adam": 2 * n}
+    if any(got[k] != want[k] for k in want):
+        raise AssertionError(f"21b launched {got}, expected {want}")
+    prof = profile_step("21b", train_step, (ids, labels))
+    with torch.no_grad(), paddle.amp.auto_cast(level="O2", dtype="bfloat16"):
+        logits = model(ids)
+        acc = paddle.mean(paddle.cast(paddle.equal(
+            paddle.argmax(logits, axis=-1), labels), "float32"))
+    losses = [float(x) for x in [first] + losses]
+    out = {"tokens_per_s": TRAIN_SHAPE[0] * TRAIN_SHAPE[1] * n / wall,
+           "step_ms_p50": step_ms[n // 2], "step_ms_min": step_ms[0],
+           "step_ms_max": step_ms[-1],
+           "device_ms_per_step": prof["device_ms_per_step"],
+           "busy_share": prof["busy_share"], "peak_memory_bytes": peak,
+           "losses": losses, "accuracy": float(acc),
+           "step1_loss": float(first), "step1_loss_phase8": float(ref_loss),
+           "step1_same_bits": same_bits, "step1_rel_diff": rel,
+           "launches": got, "card": smi}
+    p8 = phase8.get("profile") or {}
+    log(f"[21b] GPT-2 345M through the top-level API at {TRAIN_SHAPE}: "
+        f"{out['tokens_per_s']:.1f} tokens/s (phase 8 "
+        f"{phase8['tokens_per_s']:.1f}), step p50 {out['step_ms_p50']:.2f} "
+        f"ms (phase 8 {phase8['step_ms_p50']:.2f}), device "
+        f"{out['device_ms_per_step']:.2f} ms a step (phase 8 "
+        f"{p8.get('device_ms_per_step', float('nan')):.2f}), busy share "
+        f"{out['busy_share']:.4f} (phase 8 "
+        f"{p8.get('busy_share', float('nan')):.4f}), peak memory "
+        f"{peak / 2**30:.2f} GiB (phase 8 "
+        f"{phase8['peak_memory_bytes'] / 2**30:.2f}); loss {losses[0]:.4f} "
+        f"-> {losses[-1]:.4f}, accuracy {out['accuracy']:.4f}; launches "
+        f"{got}")
+    if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]:
+        raise AssertionError(f"21b: the loss did not fall: {losses}")
+    return model, ids, out
+
+
+def sample_tokens(paddle, F, model, prompt):
+    """SAMPLE_TOKENS tokens of top-k sampling, one full forward a token."""
+    seq = prompt
+    with torch.no_grad(), paddle.amp.auto_cast(level="O2", dtype="bfloat16"):
+        for _ in range(SAMPLE_TOKENS):
+            logits = model(seq)[:, -1, :].float()
+            vals, idx = paddle.topk(logits, SAMPLE_TOP_K)
+            probs = F.softmax(vals, axis=-1)
+            pick = paddle.multinomial(probs, 1)
+            seq = paddle.concat([seq, paddle.index_sample(idx, pick)],
+                                axis=1)
+    return seq[:, prompt.shape[1]:]
+
+
+def sampling_phase(model, ids):
+    """21c: 16 tokens sampled from the trained model, then the card's
+    random state set back to the one read before the draw and the same 16
+    tokens again."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.nn import functional as F
+
+    prompt = ids[:2, :SAMPLE_PROMPT]
+    state = paddle.get_cuda_rng_state()
+    first = sample_tokens(paddle, F, model, prompt)
+    paddle.set_cuda_rng_state(state)
+    again = sample_tokens(paddle, F, model, prompt)
+    other = sample_tokens(paddle, F, model, prompt)
+    same = bool(torch.equal(first, again))
+    log(f"[21c] top-{SAMPLE_TOP_K} sampling, {SAMPLE_TOKENS} tokens x "
+        f"{prompt.shape[0]} rows: {first.tolist()}; replayed from the saved "
+        f"state: same {same}; a third draw (state moved on) differs: "
+        f"{not torch.equal(first, other)}")
+    if not same or first.shape != (prompt.shape[0], SAMPLE_TOKENS):
+        raise AssertionError("21c: the replayed draw gave other tokens")
+    return {"tokens": first.tolist(), "replay_equal": same}
+
+
+def _third_order(paddle, x):
+    y = (paddle.tanh(x) * x ** 2 + paddle.sin(x) * x).sum()
+    (g1,) = paddle.grad(y, [x], create_graph=True)
+    (g2,) = paddle.grad(g1.sum(), [x], create_graph=True)
+    (g3,) = paddle.grad(g2.sum(), [x])
+    return [g.detach().cpu() for g in (g1, g2, g3)]
+
+
+def _gp_grads(paddle, F, params, x):
+    """The WGAN-GP penalty's gradient with respect to the critic's
+    weights."""
+    w1, b1, w2, b2 = params
+    score = (F.gelu(x @ w1 + b1) @ w2 + b2).sum()
+    (gx,) = paddle.grad(score, [x], create_graph=True)
+    norm = paddle.sqrt((gx ** 2).sum(axis=1) + 1e-12)
+    penalty = GP_LAMBDA * ((norm - 1.0) ** 2).mean()
+    return [g.cpu() for g in paddle.grad(penalty, params[:3])], float(
+        penalty.detach())
+
+
+def autograd_phase(dev):
+    """21d: third-order gradients, the WGAN-GP penalty's gradient and a
+    PyLayer on the card against the CPU, and the kernels' refusal of a
+    second derivative."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.ops.flash_tpu import flash_attention_blhd
+    from paddle_tpu_torch.ops.fused import fused_layer_norm
+
+    r = np.random.RandomState(21)
+    a = r.randn(4096).astype(np.float32)
+    cpu = _third_order(paddle, paddle.to_tensor(a, place="cpu",
+                                                stop_gradient=False))
+    card = _third_order(paddle, paddle.to_tensor(a, stop_gradient=False))
+    third_err = max(_close_report(c, w, 1e-5, 0.0)[1]
+                    for c, w in zip(card, cpu))
+    if third_err > 1e-5:
+        raise AssertionError(f"21d: third-order gradients off by "
+                             f"{third_err:.3g}")
+    # WGAN-GP
+    d_in, d_h, d_out = GP_WIDTHS
+    gen = torch.Generator().manual_seed(21)
+    shapes = [(d_in, d_h), (d_h,), (d_h, d_out), (d_out,)]
+    host = [torch.randn(s, generator=gen) * (1.0 / math.sqrt(s[0]))
+            for s in shapes]
+    real = torch.randn(GP_BATCH, d_in, generator=gen)
+    fake = torch.randn(GP_BATCH, d_in, generator=gen)
+    eps = torch.rand(GP_BATCH, 1, generator=gen)
+    xhat = eps * real + (1 - eps) * fake
+    sides = {}
+    for where in ("cpu", dev):
+        params = [h.to(where).requires_grad_() for h in host]
+        x = xhat.to(where).requires_grad_()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sides[str(where)] = _gp_grads(paddle, F, params, x)
+        torch.cuda.synchronize()
+        sides[str(where) + "_s"] = time.perf_counter() - t0
+    (g_cpu, pen_cpu), (g_card, pen_card) = sides["cpu"], sides[str(dev)]
+    gp_err = max(float((g - w).abs().max() / w.abs().max())
+                 for g, w in zip(g_card, g_cpu))
+    log(f"[21d] third-order gradients (4096 elements) on the card against "
+        f"the CPU: worst err {third_err:.3g}; WGAN-GP (lambda {GP_LAMBDA}) "
+        f"on a {'-'.join(map(str, GP_WIDTHS))} GELU MLP at batch "
+        f"{GP_BATCH}: penalty {pen_card:.6f} (CPU {pen_cpu:.6f}), its "
+        f"gradient's worst err {gp_err:.3g} of each tensor's largest "
+        f"magnitude (tol {GP_GRAD_REL_TOL}); card "
+        f"{sides[str(dev) + '_s']:.2f} s, CPU {sides['cpu_s']:.2f} s")
+    if gp_err > GP_GRAD_REL_TOL:
+        raise AssertionError("21d: the penalty's gradient on the card is "
+                             "off the CPU's")
+    # a straight-through estimator as a PyLayer against autograd of its
+    # plain function
+
+    class STE(paddle.autograd.PyLayer):
+        @staticmethod
+        def forward(ctx, x):
+            return torch.round(x)
+
+        @staticmethod
+        def backward(ctx, g):
+            return g
+
+    x0 = torch.randn(STE_SHAPE, device=dev) * 3
+    w = torch.randn(STE_SHAPE[-1], 8, device=dev) / 64
+    x1, x2 = x0.clone().requires_grad_(), x0.clone().requires_grad_()
+    (STE.apply(x1) @ w).tanh().sum().backward()
+    ((x2 + (torch.round(x2) - x2).detach()) @ w).tanh().sum().backward()
+    ste_same = bool(torch.equal(x1.grad, x2.grad))
+    del x0, x1, x2
+    # the kernels refuse a second derivative
+    refused = {}
+    x = torch.randn(64, 1024, device=dev, requires_grad=True)
+    lw, lb = torch.randn(1024, device=dev), torch.randn(1024, device=dev)
+    q = torch.randn(2, 128, 4, 64, device=dev, dtype=torch.bfloat16,
+                    requires_grad=True)
+    for kernel, loss_of in (
+            ("layer_norm", lambda: (fused_layer_norm(x, lw, lb) ** 2).sum()),
+            ("flash_attention", lambda: flash_attention_blhd(q, q, q)[0]
+             .float().square().sum())):
+        try:
+            paddle.grad(loss_of(), [x if kernel == "layer_norm" else q],
+                        create_graph=True)
+            refused[kernel] = None
+        except RuntimeError as e:
+            refused[kernel] = str(e).split(":")[0]
+    log(f"[21d] PyLayer straight-through at {STE_SHAPE}: gradient the same "
+        f"bits as autograd of its plain function: {ste_same}; create_graph "
+        f"through the kernels raises: {refused}")
+    if not ste_same or not all(refused.values()):
+        raise AssertionError("21d: the PyLayer or a kernel refusal failed")
+    return {"third_order_err": third_err, "gp_err": gp_err,
+            "gp_penalty": pen_card, "gp_card_s": sides[str(dev) + "_s"],
+            "ste_same_bits": ste_same, "refused": refused}
+
+
+def tensor_api_phase(dev, counted, launches, phase8, smi):
+    """Phase 21: the tensor API, its path at full width, sampling with a
+    replayed random state, and autograd."""
+    out, seconds = {}, {}
+    t0 = time.perf_counter()
+
+    def lap(name):
+        nonlocal t0
+        seconds[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+    # f32 comparisons with the CPU: no TF32 (as main sets it)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _cleared(counted)
+    out["breadth"] = tensor_breadth(dev)
+    _read_launches(counted, launches, "tensor_breadth")
+    lap("21a")
+    model, ids, out["path"] = tensor_path(dev, counted, launches, phase8, smi)
+    lap("21b")
+    out["sampling"] = sampling_phase(model, ids)
+    del model
+    torch.cuda.empty_cache()
+    lap("21c")
+    out["autograd"] = autograd_phase(dev)
+    torch.cuda.empty_cache()
+    lap("21d")
+    out["seconds"] = seconds
+    log("[21] seconds by part: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in seconds.items()))
+    return out
+
+
 def counted_kernels():
     """Each kernel's wrapper by its name in the kernels line; each counts
     its launches in ``.launches``."""
@@ -5865,7 +6343,8 @@ def main() -> int:
         raise AssertionError(f"training launched {got}, expected {want}")
     if training["engine_steps"] != n_steps:
         raise AssertionError("engine/steps does not count the steps")
-    profile_training(step, ids, labels, train_cfg.num_layers)
+    training["profile"] = profile_training(step, ids, labels,
+                                           train_cfg.num_layers)
     del step, model, opt
     torch.cuda.empty_cache()
 
@@ -6176,6 +6655,10 @@ def main() -> int:
     nn_slice = nn_slice_phase(dev, counted, launches, smi)
     log("nn_slice " + json.dumps(nn_slice))
 
+    # -- phase 21: the tensor API -------------------------------------------------
+    tensor_api = tensor_api_phase(dev, counted, launches, training, smi)
+    log("tensor_api " + json.dumps(tensor_api))
+
     # -- the kernels line and the result --------------------------------------
     def timed(kernel, shape):
         return next(t for t in timings if t["kernel"] == kernel
@@ -6194,26 +6677,26 @@ def main() -> int:
               "static_gpt", "static_to_static", "predictor_layer",
               "predictor_export", "serving_spec", "serving_int8",
               "nmt_parity", "nmt_f32", "nmt_bf16", "nmt_beam",
-              "nn_breadth")),
+              "nn_breadth", "tensor_path")),
             ("flash_attn_fwd", "paddle_tpu_torch/csrc/flash_attn_fwd.cu",
              "paddle_tpu/ops/flash_tpu.py:43",
              timed("flash_attn_fwd", list(GPT_ATTN_SHAPE)),
              ("dense_forward", "training", flash_phase, "static_gpt",
               "static_to_static", "predictor_layer", "predictor_export",
-              "bench_decode")),
+              "bench_decode", "tensor_path")),
             ("layer_norm_bwd", "paddle_tpu_torch/csrc/layer_norm_bwd.cu",
              "paddle_tpu/ops/fused.py:34",
              timed("layer_norm_bwd", list(LN_TIMED[0])),
              ("training", "bert_training", "longctx", "static_gpt",
-              "nmt_parity", "nmt_f32", "nmt_bf16")),
+              "nmt_parity", "nmt_f32", "nmt_bf16", "tensor_path")),
             ("flash_attn_bwd_dq", "paddle_tpu_torch/csrc/flash_attn_bwd.cu",
              "paddle_tpu/ops/flash_tpu.py:83",
              timed("flash_attn_bwd_dq", [8, 1024, 16, 64]),
-             ("training", flash_phase, "static_gpt")),
+             ("training", flash_phase, "static_gpt", "tensor_path")),
             ("flash_attn_bwd_dkv", "paddle_tpu_torch/csrc/flash_attn_bwd.cu",
              "paddle_tpu/ops/flash_tpu.py:118",
              timed("flash_attn_bwd_dkv", [8, 1024, 16, 64]),
-             ("training", flash_phase, "static_gpt")),
+             ("training", flash_phase, "static_gpt", "tensor_path")),
             ("adam", "paddle_tpu_torch/csrc/adam.cu",
              "paddle_tpu/ops/fused.py:172",
              next(t for t in timings if t["kernel"] == "adam"),
@@ -6223,7 +6706,7 @@ def main() -> int:
                 "longctx", "static_gpt", "param_resnet_o2",
                 "param_trainstep_o2", "param_sparse_adam_dense",
                 "param_sparse_adam_sparse", "param_lr", "nmt_parity",
-                "nmt_f32", "nmt_bf16")),
+                "nmt_f32", "nmt_bf16", "tensor_path")),
             ("grad_sumsq", "paddle_tpu_torch/csrc/adam.cu",
              "paddle_tpu/nn/clip.py:111", sumsq_t,
              options_paths + ("param_sparse_adam_global_clip_dense",
@@ -6269,6 +6752,8 @@ def main() -> int:
             "launches_nn_slice": sum(by_phase.get(p, 0) for p in (
                 "nmt_parity", "nmt_f32", "nmt_bf16", "nmt_beam",
                 "rnn_lstm", "rnn_gru", "nn_breadth")),
+            "launches_tensor_api": sum(by_phase.get(p, 0) for p in (
+                "tensor_breadth", "tensor_path")),
             "max_abs_err": err[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],

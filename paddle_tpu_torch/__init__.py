@@ -49,16 +49,74 @@ with an ``Executor`` (``run``, ``run_steps``), with control flow and
 ``static.nn``; ``jit.to_static`` (with the ``dy2static`` converter),
 ``jit.save`` / ``jit.load``; ``enable_static`` / ``disable_static`` switch
 the mode.
+
+The top level is the reference's user surface: the tensor functions
+(``tensor``: ``to_tensor``, ``zeros``, ``matmul``, ``topk``, ...) on
+``torch.Tensor``, ``grad`` and ``PyLayer`` (``autograd``), ``seed`` and
+the random state (``core.rng``), the dtypes, places and
+``set_device`` / ``get_device``, flags, and the subpackages. Tensors that
+these functions create lie on the current device, the card unless
+``set_device("cpu")`` says otherwise.
 """
+from torch import nn as _torch_nn
+
+from . import core
+from .core import dtype as _dtype_mod
+from .core.dtype import (bfloat16, bool_, complex64, complex128, float16,
+                         float32, float64, get_default_dtype, int8, int16,
+                         int32, int64, set_default_dtype, uint8)
+from .core.flags import get_flags, set_flags
+from .core.place import (CPUPlace, CUDAPinnedPlace, CUDAPlace, NPUPlace,
+                         Place, TPUPlace, XPUPlace, get_device,
+                         is_compiled_with_cuda, is_compiled_with_tpu,
+                         resolve_device, set_device)
+from .core.rng import (get_cuda_rng_state, get_rng_state, seed,
+                       set_cuda_rng_state, set_rng_state)
+from .core.tensor import (Parameter, Tensor, enable_grad, is_grad_enabled,
+                          no_grad, set_grad_enabled, to_tensor)
+
+from . import tensor
+from .tensor import *  # noqa: F401,F403
+from .tensor import __all__ as _tensor_all
+from .tensor import (attribute, creation, linalg, logic,  # noqa: F401
+                     manipulation, math, random, search, sequence, stat,
+                     to_string)
+
+from . import autograd
+from .autograd import grad
+
+from . import (amp, framework, hapi, incubate, inference, io, jit, metric,
+               nn, optimizer, profiler, quant, resilience, static, text,
+               vision)
 from . import callbacks
-from .core.place import CPUPlace, CUDAPlace, resolve_device
 from .framework import load, save
 from .hapi import Model, summary
+from .nn import ParamAttr
+from .tensor.manipulation import crop as crop_tensor
+from .tensor.math import floor_mod
 
-__all__ = ["resolve_device", "CPUPlace", "CUDAPlace", "Model", "save",
-           "load", "summary", "callbacks", "enable_static",
-           "disable_static", "in_dynamic_mode", "enable_dygraph",
-           "disable_dygraph"]
+Layer = _torch_nn.Module
+VarBase = Tensor
+dtype = _dtype_mod.convert_dtype
+
+__all__ = sorted(set(_tensor_all) | {
+    "core", "tensor", "autograd", "grad", "amp", "framework", "hapi",
+    "incubate", "inference", "io", "jit", "metric", "nn", "optimizer",
+    "profiler", "quant", "resilience", "static", "text", "vision",
+    "callbacks", "Model", "summary", "save", "load", "Layer", "ParamAttr",
+    "resolve_device", "Place", "CPUPlace", "CUDAPlace", "CUDAPinnedPlace",
+    "NPUPlace", "TPUPlace", "XPUPlace", "set_device", "get_device",
+    "is_compiled_with_cuda", "is_compiled_with_tpu", "is_compiled_with_npu",
+    "is_compiled_with_xpu", "get_cudnn_version", "bool_", "uint8", "int8",
+    "int16", "int32", "int64", "float16", "bfloat16", "float32", "float64",
+    "complex64", "complex128", "dtype", "get_default_dtype",
+    "set_default_dtype", "get_flags", "set_flags", "seed", "get_rng_state",
+    "set_rng_state", "get_cuda_rng_state", "set_cuda_rng_state",
+    "to_tensor", "Tensor", "Parameter", "VarBase", "no_grad",
+    "enable_grad", "set_grad_enabled", "is_grad_enabled", "enable_static",
+    "disable_static", "in_dynamic_mode", "in_dygraph_mode",
+    "enable_dygraph", "disable_dygraph", "disable_signal_handler",
+    "floor_mod", "crop_tensor", "check_shape"})
 
 
 def enable_static() -> None:
@@ -81,8 +139,40 @@ def in_dynamic_mode() -> bool:
     return not _in_static_mode()
 
 
+in_dygraph_mode = in_dynamic_mode
 enable_dygraph = disable_static
 
 
 def disable_dygraph() -> None:
     enable_static()
+
+
+def disable_signal_handler() -> None:
+    """Nothing to do: the port installs no signal handler at import."""
+    return None
+
+
+def check_shape(shape):
+    """A shape argument checked: every entry an int (or None / -1 for an
+    inferred one)."""
+    if shape is None:
+        raise TypeError("shape must not be None")
+    for s in (shape if isinstance(shape, (list, tuple)) else [shape]):
+        if s is not None and not isinstance(s, int):
+            raise TypeError(f"shape entries must be int/None, got {type(s)}")
+    return shape
+
+
+def get_cudnn_version():
+    """The cuDNN version torch runs with (None where it has none)."""
+    import torch
+
+    return torch.backends.cudnn.version()
+
+
+def is_compiled_with_npu() -> bool:
+    return False
+
+
+def is_compiled_with_xpu() -> bool:
+    return False

@@ -15,6 +15,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ...core.dtype import convert_dtype
+
 __all__ = [
     "elu_",
     "relu", "relu_", "relu6", "elu", "selu", "celu", "gelu", "sigmoid",
@@ -25,14 +27,6 @@ __all__ = [
     "gumbel_softmax",
 ]
 
-_DTYPES = {"float16": torch.float16, "bfloat16": torch.bfloat16,
-           "float32": torch.float32, "float64": torch.float64}
-
-
-def _dtype(dtype) -> Optional[torch.dtype]:
-    if dtype is None or isinstance(dtype, torch.dtype):
-        return dtype
-    return _DTYPES[str(dtype)]
 
 
 def relu(x, name=None):
@@ -97,7 +91,7 @@ def log_sigmoid(x, name=None):
 
 
 def log_softmax(x, axis=-1, dtype=None, name=None):
-    d = _dtype(dtype)
+    d = convert_dtype(dtype)
     return torch.log_softmax(x if d is None else x.to(d), dim=axis)
 
 
@@ -146,7 +140,7 @@ def swish(x, name=None):
 
 
 def softmax(x, axis=-1, dtype=None, name=None):
-    d = _dtype(dtype)
+    d = convert_dtype(dtype)
     return torch.softmax(x if d is None else x.to(d), dim=axis)
 
 

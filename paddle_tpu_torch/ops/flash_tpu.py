@@ -321,6 +321,17 @@ class _FlashFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dout, _dlse):
+        if torch.is_grad_enabled():
+            # create_graph=True: the kernels' outputs carry no graph, so a
+            # second derivative would lose this op's term without a word
+            which = ("causal flash attention (#1 forward, #2 dQ and #3 "
+                     "dK/dV backward)" if ctx.causal else
+                     "full flash attention (#4 forward and backward)")
+            raise RuntimeError(
+                f"{which}: no double-backward kernel yet — the attention "
+                "backward kernels cannot be differentiated again; a "
+                "backward with create_graph=True through them is refused "
+                "on every device")
         return (*_bwd(*ctx.saved_tensors, dout, ctx.causal), None, None)
 
 

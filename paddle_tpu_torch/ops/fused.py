@@ -234,6 +234,15 @@ class _LayerNormFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        if torch.is_grad_enabled():
+            # create_graph=True: the kernel's outputs carry no graph, so a
+            # second derivative would lose this op's term without a word
+            raise RuntimeError(
+                "fused_layer_norm: no double-backward kernel yet — the "
+                "LayerNorm backward kernel (layer_norm_bwd, #6) cannot be "
+                "differentiated again; a backward with create_graph=True "
+                "through the LayerNorm kernel (#5) is refused on every "
+                "device")
         x, weight = ctx.saved_tensors
         dx, dw, db = layer_norm_bwd(x, weight, g, ctx.eps)
         return dx, dw, db, None

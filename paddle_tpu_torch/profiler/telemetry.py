@@ -2,7 +2,8 @@
 kept to the surface the port uses: counters, gauges and streaming
 histograms, read back through ``scalars()``, timers (``timer``), the JSONL
 sink (``to_jsonl``, one record a call, with the goodput ledger's table)
-and ``sample_device_memory``.
+and ``sample_device_memory``. Counters also add into ``core.monitor``'s
+registry, as the reference's do.
 
 Scalar names are namespaced as in the reference: ``counter/<name>``,
 ``gauge/<name>`` and ``hist/<name>/{count,sum,min,max,mean,ema,p50,p95,
@@ -21,6 +22,8 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+
+from ..core import monitor
 
 __all__ = ["Histogram", "Telemetry", "get_telemetry",
            "sample_device_memory"]
@@ -107,6 +110,7 @@ class Telemetry:
     def counter(self, name: str, value: int = 1) -> None:
         with self._lock:
             self._counters[name] = self._counters.get(name, 0) + int(value)
+        monitor.stat_add(name, int(value))
 
     def counter_value(self, name: str) -> int:
         with self._lock:

@@ -50,7 +50,7 @@ import torch
 from torch import nn
 
 from ..core import recording, sanitizer
-from ..core.place import CPUPlace, CUDAPlace, resolve_device
+from ..core.place import place_to_device
 from ..nn.clip import ClipGradByGlobalNorm
 from ..optimizer.lr import LRScheduler
 from ..profiler import goodput as _goodput
@@ -123,11 +123,7 @@ def scope_guard(scope):
 # devices and feeds
 # ---------------------------------------------------------------------------
 def _device_of(place) -> torch.device:
-    if isinstance(place, CPUPlace):
-        return torch.device("cpu")
-    if isinstance(place, CUDAPlace):
-        place = f"cuda:{place.index}"
-    dev = resolve_device(place)
+    dev = place_to_device(place)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     return dev

@@ -10,8 +10,10 @@ at their first use. Ported: ``fc``, ``conv2d``, ``conv2d_transpose``,
 ``sparse_embedding``, ``row_conv``,
 ``layer_norm``, ``group_norm``, ``instance_norm``, ``spectral_norm``,
 ``nce``, ``prelu``, ``create_parameter``, ``data_norm``, ``py_func``,
-``bilinear_tensor_product``, ``conv_shift`` and the control-flow
-re-exports. The others need functions the port lacks and
+``bilinear_tensor_product``, ``conv_shift``, the ``sequence_*``
+functions (``sequence_conv``, ``sequence_reshape`` and
+``sequence_scatter`` here, the rest from ``tensor.sequence``) and the
+control-flow re-exports. The others need functions the port lacks and
 raise ``NotImplementedError`` naming what they wait for.
 
 ``batch_norm`` updates fresh running statistics once, at record time, and
@@ -35,6 +37,13 @@ from ..nn.layer.common import linear
 from ..nn.layer_base import create_parameter as _create_parameter
 from ..nn.param_attr import ParamAttr
 from ..ops.fused import fused_layer_norm
+from ..tensor.sequence import (sequence_concat,  # noqa: F401
+                               sequence_enumerate, sequence_expand,
+                               sequence_expand_as, sequence_first_step,
+                               sequence_last_step, sequence_pad,
+                               sequence_pool, sequence_reverse,
+                               sequence_slice, sequence_softmax,
+                               sequence_unpad)
 from .control_flow import case, cond, switch_case, while_loop  # noqa: F401
 from .program import convert_dtype, current_program, set_param_name
 
@@ -44,22 +53,20 @@ __all__ = ["fc", "conv2d", "conv2d_transpose", "conv3d", "conv3d_transpose",
            "prelu", "row_conv",
            "create_parameter", "data_norm", "py_func",
            "bilinear_tensor_product", "conv_shift", "cond", "case",
-           "switch_case", "while_loop"]
+           "switch_case", "while_loop", "sequence_conv", "sequence_reshape",
+           "sequence_scatter", "sequence_concat", "sequence_enumerate",
+           "sequence_expand", "sequence_expand_as", "sequence_first_step",
+           "sequence_last_step", "sequence_pad", "sequence_pool",
+           "sequence_reverse", "sequence_slice", "sequence_softmax",
+           "sequence_unpad"]
 
 # static.nn functions that wait for a module the port lacks (ROADMAP
 # Queue 1) -> what they wait for
 _NOT_PORTED = {
     "deform_conv2d": "vision/ops.py (Queue 1 item 5.5)",
     "multi_box_head": "vision/ops.py's prior_box (Queue 1 item 5.5)",
-    "sequence_conv": "tensor/sequence.py (Queue 1 item 5.4)",
-    "sequence_reshape": "tensor/sequence.py (Queue 1 item 5.4)",
-    "sequence_scatter": "tensor/sequence.py (Queue 1 item 5.4)",
     "crf_decoding": "text/crf.py (Queue 1 item 5.5)",
 }
-for _name in ("concat", "enumerate", "expand", "expand_as", "first_step",
-              "last_step", "pad", "pool", "reverse", "slice", "softmax",
-              "unpad"):
-    _NOT_PORTED["sequence_" + _name] = "tensor/sequence.py (Queue 1 item 5.4)"
 
 
 def __getattr__(name):
@@ -233,6 +240,51 @@ def row_conv(input, future_context_size, param_attr=None, act=None):
     for i in range(k + 1):
         out = out + F.pad(input[:, i:, :], [0, 0, 0, i, 0, 0]) * w[i]
     return _act(out, act)
+
+
+def sequence_conv(input, num_filters, filter_size=3, filter_stride=1,
+                  padding=True, padding_start=None, bias_attr=None,
+                  param_attr=None, act=None, name=None):
+    """Context-window convolution over time of [N, T, D]: the window of
+    ``filter_size`` steps from ``padding_start`` (default
+    ``-(filter_size - 1) // 2``), zeros outside the sequence, then one
+    [filter_size·D, num_filters] matmul."""
+    d, fs = int(input.shape[-1]), int(filter_size)
+    start = -((fs - 1) // 2) if padding_start is None else int(padding_start)
+    w = _make_param([fs * d, num_filters], param_attr, False,
+                    device=input.device)
+    b = _make_param([num_filters], bias_attr, True, device=input.device)
+    t = input.shape[1]
+    cols = []
+    for i in range(fs):
+        off = start + i
+        if off < 0:
+            k = min(-off, t)
+            cols.append(F.pad(input[:, :t - k, :], [0, 0, k, 0, 0, 0]))
+        else:
+            k = min(off, t)
+            cols.append(F.pad(input[:, k:, :], [0, 0, 0, k, 0, 0]))
+    out = torch.cat(cols, -1) @ w
+    if b is not None:
+        out = out + b
+    return _act(out, act)
+
+
+def sequence_reshape(input, new_dim):
+    """[N, T, D] -> [N, T·D / new_dim, new_dim] (N is not read: a Program
+    replays it at any batch)."""
+    steps = input.shape[1] * input.shape[2] // int(new_dim)
+    return input.reshape(-1, steps, int(new_dim))
+
+
+def sequence_scatter(input, index, updates):
+    """``updates`` added into ``input`` at the per-row positions
+    ``index`` (index and updates [N, L])."""
+    # row numbers made from ``index`` itself, not from a recorded size: a
+    # Program replays this at any batch
+    rows = torch.ones_like(index[:, :1]).cumsum(0) - 1
+    return input.index_put((rows, index.long()), updates.to(input.dtype),
+                           accumulate=True)
 
 
 def sparse_embedding(input, size, padding_idx=None, is_test=False,

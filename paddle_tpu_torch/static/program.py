@@ -51,6 +51,7 @@ from torch.overrides import TorchFunctionMode
 from torch.utils.weak import WeakIdKeyDictionary
 
 from ..core import recording
+from ..core.dtype import convert_dtype as _core_convert_dtype
 from ..core.place import resolve_device
 
 __all__ = ["Program", "program_guard", "default_main_program",
@@ -60,28 +61,12 @@ __all__ = ["Program", "program_guard", "default_main_program",
 
 record_opaque = recording.record_opaque
 
-_DTYPES = {
-    "float32": torch.float32, "float": torch.float32,
-    "float64": torch.float64, "double": torch.float64,
-    "float16": torch.float16, "half": torch.float16,
-    "bfloat16": torch.bfloat16, "int8": torch.int8, "uint8": torch.uint8,
-    "int16": torch.int16, "int32": torch.int32, "int64": torch.int64,
-    "bool": torch.bool, "complex64": torch.complex64,
-}
-
 
 def convert_dtype(dtype, default: torch.dtype = torch.float32
                   ) -> torch.dtype:
-    """A dtype given as a torch dtype, a numpy dtype or its name."""
-    if dtype is None:
-        return default
-    if isinstance(dtype, torch.dtype):
-        return dtype
-    name = getattr(dtype, "name", None) or str(dtype)
-    try:
-        return _DTYPES[name.replace("paddle.", "").replace("torch.", "")]
-    except KeyError:
-        raise ValueError(f"unknown dtype {dtype!r}") from None
+    """A dtype given as a torch dtype, a numpy dtype or its name
+    (``core.dtype.convert_dtype``), ``default`` for None."""
+    return default if dtype is None else _core_convert_dtype(dtype)
 
 
 # parameter names: given by ParamAttr(name=...), else made on first use

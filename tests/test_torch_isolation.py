@@ -72,7 +72,13 @@ def test_package_has_the_slice_modules():
                 "core.selected_rows", "nn.functional.common",
                 "nn.functional.vision", "nn.layer.rnn",
                 "nn.layer.transformer", "nn.layer.decode",
-                "nn.layer.distance", "nn.utils"):
+                "nn.layer.distance", "nn.utils", "core.dtype",
+                "core.enforce", "core.rng", "core.monitor", "core.tensor",
+                "tensor", "tensor.attribute", "tensor.creation",
+                "tensor.logic", "tensor.math", "tensor.stat",
+                "tensor.manipulation", "tensor.search", "tensor.linalg",
+                "tensor.random", "tensor.to_string", "tensor.sequence",
+                "autograd", "autograd.functional", "autograd.py_layer"):
         assert "paddle_tpu_torch." + mod in names
 
 
@@ -173,6 +179,40 @@ def test_vision_entry_points_without_device_raise_on_a_cuda_less_machine(
     with pytest.raises(RuntimeError):
         TrainStep(model, lambda out, lbl: out,
                   Adam(parameters=model.parameters()))
+
+
+def test_tensor_api_without_device_raises_and_leaves_torch_tensor_alone(
+        no_cuda):
+    """The tensor API's creation functions make their tensors on the
+    current device, the card by default: without CUDA they raise. The
+    package adds no attribute to torch.Tensor (checked in a fresh process
+    that imports every module)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.core import place
+
+    prev = place._current_device
+    place._current_device = "gpu:0"
+    try:
+        for make in (lambda: pt.to_tensor([1.0]), lambda: pt.zeros([2]),
+                     lambda: pt.randn([2]), lambda: pt.eye(2),
+                     lambda: pt.get_rng_state()):
+            with pytest.raises(RuntimeError, match="CUDA is not available"):
+                make()
+    finally:
+        place._current_device = prev
+    code = textwrap.dedent(f"""
+        import importlib, sys, torch
+        sys.path.insert(0, {_REPO!r})
+        before = set(dir(torch.Tensor))
+        for name in {_module_names()!r}:
+            importlib.import_module(name)
+        print("ADDED", sorted(set(dir(torch.Tensor)) - before))
+    """)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, cwd=_REPO, env=env)
+    assert out.returncode == 0, out.stderr
+    assert "ADDED []" in out.stdout, out.stdout
 
 
 def test_static_entry_points_without_device_raise_on_a_cuda_less_machine(

@@ -504,7 +504,8 @@ def test_program_state_save_load_and_serialize(tmp_path):
 def test_placement_and_what_is_not_ported(tmp_path):
     """Nothing moves between devices silently; the functions that wait
     for later modules raise, naming them; save_inference_model, which
-    waited for the export, serves what it saved."""
+    waited for the export, serves what it saved; sequence_conv, which
+    waited for tensor/sequence.py, matches the reference."""
     main = static.Program()
     with static.program_guard(main):
         x = static.data("x", [None, 4], "float32", device="meta")
@@ -532,8 +533,26 @@ def test_placement_and_what_is_not_ported(tmp_path):
         static.save_inference_model(prefix, [out2], [out2], program=served)
     with pytest.raises(NotImplementedError, match="io/data_feed.py"):
         static.Executor(static.CPUPlace()).train_from_dataset(main)
-    with pytest.raises(NotImplementedError, match="tensor/sequence.py"):
-        static.nn.sequence_conv(x, 2)
+    # sequence_conv, which waited for tensor/sequence.py: recorded in both
+    # packages with the reference's weights, one run on a feed (f32: 1e-5)
+    feed = {"s": np.random.RandomState(3).randn(2, 5, 3).astype(np.float32)}
+    jmain = jstatic.Program()
+    with jstatic.program_guard(jmain, jstatic.Program()):
+        jout = jstatic.nn.sequence_conv(jstatic.data("s", [None, 5, 3],
+                                                     "float32"), 2,
+                                        filter_size=3, act="tanh")
+    smain = static.Program()
+    with static.program_guard(smain):
+        sout = static.nn.sequence_conv(static.data("s", [None, 5, 3],
+                                                   "float32", device=CPU), 2,
+                                       filter_size=3, act="tanh")
+    with torch.no_grad():
+        for tp_, jp in zip(smain.all_parameters(), jmain.all_parameters()):
+            tp_.copy_(torch.from_numpy(np.array(jp._value)))
+    _close(static.Executor(static.CPUPlace()).run(
+        smain, feed=feed, fetch_list=[sout])[0],
+        jstatic.Executor().run(jmain, feed=feed, fetch_list=[jout])[0],
+        rtol=1e-5, atol=1e-5)
     with pytest.raises(ValueError, match="parameters is required"):
         toptim.SGD(0.1)
 
