@@ -283,7 +283,34 @@ failing on the first phase that fails:
     and checks that a backward with ``create_graph=True`` through #5 and #1
     raises.
 
-Every kernel's launch count is set to 0 before each of phases 4-21 and
+22. detection, CRF tagging and the hapi tail: 22a serves SSD-MobileNet-v1
+    on VOC (PaddleDetection's ``ssd_mobilenet_v1_voc``: MobileNetV1 to
+    conv11 and conv13, four extra 1x1/3x3 pairs, ``multi_box_head``'s
+    priors, ``box_coder`` decode, softmax, ``multiclass_nms``) at 8 x 3 x
+    300 x 300: images/s, batch p50, device time, busy share, NMS's share
+    and peak memory; the NMS block and the 11-point mAP against the CPU's
+    on the card's boxes, decoding and NMS with synchronizing calls turned
+    into errors, and the head as a ``static.Program`` (its priors
+    ``prior_box``'s bits); 22b trains a BERT-base-CRF tagger (MSRA-NER's 7
+    tags) at phase 10's shape, lengths 64-128, with bf16 compute and
+    AdamW for 10 steps (#5 25 and #6 50 a step: ``BertModel`` has no MLM
+    LayerNorm; the full attention 12 each; #7 2) beside phase 10, then
+    holds ``linear_chain_crf`` (cost and gradients), ``crf_decoding``,
+    ``static.nn.crf_decoding`` and ``viterbi_decode`` on the trained
+    emissions against the CPU; 22c runs the rest of ``vision.ops`` at
+    published shapes (YOLOv3-416's heads and NMS, R50-C4's RoIAlign,
+    R-FCN's PSRoIPool, DCNv2 at res5, priors, box coding, IoU, SPP, the
+    space-to-depth stem) against the CPU with each one's device time;
+    22d trains GPT-2 345M with ``fused_head_ce=True`` at phase 8's shape
+    (step 1's loss against phase 8's path, #1-#3 and #5-#7 as in phase
+    8, step p50, device time and peak memory beside phase 8's); 22e holds
+    ``flops`` of LeNet, ResNet-50 and MobileNetV1 built on the card to
+    the reference's integers, builds the 22a model through ``hub.load``,
+    and runs the encrypted ``save`` / ``load`` and ``.pdexport`` where
+    ``cryptography`` is installed (else checks that the port names it),
+    and the image loader where PIL is (else the same).
+
+Every kernel's launch count is set to 0 before each of phases 4-22 and
 read after it. The last two lines are a ``{"kernels": [...]}`` JSON
 object and ``{"ok": true, "device": {...}}``.
 """
@@ -1778,8 +1805,9 @@ def bert_batch(cfg, b, L, gen, dev):
 
 
 def profile_bert_training(step, batch, n_layers):
-    """Device busy share of two BERT steps under ``torch.profiler``, the
-    device time by kernel, and the forward kernel by name."""
+    """Device busy share and device time a step of two BERT steps under
+    ``torch.profiler`` (the device time by kernel and the forward kernel by
+    name are printed and checked)."""
     from torch.profiler import ProfilerActivity, profile
 
     ids, mlm, nsp = batch
@@ -1798,7 +1826,7 @@ def profile_bert_training(step, batch, n_layers):
     if busy_us <= 0:
         log("[10] profile: the profiler saw no device time (device busy "
             "share not measured)")
-        return None
+        return {"busy_share": None, "device_ms_per_step": None}
     log(f"[10] profile (2 steps): wall {wall_us / 1e3:.1f} ms, device busy "
         f"{busy_us / 1e3:.1f} ms, busy share {busy_us / wall_us:.4f}")
     for e in sorted(kernels, key=dev_us, reverse=True)[:14]:
@@ -1806,7 +1834,8 @@ def profile_bert_training(step, batch, n_layers):
             f"{e.key[:90]}")
     check_attention_in_profile(kernels, 10, 2 * n_layers)
     check_layer_norm_in_profile(kernels, 10, 2 * (2 * n_layers + 2))
-    return busy_us / wall_us
+    return {"busy_share": busy_us / wall_us,
+            "device_ms_per_step": busy_us / 1e3 / 2}
 
 
 def l2_rel(got, ref):
@@ -5796,6 +5825,852 @@ def tensor_api_phase(dev, counted, launches, phase8, smi):
     return out
 
 
+# -- phase 22: detection, CRF tagging and the hapi tail -----------------------
+SSD_BATCH, SSD_SIZE, SSD_CLASSES = 8, 300, 21
+# PaddleDetection ssd_mobilenet_v1_voc: after conv13, four pairs of a 1x1
+# conv and a 3x3 stride-2 conv (10 -> 5 -> 3 -> 2 -> 1)
+SSD_EXTRAS = ((256, 512), (128, 256), (128, 256), (64, 128))
+SSD_HEAD = dict(base_size=300, min_ratio=20, max_ratio=90,
+                aspect_ratios=[[2.0], [2.0, 3.0], [2.0, 3.0], [2.0, 3.0],
+                               [2.0, 3.0], [2.0, 3.0]],
+                offset=0.5, flip=True, clip=True, kernel_size=3, pad=1)
+SSD_NMS = dict(score_threshold=0.01, nms_top_k=400, keep_top_k=200,
+               nms_threshold=0.45, background_label=0)
+SSD_ITERS = 20  # timed batches of 22a
+# the static head against the eager one: the same cuDNN convolutions
+SSD_HEAD_ATOL = 1e-5
+CRF_TAGS = 7  # MSRA-NER's BIO tags: B/I of PER, ORG, LOC and O
+CRF_STEPS = 10
+CRF_LENGTHS = (64, 128)
+# f32 forward algorithm over 128 steps, card against CPU: the logsumexp
+# kernels round differently. The costs are ~100s; a gradient is a sum of
+# marginals exp(alpha + beta - log Z) whose exponents are differences of
+# sums of ~100s (f32 spacing ~1.5e-5 there), so each gradient tensor is
+# held relative to its largest value
+CRF_LOSS_RTOL = 1e-5
+CRF_GRAD_REL_TOL = 1e-4
+FUSED_HEAD_STEPS = 5
+# the fused head's mean is rounded to bf16 as the reference's is (phase
+# 8's is an f32 mean of bf16 logits): two bf16 roundings
+FUSED_HEAD_LOSS_RTOL = 2.0 ** -7
+YOLO_ANCHORS = [10, 13, 16, 30, 33, 23, 30, 61, 62, 45, 59, 119, 116, 90,
+                156, 198, 373, 326]
+YOLO_HEADS = ((13, 32, (6, 7, 8)), (26, 16, (3, 4, 5)), (52, 8, (0, 1, 2)))
+YOLO_NMS = dict(score_threshold=0.005, nms_top_k=1000, keep_top_k=100,
+                nms_threshold=0.45, background_label=-1)
+YOLO_BATCH = 8
+# Faster R-CNN R50-C4: C4 features of an 800 x 1216 image, 512 RoIs an
+# image, 14 x 14 RoIAlign at 1/16; R-FCN: 21 classes x 7 x 7 score maps,
+# 300 RoIs an image; DCNv2 at ResNet-50's res5 3x3
+ROI_FEAT, ROIS_PER_IMAGE = (2, 1024, 50, 76), 512
+PSROI_FEAT, PSROIS_PER_IMAGE = (2, 1029, 50, 76), 300
+DCN_X = (2, 512, 25, 38)
+# the CPU recomputes these many images / RoIs of the card's full call
+OPS_CPU_IMAGES, OPS_CPU_ROIS = 2, 128
+# f32 card against CPU (TF32 off): other summation orders and atomics.
+# A gradient sums many terms (with cancellation: box_coder's 1/w^2), so it
+# is held relative to its tensor's largest value
+OPS_RTOL, OPS_ATOL = 1e-4, 1e-4
+OPS_GRAD_REL_TOL = 1e-4
+# the integers tests/test_torch_hapi_tail.py holds against the reference
+FLOPS_WANT = {"LeNet": 347560, "resnet50": 4111514624,
+              "mobilenet_v1": 578876928}
+
+
+class SSDMobileNet(torch.nn.Module):
+    """SSD-MobileNet-v1 (PaddleDetection ``ssd_mobilenet_v1_voc``): the
+    port's MobileNetV1 (scale 1) to conv11 (19x19x512) and conv13
+    (10x10x1024), the four extra pairs, and a 3x3 loc conv (4 a prior)
+    and conf conv (``classes`` a prior) on each of the six maps.
+    ``forward(images)`` gives (locs [N, P, 4], confs [N, P, classes])."""
+
+    def __init__(self, classes=SSD_CLASSES, seed=0, device=None):
+        super().__init__()
+        from paddle_tpu_torch.nn import Conv2D
+        from paddle_tpu_torch.vision.models.mobilenet import (ConvBNLayer,
+                                                              MobileNetV1)
+        from paddle_tpu_torch.vision.ops import _expand_aspect_ratios
+
+        body = MobileNetV1(scale=1.0, num_classes=0, with_pool=False,
+                           seed=seed, device=device)
+        blocks = list(body.blocks)
+        self.conv11 = torch.nn.Sequential(body.conv1, *blocks[:11])
+        self.conv13 = torch.nn.Sequential(*blocks[11:])
+        gen = torch.Generator().manual_seed(seed + 1)
+        extras, c = [], 1024
+        for c1, c2 in SSD_EXTRAS:
+            extras.append(torch.nn.Sequential(
+                ConvBNLayer(c, c1, 1, generator=gen),
+                ConvBNLayer(c1, c2, 3, 2, 1, generator=gen)))
+            c = c2
+        self.extras = torch.nn.ModuleList(extras)
+        chans = [512, 1024] + [c2 for _, c2 in SSD_EXTRAS]
+        # a map's priors a cell: its aspect ratios, then the max-size box
+        priors_per_map = [len(_expand_aspect_ratios(ar, SSD_HEAD["flip"]))
+                          + 1 for ar in SSD_HEAD["aspect_ratios"]]
+        self.classes = classes
+        self.loc = torch.nn.ModuleList(
+            Conv2D(ci, p * 4, 3, padding=1, generator=gen)
+            for ci, p in zip(chans, priors_per_map))
+        self.conf = torch.nn.ModuleList(
+            Conv2D(ci, p * classes, 3, padding=1, generator=gen)
+            for ci, p in zip(chans, priors_per_map))
+        self.to(device)
+
+    def features(self, x):
+        feats = [self.conv11(x)]
+        feats.append(self.conv13(feats[0]))
+        for e in self.extras:
+            feats.append(e(feats[-1]))
+        return feats
+
+    def forward(self, x):
+        feats = self.features(x)
+        n = x.shape[0]
+        locs = [l(f).permute(0, 2, 3, 1).reshape(n, -1, 4)
+                for l, f in zip(self.loc, feats)]
+        confs = [c(f).permute(0, 2, 3, 1).reshape(n, -1, self.classes)
+                 for c, f in zip(self.conf, feats)]
+        return torch.cat(locs, 1), torch.cat(confs, 1)
+
+
+def ssd_priors(feats, image):
+    """The head's priors and variances [P, 4] (``multi_box_head``'s size
+    schedule) and the priors a cell of each map."""
+    from paddle_tpu_torch.static.nn import _ssd_sizes
+    from paddle_tpu_torch.vision.ops import prior_box
+
+    mins, maxs = _ssd_sizes(len(feats), SSD_HEAD["base_size"],
+                            SSD_HEAD["min_ratio"], SSD_HEAD["max_ratio"])
+    boxes, variances, per_map = [], [], []
+    for f, lo, hi, ar in zip(feats, mins, maxs, SSD_HEAD["aspect_ratios"]):
+        b, v = prior_box(f, image, min_sizes=[lo], max_sizes=[hi],
+                         aspect_ratios=ar, flip=SSD_HEAD["flip"],
+                         clip=SSD_HEAD["clip"], offset=SSD_HEAD["offset"])
+        per_map.append(int(b.shape[2]))
+        boxes.append(b.reshape(-1, 4))
+        variances.append(v.reshape(-1, 4))
+    return torch.cat(boxes), torch.cat(variances), per_map
+
+
+def ssd_postprocess(locs, confs, prior, var):
+    """Decoded boxes, class scores [N, C, P] and the NMS block."""
+    from paddle_tpu_torch.vision.ops import box_coder, multiclass_nms
+
+    boxes = box_coder(prior, var, locs, code_type="decode_center_size")
+    scores = torch.softmax(confs, dim=-1).transpose(1, 2)
+    out, counts = multiclass_nms(boxes, scores, **SSD_NMS)
+    return boxes, scores, out, counts
+
+
+def ssd_ground_truths(n, seed=22, detections=None):
+    """2-6 boxes an image, labels 1..20, normalized corners; with
+    ``detections`` (an NMS block on the host), rows of it moved by up to
+    2% instead, so that some detections match."""
+    r = np.random.RandomState(seed)
+    gts = []
+    for i in range(n):
+        k = r.randint(2, 7)
+        if detections is None:
+            xy = r.rand(k, 2) * 0.7
+            box = np.concatenate([xy, xy + r.rand(k, 2) * 0.25 + 0.05], 1)
+            label = r.randint(1, SSD_CLASSES, (k, 1))
+        else:
+            rows = detections[i][r.choice(int((detections[i][:, 0] >= 0)
+                                              .sum()), k, replace=False)]
+            label = rows[:, :1]
+            box = rows[:, 2:] + r.uniform(-0.02, 0.02, (k, 4))
+        gts.append(np.concatenate([label, box], 1).astype(np.float32))
+    return gts
+
+
+@contextlib.contextmanager
+def no_host_sync():
+    """Turn a synchronizing CUDA call into an error."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def ssd_phase(dev, counted, launches, smi):
+    """22a: SSD-MobileNet-v1 on VOC served at 8 x 3 x 300 x 300, the
+    static head, NMS and mAP against the CPU, no host sync."""
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.metric import DetectionMAP
+    from paddle_tpu_torch.vision.ops import multiclass_nms
+
+    gen = torch.Generator(device=dev).manual_seed(22)
+    images = torch.rand(SSD_BATCH, 3, SSD_SIZE, SSD_SIZE, device=dev,
+                        generator=gen)
+    model = SSDMobileNet(device=dev).eval()
+    with torch.no_grad():
+        feats = model.features(images[:1])
+    prior, var, per_map = ssd_priors(feats, images)
+    log(f"[22a] SSD-MobileNet-v1 priors a cell {per_map} on maps "
+        f"{[tuple(f.shape[2:]) for f in feats]}: {prior.shape[0]} priors")
+
+    def serve(x):
+        with torch.no_grad():
+            locs, confs = model(x)
+            return ssd_postprocess(locs, confs, prior, var)
+
+    for _ in range(3):
+        serve(images)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _cleared(counted)
+    _, batch_ms, wall = timed_steps(serve, (images,), SSD_ITERS)
+    got = _read_launches(counted, launches, "ssd_serve")
+    peak = torch.cuda.max_memory_allocated()
+    prof = profile_step("22a", serve, (images,))
+    with torch.no_grad():
+        locs, confs = model(images)
+        boxes, scores, out, counts = ssd_postprocess(locs, confs, prior, var)
+    nms_prof = profile_step("22a nms", lambda b, s: multiclass_nms(
+        b, s, **SSD_NMS), (boxes, scores), top=4)
+    # decoding and NMS read nothing back to the host
+    with no_host_sync():
+        ssd_postprocess(locs, confs, prior, var)
+    # NMS on the CPU over the card's decoded boxes and scores
+    cpu_out, cpu_counts = multiclass_nms(boxes.cpu(), scores.cpu(),
+                                         **SSD_NMS)
+    same_block = bool(torch.equal(out.cpu(), cpu_out)
+                      and torch.equal(counts.cpu(), cpu_counts))
+    maps = []
+    for gts in (ssd_ground_truths(SSD_BATCH),
+                ssd_ground_truths(SSD_BATCH, detections=cpu_out.numpy())):
+        for block in (out, cpu_out):
+            m = DetectionMAP(overlap_threshold=0.5, ap_type="11point")
+            for i in range(SSD_BATCH):
+                m.update(block[i], gts[i])
+            maps.append(m.accumulate())
+    # the head as a Program, on the eager head's parameters
+    main = static.Program()
+    with static.program_guard(main):
+        fvars = [static.data(f"f{i}", [SSD_BATCH, *f.shape[1:]], "float32",
+                             device=dev) for i, f in enumerate(feats)]
+        img = static.data("image", list(images.shape), "float32",
+                          device=dev)
+        outs = static.nn.multi_box_head(fvars, img, num_classes=SSD_CLASSES,
+                                        **SSD_HEAD)
+    params = main.all_parameters()
+    eager = [t for l, c in zip(model.loc, model.conf)
+             for t in (l.weight, l.bias, c.weight, c.bias)]
+    with torch.no_grad():
+        for p, q in zip(params, eager):
+            p.copy_(q)
+        feats = model.features(images)
+    s_locs, s_confs, s_prior, s_var = static.Executor(
+        static.CUDAPlace(0)).run(
+        main, feed={**{f"f{i}": f for i, f in enumerate(feats)},
+                    "image": images},
+        fetch_list=list(outs), return_numpy=False)
+    head_err = max(float((s_locs - locs).abs().max()),
+                   float((s_confs - confs).abs().max()))
+    prior_bits = bool(torch.equal(s_prior, prior) and torch.equal(s_var, var))
+    res = {"images_per_s": SSD_BATCH * SSD_ITERS / wall,
+           "batch_ms_p50": batch_ms[SSD_ITERS // 2],
+           "batch_ms_min": batch_ms[0], "batch_ms_max": batch_ms[-1],
+           "device_ms_per_batch": prof["device_ms_per_step"],
+           "busy_share": prof["busy_share"],
+           "nms_device_ms": nms_prof["device_ms_per_step"],
+           "nms_share": nms_prof["device_ms_per_step"]
+           / prof["device_ms_per_step"],
+           "peak_memory_bytes": peak, "priors": int(prior.shape[0]),
+           "detections": [int(c) for c in counts.cpu()],
+           "map_11point": maps[0], "map_cpu": maps[1],
+           "map_11point_matched": maps[2], "map_cpu_matched": maps[3],
+           "nms_same_as_cpu": same_block, "static_head_err": head_err,
+           "static_priors_same_bits": prior_bits, "launches": got,
+           "card": smi}
+    log(f"[22a] served {SSD_ITERS} batches of {SSD_BATCH} x 3 x {SSD_SIZE}"
+        f" x {SSD_SIZE}: {res['images_per_s']:.1f} images/s, batch p50 "
+        f"{res['batch_ms_p50']:.2f} ms, device "
+        f"{res['device_ms_per_batch']:.2f} ms a batch (busy share {res['busy_share']:.4f}), NMS device "
+        f"{res['nms_device_ms']:.2f} ms ({res['nms_share']:.3f} of the "
+        f"batch's), peak memory {peak / 2**30:.2f} GiB; detections "
+        f"{res['detections']}; NMS block same as the CPU's {same_block}; "
+        f"mAP (11point) {maps[0]:.6f} card, {maps[1]:.6f} CPU (ground truths"
+        f" near detections: {maps[2]:.6f}, {maps[3]:.6f}); static head "
+        f"err {head_err:.3g} (atol {SSD_HEAD_ATOL}), static priors same "
+        f"bits {prior_bits}; launches {got}")
+    if not (same_block and maps[0] == maps[1] and maps[2] == maps[3] > 0
+            and prior_bits):
+        raise AssertionError("22a: the card's detections or priors differ "
+                             "from the CPU's / prior_box's")
+    if head_err > SSD_HEAD_ATOL:
+        raise AssertionError("22a: the static head disagrees with the eager")
+    if not bool(torch.isfinite(out).all()) or out.shape != (
+            SSD_BATCH, SSD_NMS["keep_top_k"], 6):
+        raise AssertionError(f"22a: bad detections {tuple(out.shape)}")
+    return res, model, images
+
+
+class BertCRFTagger(torch.nn.Module):
+    """BERT-base, ``Linear(768, 7)`` and a linear-chain CRF over a [9, 7]
+    transition. The emissions and the transition go to the CRF in f32 (a
+    bf16 step casts both), so the 127 dependent steps of the recursion sum
+    in f32. ``forward`` returns the mean CRF cost."""
+
+    def __init__(self, bert_mod, cfg, dev, seed=0):
+        super().__init__()
+        from paddle_tpu_torch.nn.layer.common import Linear
+
+        self.bert = bert_mod.BertModel(cfg, device=dev, seed=seed)
+        self.cls = Linear(cfg.hidden_size, CRF_TAGS, device=dev)
+        gen = torch.Generator().manual_seed(seed)
+        self.transition = torch.nn.Parameter(
+            (torch.randn(CRF_TAGS + 2, CRF_TAGS, generator=gen) * 0.1).to(dev))
+
+    def emissions(self, ids, types, mask):
+        return self.cls(self.bert(ids, types, mask)[0]).float()
+
+    def forward(self, ids, types, mask, labels, lengths):
+        from paddle_tpu_torch.text.crf import linear_chain_crf
+
+        return linear_chain_crf(self.emissions(ids, types, mask), labels,
+                                self.transition.float(), lengths).mean()
+
+
+def crf_batch(cfg, dev, seed=22):
+    """A tagged batch shaped as MSRA-NER's: tags O (0), B-/I-PER (1, 2),
+    B-/I-ORG (3, 4), B-/I-LOC (5, 6); entity spans of 1-4 tokens start at
+    a token with probability 0.08, and an entity's tokens come from its
+    type's own range of the vocabulary (the others from the rest), so the
+    tags can be learned from the tokens and the transitions."""
+    r = np.random.RandomState(seed)
+    b, s = BERT_SHAPE
+    v, w = cfg.vocab_size, cfg.vocab_size // 16
+    ranges = [(w, v // 2)] + [(v // 2 + k * w, v // 2 + (k + 1) * w)
+                              for k in range(3)]
+    lengths = r.randint(CRF_LENGTHS[0], CRF_LENGTHS[1] + 1, b)
+    ids = np.zeros((b, s), np.int64)
+    labels = np.zeros((b, s), np.int64)
+    for i in range(b):
+        t = 0
+        while t < lengths[i]:
+            if r.rand() < 0.08:
+                k = r.randint(3)
+                n = min(r.randint(1, 5), lengths[i] - t)
+                labels[i, t:t + n] = [2 * k + 1] + [2 * k + 2] * (n - 1)
+                ids[i, t:t + n] = r.randint(*ranges[k + 1], n)
+                t += n
+            else:
+                ids[i, t] = r.randint(*ranges[0])
+                t += 1
+    mask = (np.arange(s)[None] < lengths[:, None]).astype(np.int64)
+    return tuple(torch.from_numpy(a).to(dev) for a in (
+        ids, np.zeros_like(ids), mask, labels, lengths))
+
+
+def crf_checks(model, batch):
+    """The CRF on the trained model's emissions, card against CPU."""
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.text import viterbi_decode
+    from paddle_tpu_torch.text.crf import crf_decoding, linear_chain_crf
+
+    ids, types, mask, labels, lengths = batch
+    with torch.no_grad():
+        em = model.emissions(ids, types, mask)
+    trans = model.transition.detach().float()
+    res = {}
+    outs = {}
+    for where in ("card", "cpu"):
+        d = em.device if where == "card" else torch.device("cpu")
+        e = em.to(d).clone().requires_grad_()
+        t = trans.to(d).clone().requires_grad_()
+        lb, ln = labels.to(d), lengths.to(d)
+        ctx = no_host_sync() if where == "card" else contextlib.nullcontext()
+        with ctx:
+            cost = linear_chain_crf(e, lb, t, ln)
+            cost.sum().backward()
+            path = crf_decoding(e, t, length=ln)
+            ok = crf_decoding(e, t, label=lb, length=ln)
+            vs, vp = viterbi_decode(e.detach(), t.detach()[2:])
+        outs[where] = [x.detach().cpu() for x in (cost, e.grad, t.grad, path,
+                                                  ok, vs, vp)]
+    card, cpu = outs["card"], outs["cpu"]
+    res["loss_rel_err"] = float(((card[0] - cpu[0]).abs()
+                                 / cpu[0].abs()).max())
+    res["grad_em_rel_err"] = max_rel(card[1], cpu[1])
+    res["grad_trans_rel_err"] = max_rel(card[2], cpu[2])
+    res["paths_equal"] = bool(torch.equal(card[3], cpu[3]))
+    res["label_mask_equal"] = bool(torch.equal(card[4], cpu[4]))
+    res["viterbi_paths_equal"] = bool(torch.equal(card[6], cpu[6]))
+    res["viterbi_score_rel_err"] = float(((card[5] - cpu[5]).abs()
+                                          / cpu[5].abs()).max())
+    main = static.Program()
+    with static.program_guard(main):
+        x = static.data("em", list(em.shape), "float32", device=em.device)
+        n = static.data("n", list(lengths.shape), "int64", device=em.device)
+        out = static.nn.crf_decoding(x, model.transition, length=n)
+    s_path, = static.Executor(static.CUDAPlace(0)).run(
+        main, feed={"em": em, "n": lengths}, fetch_list=[out],
+        return_numpy=False)
+    res["static_paths_equal"] = bool(torch.equal(s_path.cpu(), cpu[3]))
+    res["tagged_share"] = float(card[4].sum() / lengths.sum().cpu())
+    return res
+
+
+def bert_crf_phase(dev, counted, launches, bert_mod, phase10, smi):
+    """22b: BERT-base-CRF (MSRA-NER's 7 tags) trained at phase 10's shape
+    with bf16 compute and AdamW, then the CRF against the CPU."""
+    from paddle_tpu_torch.distributed.fleet.engine import ParallelTrainStep
+    from paddle_tpu_torch.optimizer import AdamW
+
+    cfg = bert_mod.bert_base()
+    model = BertCRFTagger(bert_mod, cfg, dev, seed=22)
+    opt = AdamW(1e-4, parameters=model.parameters(), weight_decay=0.01)
+    step = ParallelTrainStep(model, lambda out, *_: out, opt,
+                             compute_dtype=torch.bfloat16)
+    batch = crf_batch(cfg, dev)
+    train = lambda *b: step(b, (b[3],))
+    first = [train(*batch) for _ in range(2)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _cleared(counted)
+    n = CRF_STEPS - 2
+    losses, step_ms, wall = timed_steps(train, batch, n)
+    got = _read_launches(counted, launches, "bert_crf")
+    peak = torch.cuda.max_memory_allocated()
+    layers = cfg.num_layers
+    # BertModel has no MLM head: one LayerNorm fewer than phase 10's model
+    n_ln = 2 * layers + 1
+    want = {"layer_norm_fwd": n_ln * n, "layer_norm_bwd": 2 * n_ln * n,
+            "flash_attn_fwd_full": layers * n,
+            "flash_attn_bwd_dq_full": layers * n,
+            "flash_attn_bwd_dkv_full": layers * n, "adam": 2 * n}
+    prof = profile_step("22b", train, batch)
+    losses = [float(x) for x in first + losses]
+    b = BERT_SHAPE[0]
+    res = {"samples_per_s": b * n / wall, "step_ms_p50": step_ms[n // 2],
+           "step_ms_min": step_ms[0], "step_ms_max": step_ms[-1],
+           "device_ms_per_step": prof["device_ms_per_step"],
+           "busy_share": prof["busy_share"],
+           "launches_per_step": prof["launches_per_step"],
+           "peak_memory_bytes": peak, "losses": losses,
+           "lengths": [int(x) for x in batch[4].cpu()], "launches": got,
+           "card": smi}
+    res["crf"] = crf_checks(model, batch)
+    log(f"[22b] BERT-base-CRF bf16 + AdamW at {BERT_SHAPE} (lengths "
+        f"{CRF_LENGTHS[0]}-{CRF_LENGTHS[1]}): {res['samples_per_s']:.1f} "
+        f"samples/s (phase 10 {phase10['samples_per_s']:.1f}), step p50 "
+        f"{res['step_ms_p50']:.2f} ms (phase 10 {phase10['step_ms_p50']:.2f}"
+        f"), device {res['device_ms_per_step']:.2f} ms a step (phase 10 "
+        f"{phase10.get('device_ms_per_step') or float('nan'):.2f}), busy "
+        f"share {res['busy_share']:.4f} (phase 10 "
+        f"{phase10.get('busy_share') or float('nan'):.4f}), "
+        f"{res['launches_per_step']:.0f} device ops a step, peak memory "
+        f"{peak / 2**30:.2f} GiB (phase 10 "
+        f"{phase10['peak_memory_bytes'] / 2**30:.2f}); loss {losses[0]:.4f} "
+        f"-> {losses[-1]:.4f}; launches {got}")
+    log(f"[22b] CRF on the trained emissions, card against CPU: {res['crf']}"
+        f" (loss rtol {CRF_LOSS_RTOL}, gradients {CRF_GRAD_REL_TOL} of "
+        "their largest value)")
+    c = res["crf"]
+    if any(got[k] != v for k, v in want.items()):
+        raise AssertionError(f"22b launched {got}, expected {want}")
+    if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]:
+        raise AssertionError(f"22b: the loss did not fall: {losses}")
+    if not (c["loss_rel_err"] <= CRF_LOSS_RTOL
+            and max(c["grad_em_rel_err"], c["grad_trans_rel_err"])
+            <= CRF_GRAD_REL_TOL
+            and c["viterbi_score_rel_err"] <= CRF_LOSS_RTOL
+            and c["paths_equal"] and c["label_mask_equal"]
+            and c["viterbi_paths_equal"] and c["static_paths_equal"]):
+        raise AssertionError("22b: the CRF on the card disagrees with the "
+                             "CPU")
+    del step, model, opt
+    torch.cuda.empty_cache()
+    return res
+
+
+def _device_time(fn, what):
+    """(ms, source) of one call of ``fn``: its kernels' time from the
+    profiler, else (a session that records no device operation, as the
+    profiler now and then gives late in the script) CUDA events over
+    back-to-back calls, which also count the launch gaps."""
+    try:
+        return device_ms(fn, what, iters=3, attempts=3), "profiler"
+    except RuntimeError as e:
+        log(f"[22c] {e}; timing with CUDA events instead")
+        return time_ms(fn, iters=3, warmup=1), "events"
+
+
+def _ops_compare(name, fn, args, grad, cpu_args=None, cpu_rows=None):
+    """``fn`` on the card's ``args`` against the CPU's: the worst error of
+    the output (rows ``cpu_rows`` of it, which ``cpu_args`` give on the
+    CPU) and, for the positions ``grad``, of the gradients for one
+    cotangent (the full call on both sides); the device time of a call
+    (and of a forward and backward)."""
+    def run(a, with_grad):
+        a = [t.detach().requires_grad_(i in grad and with_grad)
+             if isinstance(t, torch.Tensor) and t.is_floating_point() else t
+             for i, t in enumerate(a)]
+        out = fn(*a)
+        out = out[0] if isinstance(out, tuple) else out
+        if not with_grad:
+            return out.detach(), []
+        ct = torch.linspace(0.5, 1.5, out.numel(), device=out.device
+                            ).reshape(out.shape)
+        (out * ct).sum().backward()
+        return out.detach(), [a[i].grad for i in grad]
+
+    out, _ = run(args, False)
+    cpu = [t.cpu() if isinstance(t, torch.Tensor) else t
+           for t in (cpu_args or args)]
+    ref, _ = run(cpu, False)
+    got = out[cpu_rows].cpu() if cpu_rows is not None else out.cpu()
+    errs = {"out": float((got - ref).abs().max())}
+    ok = bool(((got - ref).abs() <= OPS_ATOL + OPS_RTOL * ref.abs()).all())
+    if grad:
+        _, g_card = run(args, True)
+        _, g_cpu = run([t.cpu() if isinstance(t, torch.Tensor) else t
+                        for t in args], True)
+        for i, a, b in zip(grad, g_card, g_cpu):
+            errs[f"grad{i}"] = max_rel(a.cpu(), b)
+            ok &= errs[f"grad{i}"] <= OPS_GRAD_REL_TOL
+    res = {"err": errs, "ok": ok}
+    res["device_ms"], res["timed_by"] = _device_time(
+        lambda: run(args, False), name)
+    if grad:
+        res["fwd_bwd_device_ms"], res["fwd_bwd_timed_by"] = _device_time(
+            lambda: run(args, True), name + " fwd+bwd")
+    log(f"[22c] {name}: worst err {errs} (output: rtol {OPS_RTOL}, atol "
+        f"{OPS_ATOL}; gradients: {OPS_GRAD_REL_TOL} of their largest value)"
+        f"; device {res['device_ms']:.3f} ms ({res['timed_by']})"
+        + (f", forward + backward {res['fwd_bwd_device_ms']:.3f} ms "
+           f"({res['fwd_bwd_timed_by']})" if grad else ""))
+    if not ok:
+        raise AssertionError(f"22c: {name} disagrees with the CPU")
+    return res
+
+
+def vision_ops_phase(dev):
+    """22c: the rest of ``vision.ops`` at published shapes, card against
+    CPU."""
+    from paddle_tpu_torch.vision import ops as V
+
+    gen = torch.Generator().manual_seed(23)
+    rnd = lambda *s, scale=1.0: (torch.randn(*s, generator=gen)
+                                 * scale).to(dev)
+    res = {}
+    # YOLOv3-416's three heads, 80 classes, then NMS over the 10647 boxes
+    img = torch.full((YOLO_BATCH, 2), 416, dtype=torch.int32, device=dev)
+    heads = []
+    for size, ratio, mask in YOLO_HEADS:
+        x = rnd(YOLO_BATCH, 255, size, size)
+        anchors = [YOLO_ANCHORS[2 * m + k] for m in mask for k in (0, 1)]
+        kw = dict(anchors=anchors, class_num=80, conf_thresh=0.005,
+                  downsample_ratio=ratio)
+        res[f"yolo_box_{size}"] = _ops_compare(
+            f"yolo_box {list(x.shape)}", lambda a, i, kw=kw: torch.cat(
+                V.yolo_box(a, i, **kw), -1), [x, img], ())
+        heads.append(V.yolo_box(x, img, **kw))
+    boxes = torch.cat([h[0] for h in heads], 1)
+    scores = torch.cat([h[1] for h in heads], 1).transpose(1, 2).contiguous()
+    with no_host_sync():
+        out, counts = V.multiclass_nms(boxes, scores, **YOLO_NMS)
+    k = OPS_CPU_IMAGES
+    cpu_out, cpu_counts = V.multiclass_nms(boxes[:k].cpu(), scores[:k].cpu(),
+                                           **YOLO_NMS)
+    same = bool(torch.equal(out[:k].cpu(), cpu_out)
+                and torch.equal(counts[:k].cpu(), cpu_counts))
+    res["yolo_nms"] = {"same_as_cpu": same, "counts": counts.tolist()}
+    res["yolo_nms"]["device_ms"], res["yolo_nms"]["timed_by"] = _device_time(
+        lambda: V.multiclass_nms(boxes, scores, **YOLO_NMS), "yolo nms")
+    log(f"[22c] multiclass_nms over YOLOv3-416's {boxes.shape[1]} boxes x 80"
+        f" classes (top 1000, keep 100): images 0-{k - 1} the CPU's block "
+        f"{same}; counts {res['yolo_nms']['counts']}; device "
+        f"{res['yolo_nms']['device_ms']:.2f} ms "
+        f"({res['yolo_nms']['timed_by']})")
+    if not same:
+        raise AssertionError("22c: YOLO NMS differs from the CPU's")
+    del heads, boxes, scores
+    # R50-C4's RoIAlign; the CPU recomputes the first RoIs of each image
+    feat = rnd(*ROI_FEAT)
+    n_img, per = ROI_FEAT[0], ROIS_PER_IMAGE
+    scale = 1 / 16
+    h, w = ROI_FEAT[2] / scale, ROI_FEAT[3] / scale
+
+    def rois(count):
+        xy = torch.rand(count, 2, generator=gen) * torch.tensor([w, h])
+        wh = torch.rand(count, 2, generator=gen) * 300 + 8
+        return torch.cat([xy, xy + wh], 1).to(dev)
+
+    r = rois(n_img * per)
+    num = torch.full((n_img,), per, device=dev)
+    k = OPS_CPU_ROIS // n_img
+    rows = torch.cat([i * per + torch.arange(k) for i in range(n_img)])
+    sub = r[rows.to(dev)]
+    sub_num = torch.full((n_img,), k)
+    ra = lambda f, b, n: V.roi_align(f, b, 14, spatial_scale=scale,
+                                     boxes_num=n)
+    res["roi_align"] = _ops_compare(
+        f"roi_align {list(ROI_FEAT)} x {n_img * per} RoIs -> 14", ra,
+        [feat, r, num], (), cpu_args=[feat, sub, sub_num], cpu_rows=rows)
+    res["roi_align_grad"] = _ops_compare(
+        f"roi_align gradient over {OPS_CPU_ROIS} RoIs", ra,
+        [feat, sub, sub_num.to(dev)], (0, 1))
+    del feat
+    # R-FCN's position-sensitive pooling
+    x = rnd(*PSROI_FEAT)
+    n_img, per = PSROI_FEAT[0], PSROIS_PER_IMAGE
+    r = rois(n_img * per)
+    res["psroi_pool"] = _ops_compare(
+        f"psroi_pool {list(PSROI_FEAT)} x {n_img * per} RoIs -> 7",
+        lambda a, b: V.psroi_pool(a, b, torch.full(
+            (n_img,), per, device=a.device), 7, scale), [x, r], (0,))
+    del x
+    # DCNv2 at ResNet-50's res5 3x3
+    n, c, hh, ww = DCN_X
+    x = rnd(*DCN_X)
+    off = rnd(n, 18, hh, ww, scale=2.0)
+    m = torch.sigmoid(rnd(n, 9, hh, ww))
+    wt = rnd(c, c, 3, 3, scale=0.02)
+    res["deform_conv2d"] = _ops_compare(
+        f"deform_conv2d v2 {list(DCN_X)} -> {c}", lambda a, o, w_, mk: (
+            V.deform_conv2d(a, o, w_, padding=1, mask=mk)),
+        [x, off, wt, m], (0, 1, 2, 3))
+    # the rest at SSD's and ResNet's shapes
+    f19 = torch.zeros(1, 1, 19, 19, device=dev)
+    image = torch.zeros(1, 3, 300, 300, device=dev)
+    res["prior_box"] = _ops_compare(
+        "prior_box 19 x 19 (60, 111)", lambda f, i: V.prior_box(
+            f, i, [60.0], [111.0], [2.0, 3.0], flip=True, clip=True),
+        [f19, image], ())
+    prior = torch.sort(torch.rand(2278, 4, generator=gen), 1).values.to(dev)
+    gt = torch.sort(torch.rand(64, 4, generator=gen), 1).values.to(dev)
+    res["box_coder_encode"] = _ops_compare(
+        "box_coder encode 64 x 2278", lambda p, t: V.box_coder(
+            p, [0.1, 0.1, 0.2, 0.2], t), [prior, gt], (0, 1))
+    res["box_coder_decode"] = _ops_compare(
+        "box_coder decode 8 x 2278", lambda p, t: V.box_coder(
+            p, [0.1, 0.1, 0.2, 0.2], t, code_type="decode_center_size"),
+        [prior, rnd(8, 2278, 4, scale=0.5)], (0, 1))
+    res["iou_similarity"] = _ops_compare(
+        "iou_similarity 64 x 2278", V.iou_similarity, [gt, prior], (0, 1))
+    res["spp"] = _ops_compare("spp [8, 256, 13, 13] height 3", lambda a: (
+        V.spp(a, 3)), [rnd(8, 256, 13, 13)], (0,))
+    res["space_to_depth_stem_conv"] = _ops_compare(
+        "space_to_depth_stem_conv [8, 3, 224, 224] -> 64",
+        V.space_to_depth_stem_conv,
+        [rnd(8, 3, 224, 224), rnd(64, 3, 7, 7, scale=0.1)], (0, 1))
+    return res
+
+
+def fused_head_phase(dev, counted, launches, gpt_mod, phase8, smi):
+    """22d: GPT-2 345M at bench.py's shape with ``fused_head_ce=True``."""
+    from paddle_tpu_torch.distributed.fleet.engine import ParallelTrainStep
+    from paddle_tpu_torch.optimizer import Adam
+
+    cfg = gpt_mod.gpt2_medium(hidden_dropout=0.0, attention_dropout=0.0)
+    g = torch.Generator(device=dev).manual_seed(24)
+    ids = torch.randint(0, cfg.vocab_size, TRAIN_SHAPE, device=dev,
+                        generator=g)
+    labels = torch.roll(ids, -1, dims=1)
+    ref_loss = _engine_step1_loss(gpt_mod, ids, labels)
+    cfg.fused_head_ce = True
+    model = gpt_mod.GPTForCausalLM(cfg, dtype=torch.float32, seed=4)
+    opt = Adam(TRAIN_LR, parameters=model.parameters(), multi_precision=True)
+    step = ParallelTrainStep(model, lambda out, lbl: out, opt,
+                             compute_dtype=torch.bfloat16)
+    train = lambda i, l: step((i, l), (l,))
+    torch.cuda.reset_peak_memory_stats()
+    first = train(ids, labels).detach().float().cpu()
+    rel = float((first - ref_loss).abs() / ref_loss.abs())
+    warm = [train(ids, labels)]
+    torch.cuda.synchronize()
+    _cleared(counted)
+    n = FUSED_HEAD_STEPS - 2
+    losses, step_ms, wall = timed_steps(train, (ids, labels), n)
+    got = _read_launches(counted, launches, "gpt_fused_head")
+    peak = torch.cuda.max_memory_allocated()
+    prof = profile_step("22d", train, (ids, labels))
+    n_ln = 2 * cfg.num_layers + 1
+    want = {"layer_norm_fwd": n_ln * n, "layer_norm_bwd": 2 * n_ln * n,
+            "flash_attn_fwd": cfg.num_layers * n,
+            "flash_attn_bwd_dq": cfg.num_layers * n,
+            "flash_attn_bwd_dkv": cfg.num_layers * n, "adam": 2 * n}
+    losses = [float(x) for x in [first] + warm + losses]
+    p8 = phase8.get("profile") or {}
+    res = {"tokens_per_s": TRAIN_SHAPE[0] * TRAIN_SHAPE[1] * n / wall,
+           "step_ms_p50": step_ms[n // 2], "step_ms_min": step_ms[0],
+           "step_ms_max": step_ms[-1],
+           "device_ms_per_step": prof["device_ms_per_step"],
+           "busy_share": prof["busy_share"], "peak_memory_bytes": peak,
+           "losses": losses, "step1_loss": float(first),
+           "step1_loss_phase8": float(ref_loss), "step1_rel_diff": rel,
+           "launches": got, "card": smi}
+    log(f"[22d] GPT-2 345M with fused_head_ce at {TRAIN_SHAPE}: step 1's "
+        f"loss {float(first):.6f} against phase 8's path on the same weights"
+        f" and batch {float(ref_loss):.6f}, relative diff {rel:.3g} (tol "
+        f"{FUSED_HEAD_LOSS_RTOL:.3g}); {res['tokens_per_s']:.1f} tokens/s "
+        f"(phase 8 {phase8['tokens_per_s']:.1f}), step p50 "
+        f"{res['step_ms_p50']:.2f} ms (phase 8 {phase8['step_ms_p50']:.2f}),"
+        f" device {res['device_ms_per_step']:.2f} ms a step (phase 8 "
+        f"{p8.get('device_ms_per_step', float('nan')):.2f}), peak memory "
+        f"{peak / 2**30:.2f} GiB (phase 8 "
+        f"{phase8['peak_memory_bytes'] / 2**30:.2f}); losses {losses}; "
+        f"launches {got}")
+    if rel > FUSED_HEAD_LOSS_RTOL:
+        raise AssertionError("22d: step 1's loss is off phase 8's")
+    if any(got[k] != v for k, v in want.items()):
+        raise AssertionError(f"22d launched {got}, expected {want}")
+    if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]:
+        raise AssertionError(f"22d: the loss did not fall: {losses}")
+    del step, model, opt
+    torch.cuda.empty_cache()
+    return res
+
+
+HUBCONF = '''
+def ssd_mobilenet_v1_voc(seed=0, device="cuda"):
+    """SSD-MobileNet-v1 on VOC (chip_smoke.SSDMobileNet)."""
+    import chip_smoke
+
+    return chip_smoke.SSDMobileNet(seed=seed, device=device).eval()
+'''
+
+
+def hapi_tail_phase(dev, ssd_model, images, workdir):
+    """22e: flops on the card, hub.load of the 22a model, encryption at
+    rest and the image loader (or the errors that name their packages)."""
+    import importlib.util
+
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import inference, jit
+    from paddle_tpu_torch.framework import io_crypto
+    from paddle_tpu_torch.vision import image as vimage
+    from paddle_tpu_torch.vision import models as vmodels
+
+    res = {"flops": {}}
+    for name, shape in (("LeNet", [1, 1, 28, 28]),
+                        ("resnet50", [1, 3, 224, 224]),
+                        ("mobilenet_v1", [1, 3, 224, 224])):
+        res["flops"][name] = ptt.flops(getattr(vmodels, name)(device=dev),
+                                       shape)
+    log(f"[22e] flops on the card: {res['flops']} (the reference's "
+        f"{FLOPS_WANT})")
+    if res["flops"] != FLOPS_WANT:
+        raise AssertionError("22e: flops differ from the reference's")
+    os.makedirs(workdir, exist_ok=True)
+    with open(os.path.join(workdir, "hubconf.py"), "w") as f:
+        f.write(HUBCONF)
+    hub_model = ptt.hub.load(workdir, "ssd_mobilenet_v1_voc",
+                             device=images.device)
+    with torch.no_grad():
+        want = ssd_model(images)
+        got = hub_model(images)
+    res["hub_same_bits"] = all(torch.equal(a, b) for a, b in zip(got, want))
+    res["hub_list"] = ptt.hub.list(workdir)
+    del hub_model
+    crypto = importlib.util.find_spec("cryptography") is not None
+    key = bytes(range(32))
+    if crypto:
+        path = os.path.join(workdir, "ssd.pdparams")
+        state = ssd_model.state_dict()
+        ptt.save(state, path, cipher_key=key)
+        back = ptt.load(path, cipher_key=key)
+        res["encrypted_state_same_bits"] = all(
+            torch.equal(back[k], v.cpu()) for k, v in state.items())
+        plain = os.path.join(workdir, "ssd")
+        jit.save(ssd_model, plain, input_spec=[jit.InputSpec(
+            list(images.shape), "float32", "image")])
+        secret = os.path.join(workdir, "ssd_secret")
+        with open(plain + ".pdexport", "rb") as f:
+            io_crypto.AESCipher(key).encrypt_to_file(f.read(),
+                                                     secret + ".pdexport")
+        outs = []
+        for prefix in (plain, secret):
+            cfg = inference.Config(prefix)
+            if prefix == secret:
+                cfg.set_cipher_key(key)
+            outs.append(inference.create_predictor(cfg).run(
+                [images.cpu().numpy()]))
+        res["encrypted_export_same_bits"] = all(
+            np.array_equal(np.asarray(a), np.asarray(b))
+            for a, b in zip(*outs))
+        branch = "cryptography present: encrypted round trips"
+        ok = res["encrypted_state_same_bits"] and \
+            res["encrypted_export_same_bits"]
+    else:
+        try:
+            io_crypto.AESCipher(key)
+            ok = False
+        except ImportError as e:
+            ok = "cryptography" in str(e)
+            res["crypto_error"] = str(e)
+        branch = "cryptography missing: the port names it"
+    res["crypto_branch"] = branch
+    if importlib.util.find_spec("PIL") is not None:
+        from PIL import Image
+
+        arr = (np.arange(6 * 7 * 3) % 251).astype(np.uint8).reshape(6, 7, 3)
+        p = os.path.join(workdir, "im.png")
+        Image.fromarray(arr).save(p)
+        res["image_branch"] = "PIL present: image_load decodes"
+        img_ok = np.array_equal(vimage.image_load(p, "tensor").numpy(), arr)
+    else:
+        try:
+            vimage.image_load(os.path.join(workdir, "im.png"))
+            img_ok = False
+        except ImportError as e:
+            img_ok = "PIL" in str(e)
+            res["image_error"] = str(e)
+        res["image_branch"] = "PIL missing: the port names it"
+    shutil.rmtree(workdir, ignore_errors=True)
+    log(f"[22e] hub.load of {res['hub_list']}: the 22a model's bits "
+        f"{res['hub_same_bits']}; {branch} ({ok}); {res['image_branch']} "
+        f"({img_ok})")
+    if not (res["hub_same_bits"] and ok and img_ok):
+        raise AssertionError("22e: the hapi tail failed")
+    return res
+
+
+def detection_crf_phase(dev, counted, launches, phase8, phase10, smi):
+    """Phase 22: detection serving, CRF tagging, the rest of vision.ops,
+    GPT's fused head and the hapi tail."""
+    from paddle_tpu_torch.text.models import bert as bert_mod
+    from paddle_tpu_torch.text.models import gpt as gpt_mod
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out, seconds = {}, {}
+    t0 = time.perf_counter()
+
+    def lap(name):
+        nonlocal t0
+        seconds[name] = time.perf_counter() - t0
+        log(f"[{name}] done in {seconds[name]:.1f} s")
+        t0 = time.perf_counter()
+
+    out["ssd"], ssd_model, images = ssd_phase(dev, counted, launches, smi)
+    lap("22a")
+    out["bert_crf"] = bert_crf_phase(dev, counted, launches, bert_mod,
+                                     phase10, smi)
+    lap("22b")
+    out["vision_ops"] = vision_ops_phase(dev)
+    torch.cuda.empty_cache()
+    lap("22c")
+    out["fused_head"] = fused_head_phase(dev, counted, launches, gpt_mod,
+                                         phase8, smi)
+    lap("22d")
+    out["hapi_tail"] = hapi_tail_phase(
+        dev, ssd_model, images,
+        str(Path(__file__).resolve().parent / "build" / "chip_smoke_hub"))
+    del ssd_model
+    torch.cuda.empty_cache()
+    lap("22e")
+    out["seconds"] = seconds
+    log("[22] seconds by part: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in seconds.items()))
+    return out
+
+
 def counted_kernels():
     """Each kernel's wrapper by its name in the kernels line; each counts
     its launches in ``.launches``."""
@@ -6465,8 +7340,8 @@ def main() -> int:
         f"{peak / 2**30:.2f} GiB; loss {all_losses[0]:.4f} -> "
         f"{all_losses[-1]:.4f}; attn/calls {attn_calls}; launches "
         f"{got}")
-    busy = profile_bert_training(step, (ids, mlm, nsp), n_layers)
-    bert_training["busy_share"] = busy
+    bert_training.update(profile_bert_training(step, (ids, mlm, nsp),
+                                               n_layers))
     log("bert_training " + json.dumps(bert_training))
     if not all(np.isfinite(all_losses)):
         raise AssertionError(f"non-finite BERT loss: {all_losses}")
@@ -6659,6 +7534,11 @@ def main() -> int:
     tensor_api = tensor_api_phase(dev, counted, launches, training, smi)
     log("tensor_api " + json.dumps(tensor_api))
 
+    # -- phase 22: detection, CRF tagging and the hapi tail -------------------
+    detection_crf = detection_crf_phase(dev, counted, launches, training,
+                                        bert_training, smi)
+    log("detection_crf " + json.dumps(detection_crf))
+
     # -- the kernels line and the result --------------------------------------
     def timed(kernel, shape):
         return next(t for t in timings if t["kernel"] == kernel
@@ -6677,26 +7557,29 @@ def main() -> int:
               "static_gpt", "static_to_static", "predictor_layer",
               "predictor_export", "serving_spec", "serving_int8",
               "nmt_parity", "nmt_f32", "nmt_bf16", "nmt_beam",
-              "nn_breadth", "tensor_path")),
+              "nn_breadth", "tensor_path", "bert_crf", "gpt_fused_head")),
             ("flash_attn_fwd", "paddle_tpu_torch/csrc/flash_attn_fwd.cu",
              "paddle_tpu/ops/flash_tpu.py:43",
              timed("flash_attn_fwd", list(GPT_ATTN_SHAPE)),
              ("dense_forward", "training", flash_phase, "static_gpt",
               "static_to_static", "predictor_layer", "predictor_export",
-              "bench_decode", "tensor_path")),
+              "bench_decode", "tensor_path", "gpt_fused_head")),
             ("layer_norm_bwd", "paddle_tpu_torch/csrc/layer_norm_bwd.cu",
              "paddle_tpu/ops/fused.py:34",
              timed("layer_norm_bwd", list(LN_TIMED[0])),
              ("training", "bert_training", "longctx", "static_gpt",
-              "nmt_parity", "nmt_f32", "nmt_bf16", "tensor_path")),
+              "nmt_parity", "nmt_f32", "nmt_bf16", "tensor_path",
+              "bert_crf", "gpt_fused_head")),
             ("flash_attn_bwd_dq", "paddle_tpu_torch/csrc/flash_attn_bwd.cu",
              "paddle_tpu/ops/flash_tpu.py:83",
              timed("flash_attn_bwd_dq", [8, 1024, 16, 64]),
-             ("training", flash_phase, "static_gpt", "tensor_path")),
+             ("training", flash_phase, "static_gpt", "tensor_path",
+              "gpt_fused_head")),
             ("flash_attn_bwd_dkv", "paddle_tpu_torch/csrc/flash_attn_bwd.cu",
              "paddle_tpu/ops/flash_tpu.py:118",
              timed("flash_attn_bwd_dkv", [8, 1024, 16, 64]),
-             ("training", flash_phase, "static_gpt", "tensor_path")),
+             ("training", flash_phase, "static_gpt", "tensor_path",
+              "gpt_fused_head")),
             ("adam", "paddle_tpu_torch/csrc/adam.cu",
              "paddle_tpu/ops/fused.py:172",
              next(t for t in timings if t["kernel"] == "adam"),
@@ -6706,7 +7589,8 @@ def main() -> int:
                 "longctx", "static_gpt", "param_resnet_o2",
                 "param_trainstep_o2", "param_sparse_adam_dense",
                 "param_sparse_adam_sparse", "param_lr", "nmt_parity",
-                "nmt_f32", "nmt_bf16", "tensor_path")),
+                "nmt_f32", "nmt_bf16", "tensor_path", "bert_crf",
+                "gpt_fused_head")),
             ("grad_sumsq", "paddle_tpu_torch/csrc/adam.cu",
              "paddle_tpu/nn/clip.py:111", sumsq_t,
              options_paths + ("param_sparse_adam_global_clip_dense",
@@ -6715,17 +7599,17 @@ def main() -> int:
             ("flash_attn_fwd_full", "paddle_tpu_torch/csrc/flash_attn_fwd.cu",
              "paddle_tpu/ops/attention.py:156",
              timed("flash_attn_fwd_full", bert_attn),
-             ("bert_training", "bert_padded")),
+             ("bert_training", "bert_padded", "bert_crf")),
             ("flash_attn_bwd_dq_full",
              "paddle_tpu_torch/csrc/flash_attn_bwd.cu",
              "paddle_tpu/ops/attention.py:297",
              timed("flash_attn_bwd_dq_full", bert_attn),
-             ("bert_training", "bert_padded")),
+             ("bert_training", "bert_padded", "bert_crf")),
             ("flash_attn_bwd_dkv_full",
              "paddle_tpu_torch/csrc/flash_attn_bwd.cu",
              "paddle_tpu/ops/attention.py:297",
              timed("flash_attn_bwd_dkv_full", bert_attn),
-             ("bert_training", "bert_padded")),
+             ("bert_training", "bert_padded", "bert_crf")),
             ("dkv_packed", "paddle_tpu_torch/csrc/dkv_packed.cu",
              "tools/experiments/dkv_packed_kernel.py:43",
              timed("dkv_packed", list(PACKED_TIMED[0])),
@@ -6754,6 +7638,8 @@ def main() -> int:
                 "rnn_lstm", "rnn_gru", "nn_breadth")),
             "launches_tensor_api": sum(by_phase.get(p, 0) for p in (
                 "tensor_breadth", "tensor_path")),
+            "launches_detection_crf": sum(by_phase.get(p, 0) for p in (
+                "ssd_serve", "bert_crf", "gpt_fused_head")),
             "max_abs_err": err[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],

@@ -88,9 +88,9 @@ from .autograd import grad
 from . import (amp, framework, hapi, incubate, inference, io, jit, metric,
                nn, optimizer, profiler, quant, resilience, static, text,
                vision)
-from . import callbacks
+from . import callbacks, hub
 from .framework import load, save
-from .hapi import Model, summary
+from .hapi import Model, flops, summary
 from .nn import ParamAttr
 from .tensor.manipulation import crop as crop_tensor
 from .tensor.math import floor_mod
@@ -103,7 +103,8 @@ __all__ = sorted(set(_tensor_all) | {
     "core", "tensor", "autograd", "grad", "amp", "framework", "hapi",
     "incubate", "inference", "io", "jit", "metric", "nn", "optimizer",
     "profiler", "quant", "resilience", "static", "text", "vision",
-    "callbacks", "Model", "summary", "save", "load", "Layer", "ParamAttr",
+    "callbacks", "Model", "summary", "flops", "hub", "save", "load",
+    "Layer", "ParamAttr",
     "resolve_device", "Place", "CPUPlace", "CUDAPlace", "CUDAPinnedPlace",
     "NPUPlace", "TPUPlace", "XPUPlace", "set_device", "get_device",
     "is_compiled_with_cuda", "is_compiled_with_tpu", "is_compiled_with_npu",

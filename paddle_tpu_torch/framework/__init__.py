@@ -1,6 +1,7 @@
 """Framework helpers (``paddle_tpu.framework`` counterpart): ``save`` and
-``load`` with their durability helpers (``io``)."""
-from . import io
+``load`` with their durability helpers (``io``) and the at-rest cipher
+(``io_crypto``)."""
+from . import io, io_crypto
 from .io import load, save
 
-__all__ = ["io", "save", "load"]
+__all__ = ["io", "io_crypto", "save", "load"]

@@ -25,12 +25,16 @@ beside a ``manifest.json`` that lists it is checked against its recorded
 CRC32 and size first, and a mismatch raises
 :class:`CheckpointIntegrityError`.
 
-``cipher_key`` (the reference's AES-GCM files, ``framework/io_crypto``)
-needs the ``cryptography`` package and is not ported: ``save`` and
-``load`` raise ``NotImplementedError`` on it, and on an encrypted file.
+``save(..., cipher_key=key)`` writes the pickle AES-GCM encrypted
+(``framework.io_crypto``, the reference's wire format); ``load`` detects
+an encrypted file by its magic and needs the same ``cipher_key``. The
+port reads the reference's encrypted files; the reference reads the
+port's encrypted files whose leaves are numpy arrays and Python values
+(a tensor leaf pickles the port's payload class, which it does not map).
 """
 from __future__ import annotations
 
+import io
 import json
 import os
 import pickle
@@ -53,9 +57,6 @@ _PROTOCOL = 4
 # The integrity record a coordinated checkpoint commits beside its
 # shards: {"files": {<basename>: {"crc32": int, "size": int}}, ...}.
 MANIFEST_NAME = "manifest.json"
-
-# the first bytes of a file the reference wrote with cipher_key
-_ENCRYPTED_MAGIC = b"PDENC\x01"
 
 
 class CheckpointIntegrityError(OSError):
@@ -245,17 +246,10 @@ class _Unpickler(pickle.Unpickler):
             "not hold (only tensor payloads, numpy arrays and builtins)")
 
 
-def _no_cipher(configs):
-    if configs.get("cipher_key") is not None:
-        raise NotImplementedError(
-            "cipher_key: encrypted checkpoints need the cryptography "
-            "package and are not ported")
-
-
 def save(obj, path, protocol=_PROTOCOL, **configs):
     """Pickle ``obj`` (a tensor, or nested dicts, lists and tuples of
-    tensors and Python values) to ``path``, atomically."""
-    _no_cipher(configs)
+    tensors and Python values) to ``path``, atomically; encrypted with
+    ``cipher_key`` (AES key bytes) when it is given."""
     tel = get_telemetry()
     d = os.path.dirname(path)
     if d:
@@ -264,12 +258,19 @@ def save(obj, path, protocol=_PROTOCOL, **configs):
             tel.timer("checkpoint/write_ms"), \
             _goodput.activity("checkpoint_save"):
         payload = _to_saveable(obj)
+        key = configs.get("cipher_key")
+        if key is not None:
+            from .io_crypto import AESCipher
 
-        def _write(tmp):
-            with open(tmp, "wb") as f:
-                pickle.dump(payload, f, protocol=protocol)
+            blob = pickle.dumps(payload, protocol=protocol)
+            atomic_replace(
+                path, lambda tmp: AESCipher(key).encrypt_to_file(blob, tmp))
+        else:
+            def _write(tmp):
+                with open(tmp, "wb") as f:
+                    pickle.dump(payload, f, protocol=protocol)
 
-        atomic_replace(path, _write)
+            atomic_replace(path, _write)
     tel.counter("checkpoint/writes")
     tel.counter("checkpoint/write_bytes", os.path.getsize(path))
 
@@ -279,8 +280,9 @@ def load(path, **configs):
     ``paddle_tpu.save``), tensors on the CPU (numpy arrays with
     ``return_numpy=True``). A file covered by a sibling ``manifest.json``
     is verified first (``verify=False`` skips that for a caller that has
-    already hashed it)."""
-    _no_cipher(configs)
+    already hashed it). An encrypted file needs its ``cipher_key``."""
+    from .io_crypto import AESCipher, is_encrypted
+
     tel = get_telemetry()
     return_numpy = configs.get("return_numpy", False)
     with tel.timer("ckpt/restore_ms"), \
@@ -289,13 +291,16 @@ def load(path, **configs):
             tel.counter("ckpt/manifest_verified")
         with _spans.span("checkpoint", cat="checkpoint"), \
                 tel.timer("checkpoint/read_ms"):
-            with open(path, "rb") as f:
-                if f.read(len(_ENCRYPTED_MAGIC)) == _ENCRYPTED_MAGIC:
-                    raise NotImplementedError(
-                        f"{path} is encrypted (cipher_key); encrypted "
-                        "checkpoints are not ported")
-                f.seek(0)
-                payload = _Unpickler(f).load()
+            if is_encrypted(path):
+                key = configs.get("cipher_key")
+                if key is None:
+                    raise ValueError(f"{path} is encrypted; pass "
+                                     "cipher_key=<bytes> to load it")
+                payload = _Unpickler(io.BytesIO(
+                    AESCipher(key).decrypt_from_file(path))).load()
+            else:
+                with open(path, "rb") as f:
+                    payload = _Unpickler(f).load()
             out = _from_saveable(payload, return_numpy)
     tel.counter("checkpoint/reads")
     tel.counter("checkpoint/read_bytes", os.path.getsize(path))

@@ -1,8 +1,9 @@
 """The high-level API (``paddle_tpu.hapi`` counterpart): ``Model``, the
-callbacks and ``summary``. ``dynamic_flops`` and ``hub`` are not ported
-yet."""
-from . import callbacks
+callbacks, ``summary``, ``flops`` (``dynamic_flops``) and ``hub``."""
+from . import callbacks, dynamic_flops, hub
+from .dynamic_flops import flops
 from .model import Model
 from .summary import summary
 
-__all__ = ["Model", "callbacks", "summary"]
+__all__ = ["Model", "callbacks", "summary", "flops", "hub",
+           "dynamic_flops"]

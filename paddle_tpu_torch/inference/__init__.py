@@ -58,6 +58,7 @@ class Config:
         self._precision_explicit = False
         self._layer = None
         self._input_spec = None
+        self._cipher_key = None
 
     # -- device ---------------------------------------------------------------
     def enable_use_gpu(self, memory_pool_mb: int = 100, device_id: int = 0):
@@ -76,6 +77,16 @@ class Config:
     # -- model source ---------------------------------------------------------
     def set_model(self, model_path: str, params_path: Optional[str] = None):
         self.model_path = model_path
+
+    # -- decryption of an encrypted artifact (framework.io_crypto) ---------
+    def set_cipher_key(self, key: bytes):
+        """AES key of an encrypted ``.pdexport``."""
+        self._cipher_key = key
+
+    def set_cipher_key_file(self, path: str):
+        from ..framework.io_crypto import CipherUtils
+
+        self._cipher_key = CipherUtils.read_key_from_file(path)
 
     def set_layer(self, layer, input_spec=None):
         """Serve ``layer`` itself (no files)."""
@@ -204,7 +215,7 @@ class Predictor:
             raise FileNotFoundError(
                 f"{export_path} not found — produce it with "
                 "paddle_tpu_torch.jit.save(layer, prefix, input_spec=[...])")
-        ep, meta = read_pdexport(export_path)
+        ep, meta = read_pdexport(export_path, self._config._cipher_key)
         artifact_dtype = meta["dtype"]
         want = self._config._precision
         explicit_f32 = (want == PrecisionType.Float32
@@ -385,9 +396,8 @@ def create_predictor(config: Config) -> Predictor:
 def create_predictor_from_path(model_prefix: str,
                                cipher_key_file: str = "") -> Predictor:
     """A Predictor on the card over the ``.pdexport`` at
-    ``model_prefix``."""
+    ``model_prefix`` (encrypted: with the key in ``cipher_key_file``)."""
+    cfg = Config(model_prefix)
     if cipher_key_file:
-        raise NotImplementedError(
-            "encrypted artifacts need framework/io_crypto.py, which is not "
-            "ported yet")
-    return Predictor(Config(model_prefix))
+        cfg.set_cipher_key_file(cipher_key_file)
+    return Predictor(cfg)

@@ -97,9 +97,12 @@ def export_module(module: torch.nn.Module,
 
 def write_pdexport(path_prefix: str, ep, input_names: List[str],
                    output_names: List[str], in_specs: List[Tuple[list, str]],
-                   dtype: str = "float32") -> dict:
+                   dtype: str = "float32",
+                   encrypt_key: Optional[bytes] = None) -> dict:
     """``path_prefix.pdexport``: the program's ``torch.export.save`` bytes
-    and the metadata; returns the metadata written."""
+    and the metadata, AES-GCM encrypted with ``encrypt_key``
+    (``framework.io_crypto``) when it is given; returns the metadata
+    written."""
     d = os.path.dirname(path_prefix)
     if d:
         os.makedirs(d, exist_ok=True)
@@ -110,15 +113,31 @@ def write_pdexport(path_prefix: str, ep, input_names: List[str],
             "output_names": list(output_names),
             "in_specs": [(list(s), str(t)) for s, t in in_specs],
             "kernel_ops": kernel_nodes(ep), "dtype": dtype}
-    with open(path_prefix + ".pdexport", "wb") as f:
-        pickle.dump(blob, f)
+    if encrypt_key is not None:
+        from ..framework.io_crypto import AESCipher
+
+        AESCipher(encrypt_key).encrypt_to_file(pickle.dumps(blob),
+                                               path_prefix + ".pdexport")
+    else:
+        with open(path_prefix + ".pdexport", "wb") as f:
+            pickle.dump(blob, f)
     return {k: v for k, v in blob.items() if k != "program"}
 
 
-def read_pdexport(path: str):
-    """``(ExportedProgram, metadata)`` of a ``.pdexport`` file."""
-    with open(path, "rb") as f:
-        blob = pickle.load(f)
+def read_pdexport(path: str, cipher_key: Optional[bytes] = None):
+    """``(ExportedProgram, metadata)`` of a ``.pdexport`` file (an
+    encrypted one needs its ``cipher_key``)."""
+    from ..framework.io_crypto import AESCipher, is_encrypted
+
+    if is_encrypted(path):
+        if cipher_key is None:
+            raise ValueError(
+                f"{path} is encrypted; supply the key via "
+                "Config.set_cipher_key(key) or set_cipher_key_file(path)")
+        blob = pickle.loads(AESCipher(cipher_key).decrypt_from_file(path))
+    else:
+        with open(path, "rb") as f:
+            blob = pickle.load(f)
     if not isinstance(blob, dict) or blob.get("format") != "torch.export":
         raise ValueError(
             f"{path} is not a torch.export artifact (a .pdexport written by "

@@ -128,8 +128,9 @@ def save(layer, path: str, input_spec=None, **configs) -> None:
     dynamic dim) also ``path.pdexport``, the exported eval forward.
     ``precision='bfloat16' | 'float16'`` bakes weights cast to that dtype
     into the artifact (its float inputs are cast, its float outputs come
-    back as float32). The layer is put in eval mode. An export that
-    fails raises."""
+    back as float32). ``encrypt_key`` (AES key bytes) encrypts both the
+    ``.pdiparams`` and the ``.pdexport`` (``framework.io_crypto``). The
+    layer is put in eval mode. An export that fails raises."""
     from ..framework.io import save as _save_state
 
     if isinstance(layer, StaticFunction):
@@ -142,16 +143,16 @@ def save(layer, path: str, input_spec=None, **configs) -> None:
     if d:
         os.makedirs(d, exist_ok=True)
     _save_state(layer.state_dict(), path + ".pdiparams",
-                **({"cipher_key": configs["encrypt_key"]}
-                   if configs.get("encrypt_key") else {}))
+                cipher_key=configs.get("encrypt_key"))
     meta = {"class": type(layer).__name__}
     if input_spec:
-        meta["in_specs"] = _export_layer(layer, path, input_spec, precision)
+        meta["in_specs"] = _export_layer(layer, path, input_spec, precision,
+                                         configs.get("encrypt_key"))
     with open(path + ".pdmodel", "wb") as f:
         pickle.dump(meta, f)
 
 
-def _export_layer(layer, path, input_spec, precision):
+def _export_layer(layer, path, input_spec, precision, encrypt_key=None):
     """Write ``path.pdexport``; returns its input specs."""
     import copy
 
@@ -174,7 +175,8 @@ def _export_layer(layer, path, input_spec, precision):
     write_pdexport(path, ep,
                    [s.name or f"x{i}" for i, s in enumerate(input_spec)],
                    [f"output{i}" for i in range(n_out)], in_specs,
-                   dtype=precision or _float_dtype(layer))
+                   dtype=precision or _float_dtype(layer),
+                   encrypt_key=encrypt_key)
     return in_specs
 
 
@@ -193,8 +195,7 @@ def load(path: str, **configs) -> _Loaded:
     from ..framework.io import load as _load_state
 
     state = _load_state(path + ".pdiparams",
-                        **({"cipher_key": configs["cipher_key"]}
-                           if configs.get("cipher_key") else {}))
+                        cipher_key=configs.get("cipher_key"))
     meta = {}
     if os.path.exists(path + ".pdmodel"):
         with open(path + ".pdmodel", "rb") as f:

@@ -1,7 +1,7 @@
-"""Metrics (``paddle_tpu.metric`` counterpart). ``DetectionMAP`` is not
-ported yet."""
-from . import metrics
+"""Metrics (``paddle_tpu.metric`` counterpart)."""
+from . import detection, metrics
+from .detection import DetectionMAP
 from .metrics import Accuracy, Auc, Metric, Precision, Recall, accuracy
 
 __all__ = ["Metric", "Accuracy", "Precision", "Recall", "Auc", "accuracy",
-           "metrics"]
+           "DetectionMAP", "metrics"]

@@ -18,7 +18,11 @@ does.
   (``SimpleCode``: code ``c = label + num_classes``, node
   ``(c >> (j+1)) − 1``, bit ``(c >> j) & 1``) or a given
   ``path_table`` / ``path_code``, at a static path length with a mask.
-- ``fused_linear_hard_ce`` is not ported (Queue 1 item 5.7).
+- ``fused_linear_hard_ce`` is the LM head's matmul and hard-label CE
+  with the reference's joint backward (``_flce_bwd``): the softmax is
+  recomputed in f32 from the saved logits and per-row lse, one f32
+  ``(p − onehot)·g`` is made in place and cast once, and both products
+  (``dh``, ``dW``) read it.
 """
 from __future__ import annotations
 
@@ -35,7 +39,52 @@ __all__ = [
     "hinge_embedding_loss", "cosine_embedding_loss", "square_error_cost",
     "log_loss", "sigmoid_focal_loss", "triplet_margin_loss", "ctc_loss",
     "edit_distance", "hsigmoid_loss", "dice_loss", "npair_loss",
+    "fused_linear_hard_ce",
 ]
+
+
+class _FusedLinearHardCE(torch.autograd.Function):
+    """``logits = h2 @ wT``, then ``lse − logits[label]`` a row: the
+    exponentials in the logits' dtype summed in f32, the loss in the
+    logits' dtype. Saves h2, wT, the labels, the logits and the f32 lse."""
+
+    @staticmethod
+    def forward(ctx, h2, wT, lbl, ignore_index):
+        logits = torch.matmul(h2, wT)
+        m2 = logits.max(dim=-1, keepdim=True).values
+        lse = torch.log(torch.exp(logits - m2).sum(
+            -1, dtype=torch.float32)) + m2[:, 0].float()
+        picked = torch.gather(logits, 1, lbl.clamp(min=0)[:, None])[:, 0]
+        loss = (lse - picked.float()).to(logits.dtype)
+        mask = (lbl != ignore_index).to(logits.dtype)
+        ctx.save_for_backward(h2, wT, lbl, logits, lse)
+        ctx.ignore_index = ignore_index
+        ctx.mark_non_differentiable(mask)
+        return loss * mask, mask
+
+    @staticmethod
+    def backward(ctx, dloss, _dmask):
+        h2, wT, lbl, logits, lse = ctx.saved_tensors
+        g = dloss.float() * (lbl != ctx.ignore_index).float()
+        # one f32 buffer: exp(logits − lse)·g, minus g at the label
+        d = logits.float()
+        d.sub_(lse[:, None]).exp_().mul_(g[:, None])
+        d.scatter_add_(1, lbl.clamp(min=0)[:, None], -g[:, None])
+        d = d.to(logits.dtype)
+        dh = torch.matmul(d, wT.t()) if ctx.needs_input_grad[0] else None
+        dw = (torch.matmul(h2.t(), d).to(wT.dtype)
+              if ctx.needs_input_grad[1] else None)
+        return dh, dw, None, None
+
+
+def fused_linear_hard_ce(h2: torch.Tensor, wT: torch.Tensor,
+                         lbl: torch.Tensor, ignore_index: int = -100):
+    """The LM head's matmul and hard-label cross entropy with one joint
+    backward: ``h2`` [N, H], ``wT`` [H, V], ``lbl`` [N] int → (per-row
+    loss·mask [N], mask [N]), both in the logits' dtype. The backward
+    gives ``dh = dlogits @ Wᵀ`` and ``dW = h2ᵀ @ dlogits`` from one
+    dlogits, made in f32 from the saved logits and lse and cast once."""
+    return _FusedLinearHardCE.apply(h2, wT, lbl.long(), int(ignore_index))
 
 
 def cross_entropy(input: torch.Tensor, label: torch.Tensor,

@@ -12,9 +12,10 @@ at their first use. Ported: ``fc``, ``conv2d``, ``conv2d_transpose``,
 ``nce``, ``prelu``, ``create_parameter``, ``data_norm``, ``py_func``,
 ``bilinear_tensor_product``, ``conv_shift``, the ``sequence_*``
 functions (``sequence_conv``, ``sequence_reshape`` and
-``sequence_scatter`` here, the rest from ``tensor.sequence``) and the
-control-flow re-exports. The others need functions the port lacks and
-raise ``NotImplementedError`` naming what they wait for.
+``sequence_scatter`` here, the rest from ``tensor.sequence``), the
+detection and tagging heads (``multi_box_head``, ``deform_conv2d`` over
+``vision.ops``, ``crf_decoding`` over ``text.crf``) and the control-flow
+re-exports: every name of the reference's ``static.nn``.
 
 ``batch_norm`` updates fresh running statistics once, at record time, and
 not at replay, as the reference's does; ``nce`` draws its negative
@@ -26,6 +27,7 @@ optimized run).
 from __future__ import annotations
 
 import copy
+import functools
 
 import numpy as np
 import torch
@@ -58,25 +60,8 @@ __all__ = ["fc", "conv2d", "conv2d_transpose", "conv3d", "conv3d_transpose",
            "sequence_expand", "sequence_expand_as", "sequence_first_step",
            "sequence_last_step", "sequence_pad", "sequence_pool",
            "sequence_reverse", "sequence_slice", "sequence_softmax",
-           "sequence_unpad"]
-
-# static.nn functions that wait for a module the port lacks (ROADMAP
-# Queue 1) -> what they wait for
-_NOT_PORTED = {
-    "deform_conv2d": "vision/ops.py (Queue 1 item 5.5)",
-    "multi_box_head": "vision/ops.py's prior_box (Queue 1 item 5.5)",
-    "crf_decoding": "text/crf.py (Queue 1 item 5.5)",
-}
-
-
-def __getattr__(name):
-    if name in _NOT_PORTED:
-        def not_ported(*args, **kwargs):
-            raise NotImplementedError(
-                f"static.nn.{name} is not ported yet: it needs "
-                f"{_NOT_PORTED[name]}")
-        return not_ported
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+           "sequence_unpad", "crf_decoding", "multi_box_head",
+           "deform_conv2d"]
 
 
 # ---------------------------------------------------------------------------
@@ -593,3 +578,104 @@ def conv_shift(x, y, name=None):
         (np.arange(M)[:, None] + np.arange(N)[None, :] - half) % M,
         device=x.device)
     return torch.einsum("bmn,bn->bm", x[:, idx], y)
+
+
+# ---------------------------------------------------------------------------
+# detection and tagging heads
+# ---------------------------------------------------------------------------
+def crf_decoding(input, param_attr=None, label=None, length=None):
+    """Viterbi decoding (``text.crf.crf_decoding``) over the transition
+    parameter, passed as ``param_attr`` (the ``[D+2, D]`` tensor that
+    ``linear_chain_crf`` trains), recorded as one op."""
+    from ..text.crf import crf_decoding as _decode
+
+    if not isinstance(param_attr, torch.Tensor):
+        raise ValueError("pass the transition parameter (the [D+2, D] "
+                         "tensor linear_chain_crf trains) as param_attr")
+    return recording.record_opaque(_decode, input, param_attr, label, length)
+
+
+def _ssd_sizes(n_maps, base_size, min_ratio, max_ratio):
+    """The reference's min/max size schedule: ratios evenly spaced from
+    ``min_ratio`` by floor((max − min)/(n − 2)) for maps 2..n, map 1 at
+    10% / 20% of ``base_size``."""
+    step = int(np.floor((max_ratio - min_ratio) / (n_maps - 2))) \
+        if n_maps > 2 else 0
+    min_sizes, max_sizes = [base_size * 0.1], [base_size * 0.2]
+    ratio = min_ratio
+    for _ in range(n_maps - 1):
+        min_sizes.append(base_size * ratio / 100.0)
+        max_sizes.append(base_size * (ratio + step) / 100.0)
+        ratio += step
+    return min_sizes, max_sizes
+
+
+def _as_list(v):
+    return list(v) if isinstance(v, (list, tuple)) else [v]
+
+
+def multi_box_head(inputs, image, base_size, num_classes, aspect_ratios,
+                   min_ratio=None, max_ratio=None, min_sizes=None,
+                   max_sizes=None, steps=None, step_w=None, step_h=None,
+                   offset=0.5, variance=[0.1, 0.1, 0.2, 0.2], flip=True,
+                   clip=False, kernel_size=1, pad=0, stride=1, name=None,
+                   min_max_aspect_ratios_order=False):
+    """The SSD head: per feature map, a conv predicting 4 box offsets a
+    prior and one a prior and class, and the map's priors
+    (``vision.ops.prior_box``); returns (mbox_locs [N, P, 4], mbox_confs
+    [N, P, num_classes], boxes [P, 4], variances [P, 4]) concatenated over
+    the maps. Each map's priors are one recorded op (they read the map's
+    and the image's shapes alone), so a Program can fetch them."""
+    from ..vision.ops import prior_box
+
+    if min_sizes is None:
+        min_sizes, max_sizes = _ssd_sizes(len(inputs), base_size,
+                                          min_ratio, max_ratio)
+    locs, confs, boxes_all, vars_all = [], [], [], []
+    for i, feat in enumerate(inputs):
+        mx = max_sizes[i] if max_sizes else None
+        # the step of map i: steps, else step_w/step_h, else derived from
+        # the map's and the image's sizes (0)
+        if steps is not None:
+            st = [float(steps[i]), float(steps[i])]
+        elif step_w is not None or step_h is not None:
+            st = [float(step_w[i] if step_w is not None else 0.0),
+                  float(step_h[i] if step_h is not None else 0.0)]
+        else:
+            st = [0.0, 0.0]
+        priors = functools.partial(
+            prior_box, min_sizes=_as_list(min_sizes[i]),
+            max_sizes=_as_list(mx) if mx else [],
+            aspect_ratios=_as_list(aspect_ratios[i]), variance=variance,
+            flip=flip, clip=clip, steps=st, offset=offset,
+            min_max_aspect_ratios_order=min_max_aspect_ratios_order)
+        box, var = recording.record_opaque(priors, feat, image)
+        num_priors = int(box.shape[2])
+        loc = conv2d(feat, num_priors * 4, kernel_size, stride=stride,
+                     padding=pad)
+        conf = conv2d(feat, num_priors * num_classes, kernel_size,
+                      stride=stride, padding=pad)
+        locs.append(loc.permute(0, 2, 3, 1).reshape(loc.shape[0], -1, 4))
+        confs.append(conf.permute(0, 2, 3, 1).reshape(conf.shape[0], -1,
+                                                      num_classes))
+        boxes_all.append(box.reshape(-1, 4))
+        vars_all.append(var.reshape(-1, 4))
+    return (torch.cat(locs, dim=1), torch.cat(confs, dim=1),
+            torch.cat(boxes_all, dim=0), torch.cat(vars_all, dim=0))
+
+
+def deform_conv2d(x, offset, mask, num_filters, filter_size, stride=1,
+                  padding=0, dilation=1, groups=1, deformable_groups=1,
+                  im2col_step=1, param_attr=None, bias_attr=None, name=None):
+    """Deformable convolution (modulated DCNv2 when ``mask`` is given)
+    with a [num_filters, C/groups, kh, kw] weight and a bias made here
+    (``vision.ops.deform_conv2d``)."""
+    from ..vision.ops import deform_conv2d as _dcn
+
+    kh, kw = _ntuple(filter_size, 2)
+    w = _make_param([num_filters, int(x.shape[1]) // groups, kh, kw],
+                    param_attr, False, device=x.device)
+    b = _make_param([num_filters], bias_attr, True, device=x.device)
+    return _dcn(x, offset, w, bias=b, stride=stride, padding=padding,
+                dilation=dilation, deformable_groups=deformable_groups,
+                groups=groups, mask=mask)

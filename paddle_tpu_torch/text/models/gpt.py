@@ -15,9 +15,12 @@ the reference), both differentiable. Dropout draws its masks from a
 ``torch.Generator`` the model owns, seeded from the constructor's
 ``seed``.
 
-The reference's other TPU tuning knobs (``manual_layer_norm``,
-``fused_head_ce``) select XLA lowerings and the training loss; they have
-no counterpart here.
+``GPTConfig.fused_head_ce`` (off by default, as in the reference) makes
+the training forward compute the head and the loss through
+``nn.functional.loss.fused_linear_hard_ce`` (one joint backward, the
+[N, V] dlogits made once) and return the mean over the labels that are
+not ignored, in the head's dtype. The reference's ``manual_layer_norm``
+selects an XLA lowering and has no counterpart here.
 """
 from __future__ import annotations
 
@@ -30,7 +33,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...core.place import resolve_device
-from ...nn.functional.loss import cross_entropy
+from ...amp.auto_cast import maybe_cast_inputs
+from ...nn.functional.loss import cross_entropy, fused_linear_hard_ce
 from ...nn.layer.common import Dropout, Embedding, Linear
 from ...nn.layer.common import linear as _linear
 from ...nn.layer.norm import LayerNorm
@@ -55,6 +59,7 @@ class GPTConfig:
     initializer_range: float = 0.02
     layer_norm_epsilon: float = 1e-5
     use_flash_attention: bool = True
+    fused_head_ce: bool = False
 
     def __post_init__(self):
         if self.intermediate_size == 0:
@@ -180,7 +185,13 @@ class GPTForCausalLM(nn.Module):
     def forward(self, input_ids, labels=None):
         """Logits [b, l, vocab] or, given ``labels`` [b, l], the scalar
         mean cross entropy (the reference's training forward)."""
-        logits = F.linear(self.gpt(input_ids), self.gpt.wte.weight)
+        h = self.gpt(input_ids)
+        if labels is not None and self.config.fused_head_ce:
+            h2, w = maybe_cast_inputs("linear", h.reshape(-1, h.shape[-1]),
+                                      self.gpt.wte.weight)
+            loss, mask = fused_linear_hard_ce(h2, w.t(), labels.reshape(-1))
+            return (loss.sum() / mask.sum().clamp(min=1.0)).to(loss.dtype)
+        logits = F.linear(h, self.gpt.wte.weight)
         if labels is not None:
             return self.loss_fn(logits, labels)
         return logits

@@ -1,6 +1,6 @@
 """Vision (``paddle_tpu.vision`` counterpart): the models (LeNet, the
-ResNets, VGG, MobileNet), the datasets and the transforms.
-``vision/image.py`` (the PIL loader) is not ported yet."""
-from . import datasets, models, transforms
+ResNets, VGG, MobileNet), the datasets, the transforms, the detection
+operators (``ops``) and the image loader (``image``)."""
+from . import datasets, image, models, ops, transforms
 
-__all__ = ["datasets", "models", "transforms"]
+__all__ = ["datasets", "image", "models", "ops", "transforms"]

@@ -363,10 +363,9 @@ def test_integer_division_and_promotion_rules(on_cpu):  # noqa: F811
 # -- the top level ------------------------------------------------------------------
 # the reference's top-level names whose module the port has not ported yet,
 # with their ROADMAP item
-NOT_EXPORTED = {"DataParallel": "6", "flops": "5.6", "batch": "9",
-                "reader": "9", "dataset": "9", "utils": "9", "device": "9",
-                "onnx": "9", "sysconfig": "9", "distribution": "9",
-                "hub": "5.6", "analysis": "8"}
+NOT_EXPORTED = {"DataParallel": "6", "batch": "9", "reader": "9",
+                "dataset": "9", "utils": "9", "device": "9", "onnx": "9",
+                "sysconfig": "9", "distribution": "9", "analysis": "8"}
 
 
 def test_top_level_exports_the_references_names():

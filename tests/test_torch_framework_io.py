@@ -12,7 +12,10 @@ CPU:
 - a file covered by a manifest loads when its CRC32 and size match and
   raises CheckpointIntegrityError on a flipped byte; `atomic_replace`
   leaves no temporary file;
-- `cipher_key` and encrypted files raise NotImplementedError;
+- `cipher_key` writes an AES-GCM file in the reference's wire format:
+  it round-trips, needs its key (a wrong key or a flipped byte fails),
+  a file the reference encrypted loads in the port and a file the port
+  encrypted (numpy leaves) loads in the reference;
 - `set_state_dict` returns (missing, unexpected), raises on a shape
   mismatch, casts to the target's dtype and copies in place;
 - the optimizer state dict round trip for Adam, AdamW and Momentum (with
@@ -130,14 +133,39 @@ def test_manifest_crc_catches_a_flipped_byte(tmp_path):
 
 
 def test_cipher_key_is_not_ported(tmp_path):
+    """The name is kept from when ``cipher_key`` raised; encrypted
+    checkpoints are ported now (``framework.io_crypto``)."""
+    from cryptography.exceptions import InvalidTag
+
+    key = bytes(range(32))
+    w = torch.randn(3, 4)
     path = str(tmp_path / "e.pdparams")
-    with pytest.raises(NotImplementedError, match="cipher_key"):
-        save({"w": torch.ones(2)}, path, cipher_key=b"k" * 32)
-    open(path, "wb").write(b"PDENC\x01" + b"\x00" * 64)
-    with pytest.raises(NotImplementedError, match="encrypted"):
+    save({"w": w, "step": 3}, path, cipher_key=key)
+    raw = open(path, "rb").read()
+    assert raw.startswith(b"PDENC\x01") and w.numpy().tobytes() not in raw
+    got = load(path, cipher_key=key)
+    assert torch.equal(got["w"], w) and got["step"] == 3
+    with pytest.raises(ValueError, match="encrypted"):
         load(path)
-    with pytest.raises(NotImplementedError, match="cipher_key"):
-        load(path, cipher_key=b"k" * 32)
+    with pytest.raises(InvalidTag):
+        load(path, cipher_key=bytes(32))
+    bad = bytearray(raw)
+    bad[-1] ^= 0x01
+    open(path, "wb").write(bytes(bad))
+    with pytest.raises(InvalidTag):
+        load(path, cipher_key=key)
+    # the reference's encrypted file loads in the port with the same key
+    ref_path = str(tmp_path / "ref.pdparams")
+    paddle.save({"w": paddle.to_tensor(w.numpy()), "n": 5}, ref_path,
+                cipher_key=key)
+    got = load(ref_path, cipher_key=key)
+    assert torch.equal(got["w"], w) and got["n"] == 5
+    # and the port's (numpy leaves) in the reference
+    port_path = str(tmp_path / "port.pdparams")
+    save({"w": w.numpy(), "lr": 0.5}, port_path, cipher_key=key)
+    got = paddle.load(port_path, cipher_key=key)
+    np.testing.assert_array_equal(got["w"], w.numpy())
+    assert got["lr"] == 0.5
 
 
 def test_set_state_dict_semantics():

@@ -139,18 +139,17 @@ def test_static_sequence_function_runs_as_the_reference(name):
 
 
 def test_static_nn_has_every_sequence_function():
-    """No sequence_* name is refused any more; the reference's static.nn
-    sequence names all resolve in the port."""
+    """No static.nn name is refused any more: the reference's sequence_*
+    names and every name of its ``__all__`` resolve in the port, and the
+    refusal table is gone."""
     from paddle_tpu.static import nn as jnn
     from paddle_tpu_torch.static import nn as snn
 
     names = [n for n in dir(jnn) if n.startswith("sequence_")]
     assert len(names) == 15
-    for n in names:
-        assert n not in snn._NOT_PORTED
-        assert callable(getattr(snn, n))
-    assert set(snn._NOT_PORTED) == {"deform_conv2d", "multi_box_head",
-                                    "crf_decoding"}
+    for n in names + list(jnn.__all__):
+        assert callable(getattr(snn, n)), n
+    assert not hasattr(snn, "_NOT_PORTED")
 
 
 def test_every_reference_name_has_a_parity_case():

@@ -52,3 +52,34 @@ def assert_close(got, want, rtol, atol, what=""):
     for g, w in zip(got, want):
         assert g.shape == w.shape, (what, g.shape, w.shape)
         np.testing.assert_allclose(g, w, rtol=rtol, atol=atol, err_msg=what)
+
+
+def ref_jit_call(fn, args, kwargs=None, grad=()):
+    """``ref_call`` compiled: the reference's ``fn`` and its vjp traced
+    into one ``jax.jit`` (numpy arrays in ``kwargs`` become constant
+    tensors), so a function whose eager form dispatches op by op runs
+    once as one program. Gradients are those of the positions ``grad``."""
+    import jax
+    import jax.numpy as jnp
+    from paddle_tpu.core.tensor import wrap_raw
+
+    def wrap(v):
+        return wrap_raw(jnp.asarray(v)) if isinstance(v, np.ndarray) else v
+
+    def value(*diff):
+        full = [wrap(a) for a in args]
+        for i, v in zip(grad, diff):
+            full[i] = wrap_raw(v)
+        out = _first(fn(*full, **{k: wrap(v) for k, v in
+                                  (kwargs or {}).items()}))
+        return out._value
+
+    if not grad:
+        return np.asarray(jax.jit(value)()), []
+
+    def with_grads(*diff):
+        out, vjp = jax.vjp(value, *diff)
+        return out, vjp(jnp.asarray(cotangent(out.shape)))
+
+    out, grads = jax.jit(with_grads)(*[args[i] for i in grad])
+    return np.asarray(out), [np.asarray(g) for g in grads]
