@@ -35,7 +35,8 @@ def grad(outputs, inputs, grad_outputs=None, retain_graph=None,
          no_grad_vars=None) -> List[Optional[torch.Tensor]]:
     """The gradients of ``outputs`` with respect to ``inputs`` (a list,
     None for an unreached input when ``allow_unused``). ``no_grad_vars``
-    are held constant: no gradient flows through them."""
+    is refused: the reference accepts it and never reads it, and the port
+    does not take an argument it would ignore."""
     outputs, inputs = _as_list(outputs), _as_list(inputs)
     gouts = _as_list(grad_outputs) or [None] * len(outputs)
     if no_grad_vars:

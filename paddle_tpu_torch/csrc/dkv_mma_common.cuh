@@ -18,10 +18,14 @@
 // via `ldmatrix`), P^T and dS^T in registers with lse and delta per query
 // column, then dV += P^T dO and dK += dS^T Q (dO, Q via `ldmatrix.trans`),
 // both A operands packed straight from the C fragments (`c_to_a`, rounded
-// to bf16). Causal: the loop starts at the diagonal tile, a warp skips
-// chunks whose queries all precede its keys, and only chunks that cross
-// the diagonal or reach past L are masked; the k tile is the slowest grid
-// axis, with tile 0 (the longest) first. Rows past L are not stored.
+// to the element type). The loop is a template over its 2-byte element
+// type Elem: the causal and full kernels have a bf16 and an fp16 instance
+// (the fp16 one rounds P and dS to fp16 as operands), the packed
+// experiment a bf16 one. Causal: the loop starts at the diagonal tile, a
+// warp skips chunks whose queries all precede its keys, and only chunks
+// that cross the diagonal or reach past L are masked; the k tile is the
+// slowest grid axis, with tile 0 (the longest) first. Rows past L are not
+// stored.
 //
 // The two instances differ only where `PACKED` says, at compile time:
 //  - S: unpacked, S = scale * (Q K^T) in f32 (the forward's convention),
@@ -50,7 +54,6 @@ namespace ptt_dkv {
 
 using namespace ptt_mma;
 using bf16 = __nv_bfloat16;
-using bf162 = __nv_bfloat162;
 
 constexpr int kBN = 64;  // keys per K tile (dQ), queries per q tile (dK/dV)
 
@@ -60,22 +63,22 @@ struct Strides {  // element strides of the batch and row axes
 
 template <int D>
 constexpr size_t dkv_mma_smem_bytes() {
-  // K, V, then Q and dO double-buffered; lse and delta double-buffered
-  return (size_t)6 * kBN * smem_stride<D>() * sizeof(bf16) +
-         4 * kBN * sizeof(float);
+  // K, V, then Q and dO double-buffered (2-byte elements); lse and delta
+  // double-buffered
+  return (size_t)6 * kBN * smem_stride<D>() * 2 + 4 * kBN * sizeof(float);
 }
 
 // The block (b, h, key tile kt) of the dK/dV loop, in `smem_raw`
 // (dkv_mma_smem_bytes<D>() bytes). Element (b, l, h, d) of q is at
 // q[b * q_sb + l * q_sl + h * D + d]; lse and delta are f32 [b, H, L];
 // key_bias is null or f32 [b, L] (unpacked only).
-template <int D, bool CAUSAL, bool PACKED>
+template <typename Elem, int D, bool CAUSAL, bool PACKED>
 __device__ __forceinline__ void dkv_mma_body(
-    unsigned char* smem_raw, const bf16* __restrict__ q,
-    const bf16* __restrict__ k, const bf16* __restrict__ v,
-    const bf16* __restrict__ dout, const float* __restrict__ lse,
+    unsigned char* smem_raw, const Elem* __restrict__ q,
+    const Elem* __restrict__ k, const Elem* __restrict__ v,
+    const Elem* __restrict__ dout, const float* __restrict__ lse,
     const float* __restrict__ delta, const float* __restrict__ key_bias,
-    bf16* __restrict__ dk, bf16* __restrict__ dv, int L, int H, Strides st,
+    Elem* __restrict__ dk, Elem* __restrict__ dv, int L, int H, Strides st,
     float scale, int b, int h, int kt) {
   static_assert(!PACKED || CAUSAL, "the packed dK/dV is causal");
   constexpr int S = smem_stride<D>();
@@ -85,10 +88,10 @@ __device__ __forceinline__ void dkv_mma_body(
   // V's A fragments stay in registers at d <= 64; at d = 128 the two
   // accumulators take 128 registers and V's fragments are re-read
   constexpr bool VREG = D <= 64;
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Vs = Ks + T;
-  bf16* Qs = Vs + T;       // buffers Qs, Qs + T
-  bf16* dOs = Qs + 2 * T;  // buffers dOs, dOs + T
+  Elem* Ks = reinterpret_cast<Elem*>(smem_raw);
+  Elem* Vs = Ks + T;
+  Elem* Qs = Vs + T;       // buffers Qs, Qs + T
+  Elem* dOs = Qs + 2 * T;  // buffers dOs, dOs + T
   float* lse_s = reinterpret_cast<float*>(dOs + 2 * T);  // 2 x kBN
   float* dl_s = lse_s + 2 * kBN;                          // 2 x kBN
 
@@ -100,8 +103,8 @@ __device__ __forceinline__ void dkv_mma_body(
   const int nq = (L + kBN - 1) / kBN;
   const int qt0 = CAUSAL ? kt : 0;
 
-  const bf16* qb = q + b * st.q_sb + (long long)h * D;
-  const bf16* gb = dout + b * st.do_sb + (long long)h * D;
+  const Elem* qb = q + b * st.q_sb + (long long)h * D;
+  const Elem* gb = dout + b * st.do_sb + (long long)h * D;
   const long long stat = ((long long)b * H + h) * L;
 
   // starts the copy of q tile qt's Q, dO, lse and delta into buffer buf
@@ -161,8 +164,8 @@ __device__ __forceinline__ void dkv_mma_body(
           ldmatrix_x4(vf[kc], a_addr<S>(Vs, 16 * warp, kc * 16, lane));
       }
     }
-    const bf16* Qt = Qs + buf * T;
-    const bf16* dOt = dOs + buf * T;
+    const Elem* Qt = Qs + buf * T;
+    const Elem* dOt = dOs + buf * T;
     const float* lt = lse_s + buf * kBN;
     const float* dt = dl_s + buf * kBN;
     const int q0 = qt * kBN;
@@ -185,16 +188,16 @@ __device__ __forceinline__ void dkv_mma_body(
         uint32_t qfr[4], ofr[4];
         ldmatrix_x4(qfr, b_addr<S>(Qt, 16 * c, kc * 16, lane));
         ldmatrix_x4(ofr, b_addr<S>(dOt, 16 * c, kc * 16, lane));
-        mma_bf16(sT[0], kf[kc], qfr[0], qfr[1]);
-        mma_bf16(sT[1], kf[kc], qfr[2], qfr[3]);
+        mma<Elem>(sT[0], kf[kc], qfr[0], qfr[1]);
+        mma<Elem>(sT[1], kf[kc], qfr[2], qfr[3]);
         if constexpr (VREG) {
-          mma_bf16(dpT[0], vf[kc], ofr[0], ofr[1]);
-          mma_bf16(dpT[1], vf[kc], ofr[2], ofr[3]);
+          mma<Elem>(dpT[0], vf[kc], ofr[0], ofr[1]);
+          mma<Elem>(dpT[1], vf[kc], ofr[2], ofr[3]);
         } else {
           uint32_t va[4];
           ldmatrix_x4(va, a_addr<S>(Vs, 16 * warp, kc * 16, lane));
-          mma_bf16(dpT[0], va, ofr[0], ofr[1]);
-          mma_bf16(dpT[1], va, ofr[2], ofr[3]);
+          mma<Elem>(dpT[0], va, ofr[0], ofr[1]);
+          mma<Elem>(dpT[1], va, ofr[2], ofr[3]);
         }
       }
       // P^T and dS^T with lse and delta per query column
@@ -219,9 +222,9 @@ __device__ __forceinline__ void dkv_mma_body(
           dsT[j][e] = p * (dpT[j][e] - dq_);
         }
       }
-      uint32_t pa[4], sa[4];  // rounded to bf16 as A operands
-      c_to_a(pa, pT[0], pT[1]);
-      c_to_a(sa, dsT[0], dsT[1]);
+      uint32_t pa[4], sa[4];  // rounded to Elem as A operands
+      c_to_a<Elem>(pa, pT[0], pT[1]);
+      c_to_a<Elem>(sa, dsT[0], dsT[1]);
       // dV += P^T dO, dK += dS^T Q: dO's and Q's 16 queries x 16 columns
       // as B operands, transposed
 #pragma unroll
@@ -229,10 +232,10 @@ __device__ __forceinline__ void dkv_mma_body(
         uint32_t ofr[4], qfr[4];
         ldmatrix_x4_trans(ofr, a_addr<S>(dOt, 16 * c, dc * 16, lane));
         ldmatrix_x4_trans(qfr, a_addr<S>(Qt, 16 * c, dc * 16, lane));
-        mma_bf16(dva[2 * dc], pa, ofr[0], ofr[1]);
-        mma_bf16(dva[2 * dc + 1], pa, ofr[2], ofr[3]);
-        mma_bf16(dka[2 * dc], sa, qfr[0], qfr[1]);
-        mma_bf16(dka[2 * dc + 1], sa, qfr[2], qfr[3]);
+        mma<Elem>(dva[2 * dc], pa, ofr[0], ofr[1]);
+        mma<Elem>(dva[2 * dc + 1], pa, ofr[2], ofr[3]);
+        mma<Elem>(dka[2 * dc], sa, qfr[0], qfr[1]);
+        mma<Elem>(dka[2 * dc + 1], sa, qfr[2], qfr[3]);
       }
     }
   }
@@ -245,17 +248,17 @@ __device__ __forceinline__ void dkv_mma_body(
     constexpr int SP = 2 * D + 8;  // staging row, padded as the tiles
     constexpr int CPR = 2 * D / 8;  // 16-byte chunks of a packed row
     __syncthreads();
-    bf16* stage = reinterpret_cast<bf16*>(smem_raw) + warp * 16 * SP;
+    Elem* stage = reinterpret_cast<Elem*>(smem_raw) + warp * 16 * SP;
 #pragma unroll
     for (int i = 0; i < 2; ++i)
 #pragma unroll
       for (int j = 0; j < OB; ++j) {
-        bf16* r = stage + (g + 8 * i) * SP + 8 * j + 2 * tig;
-        *reinterpret_cast<bf162*>(r) =
-            __floats2bfloat162_rn(dva[j][2 * i], dva[j][2 * i + 1]);
-        *reinterpret_cast<bf162*>(r + D) =
-            __floats2bfloat162_rn(dka[j][2 * i] * dk_scale,
-                                  dka[j][2 * i + 1] * dk_scale);
+        Elem* r = stage + (g + 8 * i) * SP + 8 * j + 2 * tig;
+        *reinterpret_cast<uint32_t*>(r) =
+            pack2<Elem>(dva[j][2 * i], dva[j][2 * i + 1]);
+        *reinterpret_cast<uint32_t*>(r + D) =
+            pack2<Elem>(dka[j][2 * i] * dk_scale,
+                        dka[j][2 * i + 1] * dk_scale);
       }
     __syncwarp();
 #pragma unroll
@@ -276,11 +279,11 @@ __device__ __forceinline__ void dkv_mma_body(
       const long long off = (((long long)b * L + row) * H + h) * D;
 #pragma unroll
       for (int j = 0; j < OB; ++j) {
-        *reinterpret_cast<bf162*>(dk + off + 8 * j + 2 * tig) =
-            __floats2bfloat162_rn(dka[j][2 * i] * dk_scale,
-                                  dka[j][2 * i + 1] * dk_scale);
-        *reinterpret_cast<bf162*>(dv + off + 8 * j + 2 * tig) =
-            __floats2bfloat162_rn(dva[j][2 * i], dva[j][2 * i + 1]);
+        *reinterpret_cast<uint32_t*>(dk + off + 8 * j + 2 * tig) =
+            pack2<Elem>(dka[j][2 * i] * dk_scale,
+                        dka[j][2 * i + 1] * dk_scale);
+        *reinterpret_cast<uint32_t*>(dv + off + 8 * j + 2 * tig) =
+            pack2<Elem>(dva[j][2 * i], dva[j][2 * i + 1]);
       }
     }
   }

@@ -57,7 +57,7 @@ dkv_packed_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   // (With the batch-head on x, ptxas gave the d = 64 instance 183
   // registers instead of 168: 2 blocks an SM instead of 3.) The packed
   // rows, dV in columns 0..d and dK in d..2d, go to `out`.
-  dkv_mma_body<D, true, true>(smem_raw, q, k, v, dout, lse, delta, nullptr,
+  dkv_mma_body<bf16, D, true, true>(smem_raw, q, k, v, dout, lse, delta, nullptr,
                               nullptr, out, L, 1, st, scale, blockIdx.y,
                               blockIdx.x, blockIdx.z);
 }

@@ -162,8 +162,8 @@ cudaError_t launch(const void* x, const void* w, const void* b, void* y,
 
 // variant: 0 = a warp per row (`rows_per_block` warps to a block, `grid`
 // blocks), 1 = a block per row (rows_per_block 1, grid = rows), as
-// ops/fused.py `_ln_plan` gives them. dtype: 0 = float32, 1 = bfloat16.
-// Returns a cudaError_t (0 = launched).
+// ops/fused.py `_ln_plan` gives them. dtype: 0 = float32, 1 = bfloat16,
+// 2 = float16. Returns a cudaError_t (0 = launched).
 extern "C" int ptt_layer_norm_fwd(const void* x, const void* w,
                                   const void* b, void* y, int rows,
                                   int hidden, int rows_per_block, int grid,
@@ -178,5 +178,8 @@ extern "C" int ptt_layer_norm_fwd(const void* x, const void* w,
   if (dtype == 1)
     return (int)launch<__nv_bfloat16>(x, w, b, y, rows, hidden,
                                       rows_per_block, grid, eps, variant, s);
+  if (dtype == 2)
+    return (int)launch<__half>(x, w, b, y, rows, hidden, rows_per_block,
+                               grid, eps, variant, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -370,7 +370,7 @@ cudaError_t launch(const void* x, const void* w, const void* g, void* dx,
 // blocks, each warp striding over the rows), 1 = `rows_per_block`
 // consecutive rows to a block, as ops/fused.py `_ln_plan` gives them.
 // dw_part/db_part: f32 scratch of [grid, hidden]. dtype: 0 = float32,
-// 1 = bfloat16. Returns a cudaError_t (0 = launched).
+// 1 = bfloat16, 2 = float16. Returns a cudaError_t (0 = launched).
 extern "C" int ptt_layer_norm_bwd(const void* x, const void* w,
                                   const void* g, void* dx, void* dw_part,
                                   void* db_part, void* dw, void* db,
@@ -389,5 +389,8 @@ extern "C" int ptt_layer_norm_bwd(const void* x, const void* w,
     return (int)launch<__nv_bfloat16>(x, w, g, dx, pw, pb, dw, db, rows,
                                       hidden, rows_per_block, grid, eps,
                                       variant, s);
+  if (dtype == 2)
+    return (int)launch<__half>(x, w, g, dx, pw, pb, dw, db, rows, hidden,
+                               rows_per_block, grid, eps, variant, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,9 +1,10 @@
 // What the LayerNorm forward (layer_norm.cu) and backward (layer_norm_bwd.cu)
-// share: the f32/bf16 conversions, and for the warp-per-row kernels the load
+// share: the conversions between f32 and the element types (f32, bf16,
+// fp16), and for the warp-per-row kernels the load
 // of one row into registers and its two-pass statistics.
 //
 // Row layout of the warp kernels. A row of `hidden` values is nvec =
-// hidden / VEC 16-byte vectors (VEC = 8 bf16 or 4 f32). Lane l holds vectors
+// hidden / VEC 16-byte vectors (VEC = 8 bf16 or fp16, or 4 f32). Lane l holds vectors
 // l, l + 32, l + 64, ... below nvec, so each load instruction of the warp
 // reads 512 contiguous bytes. E is the number of values a lane holds at most
 // (a bucket of 8, 16, 24, 32 or 64, from `with_lane_values`); vectors
@@ -16,6 +17,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -27,6 +29,7 @@ __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
+__device__ __forceinline__ float to_f32(__half v) { return __half2float(v); }
 template <typename T> __device__ __forceinline__ T from_f32(float v);
 template <> __device__ __forceinline__ float from_f32<float>(float v) {
   return v;
@@ -34,6 +37,9 @@ template <> __device__ __forceinline__ float from_f32<float>(float v) {
 template <> __device__ __forceinline__ __nv_bfloat16
 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);  // round to nearest even, as torch's cast
+}
+template <> __device__ __forceinline__ __half from_f32<__half>(float v) {
+  return __float2half_rn(v);
 }
 
 // values of T in one 16-byte vector
@@ -60,6 +66,17 @@ __device__ __forceinline__ void unpack<__nv_bfloat16>(const uint4& v,
   }
 }
 
+template <>
+__device__ __forceinline__ void unpack<__half>(const uint4& v, float* f) {
+  const unsigned w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {  // the lower address is the low half
+    const float2 h = __half22float2(*reinterpret_cast<const __half2*>(&w[i]));
+    f[2 * i] = h.x;
+    f[2 * i + 1] = h.y;
+  }
+}
+
 // kVec<T> floats rounded once to T, as one 16-byte vector
 template <typename T> __device__ __forceinline__ uint4 pack(const float* f);
 template <> __device__ __forceinline__ uint4 pack<float>(const float* f) {
@@ -72,6 +89,15 @@ __device__ __forceinline__ uint4 pack<__nv_bfloat16>(const float* f) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const __nv_bfloat162 h = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
+    w[i] = *reinterpret_cast<const unsigned*>(&h);
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+template <> __device__ __forceinline__ uint4 pack<__half>(const float* f) {
+  unsigned w[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const __half2 h = __floats2half2_rn(f[2 * i], f[2 * i + 1]);
     w[i] = *reinterpret_cast<const unsigned*>(&h);
   }
   return make_uint4(w[0], w[1], w[2], w[3]);

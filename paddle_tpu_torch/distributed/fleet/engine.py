@@ -24,9 +24,15 @@ reference's spans: ``step`` (unless a loop above holds one), with ``h2d``
 (the inputs' copies) and ``compute`` (forward, backward and update)
 inside it.
 
-``compute_dtype=None`` trains in f32. The engine hands the optimizer the
-layer's parameter names (``Optimizer.name_parameters``), as the
-reference's engine passes names to ``apply_decay_param_fun``.
+``compute_dtype=None`` trains in f32. Any float ``compute_dtype`` is
+taken, as the reference's engine takes one: ``torch.bfloat16`` and
+``torch.float16`` run the LayerNorm and attention kernels' instances of
+that type, and in master mode the Adam kernel's (f32 masters, resident
+copies re-cast in its pass). The engine adds no loss scaling in fp16,
+nor does the reference's: a gradient past fp16's range is inf, and
+``check_finite`` / ``guard_updates`` are the guard. The engine hands the
+optimizer the layer's parameter names (``Optimizer.name_parameters``),
+as the reference's engine passes names to ``apply_decay_param_fun``.
 
 The optimizer's options apply as in its own ``step``: a learning-rate
 scheduler is read at every step (the caller steps it, or ``run_steps``
@@ -163,10 +169,9 @@ class ParallelTrainStep:
                 "of its own that the compiled step does not have; the "
                 "reference's compiled engines skip it silently. Use "
                 "ClipGradByGlobalNorm, or Optimizer.step() outside an engine")
-        if compute_dtype not in (None, torch.float32, torch.bfloat16):
-            raise NotImplementedError(
-                f"ParallelTrainStep: compute_dtype {compute_dtype} is not "
-                "ported yet (float32 or bfloat16)")
+        if compute_dtype is not None and not compute_dtype.is_floating_point:
+            raise TypeError(f"ParallelTrainStep: compute_dtype "
+                            f"{compute_dtype} is not a float type")
         if compute_dtype == torch.float32:
             compute_dtype = None  # f32 training: the params are the masters
         if master_weights is None:

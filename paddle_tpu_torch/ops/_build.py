@@ -32,16 +32,18 @@ __all__ = ["BUILD_DIR", "SOURCES", "build", "library", "check", "stream_of",
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "paddle_tpu_torch"
+# the fp16 instances of the tensor-core attention kernels have units of
+# their own, so that they compile beside the bf16 ones
 SOURCES = ("errors.cu", "layer_norm.cu", "layer_norm_bwd.cu",
-           "flash_attn_fwd.cu", "flash_attn_bwd.cu", "adam.cu",
-           "dkv_packed.cu", "tree_reduce.cu")
+           "flash_attn_fwd.cu", "flash_attn_fwd_f16.cu", "flash_attn_bwd.cu",
+           "flash_attn_bwd_f16.cu", "adam.cu", "dkv_packed.cu",
+           "tree_reduce.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # dtype codes of the C entry points: the Adam kernels' gradients and
-# resident copies take all three, the LayerNorm and attention kernels the
-# ACT_DTYPES
+# resident copies, the LayerNorm and the attention kernels take all three
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-ACT_DTYPES = (torch.float32, torch.bfloat16)
+ACT_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None

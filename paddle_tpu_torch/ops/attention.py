@@ -77,7 +77,7 @@ import torch
 
 from ..core.recording import record_opaque
 from ..profiler.telemetry import get_telemetry
-from . import flash_tpu, tier_policy
+from . import _build, flash_tpu, tier_policy
 
 __all__ = ["xla_attention", "blockwise_attention", "flash_attention",
            "dot_product_attention", "set_attention_impl", "paged_attention"]
@@ -461,15 +461,15 @@ def _flash_misfit(q, k, v, blhd) -> Optional[str]:
         return f"head dim {q.shape[-1]} not in {flash_tpu.HEAD_DIMS}"
     if Lk != L:
         return f"Lq {L} != Lk {Lk} (self-attention only)"
-    if q.dtype not in (torch.float32, torch.bfloat16):
-        return f"dtype {q.dtype} (float32 or bfloat16)"
-    if blhd and q.dtype == torch.bfloat16:
+    if q.dtype not in _build.ACT_DTYPES:
+        return f"dtype {q.dtype} (float32, bfloat16 or float16)"
+    if blhd and q.dtype in flash_tpu._MMA_DTYPES:
         # bhld operands are transposed into fresh contiguous tensors
         for name, t in (("q", q), ("k", k), ("v", v)):
             if not flash_tpu._aligned_rows(t) or (
                     t.device.type == "cuda" and t.data_ptr() % 16):
-                return (f"bf16 {name} rows not 16-byte aligned (strides "
-                        f"{t.stride()})")
+                return (f"{flash_tpu._short(q.dtype)} {name} rows not "
+                        f"16-byte aligned (strides {t.stride()})")
     return None
 
 

@@ -19,16 +19,23 @@ Both return ``(out, lse)``: ``out`` is
 [b, L, H, d] in q's dtype, ``lse`` the f32 log-sum-exp of each query
 row's scaled scores, [b, H, L] (not differentiable).
 
-Which kernels run: bf16 operands go to the tensor-core kernels
-(``mma.sync`` with f32 accumulation): ``flash_fwd_mma_kernel``, where P is
-rounded to bf16 as the P·V operand, as the reference's ``_fwd_kernel``
-feeds the MXU; ``flash_dq_mma_kernel`` and ``flash_dkv_mma_kernel``, where
-P is rounded to bf16 as the Pᵀ·dO operand and dS as the dS·K and dSᵀ·Q
-operand, as in the reference's ``_dq_kernel``/``_dkv_kernel``
-(``_flash_bwd_reference(..., bf16_operands=True)`` is their plain
-version). f32 operands go to the scalar ``flash_fwd_kernel``,
-``flash_dq_kernel`` and ``flash_dkv_kernel``, exact f32 arithmetic with
-no TF32 rounding — the checking path.
+Which kernels run: bf16 and fp16 operands go to the tensor-core kernels
+(``mma.sync`` with f32 accumulation, an instance per type):
+``flash_fwd_mma_kernel``, where P is rounded to the operand type as the
+P·V operand, as the reference's ``_fwd_kernel`` feeds the MXU;
+``flash_dq_mma_kernel`` and ``flash_dkv_mma_kernel``, where P is rounded
+to it as the Pᵀ·dO operand and dS as the dS·K and dSᵀ·Q operand, as in
+the reference's ``_dq_kernel``/``_dkv_kernel``
+(``_flash_bwd_reference(..., operand_dtype=)`` is their plain version).
+f32 operands go to the scalar ``flash_fwd_kernel``, ``flash_dq_kernel``
+and ``flash_dkv_kernel``, exact f32 arithmetic with no TF32 rounding —
+the checking path.
+
+Under ``create_graph=True`` the backward is ``_FlashBwdFn``: the same
+kernels give the first derivative, and its own backward, the
+vector-Jacobian product of ``_bwd_recompute`` (plain torch in f32, the
+[b, H, L, L] scores materialized: O(b·H·L²) memory, 0.5 GiB a tensor at
+[8, 1024, 16, 64]), gives the second-order terms.
 
 ``flash_attention_full`` takes an optional key-padding bias, an f32
 [b, L] tensor added to every query row's scaled scores before the
@@ -40,14 +47,14 @@ read it; it gets no gradient, and one that requires a gradient raises.
 The kernels read q, k, v and the output gradient in the projection's
 native layout: the last two axes must be dense ([H, d] with d
 contiguous), while the row and batch strides are free, so q/k/v sliced
-out of a fused QKV projection go in without a copy. The bf16 forward
-and backward copy rows with 16-byte ``cp.async``: a bf16 q, k, v, out or
-dout whose pointer or row or batch stride is not a multiple of 16 bytes
-raises (nothing falls back).
+out of a fused QKV projection go in without a copy. The bf16 and fp16
+forward and backward copy rows with 16-byte ``cp.async``: such a
+q, k, v, out or dout whose pointer or row or batch stride is not a
+multiple of 16 bytes raises (nothing falls back).
 
 The backward's ``delta = rowsum(dO ⊙ O)`` (an XLA einsum in the
-reference) is computed for bf16 inside the dQ kernel, which writes it for
-the dK/dV kernel: ``flash_bwd_dq(q, k, v, dout, lse, out)`` returns
+reference) is computed for bf16 and fp16 inside the dQ kernel, which
+writes it for the dK/dV kernel: ``flash_bwd_dq(q, k, v, dout, lse, out)`` returns
 ``(dq, delta)`` and ``flash_bwd_dkv(q, k, v, dout, lse, delta)`` takes it.
 For f32 the wrapper computes it with ``_delta`` and passes it to both
 scalar kernels.
@@ -67,6 +74,14 @@ __all__ = ["flash_attention_blhd", "flash_attention_full", "flash_bwd_dq",
 
 _NEG_INF = -1e30
 HEAD_DIMS = (32, 64, 128)
+# the 2-byte types of the tensor-core kernels: operands copied by 16-byte
+# cp.async, P and dS rounded to the type as operands
+_MMA_DTYPES = (torch.bfloat16, torch.float16)
+
+
+def _short(dtype) -> str:
+    return {torch.bfloat16: "bf16", torch.float16: "fp16"}.get(
+        dtype, str(dtype))
 
 
 def _causal_mask(L: int, device) -> torch.Tensor:
@@ -109,24 +124,24 @@ def _delta(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
 def _flash_bwd_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          out: torch.Tensor, lse: torch.Tensor,
                          dout: torch.Tensor, causal: bool = True,
-                         key_bias=None, bf16_operands: bool = False
+                         key_bias=None, operand_dtype=None
                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain attention backward in f32, mirroring the Pallas
     ``_dq_kernel``/``_dkv_kernel``: ``delta = rowsum(dO ⊙ O)``, recompute
     ``P = exp(S − lse)`` from the pre-scaled q (plus ``key_bias``, [b, L],
     which gets no gradient), then ``dS = P ⊙ (dO·Vᵀ − delta)``,
     ``dQ = scale·dS·K``, ``dK = scale·dSᵀ·Q``, ``dV = Pᵀ·dO``; causal, or
-    over every key. With ``bf16_operands`` P is rounded to bf16 as the
-    Pᵀ·dO operand and dS as the dS·K and dSᵀ·Q operand, where the
-    reference's kernels (``flash_tpu.py:107, 141, 146``) and the bf16
-    tensor-core kernels round them; q·scale is not rounded. Returns
-    (dq, dk, dv) in q's dtype."""
+    over every key. With an ``operand_dtype`` (bf16 or fp16) P is
+    rounded to it as the Pᵀ·dO operand and dS as the dS·K and dSᵀ·Q
+    operand, where the reference's kernels (``flash_tpu.py:107, 141,
+    146``) and the tensor-core kernels of that type round them; q·scale
+    is not rounded. Returns (dq, dk, dv) in q's dtype."""
     return _bwd_plain(q, k, v, dout, lse, _delta(out, dout), causal,
-                      key_bias, bf16_operands)
+                      key_bias, operand_dtype)
 
 
 def _bwd_plain(q, k, v, dout, lse, delta, causal=True, key_bias=None,
-               bf16_operands=False):
+               operand_dtype=None):
     """``_flash_bwd_reference`` from a given delta ([b, H, L] f32)."""
     L, d = q.shape[1], q.shape[-1]
     scale = 1.0 / math.sqrt(d)
@@ -138,8 +153,8 @@ def _bwd_plain(q, k, v, dout, lse, delta, causal=True, key_bias=None,
         p = p.masked_fill(_causal_mask(L, q.device), 0.0)
     dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
     ds = p * (dp - delta[..., None])
-    if bf16_operands:
-        p, ds = (t.to(torch.bfloat16).float() for t in (p, ds))
+    if operand_dtype is not None:
+        p, ds = (t.to(operand_dtype).float() for t in (p, ds))
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, qs)
     dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
@@ -208,7 +223,7 @@ def _dq(causal, q, k, v, dout, lse, out, key_bias=None
     _check_bwd_args(fn, q, k, v, dout, lse, None, out, key_bias)
     b, L, H, _ = q.shape
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    if q.dtype == torch.bfloat16:  # the kernel computes and writes delta
+    if q.dtype in _MMA_DTYPES:  # the kernel computes and writes delta
         delta = torch.empty((b, H, L), dtype=torch.float32, device=q.device)
     else:  # the scalar kernels read it
         delta = _delta(out, dout)
@@ -237,9 +252,9 @@ def _dkv(causal, q, k, v, dout, lse, delta, key_bias=None
 def flash_bwd_dq(q, k, v, dout, lse, out
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """dQ of causal attention and ``delta = rowsum(dO ⊙ O)`` (one launch
-    of ``csrc/flash_attn_bwd.cu``; bf16: the kernel computes delta, f32:
-    ``_delta``): q/k/v/dout/out [b, L, H, d] at any row stride, lse f32
-    [b, H, L]. Returns a dense [b, L, H, d] dQ and delta, f32 [b, H, L],
+    of ``csrc/flash_attn_bwd.cu``; bf16/fp16: the kernel computes delta,
+    f32: ``_delta``): q/k/v/dout/out [b, L, H, d] at any row stride, lse
+    f32 [b, H, L]. Returns a dense [b, L, H, d] dQ and delta, f32 [b, H, L],
     which ``flash_bwd_dkv`` takes. On the CPU: the plain versions."""
     return _dq(True, q, k, v, dout, lse, out)
 
@@ -277,7 +292,7 @@ def _bwd(q, k, v, out, lse, key_bias, dout, causal):
     if q.device.type == "cpu":
         return _flash_bwd_reference(q, k, v, out, lse, dout, causal,
                                     key_bias)
-    if not _dense_tail(dout) or (dout.dtype == torch.bfloat16
+    if not _dense_tail(dout) or (dout.dtype in _MMA_DTYPES
                                  and not _aligned_rows(dout)):
         dout = dout.contiguous()  # only 16-byte row/batch strides may vary
     dq, delta = _dq(causal, q, k, v, dout, lse, out, key_bias)
@@ -301,6 +316,64 @@ def _(q, k, v):
             q.new_empty((b, H, L), dtype=torch.float32))
 
 
+def _bwd_recompute(q, k, v, dout, causal, key_bias):
+    """``(dq, dk, dv)`` of attention as differentiable functions of
+    ``(q, k, v, dout)`` in f32: P recomputed from q, k and v (with the
+    causal mask and the key bias), ``delta = rowsum(P ⊙ dP)`` from P
+    rather than from a saved output. Holds the [b, H, L, L] f32 scores,
+    P and dS: O(b·H·L²) memory."""
+    L, d = q.shape[1], q.shape[-1]
+    scale = 1.0 / math.sqrt(d)
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), dout.float()
+    s = _add_key_bias(torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale,
+                      key_bias)
+    if causal:
+        s = s.masked_fill(_causal_mask(L, q.device), _NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    ds = p * (dp - (p * dp).sum(dim=-1, keepdim=True))
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+    return dq, dk, dv
+
+
+class _FlashBwdFn(torch.autograd.Function):
+    """The attention backward ``_bwd`` as a differentiable op, in the
+    graph only under ``create_graph=True``: the forward is the dQ and
+    dK/dV kernels (#2/#3, or #4's) on the card or the plain version on
+    the CPU; the backward takes the vector-Jacobian product of
+    ``_bwd_recompute`` (plain torch, f32, O(b·H·L²) memory) with the
+    incoming ``(ddq, ddk, ddv)``. ``out`` and ``lse`` get no gradient:
+    the recompute derives P and delta from q, k and v, so a gradient
+    there would count their term twice."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, out, lse, dout, causal, key_bias):
+        ctx.causal = causal
+        ctx.save_for_backward(q, k, v, dout, key_bias)
+        return _bwd(q, k, v, out, lse, key_bias, dout, causal)
+
+    @staticmethod
+    def backward(ctx, ddq, ddk, ddv):
+        q, k, v, dout, key_bias = ctx.saved_tensors
+        create = torch.is_grad_enabled()
+        with torch.enable_grad():
+            # each input's own node, so that the products count only the
+            # recompute's direct uses (dout's own graph reaches q, k and v
+            # again, and q may be k and v); under create_graph an alias
+            # keeps the input's graph for a third derivative
+            ins = [t.view_as(t) if create and t.requires_grad
+                   else t.detach().requires_grad_()
+                   for t in (q, k, v, dout)]
+            grads = torch.autograd.grad(
+                _bwd_recompute(*ins, ctx.causal, key_bias), ins,
+                (ddq, ddk, ddv), create_graph=create)
+        dq, dk, dv, ddout = (g.to(t.dtype)
+                             for g, t in zip(grads, (q, k, v, dout)))
+        return dq, dk, dv, None, None, ddout, None, None
+
+
 class _FlashFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal, key_bias):
@@ -321,18 +394,15 @@ class _FlashFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dout, _dlse):
+        q, k, v, out, lse, key_bias = ctx.saved_tensors
         if torch.is_grad_enabled():
-            # create_graph=True: the kernels' outputs carry no graph, so a
-            # second derivative would lose this op's term without a word
-            which = ("causal flash attention (#1 forward, #2 dQ and #3 "
-                     "dK/dV backward)" if ctx.causal else
-                     "full flash attention (#4 forward and backward)")
-            raise RuntimeError(
-                f"{which}: no double-backward kernel yet — the attention "
-                "backward kernels cannot be differentiated again; a "
-                "backward with create_graph=True through them is refused "
-                "on every device")
-        return (*_bwd(*ctx.saved_tensors, dout, ctx.causal), None, None)
+            # create_graph=True: the kernels still give the first
+            # derivative; the second-order terms come from _bwd_recompute
+            grads = _FlashBwdFn.apply(q, k, v, out, lse, dout, ctx.causal,
+                                      key_bias)
+        else:
+            grads = _bwd(q, k, v, out, lse, key_bias, dout, ctx.causal)
+        return (*grads, None, None)
 
 
 def flash_attention_blhd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -375,7 +445,7 @@ def _check_cuda_args(fn, q, k, v, **more):
     # any device
     if q.dtype not in _build.ACT_DTYPES:
         raise TypeError(f"{fn}: dtype {q.dtype} not supported by the CUDA "
-                        "kernel (float32, bfloat16)")
+                        "kernel (float32, bfloat16, float16)")
     if q.dim() != 4:
         raise ValueError(f"{fn}: q must be [b, L, H, d], got "
                          f"{tuple(q.shape)}")
@@ -397,16 +467,17 @@ def _check_cuda_args(fn, q, k, v, **more):
         if not _dense_tail(t):
             raise ValueError(f"{fn}: {name} needs dense [H, d] trailing "
                              f"axes, strides {t.stride()}")
-        if q.dtype == torch.bfloat16 and not _aligned_rows(t):
+        if q.dtype in _MMA_DTYPES and not _aligned_rows(t):
             raise ValueError(
-                f"{fn}: bf16 {name} needs its row and batch strides in "
-                f"multiples of 16 bytes for cp.async, strides {t.stride()}")
+                f"{fn}: {_short(q.dtype)} {name} needs its row and batch "
+                f"strides in multiples of 16 bytes for cp.async, strides "
+                f"{t.stride()}")
     if q.device.type != "cuda":
         raise ValueError(f"{fn}: unsupported device {q.device}")
     for name, t in operands.items():
-        if q.dtype == torch.bfloat16 and t.data_ptr() % 16:
-            raise ValueError(f"{fn}: bf16 {name} must start on a 16-byte "
-                             f"boundary for cp.async (address "
+        if q.dtype in _MMA_DTYPES and t.data_ptr() % 16:
+            raise ValueError(f"{fn}: {_short(q.dtype)} {name} must start on "
+                             f"a 16-byte boundary for cp.async (address "
                              f"{t.data_ptr():#x})")
 
 

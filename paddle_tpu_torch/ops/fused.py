@@ -14,7 +14,11 @@ fallback between the two: a CUDA tensor the kernel cannot take raises.
   port of ``_ln_bwd_kernel``, two launches per call) or
   ``_ln_bwd_reference``.
   Each source holds two kernels, a warp per row (the models' widths) and a
-  block per row (any other call); ``_ln_plan`` picks one from the shape.
+  block per row (any other call); ``_ln_plan`` picks one from the shape,
+  each in f32, bf16 and fp16. Under ``create_graph=True`` the backward is
+  ``_LayerNormBwdFn``: the same kernel for the first derivative, and the
+  closed-form ``_ln_bwd_vjp`` in plain torch (f32) for the second-order
+  terms, itself differentiable to any order.
 - ``fused_adam_step`` updates many parameters in one pass
   (``csrc/adam.cu``, the port of ``_adam_kernel``, two launches per call)
   or through ``_adam_reference``, a per-tensor loop over the reference's
@@ -222,6 +226,62 @@ def _(x, weight, bias, eps):
     return torch.empty_like(x)
 
 
+def _ln_bwd_vjp(x, weight, g, a, bw, bb, eps):
+    """The vector-Jacobian product of ``(dx, dw, db) = layer_norm_bwd(x,
+    weight, g)`` with the cotangents ``(a, bw, bb)``: ``(x̄, w̄, ḡ)`` in the
+    inputs' dtypes. Closed form in f32, per row of ``hidden`` values,
+    from the recomputed mean and rstd r, x̂ and gw = g·w, with
+    P(u) = u − mean(u) − x̂·mean(u·x̂)::
+
+        ḡ = w·r·P(a) + bw·x̂ + bb
+        w̄ = Σ_rows g·r·P(a)
+        G = bw·g − r·(a·mean(gw·x̂) + gw·mean(a·x̂))
+        x̄ = r·(G − mean(G) − x̂·mean(G·x̂))
+            − r²·x̂·(mean(a·gw) − mean(gw)·mean(a) − mean(a·x̂)·mean(gw·x̂))
+
+    Plain differentiable torch: under ``create_graph`` a third derivative
+    goes through it."""
+    hidden = x.shape[-1]
+    xf = x.reshape(-1, hidden).float()
+    w = weight.float()
+    gf = g.reshape(-1, hidden).float()
+    af = a.reshape(-1, hidden).float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = ((xf - mean) ** 2).mean(dim=-1, keepdim=True)
+    rstd = torch.rsqrt(var + eps)
+    xhat = (xf - mean) * rstd
+    gw = gf * w
+    rowmean = lambda t: t.mean(dim=-1, keepdim=True)
+    m2, ma, n2 = rowmean(gw * xhat), rowmean(af), rowmean(af * xhat)
+    pa = rstd * (af - ma - xhat * n2)
+    dg = pa * w + bw.float() * xhat + bb.float()
+    dw = (gf * pa).sum(dim=0)
+    big_g = bw.float() * gf - rstd * (af * m2 + gw * n2)
+    dx = (rstd * (big_g - rowmean(big_g) - xhat * rowmean(big_g * xhat))
+          - rstd * rstd * xhat * (rowmean(af * gw) - rowmean(gw) * ma
+                                  - n2 * m2))
+    return (dx.to(x.dtype).reshape(x.shape), dw.to(weight.dtype),
+            dg.to(g.dtype).reshape(g.shape))
+
+
+class _LayerNormBwdFn(torch.autograd.Function):
+    """``layer_norm_bwd`` as a differentiable op: the forward is the
+    backward kernel (#6) on the card or ``_ln_bwd_reference`` on the CPU,
+    the backward the closed-form ``_ln_bwd_vjp`` in plain torch. It stands
+    in the graph only under ``create_graph=True``."""
+
+    @staticmethod
+    def forward(ctx, x, weight, g, eps):
+        ctx.eps = eps
+        ctx.save_for_backward(x, weight, g)
+        return layer_norm_bwd(x, weight, g, eps)
+
+    @staticmethod
+    def backward(ctx, ddx, ddw, ddb):
+        x, weight, g = ctx.saved_tensors
+        return (*_ln_bwd_vjp(x, weight, g, ddx, ddw, ddb, ctx.eps), None)
+
+
 class _LayerNormFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, weight, bias, eps):
@@ -234,27 +294,24 @@ class _LayerNormFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        if torch.is_grad_enabled():
-            # create_graph=True: the kernel's outputs carry no graph, so a
-            # second derivative would lose this op's term without a word
-            raise RuntimeError(
-                "fused_layer_norm: no double-backward kernel yet — the "
-                "LayerNorm backward kernel (layer_norm_bwd, #6) cannot be "
-                "differentiated again; a backward with create_graph=True "
-                "through the LayerNorm kernel (#5) is refused on every "
-                "device")
         x, weight = ctx.saved_tensors
-        dx, dw, db = layer_norm_bwd(x, weight, g, ctx.eps)
+        if torch.is_grad_enabled():
+            # create_graph=True: the kernel still gives the first
+            # derivative; the second-order terms come from _ln_bwd_vjp
+            dx, dw, db = _LayerNormBwdFn.apply(x, weight, g, ctx.eps)
+        else:
+            dx, dw, db = layer_norm_bwd(x, weight, g, ctx.eps)
         return dx, dw, db, None
 
 
 def fused_layer_norm(x: torch.Tensor, weight: torch.Tensor,
                      bias: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """LayerNorm over the last axis of ``x`` ([..., hidden]); ``weight``
-    and ``bias`` are [hidden] in ``x``'s dtype. Differentiable: the
-    forward is the CUDA kernel (CUDA tensors, float32 or bfloat16,
-    contiguous) or ``_ln_reference`` (CPU tensors), the backward
-    ``layer_norm_bwd``."""
+    and ``bias`` are [hidden] in ``x``'s dtype. Differentiable to any
+    order: the forward is the CUDA kernel (CUDA tensors, float32, bfloat16
+    or float16, contiguous) or ``_ln_reference`` (CPU tensors), the
+    backward ``layer_norm_bwd`` (under ``create_graph``, with
+    ``_ln_bwd_vjp`` beyond the first derivative)."""
     return record_opaque(_LayerNormFn.apply, x, weight, bias, eps)
 
 
@@ -266,7 +323,7 @@ def _check_ln_args(fn, x, weight, bias, hidden):
         raise ValueError(f"{fn}: unsupported device {x.device}")
     if x.dtype not in _build.ACT_DTYPES:
         raise TypeError(f"{fn}: dtype {x.dtype} not supported by the CUDA "
-                        "kernel (float32, bfloat16)")
+                        "kernel (float32, bfloat16, float16)")
     for name, t in (("weight", weight), ("bias", bias)):
         if t.device != x.device or t.dtype != x.dtype:
             raise TypeError(f"{fn}: {name} is {t.dtype} on {t.device}, x is "

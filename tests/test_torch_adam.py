@@ -21,6 +21,7 @@ from paddle_tpu.distributed.fleet.engine import apply_optimizer_update
 from paddle_tpu.ops import fused as jfused
 from paddle_tpu_torch.ops import fused as tfused
 from paddle_tpu_torch import optimizer as tfused_optimizer
+import torch_threads  # noqa: F401  (one torch thread a worker)
 
 B1, B2, EPS = 0.9, 0.999, 1e-8
 # f32 on both sides; the only difference is where a rounding falls (the

@@ -8,6 +8,7 @@ import pytest
 import torch
 
 from paddle_tpu_torch.ops import _build, flash_tpu, fused
+import torch_threads  # noqa: F401  (one torch thread a worker)
 
 ADAM_TOL = dict(rtol=0, atol=1e-6)  # the same IEEE f32 ops in one order
 
@@ -35,8 +36,8 @@ def test_table_holds_the_scale_and_a_new_scale_makes_a_new_table():
 
 def test_fp16_rules_of_the_table():
     """An fp16 param with an f32 master is taken as a bf16 one is; an
-    fp16 param without one, a sparse gradient, and the LayerNorm and
-    attention kernels' fp16 are still refused."""
+    fp16 param without one and a sparse gradient are still refused; the
+    LayerNorm and attention kernels take fp16 (their fp16 instances)."""
     st = [torch.zeros(4)], [torch.zeros(4)], [torch.ones(())], \
         [torch.ones(())]
     p16 = [torch.zeros(4, dtype=torch.float16)]
@@ -49,9 +50,11 @@ def test_fp16_rules_of_the_table():
     with pytest.raises(NotImplementedError, match="row path"):
         fused._check_grad("fused_adam_step", 0,
                           torch.zeros(4, 2).to_sparse(), torch.device("cpu"))
-    assert torch.float16 not in _build.ACT_DTYPES
+    assert torch.float16 in _build.ACT_DTYPES
     q = torch.zeros(1, 16, 2, 64, dtype=torch.float16, device="meta")
-    with pytest.raises(TypeError, match="float16"):
+    # past every dtype, shape and stride rule: only the meta device is
+    # refused
+    with pytest.raises(ValueError, match="unsupported device meta"):
         flash_tpu._check_cuda_args("flash_attention", q, q, q)
 
 

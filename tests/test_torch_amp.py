@@ -20,6 +20,7 @@ from paddle_tpu_torch import amp
 from paddle_tpu_torch import nn as tnn
 from paddle_tpu_torch.nn import functional as TF
 from paddle_tpu_torch.nn.layer.common import linear
+import torch_threads  # noqa: F401  (one torch thread a worker)
 
 # the packages export the function ``auto_cast`` under the module's name
 ref_amp = importlib.import_module("paddle_tpu.amp.auto_cast")

@@ -12,6 +12,7 @@ from paddle_tpu import quant as jquant
 from paddle_tpu.ops import attention as jatt
 from paddle_tpu_torch.ops import attention as tatt
 from paddle_tpu_torch.ops import tier_policy
+import torch_threads  # noqa: F401  (one torch thread a worker)
 
 TOL = 1e-5
 

@@ -9,6 +9,7 @@ import shutil
 import pytest
 
 from paddle_tpu_torch.ops import _build
+import torch_threads  # noqa: F401  (one torch thread a worker)
 
 
 @pytest.fixture

@@ -16,6 +16,7 @@ from paddle_tpu.core.tensor import wrap_raw
 from paddle_tpu.nn import clip as jclip
 from paddle_tpu_torch.nn import clip as tclip
 from paddle_tpu_torch.ops import fused
+import torch_threads  # noqa: F401  (one torch thread a worker)
 
 SIZES = (1, 7, 300, 4096, 5000)
 # f32: the squares are summed in another order (XLA's against torch's),

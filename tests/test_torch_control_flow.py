@@ -16,6 +16,7 @@ from paddle_tpu_torch import optimizer as toptim
 from paddle_tpu_torch import static
 from paddle_tpu_torch.nn.param_attr import ParamAttr
 from paddle_tpu_torch.profiler.telemetry import get_telemetry
+import torch_threads  # noqa: F401  (one torch thread a worker)
 
 CPU = "cpu"
 T = torch.tensor

@@ -17,6 +17,7 @@ import paddle_tpu as paddle
 from paddle_tpu.core.tensor import Tensor, no_grad
 from paddle_tpu_torch import nn as tnn
 from paddle_tpu_torch.nn import functional as TF
+import torch_threads  # noqa: F401  (one torch thread a worker)
 
 JF = paddle.nn.functional
 TOL = 1e-5

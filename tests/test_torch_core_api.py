@@ -21,6 +21,7 @@ from paddle_tpu.core import monitor as jmonitor
 from paddle_tpu_torch.core import dtype as tdtype
 from paddle_tpu_torch.core import monitor, place, rng
 from torch_tensor_parity import on_cpu  # noqa: F401
+import torch_threads  # noqa: F401  (one torch thread a worker)
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # the modules themselves: each package's ``core`` star-imports the function

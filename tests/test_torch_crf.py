@@ -41,6 +41,7 @@ from paddle_tpu_torch.optimizer import AdamW
 from paddle_tpu_torch.text import crf as tcrf
 from paddle_tpu_torch.text.models import bert as tbert
 from torch_parity import assert_close, port_call, ref_jit_call
+import torch_threads  # noqa: F401  (one torch thread a worker)
 
 jfunc = importlib.import_module("paddle_tpu.jit.functionalize")
 

@@ -20,6 +20,7 @@ import paddle_tpu as paddle
 import paddle_tpu.nn as jnn
 from paddle_tpu_torch import nn as tnn
 from paddle_tpu_torch.jit.functionalize import load_jax_params
+import torch_threads  # noqa: F401  (one torch thread a worker)
 
 jfunc = importlib.import_module("paddle_tpu.jit.functionalize")
 

@@ -23,6 +23,7 @@ from paddle_tpu_torch import static
 from paddle_tpu_torch.metric import DetectionMAP
 from paddle_tpu_torch.vision import image as timage
 from paddle_tpu_torch.vision import ops as TV
+import torch_threads  # noqa: F401  (one torch thread a worker)
 
 # f32 priors and decoded boxes: the same formulas, one rounding apart
 BOX_TOL = dict(rtol=1e-5, atol=1e-5)

@@ -18,6 +18,7 @@ from paddle_tpu.jit.dy2static import convert_to_static as jconvert
 from paddle_tpu_torch import jit as tjit
 from paddle_tpu_torch import static
 from paddle_tpu_torch.jit.dy2static import convert_to_static as tconvert
+import torch_threads  # noqa: F401  (one torch thread a worker)
 
 
 class _Torch:

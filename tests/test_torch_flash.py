@@ -8,7 +8,7 @@ mode, ragged L and the backward against the reference's `flash_attention`
 (blockwise off the TPU) and its `jax.vjp`; with a key-padding bias, the
 plain forward and backward against `blockwise_attention(..., bias=)` and
 its `jax.vjp`. The plain backward with bf16-rounded P and dS
-(`bf16_operands=True`, the bf16 kernels' plain version) on bf16 inputs
+(`operand_dtype=torch.bfloat16`, the bf16 kernels' plain version) on bf16 inputs
 against `_dq_kernel` + `_dkv_kernel` run in interpret mode on bf16
 operands, and at a ragged L against `jax.vjp` of `xla_attention`; the
 `flash_bwd_dq` entry's (dq, delta). The packed dK/dV experiment against
@@ -36,6 +36,7 @@ from paddle_tpu.ops import flash_tpu as jflash
 from paddle_tpu_torch.experiments import dkv_packed as tdkv
 from paddle_tpu_torch.ops import attention as tatt
 from paddle_tpu_torch.ops import flash_tpu as tflash
+import torch_threads  # noqa: F401  (one torch thread a worker)
 
 OUT_TOL = 2e-5   # f32 accumulation in both, different order
 LSE_TOL = 1e-5
@@ -269,7 +270,7 @@ def test_bf16_operands_backward_matches_pallas_kernels_in_interpret_mode(
     tq, tk, tv, tdo = _bf16_inputs((b, L, H, d), seed=L + d)
     out, lse = tflash._flash_reference(tq, tk, tv)
     grads = tflash._flash_bwd_reference(tq, tk, tv, out, lse, tdo,
-                                        bf16_operands=True)
+                                        operand_dtype=torch.bfloat16)
     f = lambda t: t.float().numpy()
     ref = _pallas_bwd(f(tq), f(tk), f(tv), f(out), lse.numpy(), f(tdo),
                       block, jnp.bfloat16)
@@ -288,7 +289,7 @@ def test_bf16_operands_backward_ragged_length_matches_vjp_of_xla_attention(
     tq, tk, tv, tdo = _bf16_inputs((b, L, H, d), seed=L + 1)
     out, lse = tflash._flash_reference(tq, tk, tv)
     grads = tflash._flash_bwd_reference(tq, tk, tv, out, lse, tdo,
-                                        bf16_operands=True)
+                                        operand_dtype=torch.bfloat16)
     q, k, v, dout = (t.float().numpy() for t in (tq, tk, tv, tdo))
     _, vjp = jax.vjp(lambda q_, k_, v_: jatt.xla_attention(
         q_, k_, v_, causal=True, layout="blhd"), q, k, v)
@@ -300,17 +301,18 @@ def test_bf16_operands_backward_ragged_length_matches_vjp_of_xla_attention(
 
 
 def test_bf16_operands_off_leaves_the_plain_backward_as_it_was():
-    """The keyword's default computes P and dS in f32 throughout: on f32
-    inputs it is the unrounded backward, and rounding them moves it."""
+    """The operand type's default (None) computes P and dS in f32
+    throughout: on f32 inputs it is the unrounded backward, and rounding
+    them moves it."""
     q, k, v, dout = (torch.from_numpy(a) for a in
                      _qkv((1, 40, 2, 16), seed=3) + _qkv((1, 40, 2, 16),
                                                          seed=4)[:1])
     out, lse = tflash._flash_reference(q, k, v)
     plain = tflash._flash_bwd_reference(q, k, v, out, lse, dout)
     off = tflash._flash_bwd_reference(q, k, v, out, lse, dout,
-                                      bf16_operands=False)
+                                      operand_dtype=None)
     on = tflash._flash_bwd_reference(q, k, v, out, lse, dout,
-                                     bf16_operands=True)
+                                     operand_dtype=torch.bfloat16)
     for a, b_, c in zip(plain, off, on):
         assert torch.equal(a, b_) and not torch.equal(a, c)
 
@@ -423,7 +425,7 @@ def _check_cuda_backward(q, k, v, dout, causal, bias=None):
                                        rtol=F32_BWD_TOL)
         return
     ref = tflash._flash_bwd_reference(q, k, v, out, lse, dout, causal, bias,
-                                      bf16_operands=True)
+                                      operand_dtype=torch.bfloat16)
     ref32 = tflash._flash_bwd_reference(
         *(t.float() for t in (q, k, v, out)), lse, dout.float(), causal,
         bias)

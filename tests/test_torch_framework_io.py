@@ -47,6 +47,7 @@ from paddle_tpu_torch.nn import (CrossEntropyLoss, Linear, ReLU, Sequential,
 from paddle_tpu_torch.nn.layer.norm import BatchNorm1D
 from paddle_tpu_torch.optimizer import Adam, AdamW, Momentum, lr as tlr
 from paddle_tpu_torch.vision import models as tmodels
+import torch_threads  # noqa: F401  (one torch thread a worker)
 
 LOGIT_REL_TOL = 1e-5
 

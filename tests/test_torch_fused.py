@@ -17,6 +17,7 @@ from jax.experimental import pallas as pl
 from paddle_tpu.nn.functional.norm import _ln_manual
 from paddle_tpu.ops import fused as jfused
 from paddle_tpu_torch.ops import fused as tfused
+import torch_threads  # noqa: F401  (one torch thread a worker)
 
 TOL = 1e-5  # f32 on both sides; two-pass statistics, different sum order
 # backward: dw/db are sums over every row (up to 512 terms of |g·x̂| ~ 3)

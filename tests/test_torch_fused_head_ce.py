@@ -21,6 +21,7 @@ from paddle_tpu_torch.jit.functionalize import load_jax_params
 from paddle_tpu_torch.nn.functional import loss as tloss
 from paddle_tpu_torch.text.models import gpt as tgpt
 from torch_parity import cotangent
+import torch_threads  # noqa: F401  (one torch thread a worker)
 
 jfunc = importlib.import_module("paddle_tpu.jit.functionalize")
 

@@ -16,6 +16,7 @@ from paddle_tpu.text.models import gpt as jgpt
 from paddle_tpu_torch.inference.serving import kv_cache as tkv
 from paddle_tpu_torch.jit.functionalize import get_params, load_jax_params
 from paddle_tpu_torch.text.models import gpt as tgpt
+import torch_threads  # noqa: F401  (one torch thread a worker)
 
 # the reference's dense forward uses a one-pass LayerNorm, the port a
 # two-pass one; 1e-4 covers that difference over 4 layers

@@ -37,6 +37,7 @@ from paddle_tpu.core.tensor import Parameter, wrap_raw
 from paddle_tpu_torch import amp
 from paddle_tpu_torch.nn import CrossEntropyLoss, Linear, ReLU, Sequential
 from paddle_tpu_torch.optimizer import SGD, Adam
+import torch_threads  # noqa: F401  (one torch thread a worker)
 
 jscaler = importlib.import_module("paddle_tpu.amp.grad_scaler")
 

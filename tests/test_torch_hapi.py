@@ -59,6 +59,7 @@ from paddle_tpu_torch.optimizer import Adam, lr as tlr
 from paddle_tpu_torch.resilience import EXIT_PREEMPTED
 from paddle_tpu_torch.vision import models as tmodels
 from paddle_tpu_torch.vision.datasets import MNIST
+import torch_threads  # noqa: F401  (one torch thread a worker)
 
 jfunc = importlib.import_module("paddle_tpu.jit.functionalize")
 

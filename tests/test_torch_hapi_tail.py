@@ -31,6 +31,7 @@ from paddle_tpu_torch import inference, jit, nn
 from paddle_tpu_torch.framework import io_crypto as tcrypto
 from paddle_tpu_torch.hapi import dynamic_flops
 from paddle_tpu_torch.vision import models as tmodels
+import torch_threads  # noqa: F401  (one torch thread a worker)
 
 jdf = importlib.import_module("paddle_tpu.hapi.dynamic_flops")
 

@@ -33,6 +33,7 @@ from paddle_tpu_torch.nn.param_attr import ParamAttr
 from paddle_tpu_torch.ops import flash_tpu, fused
 from paddle_tpu_torch.profiler.telemetry import get_telemetry
 from paddle_tpu_torch.text.models import gpt as tgpt
+import torch_threads  # noqa: F401  (one torch thread a worker)
 
 _THREADS = ("ServingScheduler", "DecodeScheduler", "ServingDrain")
 RTOL = 1e-5

@@ -51,6 +51,7 @@ from paddle_tpu_torch.resilience import (FaultInjector, IntegrityError,
                                          host_state_fingerprint,
                                          pick_healthy, selftest)
 from paddle_tpu_torch.text.models import gpt as tgpt
+import torch_threads  # noqa: F401  (one torch thread a worker)
 
 jfunc = importlib.import_module("paddle_tpu.jit.functionalize")
 

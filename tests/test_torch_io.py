@@ -14,6 +14,7 @@ from paddle_tpu import io as jio
 from paddle_tpu.vision import datasets as jds
 from paddle_tpu_torch import io as tio
 from paddle_tpu_torch.vision import datasets as tds
+import torch_threads  # noqa: F401  (one torch thread a worker)
 
 
 def _np(batch):

@@ -24,6 +24,7 @@ from paddle_tpu_torch.optimizer import Adam
 from paddle_tpu_torch.experiments import dkv_packed
 from paddle_tpu_torch.text.models import bert as tbert
 from paddle_tpu_torch.text.models import gpt as tgpt
+import torch_threads  # noqa: F401  (one torch thread a worker)
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _PKG = os.path.join(_REPO, "paddle_tpu_torch")

@@ -32,6 +32,7 @@ from paddle_tpu_torch import jit
 from paddle_tpu_torch.jit.dy2static import convert_to_static
 from paddle_tpu_torch.jit.functionalize import load_jax_params
 from paddle_tpu_torch.nn import BatchNorm1D, Linear
+import torch_threads  # noqa: F401  (one torch thread a worker)
 
 
 class TNet(torch.nn.Module):

@@ -14,6 +14,7 @@ import paddle_tpu as paddle
 from paddle_tpu.core.tensor import wrap_raw
 from paddle_tpu_torch.nn import CrossEntropyLoss
 from paddle_tpu_torch.nn.functional import cross_entropy
+import torch_threads  # noqa: F401  (one torch thread a worker)
 
 N, C, L = 12, 9, 5
 # f32 on both sides: log-softmax and the sums are taken in other orders

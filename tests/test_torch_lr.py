@@ -11,6 +11,7 @@ import torch
 from paddle_tpu.optimizer import lr as jlr
 from paddle_tpu_torch.optimizer import Adam
 from paddle_tpu_torch.optimizer import lr as tlr
+import torch_threads  # noqa: F401  (one torch thread a worker)
 
 TOL = 1e-12
 STEPS = 30

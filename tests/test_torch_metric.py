@@ -11,6 +11,7 @@ import torch
 import paddle_tpu as paddle
 from paddle_tpu import metric as jm
 from paddle_tpu_torch import metric as tm
+import torch_threads  # noqa: F401  (one torch thread a worker)
 
 
 def _scores(n, c, seed):

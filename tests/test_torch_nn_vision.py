@@ -13,6 +13,7 @@ import paddle_tpu as paddle
 import paddle_tpu.nn.functional as JF
 from paddle_tpu_torch.nn import functional as TF
 from torch_parity import assert_close, port_call, ref_call
+import torch_threads  # noqa: F401  (one torch thread a worker)
 
 # f32: the four-corner blends are summed in the same order; the affine
 # product in another

@@ -16,6 +16,7 @@ from paddle_tpu.nn import clip as jclip
 from paddle_tpu_torch import optimizer as topt
 from paddle_tpu_torch import regularizer as treg
 from paddle_tpu_torch.nn import clip as tclip
+import torch_threads  # noqa: F401  (one torch thread a worker)
 
 SHAPES = ((20, 15), (7,), (5000,))
 STEPS = 3

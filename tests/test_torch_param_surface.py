@@ -28,6 +28,7 @@ from paddle_tpu_torch import static as tstatic
 from paddle_tpu_torch.jit.functionalize import load_jax_params
 from paddle_tpu_torch.ops import fused as tfused
 from paddle_tpu_torch.vision.models import LeNet
+import torch_threads  # noqa: F401  (one torch thread a worker)
 
 jfunc = importlib.import_module("paddle_tpu.jit.functionalize")
 jamp = importlib.import_module("paddle_tpu.amp")

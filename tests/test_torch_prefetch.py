@@ -21,6 +21,7 @@ from paddle_tpu.io.prefetch import ShapeBuckets as JShapeBuckets
 from paddle_tpu_torch.io import DevicePrefetcher, ShapeBuckets
 from paddle_tpu_torch.profiler import goodput
 from paddle_tpu_torch.profiler.telemetry import get_telemetry
+import torch_threads  # noqa: F401  (one torch thread a worker)
 
 
 def _gen_batches(n, shape=(4, 8), fail_at=None, delay=0.0):

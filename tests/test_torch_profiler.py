@@ -32,6 +32,7 @@ from paddle_tpu_torch.profiler import spans as tspans
 from paddle_tpu_torch.profiler.telemetry import Telemetry
 from paddle_tpu_torch.resilience import preemption as tpreempt
 from paddle_tpu_torch.resilience import retry as tretry
+import torch_threads  # noqa: F401  (one torch thread a worker)
 
 jspans = importlib.import_module("paddle_tpu.profiler.spans")
 jgoodput = importlib.import_module("paddle_tpu.profiler.goodput")

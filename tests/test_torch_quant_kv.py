@@ -25,6 +25,7 @@ from paddle_tpu_torch.inference.serving import KVCacheConfig, KVCachePool
 from paddle_tpu_torch.jit.functionalize import get_params, load_jax_params
 from paddle_tpu_torch.profiler.telemetry import get_telemetry
 from paddle_tpu_torch.text.models import gpt as tgpt
+import torch_threads  # noqa: F401  (one torch thread a worker)
 
 _SMALL = dict(vocab_size=96, hidden_size=32, num_layers=2, num_heads=2,
               max_position_embeddings=128, hidden_dropout=0.0,

@@ -18,6 +18,7 @@ from paddle_tpu_torch.ops import fused
 from paddle_tpu_torch.ops import remat_policy as tremat
 from paddle_tpu_torch.optimizer import Adam
 from paddle_tpu_torch.text.models import gpt as tgpt
+import torch_threads  # noqa: F401  (one torch thread a worker)
 
 PORTED = ("full", "nothing", "dots", "dots_no_batch", "offload")
 VOCAB = (None, False, True, "off", "", "full", "nothing", "dots",

@@ -39,6 +39,7 @@ from paddle_tpu_torch.optimizer import Adam, lr
 from paddle_tpu_torch.profiler import xla_cost as tcost
 from paddle_tpu_torch.profiler.telemetry import get_telemetry
 from paddle_tpu_torch.text.models import gpt as tgpt
+import torch_threads  # noqa: F401  (one torch thread a worker)
 
 jfunc = importlib.import_module("paddle_tpu.jit.functionalize")
 

@@ -47,6 +47,7 @@ from paddle_tpu_torch.resilience import (EXIT_PREEMPTED, FaultInjector,
                                          uninstall_preemption_handler,
                                          uninstall_watchdog)
 from paddle_tpu_torch.text.models import gpt as tgpt
+import torch_threads  # noqa: F401  (one torch thread a worker)
 
 jfunc = importlib.import_module("paddle_tpu.jit.functionalize")
 
@@ -180,13 +181,20 @@ def test_guarded_bad_step_keeps_state_and_names_leaves_as_reference(
                                                              ref_losses)
 
 
+def _gpt_cfg(mod):
+    return mod.GPTConfig(vocab_size=1024, hidden_size=128, num_layers=2,
+                         num_heads=4, max_position_embeddings=256,
+                         hidden_dropout=0.0, attention_dropout=0.0)
+
+
 @pytest.fixture(scope="module")
 def gpt_overflow_runs():
-    """Step 0 of a small GPT at lr 3.4e38 in bf16 master mode through both
-    engines (the new masters round to inf in bf16), then 2 steps at lr
-    1e-3."""
+    """Step 0 of a small GPT (GPT-2 tiny's widths, 2 layers: the
+    reference's guarded engine compiles in half the time of 4) at lr
+    3.4e38 in bf16 master mode through both engines (the new masters
+    round to inf in bf16), then 2 steps at lr 1e-3."""
     paddle.seed(7)
-    jmodel = jgpt.GPTForCausalLM(jgpt.gpt2_tiny())
+    jmodel = jgpt.GPTForCausalLM(_gpt_cfg(jgpt))
     p0 = {k: np.asarray(v, np.float32)
           for k, v in jfunc.get_params(jmodel).items()}
     rng = np.random.RandomState(0)
@@ -205,7 +213,7 @@ def gpt_overflow_runs():
         if i == 0:
             ref_bad = jstep.last_step_finite()[1]
             jopt.set_lr(1e-3)
-    model = load_jax_params(tgpt.GPTForCausalLM(tgpt.gpt2_tiny(),
+    model = load_jax_params(tgpt.GPTForCausalLM(_gpt_cfg(tgpt),
                                                 device="cpu"), p0)
     opt = Adam(LR_OVERFLOW, parameters=model.parameters(),
                multi_precision=True)

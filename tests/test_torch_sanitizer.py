@@ -22,6 +22,7 @@ from paddle_tpu_torch.core.tree import as_tensor, flatten_with_path, tree_map
 from paddle_tpu_torch.ops import fused as tfused
 from paddle_tpu_torch.ops import tree_reduce as ttree
 from paddle_tpu_torch.profiler.telemetry import get_telemetry
+import torch_threads  # noqa: F401  (one torch thread a worker)
 
 
 

@@ -18,6 +18,7 @@ from paddle_tpu_torch import nn as tnn
 from paddle_tpu_torch import optimizer as topt
 from paddle_tpu_torch import static as tstatic
 from paddle_tpu_torch.core.selected_rows import RowSparseGrad
+import torch_threads  # noqa: F401  (one torch thread a worker)
 
 VOCAB, DIM = 50, 8
 # f32 on both sides: the same per-row formula; duplicates and squares are

@@ -37,6 +37,7 @@ from paddle_tpu_torch.jit.functionalize import load_jax_params
 from paddle_tpu_torch.profiler.telemetry import Telemetry, get_telemetry
 from paddle_tpu_torch.resilience.inject import clear_injector
 from paddle_tpu_torch.text.models import gpt as tgpt
+import torch_threads  # noqa: F401  (one torch thread a worker)
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _THREADS = ("ServingScheduler", "DecodeScheduler", "ServingDrain")

@@ -50,6 +50,7 @@ from paddle_tpu_torch.resilience.inject import (FaultInjector,
 from paddle_tpu_torch.resilience.preemption import (
     clear_preemption_request, install_preemption_handler,
     preemption_requested, uninstall_preemption_handler)
+import torch_threads  # noqa: F401  (one torch thread a worker)
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _THREADS = ("ServingScheduler", "DecodeScheduler", "ServingDrain")

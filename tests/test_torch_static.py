@@ -45,6 +45,7 @@ from paddle_tpu_torch.nn.functional import cross_entropy
 from paddle_tpu_torch.nn.layer.common import Dropout, Linear
 from paddle_tpu_torch.nn.param_attr import ParamAttr
 from paddle_tpu_torch.vision.models import resnet18
+import torch_threads  # noqa: F401  (one torch thread a worker)
 
 CPU = "cpu"
 TRUE_W = np.array([[1.0], [2.0], [-1.0], [0.5]], np.float32)

@@ -9,6 +9,7 @@ import pytest
 
 import torch_tensor_cases as tc
 from torch_tensor_parity import check_case, on_cpu  # noqa: F401
+import torch_threads  # noqa: F401  (one torch thread a worker)
 
 CASES = {**tc.math_cases()}
 

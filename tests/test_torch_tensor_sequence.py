@@ -14,6 +14,7 @@ from paddle_tpu import static as jstatic
 from paddle_tpu_torch import static
 from paddle_tpu_torch import tensor as T
 from torch_tensor_parity import check_case, on_cpu  # noqa: F401
+import torch_threads  # noqa: F401  (one torch thread a worker)
 
 CASES = tc.sequence_cases()
 CPU = "cpu"

@@ -42,6 +42,7 @@ from paddle_tpu_torch.ops import attention as tatt
 from paddle_tpu_torch.ops import tier_policy
 from paddle_tpu_torch.profiler.telemetry import get_telemetry
 from paddle_tpu_torch.text.models import gpt as tgpt
+import torch_threads  # noqa: F401  (one torch thread a worker)
 
 jfunc = importlib.import_module("paddle_tpu.jit.functionalize")
 

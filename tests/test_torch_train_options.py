@@ -33,6 +33,7 @@ from paddle_tpu_torch.ops import fused
 from paddle_tpu_torch.optimizer import AdamW
 from paddle_tpu_torch.optimizer import lr as tlr
 from paddle_tpu_torch.text.models import gpt as tgpt
+import torch_threads  # noqa: F401  (one torch thread a worker)
 
 jfunc = importlib.import_module("paddle_tpu.jit.functionalize")
 

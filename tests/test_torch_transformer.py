@@ -19,6 +19,7 @@ from paddle_tpu_torch import nn as tnn
 from paddle_tpu_torch.jit.functionalize import load_jax_params
 from paddle_tpu_torch.ops import fused
 from torch_parity import assert_close, port_call, ref_call
+import torch_threads  # noqa: F401  (one torch thread a worker)
 
 jfunc = importlib.import_module("paddle_tpu.jit.functionalize")
 

@@ -25,6 +25,7 @@ import torch
 
 from paddle_tpu.vision import transforms as J
 from paddle_tpu_torch.vision import transforms as T
+import torch_threads  # noqa: F401  (one torch thread a worker)
 
 RESIZE_F32_ATOL = 1e-4
 RESIZE_U8_LEVELS = 1

@@ -59,6 +59,7 @@ from paddle_tpu_torch.nn import CrossEntropyLoss
 from paddle_tpu_torch.optimizer import Adam, Momentum
 from paddle_tpu_torch.vision import datasets as tds
 from paddle_tpu_torch.vision import models as tmodels
+import torch_threads  # noqa: F401  (one torch thread a worker)
 
 jfunc = importlib.import_module("paddle_tpu.jit.functionalize")
 

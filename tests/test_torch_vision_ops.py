@@ -18,6 +18,7 @@ from paddle_tpu.core.tensor import wrap_raw
 from paddle_tpu.vision import ops as JV
 from paddle_tpu_torch.vision import ops as TV
 from torch_parity import assert_close, port_call, ref_jit_call
+import torch_threads  # noqa: F401  (one torch thread a worker)
 
 # f32: the same formulas; sums of the gathers and contractions run in
 # another order
