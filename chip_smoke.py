@@ -95,7 +95,7 @@ failing on the first phase that fails:
     against its plain version on the model's 292 bf16 gradients (and the
     same bits over two calls) and the clip-scaled AdamW kernel against
     ``_adam_reference``, and times both; 12b trains GPT-2 345M's widths
-    at 12 of its 24 layers through
+    at 6 of its 24 layers through
     ``ParallelTrainStep`` under remat 'off', 'full', 'dots' and
     'dots_no_batch' from the same seeds: step 1's loss and gradient norm
     (the kernel's device scalar) must be bitwise those of 'off' (or, if
@@ -330,7 +330,27 @@ failing on the first phase that fails:
     path's launches counted) against f32 under ``plain_kernels``, then in
     bf16 for the time of the double backward and its peak memory.
 
-Every kernel's launch count is set to 0 before each of phases 4-23 and
+24. data parallelism, ZeRO and the ring on one card (run after phase 8):
+    24a joins a world of one over NCCL under the launcher's environment
+    (``init_parallel_env``; the backend must be ``nccl``), runs every
+    collective of ``distributed.communication`` on card tensors against
+    its expected value, then trains GPT-2 345M at phase 8's 8 x 1024
+    from phase 8's weights and batch through ``ParallelTrainStep(mesh=
+    init_mesh((1, 1), ("dp", "sharding")), zero_stage=3)`` for 3 steps:
+    each loss must have phase 8's bits (a world of one adds no
+    arithmetic), with phase 8's launches of #1-#3 and #5-#7 a step; it
+    prints a profile that names the NCCL kernels, step p50, device time,
+    busy share and peak memory beside phase 8's; 24b runs the ring's hop
+    schedule of 4 ranks in one process at ``longctx``'s [1, 8192, 12, 64]
+    bf16 (the rotation a list, ``ops.attention.ring_hop_forward`` /
+    ``ring_merge`` / ``ring_hop_backward``, the functions
+    ``ring_attention`` calls), counts 4 causal and 6 full-mode launches of
+    #1 (and of #2 and #3), holds the merged output, lse and gradients
+    against #1-#3 on the whole sequence, and times both. Phases 15 and 16
+    run ``bench bert`` and ``bench longctx`` through their one-device
+    ``mesh`` (24c).
+
+Every kernel's launch count is set to 0 before each of phases 4-24 and
 read after it. The last two lines are a ``{"kernels": [...]}`` JSON
 object and ``{"ok": true, "device": {...}}``.
 """
@@ -479,10 +499,10 @@ OPTIONS_WARMUP, OPTIONS_T_MAX = 3, 10
 OPTIONS_CLIP = 1.0
 OPTIONS_DROPOUT = 0.1
 OPTIONS_STEPS = 5  # timed steps per policy, after step 1
-# GPT-2 345M's widths at half its depth: seven models are built and
-# trained (each policy, 'off' twice, both engines), and the script must
-# stay within half its time limit
-OPTIONS_LAYERS = 12
+# GPT-2 345M's widths at a quarter of its depth: seven models are built
+# and trained (each policy, 'off' twice, both engines), and the script
+# must stay within half its time limit (12 layers until phase 24 came)
+OPTIONS_LAYERS = 6
 REMAT_POLICIES = ("off", "full", "dots", "dots_no_batch")
 # the global norm: kernel and plain version sum the same f32 squares in
 # other orders (f32 rounding of a sum of 3.5e8 terms)
@@ -2670,7 +2690,8 @@ LR_OVERFLOW = 3.4e38
 # the fold's f32 sums, kernel against plain: the same values summed in
 # another order; the signed sum within this share of the abs-sum
 FOLD_SUM_RTOL = 1e-5
-GUARD_STEPS = 5  # timed steps a mode, guard on and off
+# timed steps a mode, guard on and off (5 before phase 24 needed the time)
+GUARD_STEPS = 3
 
 
 def state_bits(step):
@@ -3306,7 +3327,7 @@ STATIC_WINDOW = 20
 STATIC_WINDOWS = 2
 # the replay's host cost: a batch at which the host bounds the step
 STATIC_HOST_BATCH = 2
-STATIC_HOST_STEPS = 10
+STATIC_HOST_STEPS = 5  # 10 before phase 24 needed the time
 # step 1's loss against 13c's TrainStep loss from the same weights and
 # batch: the same bf16 AMP O1 ops, but cuDNN may pick other algorithms for
 # another call order, and the bf16 logits' roundings move the mean loss by
@@ -7341,6 +7362,289 @@ def fp16_slice_phase(dev, gen, counted, launches, gpt_mod, bert_mod, plain,
     return out
 
 
+# -- phase 24: data parallelism, ZeRO and the ring on one card ----------------
+# 24b: #1-#3 on the whole sequence against the f32 plain version of the
+# whole sequence within 2^-6 of each tensor's largest magnitude (phase
+# 3's bf16-against-f32 tolerance), and the ring's hops within that plus
+# one bf16 rounding (2^-9) of each of the RING_SP partials a shard's
+# output or gradient sums: each hop is such a kernel call whose output
+# is rounded to bf16 once before the ring adds it up in f32. The merged
+# lse against the whole-sequence kernel's, f32 arithmetic (phase 3's lse
+# tolerance). The ring's difference from the whole-sequence kernels is
+# printed beside.
+RING_SP = 4
+WHOLE_REL_TOL = BF16_VS_F32_REL_TOL
+RING_REL_TOL = BF16_VS_F32_REL_TOL + RING_SP * 2.0 ** -9
+RING_LSE_TOL = FLASH_LSE_TOL[torch.bfloat16]
+ZERO_STEPS = 3  # phase 8's warm-up steps, loss for loss
+ZERO_TIMED_STEPS = 5
+ZERO_LOSS_RTOL = 2.0 ** -7  # when the bits differ, with the reason printed
+
+
+def world_of_one_collectives(dev):
+    """24a: every collective of ``communication`` on card tensors in the
+    world of one, each against the value it must give."""
+    import torch.distributed as tdist
+
+    from paddle_tpu_torch.distributed import communication as comm
+    from paddle_tpu_torch.distributed.fleet.mesh_utils import init_mesh
+
+    x = torch.arange(1.0, 5.0, device=dev)
+    checks = {}
+    for name in ("SUM", "MAX", "MIN", "PROD", "AVG"):
+        t = x.clone()
+        comm.all_reduce(t, op=getattr(comm.ReduceOp, name))
+        checks[f"all_reduce_{name.lower()}"] = torch.equal(t, x)
+    checks["all_gather"] = all(torch.equal(a, x) for a in
+                               comm.all_gather([], x))
+    t = torch.empty_like(x)
+    comm.reduce_scatter(t, [x])
+    checks["reduce_scatter"] = torch.equal(t, x)
+    t = x.clone()
+    checks["broadcast"] = torch.equal(comm.broadcast(t, src=0), x)
+    t = x.clone()
+    checks["reduce"] = torch.equal(comm.reduce(t, dst=0), x)
+    t = torch.empty_like(x)
+    checks["scatter"] = torch.equal(comm.scatter(t, [x], src=0), x)
+    checks["alltoall"] = torch.equal(comm.alltoall([x])[0], x)
+    comm.barrier()
+    checks["barrier"] = True
+    if tdist.get_backend() == "nccl":
+        # send / recv to this rank itself, posted together as the ring
+        # does (NCCL takes a peer that is the rank itself; gloo does not)
+        got = torch.empty_like(x)
+        for w in tdist.batch_isend_irecv([tdist.P2POp(tdist.isend, x, 0),
+                                          tdist.P2POp(tdist.irecv, got, 0)]):
+            w.wait()
+        checks["send_recv"] = torch.equal(got, x)
+    checks["wait"] = torch.equal(comm.wait(x), x)
+    checks["all_gather_object"] = comm.all_gather_object(
+        {"r": 0}, key="24a", world_size=1) == [{"r": 0}]
+    g = comm.new_group([0])
+    t = x.clone()
+    checks["group"] = torch.equal(comm.all_reduce(t, group=g), x)
+    init_mesh((1,), ("dp",))
+    t = x.clone()
+    checks["axis_group"] = torch.equal(comm.all_reduce(t, group="dp"), x)
+    torch.cuda.synchronize()
+    bad = [k for k, ok in checks.items() if not ok]
+    log(f"[24a] collectives on the card ({len(checks)}): "
+        + ("all as expected" if not bad else f"WRONG: {bad}"))
+    if bad:
+        raise AssertionError(f"24a: collectives gave wrong values: {bad}")
+    return sorted(checks)
+
+
+def world_of_one_phase(dev, counted, launches, gpt_mod, batch8, phase8,
+                       smi):
+    """24a: a world of one over NCCL, its collectives, and GPT-2 345M
+    trained through ZeRO-3 on it against phase 8."""
+    import torch.distributed as tdist
+
+    from paddle_tpu_torch import distributed as pdist
+    from paddle_tpu_torch.distributed.fleet.engine import ParallelTrainStep
+    from paddle_tpu_torch.distributed.fleet.mesh_utils import init_mesh
+    from paddle_tpu_torch.distributed.launch import get_cluster_env
+    from paddle_tpu_torch.optimizer import Adam
+
+    if tdist.is_initialized():
+        tdist.destroy_process_group()
+    env, _ = get_cluster_env("127.0.0.1", ["127.0.0.1"], 1)
+    os.environ.update(env[0])
+    t0 = time.perf_counter()
+    pdist.init_parallel_env()
+    backend = tdist.get_backend()
+    log(f"[24a] init_parallel_env under the launcher's environment "
+        f"({env[0]['PADDLE_TRAINER_ENDPOINTS']}): backend {backend}, world "
+        f"{pdist.get_world_size()}, rank {pdist.get_rank()}, "
+        f"{time.perf_counter() - t0:.2f} s")
+    if backend != "nccl" or pdist.get_world_size() != 1:
+        raise AssertionError(f"24a: a world of {pdist.get_world_size()} "
+                             f"over {backend}, expected one over nccl")
+    collectives = world_of_one_collectives(dev)
+
+    ids, labels = batch8
+    cfg = gpt_mod.gpt2_medium(hidden_dropout=0.0, attention_dropout=0.0)
+    model = gpt_mod.GPTForCausalLM(cfg, dtype=torch.float32, seed=4)
+    opt = Adam(TRAIN_LR, parameters=model.parameters(), multi_precision=True)
+    engine = ParallelTrainStep(
+        model, lambda out, lbl: out, opt, compute_dtype=torch.bfloat16,
+        mesh=init_mesh((1, 1), ("dp", "sharding")), zero_stage=3,
+        dp_axis="dp", sharding_axis="sharding")
+    step = lambda i, l: engine((i, l), (l,))
+    _cleared(counted)
+    losses = [step(ids, labels) for _ in range(ZERO_STEPS)]
+    torch.cuda.synchronize()
+    got = _read_launches(counted, launches, "zero3_gpt")
+    n_ln = 2 * cfg.num_layers + 1
+    n = ZERO_STEPS
+    want = {**{k: 0 for k in counted},
+            "layer_norm_fwd": n_ln * n, "layer_norm_bwd": 2 * n_ln * n,
+            "flash_attn_fwd": cfg.num_layers * n,
+            "flash_attn_bwd_dq": cfg.num_layers * n,
+            "flash_attn_bwd_dkv": cfg.num_layers * n, "adam": 2 * n}
+    losses = [float(x) for x in losses]
+    ref = phase8["losses"][:n]
+    same_bits = [np.float32(a).tobytes() == np.float32(b).tobytes()
+                 for a, b in zip(losses, ref)]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref))
+    shard = sum(bk.S for bk in engine._buckets)
+    total = sum(bk.total for bk in engine._buckets)
+    torch.cuda.reset_peak_memory_stats()
+    _, step_ms, wall = timed_steps(step, (ids, labels), ZERO_TIMED_STEPS)
+    peak = torch.cuda.max_memory_allocated()
+    keys = []
+    prof = profile_step("24a", step, (ids, labels), keys=keys, warmup=True)
+    nccl = sorted({k[:80] for k, _ in keys if "nccl" in k.lower()})
+    p8 = phase8.get("profile") or {}
+    out = {"backend": backend, "collectives": collectives,
+           "losses": losses, "phase8_losses": ref, "same_bits": same_bits,
+           "max_rel_diff": rel, "launches": got,
+           "shard_numel": shard, "flat_numel": total,
+           "step_ms_p50": step_ms[len(step_ms) // 2],
+           "tokens_per_s": TRAIN_SHAPE[0] * TRAIN_SHAPE[1]
+           * ZERO_TIMED_STEPS / wall,
+           "device_ms_per_step": prof["device_ms_per_step"],
+           "busy_share": prof["busy_share"], "peak_memory_bytes": peak,
+           "nccl_kernels": nccl, "card": smi}
+    log(f"[24a] GPT-2 345M through ParallelTrainStep(mesh (dp 1, sharding "
+        f"1), zero_stage=3) at {TRAIN_SHAPE}: losses {losses} against phase "
+        f"8's {ref} (same bits {same_bits}, max rel {rel:.3g}); step p50 "
+        f"{out['step_ms_p50']:.2f} ms (phase 8 {phase8['step_ms_p50']:.2f}),"
+        f" device {out['device_ms_per_step']:.2f} ms a step (phase 8 "
+        f"{p8.get('device_ms_per_step', float('nan')):.2f}), busy share "
+        f"{out['busy_share']:.4f} (phase 8 "
+        f"{p8.get('busy_share', float('nan')):.4f}), peak memory "
+        f"{peak / 2**30:.2f} GiB (phase 8 "
+        f"{phase8['peak_memory_bytes'] / 2**30:.2f}); the shard holds "
+        f"{shard} of {total} flat elements; NCCL kernels {nccl}; launches "
+        f"{got}; {smi}")
+    if not all(same_bits):
+        log("[24a] the losses' bits differ from phase 8's: the world of "
+            "one's collectives are copies and divisions by 1, so a "
+            "difference comes from the kernels' inputs: held within "
+            f"{ZERO_LOSS_RTOL:.3g} relative")
+        if rel > ZERO_LOSS_RTOL:
+            raise AssertionError("24a: the losses are off phase 8's")
+    if got != want:
+        raise AssertionError(f"24a launched {got}, expected {want}")
+    if not nccl:
+        raise AssertionError("24a: the profile shows no NCCL kernel")
+    del engine, model, opt
+    torch.cuda.empty_cache()
+    return out
+
+
+def ring_hops_phase(dev, counted, launches, rnd, flash_tpu, attention, smi):
+    """24b: the ring's hop schedule of ``RING_SP`` ranks in one process at
+    ``longctx``'s shape, against #1-#3 over the whole sequence."""
+    b, L, H, d = LONGCTX_ATTN_SHAPE
+    q, k, v, do = attn_operands(rnd, LONGCTX_ATTN_SHAPE, torch.bfloat16)
+    n, c = RING_SP, L // RING_SP
+    sh = lambda t: [t[:, i * c:(i + 1) * c].contiguous() for i in range(n)]
+    qs, ks, vs, dos = sh(q), sh(k), sh(v), sh(do)
+
+    def forward():
+        outs, lses = [], []
+        for r in range(n):
+            acc = lse = None
+            for i in range(n):
+                src = (r - i) % n
+                hop = attention.ring_hop_forward(qs[r], ks[src], vs[src], r,
+                                                 src, True)
+                if hop is not None:
+                    acc, lse = attention.ring_merge(acc, lse, *hop)
+            outs.append(acc.to(q.dtype))
+            lses.append(lse.contiguous())
+        return outs, lses
+
+    def backward(outs, lses):
+        grads = [[torch.zeros(qs[0].shape, dtype=torch.float32, device=dev)
+                  for _ in range(n)] for _ in range(3)]
+        for r in range(n):
+            for i in range(n):
+                src = (r - i) % n
+                hop = attention.ring_hop_backward(
+                    qs[r], ks[src], vs[src], dos[r], lses[r], outs[r], r,
+                    src, True)
+                if hop is not None:
+                    grads[0][r] += hop[0].float()
+                    grads[1][src] += hop[1].float()
+                    grads[2][src] += hop[2].float()
+        return grads
+
+    _cleared(counted)
+    outs, lses = forward()
+    grads = backward(outs, lses)
+    torch.cuda.synchronize()
+    got = _read_launches(counted, launches, "ring_hops")
+    causal_hops, full_hops = n, n * (n - 1) // 2
+    want = {**{k: 0 for k in counted},
+            "flash_attn_fwd": causal_hops, "flash_attn_fwd_full": full_hops,
+            "flash_attn_bwd_dq": causal_hops,
+            "flash_attn_bwd_dq_full": full_hops,
+            "flash_attn_bwd_dkv": causal_hops,
+            "flash_attn_bwd_dkv_full": full_hops}
+    if got != want:
+        raise AssertionError(f"24b launched {got}, expected {want}")
+    w_out, w_lse = flash_tpu.flash_attention_blhd(q, k, v)
+    w_dq, w_delta = flash_tpu.flash_bwd_dq(q, k, v, do, w_lse, w_out)
+    w_dk, w_dv = flash_tpu.flash_bwd_dkv(q, k, v, do, w_lse, w_delta)
+    torch.cuda.synchronize()
+    ring = {"out": torch.cat(outs, 1), "dq": torch.cat(grads[0], 1),
+            "dk": torch.cat(grads[1], 1), "dv": torch.cat(grads[2], 1)}
+    whole = {"out": w_out, "dq": w_dq, "dk": w_dk, "dv": w_dv}
+    f32 = [t.float() for t in (q, k, v, do)]
+    r_out, r_lse = flash_tpu._flash_reference(*f32[:3])
+    refs = dict(zip(("dq", "dk", "dv"), flash_tpu._flash_bwd_reference(
+        *f32[:3], r_out, r_lse, f32[3])), out=r_out)
+    del f32, r_lse
+    errs = {"lse": worst(torch.cat(lses, 2), w_lse, *RING_LSE_TOL)}
+    whole_errs, apart = {}, {}
+    for name, ref in refs.items():
+        errs[name] = share_worst(ring[name], ref, RING_REL_TOL)
+        whole_errs[name] = share_worst(whole[name], ref, WHOLE_REL_TOL)
+        apart[name] = float((ring[name].float()
+                             - whole[name].float()).abs().max())
+    del refs, ring
+    ok = all(e[1] for e in [*errs.values(), *whole_errs.values()])
+    ring_fwd_ms = time_ms(forward, iters=10, warmup=2)
+    whole_fwd_ms = time_ms(lambda: flash_tpu.flash_attention_blhd(q, k, v),
+                           iters=10, warmup=2)
+    ring_bwd_ms = time_ms(lambda: backward(outs, lses), iters=5, warmup=1)
+
+    def whole_bwd():
+        dq, delta = flash_tpu.flash_bwd_dq(q, k, v, do, w_lse, w_out)
+        flash_tpu.flash_bwd_dkv(q, k, v, do, w_lse, delta)
+
+    whole_bwd_ms = time_ms(whole_bwd, iters=5, warmup=1)
+    out = {"shape": list(LONGCTX_ATTN_SHAPE), "ranks": n,
+           "launches": {k: v for k, v in got.items() if v},
+           "errors": {k: e for k, (e, _) in errs.items()},
+           "whole_errors": {k: e for k, (e, _) in whole_errs.items()},
+           "ring_minus_whole": apart,
+           "ring_fwd_ms": ring_fwd_ms, "whole_fwd_ms": whole_fwd_ms,
+           "ring_bwd_ms": ring_bwd_ms, "whole_bwd_ms": whole_bwd_ms,
+           "card": smi}
+    log(f"[24b] the ring's hops of {n} ranks at {LONGCTX_ATTN_SHAPE} bf16: "
+        f"#1 {causal_hops} causal + {full_hops} full-mode launches (#2, #3 "
+        f"the same); against the f32 plain version of the whole sequence: "
+        + ", ".join(f"{k} err {e:.3g}" for k, (e, _) in errs.items())
+        + " (#1-#3 on the whole sequence: " + ", ".join(
+            f"{k} {e:.3g}" for k, (e, _) in whole_errs.items())
+        + f"; tol {RING_REL_TOL:.3g} (whole {WHOLE_REL_TOL:.3g}) of the "
+        f"largest, lse {RING_LSE_TOL} against #1's); the ring minus #1-#3: " + ", ".join(
+            f"{k} {e:.3g}" for k, e in apart.items()) + "; "
+        f"forward {ring_fwd_ms:.4f} ms (whole {whole_fwd_ms:.4f}), backward "
+        f"{ring_bwd_ms:.4f} ms (whole #2+#3 {whole_bwd_ms:.4f}); {smi}")
+    if not ok:
+        raise AssertionError(f"24b: the ring's hops disagree: {errs}, "
+                             f"{whole_errs}")
+    del outs, lses, grads
+    torch.cuda.empty_cache()
+    return out
+
+
 def counted_kernels():
     """Each kernel's wrapper by its name in the kernels line; each counts
     its launches in ``.launches``."""
@@ -7912,6 +8216,16 @@ def main() -> int:
     del step, model, opt
     torch.cuda.empty_cache()
 
+    at("24")
+    # -- phase 24: data parallelism, ZeRO and the ring on one card ----------
+    t24 = time.perf_counter()
+    multi_device = {"world_of_one": world_of_one_phase(
+        dev, counted, launches, gpt_mod, batch8, training, smi)}
+    multi_device["ring_hops"] = ring_hops_phase(
+        dev, counted, launches, rnd, flash_tpu, attention, smi)
+    multi_device["seconds"] = time.perf_counter() - t24
+    log("multi_device " + json.dumps(multi_device))
+
     at("9")
     # -- phase 9: BERT gradient parity at full width (f32) --------------------
     cfg9 = bert_mod.bert_base(num_layers=2, hidden_dropout=0.0,
@@ -8266,7 +8580,8 @@ def main() -> int:
              "paddle_tpu/ops/fused.py:25",
              timed("layer_norm_fwd", list(LN_TIMED[0])),
              ("dense_forward", "training", "bert_training", "longctx",
-              "static_gpt", "static_to_static", "predictor_layer",
+              "zero3_gpt", "static_gpt", "static_to_static",
+              "predictor_layer",
               "predictor_export", "serving_spec", "serving_int8",
               "nmt_parity", "nmt_f32", "nmt_bf16", "nmt_beam",
               "nn_breadth", "tensor_path", "bert_crf", "gpt_fused_head")),
@@ -8275,23 +8590,24 @@ def main() -> int:
              timed("flash_attn_fwd", list(GPT_ATTN_SHAPE)),
              ("dense_forward", "training", flash_phase, "static_gpt",
               "static_to_static", "predictor_layer", "predictor_export",
-              "bench_decode", "tensor_path", "gpt_fused_head")),
+              "bench_decode", "tensor_path", "gpt_fused_head", "zero3_gpt",
+              "ring_hops")),
             ("layer_norm_bwd", "paddle_tpu_torch/csrc/layer_norm_bwd.cu",
              "paddle_tpu/ops/fused.py:34",
              timed("layer_norm_bwd", list(LN_TIMED[0])),
              ("training", "bert_training", "longctx", "static_gpt",
               "nmt_parity", "nmt_f32", "nmt_bf16", "tensor_path",
-              "bert_crf", "gpt_fused_head")),
+              "bert_crf", "gpt_fused_head", "zero3_gpt")),
             ("flash_attn_bwd_dq", "paddle_tpu_torch/csrc/flash_attn_bwd.cu",
              "paddle_tpu/ops/flash_tpu.py:83",
              timed("flash_attn_bwd_dq", [8, 1024, 16, 64]),
              ("training", flash_phase, "static_gpt", "tensor_path",
-              "gpt_fused_head")),
+              "gpt_fused_head", "zero3_gpt", "ring_hops")),
             ("flash_attn_bwd_dkv", "paddle_tpu_torch/csrc/flash_attn_bwd.cu",
              "paddle_tpu/ops/flash_tpu.py:118",
              timed("flash_attn_bwd_dkv", [8, 1024, 16, 64]),
              ("training", flash_phase, "static_gpt", "tensor_path",
-              "gpt_fused_head")),
+              "gpt_fused_head", "zero3_gpt", "ring_hops")),
             ("adam", "paddle_tpu_torch/csrc/adam.cu",
              "paddle_tpu/ops/fused.py:172",
              next(t for t in timings if t["kernel"] == "adam"),
@@ -8302,7 +8618,7 @@ def main() -> int:
                 "param_trainstep_o2", "param_sparse_adam_dense",
                 "param_sparse_adam_sparse", "param_lr", "nmt_parity",
                 "nmt_f32", "nmt_bf16", "tensor_path", "bert_crf",
-                "gpt_fused_head")),
+                "gpt_fused_head", "zero3_gpt")),
             ("grad_sumsq", "paddle_tpu_torch/csrc/adam.cu",
              "paddle_tpu/nn/clip.py:111", sumsq_t,
              options_paths + ("param_sparse_adam_global_clip_dense",
@@ -8311,17 +8627,17 @@ def main() -> int:
             ("flash_attn_fwd_full", "paddle_tpu_torch/csrc/flash_attn_fwd.cu",
              "paddle_tpu/ops/attention.py:156",
              timed("flash_attn_fwd_full", bert_attn),
-             ("bert_training", "bert_padded", "bert_crf")),
+             ("bert_training", "bert_padded", "bert_crf", "ring_hops")),
             ("flash_attn_bwd_dq_full",
              "paddle_tpu_torch/csrc/flash_attn_bwd.cu",
              "paddle_tpu/ops/attention.py:297",
              timed("flash_attn_bwd_dq_full", bert_attn),
-             ("bert_training", "bert_padded", "bert_crf")),
+             ("bert_training", "bert_padded", "bert_crf", "ring_hops")),
             ("flash_attn_bwd_dkv_full",
              "paddle_tpu_torch/csrc/flash_attn_bwd.cu",
              "paddle_tpu/ops/attention.py:297",
              timed("flash_attn_bwd_dkv_full", bert_attn),
-             ("bert_training", "bert_padded", "bert_crf")),
+             ("bert_training", "bert_padded", "bert_crf", "ring_hops")),
             ("dkv_packed", "paddle_tpu_torch/csrc/dkv_packed.cu",
              "tools/experiments/dkv_packed_kernel.py:43",
              timed("dkv_packed", list(PACKED_TIMED[0])),
@@ -8352,6 +8668,8 @@ def main() -> int:
                 "tensor_breadth", "tensor_path")),
             "launches_detection_crf": sum(by_phase.get(p, 0) for p in (
                 "ssd_serve", "bert_crf", "gpt_fused_head")),
+            "launches_multi_device": sum(by_phase.get(p, 0) for p in (
+                "zero3_gpt", "ring_hops")),
             "max_abs_err": err[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
@@ -8363,6 +8681,15 @@ def main() -> int:
             kernels[-1]["longctx"] = {k: at_8192[0][k] for k in (
                 "shape", "ms", "device_ms", "plain_ms", "library_ms",
                 "library_device_ms", "bound_ms", "bound_by")}
+        if by_phase.get("ring_hops"):
+            rh = multi_device["ring_hops"]
+            kernels[-1]["ring_hops"] = {
+                "shape": rh["shape"], "ranks": rh["ranks"],
+                "launches": by_phase["ring_hops"],
+                "ring_ms": rh["ring_fwd_ms" if "fwd" in name
+                              else "ring_bwd_ms"],
+                "whole_ms": rh["whole_fwd_ms" if "fwd" in name
+                               else "whole_bwd_ms"]}
         if name == "adam":
             kernels[-1]["lenet"] = {k: lenet_adam_t[k] for k in (
                 "shape", "ms", "device_ms", "plain_ms", "library_ms",
@@ -8456,6 +8783,10 @@ def main() -> int:
             kernels[-1]["bert_shape"] = {k: rows[1][k] for k in (
                 "shape", "ms", "device_ms", "plain_ms", "library_ms",
                 "library_device_ms", "bound_ms", "bound_by")}
+    import torch.distributed as tdist
+
+    if tdist.is_initialized():
+        tdist.destroy_process_group()
     log(f"card: {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -85,9 +85,9 @@ from .tensor import (attribute, creation, linalg, logic,  # noqa: F401
 from . import autograd
 from .autograd import grad
 
-from . import (amp, framework, hapi, incubate, inference, io, jit, metric,
-               nn, optimizer, profiler, quant, resilience, static, text,
-               vision)
+from . import (amp, distributed, framework, hapi, incubate, inference, io,
+               jit, metric, nn, optimizer, profiler, quant, resilience,
+               static, text, vision)
 from . import callbacks, hub
 from .framework import load, save
 from .hapi import Model, flops, summary
@@ -97,11 +97,13 @@ from .tensor.math import floor_mod
 
 Layer = _torch_nn.Module
 VarBase = Tensor
+DataParallel = nn.DataParallel
 dtype = _dtype_mod.convert_dtype
 
 __all__ = sorted(set(_tensor_all) | {
     "core", "tensor", "autograd", "grad", "amp", "framework", "hapi",
     "incubate", "inference", "io", "jit", "metric", "nn", "optimizer",
+    "distributed", "DataParallel",
     "profiler", "quant", "resilience", "static", "text", "vision",
     "callbacks", "Model", "summary", "flops", "hub", "save", "load",
     "Layer", "ParamAttr",

@@ -27,9 +27,9 @@ fresh model fingerprints its state at every step (``fingerprint_every=1``,
 the multi-tensor fold of ``ops.tree_reduce``): ``fingerprint_samples_per_
 sec``, ``fingerprint_fold_overhead_pct`` (the fold's cost as a share of a
 step) and ``fingerprint_overhead_pct`` (that share at the production
-interval of 100 steps). ``bench_bert_dp`` runs on a one-device ``mesh``;
-meshes wait for the multi-device port, so this twin runs the engine on
-the card without one.
+interval of 100 steps). Both legs run on a one-device ``mesh`` (a
+``Mesh`` of this process's world of one rank, joined over NCCL if it was
+not), as ``bench_bert_dp`` writes them.
 
 The input pipeline: ``bench_input_pipeline``'s configuration — a 3-layer
 MLP (1024, 1024, 1024, 10) with ``CrossEntropyLoss`` and Adam lr 1e-3
@@ -56,8 +56,9 @@ window after a telemetry reset. Its keys are the reference's (``metric``,
 ``tier_ablation_speedup``, ``attn_tier_selected``, ``remat_off_peak_hbm_
 bytes``, ``remat_auto_policy``, ``remat_auto_peak_hbm_bytes``, ``mfu_pct``
 over the H100's dense bf16 peak, ``vs_baseline``) and ``tier_timings_ms``,
-the verdict's timings. The reference's one-device ``mesh`` waits for the
-multi-device port. ``--smoke`` is the reference's smoke size (2 layers,
+the verdict's timings. Every leg's engine runs on the reference's
+one-device ``mesh`` (a world of one: NCCL on the card, gloo for the
+smoke size). ``--smoke`` is the reference's smoke size (2 layers,
 hidden 128, 4 heads, vocab 1024, L = 512, f32, ``remat='full'``, 2 steps a
 window) and runs on the CPU:
 
@@ -194,9 +195,22 @@ def _block(out) -> None:
 _FP_PRODUCTION_EVERY = 100
 
 
-def bert_engine(config, fingerprint_every: int = 0, device="cuda"):
+def one_device_mesh(device="cuda"):
+    """``bench_all``'s ``Mesh(jax.devices()[:1], ("dp",))``: a 'dp' axis
+    of one rank over this process's world (joined on ``device`` first
+    when it was not)."""
+    from .distributed.fleet.mesh_utils import Mesh
+    from .distributed.parallel import init_parallel_env
+
+    init_parallel_env(device)
+    return Mesh([0], ("dp",))
+
+
+def bert_engine(config, fingerprint_every: int = 0, device="cuda",
+                mesh=None):
     """``bench_bert_dp``'s engine on a fresh BERT-base from seed 0:
-    ``AdamW(1e-4, weight_decay=0.01)``, bf16 compute on f32 parameters."""
+    ``AdamW(1e-4, weight_decay=0.01)``, bf16 compute on f32 parameters,
+    on ``mesh`` when given."""
     from .distributed.fleet.engine import ParallelTrainStep
     from .optimizer import AdamW
     from .text.models.bert import BertForPretraining
@@ -206,7 +220,7 @@ def bert_engine(config, fingerprint_every: int = 0, device="cuda"):
                 parameters=model.parameters())
     return ParallelTrainStep(model, loss_fn=model.loss_fn, optimizer=opt,
                              device=device, compute_dtype=torch.bfloat16,
-                             fingerprint_every=fingerprint_every)
+                             fingerprint_every=fingerprint_every, mesh=mesh)
 
 
 def bert_batch(config, b: int = 32, L: int = 128, device="cuda"):
@@ -228,11 +242,12 @@ def bench_bert() -> dict:
     ids, mlm, nsp = bert_batch(config, b, L)
     # the fingerprinting leg first, on its own fresh model (bench_bert_dp's
     # order: it pays any cold-start cost, a conservative bias)
-    step_fp = bert_engine(config, fingerprint_every=1)
+    mesh = one_device_mesh()
+    step_fp = bert_engine(config, fingerprint_every=1, mesh=mesh)
     sps_fp = _rate(lambda i: step_fp((ids,), (mlm, nsp)), 2, 30) * b
     del step_fp
     torch.cuda.empty_cache()
-    step = bert_engine(config)
+    step = bert_engine(config, mesh=mesh)
     sps = _rate(lambda i: step((ids,), (mlm, nsp)), 2, 30) * b
     fold_pct = (sps / sps_fp - 1.0) * 100
     return {"metric": "bert_base_dp_pretrain_samples_per_sec_per_chip",
@@ -321,10 +336,11 @@ def longctx_config(smoke: bool = False):
                       attention_dropout=0.0), 1, 8192, 10)
 
 
-def longctx_engine(config, smoke: bool = False, remat=None, device="cuda"):
+def longctx_engine(config, smoke: bool = False, remat=None, device="cuda",
+                   mesh=None):
     """The leg's engine on a fresh model from seed 0: ``Adam(1e-4)``; at
     full size bf16 compute on f32 parameters and no recompute, at the
-    smoke size f32 and ``remat='full'``."""
+    smoke size f32 and ``remat='full'``; on ``mesh`` when given."""
     from .distributed.fleet.engine import ParallelTrainStep
     from .optimizer import Adam
     from .text.models.gpt import GPTForCausalLM
@@ -334,7 +350,7 @@ def longctx_engine(config, smoke: bool = False, remat=None, device="cuda"):
     return ParallelTrainStep(
         model, loss_fn=model.loss_fn, optimizer=opt, device=device,
         remat=("full" if smoke else "off") if remat is None else remat,
-        compute_dtype=None if smoke else torch.bfloat16)
+        compute_dtype=None if smoke else torch.bfloat16, mesh=mesh)
 
 
 def longctx_batch(config, b: int, L: int, device="cuda"):
@@ -371,6 +387,7 @@ def bench_longctx(smoke: bool = False, headline_hook=None) -> dict:
         _require_card("GPT-small long-context training")
     config, b, L, iters = longctx_config(smoke)
     ids, labels = longctx_batch(config, b, L, device)
+    mesh = one_device_mesh(device)
 
     def measure(engine, n_iter):
         return _rate(lambda i: engine((ids,), (labels,)), 1, n_iter) * b * L
@@ -385,7 +402,7 @@ def bench_longctx(smoke: bool = False, headline_hook=None) -> dict:
     try:
         # the tier ablation leg: the forced streaming floor
         os.environ["PADDLE_TPU_ATTN_POLICY"] = "blockwise"
-        engine = longctx_engine(config, smoke, device=device)
+        engine = longctx_engine(config, smoke, device=device, mesh=mesh)
         abl_tps = measure(engine, max(2, iters // 2))
         del engine
         release()
@@ -399,7 +416,8 @@ def bench_longctx(smoke: bool = False, headline_hook=None) -> dict:
         tier_policy.reset()  # in-memory verdicts; the file decides
 
         # the remat control-loop probe
-        probe = longctx_engine(config, smoke, remat="auto", device=device)
+        probe = longctx_engine(config, smoke, remat="auto", device=device,
+                               mesh=mesh)
         remat_cols = {}
         off = probe.lower_cost("off", (ids,), (labels,))
         if off is not None:
@@ -421,7 +439,7 @@ def bench_longctx(smoke: bool = False, headline_hook=None) -> dict:
 
         # the headline leg: measured tier selection, clean telemetry
         tel.reset()
-        engine = longctx_engine(config, smoke, device=device)
+        engine = longctx_engine(config, smoke, device=device, mesh=mesh)
         tps = measure(engine, iters)
         if headline_hook is not None:
             headline_hook(engine, ids, labels)

@@ -1,5 +1,6 @@
 """The training step — counterpart of
-``paddle_tpu.distributed.fleet.engine.ParallelTrainStep``, on one device.
+``paddle_tpu.distributed.fleet.engine.ParallelTrainStep``, on one device
+or over a ``Mesh`` of ranks (one process per device).
 
 ``ParallelTrainStep(layer, loss_fn, optimizer)(inputs, labels)`` runs the
 layer's forward in train mode, ``loss_fn(out, *labels)``, autograd's
@@ -105,6 +106,45 @@ The resilience contract of the reference's engines (what
   ``io.DevicePrefetcher`` staged onto the engine's device.
 
 Each step beats the watchdog (``resilience.watchdog.heartbeat``).
+
+Over a mesh (``mesh=``, a ``fleet.mesh_utils.Mesh`` of the world's
+ranks; the reference's strategies become collectives of
+``torch.distributed``):
+
+- every rank passes the global batch and keeps its rows: dim 0 split over
+  ``dp_axis`` (default ``'dp'`` when the mesh has it) and
+  ``extra_batch_axes``, and with ``sp_axis`` dim 1 of each leaf whose
+  dim 1 divides over that axis (``_sharded.BatchSharding``); ranks that
+  differ along other axes (``sharding``) compute on the same rows;
+- the loss is averaged over the data group (the data axes and
+  ``sp_axis``), and so are the gradients: they are packed into one flat
+  buffer per dtype and all-reduced once after the backward. A mean whose
+  denominator depends on the data (a masked or ``ignore_index`` loss)
+  divides by the global count (``parallel.data_parallel_scope``), so the
+  result is the reference's mean over the global batch; BatchNorm's
+  statistics are taken over the data group too;
+- ``zero_stage`` 1 keeps the Adam state (moments, masters) only for this
+  rank's contiguous shard of each flat buffer over ``sharding_axis``
+  (``_sharded.FlatBucket``), updates the shard on kernel #7 and
+  all-gathers the parameters; 2 also reduce-scatters the gradients; 3
+  also keeps only the parameter shard between steps, all-gathered for the
+  step's forward and backward and freed after it. A global-norm clip
+  all-reduces the sum of squares between #7's norm pass and its update,
+  and the finite sweep's flags are AND-ed over the world, so every rank
+  skips the same step. ZeRO takes ``Adam`` and ``AdamW``; zero_stage 0
+  runs any optimizer on the reduced gradients;
+- ``sp_axis``: attention runs as ``ops.attention.ring_attention`` over
+  that axis's group (each rank holds ``L / sp`` positions; GPT's position
+  ids start at ``rank_in_sp · L_local``);
+- ``mp_axis`` of more than one rank raises: tensor parallelism is the
+  second half of the multi-device port;
+- ``param_specs`` are the reference's ``param_partition_spec``s;
+  ``snapshot_state``, ``restore_state``, ``sync_to_layer``, the
+  fingerprints and ``last_step_finite`` give the gathered, global values
+  on every rank, and ``prefetch`` stages each rank's own rows.
+
+A world of one runs the same collectives (NCCL copies) and adds no
+arithmetic: its losses are the single-device engine's.
 """
 from __future__ import annotations
 
@@ -123,26 +163,58 @@ from ...core.place import resolve_device
 from ...core.tree import as_tensor
 from ...jit.functionalize import functionalize, set_params
 from ...nn.clip import ClipGradByGlobalNorm
-from ...ops import remat_policy
+from ...ops import fused, remat_policy
 from ...optimizer.lr import LRScheduler
 from ...profiler import goodput as _goodput
 from ...profiler import spans as _spans
 from ...profiler.telemetry import get_telemetry
 from ...resilience import watchdog as _watchdog
+from .. import communication as comm
+from ..parallel import data_parallel_scope
+from ._sharded import BatchSharding, FlatBucket
+from .mesh_utils import PartitionSpec
 
-__all__ = ["ParallelTrainStep"]
+__all__ = ["ParallelTrainStep", "param_partition_spec"]
+
+_TP_SLICE = ("tensor parallelism (mp_axis over more than one rank) is the "
+             "second half of the multi-device port")
 
 
 def _as_tuple(x):
     return tuple(x) if isinstance(x, (tuple, list)) else (x,)
 
 
-class ParallelTrainStep:
-    """One training step of ``layer`` on one device (default ``"cuda"``).
+def param_partition_spec(param, shape, zero_stage=0,
+                         sharding_axis="sharding", mesh=None,
+                         shard_params=False) -> PartitionSpec:
+    """The reference's spec of a parameter over ``mesh``: its tensor
+    parallel ``tp_spec`` (axes absent from the mesh, of one rank, or that
+    do not divide the dimension dropped), and with ``shard_params`` the
+    first dimension that divides evenly over ``sharding_axis`` and is not
+    already split."""
+    tp = list(getattr(param, "tp_spec", None) or (None,) * len(shape))
+    tp = (tp + [None] * len(shape))[:len(shape)]
+    if mesh is not None:
+        tp = [a if (a in mesh.axis_names and mesh.shape[a] > 1
+                    and shape[i] % mesh.shape[a] == 0) else None
+              for i, a in enumerate(tp)]
+    if (shard_params and mesh is not None
+            and sharding_axis in mesh.axis_names):
+        size = mesh.shape[sharding_axis]
+        if size > 1:
+            for i, (dim, spec) in enumerate(zip(shape, tp)):
+                if spec is None and dim % size == 0 and dim >= size:
+                    tp[i] = sharding_axis
+                    break
+    return PartitionSpec(*tp)
 
-    Not ported yet, and refused: a mesh and its data-, tensor- and
-    sequence-parallel axes, ZeRO sharding, and a clip other than
-    ``ClipGradByGlobalNorm``."""
+
+class ParallelTrainStep:
+    """One training step of ``layer`` on one device (default ``"cuda"``),
+    or over ``mesh`` (see the module docstring).
+
+    Refused: tensor parallelism (``mp_axis`` over more than one rank),
+    and a clip other than ``ClipGradByGlobalNorm``."""
 
     _telemetry = "engine"  # the prefix of the step's counters
     _remat_entry = "fleet.train_step"  # remat='auto''s gauge entry
@@ -155,13 +227,15 @@ class ParallelTrainStep:
                  sp_axis=None, remat=None,
                  check_finite: Optional[bool] = None,
                  guard_updates: bool = False,
-                 fingerprint_every: Optional[int] = None):
-        if mesh is not None or zero_stage or any(
+                 fingerprint_every: Optional[int] = None,
+                 extra_batch_axes=()):
+        if mesh is None and (zero_stage or extra_batch_axes or any(
                 a is not None for a in (dp_axis, mp_axis, sharding_axis,
-                                        sp_axis)):
-            raise NotImplementedError(
-                f"{type(self).__name__}: meshes, data/tensor/sequence "
-                "parallelism and ZeRO are not ported yet (one device only)")
+                                        sp_axis))):
+            raise ValueError(f"{type(self).__name__}: data, sequence and "
+                             "tensor axes and ZeRO need a mesh")
+        if int(zero_stage) not in (0, 1, 2, 3):
+            raise ValueError(f"zero_stage {zero_stage} (0, 1, 2 or 3)")
         clip = optimizer._grad_clip
         if clip is not None and not isinstance(clip, ClipGradByGlobalNorm):
             raise NotImplementedError(
@@ -176,6 +250,10 @@ class ParallelTrainStep:
             compute_dtype = None  # f32 training: the params are the masters
         if master_weights is None:
             master_weights = optimizer._multi_precision
+        if device is None and mesh is not None:
+            from ..parallel import world_device
+
+            device = world_device()  # the world's: this rank's card or CPU
         dev = resolve_device(device)
         if dev.type == "cuda" and dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
@@ -203,14 +281,137 @@ class ParallelTrainStep:
             self._apply = remat_policy.apply_policy(self._forward,
                                                     self._remat, layer)
         optimizer.name_parameters(layer.named_parameters())
+        self._mesh = mesh
+        self._zero = int(zero_stage) if mesh is not None else 0
+        if self._remat == "auto" and self._zero >= 3:
+            raise NotImplementedError(
+                "remat='auto' measures the step on the resident parameters; "
+                "ZeRO-3 keeps only their shards: pick a policy")
+        masters = {}
         if self._master:
-            for p in layer.parameters():
+            for n, p in layer.named_parameters():
                 if p.is_floating_point():
-                    optimizer.state_for(p, master=p.detach())
+                    if self._zero >= 1:
+                        masters[n] = p.detach().float()
+                    else:
+                        optimizer.state_for(p, master=p.detach())
                     p.data = p.data.to(compute_dtype)
         self._synced = False
+        self._synced_views = False  # ZeRO: parameters off their flat views
         self._last_step_t: Optional[float] = None
         self._init_resilience(check_finite, guard_updates, fingerprint_every)
+        if mesh is not None:
+            self._init_mesh(mesh, dp_axis, mp_axis, sharding_axis, sp_axis,
+                            tuple(extra_batch_axes), masters)
+        else:
+            from ...ops.attention import set_ring_context
+
+            set_ring_context(None, None)  # the newest engine owns it
+
+    # -- the mesh -------------------------------------------------------------
+    def _init_mesh(self, mesh, dp_axis, mp_axis, sharding_axis, sp_axis,
+                   extra_batch_axes, masters) -> None:
+        from ...ops.attention import set_ring_context
+        from ...optimizer.optimizer import Adam
+
+        if not hasattr(mesh, "group"):
+            raise TypeError("ParallelTrainStep: mesh must be a "
+                            "distributed.fleet.mesh_utils.Mesh of ranks")
+        names = mesh.axis_names
+
+        def axis(a, default):
+            if a is None:
+                return default if default in names else None
+            if a not in names:
+                raise ValueError(f"{a!r} is not an axis of the mesh "
+                                 f"{dict(mesh.shape)}")
+            return a
+
+        dp_axis = axis(dp_axis, "dp")
+        sharding_axis = axis(sharding_axis, "sharding")
+        mp_axis = axis(mp_axis, "mp")
+        if sp_axis is not None and sp_axis not in names:
+            raise ValueError(f"sp_axis {sp_axis!r} is not an axis of this "
+                             f"mesh {names}")
+        for a in extra_batch_axes:
+            axis(a, None)
+        if mp_axis is not None and mesh.shape[mp_axis] > 1:
+            raise NotImplementedError(f"ParallelTrainStep: {_TP_SLICE}")
+        batch_axes = tuple(a for a in (dp_axis, *extra_batch_axes) if a)
+        data_axes = batch_axes + ((sp_axis,) if sp_axis else ())
+        self._sp_axis = sp_axis
+        self._batch_sharding = BatchSharding(mesh, batch_axes, sp_axis)
+        self._data_group = mesh.group(data_axes) if data_axes else None
+        self._data_size = (self._data_group.nranks
+                           if self._data_group is not None else 1)
+        self._sp_group = mesh.group(sp_axis) if sp_axis else None
+        self._sharding_group = (mesh.group(sharding_axis) if sharding_axis
+                                and self._zero >= 1 else None)
+        shards = (self._sharding_group.nranks
+                  if self._sharding_group is not None else 1)
+        coord = (self._sharding_group.rank
+                 if self._sharding_group is not None else 0)
+        set_ring_context(mesh, sp_axis, group=self._sp_group)
+        self._param_specs = {
+            n: param_partition_spec(p, tuple(p.shape), self._zero,
+                                    sharding_axis or "sharding", mesh,
+                                    shard_params=self._zero >= 3)
+            for n, p in self._layer.named_parameters()}
+        opt = self._optimizer
+        if self._zero >= 1 and (not isinstance(opt, Adam) or opt._lazy):
+            raise NotImplementedError(
+                f"ZeRO shards the state of the multi-tensor Adam kernel "
+                f"(Adam, AdamW); {type(opt).__name__} keeps its state "
+                "replicated: use zero_stage=0")
+        # one flat buffer per dtype of the trained parameters, in the
+        # layer's order
+        by_dtype: Dict[torch.dtype, list] = {}
+        for n, p in self._layer.named_parameters():
+            if p.is_floating_point() and p.requires_grad:
+                by_dtype.setdefault(p.dtype, []).append((n, p))
+        self._buckets: List[FlatBucket] = []
+        for items in by_dtype.values():
+            bk = FlatBucket([n for n, _ in items], [p for _, p in items],
+                            shards, coord, own_shard=self._zero >= 3,
+                            hold_params=self._zero >= 1)
+            self._buckets.append(bk)
+            if self._zero == 0:
+                continue
+            f32 = torch.float32
+            sl = slice(bk.start, bk.start + bk.S)
+            bk.m1 = torch.zeros(bk.S, dtype=f32, device=bk.device)
+            bk.m2 = torch.zeros(bk.S, dtype=f32, device=bk.device)
+            bk.master = (bk.scatter_values(
+                {n: masters[n] for n in bk.names}, f32)[sl].clone()
+                if self._master else None)
+            n_p = len(bk.names)
+            bk.b1p = torch.ones(n_p, dtype=f32, device=bk.device)
+            bk.b2p = torch.ones(n_p, dtype=f32, device=bk.device)
+            # the rank that holds a parameter's first element speaks for
+            # its beta powers in the gathered state
+            owner = torch.zeros(n_p, dtype=f32, device=bk.device)
+            for pc in bk.pieces:
+                if pc.p_lo == 0:
+                    owner[pc.index] = 1.0
+            bk.owner = owner
+            bk.install()
+            if self._zero >= 3:
+                bk.release()
+        swept = {n: j for j, n in enumerate(
+            n for n in self._param_names
+            if dict(self._layer.named_parameters())[n].is_floating_point())}
+        self._swept_index = swept
+        self._flag_slots: Dict[tuple, torch.Tensor] = {}
+        self._piece_lists: Dict[tuple, tuple] = {}
+
+    @property
+    def param_specs(self) -> Dict[str, PartitionSpec]:
+        """Each parameter's spec as the reference's engine computes it
+        (``param_partition_spec``)."""
+        if self._mesh is None:
+            return {n: PartitionSpec(*(None,) * p.dim())
+                    for n, p in self._layer.named_parameters()}
+        return dict(self._param_specs)
 
     # -- the resilience contract --------------------------------------------
     def _init_resilience(self, check_finite, guard_updates,
@@ -273,9 +474,45 @@ class ParallelTrainStep:
         """``(params, opt_state, buffers)`` as the reference's engine holds
         them: dicts by name (sorted when walked), each parameter's state
         under its keys (``beta1_pow``, ``beta2_pow``, ``master``,
-        ``moment1``, ``moment2`` for Adam)."""
+        ``moment1``, ``moment2`` for Adam). Under ZeRO: the values
+        gathered from every rank's shards."""
+        if self._zero >= 1:
+            return self._gathered_state()
         params = {n: p.detach() for n, p in self._fp_params}
         state = {n: self._opt_state_of(p) for n, p in self._fp_params}
+        buffers = dict(zip(self._fp_buffer_names, self._fp_buffers))
+        return params, state, buffers
+
+    @torch.no_grad()
+    def _gathered_state(self):
+        """ZeRO: the global state, gathered over the sharding group (new
+        tensors; each beta power from the rank that holds its parameter's
+        first element)."""
+        params = {n: p.detach() for n, p in self._fp_params}
+        state = {n: self._opt_state_of(p) for n, p in self._fp_params}
+        for bk in self._buckets:
+            def full(shard):
+                out = torch.empty(bk.total, dtype=shard.dtype,
+                                  device=shard.device)
+                self._all_gather(out, shard)
+                return bk.split_values(out)
+
+            vals = full(bk.shard)
+            m1, m2 = full(bk.m1), full(bk.m2)
+            master = full(bk.master) if bk.master is not None else None
+            pows = []
+            for v in (bk.b1p, bk.b2p):
+                v = v * bk.owner
+                if self._sharding_group is not None:
+                    comm.all_reduce(v, group=self._sharding_group)
+                pows.append(v)
+            for i, n in enumerate(bk.names):
+                params[n] = vals[n]
+                st = {"beta1_pow": pows[0][i], "beta2_pow": pows[1][i],
+                      "moment1": m1[n], "moment2": m2[n]}
+                if master is not None:
+                    st["master"] = master[n]
+                state[n] = st
         buffers = dict(zip(self._fp_buffer_names, self._fp_buffers))
         return params, state, buffers
 
@@ -290,6 +527,12 @@ class ParallelTrainStep:
         """The leaves of ``_state_tree()`` in its flatten order, without
         building the tree: the parameters by name, each one's state by
         name and key, the buffers by name."""
+        if self._zero >= 1:
+            params, state, buffers = self._gathered_state()
+            out = [params[n] for n in sorted(params)]
+            for n in sorted(state):
+                out += [state[n][k] for k in sorted(state[n])]
+            return out + [buffers[n] for n in sorted(buffers)]
         params = [p for _, p in self._fp_params]
         out = list(params)
         for p in params:
@@ -325,10 +568,14 @@ class ParallelTrainStep:
         state gets it."""
         named = dict(self._layer.named_parameters())
         bufs = dict(self._layer.named_buffers())
-        for n, v in snap["params"].items():
-            named[n].detach().copy_(as_tensor(v))
         for n, v in snap.get("buffers", {}).items():
             bufs[n].copy_(as_tensor(v))
+        self._last_step_t = None
+        if self._zero >= 1:
+            self._restore_sharded(snap)
+            return
+        for n, v in snap["params"].items():
+            named[n].detach().copy_(as_tensor(v))
         opt = self._optimizer
         for n, st in snap.get("opt_state", {}).items():
             p = named[n]
@@ -339,7 +586,34 @@ class ParallelTrainStep:
                                     else as_tensor(master))
             for k, v in st.items():
                 cur[k].copy_(as_tensor(v))
-        self._last_step_t = None
+
+    def _restore_sharded(self, snap: dict) -> None:
+        """ZeRO: each rank keeps its shard of a global snapshot."""
+        f32 = torch.float32
+        opt_state = snap.get("opt_state", {})
+        for bk in self._buckets:
+            sl = slice(bk.start, bk.start + bk.S)
+            full = bk.scatter_values(snap["params"])
+            bk.shard.copy_(full[sl])
+            if self._zero < 3:
+                bk.full.copy_(full)
+            st = {n: opt_state.get(n, {}) for n in bk.names}
+            for key, dst in (("moment1", bk.m1), ("moment2", bk.m2),
+                             ("master", bk.master)):
+                if dst is None:
+                    continue
+                vals = {n: st[n].get(key) for n in bk.names}
+                if key == "master":  # a snapshot without masters: params
+                    vals = {n: v if v is not None else
+                            as_tensor(snap["params"][n]).float()
+                            for n, v in vals.items()}
+                elif any(v is None for v in vals.values()):
+                    continue
+                dst.copy_(bk.scatter_values(vals, f32)[sl])
+            for i, n in enumerate(bk.names):
+                for key, vec in (("beta1_pow", bk.b1p), ("beta2_pow", bk.b2p)):
+                    if key in st[n]:
+                        vec[i] = as_tensor(st[n][key]).reshape(()).to(f32)
 
     def prefetch(self, batches, depth: int = 2, buckets=None):
         """An ``io.DevicePrefetcher`` over ``(inputs, labels)`` batches,
@@ -347,8 +621,10 @@ class ParallelTrainStep:
         batch passes through the step's ``.to()`` without a copy."""
         from ...io.prefetch import DevicePrefetcher
 
-        return DevicePrefetcher(batches, depth=depth, buckets=buckets,
-                                device=self._device)
+        return DevicePrefetcher(
+            batches, depth=depth, buckets=buckets, device=self._device,
+            sharding=self._batch_sharding if self._mesh is not None
+            else None)
 
     def _publish(self, step: int) -> None:
         from ...resilience.integrity import publish_fingerprint
@@ -371,44 +647,272 @@ class ParallelTrainStep:
                     "step", cat="step", step=step_no))
             if self._synced:
                 self._recast_from_masters()
-            dev = self._device
             with _spans.span("h2d", cat="h2d"):
-                inputs = tuple(as_tensor(a).to(dev, non_blocking=True)
-                               for a in _as_tuple(inputs))
-                labels = tuple(as_tensor(a).to(dev, non_blocking=True)
-                               for a in _as_tuple(labels))
+                inputs, labels = self._to_device(inputs, labels)
             if self._apply is None:
                 self._resolve_remat(inputs, labels)
             with _spans.span("compute", cat="compute"):
                 old_buffers = ([(b, b.clone()) for b in self._layer.buffers()]
                                if self._guard_updates else [])
-                loss = self._loss_fn(self._apply(*inputs), *labels).float()
-                loss.backward()
-                flags = None
-                # the reference's compiled update: the optimizer's learning
-                # rate for every parameter, dense gradients
-                with opt.compiled_update():
-                    if self._check_nan:
-                        flags = opt.step_checked(loss.detach(), self._swept,
-                                                 gate=self._guard_updates)
-                        if old_buffers:
-                            ok = flags.all()
-                            for b, old in old_buffers:
-                                b.copy_(torch.where(ok, b, old))
-                    else:
-                        opt.step()
+                if self._mesh is None:
+                    loss = self._loss_fn(self._apply(*inputs),
+                                         *labels).float()
+                    loss.backward()
+                    loss = loss.detach()
+                    flags = self._update_replicated(loss)
+                else:
+                    loss, flags = self._compute_mesh(inputs, labels)
+                if old_buffers and flags is not None:
+                    ok = flags.all()
+                    for b, old in old_buffers:
+                        b.copy_(torch.where(ok, b, old))
                 opt.clear_grad()
             self._record_step()
         if self._window is not None:
             self._window.append(flags)
-            return loss.detach()
+            return loss
         if self._fp_due(step_no):
             self._publish(step_no)
         if self._check_nan:
             self._last_flags = flags
             if not self._guard_updates:
                 self._raise_if_nonfinite(step_no)
-        return loss.detach()
+        return loss
+
+    def _to_device(self, inputs, labels):
+        """The batch on the engine's device: this rank's rows of it over a
+        mesh (``non_blocking``: a pinned batch overlaps its copy)."""
+        inputs, labels = _as_tuple(inputs), _as_tuple(labels)
+        if self._mesh is not None:
+            inputs, labels = self._batch_sharding.local((inputs, labels))
+        dev = self._device
+        return (tuple(as_tensor(a).to(dev, non_blocking=True)
+                      for a in inputs),
+                tuple(as_tensor(a).to(dev, non_blocking=True)
+                      for a in labels))
+
+    def _update_replicated(self, loss):
+        """The optimizer's own step on every parameter (the gradients
+        already averaged over a mesh); the sweep's flags, or None."""
+        opt = self._optimizer
+        # the reference's compiled update: the optimizer's learning rate
+        # for every parameter, dense gradients
+        with opt.compiled_update():
+            if self._check_nan:
+                return opt.step_checked(
+                    loss, self._swept, gate=self._guard_updates,
+                    consensus=None if self._mesh is None
+                    else self._world_and)
+            opt.step()
+        return None
+
+    @staticmethod
+    def _world_and(flags: torch.Tensor) -> torch.Tensor:
+        """The flags AND-ed over every rank of the world (every rank then
+        skips the same step)."""
+        t = flags.to(torch.int32)
+        comm.all_reduce(t, op=comm.ReduceOp.MIN)
+        return t.bool()
+
+    # -- one step over the mesh --------------------------------------------------
+    def _compute_mesh(self, inputs, labels):
+        """Forward and backward on this rank's rows, the reductions, the
+        update; returns the global loss and the sweep's flags (or None)."""
+        from ...ops.attention import ring_scope
+
+        if self._zero >= 3:
+            self._gather_params()
+        elif self._synced_views:
+            for bk in self._buckets:
+                bk.install()
+            self._synced_views = False
+        data_pg = (self._data_group.process_group
+                   if self._data_group is not None else None)
+        scope = (ring_scope(self._sp_group) if self._sp_axis
+                 else contextlib.nullcontext())
+        with data_parallel_scope(data_pg, self._data_size), scope:
+            loss = self._loss_fn(self._apply(*inputs), *labels).float()
+            loss.backward()
+        loss = loss.detach().clone()
+        self._mean_over_data(loss)
+        if self._zero == 0:
+            self._reduce_grads_replicated()
+            return loss, self._update_replicated(loss)
+        grads = self._reduce_grads_sharded()
+        if self._zero >= 3:
+            for bk in self._buckets:
+                bk.release()
+        flags = self._update_sharded(loss, grads)
+        if self._zero < 3:
+            for bk in self._buckets:
+                self._all_gather(bk.full, bk.shard.clone())
+        return loss, flags
+
+    def _mean_over_data(self, t: torch.Tensor) -> None:
+        if self._data_group is None:
+            return
+        comm.all_reduce(t, group=self._data_group)
+        if self._data_size > 1:
+            t.div_(self._data_size)
+
+    def _all_gather(self, out: torch.Tensor, shard: torch.Tensor) -> None:
+        """``out`` ← the sharding group's shards in rank order."""
+        if self._sharding_group is None:
+            out.copy_(shard)
+            return
+        with comm._collective_span("all_gather", self._sharding_group,
+                                   comm._nbytes(out)):
+            comm.all_gather_into(out, shard,
+                                 self._sharding_group.process_group)
+
+    def _gather_params(self) -> None:
+        """ZeRO-3: every bucket's full buffer from the shards, and the
+        parameters pointed at it."""
+        for bk in self._buckets:
+            self._all_gather(bk.materialize(), bk.shard)
+            bk.install()
+        self._synced_views = False
+
+    def _flat_grads(self, bk: FlatBucket) -> torch.Tensor:
+        """The bucket's gradients packed into its flat buffer (zeros for a
+        parameter without one and for the padding)."""
+        if bk.grad_full is None:
+            bk.grad_full = torch.zeros(bk.total, dtype=bk.dtype,
+                                       device=bk.device)
+        grads = [p.grad for p in bk.params]
+        if any(g is None for g in grads):
+            bk.grad_full.zero_()
+        views = [bk.param_view(i, bk.grad_full)
+                 for i, g in enumerate(grads) if g is not None]
+        if views:
+            torch._foreach_copy_(views, [g for g in grads if g is not None])
+        return bk.grad_full
+
+    @torch.no_grad()
+    def _reduce_grads_replicated(self) -> None:
+        """zero_stage 0: each dtype's gradients averaged over the data
+        group in one all-reduce, then handed back as views."""
+        for bk in self._buckets:
+            had = [p.grad is not None for p in bk.params]
+            flat = self._flat_grads(bk)
+            self._mean_over_data(flat)
+            for i, p in enumerate(bk.params):
+                if had[i]:
+                    p.grad = bk.param_view(i, flat)
+
+    @torch.no_grad()
+    def _reduce_grads_sharded(self):
+        """ZeRO 1-3: the averaged gradient of this rank's shard of each
+        bucket (ZeRO-1: all-reduced over the data group and sliced; 2 and
+        3: reduce-scattered over the sharding group, then all-reduced over
+        the data group); returns ``[(bucket, [S] grads, stepped)]``."""
+        out = []
+        for bk in self._buckets:
+            stepped = [p.grad is not None for p in bk.params]
+            flat = self._flat_grads(bk)
+            if self._zero == 1:
+                self._mean_over_data(flat)
+                g = flat[bk.start:bk.start + bk.S]
+            else:
+                if bk.grad_shard is None:
+                    bk.grad_shard = torch.empty(bk.S, dtype=bk.dtype,
+                                                device=bk.device)
+                g = bk.grad_shard
+                if self._sharding_group is None:
+                    g.copy_(flat)
+                else:
+                    comm.reduce_scatter(g, flat, op=comm.ReduceOp.AVG,
+                                        group=self._sharding_group)
+                self._mean_over_data(g)
+            out.append((bk, g, stepped))
+        return out
+
+    @torch.no_grad()
+    def _update_sharded(self, loss, grads):
+        """ZeRO 1-3: kernel #7 over this rank's pieces, with the clip's
+        global norm and the world's finite verdict; returns the flags."""
+        opt = self._optimizer
+        key = tuple(tuple(stepped) for _, _, stepped in grads)
+        lists = self._piece_lists.get(key)
+        if lists is None:  # the pieces' views: the same tensors every step
+            lists = self._piece_lists[key] = self._pieces_of(grads)
+        P, G, M1, M2, B1, B2, MS, WD, DC, NC, names = lists
+        dev = self._device
+        lr = opt.lr_device_scalar(dev)
+        kw = dict(beta1=opt._beta1, beta2=opt._beta2, eps=opt._epsilon,
+                  weight_decay=WD, decoupled_decay=DC, need_clip=NC)
+        norm = None
+        clip = opt._grad_clip
+        if clip is not None:
+            if G:
+                sq = fused.grad_global_norm(G, clip.clip_norm, NC)[:1]
+                sq = sq.square()
+            else:
+                sq = torch.zeros(1, dtype=torch.float32, device=dev)
+            if self._sharding_group is not None:
+                comm.all_reduce(sq, group=self._sharding_group)
+            n = sq.sqrt()
+            norm = torch.cat([n, clip.clip_norm / n.clamp(min=clip.clip_norm)])
+        flags = ok = None
+        with opt.compiled_update():
+            if self._check_nan:
+                local = (fused.adam_finite_check(
+                    P, G, M1, M2, B1, B2, lr, MS, norm=norm, loss=loss,
+                    **kw)[0] if P else None)
+                flags = self._name_flags(local, names, loss)
+                ok = flags.all().to(torch.int32)
+            if P:
+                fused.fused_adam_step(
+                    P, G, M1, M2, B1, B2, lr, masters=MS, norm=norm,
+                    ok=ok if self._guard_updates else None, **kw)
+        opt._global_step += 1
+        return flags
+
+    def _pieces_of(self, grads):
+        """The update's lists over this rank's pieces of the parameters
+        stepped: views of the flat shards, their state and gradients (all
+        persistent tensors), the coefficients and the names."""
+        opt = self._optimizer
+        P, G, M1, M2, B1, B2, MS, WD, DC, NC, names = ([] for _ in range(11))
+        for bk, g, stepped in grads:
+            for pc in bk.pieces:
+                if not stepped[pc.index]:
+                    continue
+                p = bk.params[pc.index]
+                P.append(bk.shard[pc.a:pc.b])
+                G.append(g[pc.a:pc.b])
+                M1.append(bk.m1[pc.a:pc.b])
+                M2.append(bk.m2[pc.a:pc.b])
+                B1.append(bk.b1p[pc.index])
+                B2.append(bk.b2p[pc.index])
+                MS.append(bk.master[pc.a:pc.b] if bk.master is not None
+                          else None)
+                WD.append(opt._l2_coeff(p))
+                DC.append(opt._decoupled_coeff(p))
+                NC.append(getattr(p, "need_clip", True))
+                names.append(bk.names[pc.index])
+        return P, G, M1, M2, B1, B2, MS, WD, DC, NC, names
+
+    def _name_flags(self, local, names, loss) -> torch.Tensor:
+        """The sweep's flags by parameter name (``[loss, grad[n]..,
+        param[n]..]`` in ``_nan_names``' order) from this rank's pieces'
+        flags, AND-ed over the world."""
+        n = len(self._swept_index)
+        dev = loss.device
+        out = torch.ones(1 + 2 * n, dtype=torch.int32, device=dev)
+        if local is None:
+            out[0] = torch.isfinite(loss).all().to(torch.int32)
+        else:
+            key = (dev, tuple(names))
+            slots = self._flag_slots.get(key)
+            if slots is None:
+                js = [self._swept_index[nm] for nm in names]
+                slots = self._flag_slots[key] = torch.tensor(
+                    [0] + [1 + j for j in js] + [1 + n + j for j in js],
+                    device=dev)
+            out.scatter_reduce_(0, slots, local[:-1].to(torch.int32),
+                                "amin")
+        return self._world_and(out)
 
     # -- remat='auto' ----------------------------------------------------------
     def lower_cost(self, policy, inputs, labels) -> Optional[Dict[str, float]]:
@@ -416,9 +920,11 @@ class ParallelTrainStep:
         under ``policy`` on this batch (the measurement ``remat='auto'``
         ladders on), or None when it runs out of memory. The engine is left
         as it was (see the module docstring)."""
-        dev = self._device
-        inputs = tuple(as_tensor(a).to(dev) for a in _as_tuple(inputs))
-        labels = tuple(as_tensor(a).to(dev) for a in _as_tuple(labels))
+        if self._zero >= 3:
+            raise NotImplementedError(
+                "lower_cost measures the step on the resident parameters; "
+                "ZeRO-3 keeps only their shards")
+        inputs, labels = self._to_device(inputs, labels)
         return self._step_cost(remat_policy.normalize(policy), inputs,
                                labels)
 
@@ -456,6 +962,10 @@ class ParallelTrainStep:
         """Bytes of the state that lives across steps: parameters, buffers
         and the optimizer's tensors (each storage once)."""
         tensors = [*self._layer.parameters(), *self._layer.buffers()]
+        if self._zero >= 1:
+            for bk in self._buckets:
+                tensors += [t for t in (bk.shard, bk.m1, bk.m2, bk.master)
+                            if t is not None]
         for st in self._optimizer._accumulators.values():
             tensors += [t for t in st.values()
                         if isinstance(t, torch.Tensor)]
@@ -538,6 +1048,9 @@ class ParallelTrainStep:
         parameters are cast back at the next step). The next step interval
         is not recorded: it would time this pause."""
         self._last_step_t = None
+        if self._zero >= 1:
+            self._sync_sharded()
+            return
         if not self._master:
             return
         named = dict(self._layer.named_parameters())
@@ -545,6 +1058,22 @@ class ParallelTrainStep:
             n: self._optimizer.state_for(p)["master"].clone()
             for n, p in named.items() if p.is_floating_point()})
         self._synced = True
+
+    @torch.no_grad()
+    def _sync_sharded(self) -> None:
+        """ZeRO: the layer gets the gathered parameters (the f32 masters in
+        master mode) and the optimizer the gathered state, as the
+        reference's ``sync_to_layer`` hands it over; the next step points
+        the parameters back at the flat buffers."""
+        params, state, _ = self._gathered_state()
+        named = dict(self._layer.named_parameters())
+        for bk in self._buckets:
+            for n in bk.names:
+                p = named[n]
+                src = state[n]["master"] if self._master else params[n]
+                p.data = src.clone()
+                self._optimizer._accumulators[id(p)] = state[n]
+        self._synced_views = True
 
     @torch.no_grad()
     def refresh_from_layer(self) -> None:
@@ -557,6 +1086,21 @@ class ParallelTrainStep:
         both), any other takes the parameter's value. Otherwise the next
         step would cast stale masters over what was just loaded. In master
         mode the next step casts the masters back."""
+        if self._zero >= 1:
+            named = dict(self._layer.named_parameters())
+            for bk in self._buckets:
+                vals = {n: named[n].detach() for n in bk.names}
+                sl = slice(bk.start, bk.start + bk.S)
+                full = bk.scatter_values(vals)
+                if bk.master is not None:
+                    new = bk.scatter_values(vals, torch.float32)[sl]
+                    bk.master.copy_(torch.where(
+                        bk.master.to(bk.dtype) == full[sl], bk.master, new))
+                bk.shard.copy_(full[sl])
+                if self._zero < 3:
+                    bk.full.copy_(full)
+            self._synced_views = True
+            return
         for p in self._layer.parameters():
             st = self._optimizer._accumulators.get(id(p))
             master = st.get("master") if st else None

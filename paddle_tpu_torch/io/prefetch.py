@@ -26,8 +26,8 @@ failed staging is retried through ``resilience.retry_call``.
 
 The default device is ``"cuda"`` (it raises without a card);
 ``device="cpu"`` stages on the CPU (the tests), and ``to_device=False``
-runs the pad stage only. ``sharding`` waits for the multi-GPU port and
-raises.
+runs the pad stage only. With an engine's ``sharding`` each rank keeps
+its own rows of every batch (after the pad stage, before the copy).
 """
 from __future__ import annotations
 
@@ -161,7 +161,10 @@ class DevicePrefetcher:
             raised ``RuntimeError``; default ``PADDLE_TPU_H2D_RETRIES``
             (2). Errors of the source are not retried.
         buckets: ``ShapeBuckets``, or sizes for ``ShapeBuckets(sizes)``.
-        sharding: not ported (the multi-GPU port); must be None.
+        sharding: a ``distributed.fleet._sharded.BatchSharding`` (an
+            engine's, ``ParallelTrainStep.prefetch``): each rank stages
+            only its own rows of every global batch, marked so that the
+            engine does not split them again.
         to_device: False runs the pad stage only (leaves as given).
         device: where the batches go (default ``"cuda"``).
     """
@@ -170,9 +173,13 @@ class DevicePrefetcher:
                  buckets: Union[ShapeBuckets, Sequence[int], None] = None,
                  sharding=None, to_device: bool = True,
                  stage_retries: Optional[int] = None, device=None):
-        if sharding is not None:
-            raise NotImplementedError(
-                "DevicePrefetcher: sharding waits for the multi-GPU port")
+        if sharding is not None and not (hasattr(sharding, "local")
+                                         and hasattr(sharding, "mark")):
+            raise TypeError(
+                "DevicePrefetcher: sharding must be a BatchSharding (an "
+                "engine's: ParallelTrainStep.prefetch), got "
+                f"{type(sharding).__name__}")
+        self._sharding = sharding
         self.depth = max(1, int(depth))
         self._stage_retries = (int(os.environ.get("PADDLE_TPU_H2D_RETRIES",
                                                   2))
@@ -222,6 +229,8 @@ class DevicePrefetcher:
                 tel.counter("prefetch/bucket_hits", hits)
             if misses:
                 tel.counter("prefetch/bucket_misses", misses)
+        if self._sharding is not None:  # this rank's rows only
+            batch = self._sharding.local(batch)
         event = None
         if self._to_device:
             batch = _tree_map(_host_leaf, batch)
@@ -231,6 +240,8 @@ class DevicePrefetcher:
                                       base=0.05, retry_on=(RuntimeError,),
                                       counter="resilience/io_retries")
             tel.observe("prefetch/h2d_ms", (time.perf_counter() - t0) * 1e3)
+        if self._sharding is not None:
+            batch = self._sharding.mark(batch)
         tel.counter("prefetch/batches")
         tel.observe("prefetch/h2d_bytes", sum(
             int(getattr(l, "nbytes", 0)) for l in _tree_leaves(batch)))

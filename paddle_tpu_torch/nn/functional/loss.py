@@ -176,7 +176,10 @@ def _reduce(loss: torch.Tensor, reduction: str,
         raise ValueError(f"unknown reduction {reduction!r}")
     if valid is None:
         return loss.mean()
-    return loss.sum() / valid.sum().clamp(min=1)
+    from ...distributed.parallel import mean_denominator
+
+    # the count over the global batch inside a data-parallel engine
+    return loss.sum() / mean_denominator(valid.sum())
 
 
 def softmax_with_cross_entropy(logits, label, soft_label=False,

@@ -91,6 +91,64 @@ class _BatchNormTrain(torch.autograd.Function):
                 None)
 
 
+class _SyncBatchNormTrain(torch.autograd.Function):
+    """``_BatchNormTrain`` with the statistics over a process group: the
+    per-channel sums of x and x² and the counts are all-reduced before
+    the one-pass mean and variance, and the backward all-reduces the
+    channel sums of dy and dy·x̂, so that each rank's dx is the gradient
+    of every rank's loss (the weight and bias gradients stay this rank's:
+    the engines reduce them with the others)."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, axes, shape, eps, pg):
+        xf = x.float()
+        c = w.numel()
+        n = torch.full((1,), x.numel() // c, dtype=torch.float32,
+                       device=x.device)
+        stats = torch.cat([xf.sum(axes), (xf * xf).sum(axes), n])
+        torch.distributed.all_reduce(stats, group=pg)
+        n = stats[-1]
+        mean = stats[:c] / n
+        var = torch.clamp(stats[c:2 * c] / n - mean * mean, min=0.0)
+        rstd = torch.rsqrt(var + eps)
+        k = w.float() * rstd
+        out = (xf * k.reshape(shape)
+               + (b.float() - mean * k).reshape(shape)).to(x.dtype)
+        ctx.save_for_backward(x, w, mean, rstd, n)
+        ctx.axes, ctx.shape, ctx.pg = axes, shape, pg
+        ctx.w_dtype, ctx.b_dtype = w.dtype, b.dtype
+        ctx.mark_non_differentiable(mean, var)
+        return out, mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        x, w, mean, rstd, n = ctx.saved_tensors
+        axes, shape = ctx.axes, ctx.shape
+        xh = (x.float() - mean.reshape(shape)) * rstd.reshape(shape)
+        dyf = dy.float()
+        db, dw = dyf.sum(axes), (dyf * xh).sum(axes)
+        sums = torch.cat([db, dw])
+        torch.distributed.all_reduce(sums, group=ctx.pg)
+        c = db.numel()
+        k = (w.float() * rstd).reshape(shape)
+        dx = (k * (dyf - (sums[:c] / n).reshape(shape)
+                   - xh * (sums[c:] / n).reshape(shape))).to(x.dtype)
+        return (dx, dw.to(ctx.w_dtype), db.to(ctx.b_dtype), None, None,
+                None, None)
+
+
+def _data_group():
+    """The process group of the innermost data-parallel scope of more
+    than one rank (``distributed.parallel.data_parallel_scope``), or
+    None."""
+    from ...distributed.parallel import _data_scope
+
+    if _data_scope and _data_scope[-1][0] is not None \
+            and _data_scope[-1][1] > 1:
+        return _data_scope[-1][0]
+    return None
+
+
 def batch_norm(x: torch.Tensor, running_mean: Optional[torch.Tensor],
                running_var: Optional[torch.Tensor],
                weight: Optional[torch.Tensor] = None,
@@ -102,7 +160,11 @@ def batch_norm(x: torch.Tensor, running_mean: Optional[torch.Tensor],
     ``NC*`` formats, the last otherwise). In training (unless
     ``use_global_stats``) it normalises with the batch statistics and
     updates ``running_mean`` / ``running_var`` in place when given; a
-    missing ``weight`` or ``bias`` counts as 1 or 0."""
+    missing ``weight`` or ``bias`` counts as 1 or 0. Inside a
+    data-parallel scope of more than one rank (an engine's step over a
+    mesh, ``SyncBatchNorm`` in a world) the statistics are the whole
+    batch's, across the ranks (``_SyncBatchNormTrain``), as the
+    reference's sharded program computes them."""
     ch, axes, shape = _layout(x, data_format)
     if training and not use_global_stats:
         c = x.shape[ch]
@@ -110,8 +172,13 @@ def batch_norm(x: torch.Tensor, running_mean: Optional[torch.Tensor],
             c, dtype=torch.float32, device=x.device)
         b = bias if bias is not None else torch.zeros(
             c, dtype=torch.float32, device=x.device)
-        out, mean, var = record_opaque(_BatchNormTrain.apply, x, w, b,
-                                       axes, shape, epsilon)
+        pg = _data_group()
+        if pg is not None:
+            out, mean, var = _SyncBatchNormTrain.apply(x, w, b, axes, shape,
+                                                       epsilon, pg)
+        else:
+            out, mean, var = record_opaque(_BatchNormTrain.apply, x, w, b,
+                                           axes, shape, epsilon)
         if running_mean is not None:
             with torch.no_grad():
                 running_mean.copy_(momentum * running_mean + (1.0 - momentum)

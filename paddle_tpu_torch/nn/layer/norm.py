@@ -17,8 +17,8 @@ their functionals (plain PyTorch, the reference's XLA arithmetic);
 reference names them. ``SpectralNorm`` runs the reference's power
 iteration from its stored ``weight_u`` / ``weight_v`` on every call and,
 as the reference, never writes them back. ``SyncBatchNorm`` is
-``BatchNorm`` on one process; across processes it raises (the
-cross-process statistics are Queue 1 item 6). ``GroupNorm``, the
+``BatchNorm`` on one process; across processes its statistics are the
+whole batch's (all-reduced over the data-parallel group). ``GroupNorm``, the
 InstanceNorms, ``SpectralNorm`` and ``SyncBatchNorm`` make their
 parameters on the card unless ``device=`` says otherwise.
 """
@@ -141,11 +141,12 @@ class BatchNorm3D(_BatchNormBase):
 
 
 class SyncBatchNorm(_BatchNormBase):
-    """Cross-replica BatchNorm. On one process it is ``BatchNorm``; in a
-    ``torch.distributed`` world larger than 1 its forward raises: the
-    statistics across processes are not ported (Queue 1 item 6), and a
-    per-process average would differ from the reference's without a
-    word."""
+    """Cross-replica BatchNorm: in training, in a ``torch.distributed``
+    world of more than one rank, the statistics are all-reduced over the
+    data-parallel group (an engine's data group inside its step, else the
+    world), so every rank normalises with the whole batch's mean and
+    variance (``nn.functional.norm._SyncBatchNormTrain``). On one process
+    it is ``BatchNorm``."""
 
     def __init__(self, num_features, momentum=0.9, epsilon=1e-05,
                  weight_attr=None, bias_attr=None, data_format="NCHW",
@@ -155,12 +156,15 @@ class SyncBatchNorm(_BatchNormBase):
                          device=resolve_device(device), dtype=dtype)
 
     def forward(self, input):
+        from ...distributed.parallel import (_data_scope,
+                                             data_parallel_scope)
+
         dist = torch.distributed
-        if (self.training and dist.is_available() and dist.is_initialized()
-                and dist.get_world_size() > 1):
-            raise NotImplementedError(
-                "SyncBatchNorm across processes is not ported yet (Queue 1 "
-                "item 6: the multi-device engines)")
+        if (self.training and not _data_scope and dist.is_available()
+                and dist.is_initialized() and dist.get_world_size() > 1):
+            with data_parallel_scope(dist.group.WORLD,
+                                     dist.get_world_size()):
+                return super().forward(input)
         return super().forward(input)
 
     @classmethod

@@ -50,6 +50,22 @@ the serving and training slices run:
   the flash kernels where they take the call and otherwise raises with
   the reason. Every dispatch counts ``counter/attn/calls`` and publishes
   ``gauge/attn/tier.<L>.<d>.<c|f>``.
+- ``ring_attention``: attention over a sequence split across the ranks of
+  a group (``ParallelTrainStep(sp_axis=...)``: each rank holds ``L / n``
+  consecutive positions). K and V rotate one rank along the ring per hop
+  (both directions posted in one ``batch_isend_irecv``); each hop runs
+  the flash kernels on the resident shard: #1 causal when it is the
+  rank's own shard, #1 in full mode (#4's instance) for an earlier shard,
+  nothing for a later one when causal. The hops' ``(out, lse)`` merge in
+  f32 (each hop's output rounded once). The backward recomputes with the
+  merged lse and delta: #2 per hop for dQ (summed in f32) and #3 per hop
+  for the resident shard's dK and dV, partials that travel with their
+  shard and arrive home after a full turn. ``ring_hop_forward`` and
+  ``ring_hop_backward`` are one hop; ``ring_merge`` folds a hop in.
+  Inside an engine's ``ring_scope`` every causal unbiased self-attention
+  dispatch takes the ring (a group of one rank is one causal hop on #1);
+  ``PADDLE_TPU_ATTN_POLICY=ring`` forces it over the group
+  ``set_ring_context`` registered, and raises without one.
 - ``paged_attention``: attention of a query chunk against the serving
   KV-cache pool, with the reference's two tiers (``_paged_gather_impl``,
   ``_paged_scan_impl``), chosen by ``tier_policy.select_paged``. They are
@@ -538,9 +554,11 @@ def _select_impl(q, k, v, bias, use_flash, causal, blhd
         if mode in ("xla", "blockwise", "flash_tpu", "pallas"):
             choice = mode
         elif mode == "ring":
-            raise NotImplementedError(
-                "PADDLE_TPU_ATTN_POLICY=ring: ring attention is not ported "
-                "(it waits for the multi-device slice)")
+            why = _ring_unavailable_reason(causal, bias, q, k, blhd)
+            if why is not None:
+                raise NotImplementedError(
+                    f"PADDLE_TPU_ATTN_POLICY=ring but {why}")
+            return "ring", "ring"
         elif mode == "bench":
             h, L, _ = _dims(q, k, blhd)
             choice = tier_policy.select(
@@ -564,8 +582,22 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     transposed views."""
     get_telemetry().counter("attn/calls")
     blhd = layout == "blhd"
-    impl, tier = _select_impl(q, k, v, bias, use_flash, causal, blhd)
+    if _ring_scope:
+        why = _ring_unavailable_reason(causal, bias, q, k, blhd)
+        if why is not None:
+            raise NotImplementedError(
+                f"dot_product_attention inside a sequence-parallel step: "
+                f"{why}")
+        impl, tier = "ring", "ring"
+    else:
+        impl, tier = _select_impl(q, k, v, bias, use_flash, causal, blhd)
     tier_policy.publish_tier(_dims(q, k, blhd)[1], q.shape[-1], causal, tier)
+    if impl == "ring":
+        group = _ring_scope[-1] if _ring_scope else _ring_ctx["group"]
+        if blhd:
+            return _RingFn.apply(q, k, v, group, causal)
+        tr = lambda t: t.transpose(1, 2)
+        return tr(_RingFn.apply(tr(q), tr(k), tr(v), group, causal))
     if impl == "plain":
         return _materialized(q, k, v, causal, bias, layout)
     if impl == "xla":
@@ -581,6 +613,202 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return flash_attention(q, k, v, causal=causal, layout=layout,
                            key_bias=_key_bias(bias, q.shape[0],
                                               _dims(q, k, blhd)[2]))
+
+
+# ---------------------------------------------------------------------------
+# Ring attention (the sequence split over a group of ranks)
+# ---------------------------------------------------------------------------
+_ring_ctx = {"mesh": None, "axis": None, "group": None}
+_ring_scope: list = []  # the groups of the engines' steps, innermost last
+
+
+def set_ring_context(mesh, axis: Optional[str], batch_axis=None,
+                     group=None) -> None:
+    """Register the mesh axis that carries sequence shards (the engine
+    does, ``ParallelTrainStep(sp_axis=...)``; the newest engine owns it,
+    and one without ``sp_axis`` clears it). ``group`` is that axis's
+    ``communication.Group`` holding this rank (default
+    ``mesh.group(axis)``). ``batch_axis`` is the reference's argument and
+    is not needed here: each rank already holds only its rows."""
+    if mesh is None or axis is None:
+        _ring_ctx.update(mesh=None, axis=None, group=None)
+        return
+    _ring_ctx.update(mesh=mesh, axis=axis,
+                     group=group if group is not None else mesh.group(axis))
+
+
+class ring_scope:
+    """Within (an engine's forward and backward): causal self-attention
+    runs as ``ring_attention`` over ``group``, and
+    ``ring_position_offset`` gives this rank's first position."""
+
+    def __init__(self, group):
+        self.group = group
+
+    def __enter__(self):
+        _ring_scope.append(self.group)
+        return self
+
+    def __exit__(self, *exc):
+        _ring_scope.pop()
+        return False
+
+
+def _ring_group():
+    if _ring_scope:
+        return _ring_scope[-1]
+    if tier_policy.policy_mode() == "ring":
+        return _ring_ctx["group"]
+    return None
+
+
+def ring_position_offset(l_local: int) -> int:
+    """The global position of this rank's first token when the sequence
+    is split over a ring (``rank_in_group · l_local``), else 0."""
+    group = _ring_group()
+    return group.rank * int(l_local) if group is not None else 0
+
+
+def _ring_unavailable_reason(causal, bias, q, k, blhd) -> Optional[str]:
+    """Why the ring cannot take this call, or None."""
+    group = _ring_scope[-1] if _ring_scope else _ring_ctx["group"]
+    if group is None:
+        return ("no ring is registered (ParallelTrainStep(sp_axis=...) / "
+                "ops.attention.set_ring_context)")
+    if bias is not None:
+        return "the ring takes no attention bias"
+    _, L, Lk = _dims(q, k, blhd)
+    if Lk != L:
+        return f"Lq {L} != Lk {Lk} (self-attention only)"
+    return None
+
+
+def ring_hop_forward(q, k, v, rank: int, src: int, causal: bool):
+    """One hop: queries of shard ``rank`` against the resident keys and
+    values of shard ``src`` ([b, L, H, d] each), through #1 (causal on
+    the diagonal, full mode below it). Returns ``(out, lse)``, or None for
+    a causal hop above the diagonal."""
+    if causal and src > rank:
+        return None
+    return flash_tpu._fwd(q, k, v, causal and src == rank, None)
+
+
+def ring_merge(acc, lse_acc, out, lse):
+    """Fold a hop's ``(out, lse)`` into the f32 accumulators (None at the
+    first hop): ``lse' = logaddexp``, each output weighted by
+    ``exp(lse − lse')``."""
+    if acc is None:
+        return out.float(), lse
+    new = torch.logaddexp(lse_acc, lse)
+    w_old = torch.exp(lse_acc - new).transpose(1, 2)[..., None]
+    w_new = torch.exp(lse - new).transpose(1, 2)[..., None]
+    return acc * w_old + out.float() * w_new, new
+
+
+def ring_hop_backward(q, k, v, dout, lse, out, rank: int, src: int,
+                      causal: bool):
+    """One hop of the backward with the merged ``lse`` and output:
+    ``(dq, dk, dv)`` of this rank's queries against shard ``src``'s keys
+    and values (#2 then #3; delta is the dQ kernel's, from the merged
+    output), or None above the diagonal."""
+    if causal and src > rank:
+        return None
+    hop_causal = causal and src == rank
+    dq, delta = flash_tpu._dq(hop_causal, q, k, v, dout, lse, out)
+    dk, dv = flash_tpu._dkv(hop_causal, q, k, v, dout, lse, delta)
+    return dq, dk, dv
+
+
+def _rotate(tensors, group):
+    """Send each tensor to the next rank of the ring and receive the
+    previous rank's into new buffers, both directions posted in one
+    ``batch_isend_irecv``; returns ``(buffers, works)``."""
+    dist = torch.distributed
+    ranks, me = group.ranks, group.rank
+    n = len(ranks)
+    nxt, prv = ranks[(me + 1) % n], ranks[(me - 1) % n]
+    pg = group.process_group
+    bufs = [torch.empty_like(t) for t in tensors]
+    ops = ([dist.P2POp(dist.isend, t, nxt, group=pg) for t in tensors]
+           + [dist.P2POp(dist.irecv, b, prv, group=pg) for b in bufs])
+    return bufs, dist.batch_isend_irecv(ops)
+
+
+class _RingFn(torch.autograd.Function):
+    """The ring over ``group`` ([b, L_local, H, d] operands); the next
+    hop's transfer overlaps the current hop's kernels."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, group, causal):
+        n, r = group.nranks, group.rank
+        kc, vc = k.contiguous(), v.contiguous()
+        acc = lse = None
+        for i in range(n):
+            src = (r - i) % n
+            works = None
+            if i < n - 1:
+                (kn, vn), works = _rotate((kc, vc), group)
+            hop = ring_hop_forward(q, kc, vc, r, src, causal)
+            if hop is not None:
+                acc, lse = ring_merge(acc, lse, *hop)
+            if works is not None:
+                for w in works:
+                    w.wait()
+                kc, vc = kn, vn
+        out = acc.to(q.dtype)
+        lse = lse.contiguous()
+        ctx.group, ctx.causal = group, causal
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        group, causal = ctx.group, ctx.causal
+        n, r = group.nranks, group.rank
+        dout = dout.contiguous()
+        kc, vc = k.contiguous(), v.contiguous()
+        dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+        dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
+        dv = torch.zeros_like(dk)
+        for i in range(n):
+            src = (r - i) % n
+            hop = ring_hop_backward(q, kc, vc, dout, lse, out, r, src,
+                                    causal)
+            if hop is not None:
+                dq += hop[0].float()
+                dk += hop[1].float()
+                dv += hop[2].float()
+            if n > 1:  # the partials travel with their shard, home at n
+                moving = (kc, vc, dk, dv) if i < n - 1 else (dk, dv)
+                bufs, works = _rotate(moving, group)
+                for w in works:
+                    w.wait()
+                if i < n - 1:
+                    kc, vc, dk, dv = bufs
+                else:
+                    dk, dv = bufs
+        return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None,
+                None)
+
+
+def ring_attention(q, k, v, axis_name, causal=False, block_k=512):
+    """Attention of [b, h, L_local, d] operands whose sequence is split
+    over ``axis_name`` (a mesh axis of the global mesh, or a
+    ``communication.Group``), as the reference's; see the module
+    docstring. ``block_k`` is the reference's argument: a shard is one
+    block."""
+    group = axis_name
+    if isinstance(axis_name, str):
+        from ..distributed.fleet.mesh_utils import get_mesh
+
+        mesh = get_mesh()
+        if mesh is None:
+            raise ValueError(f"ring_attention over {axis_name!r}: no global "
+                             "mesh (fleet.mesh_utils.init_mesh)")
+        group = mesh.group(axis_name)
+    tr = lambda t: t.transpose(1, 2)
+    return tr(_RingFn.apply(tr(q), tr(k), tr(v), group, causal))
 
 
 # ---------------------------------------------------------------------------

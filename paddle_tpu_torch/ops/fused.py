@@ -466,16 +466,18 @@ def _fused_adam_reference(params, grads, moment1, moment2, beta1_pow,
                           beta2_pow, lr, masters=None, beta1=0.9,
                           beta2=0.999, eps=1e-8, weight_decay=0.0,
                           decoupled_decay=None, clip_norm=None,
-                          need_clip=None, check=None, lr_scale=None
-                          ) -> Optional[torch.Tensor]:
+                          need_clip=None, check=None, lr_scale=None,
+                          norm=None, ok=None) -> Optional[torch.Tensor]:
     """The plain version of ``fused_adam_step``, with its arguments and
-    its result: ``_global_norm_reference`` for the clip, then (given a
-    ``check``) ``_adam_check_reference``, then ``_adam_reference`` with
-    that scale, skipped when the check gates the step and a flag is
-    false."""
-    norm = (_global_norm_reference(grads, clip_norm, need_clip)
-            if clip_norm is not None else None)
+    its result: ``_global_norm_reference`` for the clip (or the given
+    ``norm``), then (given a ``check``) ``_adam_check_reference``, then
+    ``_adam_reference`` with that scale, skipped when the check gates the
+    step and a flag is false, or when a given ``ok`` is 0."""
+    if clip_norm is not None:
+        norm = _global_norm_reference(grads, clip_norm, need_clip)
     scale = None if norm is None else norm[1]
+    if ok is not None and not bool(ok):
+        return norm
     if check is not None:
         flags = _adam_check_reference(
             params, grads, moment1, moment2, beta1_pow, beta2_pow, lr,
@@ -501,9 +503,12 @@ class FiniteCheck:
     sync. ``loss`` is the step's f32 loss (None: not checked)."""
 
     def __init__(self, loss: Optional[torch.Tensor] = None,
-                 gate: bool = True):
+                 gate: bool = True, consensus=None):
         self.loss = loss
         self.gate = bool(gate)
+        # flags -> flags applied before the gate (e.g. an AND over ranks);
+        # read by the optimizer, which then runs the check pass alone
+        self.consensus = consensus
         self.flags: Optional[torch.Tensor] = None
         self.ok: Optional[torch.Tensor] = None
 
@@ -591,7 +596,9 @@ def fused_adam_step(params: Sequence[torch.Tensor],
                     decoupled_decay=None, clip_norm: Optional[float] = None,
                     need_clip: Optional[Sequence[bool]] = None,
                     check: Optional["FiniteCheck"] = None,
-                    lr_scale=None) -> Optional[torch.Tensor]:
+                    lr_scale=None, norm: Optional[torch.Tensor] = None,
+                    ok: Optional[torch.Tensor] = None
+                    ) -> Optional[torch.Tensor]:
     """One Adam step over many parameters, in place — the multi-tensor
     counterpart of the reference's ``fused_adam_step`` with the engine's
     master-weight handling, its global-norm clip, L2 decay and AdamW's
@@ -623,6 +630,14 @@ def fused_adam_step(params: Sequence[torch.Tensor],
     read ``ok`` on the device and write nothing when it is 0, so a
     non-finite step keeps every bit of the state it came with.
 
+    A sharded step computes what the call would over the whole state:
+    ``norm`` is the clip's f32 ``[norm, scale]`` computed by the caller
+    (the global norm over every rank's shard; it replaces the
+    sum-of-squares pass, and the gradients whose ``need_clip`` is true are
+    scaled by its ``scale``), and ``ok`` an int32 0-d verdict on the
+    device (the AND of every rank's sweep) that gates the update as a
+    ``FiniteCheck``'s gate does.
+
     CUDA tensors go through ``csrc/adam.cu`` (two launches per call, and
     with ``clip_norm`` the two of the sum-of-squares pass before them, and
     with ``check`` the two of the check pass), CPU tensors through
@@ -640,32 +655,39 @@ def fused_adam_step(params: Sequence[torch.Tensor],
         raise ValueError("fused_adam_step: the lists differ in length")
     if n == 0:
         return None
+    if norm is not None and clip_norm is not None:
+        raise ValueError("fused_adam_step: give clip_norm or a computed "
+                         "norm, not both")
     dev = params[0].device
     if dev.type == "cpu":
         return _fused_adam_reference(
             params, grads, moment1, moment2, beta1_pow, beta2_pow, lr,
             masters, beta1, beta2, eps, l2, decay, clip_norm, clip, check,
-            scales)
+            scales, norm, ok)
     if dev.type != "cuda":
         raise ValueError(f"fused_adam_step: unsupported device {dev}")
     if lr.device != dev or lr.dtype != torch.float32 or lr.numel() != 1:
         raise TypeError("fused_adam_step: lr must be a one-element f32 "
                         f"tensor on {dev}, got {lr.dtype} on {lr.device}")
+    clipping = clip_norm is not None or norm is not None
     table, index = _adam_table(
         params, grads, moment1, moment2, beta1_pow, beta2_pow, masters,
-        decay, l2, clip if clip_norm is not None else [False] * n, scales)
+        decay, l2, clip if clipping else [False] * n, scales)
     tab, chunks, ntensors, nchunks, _ = table
     gptrs = _pointers([g for g in grads if g.numel()], dev)
-    norm = None
+    if norm is not None:
+        _check_device_scalars(dev, norm=(norm, 2, torch.float32))
     if clip_norm is not None:
         norm = _launch_global_norm(dev, tab, gptrs, chunks, nchunks,
                                    clip_norm)
-    ok = None
+    if ok is not None:
+        _check_device_scalars(dev, ok=(ok, 1, torch.int32))
     if check is not None:
         check.flags, check.ok = _launch_check(
             dev, table, index, n, gptrs, lr, norm, check.loss, beta1, beta2,
             eps)
-        ok = check.ok if check.gate else None
+        if check.gate:
+            ok = check.ok
     if nchunks == 0:
         return norm
     lib = _build.library()
@@ -685,18 +707,35 @@ def fused_adam_step(params: Sequence[torch.Tensor],
 fused_adam_step.launches = 0  # kernel launches (two per call)
 
 
+def _check_device_scalars(dev, **named):
+    """Each ``name=(tensor or None, numel, dtype)`` as the kernel reads
+    it: on ``dev``, of that size and type, contiguous."""
+    for name, (t, numel, dtype) in named.items():
+        if t is None:
+            continue
+        if (t.device != dev or t.numel() != numel or t.dtype != dtype
+                or not t.is_contiguous()):
+            raise TypeError(f"fused_adam_step: {name} must be a contiguous "
+                            f"{dtype} tensor of {numel} element(s) on {dev}"
+                            f", got {t.dtype} {tuple(t.shape)} on "
+                            f"{t.device}")
+
+
 def adam_finite_check(params, grads, moment1, moment2, beta1_pow, beta2_pow,
                       lr, masters=None, beta1=0.9, beta2=0.999, eps=1e-8,
                       weight_decay=0.0, decoupled_decay=None,
                       clip_norm=None, need_clip=None, loss=None,
-                      lr_scale=None) -> Tuple[torch.Tensor, torch.Tensor]:
+                      lr_scale=None, norm=None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The finite sweep of one ``fused_adam_step`` with these arguments,
     computed and not applied: ``(flags, ok)`` as ``FiniteCheck`` gives
     them (the flags of the loss, of each gradient and of each new
     parameter in its dtype; ``ok`` their AND, int32). CUDA tensors go
     through ``csrc/adam.cu``'s check pass (two launches, and with
     ``clip_norm`` the sum-of-squares pass first; nothing is written to the
-    state), CPU tensors through ``_adam_check_reference``.
+    state), CPU tensors through ``_adam_check_reference``. ``norm`` is a
+    clip's ``[norm, scale]`` computed by the caller, as
+    ``fused_adam_step`` takes it.
     ``fused_adam_step(..., check=FiniteCheck(loss))`` runs the same pass
     before its update."""
     n = len(params)
@@ -706,9 +745,10 @@ def adam_finite_check(params, grads, moment1, moment2, beta1_pow, beta2_pow,
     scales = _per_tensor(lr_scale, n, 1.0)
     clip = list(need_clip) if need_clip is not None else [True] * n
     dev = params[0].device
+    clipping = clip_norm is not None or norm is not None
     if dev.type == "cpu":
-        norm = (_global_norm_reference(grads, clip_norm, clip)
-                if clip_norm is not None else None)
+        if clip_norm is not None:
+            norm = _global_norm_reference(grads, clip_norm, clip)
         flags = _adam_check_reference(
             params, grads, moment1, moment2, beta1_pow, beta2_pow, lr,
             masters, beta1, beta2, eps, l2, decay,
@@ -716,11 +756,13 @@ def adam_finite_check(params, grads, moment1, moment2, beta1_pow, beta2_pow,
         return flags, flags.all().to(torch.int32)
     table, index = _adam_table(
         params, grads, moment1, moment2, beta1_pow, beta2_pow, masters,
-        decay, l2, clip if clip_norm is not None else [False] * n, scales)
+        decay, l2, clip if clipping else [False] * n, scales)
     gptrs = _pointers([g for g in grads if g.numel()], dev)
-    norm = (_launch_global_norm(dev, table.tab, gptrs, table.chunks,
-                                table.nchunks, clip_norm)
-            if clip_norm is not None else None)
+    if clip_norm is not None:
+        norm = _launch_global_norm(dev, table.tab, gptrs, table.chunks,
+                                   table.nchunks, clip_norm)
+    elif norm is not None:
+        _check_device_scalars(dev, norm=(norm, 2, torch.float32))
     return _launch_check(dev, table, index, n, gptrs, lr, norm, loss, beta1,
                          beta2, eps)
 

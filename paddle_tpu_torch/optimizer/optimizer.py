@@ -360,15 +360,17 @@ class Optimizer:
 
     @torch.no_grad()
     def step_checked(self, loss: torch.Tensor,
-                     order: List[torch.Tensor], gate: bool
-                     ) -> torch.Tensor:
+                     order: List[torch.Tensor], gate: bool,
+                     consensus=None) -> torch.Tensor:
         """``step()`` with the reference engines' finite sweep: returns the
         bool flags ``[loss, grad of each of order, each of order after the
         update]`` on the device (a parameter without a gradient has a true
         grad flag). With ``gate`` a step whose flags are not all true keeps
         every parameter, master and state tensor it came with (a
-        ``torch.where`` on the device, no host sync). This plain route
-        copies the stepped state first; Adam's kernel needs no copy."""
+        ``torch.where`` on the device, no host sync). ``consensus`` (flags
+        -> flags, e.g. their AND over a world of ranks) is applied before
+        the gate reads them. This plain route copies the stepped state
+        first; Adam's kernel needs no copy."""
         stepped = [p for p, _ in self._params_grads()]
         old = {}
         if gate:
@@ -378,6 +380,8 @@ class Optimizer:
                               {k: v.clone() for k, v in st.items()})
         self.step()
         flags = _sweep(loss, order)
+        if consensus is not None:
+            flags = consensus(flags)
         if gate:
             ok = flags.all()
             for p in stepped:
@@ -557,16 +561,19 @@ class Adam(Optimizer):
 
     @torch.no_grad()
     def step_checked(self, loss: torch.Tensor,
-                     order: List[torch.Tensor], gate: bool
-                     ) -> torch.Tensor:
+                     order: List[torch.Tensor], gate: bool,
+                     consensus=None) -> torch.Tensor:
         """``Optimizer.step_checked`` through the kernel's check pass
         (``fused_adam_step(check=...)``): the sweep evaluates the update
         before it, and under ``gate`` the update reads the verdict on the
-        device and writes nothing on a bad step."""
-        check = fused.FiniteCheck(loss.reshape(()), gate)
+        device and writes nothing on a bad step. With ``consensus`` the
+        check pass runs alone first (``adam_finite_check``), the flags go
+        through ``consensus``, and their AND gates the update."""
+        check = fused.FiniteCheck(loss.reshape(()), gate, consensus)
         params = self._fused_step(check)
         if check.flags is None:  # no parameter had a gradient
-            return _sweep(loss, order)
+            flags = _sweep(loss, order)
+            return consensus(flags) if consensus is not None else flags
         # the kernel's flags follow `params` (the stepped ones); reorder
         # to `order`, the last slot (always true) for the rest
         n = len(params)
@@ -610,20 +617,36 @@ class Adam(Optimizer):
         for dev, pairs in by_device.items():
             params = [p for p, _ in pairs]
             states = [self.state_for(p) for p in params]
-            fused.fused_adam_step(
-                [p.data for p in params], [g for _, g in pairs],
-                [s["moment1"] for s in states],
-                [s["moment2"] for s in states],
-                [s["beta1_pow"] for s in states],
-                [s["beta2_pow"] for s in states],
-                self.lr_device_scalar(dev),
+            args = ([p.data for p in params], [g for _, g in pairs],
+                    [s["moment1"] for s in states],
+                    [s["moment2"] for s in states],
+                    [s["beta1_pow"] for s in states],
+                    [s["beta2_pow"] for s in states],
+                    self.lr_device_scalar(dev))
+            kw = dict(
                 masters=[s.get("master") for s in states],
                 beta1=self._beta1, beta2=self._beta2, eps=self._epsilon,
                 weight_decay=[self._l2_coeff(p) for p in params],
                 decoupled_decay=[self._decoupled_coeff(p) for p in params],
-                clip_norm=clip.clip_norm if clip is not None else None,
                 need_clip=[getattr(p, "need_clip", True) for p in params],
-                check=check, lr_scale=[self._lr_scale(p) for p in params])
+                lr_scale=[self._lr_scale(p) for p in params])
+            consensus = check.consensus if check is not None else None
+            if consensus is None:
+                fused.fused_adam_step(
+                    *args, clip_norm=clip.clip_norm if clip is not None
+                    else None, check=check, **kw)
+                continue
+            # the check pass alone, the verdict through consensus, then the
+            # update gated on it
+            norm = (fused.grad_global_norm(args[1], clip.clip_norm,
+                                           kw["need_clip"])
+                    if clip is not None else None)
+            check.flags, _ = fused.adam_finite_check(
+                *args, norm=norm, loss=check.loss, **kw)
+            check.flags = consensus(check.flags)
+            check.ok = check.flags.all().to(torch.int32)
+            fused.fused_adam_step(*args, norm=norm, ok=check.ok
+                                  if check.gate else None, **kw)
         return [p for p, _ in params_grads]
 
     def _update_rows(self, p, target, g, state, lr):

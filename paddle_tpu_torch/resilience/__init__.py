@@ -22,8 +22,9 @@ fingerprints:
   golden-step self-test.
 
 Not ported yet: ``cluster.py`` (``ClusterCheckpoint``,
-``CollectiveGuard``), which waits for the multi-device port;
-``CollectiveTimeout`` lives in ``distributed.communication``.
+``CollectiveGuard``; the operations-plane slice). The collectives of
+``distributed.communication`` carry their own hang guard, and
+``CollectiveTimeout`` lives there.
 """
 from ..distributed.communication import CollectiveTimeout
 from .guard import (RecoveryPolicy, StepGuard, finite_report,

@@ -195,7 +195,11 @@ def _masked_ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     valid = lab >= 0
     logp = torch.log_softmax(lg, dim=-1)
     picked = logp.gather(-1, torch.where(valid, lab, 0).long()[:, None])
-    return -(picked[:, 0].float() * valid).sum() / valid.sum().clamp(min=1)
+    from ...distributed.parallel import mean_denominator
+
+    # the count over the global batch inside a data-parallel engine
+    return -(picked[:, 0].float() * valid).sum() / mean_denominator(
+        valid.sum())
 
 
 class BertForPretraining(nn.Module):

@@ -38,7 +38,8 @@ from ...nn.functional.loss import cross_entropy, fused_linear_hard_ce
 from ...nn.layer.common import Dropout, Embedding, Linear
 from ...nn.layer.common import linear as _linear
 from ...nn.layer.norm import LayerNorm
-from ...ops.attention import dot_product_attention, paged_attention
+from ...ops.attention import (dot_product_attention, paged_attention,
+                              ring_position_offset)
 from ...ops.fused import fused_layer_norm
 from ...quant import quantize_kv
 
@@ -143,7 +144,10 @@ class GPT(nn.Module):
 
     def forward(self, input_ids):
         l = input_ids.shape[1]
-        pos = torch.arange(l, device=input_ids.device)
+        # under sequence parallelism this rank holds positions
+        # [rank_in_sp · l, (rank_in_sp + 1) · l)
+        off = ring_position_offset(l)
+        pos = torch.arange(off, off + l, device=input_ids.device)
         x = self.drop(self.wte(input_ids) + self.wpe(pos))
         for block in self.h:
             x = block(x)
@@ -190,7 +194,9 @@ class GPTForCausalLM(nn.Module):
             h2, w = maybe_cast_inputs("linear", h.reshape(-1, h.shape[-1]),
                                       self.gpt.wte.weight)
             loss, mask = fused_linear_hard_ce(h2, w.t(), labels.reshape(-1))
-            return (loss.sum() / mask.sum().clamp(min=1.0)).to(loss.dtype)
+            from ...distributed.parallel import mean_denominator
+
+            return (loss.sum() / mean_denominator(mask.sum())).to(loss.dtype)
         logits = F.linear(h, self.gpt.wte.weight)
         if labels is not None:
             return self.loss_fn(logits, labels)

@@ -83,6 +83,33 @@ def test_package_has_the_slice_modules():
         assert "paddle_tpu_torch." + mod in names
 
 
+def test_package_has_the_multi_device_modules():
+    names = set(_module_names())
+    for mod in ("distributed", "distributed.parallel",
+                "distributed.communication", "distributed.launch",
+                "distributed.utils", "distributed._topology_holder",
+                "distributed.fleet", "distributed.fleet.mesh_utils",
+                "distributed.fleet.form_mesh", "distributed.fleet.topology",
+                "distributed.fleet.distributed_strategy",
+                "distributed.fleet.fleet_base",
+                "distributed.fleet.hybrid_optimizer",
+                "distributed.fleet._sharded", "nn.layer_dp"):
+        assert "paddle_tpu_torch." + mod in names
+
+
+def test_multi_device_entry_points_without_device_raise(no_cuda):
+    """Joining a world defaults to the card (NCCL): without CUDA it
+    raises before any process group exists; the CPU is asked for."""
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.distributed.fleet import fleet
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        dist.init_parallel_env()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        fleet.init(is_collective=True)
+    assert not torch.distributed.is_initialized()
+
+
 def test_importing_every_module_pulls_in_no_jax():
     code = textwrap.dedent(f"""
         import importlib, sys

@@ -184,12 +184,23 @@ def test_sync_batch_norm_converts_and_refuses_a_larger_world(monkeypatch):
     assert isinstance(conv[1], tnn.SyncBatchNorm)
     for k, v in conv.state_dict().items():
         assert torch.equal(v, before[k]), k
+    # in a world of 2 the statistics go through the all-reduce: two ranks
+    # with the same batch normalise as one rank does
+    import types
+
     dist = torch.distributed
+    x = torch.randn(2, 3, 5, 5)
+    plain = tnn.SyncBatchNorm.convert_sync_batchnorm(net)(x)
+    sums = []
     monkeypatch.setattr(dist, "is_initialized", lambda: True)
     monkeypatch.setattr(dist, "get_world_size", lambda *a: 2)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        conv(torch.randn(2, 3, 5, 5))
+    monkeypatch.setattr(dist, "group", types.SimpleNamespace(WORLD=object()))
+    monkeypatch.setattr(dist, "all_reduce",
+                        lambda t, *a, **k: sums.append(t) or t.mul_(2))
+    torch.testing.assert_close(conv(x), plain)
+    assert len(sums) == 1
     conv.eval()(torch.randn(2, 3, 5, 5))  # running statistics: no sync
+    assert len(sums) == 1
 
 
 def _reparam_cases():

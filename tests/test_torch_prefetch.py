@@ -6,7 +6,8 @@ order, running ahead of the consumer, the telemetry counters and
 histograms, bucketing of ragged batches — and `ShapeBuckets` against the
 reference's on the same arrays, bit for bit (pads, hits and misses).
 The default device is the card: without one the prefetcher raises, and
-`sharding` waits for the multi-GPU port. The engines' `prefetch`
+`sharding` must be an engine's `BatchSharding` (its rows are held at 2 ranks in
+`test_torch_communication.py`). The engines' `prefetch`
 (`ParallelTrainStep`, `TrainStep`, `EvalStep`, as the reference's
 `test_engine_prefetch_end_to_end` / `test_jit_train_step_prefetch` use
 them) gives the losses and outputs of the loop without it."""
@@ -141,7 +142,7 @@ def test_pad_stage_only_keeps_the_leaves():
 
 
 def test_default_device_and_sharding(monkeypatch):
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    with pytest.raises(TypeError, match="BatchSharding"):
         DevicePrefetcher([], sharding=object(), device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):

@@ -2,8 +2,8 @@
 against the reference's: GPT-2 tiny with the reference's weights, batch
 2 x 64, Adam lr 1e-3, three steps of each engine on the CPU, in f32 and in
 bf16 master-weight mode; step 1's gradients against `jax.grad` of the
-reference's loss; the options that are not ported and the wrong option
-types, refused; the dropout generator."""
+reference's loss; a mesh that is not one and axes without a mesh, and
+the wrong option types, refused; the dropout generator."""
 import importlib
 
 import jax
@@ -207,9 +207,13 @@ def test_step_records_steps_and_step_ms():
     dict(mesh=object()), dict(dp_axis="dp"), dict(zero_stage=1),
     dict(sp_axis="sp")])
 def test_unported_engine_options_raise(kw):
+    """The mesh is ported (tests/test_torch_distributed.py): a mesh that
+    is not a ``Mesh`` of ranks, and axes or ZeRO without a mesh, raise."""
     model = tgpt.GPTForCausalLM(tgpt.gpt2_tiny(), device="cpu")
     opt = Adam(LR, parameters=model.parameters())
-    with pytest.raises(NotImplementedError):
+    err, match = ((TypeError, "Mesh of ranks") if "mesh" in kw
+                  else (ValueError, "need a mesh"))
+    with pytest.raises(err, match=match):
         ParallelTrainStep(model, lambda out, lbl: out, opt, device="cpu",
                           **kw)
 
