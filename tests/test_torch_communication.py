@@ -110,6 +110,30 @@ def test_data_parallel_with_sync_batch_norm_matches_one_process(world):
         assert got["buckets"] > 1  # a small comm_buffer_size: several
 
 
+def test_engine_batch_norm_takes_the_global_statistics(world):
+    """A plain ``BatchNorm1D`` inside a dp-2 engine normalises with the
+    whole batch's statistics (its running ones too): two ranks against
+    one process's engine on the global batches."""
+    from paddle_tpu_torch.distributed.fleet.engine import ParallelTrainStep
+
+    w = _mlp_weights()
+    rng = np.random.RandomState(4)
+    batches = [(rng.randn(8, 6).astype(np.float32),
+                rng.randint(0, 3, 8).astype(np.int64)) for _ in range(3)]
+    res = world.run("engine_batch_norm", weights=w, batches=batches, lr=0.5)
+    net = W._mlp(w, sync=False)
+    step = ParallelTrainStep(net, cross_entropy,
+                             SGD(0.5, parameters=net.parameters()),
+                             device="cpu")
+    want = [float(step((torch.from_numpy(x),), (torch.from_numpy(y),)))
+            for x, y in batches]
+    for got in res:
+        np.testing.assert_allclose(got["losses"], want, rtol=1e-5)
+        for k, v in net.state_dict().items():
+            np.testing.assert_allclose(got["state"][k], v.numpy(),
+                                       rtol=1e-5, atol=1e-6, err_msg=k)
+
+
 def test_prefetcher_stages_each_ranks_rows(world):
     rng = np.random.RandomState(2)
     batches = [{"ids": rng.randint(0, 9, (4, 6)), "y": rng.randn(4)}

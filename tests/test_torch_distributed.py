@@ -35,7 +35,7 @@ DP_LOSS_RTOL = 2e-4
 PARAM_RTOL, PARAM_ATOL = 1e-3, 1e-5
 ZERO_RTOL = 3e-4
 STEPS = 3
-GPT_CFG = dict(vocab_size=512, hidden_size=64, num_layers=2, num_heads=4,
+GPT_CFG = dict(vocab_size=512, hidden_size=64, num_layers=1, num_heads=4,
                max_position_embeddings=32, hidden_dropout=0.0,
                attention_dropout=0.0, use_flash_attention=False)
 BERT_CFG = dict(vocab_size=256, hidden_size=64, num_layers=1, num_heads=2,
@@ -141,14 +141,20 @@ def dp_reference():
     return _reference("gpt", SGD, ((4,), ("dp",)), {}, _gpt_batches())
 
 
-@pytest.mark.parametrize("mesh", [((4,), ("dp",)),
-                                  ((2, 2), ("dp", "sharding"))],
-                         ids=["dp4", "dp2"])
-def test_dp_losses_and_params_match_reference(world, dp_reference, mesh):
-    """dp 4, and dp 2 with a sharding axis of replicas (zero_stage 0),
-    against the reference's dp-4 engine on the same global batches."""
-    res = _port(world, "gpt", dp_reference, SGD, mesh, {}, _gpt_batches(),
-                want=("params",))
+@pytest.mark.parametrize("mesh,engine,prefetch", [
+    (((4,), ("dp",)), {}, False),
+    (((2, 2), ("dp", "sharding")), {}, False),
+    (((2, 2), ("dp", "extra")), {"extra_batch_axes": ("extra",)}, False),
+    (((4,), ("dp",)), {}, True)],
+    ids=["dp4", "dp2", "dp2_extra2", "dp4_prefetch"])
+def test_dp_losses_and_params_match_reference(world, dp_reference, mesh,
+                                              engine, prefetch):
+    """dp 4; dp 2 with a sharding axis of replicas (zero_stage 0); dp 2
+    with an extra batch axis of 2 (the rows split 4 ways, dp major); dp 4
+    through the engine's prefetcher (each rank stages its rows): against
+    the reference's dp-4 engine on the same global batches."""
+    res = _port(world, "gpt", dp_reference, SGD, mesh, engine,
+                _gpt_batches(), want=("params",), prefetch=prefetch)
     for r in res:
         np.testing.assert_allclose(r["losses"], dp_reference["losses"],
                                    rtol=DP_LOSS_RTOL)

@@ -46,13 +46,14 @@ def _optimizer(spec, model):
 
 
 def train(kind, cfg, weights, opt, mesh, engine, batches, nan_at=None,
-          fingerprint_snapshot=None, want=()):
+          fingerprint_snapshot=None, want=(), prefetch=False):
     """Train ``kind`` ('gpt' or 'bert', its config ``cfg``, the
     reference's ``weights``) over ``mesh`` = (shape, axis names) with
     ``ParallelTrainStep(**engine)``, one step a global batch of
     ``batches`` ((inputs, labels) of numpy arrays). ``nan_at`` = (rank,
-    step): that rank's loss is NaN at that step. Returns the losses and
-    what ``want`` names."""
+    step): that rank's loss is NaN at that step. ``prefetch``: the batches
+    go through ``ParallelTrainStep.prefetch`` (each rank stages its rows).
+    Returns the losses and what ``want`` names."""
     m = init_mesh(*mesh)
     model = _model(kind, cfg, weights)
     o = _optimizer(opt, model)
@@ -66,14 +67,17 @@ def train(kind, cfg, weights, opt, mesh, engine, batches, nan_at=None,
         return loss
 
     e = ParallelTrainStep(model, loss_fn, o, device="cpu", mesh=m, **engine)
+    tensors = [(tuple(torch.from_numpy(a) for a in x),
+                tuple(torch.from_numpy(a) for a in y)) for x, y in batches]
+    if prefetch:
+        tensors = list(e.prefetch(iter(tensors)))
     out = {"losses": [], "finite": []}
     before = None
-    for i, (x, y) in enumerate(batches):
+    for i, (x, y) in enumerate(tensors):
         step_no[0] = i
         if nan_at is not None and i == nan_at[1]:
             before = e.snapshot_state()
-        out["losses"].append(float(e(tuple(torch.from_numpy(a) for a in x),
-                                     tuple(torch.from_numpy(a) for a in y))))
+        out["losses"].append(float(e(x, y)))
         if e._check_nan:
             out["finite"].append(e.last_step_finite())
         if before is not None and i == nan_at[1]:
@@ -335,3 +339,19 @@ def spawned(path):
     with open(f"{path}.{get_rank()}", "w") as f:
         f.write(f"{torch.distributed.get_backend()} {get_world_size()} "
                 f"{t.tolist()}")
+
+
+def engine_batch_norm(weights, batches, lr):
+    """A Linear-BatchNorm-Linear net (a plain ``BatchNorm1D``) through a
+    dp mesh engine: the statistics are the global batch's."""
+    from paddle_tpu_torch.nn.functional import cross_entropy
+
+    net = _mlp(weights, sync=False)
+    e = ParallelTrainStep(net, cross_entropy, SGD(lr, parameters=
+                                                  net.parameters()),
+                          device="cpu",
+                          mesh=init_mesh((get_world_size(),), ("dp",)))
+    losses = [float(e((torch.from_numpy(x),), (torch.from_numpy(y),)))
+              for x, y in batches]
+    return {"losses": losses,
+            "state": {k: _np(v) for k, v in net.state_dict().items()}}
