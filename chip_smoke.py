@@ -7363,19 +7363,25 @@ def fp16_slice_phase(dev, gen, counted, launches, gpt_mod, bert_mod, plain,
 
 
 # -- phase 24: data parallelism, ZeRO and the ring on one card ----------------
-# 24b: #1-#3 on the whole sequence against the f32 plain version of the
-# whole sequence within 2^-6 of each tensor's largest magnitude (phase
-# 3's bf16-against-f32 tolerance), and the ring's hops within that plus
+# 24b holds the ring two ways. Against the f32 plain version of the whole
+# sequence: each rank's shard of out, dq, dk and dv within 2^-6 of that
+# shard's largest magnitude (phase 3's bf16-against-f32 tolerance) plus
 # one bf16 rounding (2^-9) of each of the RING_SP partials a shard's
-# output or gradient sums: each hop is such a kernel call whose output
-# is rounded to bf16 once before the ring adds it up in f32. The merged
-# lse against the whole-sequence kernel's, f32 arithmetic (phase 3's lse
-# tolerance). The ring's difference from the whole-sequence kernels is
-# printed beside.
+# output or gradient sums, and the merged lse within phase 3's lse
+# tolerance of the whole-sequence kernel's (f32 arithmetic). Against #1-#3
+# on the whole sequence, from the same bf16 inputs, element by element:
+# the two differ only in rounding, so |ring - whole| stays within one bf16
+# rounding (u = 2^-8 relative) of each side's result, 2u|whole|, plus one
+# of each hop's partial, which a row's largest magnitude over the head
+# dimension bounds: (RING_SP + 1)·u·rowmax. A dropped partial or a wrong
+# merge weight moves an element by a sizable share of its row.
 RING_SP = 4
 WHOLE_REL_TOL = BF16_VS_F32_REL_TOL
 RING_REL_TOL = BF16_VS_F32_REL_TOL + RING_SP * 2.0 ** -9
 RING_LSE_TOL = FLASH_LSE_TOL[torch.bfloat16]
+BF16_U = 2.0 ** -8
+RING_APART_RTOL = 2 * BF16_U
+RING_APART_ROW_SHARE = (RING_SP + 1) * BF16_U
 ZERO_STEPS = 3  # phase 8's warm-up steps, loss for loss
 ZERO_TIMED_STEPS = 5
 ZERO_LOSS_RTOL = 2.0 ** -7  # when the bits differ, with the reason printed
@@ -7535,7 +7541,31 @@ def world_of_one_phase(dev, counted, launches, gpt_mod, batch8, phase8,
     return out
 
 
-def ring_hops_phase(dev, counted, launches, rnd, flash_tpu, attention, smi):
+def shard_share_worst(got, ref, share, n):
+    """``share_worst`` of each of the ``n`` shards of dimension 1: (the
+    largest error, whether each shard is within ``share`` of its own
+    largest |ref|)."""
+    res = [share_worst(g, r, share)
+           for g, r in zip(got.chunk(n, 1), ref.chunk(n, 1))]
+    return max(e for e, _ in res), all(ok for _, ok in res)
+
+
+def ring_apart(ring, whole):
+    """The ring against the whole-sequence kernels, element by element:
+    (the largest |ring - whole| over its bound RING_APART_RTOL·|whole| +
+    RING_APART_ROW_SHARE·rowmax, where rowmax is the largest |whole| of
+    the element's row over the last dimension; the largest |ring - whole|;
+    whether every element is within its bound)."""
+    w = whole.detach().float()
+    d = (ring.detach().float() - w).abs()
+    bound = (RING_APART_RTOL * w.abs()
+             + RING_APART_ROW_SHARE * w.abs().amax(-1, keepdim=True))
+    ratio = float((d / bound.clamp_min(torch.finfo(torch.float32).tiny))
+                  .max())
+    return ratio, float(d.max()), ratio <= 1.0
+
+
+def ring_hops_phase(counted, launches, rnd, flash_tpu, attention, smi):
     """24b: the ring's hop schedule of ``RING_SP`` ranks in one process at
     ``longctx``'s shape, against #1-#3 over the whole sequence."""
     b, L, H, d = LONGCTX_ATTN_SHAPE
@@ -7544,34 +7574,15 @@ def ring_hops_phase(dev, counted, launches, rnd, flash_tpu, attention, smi):
     sh = lambda t: [t[:, i * c:(i + 1) * c].contiguous() for i in range(n)]
     qs, ks, vs, dos = sh(q), sh(k), sh(v), sh(do)
 
+    ranks = list(range(n))
+    rotate = attention.ring_list_rotate
+
     def forward():
-        outs, lses = [], []
-        for r in range(n):
-            acc = lse = None
-            for i in range(n):
-                src = (r - i) % n
-                hop = attention.ring_hop_forward(qs[r], ks[src], vs[src], r,
-                                                 src, True)
-                if hop is not None:
-                    acc, lse = attention.ring_merge(acc, lse, *hop)
-            outs.append(acc.to(q.dtype))
-            lses.append(lse.contiguous())
-        return outs, lses
+        return attention.ring_forward(qs, ks, vs, ranks, n, True, rotate)
 
     def backward(outs, lses):
-        grads = [[torch.zeros(qs[0].shape, dtype=torch.float32, device=dev)
-                  for _ in range(n)] for _ in range(3)]
-        for r in range(n):
-            for i in range(n):
-                src = (r - i) % n
-                hop = attention.ring_hop_backward(
-                    qs[r], ks[src], vs[src], dos[r], lses[r], outs[r], r,
-                    src, True)
-                if hop is not None:
-                    grads[0][r] += hop[0].float()
-                    grads[1][src] += hop[1].float()
-                    grads[2][src] += hop[2].float()
-        return grads
+        return attention.ring_backward(qs, ks, vs, dos, lses, outs, ranks,
+                                       n, True, rotate)
 
     _cleared(counted)
     outs, lses = forward()
@@ -7591,8 +7602,9 @@ def ring_hops_phase(dev, counted, launches, rnd, flash_tpu, attention, smi):
     w_dq, w_delta = flash_tpu.flash_bwd_dq(q, k, v, do, w_lse, w_out)
     w_dk, w_dv = flash_tpu.flash_bwd_dkv(q, k, v, do, w_lse, w_delta)
     torch.cuda.synchronize()
-    ring = {"out": torch.cat(outs, 1), "dq": torch.cat(grads[0], 1),
-            "dk": torch.cat(grads[1], 1), "dv": torch.cat(grads[2], 1)}
+    ring = {"out": torch.cat(outs, 1),
+            **{name: torch.cat(g, 1).to(q.dtype)  # as ring_attention's
+               for name, g in zip(("dq", "dk", "dv"), grads)}}
     whole = {"out": w_out, "dq": w_dq, "dk": w_dk, "dv": w_dv}
     f32 = [t.float() for t in (q, k, v, do)]
     r_out, r_lse = flash_tpu._flash_reference(*f32[:3])
@@ -7602,12 +7614,12 @@ def ring_hops_phase(dev, counted, launches, rnd, flash_tpu, attention, smi):
     errs = {"lse": worst(torch.cat(lses, 2), w_lse, *RING_LSE_TOL)}
     whole_errs, apart = {}, {}
     for name, ref in refs.items():
-        errs[name] = share_worst(ring[name], ref, RING_REL_TOL)
+        errs[name] = shard_share_worst(ring[name], ref, RING_REL_TOL, n)
         whole_errs[name] = share_worst(whole[name], ref, WHOLE_REL_TOL)
-        apart[name] = float((ring[name].float()
-                             - whole[name].float()).abs().max())
+        apart[name] = ring_apart(ring[name], whole[name])
     del refs, ring
-    ok = all(e[1] for e in [*errs.values(), *whole_errs.values()])
+    ok = all(e[-1] for e in [*errs.values(), *whole_errs.values(),
+                             *apart.values()])
     ring_fwd_ms = time_ms(forward, iters=10, warmup=2)
     whole_fwd_ms = time_ms(lambda: flash_tpu.flash_attention_blhd(q, k, v),
                            iters=10, warmup=2)
@@ -7622,7 +7634,9 @@ def ring_hops_phase(dev, counted, launches, rnd, flash_tpu, attention, smi):
            "launches": {k: v for k, v in got.items() if v},
            "errors": {k: e for k, (e, _) in errs.items()},
            "whole_errors": {k: e for k, (e, _) in whole_errs.items()},
-           "ring_minus_whole": apart,
+           "ring_minus_whole": {k: e for k, (_, e, _) in apart.items()},
+           "ring_minus_whole_over_bound": {k: r for k, (r, _, _)
+                                           in apart.items()},
            "ring_fwd_ms": ring_fwd_ms, "whole_fwd_ms": whole_fwd_ms,
            "ring_bwd_ms": ring_bwd_ms, "whole_bwd_ms": whole_bwd_ms,
            "card": smi}
@@ -7632,14 +7646,18 @@ def ring_hops_phase(dev, counted, launches, rnd, flash_tpu, attention, smi):
         + ", ".join(f"{k} err {e:.3g}" for k, (e, _) in errs.items())
         + " (#1-#3 on the whole sequence: " + ", ".join(
             f"{k} {e:.3g}" for k, (e, _) in whole_errs.items())
-        + f"; tol {RING_REL_TOL:.3g} (whole {WHOLE_REL_TOL:.3g}) of the "
-        f"largest, lse {RING_LSE_TOL} against #1's); the ring minus #1-#3: " + ", ".join(
-            f"{k} {e:.3g}" for k, e in apart.items()) + "; "
-        f"forward {ring_fwd_ms:.4f} ms (whole {whole_fwd_ms:.4f}), backward "
-        f"{ring_bwd_ms:.4f} ms (whole #2+#3 {whole_bwd_ms:.4f}); {smi}")
+        + f"; tol {RING_REL_TOL:.3g} of each shard's largest (whole "
+        f"{WHOLE_REL_TOL:.3g} of the tensor's), lse {RING_LSE_TOL} against "
+        "#1's); the ring minus #1-#3 element by element: " + ", ".join(
+            f"{k} {e:.3g} ({r:.3g} of its bound)"
+            for k, (r, e, _) in apart.items())
+        + f" (bound {RING_APART_RTOL:.3g}|whole| + "
+        f"{RING_APART_ROW_SHARE:.3g} rowmax); forward {ring_fwd_ms:.4f} ms "
+        f"(whole {whole_fwd_ms:.4f}), backward {ring_bwd_ms:.4f} ms (whole "
+        f"#2+#3 {whole_bwd_ms:.4f}); {smi}")
     if not ok:
         raise AssertionError(f"24b: the ring's hops disagree: {errs}, "
-                             f"{whole_errs}")
+                             f"{whole_errs}, {apart}")
     del outs, lses, grads
     torch.cuda.empty_cache()
     return out
@@ -8222,7 +8240,7 @@ def main() -> int:
     multi_device = {"world_of_one": world_of_one_phase(
         dev, counted, launches, gpt_mod, batch8, training, smi)}
     multi_device["ring_hops"] = ring_hops_phase(
-        dev, counted, launches, rnd, flash_tpu, attention, smi)
+        counted, launches, rnd, flash_tpu, attention, smi)
     multi_device["seconds"] = time.perf_counter() - t24
     log("multi_device " + json.dumps(multi_device))
 

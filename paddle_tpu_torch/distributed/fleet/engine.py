@@ -303,15 +303,10 @@ class ParallelTrainStep:
         if mesh is not None:
             self._init_mesh(mesh, dp_axis, mp_axis, sharding_axis, sp_axis,
                             tuple(extra_batch_axes), masters)
-        else:
-            from ...ops.attention import set_ring_context
-
-            set_ring_context(None, None)  # the newest engine owns it
 
     # -- the mesh -------------------------------------------------------------
     def _init_mesh(self, mesh, dp_axis, mp_axis, sharding_axis, sp_axis,
                    extra_batch_axes, masters) -> None:
-        from ...ops.attention import set_ring_context
         from ...optimizer.optimizer import Adam
 
         if not hasattr(mesh, "group"):
@@ -351,7 +346,6 @@ class ParallelTrainStep:
                   if self._sharding_group is not None else 1)
         coord = (self._sharding_group.rank
                  if self._sharding_group is not None else 0)
-        set_ring_context(mesh, sp_axis, group=self._sp_group)
         self._param_specs = {
             n: param_partition_spec(p, tuple(p.shape), self._zero,
                                     sharding_axis or "sharding", mesh,

@@ -8,14 +8,13 @@ world: NCCL when the device is the card (the default; each rank takes
 the reference reads it: ``PADDLE_TRAINERS_NUM``, ``PADDLE_TRAINER_ID`` and
 ``PADDLE_TRAINER_ENDPOINTS`` (its first endpoint is the rendezvous), or
 torch's ``WORLD_SIZE``, ``RANK``, ``MASTER_ADDR`` and ``MASTER_PORT``
-(``distributed.launch`` exports both). ``init_method`` (or
-``PADDLE_DIST_INIT_METHOD``) overrides the rendezvous, e.g. a
-``file://`` store; ``PADDLE_DIST_DEVICE`` (``launch --backend cpu``
-exports ``cpu``) is the default device. A single process with no
-launcher environment is a
-world of one, as in the reference, and still gets a process group (an
-in-process store), so that every collective runs through the backend;
-a backend that fails to start raises.
+(``distributed.launch`` exports both). ``init_method`` overrides the
+rendezvous, e.g. a ``file://`` store; ``PADDLE_DIST_DEVICE`` (``launch
+--backend cpu`` exports ``cpu``) is the default device. A single process
+with no launcher environment is a world of one, as in the reference, and
+still gets a process group (an in-process store), so that every
+collective runs through the backend; a backend that fails to start
+raises.
 
 Every collective of the world carries a timeout: ``timeout_s``, else
 ``PADDLE_TPU_COLLECTIVE_TIMEOUT_S``, else 600 s.
@@ -81,8 +80,6 @@ def init_parallel_env(device=None, init_method: Optional[str] = None,
     if world is None and eps:
         world = len(eps)
     if init_method is None:
-        init_method = os.environ.get("PADDLE_DIST_INIT_METHOD") or None
-    if init_method is None:
         if os.environ.get("MASTER_ADDR") and os.environ.get("MASTER_PORT"):
             init_method = (f"tcp://{os.environ['MASTER_ADDR']}:"
                            f"{os.environ['MASTER_PORT']}")
@@ -108,7 +105,7 @@ def init_parallel_env(device=None, init_method: Optional[str] = None,
             raise RuntimeError(
                 f"init_parallel_env: a world of {world} ranks but no "
                 "rendezvous (PADDLE_TRAINER_ENDPOINTS, MASTER_ADDR/"
-                "MASTER_PORT or PADDLE_DIST_INIT_METHOD)")
+                "MASTER_PORT or init_method=)")
         # a single process: a world of one over an in-process store
         dist.init_process_group(store=dist.HashStore(), world_size=1,
                                 rank=0, **kw)

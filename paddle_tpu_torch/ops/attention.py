@@ -60,7 +60,10 @@ the serving and training slices run:
   f32 (each hop's output rounded once). The backward recomputes with the
   merged lse and delta: #2 per hop for dQ (summed in f32) and #3 per hop
   for the resident shard's dK and dV, partials that travel with their
-  shard and arrive home after a full turn. ``ring_hop_forward`` and
+  shard and arrive home after a full turn. ``ring_forward`` and
+  ``ring_backward`` are that schedule over a ``rotate`` callable (the
+  process group's ``ring_group_rotate``, or ``ring_list_rotate`` when one
+  process holds every rank); ``ring_hop_forward`` and
   ``ring_hop_backward`` are one hop; ``ring_merge`` folds a hop in.
   Inside an engine's ``ring_scope`` every causal unbiased self-attention
   dispatch takes the ring (a group of one rank is one causal hop on #1);
@@ -624,9 +627,10 @@ _ring_scope: list = []  # the groups of the engines' steps, innermost last
 
 def set_ring_context(mesh, axis: Optional[str], batch_axis=None,
                      group=None) -> None:
-    """Register the mesh axis that carries sequence shards (the engine
-    does, ``ParallelTrainStep(sp_axis=...)``; the newest engine owns it,
-    and one without ``sp_axis`` clears it). ``group`` is that axis's
+    """Register the mesh axis that carries sequence shards for
+    ``PADDLE_TPU_ATTN_POLICY=ring`` outside an engine (an engine with
+    ``sp_axis`` routes its own steps through ``ring_scope``; ``mesh=None``
+    clears the registration). ``group`` is that axis's
     ``communication.Group`` holding this rank (default
     ``mesh.group(axis)``). ``batch_axis`` is the reference's argument and
     is not needed here: each rank already holds only its rows."""
@@ -719,44 +723,111 @@ def ring_hop_backward(q, k, v, dout, lse, out, rank: int, src: int,
     return dq, dk, dv
 
 
-def _rotate(tensors, group):
-    """Send each tensor to the next rank of the ring and receive the
-    previous rank's into new buffers, both directions posted in one
-    ``batch_isend_irecv``; returns ``(buffers, works)``."""
+def ring_group_rotate(group):
+    """The ``rotate`` of ``ring_forward``/``ring_backward`` for this
+    process's one rank of ``group``: each tensor goes to the next rank
+    and the previous rank's arrives in a new buffer, both directions
+    posted in one ``batch_isend_irecv``."""
     dist = torch.distributed
     ranks, me = group.ranks, group.rank
     n = len(ranks)
     nxt, prv = ranks[(me + 1) % n], ranks[(me - 1) % n]
     pg = group.process_group
-    bufs = [torch.empty_like(t) for t in tensors]
-    ops = ([dist.P2POp(dist.isend, t, nxt, group=pg) for t in tensors]
-           + [dist.P2POp(dist.irecv, b, prv, group=pg) for b in bufs])
-    return bufs, dist.batch_isend_irecv(ops)
+
+    def rotate(held):
+        (tensors,) = held
+        bufs = [torch.empty_like(t) for t in tensors]
+        works = dist.batch_isend_irecv(
+            [dist.P2POp(dist.isend, t, nxt, group=pg) for t in tensors]
+            + [dist.P2POp(dist.irecv, b, prv, group=pg) for b in bufs])
+
+        def wait():
+            for w in works:
+                w.wait()
+
+        return [tuple(bufs)], wait
+
+    return rotate
+
+
+def ring_list_rotate(held):
+    """The ``rotate`` of ``ring_forward``/``ring_backward`` when one
+    process holds every rank of the ring: rank r takes rank r − 1's
+    tensors."""
+    n = len(held)
+    return [held[(r - 1) % n] for r in range(n)], lambda: None
+
+
+def ring_forward(qs, ks, vs, ranks, n: int, causal: bool, rotate):
+    """The ring's forward for the ranks ``ranks`` of an ``n``-rank ring
+    that the caller holds (its own in a process group, all n in one
+    process): ``qs``/``ks``/``vs`` are their shards ([b, L_local, H, d]).
+    ``rotate(held)`` starts moving each held rank's tensors to the next
+    rank and returns ``(received, wait)``; the received tensors are
+    read after ``wait()``, so the next hop's transfer overlaps this
+    hop's kernels. Returns each rank's output (q's dtype) and merged lse
+    ([b, H, L_local] f32, contiguous)."""
+    kv = [(k.contiguous(), v.contiguous()) for k, v in zip(ks, vs)]
+    acc, lse = [None] * len(qs), [None] * len(qs)
+    for i in range(n):
+        nxt = wait = None
+        if i < n - 1:
+            nxt, wait = rotate(kv)
+        for j, r in enumerate(ranks):
+            src = (r - i) % n
+            hop = ring_hop_forward(qs[j], *kv[j], r, src, causal)
+            if hop is not None:
+                acc[j], lse[j] = ring_merge(acc[j], lse[j], *hop)
+        if wait is not None:
+            wait()
+            kv = nxt
+    return ([a.to(q.dtype) for a, q in zip(acc, qs)],
+            [x.contiguous() for x in lse])
+
+
+def ring_backward(qs, ks, vs, douts, lses, outs, ranks, n: int,
+                  causal: bool, rotate):
+    """The ring's backward for the held ranks (see ``ring_forward``),
+    from their merged outputs and lse: each hop adds its dQ to the rank's
+    own and its partial dK and dV to the resident shard's, which travel
+    with the shard and arrive home after a full turn. Returns each rank's
+    f32 ``(dqs, dks, dvs)``."""
+    kv = [(k.contiguous(), v.contiguous()) for k, v in zip(ks, vs)]
+    f32 = lambda t: torch.zeros(t.shape, dtype=torch.float32,
+                                device=t.device)
+    dq, dk, dv = [f32(q) for q in qs], [f32(k) for k in ks], \
+        [f32(v) for v in vs]
+    for i in range(n):
+        for j, r in enumerate(ranks):
+            src = (r - i) % n
+            hop = ring_hop_backward(qs[j], *kv[j], douts[j], lses[j],
+                                    outs[j], r, src, causal)
+            if hop is not None:
+                dq[j] += hop[0].float()
+                dk[j] += hop[1].float()
+                dv[j] += hop[2].float()
+        if n > 1:
+            last = i == n - 1
+            moving = [(dk[j], dv[j]) if last else (*kv[j], dk[j], dv[j])
+                      for j in range(len(qs))]
+            got, wait = rotate(moving)
+            wait()
+            if not last:
+                kv = [g[:2] for g in got]
+            dk, dv = [g[-2] for g in got], [g[-1] for g in got]
+    return dq, dk, dv
 
 
 class _RingFn(torch.autograd.Function):
-    """The ring over ``group`` ([b, L_local, H, d] operands); the next
-    hop's transfer overlaps the current hop's kernels."""
+    """The ring over ``group`` ([b, L_local, H, d] operands): this rank's
+    part of ``ring_forward`` and ``ring_backward``."""
 
     @staticmethod
     def forward(ctx, q, k, v, group, causal):
-        n, r = group.nranks, group.rank
-        kc, vc = k.contiguous(), v.contiguous()
-        acc = lse = None
-        for i in range(n):
-            src = (r - i) % n
-            works = None
-            if i < n - 1:
-                (kn, vn), works = _rotate((kc, vc), group)
-            hop = ring_hop_forward(q, kc, vc, r, src, causal)
-            if hop is not None:
-                acc, lse = ring_merge(acc, lse, *hop)
-            if works is not None:
-                for w in works:
-                    w.wait()
-                kc, vc = kn, vn
-        out = acc.to(q.dtype)
-        lse = lse.contiguous()
+        r, n = group.rank, group.nranks
+        outs, lses = ring_forward([q], [k], [v], [r], n, causal,
+                                  ring_group_rotate(group))
+        out, lse = outs[0], lses[0]
         ctx.group, ctx.causal = group, causal
         ctx.save_for_backward(q, k, v, out, lse)
         return out
@@ -764,30 +835,10 @@ class _RingFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        group, causal = ctx.group, ctx.causal
-        n, r = group.nranks, group.rank
-        dout = dout.contiguous()
-        kc, vc = k.contiguous(), v.contiguous()
-        dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
-        dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
-        dv = torch.zeros_like(dk)
-        for i in range(n):
-            src = (r - i) % n
-            hop = ring_hop_backward(q, kc, vc, dout, lse, out, r, src,
-                                    causal)
-            if hop is not None:
-                dq += hop[0].float()
-                dk += hop[1].float()
-                dv += hop[2].float()
-            if n > 1:  # the partials travel with their shard, home at n
-                moving = (kc, vc, dk, dv) if i < n - 1 else (dk, dv)
-                bufs, works = _rotate(moving, group)
-                for w in works:
-                    w.wait()
-                if i < n - 1:
-                    kc, vc, dk, dv = bufs
-                else:
-                    dk, dv = bufs
+        group = ctx.group
+        (dq,), (dk,), (dv,) = ring_backward(
+            [q], [k], [v], [dout.contiguous()], [lse], [out], [group.rank],
+            group.nranks, ctx.causal, ring_group_rotate(group))
         return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None,
                 None)
 

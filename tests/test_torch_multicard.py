@@ -11,12 +11,18 @@ that one card also trains on in this process:
 - sequence parallelism over an sp axis of all n cards at 1 x 8192: each
   card holds 8192 / n positions and the attention runs as the ring over
   NCCL; every step within 2^-7 (each hop's bf16 output is rounded before
-  the f32 merge).
+  the f32 merge). After the steps, the L2 norms of the loss's gradient
+  (all of it, and the layers' qkv weights' q, k and v columns, which it
+  reaches only through the ring's dQ, dK and dV) within 2^-7 of one
+  card's: the loss at a random init barely depends on the attention,
+  these norms do.
 
 Each leg also reports its step p50 (CUDA events) beside one card's.
 Marked ``cuda``; it skips with fewer than two cards. It imports no
 JAX."""
+import contextlib
 import json
+import math
 import os
 import sys
 import textwrap
@@ -84,6 +90,10 @@ def train(leg, device, gpt=None, shapes=None, **engine):
     ids, labels = batch(shape, cfg.vocab_size, device)
     losses = [float(step((ids, labels), (labels,)))
               for _ in range(LEGS[leg]["steps"])]
+    sp = engine.get("sp_axis")
+    norms = (grad_norms(model, ids, labels,
+                        engine["mesh"].group(sp) if sp else None)
+             if leg == "sp" else None)
     ms = []
     if device.type == "cuda":
         for _ in range(LEGS[leg]["timed"]):
@@ -93,8 +103,40 @@ def train(leg, device, gpt=None, shapes=None, **engine):
             b.record()
             b.synchronize()
             ms.append(a.elapsed_time(b))
-    return {"losses": losses, "step_ms_p50": sorted(ms)[len(ms) // 2]
-            if ms else None}
+    return {"losses": losses, "grad_norms": norms,
+            "step_ms_p50": sorted(ms)[len(ms) // 2] if ms else None}
+
+
+def grad_norms(model, ids, labels, group=None):
+    """The L2 norms of the loss's gradient at the model's parameters as
+    the engine leaves them (bf16): all of it, and the layers' qkv weights'
+    q, k and v columns (``{"all", "q", "k", "v"}``). Over a
+    ring ``group`` each rank takes its slice of the positions, the
+    attention runs as the ring (``ring_scope``) and the gradients are
+    averaged over the group, as the engine's step does."""
+    from paddle_tpu_torch.distributed import communication as comm
+    from paddle_tpu_torch.ops.attention import ring_scope
+
+    scope = contextlib.nullcontext()
+    if group is not None:
+        c = ids.shape[1] // group.nranks
+        sl = slice(group.rank * c, (group.rank + 1) * c)
+        ids, labels = ids[:, sl], labels[:, sl]
+        scope = ring_scope(group)
+    named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
+    with scope:
+        loss = model(ids, labels).float()
+        grads = torch.autograd.grad(loss, [p for _, p in named])
+    sq = {"all": 0.0, "q": 0.0, "k": 0.0, "v": 0.0}
+    for (name, _), g in zip(named, grads):
+        g = g.float()
+        if group is not None:
+            comm.all_reduce(g, op=comm.ReduceOp.AVG, group=group)
+        sq["all"] += float(g.pow(2).sum())
+        if name.endswith("attn.qkv.weight"):  # [h, 3h]: q, k, v columns
+            for part, t in zip("qkv", g.chunk(3, dim=1)):
+                sq[part] += float(t.pow(2).sum())
+    return {k: math.sqrt(v) for k, v in sq.items()}
 
 
 def run_world(tmp_path, n, backend=None, legs=tuple(LEGS), gpt=None,
@@ -144,6 +186,12 @@ def test_multicard_zero2_and_ring_match_one_card(tmp_path):
         for i, (a, b) in enumerate(zip(res["losses"], ref)):
             tol = STEP1_RTOL if (leg == "zero2" and i == 0) else STEP_RTOL
             assert abs(a - b) <= tol * abs(b), (leg, i, a, b)
+        if leg == "sp":
+            print(f"sp gradient norms on {n} cards {res['grad_norms']}, "
+                  f"one card {one[leg]['grad_norms']}", file=sys.stderr)
+            for k, b in one[leg]["grad_norms"].items():
+                a = res["grad_norms"][k]
+                assert abs(a - b) <= STEP_RTOL * abs(b), (leg, k, a, b)
 
 
 pytestmark = pytest.mark.cuda

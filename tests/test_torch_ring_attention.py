@@ -79,51 +79,42 @@ def test_ring_matches_the_references_ring(world, sp, causal):
 
 
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
-def test_hop_schedule_in_one_process_matches_whole_attention(causal):
-    """Four ranks' hops fed in order in one process (the rotation a
-    list): forward merged in f32, backward with the merged lse and the
-    dK/dV partials summed per shard, against the reference's attention
-    over the whole sequence and its autodiff."""
+def test_hop_schedule_in_one_process_matches_whole_attention(causal,
+                                                             monkeypatch):
+    """Four ranks of the ring's own schedule (``ring_forward`` and
+    ``ring_backward``) in one process, the rotation a list
+    (``ring_list_rotate``, what ``chip_smoke.py`` phase 24b runs): forward
+    merged in f32, backward with the merged lse and the dK/dV partials
+    travelling with their shard, against the reference's attention over
+    the whole sequence and its autodiff."""
     n = 4
     q, k, v = _qkv(seed=7)
     blhd = [torch.from_numpy(a).transpose(1, 2).contiguous()
             for a in (q, k, v)]
     c = L // n
-    shards = [[t[:, i * c:(i + 1) * c].contiguous() for i in range(n)]
-              for t in blhd]
-    outs, lses, hops = [], [], 0
-    for r in range(n):
-        acc = lse = None
-        for i in range(n):
-            s = (r - i) % n
-            hop = tatt.ring_hop_forward(shards[0][r], shards[1][s],
-                                        shards[2][s], r, s, causal)
-            if hop is not None:
-                hops += 1
-                acc, lse = tatt.ring_merge(acc, lse, *hop)
-        outs.append(acc)
-        lses.append(lse.contiguous())
-    assert hops == (n * (n + 1) // 2 if causal else n * n)
+    qs, ks, vs = [[t[:, i * c:(i + 1) * c].contiguous() for i in range(n)]
+                  for t in blhd]
+    hops = []
+    hop_forward = tatt.ring_hop_forward
+
+    def counted(*a):
+        res = hop_forward(*a)
+        hops.append(res is not None)
+        return res
+
+    monkeypatch.setattr(tatt, "ring_hop_forward", counted)
+    ranks, rotate = list(range(n)), tatt.ring_list_rotate
+    outs, lses = tatt.ring_forward(qs, ks, vs, ranks, n, causal, rotate)
+    assert sum(hops) == (n * (n + 1) // 2 if causal else n * n)
     out = torch.cat(outs, 1).transpose(1, 2).numpy()
     np.testing.assert_allclose(out, _full(q, k, v, causal), rtol=FWD_RTOL,
                                atol=FWD_ATOL)
     # backward of sum(out²): dout = 2·out
-    dq = [torch.zeros_like(shards[0][0]) for _ in range(n)]
-    dk = [torch.zeros_like(shards[0][0]) for _ in range(n)]
-    dv = [torch.zeros_like(shards[0][0]) for _ in range(n)]
-    for r in range(n):
-        dout = 2 * outs[r]
-        for s in range(n):
-            hop = tatt.ring_hop_backward(shards[0][r], shards[1][s],
-                                         shards[2][s], dout, lses[r],
-                                         outs[r], r, s, causal)
-            if hop is not None:
-                dq[r] += hop[0]
-                dk[s] += hop[1]
-                dv[s] += hop[2]
+    grads = tatt.ring_backward(qs, ks, vs, [2 * o for o in outs], lses,
+                               outs, ranks, n, causal, rotate)
     loss = lambda *t: jnp.sum(jatt.xla_attention(*t, causal=causal) ** 2)
     ref = jax.grad(loss, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
-    for got, want in zip((dq, dk, dv), ref):
+    for got, want in zip(grads, ref):
         g = torch.cat(got, 1).transpose(1, 2).numpy()
         np.testing.assert_allclose(g, np.asarray(want), rtol=GRAD_RTOL,
                                    atol=GRAD_ATOL)
